@@ -7,19 +7,41 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure raises and the script exits non-zero):
   1. device — require CUDA; print `nvidia-smi`'s name and power limit;
-  2. build  — compile the CUDA kernels from `raytracing_tpu_torch/csrc`;
+  2. build  — compile the CUDA kernels from `raytracing_tpu_torch/csrc`
+     and the host library from `csrc/raytracing_native.cpp`;
   3. kernels against their plain PyTorch versions, on the card, at the
-     reference frame's shapes: one 65,536-ray chunk of camera rays
-     (CS=16 accel, the `_walk_groups` entry) and that chunk's binned
-     depth-2 wavefront of 720,896 rays (CS=128 bounce accel, refinement
-     and the `_walk_dma` entry); median time of 5 runs each;
+     main paths' shapes; median time of 5 runs each:
+     a. the reference frame's busiest 65,536-ray chunk of camera rays
+        (CS=16 accel, the `_walk_groups` entry, with the default and the
+        origin-folded intersector) and that chunk's binned depth-2
+        wavefront of 720,896 rays (CS=128 bounce accel, dense refinement
+        and the `_walk_dma` entry);
+     b. camera mode on the whole reference frame (2,500 tiles of 1,024
+        rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
+        against the plain version lane by lane and against the pack path
+        under `shared_origin=0` on all 2,560,000 rays; phase 7 repeats
+        this on every large scene, with its pooled lists held against the
+        direct ones, and the `walk_camera_dma` row is the 1.6M launch;
+     c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
+        on the depth-2 wavefront of the 404k-triangle subdivided teapot
+        (3,160 bounce clusters);
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
-     through the plain CPU path, same uniforms;
+     through the plain CPU path, same uniforms, with pack-path and with
+     camera-mode primaries;
   5. the reference frame — 800x800 at 4 spp, default config: one frame
-     with launch counts reset, then 3 timed frames.
+     with launch counts reset, then 3 timed frames; the same with
+     `primary_shared_origin=True` (camera-mode primaries);
+  6. headline — `nearest_hit_camera_soa` at 800x800x4 on the default
+     scene, CS=16, the offsets perturbed by each call's result: primary
+     rays/s, gated on a plausible hit fraction;
+  7. large scenes — the same query on the subdivided teapot at 404k
+     (CS=64), 1.6M and 6.4M (CS=128) triangles, with mesh-generation and
+     accel-build seconds, and one Whitted frame of the 404k scene.
 
-The last two lines are the kernel table and the result, each one JSON
-object. The script never imports JAX.
+Each main path (5, 5 with camera mode, 7's 1.6M query, 7's Whitted frame)
+runs with the launch counts set to 0 just before and read just after. The
+last two lines are the kernel table and the result, each one JSON object.
+The script never imports JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +60,9 @@ SKY_ATOL = 1e-3
 # of its 65,536 primaries hit a teapot, the rest the ground); the frame's
 # first 16 chunks are all sky and would leave the bounce level empty.
 KERNEL_CHUNK = 20
+# The subdivided teapot sits above the camera axis: chunk 12 (pixel rows
+# 240-271) crosses its body.
+LARGE_KERNEL_CHUNK = 12
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "walk": ("raytracing_tpu_torch/csrc/walk.cu",
              "raytracing_tpu/kernels/traverse.py:972"),
@@ -47,7 +72,23 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                "raytracing_tpu/kernels/traverse.py:498"),
     "extents": ("raytracing_tpu_torch/csrc/extents.cu",
                 "raytracing_tpu/kernels/traverse.py:163"),
+    "walk_camera": ("raytracing_tpu_torch/csrc/camera.cu",
+                    "raytracing_tpu/kernels/traverse.py:922"),
+    "walk_camera_dma": ("raytracing_tpu_torch/csrc/camera.cu",
+                        "raytracing_tpu/kernels/traverse.py:3676"),
+    "refine_lists": ("raytracing_tpu_torch/csrc/refine.cu",
+                     "raytracing_tpu/kernels/traverse.py:648"),
 }
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
+# the tensor cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_HBM = 3.35e12
+# Floating-point operations per (ray, triangle) test, comparisons and the
+# (t, slot) update included, as counted in csrc/walk_core.cuh; per
+# (ray, box) slab test in csrc/refine.cu; per ray in csrc/extents.cu.
+OPS_PMT, OPS_PMTO, OPS_SLAB, OPS_EXTENTS = 40, 30, 30, 16
+HIT_GATE = (0.2, 0.9)         # default scene, as the JAX benchmark gates it
+HIT_GATE_LARGE = (0.05, 0.95)  # subdivided teapot
 
 
 class SmokeFailure(RuntimeError):
@@ -73,6 +114,38 @@ def _median_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bound(ops, nbytes):
+    """The least time the card could take, in ms, and what bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+
+
+def _walk_bound(visits, alive_per_tile, cnt, geo, attr, n_attrs, cs, n_rays,
+                pack_bytes, ops_per_test, early):
+    """Bound of one walk launch from what this run's data needed: every
+    alive lane of a tile against every triangle of the clusters the tile
+    visited (the kernel reports them; the early exit is exact); each input
+    read once (pack or offsets, the listed ids and entry bounds, both
+    tables) and each output written once."""
+    ops = float((visits.double() * alive_per_tile.double()).sum()) \
+        * cs * ops_per_test
+    listed = float(cnt.sum())
+    tables = geo.shape[0] * cs * 4 * (12 + n_attrs)
+    nbytes = (pack_bytes + listed * (8 if early else 4) + cnt.numel() * 4
+              + tables + n_rays * (8 + 4 * n_attrs))
+    return _bound(ops, nbytes)
+
+
+def _row(rows, name, err, kernel_fn, plain_fn, bound, shape, plain_reps=5):
+    ms = _median_ms(kernel_fn)
+    plain_ms = _median_ms(plain_fn, reps=plain_reps)
+    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound[0], bound_by=bound[1], shape=shape)
+    print(f"[kernels] time {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({shape})")
 
 
 def phase_device():
@@ -101,6 +174,13 @@ def phase_build():
             print(f"[build] {line.strip()}")
     cuda.library()
     print(f"[build] {res.seconds:.2f} s -> {os.path.relpath(res.path, HERE)}")
+    from raytracing_tpu_torch.geometry import native
+
+    t0 = time.perf_counter()
+    _require(native.available(),
+             "the host library (csrc/raytracing_native.cpp) did not build: "
+             "the large scenes need it")
+    print(f"[build] host library {time.perf_counter() - t0:.2f} s")
     return res.seconds
 
 
@@ -122,11 +202,35 @@ def _compare_walk(tag, kern, plain, alive, nearest):
         err = float((kt[0][fin] - pt[0][fin]).abs().max())
     if nearest and pa is not None:
         _require(torch.equal(ka[:, m], pa[:, m]), f"{tag}: attrs differ")
-        err = max(err, float((ka[:, m] - pa[:, m]).abs().max()))
+        if m.any():
+            err = max(err, float((ka[:, m] - pa[:, m]).abs().max()))
     hits = int((pt[0][m] < float("inf")).sum())
     print(f"[kernels] {tag}: {int(m.sum())} alive lanes, {hits} hits, "
           f"equal (max abs err {err})")
     return err
+
+
+def _tile_alive_lanes(pack, ray_tile=1024):
+    return (pack[7] != 0).reshape(-1, ray_tile).sum(dim=1)
+
+
+def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
+                nearest=True, plain_reps=5):
+    """Compare one pack walk launch with its plain version, then time both
+    and reckon the launch's bound from the visits it made."""
+    import torch
+
+    rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
+    visits = torch.zeros(cnt.shape, dtype=torch.int32, device=rp.device)
+    err = _compare_walk(tag, T.walk(*args, **kw, visits=visits),
+                        T.walk_plain(*args), alive, nearest)
+    bound = _walk_bound(visits, _tile_alive_lanes(rp), cnt, geo, attr,
+                        n_attrs, cs, rp.shape[1], rp.numel() * 4,
+                        ops_per_test, kw["tnear"] is not None)
+    _row(rows, name, err, lambda: T.walk(*args, **kw),
+         lambda: T.walk_plain(*args), bound,
+         f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
+         plain_reps=plain_reps)
 
 
 def phase_kernels():
@@ -156,13 +260,16 @@ def phase_kernels():
         block_ray_ids(KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev), cfg)
     rp = T.rays_to_soa(o, d)
     args, kw = T._groups_walk_args(acc16, rp, eps, True, INF, na)
-    err = _compare_walk("walk (K1) primary nearest+attrs",
-                        T.walk(*args, **kw), T.walk_plain(*args), rp[7] != 0,
-                        True)
-    rows["walk"] = dict(max_abs_err=err,
-                        ms=_median_ms(lambda: T.walk(*args, **kw)),
-                        plain_ms=_median_ms(lambda: T.walk_plain(*args)),
-                        shape=f"{rp.shape[1]} rays, {acc16.num_clusters}x16")
+    _timed_walk(rows, "walk", "walk (K1) primary nearest+attrs", T, args, kw,
+                rp[7] != 0, OPS_PMT,
+                f"{rp.shape[1]} rays, {acc16.num_clusters}x16")
+    # The same chunk with the origin folded into the table (pmto).
+    pargs, pkw = T._groups_walk_args(
+        acc16, rp, eps, True, INF, na,
+        shared_origin=torch.zeros(3, device=dev))
+    _timed_walk(rows, "walk_pmto", "walk (K1) primary, origin-folded", T,
+                pargs, pkw, rp[7] != 0, OPS_PMTO,
+                f"{rp.shape[1]} rays, {acc16.num_clusters}x16, pmto")
 
     # Primary sun shadows (occlusion) through the same entry.
     t, s, a = T._merge_rest_nearest(acc16, rp, *T.walk(*args, **kw), eps, na)
@@ -190,13 +297,12 @@ def phase_kernels():
     live = phi[:, 7] > 0
     err = float(torch.cat([(lo - plo)[live], (hi - phi)[live]]).abs().max()
                 ) if live.any() else 0.0
-    print(f"[kernels] extents (K6): {bp.shape[1] // T.RAY_TILE} tiles, "
-          f"equal")
-    rows["extents"] = dict(max_abs_err=err,
-                           ms=_median_ms(lambda: T.tile_extents(bp)),
-                           plain_ms=_median_ms(
-                               lambda: T.tile_extents_plain(bp)),
-                           shape=f"{bp.shape[1]} rays")
+    nt = bp.shape[1] // T.RAY_TILE
+    print(f"[kernels] extents (K6): {nt} tiles, equal")
+    _row(rows, "extents", err, lambda: T.tile_extents(bp),
+         lambda: T.tile_extents_plain(bp),
+         _bound(OPS_EXTENTS * bp.shape[1], bp.numel() * 4 + nt * 64),
+         f"{bp.shape[1]} rays")
     tile_alive = hi[:, 7] > 0.0
     rargs = (bp, acc128.cluster_min, acc128.cluster_max)
     ent = T.refine_dense(*rargs, tile_alive=tile_alive)
@@ -205,32 +311,215 @@ def phase_kernels():
     _require(bad == 0, f"refine (K5): {bad} entered bits differ")
     print(f"[kernels] refine (K5): {int(pent.sum())} of {pent.numel()} "
           f"bits set, equal")
-    rows["refine"] = dict(
-        max_abs_err=float(bad),
-        ms=_median_ms(lambda: T.refine_dense(*rargs, tile_alive=tile_alive)),
-        plain_ms=_median_ms(
-            lambda: T.refine_dense_plain(*rargs, tile_alive=tile_alive)),
-        shape=f"{bp.shape[1]} rays, {acc128.num_clusters} clusters")
+    c128 = acc128.num_clusters
+    _row(rows, "refine", float(bad),
+         lambda: T.refine_dense(*rargs, tile_alive=tile_alive),
+         lambda: T.refine_dense_plain(*rargs, tile_alive=tile_alive),
+         _refine_bound(_tile_alive_lanes(bp), torch.full_like(
+             tile_alive, c128, dtype=torch.int32) * tile_alive,
+             pent.sum(dim=1), bp, c128, c128),
+         f"{bp.shape[1]} rays, {c128} clusters")
     balive = bp[7] != 0
     early = True if cfg.gi_early_exit else None  # as render_rays asks
     dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
                                   early_exit=early)
-    err = _compare_walk("walk_dma (K2) bounce nearest+attrs",
-                        T.walk(*dargs, **dkw), T.walk_plain(*dargs), balive,
-                        True)
-    rows["walk_dma"] = dict(max_abs_err=err,
-                            ms=_median_ms(lambda: T.walk(*dargs, **dkw)),
-                            plain_ms=_median_ms(lambda: T.walk_plain(*dargs)),
-                            shape=f"{bp.shape[1]} rays, "
-                                  f"{acc128.num_clusters}x128")
+    _timed_walk(rows, "walk_dma", "walk_dma (K2) bounce nearest+attrs", T,
+                dargs, dkw, balive, OPS_PMT,
+                f"{bp.shape[1]} rays, {c128}x128")
     # The wavefront's own rays as an occlusion query through K2.
     oargs, okw = T._dma_walk_args(acc128, bp, eps, False, INF, 0)
     _compare_walk("walk_dma (K2) bounce occlusion", T.walk(*oargs, **okw),
                   T.walk_plain(*oargs), balive, False)
-    for name, r in rows.items():
-        print(f"[kernels] time {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms ({r['shape']})")
     return rows
+
+
+def _refine_bound(alive_lanes, listed, entered, pack, width, n_clusters):
+    """Bound of one refinement launch: a candidate that no lane enters
+    needs every alive lane tested, an entered one a single witness; the
+    pack, the lists and the AABB table read once, the bits written once."""
+    ops = OPS_SLAB * float(((listed - entered).double() * alive_lanes.double()
+                            + entered.double()).sum())
+    nbytes = (pack.numel() * 4 + float(listed.sum()) * 4 + listed.numel() * 4
+              + n_clusters * 24 + listed.numel() * width * 4)
+    return _bound(ops, nbytes)
+
+
+def _listed(ids, cnt, n_clusters):
+    """[nt, C] bool: the clusters each tile lists."""
+    import torch
+
+    listed = torch.arange(ids.shape[1], device=ids.device)[None] < cnt[:, None]
+    out = torch.zeros((ids.shape[0], n_clusters), dtype=torch.bool,
+                      device=ids.device)
+    return out.scatter_(1, ids.long(), listed)
+
+
+def _reference_camera(dev):
+    """The reference frame's camera, offsets and materialised ray pack."""
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.ops.sampling import stratified_offsets
+
+    cfg = RenderConfig()
+    w, h, spp = cfg.width, cfg.height, cfg.samples_per_pixel
+    o, d = camera_rays_for_ids(
+        block_ray_ids(0, spp * h * w, cfg, device=dev), cfg)
+    return (T.Camera(w, h, spp, cfg.scale, 16, 16),
+            stratified_offsets(spp, device=dev), T.rays_to_soa(o, d), cfg.eps)
+
+
+def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
+                        timed=True):
+    """Camera mode over the whole 800x800x4 frame on `acc`, with the lists
+    and tables `nearest_hit_camera_soa` launches: pooled lists against the
+    direct ones as sets, the kernel against its plain version lane by lane,
+    and the public query against the pack path under shared_origin=0 on
+    all 2,560,000 rays. Times the launch into rows[row] when `timed`."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    cam, offs, rp, eps = camera
+    dev = offs.device
+    cs, c = acc.cluster_size, acc.num_clusters
+    n_tiles = cam.grid[0] * cam.grid[1]
+    na = acc.attr_blocks.shape[1] if with_attrs else 0
+    args, kw = T._camera_walk_args(acc, offs, cam, 0, n_tiles, na, eps)
+    _require(kw["entry"] == entry, f"{row}: CS {cs} took entry {kw['entry']}")
+    ids, cnt, geo, attr = args[4:8]
+    if c > T._SUPERTILE_MIN_C:
+        d_ids, _, d_cnt = T._visit_lists_from_extents(
+            *T._camera_tile_extents(n_tiles, offs, cam), acc.cluster_min,
+            acc.cluster_max)
+        diff = int((_listed(ids, cnt, c) != _listed(d_ids, d_cnt, c)).sum())
+        _require(diff == 0 and torch.equal(cnt, d_cnt),
+                 f"{row}: pooled lists differ from the direct ones in "
+                 f"{diff} (tile, cluster) entries")
+        print(f"[kernels] {row}: pooled lists {tuple(ids.shape)} hold the "
+              f"direct lists' {int(cnt.sum())} entries, as sets")
+        del d_ids, d_cnt
+    visits = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    kern = T.walk_camera(*args, **kw, visits=visits)
+    every = torch.ones(kern[0].shape[1], dtype=torch.bool, device=dev)
+    err = _compare_walk(f"{row} whole frame vs plain", kern,
+                        T.walk_camera_plain(*args), every, True)
+    # The public query against the pack path with the folded origin.
+    zero3 = torch.zeros(3, device=dev)
+    query = dict(width=cam.width, height=cam.height, spp=cam.spp,
+                 scale=cam.scale, eps=eps)
+    if with_attrs:
+        got = T.nearest_hit_camera_soa(acc, offs, with_attrs=True, **query)
+        want = T.nearest_hit_attrs_soa(acc, rp, eps, wq=cs % 128 == 0,
+                                       shared_origin=zero3)
+    else:  # the pack query names original triangles: map the slots
+        t, slot = T.nearest_hit_camera_soa(acc, offs, **query)
+        hit = torch.isfinite(t)
+        tri = acc.order_ext[torch.where(hit, slot, 0).long()]
+        got = (t, torch.where(hit, tri, 0))
+        want = T.nearest_hit_soa(acc, rp, eps, shared_origin=zero3)
+    bad = [int((g != w_).sum()) for g, w_ in zip(got, want)]
+    _require(not any(bad),
+             f"{row}: camera mode differs from the pack path under "
+             f"shared_origin on {bad} (t, id, attrs) lanes")
+    print(f"[kernels] {row}: equal to the pack path under shared_origin=0 "
+          f"on {got[0].shape[0]} rays ({int(torch.isfinite(got[0]).sum())} "
+          f"hits)")
+    if not timed:
+        return
+    full = torch.full((n_tiles,), cam.ray_tile, device=dev)
+    bound = _walk_bound(visits, full, cnt, geo, attr, na, cs,
+                        n_tiles * cam.ray_tile, offs.numel() * 4, OPS_PMTO,
+                        kw["tnear"] is not None)
+    _row(rows, row, err, lambda: T.walk_camera(*args, **kw),
+         lambda: T.walk_camera_plain(*args), bound,
+         f"{n_tiles} tiles x {cam.ray_tile} rays, {c}x{cs}, lists "
+         f"{ids.shape[1]} wide, {int(visits.sum())} of {int(cnt.sum())} "
+         f"listed visits", plain_reps=1)
+
+
+def phase_kernels_camera(rows):
+    """Camera mode on the whole reference frame of the default scene, with
+    attributes, through both entries (`_check_camera_frame`)."""
+    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+
+    dev = "cuda"
+    scene = build_default_scene(device=dev)
+    camera = _reference_camera(dev)
+    for row, entry, cs in (("walk_camera", "walk_camera", 16),
+                           ("walk_camera_dma_100", "walk_camera_dma", 128)):
+        acc = build_cluster_accel(scene.mesh, cluster_size=cs)
+        _check_camera_frame(rows, row, entry, acc, camera, True)
+
+
+def phase_kernels_large(rows):
+    """The gathered refinement and the `_walk_dma` entry above 512
+    clusters: the busiest chunk's depth-2 wavefront of the 404k-triangle
+    subdivided teapot against its CS=128 bounce accel. Returns the scene
+    and its accels for the later phases, with their build times."""
+    import torch
+
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
+                                                     sun_position)
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    dev = "cuda"
+    cfg = RenderConfig()
+    t0 = time.perf_counter()
+    mesh = subdivided_teapot_mesh(levels=3, device=dev)
+    t1 = time.perf_counter()
+    acc64 = build_cluster_accel(mesh, cluster_size=64, variants=("pmt",))
+    t2 = time.perf_counter()
+    acc128 = build_cluster_accel(mesh, cluster_size=128, variants=("pmt",))
+    t3 = time.perf_counter()
+    built = dict(tris=mesh.num_triangles, mesh_s=t1 - t0, accel_s=t2 - t1,
+                 gi_accel_s=t3 - t2)
+    print(f"[large] 404k: {mesh.num_triangles} triangles, mesh {t1 - t0} s, "
+          f"CS 64 accel ({acc64.num_clusters} clusters) {t2 - t1} s, CS 128 "
+          f"accel ({acc128.num_clusters} clusters) {t3 - t2} s")
+    scene = Scene(mesh=mesh, sun=sun_position(0.0).to(dev))
+    o, d = camera_rays_for_ids(
+        block_ray_ids(LARGE_KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev),
+        cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    ob, db, ab = whitted.bounce_wavefront(
+        mesh, acc64, scene.sun, o, d, cfg,
+        lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
+    bp, nb = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
+    _require(int(ab.sum()) > nb // 4,
+             f"404k depth-2 wavefront: only {int(ab.sum())} of {nb} alive")
+    c = acc128.num_clusters
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        bp, acc128.cluster_min, acc128.cluster_max))
+    rargs = (bp, ids, cnt, acc128.cluster_min, acc128.cluster_max)
+    keep = T.refine_lists(*rargs)
+    pkeep = T.refine_lists_plain(*rargs)
+    bad = int((keep != pkeep).sum())
+    _require(bad == 0, f"refine_lists (K5 gathered): {bad} bits differ")
+    print(f"[kernels] refine_lists (K5 gathered): {nb} rays "
+          f"({int(ab.sum())} alive), {c} clusters, lists {tuple(ids.shape)}: "
+          f"{int(pkeep.sum())} of {int(cnt.sum())} candidates kept, equal")
+    _row(rows, "refine_lists", float(bad), lambda: T.refine_lists(*rargs),
+         lambda: T.refine_lists_plain(*rargs),
+         _refine_bound(_tile_alive_lanes(bp), cnt, pkeep.sum(dim=1), bp,
+                       ids.shape[1], c),
+         f"{bp.shape[1]} rays, {c} clusters, lists {ids.shape[1]} wide",
+         plain_reps=1)
+    na = acc128.attr_blocks.shape[1]
+    dargs, dkw = T._dma_walk_args(acc128, bp, cfg.eps, True, INF, na,
+                                  early_exit=True)
+    _timed_walk(rows, "walk_dma_404k", "walk_dma (K2) 404k bounce", T, dargs,
+                dkw, bp[7] != 0, OPS_PMT, f"{bp.shape[1]} rays, {c}x128",
+                plain_reps=1)
+    return scene, acc64, acc128, built
 
 
 def phase_frame_parity():
@@ -240,7 +529,7 @@ def phase_frame_parity():
                                       build_default_scene)
     from raytracing_tpu_torch.models.whitted import render
 
-    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
+    base = RenderConfig(width=64, height=64, samples_per_pixel=1)
     draws = {}
 
     def uniforms(i, depth, shape):
@@ -249,41 +538,51 @@ def phase_frame_parity():
             draws[(i, depth)] = torch.rand(shape, generator=g)
         return draws[(i, depth)]
 
-    imgs = []
+    accs = {}
     for dev in ("cuda", "cpu"):
         scene = build_default_scene(device=dev)
-        acc = build_cluster_accel(scene.mesh, cluster_size=16)
-        imgs.append(render(scene, cfg, accel=acc, uniforms=lambda i, k, s:
-                           uniforms(i, k, s).to(dev)).cpu())
-    err = float((imgs[0] - imgs[1]).abs().max())
-    _require(torch.isfinite(imgs[0]).all(), "64x64 frame is not finite")
-    _require(err <= FRAME_PARITY_ATOL,
-             f"64x64 frame: card vs CPU max abs {err} > {FRAME_PARITY_ATOL}")
-    print(f"[parity] 64x64x1spp full depth: card vs CPU plain path max abs "
-          f"{err} (limit {FRAME_PARITY_ATOL})")
+        accs[dev] = (scene, build_cluster_accel(scene.mesh, cluster_size=16))
+    for tag, cfg in (("pack-path primaries", base),
+                     ("camera-mode primaries",
+                      base.replace(primary_shared_origin=True))):
+        imgs = []
+        for dev, (scene, acc) in accs.items():
+            imgs.append(render(scene, cfg, accel=acc, uniforms=lambda i, k, s:
+                               uniforms(i, k, s).to(dev)).cpu())
+        err = float((imgs[0] - imgs[1]).abs().max())
+        _require(torch.isfinite(imgs[0]).all(), "64x64 frame is not finite")
+        _require(err <= FRAME_PARITY_ATOL,
+                 f"64x64 frame, {tag}: card vs CPU max abs {err} > "
+                 f"{FRAME_PARITY_ATOL}")
+        print(f"[parity] 64x64x1spp full depth, {tag}: card vs CPU plain "
+              f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
 
 
-def phase_reference_frame():
+def _timed_frames(scene, cfg, accel, reps, gi_accel=None):
+    """One frame with the launch counts reset and the queries counted, then
+    `reps` timed frames. Returns (img, launches, counts, first, times)."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
 
-    cfg = RenderConfig()
-    scene = build_default_scene(device="cuda")
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
     sync = torch.cuda.synchronize
     queried = {"nearest": 0, "shadow": 0, "nearest_alive": 0,
                "shadow_alive": 0}
     nearest, any_hit = whitted.nearest_hit_shaded, whitted.any_hit
+    camera = whitted.nearest_hit_shaded_camera
 
     def counted_nearest(acc, o, d, config, alive=None, **kw):
         queried["nearest"] += o.shape[0]
         queried["nearest_alive"] += (o.shape[0] if alive is None
                                      else int(alive.sum()))
         return nearest(acc, o, d, config, alive=alive, **kw)
+
+    def counted_camera(acc, offs, config, tile_base, tiles, bh, bw):
+        n = tiles * config.samples_per_pixel * bh * bw
+        queried["nearest"] += n
+        queried["nearest_alive"] += n
+        return camera(acc, offs, config, tile_base, tiles, bh, bw)
 
     def counted_any(acc, o, d, config, alive=None, **kw):
         queried["shadow"] += o.shape[0]
@@ -292,47 +591,186 @@ def phase_reference_frame():
         return any_hit(acc, o, d, config, alive=alive, **kw)
 
     whitted.nearest_hit_shaded, whitted.any_hit = counted_nearest, counted_any
+    whitted.nearest_hit_shaded_camera = counted_camera
     try:
         sync()
         T.reset_launches()
         t0 = time.perf_counter()
-        img = whitted.render(scene, cfg, accel=accel)
+        img = whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
         sync()
         first = time.perf_counter() - t0
         launches = dict(T.LAUNCHES)
         counts = dict(queried)
     finally:
         whitted.nearest_hit_shaded, whitted.any_hit = nearest, any_hit
+        whitted.nearest_hit_shaded_camera = camera
     times = []
-    for _ in range(3):
+    for _ in range(reps):
         sync()
         t0 = time.perf_counter()
-        img = whitted.render(scene, cfg, accel=accel)
+        img = whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
         sync()
         times.append(time.perf_counter() - t0)
     _require(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
-    _require(bool(torch.isfinite(img).all()), "reference frame not finite")
-    sky = torch.tensor([0x87, 0xCE, 0xEB], dtype=torch.float32) / 255.0
-    sky = sky ** (1 / 2.2)
-    err = float((img[2, 2].cpu() - sky).abs().max())
-    _require(err <= SKY_ATOL, f"sky pixel off by {err}")
-    for k, v in launches.items():
-        _require(v > 0, f"kernel {k} was not launched by the frame")
-    spf = statistics.median(times)
+    _require(bool(torch.isfinite(img).all()), "frame not finite")
+    return img, launches, counts, first, times
+
+
+def _print_frame(tag, cfg, img, launches, counts, first, times):
+    spf = statistics.median(times) if times else first
     alive = counts["nearest_alive"] + counts["shadow_alive"]
     lanes = counts["nearest"] + counts["shadow"]
-    print(f"[frame] {cfg.width}x{cfg.height}x{cfg.samples_per_pixel}spp: "
-          f"first frame {first} s, then {', '.join(map(str, times))} s "
-          f"(median {spf} s)")
+    print(f"[frame] {tag} {cfg.width}x{cfg.height}x{cfg.samples_per_pixel}"
+          f"spp: first frame {first} s, then "
+          f"{', '.join(map(str, times)) or 'none'} s (median {spf} s)")
     # Dead lanes (rays that left the scene) cost almost nothing, so the
     # rate counts alive rays only.
-    print(f"[frame] alive ray queries per frame: {alive} "
+    print(f"[frame] {tag} alive ray queries per frame: {alive} "
           f"({counts['nearest_alive']} nearest + {counts['shadow_alive']} "
           f"shadow) -> {alive / spf} alive queries/s; lanes submitted, dead "
           f"included: {lanes} ({counts['nearest']} nearest + "
           f"{counts['shadow']} shadow)")
-    print(f"[frame] launches per frame: {launches}; mean {float(img.mean())}")
-    return launches
+    print(f"[frame] {tag} launches per frame: {launches}; mean "
+          f"{float(img.mean())}")
+
+
+def phase_reference_frame():
+    """The default reference frame (pack-path primaries), then the same
+    frame with camera-mode primaries. Returns both launch counts."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+
+    cfg = RenderConfig()
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    sky = torch.tensor([0x87, 0xCE, 0xEB], dtype=torch.float32) / 255.0
+    sky = sky ** (1 / 2.2)
+    out = []
+    imgs = []
+    for tag, c, need in (
+            ("reference frame", cfg,
+             ("walk", "walk_dma", "refine", "extents")),
+            ("reference frame, camera-mode primaries",
+             cfg.replace(primary_shared_origin=True),
+             ("walk_camera", "walk", "walk_dma", "refine", "extents"))):
+        img, launches, counts, first, times = _timed_frames(scene, c, accel,
+                                                            3)
+        err = float((img[2, 2].cpu() - sky).abs().max())
+        _require(err <= SKY_ATOL, f"{tag}: sky pixel off by {err}")
+        for k in need:
+            _require(launches[k] > 0,
+                     f"kernel {k} was not launched by the {tag}")
+        _print_frame(tag, c, img, launches, counts, first, times)
+        out.append(launches)
+        imgs.append(img)
+    diff = (imgs[0] - imgs[1]).abs()
+    print(f"[frame] camera-mode vs pack-path primaries (pmto vs pmt, other "
+          f"uniforms): {int((diff.amax(dim=2) > 1e-3).sum())} of "
+          f"{diff.shape[0] * diff.shape[1]} pixels differ by more than 1e-3")
+    return out
+
+
+def _camera_rate(accel, w, h, spp, gate, iters, tag):
+    """Primary rays/s of `nearest_hit_camera_soa`: `iters` calls chained
+    through the offsets (each call's result perturbs the next one's, as
+    the JAX benchmark chains them), CUDA events, best of 3."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.sampling import stratified_offsets
+
+    offs0 = stratified_offsets(spp, device="cuda")
+    n = w * h * spp
+
+    def frame(state):
+        t, _ = T.nearest_hit_camera_soa(accel, offs0 + state * 1e-12,
+                                        width=w, height=h, spp=spp)
+        hit = torch.isfinite(t)
+        return torch.where(hit, t, 0.0).sum() * 1e-20, hit.sum()
+
+    state, hits = frame(torch.zeros((), device="cuda"))
+    frac = int(hits) / n
+    _require(gate[0] < frac < gate[1],
+             f"{tag}: implausible hit fraction {frac}")
+    best = float("inf")
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        st = state
+        a.record()
+        for _ in range(iters):
+            st, _ = frame(st)
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / 1e3 / iters)
+    print(f"[{tag}] {w}x{h}x{spp}spp, {accel.num_clusters} clusters of "
+          f"{accel.cluster_size}: hit fraction {frac}, {best} s per call "
+          f"(best of 3 x {iters}) -> {n / best} primary rays/s")
+    return n / best
+
+
+def phase_headline():
+    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    return _camera_rate(accel, 800, 800, 4, HIT_GATE, 20, "headline")
+
+
+def phase_large_scenes(rows, scene404, acc64, gi128, built404):
+    """Camera-mode primary rays/s at 404k (CS 64), 1.6M and 6.4M (CS 128)
+    triangles, each held first against its plain version and the pack path
+    at that very shape (`_check_camera_frame`; the 1.6M launch is the
+    `walk_camera_dma` row), and one Whitted frame of the 404k scene.
+    Returns the launches of the 1.6M query and of the frame."""
+    import torch
+
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    print(f"[large] 404k: mesh_gen {built404['mesh_s']} s, accel_build "
+          f"{built404['accel_s']} s")
+    camera = _reference_camera("cuda")
+    _check_camera_frame(rows, "walk_camera_404k", "walk_camera", acc64,
+                        camera, False)
+    _camera_rate(acc64, 800, 800, 4, HIT_GATE_LARGE, 10, "large 404k")
+
+    rate_launches = None
+    for levels, tag, iters in ((4, "1m6", 10), (5, "6m4", 5)):
+        t0 = time.perf_counter()
+        mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
+        t1 = time.perf_counter()
+        acc = build_cluster_accel(mesh, cluster_size=128, variants=("pmt",))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"[large] {tag}: {mesh.num_triangles} triangles, mesh_gen "
+              f"{t1 - t0} s, accel_build {t2 - t1} s "
+              f"({acc.num_clusters} clusters)")
+        _check_camera_frame(rows, "walk_camera_dma" if levels == 4
+                            else f"walk_camera_dma_{tag}", "walk_camera_dma",
+                            acc, camera, False, timed=levels == 4)
+        torch.cuda.reset_peak_memory_stats()
+        T.reset_launches()
+        _camera_rate(acc, 800, 800, 4, HIT_GATE_LARGE, iters, f"large {tag}")
+        print(f"[large {tag}] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB")
+        _require(T.LAUNCHES["walk_camera_dma"] > 0,
+                 f"the {tag} query did not launch walk_camera_dma")
+        rate_launches = rate_launches or dict(T.LAUNCHES)
+        del acc, mesh
+
+    cfg = RenderConfig()
+    img, launches, counts, first, times = _timed_frames(
+        scene404, cfg, acc64, 0, gi_accel=gi128)
+    for k in ("refine_lists", "walk_dma", "walk", "extents"):
+        _require(launches[k] > 0,
+                 f"kernel {k} was not launched by the 404k Whitted frame")
+    _print_frame("404k Whitted frame", cfg, img, launches, counts, first,
+                 times)
+    return rate_launches, launches
 
 
 def main() -> int:
@@ -347,17 +785,29 @@ def main() -> int:
     card = phase_device()
     build_s = phase_build()
     rows = phase_kernels()
+    phase_kernels_camera(rows)
+    large = phase_kernels_large(rows)
     phase_frame_parity()
-    launches = phase_reference_frame()
+    ref_launches, cam_launches = phase_reference_frame()
+    phase_headline()
+    rate_launches, big_launches = phase_large_scenes(rows, *large)
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
+    # Each kernel's launches on the main path that runs it.
+    launches = dict(ref_launches)
+    launches["walk_camera"] = cam_launches["walk_camera"]
+    launches["walk_camera_dma"] = rate_launches["walk_camera_dma"]
+    launches["refine_lists"] = big_launches["refine_lists"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
+        _require(launches[name] > 0, f"kernel {name} ran on no main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": None})
     print(f"[done] build {build_s:.2f} s, total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

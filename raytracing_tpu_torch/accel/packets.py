@@ -61,10 +61,11 @@ class ClusterAccel(NamedTuple):
                               for f in self))
 
 
-def accel_from_numpy(d: dict, device="cpu") -> ClusterAccel:
+def accel_from_numpy(d: dict, device="cuda") -> ClusterAccel:
     """A ClusterAccel from numpy arrays under the JAX package's field names
     (e.g. `{k: np.asarray(v) for k, v in jax_accel._asdict().items()}`);
-    fields the port does not use are ignored."""
+    fields the port does not use are ignored. It lands on the card unless
+    `device` says otherwise."""
     fields = {}
     for name in ClusterAccel._fields:
         v = d.get(name)

@@ -71,7 +71,13 @@ class RenderConfig:
     gi_cap_frac: float = 0.0
     # Batched front-to-back early exit for bounce nearest queries. Exact.
     gi_early_exit: bool = True
-    # Origin-folded primary intersector (camera mode); not ported.
+    # Camera-mode primaries: the first level derives its rays in the walk
+    # kernel and tests them with the origin-folded intersector ("pmto").
+    # Its association differs from the default intersector's, so a hit on
+    # an acceptance boundary can flip within one f32 rounding; off by
+    # default, as in the JAX package. Frames that do not divide into 16x16
+    # blocks, or chunks that do not divide into whole blocks, take the
+    # pack path with the same folded intersector.
     primary_shared_origin: bool = False
 
     def __post_init__(self):

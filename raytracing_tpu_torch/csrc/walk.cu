@@ -9,51 +9,24 @@
 // [C, A, CS] attribute table, K2 one combined [C, 12 + A, CS] table whose
 // attribute rows follow the geometry rows (the strides say which).
 //
-// One block per 1024-ray tile; each of 256 threads owns 4 rays. Per visit
-// the cluster's 12 x CS geometry rows are staged into shared memory and
-// every thread intersects its rays with all CS triangles (broadcast reads).
-// Nearest keeps a flat (best_t, best_slot) per ray: min t, then min slot,
-// and an infinite t never ties. The winner's attribute rows are read once
+// One block per 1024-ray tile; each of 256 threads owns 4 rays. The loop
+// over the list, the two intersectors (pmt, and pmto for a pack whose rays
+// share one origin that the caller folded into the table) and the early
+// exit are walk_core.cuh's. The winner's attribute rows are read once
 // after the loop (a gather is cheap on this card; the TPU kernel carried
 // them through the loop because its gathers are serial). Lists are as wide
 // as the cluster table, so the TPU's overflow rescan has no counterpart.
-// Early exit, every ee_batch visits: a block vote on "every alive lane's
-// min(best_t, scene-exit t) is below the next entry's lower bound" —
-// exact, so results do not depend on it. Occlusion keeps min t under a
-// scalar t_max and walks the whole list.
 //
 // Bound on the card: arithmetic, ~40 operations per (ray, triangle) from
-// registers and shared memory; device memory sees each visit's block once
-// per tile. Double-buffering the visit blocks with cp.async is later work.
-#include "common.cuh"
+// registers and shared memory (~30 with pmto); device memory sees each
+// visit's block once per tile. Double-buffering the visit blocks with
+// cp.async is later work.
+#include "walk_core.cuh"
 
 namespace rt {
 namespace {
 
-// Upper bound on the t of any hit inside the walked clusters' union box
-// (traverse.py:_scene_exit_row): the ray's exit parameter from the box,
-// inflated a few ulp; a ray that misses the box gets -inf. Feeds only the
-// early-exit vote.
-__device__ __forceinline__ float scene_exit(const float o[3], const float d[3],
-                                            const float* __restrict__ bbox) {
-  float tmin = 0.0f;
-  float tmax = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const bool deg = fabsf(d[k]) < tiny();
-    const float dk = deg ? tiny() : d[k];
-    const float t1 = (bbox[k] - o[k]) / dk;
-    const float t2 = (bbox[3 + k] - o[k]) / dk;
-    const float lo = deg ? -inf() : fminf(t1, t2);
-    const float hi = deg ? inf() : fmaxf(t1, t2);
-    tmin = k == 0 ? lo : fmaxf(tmin, lo);
-    tmax = k == 0 ? hi : fminf(tmax, hi);
-  }
-  const float exit_t = tmax * static_cast<float>(1.0 + 1e-5)
-                       + static_cast<float>(1e-6);
-  return (tmin <= exit_t && exit_t >= 0.0f) ? exit_t : -inf();
-}
-
+template <bool PMTO>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const float* __restrict__ rays, long long np,
             const int* __restrict__ ids, const int* __restrict__ cnt,
@@ -64,7 +37,7 @@ walk_kernel(const float* __restrict__ rays, long long np,
             int n_attrs, int cs, float eps, float t_max,
             int nearest, int early, int ee_batch,
             float* __restrict__ out_t, int* __restrict__ out_s,
-            float* __restrict__ out_a) {
+            float* __restrict__ out_a, int* __restrict__ visits) {
   __shared__ float blk[12 * kMaxClusterSize];
   const int tile = blockIdx.x;
 
@@ -86,84 +59,17 @@ walk_kernel(const float* __restrict__ rays, long long np,
     best_s[r] = kBigId;
   }
 
-  const int trips = cnt[tile];
-  const int* tile_ids = ids + static_cast<long long>(tile) * width;
-  const bool use_exit = early && nearest;
-  float exit_t[kRaysPerThread];
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    exit_t[r] = use_exit ? scene_exit(o[r], d[r], bbox) : 0.0f;
-  }
-
-  for (int j = 0; j < trips; ++j) {
-    const int c = tile_ids[j];
-    const float* g = geo + static_cast<long long>(c) * geo_stride;
-    __syncthreads();  // the previous visit's reads of blk are done
-    for (int e = threadIdx.x; e < 12 * cs; e += kThreads) blk[e] = g[e];
-    __syncthreads();
-    const int slot0 = c * cs;
-    for (int k = 0; k < cs; ++k) {
-      const float nx = blk[k], ny = blk[cs + k], nz = blk[2 * cs + k];
-      const float d0 = blk[3 * cs + k];
-      const float ux = blk[4 * cs + k], uy = blk[5 * cs + k];
-      const float uz = blk[6 * cs + k], u0 = blk[7 * cs + k];
-      const float vx = blk[8 * cs + k], vy = blk[9 * cs + k];
-      const float vz = blk[10 * cs + k], v0c = blk[11 * cs + k];
-#pragma unroll
-      for (int r = 0; r < kRaysPerThread; ++r) {
-        // traverse.py:_pmt_tile, op for op.
-        const float den = nx * d[r][0] + ny * d[r][1] + nz * d[r][2];
-        const float t =
-            (d0 - (nx * o[r][0] + ny * o[r][1] + nz * o[r][2])) / den;
-        const float px = o[r][0] + t * d[r][0];
-        const float py = o[r][1] + t * d[r][1];
-        const float pz = o[r][2] + t * d[r][2];
-        const float u = ux * px + uy * py + uz * pz + u0;
-        const float v = vx * px + vy * py + vz * pz + v0c;
-        const bool valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f
-                           && u + v <= 1.0f && t > eps;
-        if (nearest) {
-          const int slot = slot0 + k;
-          if (valid && (t < best_t[r]
-                        || (t == best_t[r] && t < inf() && slot < best_s[r]))) {
-            best_t[r] = t;
-            best_s[r] = slot;
-          }
-        } else if (valid && t < t_max && t < best_t[r]) {
-          best_t[r] = t;
-        }
-      }
-    }
-    if (use_exit && (j + 1) % ee_batch == 0 && j + 1 < trips) {
-      const float nxt =
-          tnear[static_cast<long long>(tile) * width + j + 1];
-      bool settled = true;
-#pragma unroll
-      for (int r = 0; r < kRaysPerThread; ++r) {
-        if (alive[r] && !(fminf(best_t[r], exit_t[r]) < nxt)) settled = false;
-      }
-      if (__syncthreads_and(settled)) break;
-    }
-  }
+  const long long row = static_cast<long long>(tile) * width;
+  const int visited = walk_list<kRaysPerThread, PMTO>(
+      blk, o, d, alive, ids + row, tnear ? tnear + row : nullptr, cnt[tile],
+      bbox, geo, geo_stride, cs, eps, t_max, nearest != 0, early && nearest,
+      ee_batch, best_t, best_s);
+  if (visits != nullptr && threadIdx.x == 0) visits[tile] = visited;
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = ray_index(r);
-    out_t[i] = best_t[r];
-    if (!nearest) {
-      out_s[i] = best_t[r] < inf() ? 1 : 0;
-      continue;
-    }
-    out_s[i] = best_s[r];
-    if (n_attrs > 0) {
-      const bool hit = best_s[r] != kBigId;
-      const int s = hit ? best_s[r] : 0;
-      const float* a = attr + static_cast<long long>(s / cs) * attr_stride
-                       + s % cs;
-      for (int q = 0; q < n_attrs; ++q) {
-        out_a[q * np + i] = hit ? a[q * cs] : 0.0f;
-      }
-    }
+    store_result(ray_index(r), np, best_t[r], best_s[r], nearest != 0, attr,
+                 attr_stride, n_attrs, cs, out_t, out_s, out_a);
   }
 }
 
@@ -174,24 +80,27 @@ walk_kernel(const float* __restrict__ rays, long long np,
 // per tile; tnear [nt, width] and bbox [6] (only read when early != 0);
 // geo: cluster c's 12 geometry rows
 // at geo + c * geo_stride, each cs floats; attr likewise with attr_stride
-// (n_attrs rows; unused for occlusion). Outputs t [np], slot or hit flag
-// [np] i32, attrs [n_attrs, np].
+// (n_attrs rows; unused for occlusion). pmto != 0 selects the origin-folded
+// intersector (the caller folded the shared origin into geo). Outputs
+// t [np], slot or hit flag [np] i32, attrs [n_attrs, np], and, where
+// visits is not null, the clusters each tile visited [nt] i32.
 extern "C" int rt_walk(const float* rays, long long np, const int* ids,
                        const int* cnt, const float* tnear, int width,
                        const float* bbox, const float* geo,
                        long long geo_stride, const float* attr,
                        long long attr_stride, int n_attrs, int cs,
                        float eps, float t_max, int nearest, int early,
-                       int ee_batch, float* out_t, int* out_s, float* out_a,
-                       void* stream) {
+                       int ee_batch, int pmto, float* out_t, int* out_s,
+                       float* out_a, int* visits, void* stream) {
   if (np <= 0 || np % rt::kRayTile != 0 || cs <= 0
       || cs > rt::kMaxClusterSize || width <= 0 || ee_batch <= 0) {
     return cudaErrorInvalidValue;
   }
   const unsigned nt = static_cast<unsigned>(np / rt::kRayTile);
-  rt::walk_kernel<<<nt, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kern = pmto ? rt::walk_kernel<true> : rt::walk_kernel<false>;
+  kern<<<nt, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       rays, np, ids, cnt, tnear, width, bbox, geo, geo_stride, attr,
       attr_stride, n_attrs, cs, eps, t_max, nearest, early,
-      ee_batch, out_t, out_s, out_a);
+      ee_batch, out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
 }

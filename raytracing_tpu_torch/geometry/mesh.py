@@ -92,9 +92,10 @@ def concat_objects(objects: Sequence[dict]) -> Mesh:
     )
 
 
-def scene_from_numpy(d: dict, device="cpu") -> Scene:
+def scene_from_numpy(d: dict, device="cuda") -> Scene:
     """A Scene from numpy arrays under the JAX package's field names (the
-    Mesh fields plus "sun") — how tests hand both packages one scene."""
+    Mesh fields plus "sun") — how tests hand both packages one scene. It
+    lands on the card unless `device` says otherwise."""
     mesh = Mesh(*(torch.tensor(np.ascontiguousarray(d[f]))
                   for f in Mesh._fields))
     sun = torch.tensor(np.asarray(d["sun"], dtype=np.float32))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`raytracing_tpu_torch/csrc`).
 
-All `.cu` sources compile in ONE `nvcc` call into one shared library with a
-plain C interface, loaded with ctypes. The library lands in
+All `.cu` sources compile in ONE `nvcc` call (`--threads 0`: the sources in
+parallel) into one shared library with a plain C interface, loaded with
+ctypes. The library lands in
 `raytracing_tpu_torch/_build/`, named by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused. Nothing is
 built when the package is imported: the first kernel launch (or an
@@ -24,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-fmad=false", "--threads", "0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
@@ -34,8 +35,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rt_tile_extents": [_P, _L, _P, _P, _P],
     "rt_refine_dense": [_P, _L, _P, _P, _I, _P, _P, _P],
+    "rt_refine_lists": [_P, _L, _P, _P, _I, _P, _P, _P, _P],
     "rt_walk": [_P, _L, _P, _P, _P, _I, _P, _P, _L, _P, _L, _I, _I, _F, _F,
-                _I, _I, _I, _P, _P, _P, _P],
+                _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rt_walk_camera": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _I,
+                       _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P, _P, _P,
+                       _P, _P],
 }
 
 

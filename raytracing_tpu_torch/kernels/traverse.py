@@ -1,7 +1,7 @@
-"""Cluster traversal: visit lists, the three hand-written CUDA kernels and
-their plain PyTorch versions (twin of `raytracing_tpu.kernels.traverse`).
+"""Cluster traversal: visit lists, the hand-written CUDA kernels and their
+plain PyTorch versions (twin of `raytracing_tpu.kernels.traverse`).
 
-A query runs in three phases over tiles of 1024 consecutive rays:
+A pack query runs in three phases over tiles of 1024 consecutive rays:
 
   phase 1 — `tile_extents` (K6): per-tile min/max of the alive rays'
       origins and directions;
@@ -9,8 +9,16 @@ A query runs in three phases over tiles of 1024 consecutive rays:
       tile's frustum against every cluster AABB, compacted into a
       front-to-back list (ids sorted by entry-t lower bound). Bounce
       queries first AND in `refine_dense` (K5): the clusters some alive
-      ray of the tile actually enters;
-  phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles.
+      ray of the tile actually enters — or, above 512 clusters, re-test
+      their listed candidates with `refine_lists` (K5, gathered form);
+  phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
+      with the Baldwin–Weber test "pmt" or, for a pack whose rays share
+      one origin (`shared_origin=`), its origin-folded form "pmto".
+
+Camera mode (`nearest_hit_camera_soa`) answers the primary level without a
+ray pack: a tile is one bh x bw pixel block x spp samples, its frustum
+comes from a closed form (`_camera_tile_extents`), and `walk_camera`
+(K1 camera / K2 camera) derives each ray's direction from its tile index.
 
 Each kernel has a public function that runs its plain PyTorch version for
 a CPU tensor and launches the kernel for a CUDA tensor (raising if it
@@ -32,6 +40,7 @@ import torch
 
 from raytracing_tpu_torch.accel.packets import ClusterAccel
 from raytracing_tpu_torch.kernels import cuda
+from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.intersect import INF
 
 RAY_TILE = 1024
@@ -39,18 +48,25 @@ RAY_TILE = 1024
 # bigger clusters (_ee_batch_for), as the TPU walk does.
 EARLY_EXIT_BATCH = 4
 _EARLY_EXIT_MIN_CLUSTERS = 64
-# Largest cluster table the dense refinement (K5) takes; its gathered form
-# for bigger tables is not ported (ROADMAP Queue 2).
+# Largest cluster table the dense refinement (K5) takes; bigger tables go
+# through its gathered form, `refine_lists`.
 _REFINE_DENSE_MAX_C = 512
+# Camera mode pools tile frustums into ~32x32-pixel supertiles above this
+# many clusters (the TPU package's rule).
+_SUPERTILE_MIN_C = 2048
 _TINY = 1e-20
 _BIG = 3e38
 _BIG_ID = 2 ** 30
-# Tiles per step of the plain walk and refinement (bounds their temporaries).
+# Tiles per step of the plain walk and refinement, and the elements of one
+# of their temporaries (bound their memory).
 _PLAIN_TILE_GROUP = 64
+_PLAIN_TEMP_ELEMS = 1 << 24
 
 # Kernel launches since the last reset: "walk" counts the `_walk_groups`
-# entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2).
-LAUNCHES = {"extents": 0, "refine": 0, "walk": 0, "walk_dma": 0}
+# entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2), and
+# "walk_camera" / "walk_camera_dma" their camera-mode forms.
+LAUNCHES = {"extents": 0, "refine": 0, "refine_lists": 0, "walk": 0,
+            "walk_dma": 0, "walk_camera": 0, "walk_camera_dma": 0}
 
 
 class Hit(NamedTuple):
@@ -68,6 +84,12 @@ def reset_launches() -> None:
 
 def _ee_batch_for(cs: int) -> int:
     return max(1, min(EARLY_EXIT_BATCH, 128 // cs))
+
+
+def _dma_ee_batch(cs: int) -> int:
+    """The TPU `_dma_walk_kernel` votes every max(1, batch // 2) visit
+    PAIRS."""
+    return 2 * max(1, _ee_batch_for(cs) // 2)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -135,31 +157,48 @@ def tile_extents(rays8: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _slab_enter(r, box_lo, box_hi):
+    """traverse.py:526-546: r [8, g, 1, RT] ray rows against boxes given
+    per axis by box_lo(k) / box_hi(k), each broadcastable to [g, c, 1].
+    Returns [g, c, RT] bool: the alive lanes that enter each box
+    (reciprocal first, degenerate axes unbounded, bounds inflated by
+    2e-6*|t| + 1e-7)."""
+    tn = tf = None
+    for k in range(3):
+        dk = r[4 + k]
+        deg = torch.abs(dk) < _TINY
+        inv = 1.0 / torch.where(deg, _TINY, dk)
+        t1 = (box_lo(k) - r[k]) * inv
+        t2 = (box_hi(k) - r[k]) * inv
+        lo_ = torch.where(deg, -INF, torch.minimum(t1, t2))
+        hi_ = torch.where(deg, INF, torch.maximum(t1, t2))
+        tn = lo_ if k == 0 else torch.maximum(tn, lo_)
+        tf = hi_ if k == 0 else torch.minimum(tf, hi_)
+    tf = tf + (torch.abs(tf) * 2e-6 + 1e-7)
+    tn = tn - (torch.abs(tn) * 2e-6 + 1e-7)
+    return (tn <= tf) & (tf >= 0.0) & (r[7] != 0.0)
+
+
+def _plain_groups(nt: int, width: int, ray_tile: int = RAY_TILE):
+    """Tile ranges for the plain versions: at most `_PLAIN_TILE_GROUP`
+    tiles and `_PLAIN_TEMP_ELEMS` elements per [g, width, ray_tile]
+    temporary."""
+    g = max(1, min(_PLAIN_TILE_GROUP,
+                   _PLAIN_TEMP_ELEMS // max(1, width * ray_tile)))
+    return [(g0, min(nt, g0 + g)) for g0 in range(0, nt, g)]
+
+
 def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive):
     """Plain version of K5: [nt, C] bool, True iff the tile is alive and
-    some alive lane of it enters the cluster's AABB (reciprocal first,
-    degenerate axes unbounded, bounds inflated by 2e-6*|t| + 1e-7)."""
+    some alive lane of it enters the cluster's AABB (`_slab_enter`)."""
     nt = rays8.shape[1] // RAY_TILE
     c = cluster_min.shape[0]
     out = torch.zeros((nt, c), dtype=torch.bool, device=rays8.device)
-    for g0 in range(0, nt, _PLAIN_TILE_GROUP):
-        g1 = min(nt, g0 + _PLAIN_TILE_GROUP)
+    for g0, g1 in _plain_groups(nt, c):
         r = rays8[:, g0 * RAY_TILE:g1 * RAY_TILE].reshape(8, g1 - g0, 1,
                                                           RAY_TILE)
-        tn = tf = None
-        for k in range(3):
-            dk = r[4 + k]
-            deg = torch.abs(dk) < _TINY
-            inv = 1.0 / torch.where(deg, _TINY, dk)
-            t1 = (cluster_min[:, k].reshape(1, c, 1) - r[k]) * inv
-            t2 = (cluster_max[:, k].reshape(1, c, 1) - r[k]) * inv
-            lo_ = torch.where(deg, -INF, torch.minimum(t1, t2))
-            hi_ = torch.where(deg, INF, torch.maximum(t1, t2))
-            tn = lo_ if k == 0 else torch.maximum(tn, lo_)
-            tf = hi_ if k == 0 else torch.minimum(tf, hi_)
-        tf = tf + (torch.abs(tf) * 2e-6 + 1e-7)
-        tn = tn - (torch.abs(tn) * 2e-6 + 1e-7)
-        enter = (tn <= tf) & (tf >= 0.0) & (r[7] != 0.0)
+        enter = _slab_enter(r, lambda k: cluster_min[:, k].reshape(1, c, 1),
+                            lambda k: cluster_max[:, k].reshape(1, c, 1))
         out[g0:g1] = enter.any(dim=2)
     return out & tile_alive[:, None]
 
@@ -186,42 +225,111 @@ def refine_dense(rays8, cluster_min, cluster_max, tile_alive):
     return out != 0
 
 
+def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max):
+    """Plain version of K5's gathered form: [nt, W] bool, True at list
+    position j < min(cnt, W) iff some alive lane of the tile enters cluster
+    ids[tile, j]'s AABB (`_slab_enter`)."""
+    nt, w = ids.shape
+    out = torch.zeros((nt, w), dtype=torch.bool, device=rays8.device)
+    for g0, g1 in _plain_groups(nt, w):
+        r = rays8[:, g0 * RAY_TILE:g1 * RAY_TILE].reshape(8, g1 - g0, 1,
+                                                          RAY_TILE)
+        idg = ids[g0:g1].long()
+        bmin, bmax = cluster_min[idg], cluster_max[idg]  # [g, W, 3]
+        enter = _slab_enter(r, lambda k: bmin[:, :, k, None],
+                            lambda k: bmax[:, :, k, None])
+        out[g0:g1] = enter.any(dim=2)
+    pos = torch.arange(w, device=rays8.device)[None]
+    return out & (pos < cnt[:, None])
+
+
+def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
+    """K5, gathered form (csrc/refine.cu): plain version on CPU, kernel on
+    CUDA. The kernel reads each candidate's box through `ids`."""
+    if _on_cpu(rays8, ids, cnt, cluster_min, cluster_max):
+        return refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max)
+    nt = _check_pack(rays8)
+    if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
+            or ids.dtype != torch.int32 or not ids.is_contiguous()
+            or not cluster_min.is_contiguous()
+            or not cluster_max.is_contiguous()):
+        raise ValueError("refine_lists: ids must be contiguous i32 [nt, W] "
+                         "with cnt [nt], and the AABB tables contiguous")
+    cnt32 = cnt.to(torch.int32).contiguous()
+    out = torch.empty(ids.shape, dtype=torch.int32, device=rays8.device)
+    lib = cuda.library()
+    cuda.check(lib.rt_refine_lists(
+        _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
+        _ptr(cluster_min), _ptr(cluster_max), _ptr(out), _stream()),
+        "refine_lists")
+    LAUNCHES["refine_lists"] += 1
+    return out != 0
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: front-to-back visit lists
 # ---------------------------------------------------------------------------
 
 
-def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                              cluster_max, extra_mask=None):
-    """Interval slab test of each tile frustum against every cluster AABB
-    (traverse.py:_visit_lists_single). Returns (ids [nt, C] i32 sorted by
-    entry-t lower bound, tnear [nt, C], cnt [nt] i32 = flagged clusters);
-    positions past cnt hold unflagged clusters with tnear = +inf."""
+def _frustum_slabs(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi):
+    """Interval slab test of frustums against AABBs
+    (traverse.py:_visit_lists_single): the extents are [..., 3] and
+    box_lo(k) / box_hi(k) give axis k of the boxes, broadcastable against
+    extents[..., k, None]. An axis whose direction interval spans 0 is
+    unbounded. Returns (flags, t_near): which boxes each frustum may
+    enter, and a lower bound of the entry t."""
     t_near = t_far = None
     for k in range(3):
-        spans0 = (d_lo[:, k] <= 0.0) & (d_hi[:, k] >= 0.0)
-        dl = torch.where(torch.abs(d_lo[:, k]) < _TINY, _TINY, d_lo[:, k])
-        dh = torch.where(torch.abs(d_hi[:, k]) < _TINY, _TINY, d_hi[:, k])
-        i_lo = (1.0 / dh)[:, None]
-        i_hi = (1.0 / dl)[:, None]
-        e_lo = cluster_min[None, :, k] - o_hi[:, k:k + 1]
-        e_hi = cluster_max[None, :, k] - o_lo[:, k:k + 1]
+        spans0 = (d_lo[..., k] <= 0.0) & (d_hi[..., k] >= 0.0)
+        dl = torch.where(torch.abs(d_lo[..., k]) < _TINY, _TINY, d_lo[..., k])
+        dh = torch.where(torch.abs(d_hi[..., k]) < _TINY, _TINY, d_hi[..., k])
+        i_lo = (1.0 / dh)[..., None]
+        i_hi = (1.0 / dl)[..., None]
+        e_lo = box_lo(k) - o_hi[..., k, None]
+        e_hi = box_hi(k) - o_lo[..., k, None]
         p1, p2 = e_lo * i_lo, e_lo * i_hi
         p3, p4 = e_hi * i_lo, e_hi * i_hi
         t_min_ax = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
         t_max_ax = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
-        unb = spans0[:, None]
+        unb = spans0[..., None]
         t_min_ax = torch.where(unb, -INF, t_min_ax)
         t_max_ax = torch.where(unb, INF, t_max_ax)
         t_near = t_min_ax if k == 0 else torch.maximum(t_near, t_min_ax)
         t_far = t_max_ax if k == 0 else torch.minimum(t_far, t_max_ax)
-    flags = (t_near <= t_far) & (t_far >= 0.0)
+    return (t_near <= t_far) & (t_far >= 0.0), t_near
+
+
+def _compact_lists(flags, t_near, ids=None):
+    """Flagged entries first, sorted by entry-t lower bound (stable):
+    (ids [.., W] i32, tnear [.., W], cnt [..] i32); positions past cnt hold
+    the unflagged entries with tnear = +inf. `ids` names the entries
+    (default: their positions)."""
+    keys = torch.where(flags, t_near, INF)
+    tnear, perm = torch.sort(keys, dim=-1, stable=True)
+    out = perm if ids is None else torch.gather(ids.expand_as(perm).long(),
+                                                -1, perm)
+    return out.to(torch.int32), tnear, flags.sum(dim=-1, dtype=torch.int32)
+
+
+def _narrow_lists(ids, tnear, cnt):
+    """Cut the lists to the longest one (at least one column): nothing
+    listed is lost. Costs one host sync."""
+    w = max(1, int(cnt.max())) if cnt.numel() else 1
+    return ids[..., :w].contiguous(), tnear[..., :w].contiguous(), cnt
+
+
+def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
+                              cluster_max, extra_mask=None):
+    """Each tile frustum against every cluster AABB. Returns (ids [nt, C]
+    i32 sorted by entry-t lower bound, tnear [nt, C], cnt [nt] i32 =
+    flagged clusters); positions past cnt hold unflagged clusters with
+    tnear = +inf."""
+    flags, t_near = _frustum_slabs(
+        o_lo, o_hi, d_lo, d_hi, lambda k: cluster_min[None, :, k],
+        lambda k: cluster_max[None, :, k])
     if extra_mask is not None:
         flags = flags & extra_mask
-    keys = torch.where(flags, t_near, INF)
-    tnear, ids = torch.sort(keys, dim=1, stable=True)
-    cnt = flags.sum(dim=1, dtype=torch.int32)
-    return ids.to(torch.int32), tnear, cnt
+    return _compact_lists(flags, t_near)
 
 
 def _tile_visit_lists_soa(rays8, cluster_min, cluster_max):
@@ -238,26 +346,43 @@ def _tile_visit_lists_soa(rays8, cluster_min, cluster_max):
 # ---------------------------------------------------------------------------
 
 
+def _fold_origin(pmt_blocks, o):
+    """[C, 12, CS] Baldwin–Weber blocks -> origin-folded blocks for the
+    "pmto" intersector: d0' = d0 - n·o, u0' = u0 + U·o, v0' = v0c + V·o,
+    o a [3] tensor (traverse.py:_fold_origin)."""
+    o = o.to(pmt_blocks.dtype)
+
+    def dot_o(rows):
+        return (rows[:, 0:1] * o[0] + rows[:, 1:2] * o[1]) + rows[:, 2:3] * o[2]
+
+    n, d0 = pmt_blocks[:, 0:3], pmt_blocks[:, 3:4]
+    u_, u0 = pmt_blocks[:, 4:7], pmt_blocks[:, 7:8]
+    v_, v0 = pmt_blocks[:, 8:11], pmt_blocks[:, 11:12]
+    return torch.cat([n, d0 - dot_o(n), u_, u0 + dot_o(u_), v_,
+                      v0 + dot_o(v_)], dim=1)
+
+
 def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
-               eps: float, nearest: bool, t_max: float = INF):
+               eps: float, nearest: bool, t_max: float = INF,
+               pmto: bool = False, ray_tile: int = RAY_TILE):
     """Plain version of the walk: for each list position j, gather every
     still-walking tile's j-th cluster block and intersect (the TPU's
-    `_pmt_tile`, op for op). Nearest keeps min t, then min slot, with no
-    tie at +inf; occlusion keeps min t with t < t_max. Returns
-    (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None); missing
-    lanes get t = +inf, slot 2^30, attrs 0. No early exit (it is exact)."""
+    `_pmt_tile`, or `_pmt_o_tile` with `pmto`, op for op). Nearest keeps
+    min t, then min slot, with no tie at +inf; occlusion keeps min t with
+    t < t_max. Returns (t [1, N], slot or hit flag [1, N] i32, attrs [A, N]
+    | None); missing lanes get t = +inf, slot 2^30, attrs 0. No early exit
+    (it is exact)."""
     dev = rays8.device
     n = rays8.shape[1]
-    nt = n // RAY_TILE
+    nt = n // ray_tile
     trips = cnt.to(torch.int64)
-    best_t = torch.full((nt, RAY_TILE), INF, dtype=torch.float32, device=dev)
-    best_s = torch.full((nt, RAY_TILE), _BIG_ID, dtype=torch.int32,
+    best_t = torch.full((nt, ray_tile), INF, dtype=torch.float32, device=dev)
+    best_s = torch.full((nt, ray_tile), _BIG_ID, dtype=torch.int32,
                         device=dev)
     sub = torch.arange(cs, dtype=torch.int32, device=dev).reshape(1, cs, 1)
-    pack = rays8.reshape(8, nt, 1, RAY_TILE)
+    pack = rays8.reshape(8, nt, 1, ray_tile)
     trips_host = trips.tolist()
-    for g0 in range(0, nt, _PLAIN_TILE_GROUP):
-        g1 = min(nt, g0 + _PLAIN_TILE_GROUP)
+    for g0, g1 in _plain_groups(nt, cs, ray_tile):
         for j in range(max(trips_host[g0:g1], default=0)):
             act = torch.nonzero(trips[g0:g1] > j).squeeze(1) + g0
             cl = ids[act, j]
@@ -266,22 +391,27 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
             def col(q):
                 return blk[:, q, :, None]  # [na, cs, 1]
 
-            ox, oy, oz = pack[0, act], pack[1, act], pack[2, act]
             dx, dy, dz = pack[4, act], pack[5, act], pack[6, act]
             nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
             den = nx * dx + ny * dy + nz * dz
-            t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
-            px = ox + t * dx
-            py = oy + t * dy
-            pz = oz + t * dz
-            u = col(4) * px + col(5) * py + col(6) * pz + col(7)
-            v = col(8) * px + col(9) * py + col(10) * pz + col(11)
+            if pmto:
+                t = d0 / den
+                u = col(7) + t * (col(4) * dx + col(5) * dy + col(6) * dz)
+                v = col(11) + t * (col(8) * dx + col(9) * dy + col(10) * dz)
+            else:
+                ox, oy, oz = pack[0, act], pack[1, act], pack[2, act]
+                t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
+                px = ox + t * dx
+                py = oy + t * dy
+                pz = oz + t * dz
+                u = col(4) * px + col(5) * py + col(6) * pz + col(7)
+                v = col(8) * px + col(9) * py + col(10) * pz + col(11)
             valid = (torch.abs(den) >= eps) & (u >= 0.0) & (v >= 0.0) \
                 & (u + v <= 1.0) & (t > eps)
             if not nearest:
                 valid = valid & (t < t_max)
             t = torch.where(valid, t, INF)
-            tmin_v = t.amin(dim=1)  # [na, RAY_TILE]
+            tmin_v = t.amin(dim=1)  # [na, ray_tile]
             acc_t = best_t[act]
             if nearest:
                 slot = cl[:, None, None] * cs + sub
@@ -305,35 +435,49 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     return t_out, s_out, attrs
 
 
-def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
-         nearest: bool, t_max: float = INF, tnear=None, bbox=None,
-         ee_batch: int = 1, entry: str = "walk"):
-    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA.
-
-    geo [C, >=12, CS] holds each cluster's Baldwin–Weber rows first; attr
-    [C, >=A, CS] its attribute rows (a view into a combined table is fine).
-    With tnear [nt, W] and bbox [6] (union-box min | max) a nearest walk
-    votes on the front-to-back early exit every ee_batch visits. `entry`
-    names the launch count ("walk" or "walk_dma")."""
-    if _on_cpu(rays8, ids, cnt, geo, attr):
-        return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                          nearest, t_max)
-    nt = _check_pack(rays8)
-    dev = rays8.device
+def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox):
+    """What the walk kernels take: f32 [C, rows, CS] tables with contiguous
+    rows, contiguous i32 ids [nt, W] with cnt [nt], and for the early exit
+    a contiguous tnear [nt, W] and a bbox [6]."""
     for name, tab in (("geo", geo), ("attr", attr)):
         if tab is not None and (tab.dtype != torch.float32
                                 or tab.stride(2) != 1 or tab.stride(1) != cs
                                 or tab.shape[2] != cs):
-            raise ValueError(f"walk: {name} table must be f32 [C, rows, CS] "
+            raise ValueError(f"{who}: {name} table must be f32 [C, rows, CS] "
                              "with contiguous rows")
-    if (ids.shape[0] != nt or cnt.shape != (nt,) or ids.dtype != torch.int32
-            or not ids.is_contiguous()):
-        raise ValueError("walk: ids [nt, W] i32 / cnt [nt] do not match the "
-                         "pack")
+    if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
+            or ids.dtype != torch.int32 or not ids.is_contiguous()):
+        raise ValueError(f"{who}: ids [nt, W] i32 / cnt [nt] do not match "
+                         f"the {nt} tiles")
+    if tnear is not None and (bbox is None or tnear.shape != ids.shape
+                              or not tnear.is_contiguous()
+                              or not bbox.is_contiguous()):
+        raise ValueError(f"{who}: early exit needs tnear [nt, W] and "
+                         "bbox [6]")
+
+
+def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
+         nearest: bool, t_max: float = INF, pmto: bool = False, tnear=None,
+         bbox=None, ee_batch: int = 1, entry: str = "walk", visits=None):
+    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA.
+
+    geo [C, >=12, CS] holds each cluster's Baldwin–Weber rows first; attr
+    [C, >=A, CS] its attribute rows (a view into a combined table is fine).
+    With `pmto` the geo table is origin-folded (`_fold_origin`) and the
+    pack's origin rows are not read. With tnear [nt, W] and bbox [6]
+    (union-box min | max) a nearest walk votes on the front-to-back early
+    exit every ee_batch visits. `entry` names the launch count ("walk" or
+    "walk_dma"). `visits`, an i32 [nt] CUDA tensor, receives the clusters
+    each tile visited (for measuring; the plain version has no early exit
+    and ignores it)."""
+    if _on_cpu(rays8, ids, cnt, geo, attr):
+        return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
+                          nearest, t_max, pmto)
+    nt = _check_pack(rays8)
+    dev = rays8.device
     early = tnear is not None and nearest
-    if early and (bbox is None or tnear.shape != ids.shape
-                  or not tnear.is_contiguous()):
-        raise ValueError("walk: early exit needs tnear [nt, W] and bbox [6]")
+    _check_walk_tables("walk", nt, ids, cnt, geo, attr, cs,
+                       tnear if early else None, bbox)
     n = rays8.shape[1]
     out_t = torch.empty((1, n), dtype=torch.float32, device=dev)
     out_s = torch.empty((1, n), dtype=torch.int32, device=dev)
@@ -348,8 +492,9 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
         _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
         _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
         n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(early), int(ee_batch),
-        _ptr(out_t), _ptr(out_s), _ptr(out_a), _stream()), entry)
+        int(nearest), int(early), int(ee_batch), int(pmto),
+        _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits), _stream()),
+        entry)
     LAUNCHES[entry] += 1
     return out_t, out_s, out_a
 
@@ -367,63 +512,82 @@ def _early(nearest: bool, accel: ClusterAccel, early_exit) -> bool:
 
 
 def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
-                      n_attrs, early_exit=None):
+                      n_attrs, early_exit=None, shared_origin=None):
     """The `_walk_groups` launch (K1): frustum lists over the separate pmt
-    and attribute tables. Returns (args, kw): `walk(*args, **kw)` is the
-    launch and `walk_plain(*args)` its plain version."""
+    and attribute tables; with `shared_origin` [3] the origin-folded table
+    and the pmto intersector. Returns (args, kw): `walk(*args, **kw)` is
+    the launch and `walk_plain(*args)` its plain version."""
     cs = accel.cluster_size
     early = _early(nearest, accel, early_exit)
     ids, tnear, cnt = _tile_visit_lists_soa(rp, accel.cluster_min,
                                             accel.cluster_max)
-    args = (rp, ids, cnt, accel.pmt_blocks,
-            accel.attr_blocks if n_attrs else None, n_attrs, cs, eps,
-            nearest, t_max)
+    pmto = shared_origin is not None
+    geo = (_fold_origin(accel.pmt_blocks, shared_origin) if pmto
+           else accel.pmt_blocks)
+    args = (rp, ids, cnt, geo, accel.attr_blocks if n_attrs else None,
+            n_attrs, cs, eps, nearest, t_max, pmto)
     kw = dict(tnear=tnear if early else None,
               bbox=_union_box(accel) if early else None,
               ee_batch=_ee_batch_for(cs), entry="walk")
     return args, kw
 
 
+def _refined_lists(accel: ClusterAccel, rp):
+    """Frustum lists cut down to the clusters some alive ray of the tile
+    enters (K5), still front to back: the dense form ANDs the entered bits
+    into the interval test's flags, the gathered form (more than
+    `_REFINE_DENSE_MAX_C` clusters) re-tests the listed candidates and
+    compacts again."""
+    cmin, cmax = accel.cluster_min, accel.cluster_max
+    if accel.num_clusters <= _REFINE_DENSE_MAX_C:
+        lo, hi = tile_extents(rp)
+        entered = refine_dense(rp, cmin, cmax, hi[:, 7] > 0.0)
+        return _visit_lists_from_extents(
+            lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
+            extra_mask=entered)
+    ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(rp, cmin, cmax))
+    keep = refine_lists(rp, ids, cnt, cmin, cmax)
+    return _compact_lists(keep, tnear, ids)
+
+
+def _combined_table(geo, accel: ClusterAccel, n_attrs):
+    """(table, attribute view): the [C, 12 + A, CS] table whose attribute
+    rows follow the geometry rows, as the `_walk_dma` entries take it."""
+    if not n_attrs:
+        return geo, None
+    blocks = torch.cat([geo, accel.attr_blocks], dim=1)
+    return blocks, blocks[:, 12:]
+
+
 def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                   early_exit=None):
-    """The `_walk_dma` launch (K2): frustum lists ANDed with the dense
-    entered bits (K5) over the combined [C, 12 + A, CS] table. Returns
-    (args, kw) as `_groups_walk_args` does."""
+                   early_exit=None, shared_origin=None):
+    """The `_walk_dma` launch (K2): refined lists (K5) over the combined
+    [C, 12 + A, CS] table. Returns (args, kw) as `_groups_walk_args`
+    does."""
     cs = accel.cluster_size
-    if accel.num_clusters > _REFINE_DENSE_MAX_C:
-        raise NotImplementedError(
-            f"{accel.num_clusters} clusters: the gathered refinement for "
-            f"more than {_REFINE_DENSE_MAX_C} is not ported "
-            "(ROADMAP Queue 2, K5)")
-    blocks = accel.pmt_blocks
-    if n_attrs:
-        blocks = torch.cat([accel.pmt_blocks, accel.attr_blocks], dim=1)
-    lo, hi = tile_extents(rp)
-    tile_alive = hi[:, 7] > 0.0
-    entered = refine_dense(rp, accel.cluster_min, accel.cluster_max,
-                           tile_alive)
-    ids, tnear, cnt = _visit_lists_from_extents(
-        lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], accel.cluster_min,
-        accel.cluster_max, extra_mask=entered)
+    pmto = shared_origin is not None
+    geo = (_fold_origin(accel.pmt_blocks, shared_origin) if pmto
+           else accel.pmt_blocks)
+    blocks, attr = _combined_table(geo, accel, n_attrs)
+    ids, tnear, cnt = _refined_lists(accel, rp)
     early = _early(nearest, accel, early_exit)
-    args = (rp, ids, cnt, blocks, blocks[:, 12:] if n_attrs else None,
-            n_attrs, cs, eps, nearest, t_max)
-    # The TPU walk votes every max(1, batch // 2) visit PAIRS.
+    args = (rp, ids, cnt, blocks, attr, n_attrs, cs, eps, nearest, t_max,
+            pmto)
     kw = dict(tnear=tnear if early else None,
               bbox=_union_box(accel) if early else None,
-              ee_batch=2 * max(1, _ee_batch_for(cs) // 2), entry="walk_dma")
+              ee_batch=_dma_ee_batch(cs), entry="walk_dma")
     return args, kw
 
 
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                 early_exit=None, wq=False):
+                 early_exit=None, wq=False, shared_origin=None):
     """One walk through the `_walk_groups` entry (K1); `wq` with a
     128-multiple cluster size takes the `_walk_dma` entry (K2) instead, as
     the TPU package does."""
     make = (_dma_walk_args if wq and accel.cluster_size % 128 == 0
             else _groups_walk_args)
     args, kw = make(accel, rp, eps, nearest, t_max, n_attrs,
-                    early_exit=early_exit)
+                    early_exit=early_exit, shared_origin=shared_origin)
     return walk(*args, **kw)
 
 
@@ -474,6 +638,13 @@ def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs):
     if accel.rest_blocks is None:
         return t, slot, attrs
     o, d = _rows(rays8)
+    return _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps,
+                                    n_attrs)
+
+
+def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs):
+    """`_merge_rest_nearest` on tuples of [1, N] rows: camera mode's
+    directions are derived, never packed."""
     rb = accel.rest_blocks
     rr = rb.shape[0]
     t_r = _rest_t_rows(o, d, rb, eps)
@@ -526,17 +697,36 @@ def _pad_rays_soa(rays8):
     return rays8.contiguous(), n
 
 
+def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
+                    eps: float = 1e-8, shared_origin=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest hit over the pack without attributes: (t [N], tri [N]
+    original triangle ids, 0 on miss). shared_origin: a [3] origin that
+    EVERY ray of the pack leaves (the caller asserts it); selects the
+    origin-folded intersector, whose results can differ from the default
+    one's only at acceptance boundaries, within one f32 rounding."""
+    rp, r = _pad_rays_soa(rays8)
+    t, s, _ = _walk_groups(accel, rp, eps, True, INF, 0,
+                           shared_origin=shared_origin)
+    t, s, _ = _merge_rest_nearest(accel, rp, t, s, None, eps, 0)
+    t, s = t[0, :r], s[0, :r]
+    hit = torch.isfinite(t)
+    tri = accel.order_ext[torch.where(hit, s, 0).long()]
+    return t, torch.where(hit, tri, 0)
+
+
 def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
                           eps: float = 1e-8, early_exit: Optional[bool] = None,
-                          wq: bool = False
+                          wq: bool = False, shared_origin=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack, with the winner's attribute planes.
     Returns (t [N], slot [N] packed slot ids, attrs [A, N]); attrs are 0 on
-    miss lanes."""
+    miss lanes. shared_origin as in `nearest_hit_soa`."""
     rp, r = _pad_rays_soa(rays8)
     n_attrs = accel.attr_blocks.shape[1]
     t, s, a = _walk_groups(accel, rp, eps, True, INF, n_attrs,
-                           early_exit=early_exit, wq=wq)
+                           early_exit=early_exit, wq=wq,
+                           shared_origin=shared_origin)
     t, s, a = _merge_rest_nearest(accel, rp, t, s, a, eps, n_attrs)
     return t[0, :r], s[0, :r], a[:, :r]
 
@@ -572,13 +762,18 @@ def _objid_expand(accel: ClusterAccel, attrs_k, hit):
 
 
 def nearest_hit_shaded(accel: ClusterAccel, o, d, eps: float = 1e-8,
-                       alive=None, early_exit=None,
-                       wq: bool = False) -> Tuple[Hit, torch.Tensor]:
+                       alive=None, early_exit=None, wq: bool = False,
+                       shared_origin=None) -> Tuple[Hit, torch.Tensor]:
     """The renderer's nearest query: (Hit with packed slot ids, attrs
     [N, 9] = normal | color | albedo/pi, reflectivity, roughness)."""
     rays8 = rays_to_soa(o, d, alive=alive)
     t, slot, attrs_k = nearest_hit_attrs_soa(accel, rays8, eps,
-                                             early_exit=early_exit, wq=wq)
+                                             early_exit=early_exit, wq=wq,
+                                             shared_origin=shared_origin)
+    return _shaded(accel, t, slot, attrs_k)
+
+
+def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
     hit = torch.isfinite(t)
     attrs = _objid_expand(accel, attrs_k, hit).T
     return Hit(t=t, tri=torch.where(hit, slot, 0), hit=hit), attrs
@@ -588,3 +783,312 @@ def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
             alive=None, wq: bool = False) -> torch.Tensor:
     return any_hit_soa(accel, rays_to_soa(o, d, alive=alive), eps, t_max,
                        wq=wq)
+
+
+# ---------------------------------------------------------------------------
+# Camera mode: primary nearest hit with the rays derived in the kernel
+# ---------------------------------------------------------------------------
+
+
+class Camera(NamedTuple):
+    """The pinhole frame as camera mode sees it: width x height pixels in
+    bh x bw blocks, spp samples each. A tile is one block's spp * bh * bw
+    rays: lane l is sample l // (bh*bw) of pixel divmod(l % (bh*bw), bw)
+    of block divmod(tile, width // bw) — `models.camera.block_ray_ids`'
+    order."""
+
+    width: int
+    height: int
+    spp: int
+    scale: float
+    bh: int
+    bw: int
+
+    @property
+    def aspect(self) -> float:
+        return float(self.width) / float(self.height)
+
+    @property
+    def ray_tile(self) -> int:
+        return self.spp * self.bh * self.bw
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(block rows, block columns) of the frame."""
+        return self.height // self.bh, self.width // self.bw
+
+
+def _camera_tile_extents(n_tiles: int, offs, cam: Camera, tile0: int = 0):
+    """Closed-form per-tile frustum extents (traverse.py:
+    _camera_tile_extents): the direction formula is monotone in (pixel +
+    offset) per axis and so is every f32 op in it, so its values at the
+    extreme (pixel + offset) are exactly the min/max that `tile_extents`
+    finds over the materialised pack. Tiles past the frame's last block
+    repeat it. Returns (o_lo, o_hi, d_lo, d_hi) [n_tiles, 3]; the origin is
+    the pinhole at 0."""
+    w, h = cam.width, cam.height
+    nby, nbx = cam.grid
+    tt = torch.clamp_max(
+        tile0 + torch.arange(n_tiles, dtype=torch.int32, device=offs.device),
+        nbx * nby - 1)
+    br = tt // nbx
+    bc = tt % nbx
+    x_lo = (bc * cam.bw).to(torch.float32) + offs[:, 0].min()
+    x_hi = (bc * cam.bw + (cam.bw - 1)).to(torch.float32) + offs[:, 0].max()
+    y_lo = (br * cam.bh).to(torch.float32) + offs[:, 1].min()
+    y_hi = (br * cam.bh + (cam.bh - 1)).to(torch.float32) + offs[:, 1].max()
+    w, h = device_scalar(w, offs), device_scalar(h, offs)  # IEEE division
+    xx_lo = (2.0 * x_lo / w - 1.0) * cam.aspect * cam.scale
+    xx_hi = (2.0 * x_hi / w - 1.0) * cam.aspect * cam.scale
+    yy_lo = (1.0 - 2.0 * y_hi / h) * cam.scale  # yy decreases in y
+    yy_hi = (1.0 - 2.0 * y_lo / h) * cam.scale
+    one = torch.ones_like(xx_lo)
+    z = torch.zeros((n_tiles, 3), dtype=torch.float32, device=offs.device)
+    return (z, z, torch.stack([xx_lo, yy_lo, one], dim=1),
+            torch.stack([xx_hi, yy_hi, one], dim=1))
+
+
+def _camera_dir_rows(n: int, offs, cam: Camera, ray_base: int = 0):
+    """The directions camera mode's kernel derives, as (dx, dy, dz) [1, n]
+    rows over block-order ray ids from `ray_base` (traverse.py:
+    _camera_dir_rows_xla): bit-equal to the block-permuted
+    `camera_rays_for_ids`. A BLOCK index past the frame clamps to the last
+    block with the lane kept, as the kernel clamps."""
+    nby, nbx = cam.grid
+    p2 = cam.bh * cam.bw
+    l = ray_base + torch.arange(n, dtype=torch.int64, device=offs.device)[None]
+    b = torch.clamp_max(l // cam.ray_tile, nbx * nby - 1)
+    r = l % cam.ray_tile
+    s_idx = r // p2
+    p = r % p2
+    xi = ((b % nbx) * cam.bw + p % cam.bw).to(torch.float32)
+    yi = ((b // nbx) * cam.bh + p // cam.bw).to(torch.float32)
+    ox, oy = offs[s_idx, 0], offs[s_idx, 1]
+    w, h = device_scalar(cam.width, offs), device_scalar(cam.height, offs)
+    xx = (2.0 * (xi + ox) / w - 1.0) * cam.aspect * cam.scale
+    yy = (1.0 - 2.0 * (yi + oy) / h) * cam.scale
+    return xx, yy, torch.ones_like(xx)
+
+
+def walk_camera_plain(offs, cam: Camera, tile_base: int, n_tiles: int, ids,
+                      cnt, geo, attr, n_attrs: int, cs: int, eps: float):
+    """Plain version of the camera walk: materialise the directions
+    (`_camera_dir_rows`) and run `walk_plain` with the origin-folded
+    intersector over tiles of cam.ray_tile rays."""
+    n = n_tiles * cam.ray_tile
+    dx, dy, dz = _camera_dir_rows(n, offs, cam, tile_base * cam.ray_tile)
+    zero, one = torch.zeros_like(dx), torch.ones_like(dx)
+    rays8 = torch.cat([zero, zero, zero, one, dx, dy, dz, one], dim=0)
+    return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps, True,
+                      INF, pmto=True, ray_tile=cam.ray_tile)
+
+
+def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
+                geo, attr, n_attrs: int, cs: int, eps: float, tnear=None,
+                bbox=None, ee_batch: int = 1, entry: str = "walk_camera",
+                visits=None):
+    """K1 camera / K2 camera (csrc/camera.cu): plain version on CPU, kernel
+    on CUDA. Nearest hit of frame blocks [tile_base, tile_base + n_tiles)
+    over their lists, in block ray order: (t [1, N], slot [1, N] i32,
+    attrs [A, N] | None). geo is the origin-folded table; offs [spp, 2] is
+    read on the device at every launch. `entry` names the launch count
+    ("walk_camera" or "walk_camera_dma"); `visits` as in `walk`."""
+    if _on_cpu(offs, ids, cnt, geo, attr):
+        return walk_camera_plain(offs, cam, tile_base, n_tiles, ids, cnt,
+                                 geo, attr, n_attrs, cs, eps)
+    if (offs.dtype != torch.float32 or offs.shape != (cam.spp, 2)
+            or not offs.is_contiguous()):
+        raise ValueError("walk_camera: offs must be contiguous f32 [spp, 2]")
+    if cam.width % cam.bw or cam.height % cam.bh:
+        raise ValueError("walk_camera: bw | width and bh | height")
+    _check_walk_tables("walk_camera", n_tiles, ids, cnt, geo, attr, cs, tnear,
+                       bbox)
+    dev = ids.device
+    n = n_tiles * cam.ray_tile
+    out_t = torch.empty((1, n), dtype=torch.float32, device=dev)
+    out_s = torch.empty((1, n), dtype=torch.int32, device=dev)
+    attr_t = attr if n_attrs else None
+    out_a = (torch.empty((n_attrs, n), dtype=torch.float32, device=dev)
+             if attr_t is not None else None)
+    cnt32 = cnt.to(torch.int32).contiguous()
+    early = tnear is not None
+    lib = cuda.library()
+    cuda.check(lib.rt_walk_camera(
+        _ptr(offs), int(tile_base), n_tiles, cam.width, cam.height, cam.spp,
+        cam.bh, cam.bw, float(cam.aspect), float(cam.scale), _ptr(ids),
+        _ptr(cnt32), _ptr(tnear), ids.shape[1], _ptr(bbox if early else None),
+        _ptr(geo), geo.stride(0), _ptr(attr_t),
+        attr_t.stride(0) if attr_t is not None else 0,
+        n_attrs if attr_t is not None else 0, cs, float(eps), int(early),
+        int(ee_batch), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
+        _stream()), entry)
+    LAUNCHES[entry] += 1
+    return out_t, out_s, out_a
+
+
+def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
+    """Per-tile lists of the whole frame through supertiles
+    (traverse.py:3505-3644): the interval test and its sort run once per
+    gy x gx block neighbourhood (~32x32 pixels) on the pooled frustum, then
+    each member tile re-tests only the supertile's candidates with its own
+    frustum — the same lists as the direct test gives, as sets, at a
+    fraction of the [tiles, C] work. The supertile grid is phase-shifted so
+    the screen centre (where a direction component changes sign, which
+    makes a pooled axis unbounded) falls on a group boundary. The candidate
+    width is the longest pooled list: nothing is cut short."""
+    nby, nbx = cam.grid
+    gy, gx = max(1, 32 // cam.bh), max(1, 32 // cam.bw)
+    py = (-(cam.height // 2 // cam.bh)) % gy
+    px = (-(cam.width // 2 // cam.bw)) % gx
+    nby2 = (py + nby + gy - 1) // gy
+    nbx2 = (px + nbx + gx - 1) // gx
+    m, nst = gy * gx, nby2 * nbx2
+
+    def grid(a, fill):  # [nt, 3] -> [nby2, gy, nbx2, gx, 3], padded
+        a = torch.nn.functional.pad(
+            a.reshape(nby, nbx, 3),
+            (0, 0, px, gx * nbx2 - nbx - px, py, gy * nby2 - nby - py),
+            value=fill)
+        return a.reshape(nby2, gy, nbx2, gx, 3)
+
+    def pool(a, upper):  # padding is an inverted box: it never widens
+        g = grid(a, -_BIG if upper else _BIG)
+        return (g.amax(dim=(1, 3)) if upper else g.amin(dim=(1, 3))
+                ).reshape(nst, 3)
+
+    def members(a):  # padded members are cut away by `ungroup`
+        return grid(a, 0.0).permute(0, 2, 1, 3, 4).reshape(nst, m, 3)
+
+    def ungroup(a):  # [nst, m, w] -> [nt, w]
+        w_ = a.shape[-1]
+        a = a.reshape(nby2, nbx2, gy, gx, w_).permute(0, 2, 1, 3, 4)
+        a = a.reshape(gy * nby2, gx * nbx2, w_)
+        return a[py:py + nby, px:px + nbx].reshape(nby * nbx, w_)
+
+    o_lo, o_hi, d_lo, d_hi = ext
+    ids_p, _, cnt_p = _narrow_lists(*_visit_lists_from_extents(
+        pool(o_lo, False), pool(o_hi, True), pool(d_lo, False),
+        pool(d_hi, True), accel.cluster_min, accel.cluster_max))
+    idl = ids_p.long()
+    cm, cx = accel.cluster_min[idl], accel.cluster_max[idl]  # [nst, wp, 3]
+    flags, t_near = _frustum_slabs(
+        members(o_lo), members(o_hi), members(d_lo), members(d_hi),
+        lambda k: cm[:, None, :, k], lambda k: cx[:, None, :, k])
+    listed = torch.arange(ids_p.shape[1], device=ids_p.device)[None] \
+        < cnt_p[:, None]
+    ids, tnear, cnt = _compact_lists(flags & listed[:, None], t_near,
+                                     ids_p[:, None])
+    return (ungroup(ids).contiguous(), ungroup(tnear).contiguous(),
+            ungroup(cnt[..., None])[:, 0])
+
+
+def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
+                      n_tiles: int, n_attrs: int, eps: float,
+                      early_exit=None):
+    """The camera-mode launch: closed-form frustum lists (through
+    supertiles for the whole frame over more than `_SUPERTILE_MIN_C`
+    clusters) over the origin-folded table — separate
+    tables (K1 camera) or, for a cluster size that is a multiple of 128,
+    the combined one (K2 camera). Returns (args, kw):
+    `walk_camera(*args, **kw)` is the launch and `walk_camera_plain(*args)`
+    its plain version."""
+    cs = accel.cluster_size
+    ext = _camera_tile_extents(n_tiles, offs, cam, tile0)
+    whole_frame = tile0 == 0 and n_tiles == cam.grid[0] * cam.grid[1]
+    if (whole_frame and accel.num_clusters > _SUPERTILE_MIN_C
+            and max(1, 32 // cam.bh) * max(1, 32 // cam.bw) > 1):
+        ids, tnear, cnt = _pooled_camera_lists(accel, ext, cam)
+    else:
+        ids, tnear, cnt = _visit_lists_from_extents(
+            *ext, accel.cluster_min, accel.cluster_max)
+    early = _early(True, accel, early_exit)
+    zero3 = torch.zeros(3, dtype=torch.float32, device=offs.device)
+    folded = _fold_origin(accel.pmt_blocks, zero3)
+    dma = cs % 128 == 0
+    if dma:
+        geo, attr = _combined_table(folded, accel, n_attrs)
+    else:
+        geo, attr = folded, accel.attr_blocks if n_attrs else None
+    args = (offs, cam, tile0, n_tiles, ids, cnt, geo, attr, n_attrs, cs, eps)
+    kw = dict(tnear=tnear if early else None,
+              bbox=_union_box(accel) if early else None,
+              ee_batch=_dma_ee_batch(cs) if dma else _ee_batch_for(cs),
+              entry="walk_camera_dma" if dma else "walk_camera")
+    return args, kw
+
+
+def camera_mode_supported(accel: Optional[ClusterAccel]) -> bool:
+    """Whether `nearest_hit_camera_soa` can run for this accel: it needs
+    the Baldwin–Weber blocks. (The TPU package also asks whether the table
+    fits its VMEM budget; the card reads it from device memory at any
+    size.)"""
+    return accel is not None and accel.pmt_blocks is not None
+
+
+def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
+                           height: int, spp: int, scale: float = 1.0,
+                           eps: float = 1e-8, bh: int = 16, bw: int = 16,
+                           with_attrs: bool = False,
+                           early_exit: Optional[bool] = None,
+                           tile_base: Optional[int] = None,
+                           tiles: Optional[int] = None):
+    """Primary nearest hit with the rays derived in the kernel from the
+    pinhole formula (camera mode): no ray pack exists anywhere. Tile
+    frustums come from the closed form, the walk derives each direction
+    from its tile index, and the rest set sees lazily derived rows.
+
+    offs: [spp, 2] sub-pixel offsets, a tensor; it is moved to the accel's
+    device if it lies elsewhere (`stratified_offsets(spp)` is a CPU table).
+    Returns (t [N], slot [N]) — or (t, slot, attrs [A, N]) with
+    `with_attrs` — in `block_ray_ids` order, bit-equal to the pack path
+    under `shared_origin=0` on the block-permuted `camera_rays_for_ids`.
+    Needs bw | width and bh | height.
+
+    tile_base / tiles: cover only frame blocks [tile_base, tile_base +
+    tiles) (the renderer's per-chunk primary level); blocks past the frame
+    repeat the last one. Supertile pooling serves whole-frame calls over
+    more than `_SUPERTILE_MIN_C` clusters (a chunk's run of blocks wraps
+    screen rows). A cluster size that is a multiple of 128 takes the
+    combined-table entry (K2 camera), as `_walk_groups(wq=True)` does."""
+    if width % bw or height % bh:
+        raise ValueError("camera mode needs bw | width and bh | height")
+    if (tile_base is None) != (tiles is None):
+        raise ValueError("tile_base and tiles must be given together")
+    if not camera_mode_supported(accel):
+        raise ValueError("camera mode needs pmt blocks")
+    cam = Camera(width, height, spp, scale, bh, bw)
+    chunked = tile_base is not None
+    nby, nbx = cam.grid
+    n_tiles = tiles if chunked else nby * nbx
+    tile0 = int(tile_base) if chunked else 0
+    n_attrs = accel.attr_blocks.shape[1] if with_attrs else 0
+    offs = offs.to(device=accel.pmt_blocks.device,
+                   dtype=torch.float32).contiguous()
+    args, kw = _camera_walk_args(accel, offs, cam, tile0, n_tiles, n_attrs,
+                                 eps, early_exit=early_exit)
+    t, slot, attrs = walk_camera(*args, **kw)
+    if accel.rest_blocks is not None:
+        n = n_tiles * cam.ray_tile
+        d_rows = _camera_dir_rows(n, offs, cam, tile0 * cam.ray_tile)
+        zero = torch.zeros_like(d_rows[0])
+        t, slot, attrs = _merge_rest_nearest_rows(
+            accel, (zero, zero, zero), d_rows, t, slot, attrs, eps, n_attrs)
+    if n_attrs:
+        return t[0], slot[0], attrs
+    return t[0], slot[0]
+
+
+def nearest_hit_shaded_camera(accel: ClusterAccel, offs, *, width: int,
+                              height: int, spp: int, scale: float = 1.0,
+                              eps: float = 1e-8,
+                              tile_base: Optional[int] = None,
+                              tiles: Optional[int] = None, bh: int = 16,
+                              bw: int = 16, early_exit: Optional[bool] = None
+                              ) -> Tuple[Hit, torch.Tensor]:
+    """`nearest_hit_shaded` for the renderer's primary level in camera
+    mode: (Hit with packed slot ids, attrs [N, 9]) in block ray order."""
+    t, slot, attrs_k = nearest_hit_camera_soa(
+        accel, offs, width=width, height=height, spp=spp, scale=scale,
+        eps=eps, bh=bh, bw=bw, with_attrs=True, early_exit=early_exit,
+        tile_base=tile_base, tiles=tiles)
+    return _shaded(accel, t, slot, attrs_k)

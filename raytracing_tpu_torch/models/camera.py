@@ -4,7 +4,9 @@
 Origin at 0 looking down +z, focal plane z = 1, direction
 (xx, yy, 1) with xx = (2 (x + ox) / W - 1) * aspect * scale and
 yy = (1 - 2 (y + oy) / H) * scale, left unnormalized. The f32 op order is
-the JAX package's, so the rays are bit-identical.
+the JAX package's, so the rays are bit-identical — on the card too, where
+W and H go in as device scalars (`device_scalar`): PyTorch's CUDA division
+by a Python number multiplies by its rounded reciprocal instead.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from raytracing_tpu_torch.config import RenderConfig
+from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.sampling import stratified_grid
 
 
@@ -37,8 +40,8 @@ def camera_rays_for_ids(ids: torch.Tensor, config: RenderConfig
         ids.device)
     sl = s.long()
     ox, oy = offs[sl, 0], offs[sl, 1]
-    xx = (2.0 * (x + ox) / w - 1.0) * aspect * config.scale
-    yy = (1.0 - 2.0 * (y + oy) / h) * config.scale
+    xx = (2.0 * (x + ox) / device_scalar(w, x) - 1.0) * aspect * config.scale
+    yy = (1.0 - 2.0 * (y + oy) / device_scalar(h, y)) * config.scale
     d = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
     return torch.zeros_like(d), d
 

@@ -27,14 +27,16 @@ from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.kernels.binning import (
     batch_bounds, bin_key, bin_sort, bounce_bin_key, unsort)
-from raytracing_tpu_torch.kernels.traverse import Hit
+from raytracing_tpu_torch.kernels.traverse import Hit, camera_mode_supported
 from raytracing_tpu_torch.models.camera import (
     block_permutation, block_ray_ids, blocks_to_image, camera_rays_for_ids)
 from raytracing_tpu_torch.ops.color import gamma_correct
 from raytracing_tpu_torch.ops.intersect import reflect, triangle_normal
 from raytracing_tpu_torch.ops.linalg import dot, normalize
-from raytracing_tpu_torch.ops.sampling import cosine_hemisphere
-from raytracing_tpu_torch.tracer import any_hit, nearest_hit_shaded
+from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere,
+                                               stratified_offsets)
+from raytracing_tpu_torch.tracer import (any_hit, nearest_hit_shaded,
+                                         nearest_hit_shaded_camera)
 
 
 class Shaded(NamedTuple):
@@ -96,10 +98,6 @@ def _check_config(config: RenderConfig, lights) -> None:
         raise NotImplementedError(
             "gi_cap_frac > 0 (two-phase capped bounce queries) is not "
             "ported (ROADMAP Queue 1 item 13)")
-    if config.primary_shared_origin:
-        raise NotImplementedError(
-            "primary_shared_origin (camera-mode primaries) is not ported "
-            "(ROADMAP Queue 1 item 6)")
 
 
 def _bin_bounce(o_l, d_l, alive_l):
@@ -150,12 +148,16 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                 config: RenderConfig,
                 uniforms: Callable[[int, tuple], torch.Tensor],
                 gi_accel: Optional[ClusterAccel] = None,
-                lights=None) -> torch.Tensor:
+                lights=None, camera_chunk=None) -> torch.Tensor:
     """Gamma-corrected radiance [R, 3] for primary rays o, d [R, 3].
 
     uniforms(depth, shape) returns the diffuse fan's uniforms at `depth`.
     gi_accel: an optional coarser accel of the same mesh for every level
-    below the first (exact either way)."""
+    below the first (exact either way).
+    camera_chunk: (first block, offs [spp, 2], bh, bw) when o, d are
+    config's camera rays of whole bh x bw blocks from that block on, in
+    block order: the first level then runs in camera mode and reads o, d
+    only for shading."""
     _check_config(config, lights)
     s = config.diffuse_scatter
     sky = torch.tensor(config.sky_color, dtype=o.dtype, device=o.device)
@@ -172,10 +174,24 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                      or config.bin_reflect_levels)):
             sidx, (o_l, d_l, alive_l) = _bin_bounce(o_l, d_l, alive_l)
         wq = config.gi_wq and bounce
-        h, attrs = nearest_hit_shaded(
-            acc_l, o_l, d_l, config, alive=alive_l,
-            early_exit=True if bounce and config.gi_early_exit else None,
-            wq=wq)
+        if not bounce and camera_chunk is not None:
+            tb, offs_c, bh_c, bw_c = camera_chunk
+            rt_c = config.samples_per_pixel * bh_c * bw_c
+            if n_l % rt_c:
+                raise ValueError(
+                    f"camera_chunk needs the chunk's ray count ({n_l}) to "
+                    f"divide into whole {bh_c}x{bw_c}x"
+                    f"{config.samples_per_pixel}spp blocks of {rt_c} rays")
+            h, attrs = nearest_hit_shaded_camera(
+                acc_l, offs_c, config, tb, n_l // rt_c, bh_c, bw_c)
+        else:
+            h, attrs = nearest_hit_shaded(
+                acc_l, o_l, d_l, config, alive=alive_l,
+                early_exit=True if bounce and config.gi_early_exit else None,
+                wq=wq,
+                # Primaries share the pinhole origin; bounce levels do not.
+                shared_origin=(o_l[0] if not bounce
+                               and config.primary_shared_origin else None))
         sh = shade(mesh, acc_l, sun, o_l, d_l, h, config, attrs,
                    bin_shadow=bin_sh, wq=wq)
         contrib = sh.direct
@@ -243,8 +259,11 @@ def render(scene: Scene, config: RenderConfig,
 
     Primary rays run in chunks of config.chunk_size in 16x16 pixel-block
     order; the last chunk repeats the frame's last ray and its surplus
-    results are dropped. accel defaults to `build_cluster_accel(mesh)`;
-    gi_accel to the auto-built coarse bounce accel. Uniforms come from
+    results are dropped. With config.primary_shared_origin the primary
+    level runs in camera mode (see RenderConfig), where a chunk past the
+    frame's end repeats the last block instead. accel defaults to
+    `build_cluster_accel(mesh)`; gi_accel to the auto-built coarse bounce
+    accel. Uniforms come from
     `uniforms(chunk_index, depth, shape)` when given, else from
     `generator` (default: seed 0 on the scene's device)."""
     _check_config(config, scene.lights)
@@ -268,6 +287,12 @@ def render(scene: Scene, config: RenderConfig,
     by_formula = h % bh == 0 and w % bw == 0
     chunk = min(config.chunk_size, r)
     nc = (r + chunk - 1) // chunk
+    # Camera-mode primaries: whole blocks per chunk, rays derived in the
+    # walk kernel from the chunk's first block index.
+    rt_cam = spp * bh * bw
+    use_camera = (by_formula and config.primary_shared_origin
+                  and chunk % rt_cam == 0 and camera_mode_supported(accel))
+    offs_cam = stratified_offsets(spp, device=device) if use_camera else None
     if not by_formula:
         perm, inv = block_permutation(spp, h, w, bh, bw)
         perm = torch.from_numpy(perm).to(device)
@@ -282,10 +307,12 @@ def render(scene: Scene, config: RenderConfig,
         else:
             ids = perm[i * chunk:(i + 1) * chunk]
         o_c, d_c = camera_rays_for_ids(ids, config)
+        cam = ((i * (chunk // rt_cam), offs_cam, bh, bw) if use_camera
+               else None)
         rgb[i * chunk:(i + 1) * chunk] = render_rays(
             mesh, accel, scene.sun, o_c, d_c, config,
             lambda depth, shape, i=i: uniforms(i, depth, shape),
-            gi_accel=gi_accel)
+            gi_accel=gi_accel, camera_chunk=cam)
     if by_formula:
         return blocks_to_image(rgb[:r], config, bh, bw)
     return rgb[:r][inv].reshape(spp, h, w, 3).mean(dim=0)

@@ -28,3 +28,11 @@ def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     if eps:
         n2 = torch.clamp_min(n2, eps)
     return a / torch.sqrt(n2)
+
+
+def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """`value` as a 0-dim f32 tensor on `like`'s device. Dividing by it is
+    an IEEE division on every device; PyTorch's CUDA division by a Python
+    number multiplies by the number's rounded reciprocal instead."""
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)

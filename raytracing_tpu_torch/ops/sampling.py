@@ -56,9 +56,10 @@ def stratified_grid(spp: int) -> Tuple[int, int]:
 def stratified_offsets(spp: int, dtype=torch.float32,
                        device=None) -> torch.Tensor:
     """Sub-pixel sample offsets [spp, 2] at the cell centers of the
-    gx x gy grid."""
+    gx x gy grid. Computed on the CPU and moved, so every device gets the
+    same bits (CUDA divides by a Python number through its reciprocal)."""
     gx, gy = stratified_grid(spp)
-    cx = (torch.arange(gx, dtype=dtype, device=device) + 0.5) / gx
-    cy = (torch.arange(gy, dtype=dtype, device=device) + 0.5) / gy
+    cx = (torch.arange(gx, dtype=dtype) + 0.5) / gx
+    cy = (torch.arange(gy, dtype=dtype) + 0.5) / gy
     xx, yy = torch.meshgrid(cx, cy, indexing="ij")
-    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1).to(device)

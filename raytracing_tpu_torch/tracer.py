@@ -26,11 +26,24 @@ def _require(accel: Optional[ClusterAccel]) -> ClusterAccel:
 
 def nearest_hit_shaded(accel: Optional[ClusterAccel], o, d,
                        config: RenderConfig, alive=None, early_exit=None,
-                       wq: bool = False):
+                       wq: bool = False, shared_origin=None):
     """Nearest hit plus the winner's shading attributes: (Hit, attrs
-    [N, 9]); Hit.tri holds packed slot ids."""
+    [N, 9]); Hit.tri holds packed slot ids. shared_origin: a [3] origin
+    every ray leaves (selects the origin-folded intersector)."""
     return T.nearest_hit_shaded(_require(accel), o, d, config.eps,
-                                alive=alive, early_exit=early_exit, wq=wq)
+                                alive=alive, early_exit=early_exit, wq=wq,
+                                shared_origin=shared_origin)
+
+
+def nearest_hit_shaded_camera(accel: Optional[ClusterAccel], offs,
+                              config: RenderConfig, tile_base: int,
+                              tiles: int, bh: int = 16, bw: int = 16):
+    """`nearest_hit_shaded` for frame blocks [tile_base, tile_base + tiles)
+    of config's camera, the rays derived in the kernel (camera mode)."""
+    return T.nearest_hit_shaded_camera(
+        _require(accel), offs, width=config.width, height=config.height,
+        spp=config.samples_per_pixel, scale=config.scale, eps=config.eps,
+        tile_base=tile_base, tiles=tiles, bh=bh, bw=bw)
 
 
 def any_hit(accel: Optional[ClusterAccel], o, d, config: RenderConfig,

@@ -5,11 +5,13 @@ jax nor the JAX package, so it runs where the card is:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Bars: extents (K6) and entered bits (K5) equal; both walk entries (K1 via
-`_walk_groups`, K2 via `_walk_dma`) bit-equal in t, slot and attrs on
+Bars: extents (K6) and entered bits (K5, dense and gathered) equal; both
+walk entries (K1 via `_walk_groups`, K2 via `_walk_dma`), with either
+intersector, and both camera entries bit-equal in t, slot and attrs on
 alive lanes (the kernels are built -fmad=false, op for op like the plain
-versions); a frame on the card within 1e-4 of the CPU frame (torch's CUDA
-and CPU sin/cos in the sampler differ by ulps).
+versions); camera rays on the card bit-equal to the CPU's; a frame on the
+card within 1e-4 of the CPU frame (torch's CUDA and CPU sin/cos in the
+sampler differ by ulps).
 """
 
 import numpy as np
@@ -19,8 +21,12 @@ import torch
 from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                   build_default_scene)
 from raytracing_tpu_torch.kernels import cuda
+from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
 from raytracing_tpu_torch.kernels import traverse as T
+from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                camera_rays_for_ids)
 from raytracing_tpu_torch.models.whitted import render
+from raytracing_tpu_torch.ops.sampling import stratified_offsets
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -38,7 +44,7 @@ def setup(dev):
     """CPU and CUDA copies of the default scene's CS 16 and CS 128 accels,
     and two seeded 4096-ray packs (camera-like, bounce-like; one lane in
     ten dead)."""
-    scene = build_default_scene()
+    scene = build_default_scene(device="cpu")
     accels = {cs: build_cluster_accel(scene.mesh, cluster_size=cs)
               for cs in (16, 128)}
     rng = np.random.default_rng(11)
@@ -102,6 +108,129 @@ def test_walk_entries_match_plain(setup, dev, cs, wq, entry):
             assert torch.equal(occ.cpu()[m], occ_cpu[m])
 
 
+def test_pmto_walk_matches_plain(setup, dev):
+    """The origin-folded intersector through both pack entries: every ray
+    of the pack leaves (0.2, -0.1, -0.5)."""
+    accels, packs = setup
+    p = packs[0].clone()
+    origin = torch.tensor([0.2, -0.1, -0.5])
+    p[0:3] = origin[:, None]
+    m = p[7] != 0
+    for cs, wq in ((16, False), (128, True)):
+        kern = T.nearest_hit_attrs_soa(accels[cs].to(dev), p.to(dev), wq=wq,
+                                       shared_origin=origin.to(dev))
+        plain = T.nearest_hit_attrs_soa(accels[cs], p, wq=wq,
+                                        shared_origin=origin)
+        assert bool(torch.isfinite(plain[0][m]).any())
+        for a, b in zip(kern, plain):
+            assert torch.equal(a[..., m.to(dev)].cpu(), b[..., m])
+
+
+@pytest.mark.parametrize("shape", [(64, 48, 4, 16, 16), (48, 48, 3, 16, 16),
+                                   (32, 32, 1, 8, 8), (32, 32, 16, 16, 16)],
+                         ids=["rt1024", "rt768", "rt64", "rt4096"])
+@pytest.mark.parametrize("cs,entry", [(16, "walk_camera"),
+                                      (128, "walk_camera_dma")])
+def test_camera_entries_match_plain(setup, dev, shape, cs, entry):
+    """Tiles of 1024, 768, 64 and 4096 rays (1 to 4 rays a thread, and a
+    tile walked in four passes), whole-frame and an overrunning chunk."""
+    accels, _ = setup
+    w, h, spp, bh, bw = shape
+    acc = accels[cs].to(dev)
+    offs = stratified_offsets(spp)
+    kw = dict(width=w, height=h, spp=spp, bh=bh, bw=bw, with_attrs=True)
+    n_tiles = (w // bw) * (h // bh)
+    for chunk in (dict(), dict(tile_base=n_tiles - 2, tiles=4)):
+        before = T.LAUNCHES[entry]
+        # The chunked call gets the CPU table: the query moves it.
+        kern = T.nearest_hit_camera_soa(acc, offs if chunk else offs.to(dev),
+                                        **kw, **chunk)
+        assert T.LAUNCHES[entry] == before + 1
+        plain = T.nearest_hit_camera_soa(accels[cs], offs, **kw, **chunk)
+        assert bool(torch.isfinite(plain[0]).any())
+        for a, b in zip(kern, plain):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("block", [16, 8], ids=["bh16", "bh8"])
+def test_pooled_camera_lists_on_the_card(setup, dev, monkeypatch, block):
+    """Supertile pooling on the card gives the unpooled results, and the
+    pooled lists are the direct ones as sets (48x32: a phase-shifted,
+    padded supertile grid)."""
+    accels, _ = setup
+    acc = accels[16].to(dev)
+    offs = stratified_offsets(4, device=dev)
+    kw = dict(width=48, height=32, spp=4, bh=block, bw=block, with_attrs=True)
+    monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 10 ** 9)
+    plain = T.nearest_hit_camera_soa(acc, offs, **kw)
+    monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 0)
+    pooled = T.nearest_hit_camera_soa(acc, offs, **kw)
+    assert bool(torch.isfinite(plain[0]).any())
+    for a, b in zip(pooled, plain):
+        assert torch.equal(a, b)
+    cam = T.Camera(48, 32, 4, 1.0, block, block)
+    n_tiles = cam.grid[0] * cam.grid[1]
+    ext = T._camera_tile_extents(n_tiles, offs, cam)
+    ids, _, cnt = T._visit_lists_from_extents(*ext, acc.cluster_min,
+                                              acc.cluster_max)
+    pids, _, pcnt = T._pooled_camera_lists(acc, ext, cam)
+    assert torch.equal(cnt, pcnt)
+    for k, c in enumerate(cnt.tolist()):
+        assert set(pids[k, :c].tolist()) == set(ids[k, :c].tolist())
+
+
+def test_camera_rays_on_the_card_are_the_cpu_rays(dev):
+    """800 is no power of two: dividing by the Python number on CUDA
+    (a multiply by 1/800) would move some directions by an ulp."""
+    cfg = RenderConfig()
+    r = cfg.width * cfg.height * cfg.samples_per_pixel
+    ids = block_ray_ids(3, r // 8, cfg)
+    _, d_cpu = camera_rays_for_ids(ids, cfg)
+    _, d_dev = camera_rays_for_ids(ids.to(dev), cfg)
+    assert torch.equal(d_dev.cpu(), d_cpu)
+    cam = T.Camera(cfg.width, cfg.height, cfg.samples_per_pixel, 1.0, 16, 16)
+    offs = stratified_offsets(cfg.samples_per_pixel)
+    ext_cpu = T._camera_tile_extents(2500, offs, cam)
+    ext_dev = T._camera_tile_extents(2500, offs.to(dev), cam)
+    for a, b in zip(ext_dev, ext_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_refine_lists_kernel_matches_plain(dev):
+    """790 clusters (more than the dense form takes): the gathered
+    refinement's bits, and the `_walk_dma` entry over its lists."""
+    mesh = subdivided_teapot_mesh(levels=2, device="cpu")
+    acc_cpu = build_cluster_accel(mesh, cluster_size=128)
+    acc = acc_cpu.to(dev)
+    rng = np.random.default_rng(3)
+    n = 4096
+    o = np.array([0.0, 0.0, 3.0]) + rng.normal(scale=[1.5, 1.0, 1.0],
+                                               size=(n, 3))
+    d = rng.normal(size=(n, 3))
+    alive = (rng.uniform(size=n) > 0.1).astype(np.float32)
+    alive[3072:] = 0.0  # one tile with no alive lane
+    p = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([o.T, np.ones((1, n)), d.T, alive[None]]),
+        dtype=np.float32))
+    g = p.to(dev)
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        g, acc.cluster_min, acc.cluster_max))
+    before = T.LAUNCHES["refine_lists"]
+    k = T.refine_lists(g, ids, cnt, acc.cluster_min, acc.cluster_max)
+    assert T.LAUNCHES["refine_lists"] == before + 1
+    pl = T.refine_lists_plain(g, ids, cnt, acc.cluster_min, acc.cluster_max)
+    assert k.any() and not k[3].any() and torch.equal(k, pl)
+    m = p[7] != 0
+    kern = T.nearest_hit_attrs_soa(acc, g, early_exit=True, wq=True)
+    plain = T.nearest_hit_attrs_soa(acc_cpu, p, early_exit=True, wq=True)
+    assert T.LAUNCHES["refine_lists"] == before + 2
+    assert bool(torch.isfinite(plain[0][m]).any())
+    for a, b in zip(kern, plain):
+        assert torch.equal(a[..., m.to(dev)].cpu(), b[..., m])
+    with pytest.raises(ValueError):
+        T.refine_lists(g, ids.T, cnt, acc.cluster_min, acc.cluster_max)
+
+
 def test_bad_launch_raises(dev):
     """A launch the kernel refuses raises; it is never skipped."""
     lib = cuda.library()
@@ -114,8 +243,10 @@ def test_bad_launch_raises(dev):
         T.tile_extents(x)
 
 
-def test_frame_matches_cpu(dev):
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=1)
+@pytest.mark.parametrize("camera", [False, True], ids=["pack", "camera"])
+def test_frame_matches_cpu(dev, camera):
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=1,
+                       primary_shared_origin=camera)
     draws = {}
 
     def uniforms(i, depth, shape):

@@ -103,7 +103,7 @@ def test_sampling_matches_jax(rng):
 
 def test_default_scene_bit_equal():
     js = jax_scene(t=0.0)
-    ts = build_default_scene(t=0.0)
+    ts = build_default_scene(t=0.0, device="cpu")
     for name in Mesh._fields:
         np.testing.assert_array_equal(getattr(ts.mesh, name).numpy(),
                                       np.asarray(getattr(js.mesh, name)),
@@ -113,14 +113,14 @@ def test_default_scene_bit_equal():
                                np.asarray(jax_sun(7.0)), rtol=1e-6)
     s2 = scene_from_numpy({**{k: np.asarray(v)
                               for k, v in js.mesh._asdict().items()},
-                           "sun": np.asarray(js.sun)})
+                           "sun": np.asarray(js.sun)}, device="cpu")
     for a, b in zip(s2.mesh, ts.mesh):
         assert torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jax_scene(t=0.0), build_default_scene(t=0.0)
+    return jax_scene(t=0.0), build_default_scene(t=0.0, device="cpu")
 
 
 def _assert_accel_equal(t_acc, j_acc):
@@ -157,7 +157,7 @@ def test_accel_from_numpy_round_trip(scenes):
     j_acc = JP.build_cluster_accel(js.mesh, cluster_size=16)
     t_acc = TP.accel_from_numpy(
         {k: (None if v is None else np.asarray(v))
-         for k, v in j_acc._asdict().items()})
+         for k, v in j_acc._asdict().items()}, device="cpu")
     _assert_accel_equal(t_acc, j_acc)
     own = TP.build_cluster_accel(ts.mesh, cluster_size=16)
     for a, b in zip(own, t_acc):

@@ -71,3 +71,11 @@ def test_wrappers_refuse_other_devices():
 
     with pytest.raises(ValueError, match="meta"):
         T.tile_extents(torch.empty((8, 1024), device="meta"))
+    meta = torch.empty((1, 4), dtype=torch.int32, device="meta")
+    box = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        T.refine_lists(torch.empty((8, 1024), device="meta"), meta,
+                       meta[:, 0], box, box)
+    with pytest.raises(ValueError, match="cpu.*meta|meta.*cpu"):
+        T.walk_camera(torch.zeros((1, 2)), T.Camera(16, 16, 1, 1.0, 16, 16),
+                      0, 1, meta, meta[:, 0], box, None, 0, 4, 1e-8)

@@ -47,7 +47,7 @@ def jax_uniforms(seed: int, n_chunks: int):
 
 @pytest.fixture(scope="module")
 def scene():
-    return build_default_scene(t=0.0)
+    return build_default_scene(t=0.0, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -126,11 +126,21 @@ def test_odd_frame_size_and_padded_chunks(scene, accel16):
     dict(lights=True),
 ], ids=lambda c: next(iter(c)))
 def test_unported_paths_raise(scene, accel16, change):
+    """Unported options are refused by name. `primary_shared_origin` has
+    since been ported: its case now checks that the option is taken (the
+    four rays down +z hit the ground far away or the sky: finite)."""
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        **{k: v for k, v in change.items() if k != "lights"})
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
+
+    def run():
+        return render_rays(scene.mesh, accel16, scene.sun, o, d, cfg,
+                           lambda depth, shape: torch.rand(shape),
+                           lights=object() if "lights" in change else None)
+
+    if "primary_shared_origin" in change:
+        assert torch.isfinite(run()).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_rays(scene.mesh, accel16, scene.sun, o, d, cfg,
-                    lambda depth, shape: torch.rand(shape),
-                    lights=object() if "lights" in change else None)
+        run()

@@ -39,7 +39,7 @@ def accels():
         j = jax_build(scene.mesh, cluster_size=cs)
         out[cs] = (j, accel_from_numpy(
             {k: (None if v is None else np.asarray(v))
-             for k, v in j._asdict().items()}))
+             for k, v in j._asdict().items()}, device="cpu"))
     return out
 
 

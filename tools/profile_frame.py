@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 tools/profile_frame.py [--out chiprun_out/profile_frame.json]
+                                   [--camera]
 
 Renders the reference frame (800x800 at 4 spp, `RenderConfig()` defaults:
 the CS=16 accel plus the auto-built CS=128 bounce accel) once to warm up,
@@ -13,7 +14,8 @@ layer by its name. The script prints device ms, share and launches per
 layer, the device-busy time, and the idle share against the median
 unprofiled frame (the profiler slows the host, so the profiled frame's
 own wall time is not used). `--out` gets the same table plus every
-kernel's totals as JSON. The script never imports JAX.
+kernel's totals as JSON. `--camera` renders with
+`primary_shared_origin=True` (camera-mode primaries). The script never imports JAX.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (layer, substrings of the kernel name), first match wins.
 LAYERS = (
-    ("walk, K1 + K2 (walk.cu)", ("walk_kernel",)),
-    ("refine, K5 (refine.cu)", ("refine_kernel",)),
+    ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu)",
+     ("walk_kernel",)),
+    ("refine, K5 dense and gathered (refine.cu)",
+     ("refine_kernel", "refine_lists_kernel")),
     ("extents, K6 (extents.cu)", ("extents_kernel",)),
     ("sorts (bin keys, visit lists)", ("sort", "Sort", "radix", "Radix")),
     ("reductions (any, amin, sums)", ("reduce", "Reduce")),
@@ -62,7 +66,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_frame.json",
                     help="JSON file for the full table")
-    out = ap.parse_args().out
+    ap.add_argument("--camera", action="store_true",
+                    help="camera-mode primaries (primary_shared_origin)")
+    opts = ap.parse_args()
+    out = opts.out
     sys.path.insert(0, HERE)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -77,7 +84,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    cfg = RenderConfig()
+    cfg = RenderConfig(primary_shared_origin=opts.camera)
     scene = build_default_scene(device="cuda")
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
 
