@@ -25,20 +25,48 @@ Phases (any failure raises and the script exits non-zero):
      c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
         on the depth-2 wavefront of the 404k-triangle subdivided teapot
         (3,160 bounce clusters);
+     d. per-ray t_max: the busiest chunk's area-light shadow query (one
+        spherical light, centre (1, 8, 7), radius 1.5) through the
+        `_walk_groups` entry (CS=16) and the `_walk_dma` entry (CS=128),
+        kernel against plain, and timed beside a scalar t_max;
+     e. the streamed-groups walk (`walk_gstream`, K3), run in phase 7 on
+        the 1.6M-triangle scene (12,640 x 128: 4 groups of 4,096 clusters
+        at the 32 MiB budget) on all 2,560,000 pack-path rays: against its
+        plain version lane by lane, and against the group loop with K1
+        (t, slots, attributes, occlusion flags; early exit on and off);
+        its time beside the loop's, at budgets of 16 and 64 MiB, and
+        beside one K1 launch over the whole table, lists included;
+     f. the work-queue walk (`walk_wq`, K4) on the depth-2 wavefront of
+        3a, the very lists the `_walk_dma` row is timed on: against its
+        plain version and bit-equal on alive lanes to that entry (nearest
+        with attributes; occlusion under a scalar and a per-ray t_max; a
+        tile with no visits);
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
   5. the reference frame — 800x800 at 4 spp, default config: one frame
-     with launch counts reset, then 3 timed frames; the same with
-     `primary_shared_origin=True` (camera-mode primaries);
+     with launch counts reset, then 2 timed frames (3 before the script
+     grew phases 8 and 9); the same with `primary_shared_origin=True`
+     (camera-mode primaries);
   6. headline — `nearest_hit_camera_soa` at 800x800x4 on the default
      scene, CS=16, the offsets perturbed by each call's result: primary
      rays/s, gated on a plausible hit fraction;
   7. large scenes — the same query on the subdivided teapot at 404k
      (CS=64), 1.6M and 6.4M (CS=128) triangles, with mesh-generation and
-     accel-build seconds, and one Whitted frame of the 404k scene.
+     accel-build seconds, the pack-path query `nearest_hit_soa` at 1.6M and
+     6.4M (it runs K3), and one Whitted frame each of the 1.6M scene (its
+     primary and sun-shadow queries run K3) and the 404k scene;
+  8. the path-traced frame — 800x800, 64 spp, 4 bounces, chunks of 131,072
+     pixels, CS=16 plus the auto-built CS=128 bounce accel: a 64x64 2-spp
+     frame on the card against the plain CPU path with the same uniforms,
+     then one counted and one timed full frame;
+  9. the area-light frame — the reference frame with the light of 3d and
+     4 shadow samples: one counted frame, one timed; and the same frame
+     with `_WQ_IMPL = "grid"` (bounce queries through K4) against the
+     default from the same seed, bit-equal.
 
-Each main path (5, 5 with camera mode, 7's 1.6M query, 7's Whitted frame)
+Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
+queries, 7's Whitted frame, 8, 9, 9's "grid" frame)
 runs with the launch counts set to 0 just before and read just after. The
 last two lines are the kernel table and the result, each one JSON object.
 The script never imports JAX.
@@ -78,7 +106,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "raytracing_tpu/kernels/traverse.py:3676"),
     "refine_lists": ("raytracing_tpu_torch/csrc/refine.cu",
                      "raytracing_tpu/kernels/traverse.py:648"),
+    "walk_gstream": ("raytracing_tpu_torch/csrc/gstream.cu",
+                     "raytracing_tpu/kernels/traverse.py:1414"),
+    "walk_wq": ("raytracing_tpu_torch/csrc/wq.cu",
+                "raytracing_tpu/kernels/traverse.py:2063"),
 }
+LIGHT = ((1.0, 8.0, 7.0), 1.5, (1.5, 1.5, 1.5))  # centre, radius, emission
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
 PEAK_FP32 = 67e12
@@ -215,22 +248,32 @@ def _tile_alive_lanes(pack, ray_tile=1024):
 
 
 def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
-                nearest=True, plain_reps=5):
-    """Compare one pack walk launch with its plain version, then time both
-    and reckon the launch's bound from the visits it made."""
+                nearest=True, plain_reps=5, kernel="walk"):
+    """Compare one pack walk launch (`walk`, `walk_gstream` or `walk_wq`)
+    with its plain version, then time both and reckon the launch's bound
+    from the visits it made. Returns the kernel's result."""
     import torch
 
+    fn, plain = getattr(T, kernel), getattr(T, kernel + "_plain")
     rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
-    visits = torch.zeros(cnt.shape, dtype=torch.int32, device=rp.device)
-    err = _compare_walk(tag, T.walk(*args, **kw, visits=visits),
-                        T.walk_plain(*args), alive, nearest)
-    bound = _walk_bound(visits, _tile_alive_lanes(rp), cnt, geo, attr,
-                        n_attrs, cs, rp.shape[1], rp.numel() * 4,
-                        ops_per_test, kw["tnear"] is not None)
-    _row(rows, name, err, lambda: T.walk(*args, **kw),
-         lambda: T.walk_plain(*args), bound,
+    if kernel == "walk_wq":  # no early exit: every listed visit is made
+        visits, tile_visits, out = cnt, cnt, fn(*args, **kw)
+    else:
+        visits = torch.zeros(cnt.shape, dtype=torch.int32, device=rp.device)
+        out = fn(*args, **kw, visits=visits)
+        # K3 lists per (group, tile): a tile's visits are its groups' sum.
+        tile_visits = visits if visits.dim() == 1 else visits.sum(dim=0)
+    err = _compare_walk(tag, out, plain(*args), alive, nearest)
+    tr = args[-1]  # the per-ray limit row, read once
+    bound = _walk_bound(tile_visits, _tile_alive_lanes(rp), cnt, geo, attr,
+                        n_attrs if nearest else 0, cs, rp.shape[1],
+                        rp.numel() * 4 + (0 if tr is None else tr.numel() * 4),
+                        ops_per_test, kw.get("tnear") is not None)
+    _row(rows, name, err, lambda: fn(*args, **kw), lambda: plain(*args),
+         bound,
          f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
          plain_reps=plain_reps)
+    return out
 
 
 def phase_kernels():
@@ -328,9 +371,99 @@ def phase_kernels():
                 f"{bp.shape[1]} rays, {c128}x128")
     # The wavefront's own rays as an occlusion query through K2.
     oargs, okw = T._dma_walk_args(acc128, bp, eps, False, INF, 0)
-    _compare_walk("walk_dma (K2) bounce occlusion", T.walk(*oargs, **okw),
+    k2_occ = T.walk(*oargs, **okw)
+    _compare_walk("walk_dma (K2) bounce occlusion", k2_occ,
                   T.walk_plain(*oargs), balive, False)
+
+    # 3d. Per-ray t_max: the chunk's area-light shadow query (one sample of
+    # `area_light_term` at the primary hits) through both pack entries.
+    lights = _light(dev)
+    gen.manual_seed(3)
+    w_dir, ndl, l_alive, t_stop = whitted.light_shadow_rays(
+        whitted.light_cone(lights, 0, pos), pos, n, hit,
+        torch.rand((pos.shape[0], 2), generator=gen, device=dev))
+    lp = T.rays_to_soa(pos, w_dir, alive=l_alive)
+    row = t_stop[None].contiguous()
+    for name, make, acc in (("walk_tmax", T._groups_walk_args, acc16),
+                            ("walk_dma_tmax", T._dma_walk_args, acc128)):
+        largs, lkw = make(acc, lp, eps, False, INF, 0, tmax_row=row)
+        occ = _timed_walk(
+            rows, name, f"{lkw['entry']} light shadows, per-ray t_max", T,
+            largs, lkw, lp[7] != 0, OPS_PMT,
+            f"{lp.shape[1]} rays, {acc.num_clusters}x{acc.cluster_size}, "
+            f"occlusion under tmax_row", nearest=False)
+        # What the row costs: the same lists under the scalar limit (no
+        # row is read; neither launch can exit early).
+        scalar = largs[:-1] + (None,)
+        print(f"[kernels] {lkw['entry']} light shadows on the same lists "
+              f"under a scalar t_max: "
+              f"{_median_ms(lambda: T.walk(*scalar, **lkw)):.4f} ms "
+              f"(under the row: "
+              f"{_median_ms(lambda: T.walk(*largs, **lkw)):.4f} ms)")
+        # Nothing lies beyond this light, so its limits hide no occluder;
+        # limits cut to a random share of themselves do, and the kernel
+        # still equals its plain version.
+        cut = (row * torch.rand(row.shape, generator=gen, device=dev)
+               ).contiguous()
+        cargs, ckw = make(acc, lp, eps, False, INF, 0, tmax_row=cut)
+        occ_cut = T.walk(*cargs, **ckw)
+        _compare_walk(f"{lkw['entry']} light shadows, limits cut short",
+                      occ_cut, T.walk_plain(*cargs), lp[7] != 0, False)
+        n_lim, n_cut = (int(x[1][0][lp[7] != 0].sum()) for x in (occ, occ_cut))
+        _require(0 < n_cut < n_lim, f"{name}: {n_lim} occluded under the "
+                 f"light's limits, {n_cut} under the cut ones")
+
+    # 3f. K4 on the very lists the walk_dma row is timed on.
+    wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na)
+    _require(torch.equal(wargs[1], dargs[1]) and torch.equal(wargs[2],
+                                                             dargs[2]),
+             "walk_wq (K4): not the lists of the walk_dma row")
+    k4 = _timed_walk(rows, "walk_wq", "walk_wq (K4) bounce nearest+attrs", T,
+                     wargs, wkw, balive, OPS_PMT,
+                     f"{bp.shape[1]} rays, {c128}x128, {wkw['u']} visits per "
+                     f"work item", plain_reps=1, kernel="walk_wq")
+    _compare_walk("walk_wq (K4) vs walk_dma (K2), nearest+attrs", k4,
+                  T.walk(*dargs, **dkw), balive, True)
+    noexit = dict(dkw, tnear=None, bbox=None)
+    print(f"[kernels] walk_dma (K2) on the same lists without its early "
+          f"exit: {_median_ms(lambda: T.walk(*dargs, **noexit)):.4f} ms")
+    brow = torch.linspace(0.5, 30.0, bp.shape[1], device=dev)[None]
+    for tag, trow in (("scalar t_max", None), ("per-ray t_max", brow)):
+        a4, k4kw = T._wq_walk_args(acc128, bp, eps, False, 30.0, 0,
+                                   tmax_row=trow)
+        a2, k2kw = T._dma_walk_args(acc128, bp, eps, False, 30.0, 0,
+                                    tmax_row=trow)
+        k4o = T.walk_wq(*a4, **k4kw)
+        _compare_walk(f"walk_wq (K4) occlusion, {tag}, vs plain", k4o,
+                      T.walk_wq_plain(*a4), balive, False)
+        _compare_walk(f"walk_wq (K4) occlusion, {tag}, vs walk_dma (K2)",
+                      k4o, T.walk(*a2, **k2kw), balive, False)
+    # A tile with no visits reads miss / not occluded.
+    bp0 = bp.clone()
+    bp0[7, -T.RAY_TILE:] = 0.0
+    dead = slice(bp0.shape[1] - T.RAY_TILE, bp0.shape[1])
+    z4, zkw = T._wq_walk_args(acc128, bp0, eps, True, INF, na)
+    _require(int(z4[2][-1]) == 0, "walk_wq (K4): the dead tile lists visits")
+    zt, zs, za = T.walk_wq(*z4, **zkw)
+    zo = T.walk_wq(*T._wq_walk_args(acc128, bp0, eps, False, INF, 0)[0])
+    _require(bool(torch.isinf(zt[0, dead]).all())
+             and bool((zs[0, dead] == 2 ** 30).all())
+             and not bool(za[:, dead].any()) and not bool(zo[1][0, dead].any()),
+             "walk_wq (K4): a tile with no visits does not read miss / not "
+             "occluded")
+    print("[kernels] walk_wq (K4): a tile with no visits reads miss / not "
+          "occluded")
     return rows
+
+
+def _light(dev):
+    import torch
+
+    from raytracing_tpu_torch import SphereLight
+
+    c, r, e = LIGHT
+    return SphereLight(torch.tensor([c]), torch.tensor([r]),
+                       torch.tensor([e])).to(dev)
 
 
 def _refine_bound(alive_lanes, listed, entered, pack, width, n_clusters):
@@ -558,57 +691,69 @@ def phase_frame_parity():
               f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
 
 
-def _timed_frames(scene, cfg, accel, reps, gi_accel=None):
+def _timed_frames(scene, cfg, accel, reps, gi_accel=None, pt=None):
     """One frame with the launch counts reset and the queries counted, then
-    `reps` timed frames. Returns (img, launches, counts, first, times)."""
+    `reps` timed frames: the Whitted renderer, or with `pt` (a
+    PathTracerConfig) the path tracer. The alive lanes are summed on the
+    device, without a host sync, so the counted frame runs as any other.
+    Returns (img, launches, counts, first, times)."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.models import path_tracer, whitted
 
     sync = torch.cuda.synchronize
-    queried = {"nearest": 0, "shadow": 0, "nearest_alive": 0,
-               "shadow_alive": 0}
+    queried = {"nearest": 0, "shadow": 0}
+    alive_sums = {"nearest": torch.zeros((), dtype=torch.int64, device="cuda"),
+                  "shadow": torch.zeros((), dtype=torch.int64, device="cuda")}
     nearest, any_hit = whitted.nearest_hit_shaded, whitted.any_hit
     camera = whitted.nearest_hit_shaded_camera
 
+    def count(kind, n, alive):
+        queried[kind] += n
+        alive_sums[kind] += n if alive is None else alive.sum()
+
     def counted_nearest(acc, o, d, config, alive=None, **kw):
-        queried["nearest"] += o.shape[0]
-        queried["nearest_alive"] += (o.shape[0] if alive is None
-                                     else int(alive.sum()))
+        count("nearest", o.shape[0], alive)
         return nearest(acc, o, d, config, alive=alive, **kw)
 
     def counted_camera(acc, offs, config, tile_base, tiles, bh, bw):
-        n = tiles * config.samples_per_pixel * bh * bw
-        queried["nearest"] += n
-        queried["nearest_alive"] += n
+        count("nearest", tiles * config.samples_per_pixel * bh * bw, None)
         return camera(acc, offs, config, tile_base, tiles, bh, bw)
 
     def counted_any(acc, o, d, config, alive=None, **kw):
-        queried["shadow"] += o.shape[0]
-        queried["shadow_alive"] += (o.shape[0] if alive is None
-                                    else int(alive.sum()))
+        count("shadow", o.shape[0], alive)
         return any_hit(acc, o, d, config, alive=alive, **kw)
+
+    def frame():
+        if pt is not None:
+            return path_tracer.render(scene, cfg, pt, accel=accel,
+                                      gi_accel=gi_accel)
+        return whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
 
     whitted.nearest_hit_shaded, whitted.any_hit = counted_nearest, counted_any
     whitted.nearest_hit_shaded_camera = counted_camera
+    path_tracer.nearest_hit_shaded = counted_nearest
     try:
         sync()
         T.reset_launches()
         t0 = time.perf_counter()
-        img = whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
+        img = frame()
         sync()
         first = time.perf_counter() - t0
         launches = dict(T.LAUNCHES)
         counts = dict(queried)
+        for kind, total in alive_sums.items():
+            counts[kind + "_alive"] = int(total)
     finally:
         whitted.nearest_hit_shaded, whitted.any_hit = nearest, any_hit
         whitted.nearest_hit_shaded_camera = camera
+        path_tracer.nearest_hit_shaded = nearest
     times = []
     for _ in range(reps):
         sync()
         t0 = time.perf_counter()
-        img = whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
+        img = frame()
         sync()
         times.append(time.perf_counter() - t0)
     _require(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
@@ -656,7 +801,7 @@ def phase_reference_frame():
              cfg.replace(primary_shared_origin=True),
              ("walk_camera", "walk", "walk_dma", "refine", "extents"))):
         img, launches, counts, first, times = _timed_frames(scene, c, accel,
-                                                            3)
+                                                            2)
         err = float((img[2, 2].cpu() - sky).abs().max())
         _require(err <= SKY_ATOL, f"{tag}: sky pixel off by {err}")
         for k in need:
@@ -728,7 +873,9 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
     import torch
 
     from raytracing_tpu_torch import RenderConfig, build_cluster_accel
-    from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
+                                                     sun_position)
     from raytracing_tpu_torch.kernels import traverse as T
 
     print(f"[large] 404k: mesh_gen {built404['mesh_s']} s, accel_build "
@@ -738,7 +885,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                         camera, False)
     _camera_rate(acc64, 800, 800, 4, HIT_GATE_LARGE, 10, "large 404k")
 
-    rate_launches = None
+    rate_launches = gstream_launches = None
     for levels, tag, iters in ((4, "1m6", 10), (5, "6m4", 5)):
         t0 = time.perf_counter()
         mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
@@ -752,6 +899,28 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
         _check_camera_frame(rows, "walk_camera_dma" if levels == 4
                             else f"walk_camera_dma_{tag}", "walk_camera_dma",
                             acc, camera, False, timed=levels == 4)
+        # The pack-path query of that check, as a main path of K3.
+        T.reset_launches()
+        t_pack, _ = T.nearest_hit_soa(acc, camera[2], camera[3],
+                                      shared_origin=torch.zeros(3,
+                                                                device="cuda"))
+        groups = -(-acc.num_clusters // T._group_clusters(acc, 0))
+        _require(T.LAUNCHES["walk_gstream"] == 1 and T.LAUNCHES["walk"] == 0,
+                 f"the {tag} pack-path query did not run K3: {T.LAUNCHES}")
+        print(f"[large {tag}] pack-path query nearest_hit_soa: walk_gstream "
+              f"(K3) over {groups} groups, "
+              f"{int(torch.isfinite(t_pack).sum())} hits")
+        if levels == 4:
+            gstream_launches = dict(T.LAUNCHES)
+            _check_gstream(rows, acc, camera)
+            # K3 inside a frame: the primary nearest (4 groups) and sun
+            # shadow (3 groups) queries of every chunk.
+            frame = _timed_frames(
+                Scene(mesh=mesh, sun=sun_position(0.0).to("cuda")),
+                RenderConfig(), acc, 0)
+            _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0,
+                     f"the 1.6M Whitted frame's launches: {frame[1]}")
+            _print_frame("1.6M Whitted frame", RenderConfig(), *frame)
         torch.cuda.reset_peak_memory_stats()
         T.reset_launches()
         _camera_rate(acc, 800, 800, 4, HIT_GATE_LARGE, iters, f"large {tag}")
@@ -770,7 +939,248 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                  f"kernel {k} was not launched by the 404k Whitted frame")
     _print_frame("404k Whitted frame", cfg, img, launches, counts, first,
                  times)
-    return rate_launches, launches
+    return rate_launches, launches, gstream_launches
+
+
+def _check_gstream(rows, acc, camera):
+    """3e. K3 at the 1.6M-triangle scene on all 2,560,000 pack-path rays
+    (the origin folded, as phase 7's pack-path query walks them): the
+    kernel against its plain version lane by lane (nearest with the 4
+    attribute rows: 4 groups), against the group loop with K1 — t, slots,
+    attributes and occlusion flags, with the early exit on and off — and
+    its time beside the loop's launches, and at other budgets."""
+    import torch
+
+    from raytracing_tpu_torch.accel import packets
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    _, _, rp, eps = camera
+    dev = rp.device
+    zero3 = torch.zeros(3, device=dev)
+    na = acc.attr_blocks.shape[1]
+    every = torch.ones(rp.shape[1], dtype=torch.bool, device=dev)
+    query = (acc, rp, eps, True, INF, na)
+    args, kw = T._gstream_walk_args(*query, shared_origin=zero3)
+    ng, gsz = args[1].shape[0], args[7]
+    print(f"[kernels] walk_gstream (K3): {acc.num_clusters} clusters of "
+          f"{acc.cluster_size} with {na} attribute rows at a budget of "
+          f"{packets._GROUP_BLOCK_BUDGET_BYTES / 2 ** 20} MiB: {ng} groups "
+          f"of {gsz}, early exit {kw['tnear'] is not None}")
+    _require(ng == 4 and gsz == 4096, f"1.6M scene: {ng} groups of {gsz}")
+    _timed_walk(rows, "walk_gstream", "walk_gstream (K3) 1.6M nearest+attrs",
+                T, args, kw, every, OPS_PMTO,
+                f"{rp.shape[1]} rays, {acc.num_clusters}x128 in {ng} groups "
+                f"of {gsz}, A = {na}, pmto", plain_reps=1,
+                kernel="walk_gstream")
+    del args, kw
+    streamed = T.STREAM_GROUPS
+    try:
+        for early in (True, False):
+            res = {}
+            for flag in (True, False):
+                T.STREAM_GROUPS = flag
+                T.reset_launches()
+                res[flag] = T._walk_groups(*query, early_exit=early,
+                                           shared_origin=zero3)
+                which = "walk_gstream" if flag else "walk"
+                _require(T.LAUNCHES[which] == (1 if flag else ng),
+                         f"STREAM_GROUPS={flag}: launches {T.LAUNCHES}")
+            _compare_walk(f"walk_gstream (K3) vs the K1 group loop, early "
+                          f"exit {early}", res[True], res[False], every, True)
+        occ = {}
+        for flag in (True, False):
+            T.STREAM_GROUPS = flag
+            occ[flag] = T._walk_groups(acc, rp, eps, False, INF, 0,
+                                       shared_origin=zero3)
+        _compare_walk("walk_gstream (K3) vs the K1 group loop, occlusion",
+                      occ[True], occ[False], every, False)
+        del res, occ
+        # Times: the whole query either way (extents, lists, launches), and
+        # the loop's K1 launches alone beside the one K3 launch.
+        for flag in (True, False):
+            T.STREAM_GROUPS = flag
+            ms = _median_ms(lambda: T._walk_groups(*query,
+                                                   shared_origin=zero3))
+            print(f"[kernels] 1.6M nearest+attrs query through "
+                  f"{'K3' if flag else 'the K1 group loop'}, lists included: "
+                  f"{ms:.4f} ms")
+        loop = [T._groups_walk_args(*query, shared_origin=zero3,
+                                    clusters=(lo, min(lo + gsz,
+                                                      acc.num_clusters)))
+                for lo in range(0, acc.num_clusters, gsz)]
+        ms = _median_ms(lambda: [T.walk(*a, **k) for a, k in loop])
+        print(f"[kernels] the K1 group loop's {len(loop)} walk launches "
+              f"alone: {ms:.4f} ms (walk_gstream: "
+              f"{rows['walk_gstream']['ms']:.4f} ms)")
+        # The loop's groups cannot exit on a hit another group found.
+        seen = torch.zeros(rp.shape[1] // 1024, dtype=torch.int32, device=dev)
+        visited = 0
+        for a, k in loop:
+            T.walk(*a, visits=seen, **k)
+            visited += int(seen.sum())
+        print(f"[kernels] the K1 group loop visited {visited} clusters "
+              f"({rows['walk_gstream']['shape']})")
+        del loop
+    finally:
+        T.STREAM_GROUPS = streamed
+    budget = packets._GROUP_BLOCK_BUDGET_BYTES
+    try:
+        for mib in (16, 64, 1024):
+            packets._GROUP_BLOCK_BUDGET_BYTES = mib * 2 ** 20
+            if mib == 1024:  # the whole table in one piece: K1
+                a, k = T._groups_walk_args(*query, shared_origin=zero3)
+                ms = _median_ms(lambda: T.walk(*a, **k))
+                print(f"[kernels] 1.6M, no groups (K1 over the whole "
+                      f"table): walk {ms:.4f} ms")
+                T.reset_launches()
+                one = T._walk_groups(*query, shared_origin=zero3)
+                _require(T.LAUNCHES["walk"] == 1
+                         and T.LAUNCHES["walk_gstream"] == 0,
+                         f"no groups: launches {T.LAUNCHES}")
+                ms = _median_ms(lambda: T._walk_groups(*query,
+                                                       shared_origin=zero3))
+                packets._GROUP_BLOCK_BUDGET_BYTES = budget
+                _compare_walk("walk_gstream (K3) vs one K1 launch over the "
+                              "whole table",
+                              T._walk_groups(*query, shared_origin=zero3),
+                              one, every, True)
+                k3 = _median_ms(lambda: T._walk_groups(*query,
+                                                       shared_origin=zero3))
+                print(f"[kernels] 1.6M nearest+attrs query, lists included: "
+                      f"one K1 launch over the whole table {ms:.4f} ms, "
+                      f"K3 {k3:.4f} ms")
+                del one
+            else:
+                a, k = T._gstream_walk_args(*query, shared_origin=zero3)
+                ms = _median_ms(lambda: T.walk_gstream(*a, **k))
+                print(f"[kernels] 1.6M at a budget of {mib} MiB: "
+                      f"{a[1].shape[0]} groups of {a[7]}, walk_gstream "
+                      f"{ms:.4f} ms")
+            del a, k
+    finally:
+        packets._GROUP_BLOCK_BUDGET_BYTES = budget
+
+
+def phase_path_traced_frame():
+    """8. BASELINE config 3 on the default scene: parity of a small frame
+    with the CPU plain path, then one timed full frame (800x800, 64 spp, 4
+    bounces) after the counted one. Returns its launches."""
+    import torch
+
+    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig,
+                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch.models import path_tracer
+
+    small = RenderConfig(width=64, height=64, chunk_size=131072)
+    pt_small = PathTracerConfig(max_bounces=4, samples_per_pixel=2)
+    draws = {}
+
+    def uniforms(i, s, tag, shape):
+        key = (i, s, tag)
+        if key not in draws:
+            g = torch.Generator().manual_seed(
+                100000 * i + 1000 * s + 10 * tag[1] + (tag[0] == "scatter"))
+            draws[key] = torch.rand(shape, generator=g)
+        return draws[key]
+
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        scene = build_default_scene(device=dev)
+        acc = build_cluster_accel(scene.mesh, cluster_size=16)
+        imgs.append(path_tracer.render(
+            scene, small, pt_small, accel=acc,
+            uniforms=lambda i, s, tag, shape, dev=dev:
+            uniforms(i, s, tag, shape).to(dev)).cpu())
+    err = float((imgs[0] - imgs[1]).abs().max())
+    _require(bool(torch.isfinite(imgs[0]).all()), "64x64 path-traced frame "
+             "is not finite")
+    _require(err <= FRAME_PARITY_ATOL, f"64x64 path-traced frame: card vs "
+             f"CPU max abs {err} > {FRAME_PARITY_ATOL}")
+    print(f"[parity] path tracer 64x64, 2 spp, 4 bounces: card vs CPU plain "
+          f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
+
+    cfg = RenderConfig(width=800, height=800, chunk_size=131072)
+    pt = PathTracerConfig(max_bounces=4, samples_per_pixel=64)
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    img, launches, counts, first, times = _timed_frames(scene, cfg, accel, 1,
+                                                        pt=pt)
+    sky = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
+    err = float((img[2, 2].cpu() - sky).abs().max())
+    _require(err <= SKY_ATOL, f"path-traced frame: sky pixel off by {err}")
+    for k in ("walk", "walk_dma", "refine", "extents"):
+        _require(launches[k] > 0,
+                 f"kernel {k} was not launched by the path-traced frame")
+    paths = cfg.width * cfg.height * pt.samples_per_pixel
+    _print_frame(f"path-traced frame, {pt.max_bounces} bounces,",
+                 cfg.replace(samples_per_pixel=pt.samples_per_pixel), img,
+                 launches, counts, first, times)
+    print(f"[frame] path-traced frame: {paths} paths in {times[0]} s (the "
+          f"frame after the counted one) -> {paths / times[0]} paths/s")
+    return launches
+
+
+def phase_area_light_frame():
+    """9. The reference Whitted frame with one spherical light and 4
+    shadow samples (per-ray t_max through the K1 and K2 entries), and the
+    same frame with its bounce queries through K4 (`_WQ_IMPL = "grid"`)
+    against the default, same seed. Returns the launches of the frame and of
+    the K4 frame."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+
+    base = build_default_scene(device="cuda")
+    scene = Scene(base.mesh, base.sun, _light("cuda"))
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(light_samples=4)
+    img, launches, counts, first, times = _timed_frames(scene, cfg, accel, 1)
+    dark = whitted.render(base, cfg, accel=accel)
+    _require(bool((img.mean() > dark.mean())),
+             "the light adds no radiance to the frame")
+    for k in ("walk", "walk_dma", "refine", "extents"):
+        _require(launches[k] > 0,
+                 f"kernel {k} was not launched by the area-light frame")
+    _print_frame("area-light reference frame", cfg, img, launches, counts,
+                 first, times)
+    print(f"[frame] area-light frame mean {float(img.mean())} against "
+          f"{float(dark.mean())} without the light")
+
+    impl = T._WQ_IMPL
+    imgs, secs = {}, {}
+    try:
+        for which in ("dma", "grid"):
+            T._WQ_IMPL = which
+            T.reset_launches()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(5)
+            t0 = time.perf_counter()
+            imgs[which] = whitted.render(scene, cfg, accel=accel,
+                                         generator=gen)
+            torch.cuda.synchronize()
+            secs[which] = time.perf_counter() - t0
+            if which == "grid":
+                grid_launches = dict(T.LAUNCHES)
+            else:
+                dma_launches = dict(T.LAUNCHES)
+    finally:
+        T._WQ_IMPL = impl
+    # Every bounce query of the frame goes through K4 and none through K2.
+    _require(grid_launches["walk_wq"] == dma_launches["walk_dma"] > 0
+             and grid_launches["walk_dma"] == 0,
+             f"the grid frame's launches: {grid_launches}")
+    bad = int((imgs["grid"] != imgs["dma"]).sum())
+    _require(bad == 0, f"area-light reference frame: grid and dma images "
+             f"differ in {bad} values")
+    print(f"[frame] area-light reference frame, _WQ_IMPL grid vs dma: images "
+          f"bit-equal; dma {secs['dma']} s, grid {secs['grid']} s (the grid "
+          f"frame is its first); grid launches {grid_launches}")
+    return launches, grid_launches
 
 
 def main() -> int:
@@ -790,7 +1200,10 @@ def main() -> int:
     phase_frame_parity()
     ref_launches, cam_launches = phase_reference_frame()
     phase_headline()
-    rate_launches, big_launches = phase_large_scenes(rows, *large)
+    rate_launches, big_launches, gstream_launches = phase_large_scenes(
+        rows, *large)
+    pt_launches = phase_path_traced_frame()
+    light_launches, grid_launches = phase_area_light_frame()
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
     # Each kernel's launches on the main path that runs it.
@@ -798,6 +1211,10 @@ def main() -> int:
     launches["walk_camera"] = cam_launches["walk_camera"]
     launches["walk_camera_dma"] = rate_launches["walk_camera_dma"]
     launches["refine_lists"] = big_launches["refine_lists"]
+    launches["walk_gstream"] = gstream_launches["walk_gstream"]
+    launches["walk_wq"] = grid_launches["walk_wq"]
+    print(f"[done] launches of the path-traced frame {pt_launches}; of the "
+          f"area-light frame {light_launches}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -19,6 +19,16 @@ import torch
 from raytracing_tpu_torch.geometry.mesh import Mesh
 
 
+# Bytes of cluster table (12 geometry rows plus the attribute rows, f32)
+# that one walk launch takes as a whole; a bigger table is walked in groups
+# of this size (`kernels.traverse._group_clusters`). Sized for the H100's
+# 50 MB L2: the thread blocks resident at one time walk the same group, so
+# its slice of the table should stay in L2 beside their rays and lists
+# (a few MB). Tables below it — the reference frame's, the 404k-triangle
+# scene's — are walked in one piece.
+_GROUP_BLOCK_BUDGET_BYTES = 32 * 1024 * 1024
+
+
 class ClusterAccel(NamedTuple):
     """order [S] i32 (packed slot -> triangle id, padding repeats 0);
     slot_valid [S] bool; cluster_min/max [C, 3] f32;

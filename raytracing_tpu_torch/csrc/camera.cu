@@ -62,10 +62,12 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
     float best_t[R];
     int best_s[R];
     bool alive[R];
+    float t_lim[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int l = base + threadIdx.x + r * kThreads;
       alive[r] = l < rt_rays;
+      t_lim[r] = inf();
       const int ll = alive[r] ? l : rt_rays - 1;
       const int s = ll / p2;
       const int p = ll % p2;
@@ -82,7 +84,7 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
     }
     visited += walk_list<R, true>(blk, o, d, alive, ids + row,
                                   tnear ? tnear + row : nullptr, trips, bbox,
-                                  geo, geo_stride, cs, eps, inf(), true,
+                                  geo, geo_stride, 0, cs, eps, t_lim, true,
                                   early != 0, ee_batch, best_t, best_s);
 #pragma unroll
     for (int r = 0; r < R; ++r) {

@@ -29,6 +29,7 @@ namespace {
 template <bool PMTO>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const float* __restrict__ rays, long long np,
+            const float* __restrict__ tmax_row,
             const int* __restrict__ ids, const int* __restrict__ cnt,
             const float* __restrict__ tnear, int width,
             const float* __restrict__ bbox,
@@ -46,9 +47,11 @@ walk_kernel(const float* __restrict__ rays, long long np,
   float best_t[kRaysPerThread];
   int best_s[kRaysPerThread];
   bool alive[kRaysPerThread];
+  float t_lim[kRaysPerThread];
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
     const long long i = ray_index(r);
+    t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       o[r][k] = rays[k * np + i];
@@ -62,8 +65,8 @@ walk_kernel(const float* __restrict__ rays, long long np,
   const long long row = static_cast<long long>(tile) * width;
   const int visited = walk_list<kRaysPerThread, PMTO>(
       blk, o, d, alive, ids + row, tnear ? tnear + row : nullptr, cnt[tile],
-      bbox, geo, geo_stride, cs, eps, t_max, nearest != 0, early && nearest,
-      ee_batch, best_t, best_s);
+      bbox, geo, geo_stride, 0, cs, eps, t_lim, nearest != 0,
+      early && nearest, ee_batch, best_t, best_s);
   if (visits != nullptr && threadIdx.x == 0) visits[tile] = visited;
 
 #pragma unroll
@@ -76,15 +79,17 @@ walk_kernel(const float* __restrict__ rays, long long np,
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; ids [nt, width] i32 with cnt [nt] <= width listed clusters
-// per tile; tnear [nt, width] and bbox [6] (only read when early != 0);
-// geo: cluster c's 12 geometry rows
-// at geo + c * geo_stride, each cs floats; attr likewise with attr_stride
+// rays [8, np]; tmax_row [np] or null: each ray's own occlusion limit in
+// place of the scalar t_max; ids [nt, width] i32 with cnt [nt] <= width
+// listed clusters per tile; tnear [nt, width] and bbox [6] (only read when
+// early != 0); geo: cluster c's 12 geometry rows at geo + c * geo_stride,
+// each cs floats; attr likewise with attr_stride
 // (n_attrs rows; unused for occlusion). pmto != 0 selects the origin-folded
 // intersector (the caller folded the shared origin into geo). Outputs
 // t [np], slot or hit flag [np] i32, attrs [n_attrs, np], and, where
 // visits is not null, the clusters each tile visited [nt] i32.
-extern "C" int rt_walk(const float* rays, long long np, const int* ids,
+extern "C" int rt_walk(const float* rays, long long np,
+                       const float* tmax_row, const int* ids,
                        const int* cnt, const float* tnear, int width,
                        const float* bbox, const float* geo,
                        long long geo_stride, const float* attr,
@@ -99,7 +104,7 @@ extern "C" int rt_walk(const float* rays, long long np, const int* ids,
   const unsigned nt = static_cast<unsigned>(np / rt::kRayTile);
   auto kern = pmto ? rt::walk_kernel<true> : rt::walk_kernel<false>;
   kern<<<nt, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays, np, ids, cnt, tnear, width, bbox, geo, geo_stride, attr,
+      rays, np, tmax_row, ids, cnt, tnear, width, bbox, geo, geo_stride, attr,
       attr_stride, n_attrs, cs, eps, t_max, nearest, early,
       ee_batch, out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,8 @@
 //        t = d0 / den, u = u0 + t (U·d), v = v0c + t (V·d). The origin rows
 //        are never read.
 // Nearest keeps a flat (best_t, best_slot) per ray: min t, then min slot,
-// and an infinite t never ties. Occlusion keeps min t under a scalar t_max.
+// and an infinite t never ties. Occlusion keeps min t under each ray's own
+// limit (a scalar t_max, or one entry of a per-ray row).
 // Early exit, every ee_batch visits: a block vote on "every alive lane's
 // min(best_t, scene-exit t) is below the next entry's lower bound" —
 // exact, so results do not depend on it.
@@ -51,17 +52,22 @@ __device__ __forceinline__ float scene_exit(const float o[3], const float d[3],
 // block's shared staging buffer of 12 * kMaxClusterSize floats; every
 // thread of the block must call this with the same list (it synchronises).
 // Lanes with alive == false take no part in the early-exit vote; their
-// results are meaningless. best_t / best_s must come in as +inf / kBigId.
-// Returns the number of clusters visited (trips, or fewer after an early
-// exit).
+// results are meaningless. best_t / best_s come in as +inf / kBigId, or as
+// the result of an earlier call for the same rays (another list, another
+// part of the table): the (min t, min slot) rule does not depend on the
+// order of the visits, and a hit found earlier is a real hit, so the vote
+// stays exact. Listed ids index `geo`; a triangle's slot is
+// slot_base + id * cs + lane. Occlusion accepts t < t_lim[r]. Returns the
+// number of clusters visited (trips, or fewer after an early exit).
 template <int R, bool PMTO>
 __device__ __forceinline__ int walk_list(
     float* blk, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
     const float* __restrict__ tile_tnear, int trips,
     const float* __restrict__ bbox, const float* __restrict__ geo,
-    long long geo_stride, int cs, float eps, float t_max, bool nearest,
-    bool use_exit, int ee_batch, float (&best_t)[R], int (&best_s)[R]) {
+    long long geo_stride, int slot_base, int cs, float eps,
+    const float (&t_lim)[R], bool nearest, bool use_exit, int ee_batch,
+    float (&best_t)[R], int (&best_s)[R]) {
   float exit_t[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -73,7 +79,7 @@ __device__ __forceinline__ int walk_list(
     __syncthreads();  // the previous visit's reads of blk are done
     for (int e = threadIdx.x; e < 12 * cs; e += blockDim.x) blk[e] = g[e];
     __syncthreads();
-    const int slot0 = c * cs;
+    const int slot0 = slot_base + c * cs;
     for (int k = 0; k < cs; ++k) {
       const float nx = blk[k], ny = blk[cs + k], nz = blk[2 * cs + k];
       const float d0 = blk[3 * cs + k];
@@ -106,7 +112,7 @@ __device__ __forceinline__ int walk_list(
             best_t[r] = t;
             best_s[r] = slot;
           }
-        } else if (valid && t < t_max && t < best_t[r]) {
+        } else if (valid && t < t_lim[r] && t < best_t[r]) {
           best_t[r] = t;
         }
       }

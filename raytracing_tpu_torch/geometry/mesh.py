@@ -12,7 +12,6 @@ import numpy as np
 import torch
 
 
-
 class Mesh(NamedTuple):
     """verts [V, 3] f32, tri_v [T, 3] i32, normals [T, 3] f32 (stored face
     normals), colors [T, 3] f32, obj_id [T] i32, materials [O, 3] f32
@@ -38,16 +37,28 @@ class Mesh(NamedTuple):
         return Mesh(*(f.to(device) for f in self))
 
 
+class SphereLight(NamedTuple):
+    """Spherical area lights: center [L, 3], radius [L], emission [L, 3]
+    (radiance of the emitting surface), all f32."""
+
+    center: torch.Tensor
+    radius: torch.Tensor
+    emission: torch.Tensor
+
+    def to(self, device) -> "SphereLight":
+        return SphereLight(*(f.to(device) for f in self))
+
+
 class Scene(NamedTuple):
-    """Mesh plus the sun's position [3]. `lights` (area lights) is not
-    ported: a scene that carries them is refused by the renderer."""
+    """Mesh, the sun's position [3], and optional area lights."""
 
     mesh: Mesh
     sun: torch.Tensor
-    lights: Optional[object] = None
+    lights: Optional[SphereLight] = None
 
     def to(self, device) -> "Scene":
-        return Scene(self.mesh.to(device), self.sun.to(device), self.lights)
+        return Scene(self.mesh.to(device), self.sun.to(device),
+                     None if self.lights is None else self.lights.to(device))
 
 
 def concat_objects(objects: Sequence[dict]) -> Mesh:
@@ -94,9 +105,15 @@ def concat_objects(objects: Sequence[dict]) -> Mesh:
 
 def scene_from_numpy(d: dict, device="cuda") -> Scene:
     """A Scene from numpy arrays under the JAX package's field names (the
-    Mesh fields plus "sun") — how tests hand both packages one scene. It
-    lands on the card unless `device` says otherwise."""
+    Mesh fields plus "sun", and optionally "lights": a mapping with center
+    [L, 3], radius [L] and emission [L, 3]) — how tests hand both packages
+    one scene. It lands on the card unless `device` says otherwise."""
     mesh = Mesh(*(torch.tensor(np.ascontiguousarray(d[f]))
                   for f in Mesh._fields))
     sun = torch.tensor(np.asarray(d["sun"], dtype=np.float32))
-    return Scene(mesh=mesh, sun=sun).to(device)
+    lights = d.get("lights")
+    if lights is not None:
+        lights = SphereLight(*(
+            torch.tensor(np.ascontiguousarray(lights[f], dtype=np.float32))
+            for f in SphereLight._fields))
+    return Scene(mesh=mesh, sun=sun, lights=lights).to(device)

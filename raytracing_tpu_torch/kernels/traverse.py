@@ -13,7 +13,14 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
       their listed candidates with `refine_lists` (K5, gathered form);
   phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
       with the Baldwin–Weber test "pmt" or, for a pack whose rays share
-      one origin (`shared_origin=`), its origin-folded form "pmto".
+      one origin (`shared_origin=`), its origin-folded form "pmto". A
+      table bigger than the group budget (`_group_clusters`) is walked in
+      groups of clusters: one launch of `walk_gstream` (K3) over per-group
+      lists, or, with `STREAM_GROUPS = False`, one K1 launch per group and
+      an elementwise-nearest merge. With `_WQ_IMPL = "grid"` a `wq` query
+      takes `walk_wq` (K4), whose unit of work is a few visits of a tile,
+      instead of K2. An occlusion query may carry a per-ray limit
+      (`tmax_row`) in place of the scalar `t_max`.
 
 Camera mode (`nearest_hit_camera_soa`) answers the primary level without a
 ray pack: a tile is one bh x bw pixel block x spp samples, its frustum
@@ -28,7 +35,8 @@ rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of 1024; dead lanes (row 7
 
 A visit list is as wide as the cluster table: the card has no scratch
 budget that forces the TPU's narrower lists, so no list is ever cut short
-and the TPU walk's overflow rescan has no counterpart here.
+and the TPU walk's overflow rescan (and the work-queue walk's residual
+launch) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from raytracing_tpu_torch.accel import packets
 from raytracing_tpu_torch.accel.packets import ClusterAccel
 from raytracing_tpu_torch.kernels import cuda
 from raytracing_tpu_torch.ops.linalg import device_scalar
@@ -61,12 +70,23 @@ _BIG_ID = 2 ** 30
 # of their temporaries (bound their memory).
 _PLAIN_TILE_GROUP = 64
 _PLAIN_TEMP_ELEMS = 1 << 24
+# A table above the group budget is walked by one launch of K3 over
+# per-group lists (True) or by one K1 launch per group (False); the results
+# are the same.
+STREAM_GROUPS = True
+# What a `wq` query runs: "dma", the `_walk_dma` entry (K2), or "grid", the
+# work-queue walk (K4). Both equal the `_walk_groups` entry bit for bit.
+_WQ_IMPL = "dma"
+# Visits per work item of K4.
+WQ_U = 4
 
 # Kernel launches since the last reset: "walk" counts the `_walk_groups`
-# entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2), and
-# "walk_camera" / "walk_camera_dma" their camera-mode forms.
+# entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
+# "walk_camera" / "walk_camera_dma" their camera-mode forms, "walk_gstream"
+# the streamed-groups walk (K3) and "walk_wq" the work-queue walk (K4).
 LAUNCHES = {"extents": 0, "refine": 0, "refine_lists": 0, "walk": 0,
-            "walk_dma": 0, "walk_camera": 0, "walk_camera_dma": 0}
+            "walk_dma": 0, "walk_camera": 0, "walk_camera_dma": 0,
+            "walk_gstream": 0, "walk_wq": 0}
 
 
 class Hit(NamedTuple):
@@ -362,16 +382,34 @@ def _fold_origin(pmt_blocks, o):
                       v0 + dot_o(v_)], dim=1)
 
 
+def _winner_attrs(attr, s_out, n_attrs: int, cs: int):
+    """The winners' attribute rows [A, N] from slots s_out [1, N]; 0 on
+    miss lanes (slot 2^30). None without attributes."""
+    if not n_attrs:
+        return None
+    hit = s_out[0] != _BIG_ID
+    s = torch.where(hit, s_out[0], 0).long()
+    attrs = attr[s // cs, :n_attrs, s % cs].T  # [A, N]
+    return torch.where(hit[None], attrs, 0.0)
+
+
+def _merge_nearest(best_t, best_s, t, s):
+    """Fold (t, s) into (best_t, best_s) by min t, then min slot; an
+    infinite t never ties. The order of the folds does not matter."""
+    upd = (t < best_t) | ((t == best_t) & (t < INF) & (s < best_s))
+    return torch.minimum(best_t, t), torch.where(upd, s, best_s)
+
+
 def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                eps: float, nearest: bool, t_max: float = INF,
-               pmto: bool = False, ray_tile: int = RAY_TILE):
+               pmto: bool = False, tmax_row=None, ray_tile: int = RAY_TILE):
     """Plain version of the walk: for each list position j, gather every
     still-walking tile's j-th cluster block and intersect (the TPU's
     `_pmt_tile`, or `_pmt_o_tile` with `pmto`, op for op). Nearest keeps
     min t, then min slot, with no tie at +inf; occlusion keeps min t with
-    t < t_max. Returns (t [1, N], slot or hit flag [1, N] i32, attrs [A, N]
-    | None); missing lanes get t = +inf, slot 2^30, attrs 0. No early exit
-    (it is exact)."""
+    t < t_max, or t < tmax_row [1, N] per ray where that is given. Returns
+    (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None); missing
+    lanes get t = +inf, slot 2^30, attrs 0. No early exit (it is exact)."""
     dev = rays8.device
     n = rays8.shape[1]
     nt = n // ray_tile
@@ -381,6 +419,8 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                         device=dev)
     sub = torch.arange(cs, dtype=torch.int32, device=dev).reshape(1, cs, 1)
     pack = rays8.reshape(8, nt, 1, ray_tile)
+    limit = (None if tmax_row is None
+             else tmax_row.reshape(nt, 1, ray_tile))
     trips_host = trips.tolist()
     for g0, g1 in _plain_groups(nt, cs, ray_tile):
         for j in range(max(trips_host[g0:g1], default=0)):
@@ -409,7 +449,8 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
             valid = (torch.abs(den) >= eps) & (u >= 0.0) & (v >= 0.0) \
                 & (u + v <= 1.0) & (t > eps)
             if not nearest:
-                valid = valid & (t < t_max)
+                valid = valid & (t < (t_max if limit is None
+                                      else limit[act]))
             t = torch.where(valid, t, INF)
             tmin_v = t.amin(dim=1)  # [na, ray_tile]
             acc_t = best_t[act]
@@ -426,13 +467,16 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     if not nearest:
         return t_out, (t_out < INF).to(torch.int32), None
     s_out = best_s.reshape(1, n)
-    attrs = None
-    if n_attrs:
-        hit = s_out[0] != _BIG_ID
-        s = torch.where(hit, s_out[0], 0).long()
-        attrs = attr[s // cs, :n_attrs, s % cs].T  # [A, N]
-        attrs = torch.where(hit[None], attrs, 0.0)
-    return t_out, s_out, attrs
+    return t_out, s_out, _winner_attrs(attr, s_out, n_attrs, cs)
+
+
+def _check_tmax_row(who, n, tmax_row):
+    """A per-ray limit goes to a kernel as a contiguous f32 [1, N] row."""
+    if tmax_row is not None and (
+            tmax_row.dtype != torch.float32 or not tmax_row.is_contiguous()
+            or tmax_row.shape != (1, n)):
+        raise ValueError(f"{who}: tmax_row must be a contiguous f32 "
+                         f"[1, {n}] row")
 
 
 def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox):
@@ -456,38 +500,56 @@ def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox):
                          "bbox [6]")
 
 
+def _walk_outputs(rays8, attr, n_attrs: int, nearest: bool):
+    """What a pack walk kernel writes, and the attribute table it reads:
+    (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None, table |
+    None); an occlusion walk reads no attributes."""
+    n, dev = rays8.shape[1], rays8.device
+    attr_t = attr if nearest and n_attrs else None
+    return (torch.empty((1, n), dtype=torch.float32, device=dev),
+            torch.empty((1, n), dtype=torch.int32, device=dev),
+            None if attr_t is None else torch.empty(
+                (n_attrs, n), dtype=torch.float32, device=dev),
+            attr_t)
+
+
+def _no_hit(rays8):
+    """(t, slot) [1, N] of rays that have hit nothing yet."""
+    n, dev = rays8.shape[1], rays8.device
+    return (torch.full((1, n), INF, dtype=torch.float32, device=dev),
+            torch.full((1, n), _BIG_ID, dtype=torch.int32, device=dev))
+
+
 def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
-         nearest: bool, t_max: float = INF, pmto: bool = False, tnear=None,
-         bbox=None, ee_batch: int = 1, entry: str = "walk", visits=None):
+         nearest: bool, t_max: float = INF, pmto: bool = False,
+         tmax_row=None, tnear=None, bbox=None, ee_batch: int = 1,
+         entry: str = "walk", visits=None):
     """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA.
 
     geo [C, >=12, CS] holds each cluster's Baldwin–Weber rows first; attr
     [C, >=A, CS] its attribute rows (a view into a combined table is fine).
     With `pmto` the geo table is origin-folded (`_fold_origin`) and the
-    pack's origin rows are not read. With tnear [nt, W] and bbox [6]
+    pack's origin rows are not read. tmax_row [1, N]: each ray's own
+    occlusion limit in place of t_max. With tnear [nt, W] and bbox [6]
     (union-box min | max) a nearest walk votes on the front-to-back early
     exit every ee_batch visits. `entry` names the launch count ("walk" or
     "walk_dma"). `visits`, an i32 [nt] CUDA tensor, receives the clusters
     each tile visited (for measuring; the plain version has no early exit
     and ignores it)."""
-    if _on_cpu(rays8, ids, cnt, geo, attr):
+    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                          nearest, t_max, pmto)
+                          nearest, t_max, pmto, tmax_row)
     nt = _check_pack(rays8)
-    dev = rays8.device
     early = tnear is not None and nearest
     _check_walk_tables("walk", nt, ids, cnt, geo, attr, cs,
                        tnear if early else None, bbox)
     n = rays8.shape[1]
-    out_t = torch.empty((1, n), dtype=torch.float32, device=dev)
-    out_s = torch.empty((1, n), dtype=torch.int32, device=dev)
-    attr_t = attr if nearest and n_attrs else None
-    out_a = (torch.empty((n_attrs, n), dtype=torch.float32, device=dev)
-             if attr_t is not None else None)
+    _check_tmax_row("walk", n, tmax_row)
+    out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
     cuda.check(lib.rt_walk(
-        _ptr(rays8), n, _ptr(ids), _ptr(cnt32),
+        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
         _ptr(tnear if early else None), ids.shape[1],
         _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
         _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
@@ -499,36 +561,237 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     return out_t, out_s, out_a
 
 
-def _union_box(accel: ClusterAccel) -> torch.Tensor:
-    return torch.cat([accel.cluster_min.amin(dim=0),
-                      accel.cluster_max.amax(dim=0)])
+def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
+                        gsz: int, eps: float, nearest: bool,
+                        t_max: float = INF, pmto: bool = False,
+                        tmax_row=None):
+    """Plain version of K3: `walk_plain` over each group's lists and its
+    slice of the table, the groups folded by (min t, then min slot) with
+    slot = (g * gsz + id) * cs + lane; attributes from the final winner."""
+    best_t, best_s = _no_hit(rays8)
+    for g in range(ids.shape[0]):
+        t_g, s_g, _ = walk_plain(rays8, ids[g], cnt[g],
+                                 geo[g * gsz:(g + 1) * gsz], None, 0, cs,
+                                 eps, nearest, t_max, pmto, tmax_row)
+        if nearest:
+            s_g = torch.where(s_g != _BIG_ID, s_g + g * gsz * cs, _BIG_ID)
+            best_t, best_s = _merge_nearest(best_t, best_s, t_g, s_g)
+        else:
+            best_t = torch.minimum(best_t, t_g)
+    if not nearest:
+        return best_t, (best_t < INF).to(torch.int32), None
+    return best_t, best_s, _winner_attrs(attr, best_s, n_attrs, cs)
 
 
-def _early(nearest: bool, accel: ClusterAccel, early_exit) -> bool:
+def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
+                 eps: float, nearest: bool, t_max: float = INF,
+                 pmto: bool = False, tmax_row=None, tnear=None, bbox=None,
+                 ee_batch: int = 1, visits=None):
+    """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA. The
+    walk over a table of G groups of gsz clusters in one launch.
+
+    ids [G, nt, W] i32 hold group-local cluster ids with cnt [G, nt] listed
+    per (group, tile) — 0 on a dead tile; geo [G * gsz, >=12, CS] and attr
+    [G * gsz, >=A, CS] are the whole tables, the last group padded with
+    zero blocks. With tnear [G, nt, W] and bbox [G, 6] (each group's union
+    box, min | max) a nearest walk votes on the early exit per group.
+    Returns what `walk` returns, the slots global. `visits`, an i32 [G, nt]
+    CUDA tensor, receives the clusters each (group, tile) visited."""
+    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
+        return walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs, cs,
+                                  gsz, eps, nearest, t_max, pmto, tmax_row)
+    nt = _check_pack(rays8)
+    early = tnear is not None and nearest
+    if ids.dim() != 3 or cnt.shape != ids.shape[:2]:
+        raise ValueError("walk_gstream: ids [G, nt, W] / cnt [G, nt]")
+    ng, _, w = ids.shape
+    _check_walk_tables("walk_gstream", nt * ng, ids.reshape(ng * nt, w),
+                       cnt.reshape(-1), geo, attr, cs,
+                       tnear.reshape(ng * nt, w) if early else None, bbox)
+    n = rays8.shape[1]
+    _check_tmax_row("walk_gstream", n, tmax_row)
+    if geo.shape[0] != ng * gsz or ng * gsz * cs >= _BIG_ID or (
+            early and bbox.shape != (ng, 6)):
+        raise ValueError(f"walk_gstream: the table must hold {ng} groups of "
+                         f"{gsz} clusters (fewer than 2^30 slots), bbox "
+                         f"[{ng}, 6]")
+    out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
+    cnt32 = cnt.to(torch.int32).contiguous()
+    lib = cuda.library()
+    cuda.check(lib.rt_walk_gstream(
+        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+        _ptr(tnear if early else None), w, ng, int(gsz),
+        _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
+        _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
+        n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
+        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(out_t),
+        _ptr(out_s), _ptr(out_a), _ptr(visits), _stream()), "walk_gstream")
+    LAUNCHES["walk_gstream"] += 1
+    return out_t, out_s, out_a
+
+
+def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
+                  eps: float, nearest: bool, t_max: float = INF,
+                  pmto: bool = False, tmax_row=None, u: int = WQ_U):
+    """Plain version of K4: the lists cut into work items of `u` visits,
+    each item walked on its own (`walk_plain`) and the items of a tile
+    folded by (min t, then min slot) — in any order the same. A tile with
+    no visits reads miss / not occluded."""
+    listed = torch.clamp_max(cnt.to(torch.int64), ids.shape[1])
+    best_t, best_s = _no_hit(rays8)
+    for j0 in range(0, int(listed.max()) if listed.numel() else 0, u):
+        t_k, s_k, _ = walk_plain(rays8, ids[:, j0:j0 + u],
+                                 torch.clamp(listed - j0, 0, u), geo, None, 0,
+                                 cs, eps, nearest, t_max, pmto, tmax_row)
+        if nearest:
+            best_t, best_s = _merge_nearest(best_t, best_s, t_k, s_k)
+        else:
+            best_t = torch.minimum(best_t, t_k)
+    if not nearest:
+        return best_t, (best_t < INF).to(torch.int32), None
+    return best_t, best_s, _winner_attrs(attr, best_s, n_attrs, cs)
+
+
+def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
+            nearest: bool, t_max: float = INF, pmto: bool = False,
+            tmax_row=None, u: int = WQ_U):
+    """K4 (csrc/wq.cu): plain version on CPU, kernel on CUDA. The walk with
+    `u` visits of one tile as the unit of work: a tile's work items run in
+    any order on any multiprocessor and merge per ray through one atomic
+    minimum of (t, slot). Tables, lists and results as `walk`; there is no
+    early exit, every listed visit is walked."""
+    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
+        return walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
+                             nearest, t_max, pmto, tmax_row, u)
+    nt = _check_pack(rays8)
+    _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None)
+    n = rays8.shape[1]
+    _check_tmax_row("walk_wq", n, tmax_row)
+    items = nt * -(-ids.shape[1] // int(u))
+    if items >= 2 ** 31:
+        raise ValueError(f"walk_wq: {nt} tiles of {ids.shape[1]} listed "
+                         f"visits make {items} work items; one launch "
+                         f"takes fewer than 2**31")
+    out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
+    # The (t, slot) keys of the atomic merge; the launch fills them.
+    keys = (torch.empty(n, dtype=torch.int64, device=rays8.device)
+            if nearest else None)
+    cnt32 = cnt.to(torch.int32).contiguous()
+    lib = cuda.library()
+    cuda.check(lib.rt_walk_wq(
+        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32), ids.shape[1],
+        int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
+        attr_t.stride(0) if attr_t is not None else 0,
+        n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
+        int(nearest), int(pmto), _ptr(keys), _ptr(out_t), _ptr(out_s),
+        _ptr(out_a), _stream()), "walk_wq")
+    LAUNCHES["walk_wq"] += 1
+    return out_t, out_s, out_a
+
+
+def _union_box(cluster_min, cluster_max) -> torch.Tensor:
+    return torch.cat([cluster_min.amin(dim=0), cluster_max.amax(dim=0)])
+
+
+def _early(nearest: bool, n_clusters: int, early_exit, tmax_row=None) -> bool:
     """Early exit for nearest queries: forced by the caller, else above
-    `_EARLY_EXIT_MIN_CLUSTERS` clusters (the TPU package's rule)."""
-    return nearest and (accel.num_clusters > _EARLY_EXIT_MIN_CLUSTERS
-                        if early_exit is None else bool(early_exit))
+    `_EARLY_EXIT_MIN_CLUSTERS` walked clusters (the TPU package's rule).
+    Occlusion and per-ray-limit queries never exit early."""
+    return nearest and tmax_row is None and (
+        n_clusters > _EARLY_EXIT_MIN_CLUSTERS if early_exit is None
+        else bool(early_exit))
+
+
+def _group_clusters(accel: ClusterAccel, n_attrs: int) -> int:
+    """Most clusters one walk launch takes as a whole: as many as put
+    their 12 geometry and n_attrs attribute rows of cluster_size floats
+    inside the group budget (`accel.packets._GROUP_BLOCK_BUDGET_BYTES`), and
+    at least 256. A bigger table is walked in groups of this size."""
+    per_cluster = 4 * (12 + n_attrs) * accel.cluster_size
+    return max(256, packets._GROUP_BLOCK_BUDGET_BYTES // per_cluster)
+
+
+def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None)):
+    """(geometry table, pmto): the Baldwin–Weber blocks of a run of
+    clusters (default: all), origin-folded for the pmto intersector when
+    every ray leaves `shared_origin` [3]."""
+    blocks = accel.pmt_blocks[clusters]
+    if shared_origin is None:
+        return blocks, False
+    return _fold_origin(blocks, shared_origin), True
 
 
 def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
-                      n_attrs, early_exit=None, shared_origin=None):
+                      n_attrs, early_exit=None, shared_origin=None,
+                      tmax_row=None, clusters=None):
     """The `_walk_groups` launch (K1): frustum lists over the separate pmt
     and attribute tables; with `shared_origin` [3] the origin-folded table
-    and the pmto intersector. Returns (args, kw): `walk(*args, **kw)` is
-    the launch and `walk_plain(*args)` its plain version."""
+    and the pmto intersector. `clusters` = (lo, hi) walks only that run of
+    the table (the group loop), with cluster ids local to it. Returns
+    (args, kw): `walk(*args, **kw)` is the launch and `walk_plain(*args)`
+    its plain version."""
     cs = accel.cluster_size
-    early = _early(nearest, accel, early_exit)
-    ids, tnear, cnt = _tile_visit_lists_soa(rp, accel.cluster_min,
-                                            accel.cluster_max)
-    pmto = shared_origin is not None
-    geo = (_fold_origin(accel.pmt_blocks, shared_origin) if pmto
-           else accel.pmt_blocks)
-    args = (rp, ids, cnt, geo, accel.attr_blocks if n_attrs else None,
-            n_attrs, cs, eps, nearest, t_max, pmto)
+    lo, hi = clusters or (0, accel.num_clusters)
+    cmin, cmax = accel.cluster_min[lo:hi], accel.cluster_max[lo:hi]
+    early = _early(nearest, hi - lo, early_exit, tmax_row)
+    ids, tnear, cnt = _tile_visit_lists_soa(rp, cmin, cmax)
+    geo, pmto = _geo_table(accel, shared_origin, slice(lo, hi))
+    args = (rp, ids, cnt, geo,
+            accel.attr_blocks[lo:hi] if n_attrs else None,
+            n_attrs, cs, eps, nearest, t_max, pmto, tmax_row)
     kw = dict(tnear=tnear if early else None,
-              bbox=_union_box(accel) if early else None,
+              bbox=_union_box(cmin, cmax) if early else None,
               ee_batch=_ee_batch_for(cs), entry="walk")
+    return args, kw
+
+
+def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
+                       n_attrs, early_exit=None, shared_origin=None,
+                       tmax_row=None):
+    """The streamed-groups launch (K3): one extents pass (K6), then every
+    group's frustum lists from it in one pass — the interval test against
+    each group's run of boxes, ids local to the group, sorted within the
+    (group, tile) row, no entry on a dead tile — and the
+    groups' union boxes for the early exit. The last group is padded with
+    inverted boxes and zero blocks (never accepted); the interval test
+    would take an inverted box for one that covers everything, so the
+    padded clusters are struck from the lists by their index.
+    Returns (args, kw): `walk_gstream(*args, **kw)` is the launch and
+    `walk_gstream_plain(*args)` its plain version."""
+    cs = accel.cluster_size
+    gsz = _group_clusters(accel, n_attrs)
+    ng = -(-accel.num_clusters // gsz)
+    pad_c = ng * gsz - accel.num_clusters
+    cmin, cmax = accel.cluster_min, accel.cluster_max
+    geo, pmto = _geo_table(accel, shared_origin)
+    attr = accel.attr_blocks if n_attrs else None
+
+    def padded(tab, fill):
+        if tab is None or not pad_c:
+            return tab
+        return torch.cat([tab, tab.new_full((pad_c,) + tab.shape[1:], fill)])
+
+    cmin, cmax = padded(cmin, _BIG), padded(cmax, -_BIG)
+    geo, attr = padded(geo, 0.0), padded(attr, 0.0)
+    lo, hi = tile_extents(rp)
+    tile_alive = hi[:, 7] > 0.0
+    early = _early(nearest, gsz, early_exit, tmax_row)
+    # Every group's lists in one pass: the boxes as [G, 1, gsz] against the
+    # tiles' extents as [1, nt], sorted within each (group, tile) row.
+    gmin, gmax = cmin.reshape(ng, 1, gsz, 3), cmax.reshape(ng, 1, gsz, 3)
+    flags, t_near = _frustum_slabs(
+        lo[None, :, 0:3], hi[None, :, 0:3], lo[None, :, 4:7],
+        hi[None, :, 4:7], lambda k: gmin[..., k], lambda k: gmax[..., k])
+    real = torch.arange(ng * gsz, device=rp.device) < accel.num_clusters
+    ids, tnear, cnt = _compact_lists(flags & real.reshape(ng, 1, gsz), t_near)
+    cnt = torch.where(tile_alive[None], cnt, 0)
+    bbox = (torch.cat([cmin.reshape(ng, gsz, 3).amin(dim=1),
+                       cmax.reshape(ng, gsz, 3).amax(dim=1)], dim=1)
+            if early else None)
+    args = (rp, ids, cnt, geo, attr, n_attrs, cs, gsz, eps, nearest, t_max,
+            pmto, tmax_row)
+    kw = dict(tnear=tnear if early else None, bbox=bbox,
+              ee_batch=_ee_batch_for(cs))
     return args, kw
 
 
@@ -560,35 +823,104 @@ def _combined_table(geo, accel: ClusterAccel, n_attrs):
 
 
 def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                   early_exit=None, shared_origin=None):
+                   early_exit=None, shared_origin=None, tmax_row=None):
     """The `_walk_dma` launch (K2): refined lists (K5) over the combined
     [C, 12 + A, CS] table. Returns (args, kw) as `_groups_walk_args`
     does."""
     cs = accel.cluster_size
-    pmto = shared_origin is not None
-    geo = (_fold_origin(accel.pmt_blocks, shared_origin) if pmto
-           else accel.pmt_blocks)
+    geo, pmto = _geo_table(accel, shared_origin)
     blocks, attr = _combined_table(geo, accel, n_attrs)
     ids, tnear, cnt = _refined_lists(accel, rp)
-    early = _early(nearest, accel, early_exit)
+    early = _early(nearest, accel.num_clusters, early_exit, tmax_row)
     args = (rp, ids, cnt, blocks, attr, n_attrs, cs, eps, nearest, t_max,
-            pmto)
+            pmto, tmax_row)
     kw = dict(tnear=tnear if early else None,
-              bbox=_union_box(accel) if early else None,
+              bbox=(_union_box(accel.cluster_min, accel.cluster_max)
+                    if early else None),
               ee_batch=_dma_ee_batch(cs), entry="walk_dma")
     return args, kw
 
 
+def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
+                  shared_origin=None, tmax_row=None):
+    """The work-queue launch (K4): refined lists (K5, either form: both
+    give the same walk) over the combined [C, 12 + A, CS] table. Returns
+    (args, kw): `walk_wq(*args, **kw)` is the launch and
+    `walk_wq_plain(*args)` its plain version.
+
+    The TPU package cuts its lists to a fixed width and covers the tiles
+    that overflow it with a second, ordinary launch; the lists here are
+    never cut, so K4 walks every listed visit and that residual launch has
+    no counterpart."""
+    geo, pmto = _geo_table(accel, shared_origin)
+    blocks, attr = _combined_table(geo, accel, n_attrs)
+    ids, _, cnt = _refined_lists(accel, rp)
+    args = (rp, ids, cnt, blocks, attr, n_attrs, accel.cluster_size, eps,
+            nearest, t_max, pmto, tmax_row)
+    return args, dict(u=WQ_U)
+
+
+def _walk_groups_loop(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
+                      gsz, **query):
+    """A table above the group budget without K3: one K1 launch per group
+    of gsz clusters, each with its own lists, merged by elementwise
+    nearest (a later group wins only with a smaller t, so ties keep the
+    lower slot). Rays are independent, so grouping is exact."""
+    cs = accel.cluster_size
+    best = None
+    for lo in range(0, accel.num_clusters, gsz):
+        hi = min(lo + gsz, accel.num_clusters)
+        args, kw = _groups_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
+                                     clusters=(lo, hi), **query)
+        t_g, s_g, a_g = walk(*args, **kw)
+        if nearest:
+            s_g = s_g + lo * cs
+        if best is None:
+            best = (t_g, s_g, a_g)
+        elif nearest:
+            better = t_g < best[0]
+            best = (torch.minimum(best[0], t_g),
+                    torch.where(better, s_g, best[1]),
+                    torch.where(better, a_g, best[2]) if n_attrs else None)
+        else:
+            best = (torch.minimum(best[0], t_g), best[1] | s_g, None)
+    return best
+
+
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                 early_exit=None, wq=False, shared_origin=None):
-    """One walk through the `_walk_groups` entry (K1); `wq` with a
-    128-multiple cluster size takes the `_walk_dma` entry (K2) instead, as
-    the TPU package does."""
-    make = (_dma_walk_args if wq and accel.cluster_size % 128 == 0
-            else _groups_walk_args)
-    args, kw = make(accel, rp, eps, nearest, t_max, n_attrs,
-                    early_exit=early_exit, shared_origin=shared_origin)
-    return walk(*args, **kw)
+                 early_exit=None, wq=False, shared_origin=None,
+                 tmax_row=None):
+    """One walk over the cluster set: (t [1, rp], slot or hit flag [1, rp],
+    attrs | None). tmax_row: an optional [1, rp] per-ray limit of an
+    occlusion query.
+
+    `wq` takes the `_walk_dma` entry (K2) for a 128-multiple cluster size
+    (`_WQ_IMPL == "dma"`), or the work-queue walk (K4) for a table inside
+    the group budget (`_WQ_IMPL == "grid"`); whatever they do not take
+    falls through. A table inside the group budget is one K1 launch; a
+    bigger one is walked in groups, by K3 (`STREAM_GROUPS`) or by K1 in a
+    loop."""
+    query = dict(shared_origin=shared_origin, tmax_row=tmax_row)
+    gsz = _group_clusters(accel, n_attrs)
+    if wq and _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
+        args, kw = _dma_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
+                                  early_exit=early_exit, **query)
+        return walk(*args, **kw)
+    if wq and _WQ_IMPL == "grid" and accel.num_clusters <= gsz:
+        args, kw = _wq_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
+                                 **query)
+        return walk_wq(*args, **kw)
+    query["early_exit"] = early_exit
+    if accel.num_clusters <= gsz:
+        args, kw = _groups_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
+                                     **query)
+        return walk(*args, **kw)
+    if STREAM_GROUPS:
+        args, kw = _gstream_walk_args(accel, rp, eps, nearest, t_max,
+                                      n_attrs, **query)
+        return walk_gstream(*args, **kw)
+    return _walk_groups_loop(accel, rp, eps, nearest, t_max, n_attrs, gsz,
+                             **query)
 
 
 # ---------------------------------------------------------------------------
@@ -663,11 +995,16 @@ def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs):
     return t, slot, attrs
 
 
-def _merge_rest_occlusion(accel, rays8, occ, eps, t_max):
+def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row=None):
+    """Fold the rest set into an occlusion result, under the scalar t_max
+    or the per-ray limits tmax_row [1, N]."""
     if accel.rest_blocks is None:
         return occ
     o, d = _rows(rays8)
-    t_lim = t_max if t_max != INF else None
+    if tmax_row is not None:
+        t_lim = tmax_row
+    else:
+        t_lim = t_max if t_max != INF else None
     t_r = _rest_t_rows(o, d, accel.rest_blocks, eps, t_limit=t_lim)
     return occ | torch.isfinite(t_r).any(dim=0)
 
@@ -733,15 +1070,22 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
 
 def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
                 t_max=INF, wq: bool = False) -> torch.Tensor:
-    """Occlusion over the pack under a scalar t_max -> [N] bool."""
-    if isinstance(t_max, torch.Tensor):
-        raise NotImplementedError(
-            "per-ray t_max (area lights) is not ported "
-            "(ROADMAP Queue 1 item 9)")
+    """Occlusion over the pack -> [N] bool. t_max: a number (one bound for
+    every ray) or an [N] tensor (each ray's own bound — an area light's
+    shadow sample stops at its light's surface). An infinite entry of the
+    tensor becomes 3e38; the lanes that pad the pack get 0."""
+    tmax_row = None
+    if isinstance(t_max, torch.Tensor) and t_max.dim():
+        row = torch.where(torch.isfinite(t_max), t_max, _BIG)
+        tmax_row = torch.nn.functional.pad(
+            row.to(rays8.dtype)[None], (0, (-rays8.shape[1]) % RAY_TILE)
+        ).contiguous()
+        t_max = INF
     t_max = float(t_max)
     rp, r = _pad_rays_soa(rays8)
-    _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq)
-    occ = _merge_rest_occlusion(accel, rp, occ[0] != 0, eps, t_max)
+    _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq,
+                             tmax_row=tmax_row)
+    occ = _merge_rest_occlusion(accel, rp, occ[0] != 0, eps, t_max, tmax_row)
     return occ[:r]
 
 
@@ -1001,7 +1345,7 @@ def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
     else:
         ids, tnear, cnt = _visit_lists_from_extents(
             *ext, accel.cluster_min, accel.cluster_max)
-    early = _early(True, accel, early_exit)
+    early = _early(True, accel.num_clusters, early_exit)
     zero3 = torch.zeros(3, dtype=torch.float32, device=offs.device)
     folded = _fold_origin(accel.pmt_blocks, zero3)
     dma = cs % 128 == 0
@@ -1011,7 +1355,8 @@ def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
         geo, attr = folded, accel.attr_blocks if n_attrs else None
     args = (offs, cam, tile0, n_tiles, ids, cnt, geo, attr, n_attrs, cs, eps)
     kw = dict(tnear=tnear if early else None,
-              bbox=_union_box(accel) if early else None,
+              bbox=(_union_box(accel.cluster_min, accel.cluster_max)
+                    if early else None),
               ee_batch=_dma_ee_batch(cs) if dma else _ee_batch_for(cs),
               entry="walk_camera_dma" if dma else "walk_camera")
     return args, kw

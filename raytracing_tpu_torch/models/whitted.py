@@ -7,16 +7,22 @@ level l holds every ray at depth l as one batch, children are appended as
 accumulated on the way back up. Sun shadows are an any-hit query; mirror
 reflection to `reflect_depth`; a cosine-weighted fan of `diffuse_scatter`
 rays to `diffuse_depth`; misses see the sky; gamma is applied per primary
-sample before the spp average.
+sample before the spp average. A scene's spherical area lights add a
+soft-shadowed direct term at every level (`area_light_term`): per light,
+`light_samples` shadow rays into its cone, each an any-hit query that
+stops at the light's surface (a per-ray t_max).
 
 Random numbers: the fan at depth l of chunk i draws ONE uniform array
-[s, N, 2]. `render` takes it from a `torch.Generator`, or from a
-`uniforms(i, depth, shape)` callable — the way tests feed the port the
-exact array the JAX package draws.
+[s, N, 2], and each (depth, light, sample) of the area lights one array
+[N, 2]. `render` takes them from a `torch.Generator`, or from a
+`uniforms(i, tag, shape)` callable — the way tests feed the port the exact
+arrays the JAX package draws. The tag names the draw: the depth (an int)
+for the fan, ("light", depth, light, sample) for a light's shadow sample.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional
 
@@ -24,16 +30,17 @@ import torch
 
 from raytracing_tpu_torch.accel.packets import ClusterAccel, build_cluster_accel
 from raytracing_tpu_torch.config import RenderConfig
-from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
+from raytracing_tpu_torch.geometry.mesh import Mesh, Scene, SphereLight
 from raytracing_tpu_torch.kernels.binning import (
     batch_bounds, bin_key, bin_sort, bounce_bin_key, unsort)
 from raytracing_tpu_torch.kernels.traverse import Hit, camera_mode_supported
 from raytracing_tpu_torch.models.camera import (
     block_permutation, block_ray_ids, blocks_to_image, camera_rays_for_ids)
 from raytracing_tpu_torch.ops.color import gamma_correct
-from raytracing_tpu_torch.ops.intersect import reflect, triangle_normal
+from raytracing_tpu_torch.ops.intersect import (INF, ray_sphere, reflect,
+                                                triangle_normal)
 from raytracing_tpu_torch.ops.linalg import dot, normalize
-from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere,
+from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere, sample_cone,
                                                stratified_offsets)
 from raytracing_tpu_torch.tracer import (any_hit, nearest_hit_shaded,
                                          nearest_hit_shaded_camera)
@@ -90,10 +97,68 @@ def shade(mesh: Mesh, accel: ClusterAccel, sun, o, d, hit: Hit,
                   rough=rough, albedo_pi=albedo_pi)
 
 
-def _check_config(config: RenderConfig, lights) -> None:
-    if lights is not None:
-        raise NotImplementedError(
-            "scenes with area lights are not ported (ROADMAP Queue 1 item 9)")
+class LightCone(NamedTuple):
+    """The cone one spherical light subtends from each shaded point."""
+
+    center: torch.Tensor   # [3]
+    radius: torch.Tensor   # []
+    dist: torch.Tensor     # [N] distance to the light's centre
+    axis: torch.Tensor     # [N, 3] unit direction to the centre
+    cos_max: torch.Tensor  # [N] cosine of the cone's half-angle
+    omega: torch.Tensor    # [N] its solid angle
+
+
+def light_cone(lights: SphereLight, li: int, pos) -> LightCone:
+    c, rad = lights.center[li], lights.radius[li]
+    to_c = c - pos
+    dist = torch.sqrt((to_c * to_c).sum(dim=-1))
+    safe = torch.clamp_min(dist, 1e-20)
+    sin_max = torch.clamp(rad / safe, 0.0, 1.0)
+    cos_max = torch.sqrt(torch.clamp_min(1.0 - sin_max * sin_max, 0.0))
+    return LightCone(c, rad, dist, to_c / safe[:, None], cos_max,
+                     2.0 * math.pi * (1.0 - cos_max))
+
+
+def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
+    """One shadow sample per shaded point from uniforms u [N, 2]:
+    (direction [N, 3], n·direction [N], alive [N], t_max [N]). The ray
+    stops just short of the light's surface — at the distance to its
+    centre where a grazing sample misses the sphere numerically — so an
+    occluder beyond the light never counts."""
+    w_dir = sample_cone(u, cone.axis, cone.cos_max)
+    ndl = dot(n, w_dir)
+    t_light, l_hit = ray_sphere(pos, w_dir, cone.center, cone.radius, INF)
+    t_light = torch.where(l_hit, t_light, cone.dist)
+    return w_dir, ndl, hit_mask & (ndl > 0.0), t_light * (1.0 - 1e-4)
+
+
+def area_light_term(accel: ClusterAccel, lights: SphereLight, sh: Shaded,
+                    hit_mask, uniforms, config: RenderConfig,
+                    wq: bool = False) -> torch.Tensor:
+    """Soft-shadowed direct radiance [N, 3] from spherical area lights at
+    the shaded points. Per light: `config.light_samples` directions drawn
+    uniformly in the cone the light subtends, each a visibility ray whose
+    any-hit query has its own t_max (`light_shadow_rays`). The estimator is
+    mean(emission cos_theta V) x cone solid angle x albedo/pi x color.
+    uniforms((light, sample), [N, 2]) returns each draw's uniforms."""
+    pos, n = sh.pos, sh.n
+    total = torch.zeros_like(pos)
+    for li in range(lights.center.shape[0]):
+        cone = light_cone(lights, li, pos)
+        acc = torch.zeros_like(cone.dist)
+        for s in range(config.light_samples):
+            w_dir, ndl, alive, t_stop = light_shadow_rays(
+                cone, pos, n, hit_mask, uniforms((li, s), (pos.shape[0], 2)))
+            occluded = any_hit(accel, pos, w_dir, config, t_max=t_stop,
+                               alive=alive, wq=wq)
+            vis = alive & ~occluded
+            acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
+        total = total + ((acc / config.light_samples * cone.omega)[:, None]
+                         * lights.emission[li])
+    return total * sh.albedo_pi[:, None] * sh.color
+
+
+def _check_config(config: RenderConfig) -> None:
     if config.gi_cap_frac > 0.0:
         raise NotImplementedError(
             "gi_cap_frac > 0 (two-phase capped bounce queries) is not "
@@ -146,19 +211,23 @@ def bounce_wavefront(mesh: Mesh, accel: ClusterAccel, sun, o, d,
 
 def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                 config: RenderConfig,
-                uniforms: Callable[[int, tuple], torch.Tensor],
+                uniforms: Callable[[object, tuple], torch.Tensor],
                 gi_accel: Optional[ClusterAccel] = None,
-                lights=None, camera_chunk=None) -> torch.Tensor:
+                lights: Optional[SphereLight] = None,
+                camera_chunk=None) -> torch.Tensor:
     """Gamma-corrected radiance [R, 3] for primary rays o, d [R, 3].
 
-    uniforms(depth, shape) returns the diffuse fan's uniforms at `depth`.
+    uniforms(tag, shape) returns a draw's uniforms: tag = depth for the
+    diffuse fan at `depth`, ("light", depth, light, sample) for one shadow
+    sample of an area light.
     gi_accel: an optional coarser accel of the same mesh for every level
-    below the first (exact either way).
+    below the first (exact either way) — trace, sun shadow and area
+    lights. lights: the scene's area lights.
     camera_chunk: (first block, offs [spp, 2], bh, bw) when o, d are
     config's camera rays of whole bh x bw blocks from that block on, in
     block order: the first level then runs in camera mode and reads o, d
     only for shading."""
-    _check_config(config, lights)
+    _check_config(config)
     s = config.diffuse_scatter
     sky = torch.tensor(config.sky_color, dtype=o.dtype, device=o.device)
     bin_sh = (config.bin_shadow if isinstance(config.bin_shadow, bool)
@@ -195,6 +264,12 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
         sh = shade(mesh, acc_l, sun, o_l, d_l, h, config, attrs,
                    bin_shadow=bin_sh, wq=wq)
         contrib = sh.direct
+        if lights is not None:
+            area = area_light_term(
+                acc_l, lights, sh, h.hit,
+                lambda ls, shape: uniforms(("light", depth) + ls, shape),
+                config, wq=wq)
+            contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         if depth < config.reflect_depth or depth < config.diffuse_depth:
             o_c, d_c, a_c, w_refl, w_diff = _children(d_l, h, sh, config,
                                                       depth, uniforms)
@@ -253,7 +328,8 @@ def render(scene: Scene, config: RenderConfig,
            accel: Optional[ClusterAccel] = None,
            generator: Optional[torch.Generator] = None,
            gi_accel: Optional[ClusterAccel] = None,
-           uniforms: Optional[Callable[[int, int, tuple], torch.Tensor]] = None
+           uniforms: Optional[Callable[[int, object, tuple],
+                                       torch.Tensor]] = None
            ) -> torch.Tensor:
     """Render a frame -> [H, W, 3] float RGB on the scene's device.
 
@@ -264,9 +340,10 @@ def render(scene: Scene, config: RenderConfig,
     frame's end repeats the last block instead. accel defaults to
     `build_cluster_accel(mesh)`; gi_accel to the auto-built coarse bounce
     accel. Uniforms come from
-    `uniforms(chunk_index, depth, shape)` when given, else from
-    `generator` (default: seed 0 on the scene's device)."""
-    _check_config(config, scene.lights)
+    `uniforms(chunk_index, tag, shape)` when given (the tags are
+    `render_rays`'), else from `generator` (default: seed 0 on the scene's
+    device). A scene with `lights` gets their soft-shadowed direct term."""
+    _check_config(config)
     mesh = scene.mesh
     device = mesh.verts.device
     if accel is None:
@@ -278,7 +355,7 @@ def render(scene: Scene, config: RenderConfig,
             generator = torch.Generator(device=device)
             generator.manual_seed(0)
 
-        def uniforms(i, depth, shape):
+        def uniforms(i, tag, shape):
             return torch.rand(shape, generator=generator, device=device)
 
     spp, h, w = config.samples_per_pixel, config.height, config.width
@@ -311,8 +388,8 @@ def render(scene: Scene, config: RenderConfig,
                else None)
         rgb[i * chunk:(i + 1) * chunk] = render_rays(
             mesh, accel, scene.sun, o_c, d_c, config,
-            lambda depth, shape, i=i: uniforms(i, depth, shape),
-            gi_accel=gi_accel, camera_chunk=cam)
+            lambda tag, shape, i=i: uniforms(i, tag, shape),
+            gi_accel=gi_accel, lights=scene.lights, camera_chunk=cam)
     if by_formula:
         return blocks_to_image(rgb[:r], config, bh, bw)
     return rgb[:r][inv].reshape(spp, h, w, 3).mean(dim=0)

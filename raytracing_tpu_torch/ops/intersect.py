@@ -1,7 +1,8 @@
-"""Ray/triangle math (twin of `raytracing_tpu.ops.intersect`).
+"""Ray/primitive math (twin of `raytracing_tpu.ops.intersect`).
 
 Misses are t = +inf. `moller_trumbore` is the dense intersector the rest
-set (small objects such as the ground plane) runs through.
+set (small objects such as the ground plane) runs through; `ray_sphere`
+gives an area light's shadow samples their distance to the light.
 """
 
 from __future__ import annotations
@@ -39,6 +40,34 @@ def moller_trumbore(o, d, tri: TriangleSoA, t_max,
     t = dot(tri.e2, qvec) * inv_det
     valid = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps) \
         & (t < t_max)
+    return torch.where(valid, t, torch.full_like(t, INF)), valid
+
+
+def slab_test(o, inv_d, box_min, box_max, t_max) -> torch.Tensor:
+    """Batched ray/AABB slab test; shapes broadcast, the last axis is xyz.
+    True iff t_near <= min(t_far, t_max) and t_far >= 0."""
+    t1 = (box_min - o) * inv_d
+    t2 = (box_max - o) * inv_d
+    t_near = torch.minimum(t1, t2).amax(dim=-1)
+    t_far = torch.maximum(t1, t2).amin(dim=-1)
+    if not isinstance(t_max, torch.Tensor):
+        t_max = torch.tensor(t_max, dtype=t_far.dtype, device=t_far.device)
+    return (t_near <= torch.minimum(t_far, t_max)) & (t_far >= 0.0)
+
+
+def ray_sphere(o, d, center, radius, t_max,
+               eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched ray/sphere, near root only. Returns (t, valid), t = +inf on
+    a miss; valid iff the discriminant is positive and eps < t < t_max."""
+    oc = o - center
+    a = dot(d, d)
+    half_b = dot(oc, d)
+    c = dot(oc, oc) - radius * radius
+    disc = half_b * half_b - a * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t = (-half_b - sq) / torch.where(torch.abs(a) >= eps, a,
+                                     torch.ones_like(a))
+    valid = (disc > 0.0) & (t > eps) & (t < t_max)
     return torch.where(valid, t, torch.full_like(t, INF)), valid
 
 

@@ -1,9 +1,9 @@
-"""Diffuse scatter sampling (twin of `raytracing_tpu.ops.sampling`).
+"""Scatter and light sampling (twin of `raytracing_tpu.ops.sampling`).
 
-The JAX package draws its uniforms inside `cosine_hemisphere` from a
-`jax.random` key. Here the caller draws them (from a `torch.Generator`, or
-hands in the exact array JAX drew) and passes them in, so the sampler
-itself is a pure function of (u, n).
+The JAX package draws its uniforms inside `cosine_hemisphere` and
+`sample_cone` from a `jax.random` key. Here the caller draws them (from a
+`torch.Generator`, or hands in the exact array JAX drew) and passes them
+in, so each sampler is a pure function of its uniforms and its axis.
 """
 
 from __future__ import annotations
@@ -40,6 +40,22 @@ def cosine_hemisphere(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     b = sin_theta * torch.sin(psi)
     t1, t2 = tangent_frame(n)
     d = a[..., None] * t1 + b[..., None] * t2 + cos_theta[..., None] * n
+    return normalize(d, eps=1e-20)
+
+
+def sample_cone(u: torch.Tensor, axis: torch.Tensor,
+                cos_max: torch.Tensor) -> torch.Tensor:
+    """Uniform directions inside the cones of half-angle acos(cos_max [N])
+    around unit axes [N, 3], from uniforms u [..., N, 2] — the solid-angle
+    sampler of a spherical light: cos_theta = 1 - u0 (1 - cos_max),
+    psi = 2 pi u1; pdf = 1 / (2 pi (1 - cos_max)). Returns [..., N, 3]."""
+    cos_t = 1.0 - u[..., 0] * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    psi = 2.0 * math.pi * u[..., 1]
+    t1, t2 = tangent_frame(axis)
+    d = ((sin_t * torch.cos(psi))[..., None] * t1
+         + (sin_t * torch.sin(psi))[..., None] * t2
+         + cos_t[..., None] * axis)
     return normalize(d, eps=1e-20)
 
 

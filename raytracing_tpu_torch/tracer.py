@@ -48,5 +48,7 @@ def nearest_hit_shaded_camera(accel: Optional[ClusterAccel], offs,
 
 def any_hit(accel: Optional[ClusterAccel], o, d, config: RenderConfig,
             t_max=INF, alive=None, wq: bool = False):
+    """Occlusion of rays o, d [N, 3] -> [N] bool. t_max: a number, or an
+    [N] tensor of per-ray bounds (an area light's shadow samples)."""
     return T.any_hit(_require(accel), o, d, config.eps, t_max=t_max,
                      alive=alive, wq=wq)

@@ -9,9 +9,11 @@ Bars: extents (K6) and entered bits (K5, dense and gathered) equal; both
 walk entries (K1 via `_walk_groups`, K2 via `_walk_dma`), with either
 intersector, and both camera entries bit-equal in t, slot and attrs on
 alive lanes (the kernels are built -fmad=false, op for op like the plain
-versions); camera rays on the card bit-equal to the CPU's; a frame on the
-card within 1e-4 of the CPU frame (torch's CUDA and CPU sin/cos in the
-sampler differ by ulps).
+versions); the streamed-groups walk (K3) and the work-queue walk (K4)
+bit-equal to their plain versions and to K1 / K2, with either intersector,
+with a scalar and a per-ray t_max; camera rays on the card bit-equal to the
+CPU's; a frame on the card within 1e-4 of the CPU frame (torch's CUDA and
+CPU sin/cos in the sampler differ by ulps).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                   build_default_scene)
+from raytracing_tpu_torch.accel import packets
 from raytracing_tpu_torch.kernels import cuda
 from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
 from raytracing_tpu_torch.kernels import traverse as T
@@ -124,6 +127,141 @@ def test_pmto_walk_matches_plain(setup, dev):
         assert bool(torch.isfinite(plain[0][m]).any())
         for a, b in zip(kern, plain):
             assert torch.equal(a[..., m.to(dev)].cpu(), b[..., m])
+
+
+def _shared_origin_pack(p, pmto):
+    """(pack, origin | None): with `pmto` every ray leaves one point."""
+    if not pmto:
+        return p, None
+    p = p.clone()
+    origin = torch.tensor([0.2, -0.1, -0.5])
+    p[0:3] = origin[:, None]
+    return p, origin
+
+
+def _tmax_row(n, per_ray, dev):
+    """A per-ray limit row [1, n] running from 0.5 to 30, or None."""
+    if not per_ray:
+        return None
+    return torch.linspace(0.5, 30.0, n, device=dev)[None].contiguous()
+
+
+def _assert_walks_equal(kern, plain, m):
+    assert bool(torch.isfinite(plain[0][0][m]).any())
+    for a, b in zip(kern, plain):
+        if b is not None:
+            assert torch.equal(a[..., m], b[..., m])
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["scalar", "tmax_row"])
+@pytest.mark.parametrize("pmto", [False, True], ids=["pmt", "pmto"])
+def test_gstream_kernel_matches_plain(setup, dev, monkeypatch, pmto, per_ray):
+    """K3 over 4 groups of 256 clusters (a budget of one byte) against its
+    plain version and against the K1 group loop and the single K1 launch:
+    nearest with attributes (early exit forced) and occlusion."""
+    accels, packs = setup
+    acc = accels[16].to(dev)
+    p, origin = _shared_origin_pack(packs[0], pmto)
+    g = p.to(dev)
+    m = (p[7] != 0).to(dev)
+    so = None if origin is None else origin.to(dev)
+    na = acc.attr_blocks.shape[1]
+    row = _tmax_row(g.shape[1], per_ray, dev)
+    single = T._walk_groups(acc, g, 1e-8, True, T.INF, na, shared_origin=so)
+    single_occ = T._walk_groups(acc, g, 1e-8, False, 3.0, 0, tmax_row=row)
+    monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    args, kw = T._gstream_walk_args(acc, g, 1e-8, True, T.INF, na,
+                                    early_exit=True, shared_origin=so)
+    assert args[1].shape[0] == 4 and kw["tnear"] is not None
+    before = T.LAUNCHES["walk_gstream"]
+    visits = torch.zeros(args[2].shape, dtype=torch.int32, device=dev)
+    kern = T.walk_gstream(*args, **kw, visits=visits)
+    assert T.LAUNCHES["walk_gstream"] == before + 1
+    assert 0 < int(visits.sum()) <= int(args[2].sum())
+    _assert_walks_equal(kern, T.walk_gstream_plain(*args), m)
+    _assert_walks_equal(kern, single, m)
+    oargs, okw = T._gstream_walk_args(acc, g, 1e-8, False, 3.0, 0,
+                                      tmax_row=row)
+    occ = T.walk_gstream(*oargs, **okw)
+    _assert_walks_equal(occ, T.walk_gstream_plain(*oargs), m)
+    _assert_walks_equal(occ, single_occ, m)
+    monkeypatch.setattr(T, "STREAM_GROUPS", False)
+    before = T.LAUNCHES["walk"]
+    loop = T._walk_groups(acc, g, 1e-8, True, T.INF, na, early_exit=True,
+                          shared_origin=so)
+    assert T.LAUNCHES["walk"] == before + 4
+    _assert_walks_equal(kern, loop, m)
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["scalar", "tmax_row"])
+@pytest.mark.parametrize("pmto", [False, True], ids=["pmt", "pmto"])
+def test_wq_kernel_matches_plain(setup, dev, monkeypatch, pmto, per_ray):
+    """K4 on the bounce-like pack over the CS 128 accel against its plain
+    version and against the K2 entry on the same lists: nearest with
+    attributes, occlusion, and a tile with no visits."""
+    accels, packs = setup
+    acc = accels[128].to(dev)
+    p, origin = _shared_origin_pack(packs[1], pmto)
+    p = p.clone()
+    p[7, 3072:] = 0.0  # the last tile is dead: no visits
+    g = p.to(dev)
+    m = (p[7] != 0).to(dev)
+    so = None if origin is None else origin.to(dev)
+    na = acc.attr_blocks.shape[1]
+    row = _tmax_row(g.shape[1], per_ray, dev)
+    args, kw = T._wq_walk_args(acc, g, 1e-8, True, T.INF, na,
+                               shared_origin=so)
+    assert int(args[2][3]) == 0 and int(args[2][0]) > 0
+    before = T.LAUNCHES["walk_wq"]
+    kern = T.walk_wq(*args, **kw)
+    assert T.LAUNCHES["walk_wq"] == before + 1
+    _assert_walks_equal(kern, T.walk_wq_plain(*args), m)
+    dargs, dkw = T._dma_walk_args(acc, g, 1e-8, True, T.INF, na,
+                                  shared_origin=so)
+    _assert_walks_equal(kern, T.walk(*dargs, **dkw), m)
+    dead = slice(3072, 4096)
+    assert bool(torch.isinf(kern[0][0, dead]).all())
+    assert bool((kern[1][0, dead] == 2 ** 30).all())
+    assert not bool(kern[2][:, dead].any())
+    oargs, okw = T._wq_walk_args(acc, g, 1e-8, False, 3.0, 0, tmax_row=row)
+    occ = T.walk_wq(*oargs, **okw)
+    _assert_walks_equal(occ, T.walk_wq_plain(*oargs), m)
+    doargs, dokw = T._dma_walk_args(acc, g, 1e-8, False, 3.0, 0,
+                                    tmax_row=row)
+    _assert_walks_equal(occ, T.walk(*doargs, **dokw), m)
+    assert not bool(occ[1][0, dead].any())
+    # Through the public queries, with the implementation switched.
+    want = T.any_hit_soa(acc, g, t_max=3.0 if row is None else row[0],
+                         wq=True)
+    monkeypatch.setattr(T, "_WQ_IMPL", "grid")
+    before = T.LAUNCHES["walk_wq"]
+    got = T.any_hit_soa(acc, g, t_max=3.0 if row is None else row[0],
+                        wq=True)
+    assert T.LAUNCHES["walk_wq"] == before + 1
+    assert torch.equal(got[m], want[m])
+    with pytest.raises(ValueError):
+        T.walk_wq(*args[:1], args[1].T, *args[2:])
+
+
+def test_per_ray_tmax_walk_matches_plain(setup, dev):
+    """The K1 and K2 entries under a per-ray limit, through `any_hit_soa`:
+    the card's flags equal the CPU plain path's; an infinite entry is no
+    limit and a zero entry hides everything."""
+    accels, packs = setup
+    p = packs[1]
+    m = p[7] != 0
+    tm = torch.linspace(0.5, 30.0, p.shape[1])
+    tm[::7] = float("inf")
+    tm[3::11] = 0.0
+    for cs, wq, entry in ((16, False, "walk"), (128, True, "walk_dma")):
+        before = T.LAUNCHES[entry]
+        occ = T.any_hit_soa(accels[cs].to(dev), p.to(dev), t_max=tm.to(dev),
+                            wq=wq)
+        assert T.LAUNCHES[entry] == before + 1
+        occ_cpu = T.any_hit_soa(accels[cs], p, t_max=tm, wq=wq)
+        assert occ_cpu[m].any() and not occ_cpu[m].all()
+        assert torch.equal(occ.cpu()[m], occ_cpu[m])
+        assert not bool(occ_cpu[3::11].any())
 
 
 @pytest.mark.parametrize("shape", [(64, 48, 4, 16, 16), (48, 48, 3, 16, 16),

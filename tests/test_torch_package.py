@@ -79,3 +79,48 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cpu.*meta|meta.*cpu"):
         T.walk_camera(torch.zeros((1, 2)), T.Camera(16, 16, 1, 1.0, 16, 16),
                       0, 1, meta, meta[:, 0], box, None, 0, 4, 1e-8)
+
+
+def test_new_walk_wrappers_refuse_other_devices():
+    """The streamed-groups and work-queue wrappers, and a per-ray limit on
+    another device than the pack, are refused like the rest."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    pack = torch.zeros((8, 1024))
+    ids = torch.zeros((1, 4), dtype=torch.int32)
+    cnt = torch.zeros(1, dtype=torch.int32)
+    geo = torch.zeros((4, 12, 16))
+    meta = torch.empty((4, 12, 16), device="meta")
+    with pytest.raises(ValueError, match="cpu.*meta|meta.*cpu"):
+        T.walk_wq(pack, ids, cnt, meta, None, 0, 16, 1e-8, True)
+    with pytest.raises(ValueError, match="cpu.*meta|meta.*cpu"):
+        T.walk_gstream(pack, ids[None], cnt[None], meta, None, 0, 16, 4,
+                       1e-8, True)
+    with pytest.raises(ValueError, match="cpu.*meta|meta.*cpu"):
+        T.walk(pack, ids, cnt, geo, None, 0, 16, 1e-8, False,
+               tmax_row=torch.empty((1, 1024), device="meta"))
+
+
+def test_lights_go_where_the_scene_goes(monkeypatch):
+    """`scene_from_numpy` sends a scene's lights to the card with the rest
+    unless `device=` says otherwise, and `Scene.to` moves them."""
+    import numpy as np
+
+    from raytracing_tpu_torch.geometry.mesh import (Mesh, Scene, SphereLight,
+                                                    scene_from_numpy)
+
+    arrays = {f: np.zeros((1, 3), np.float32) for f in Mesh._fields}
+    arrays["sun"] = np.zeros(3, np.float32)
+    arrays["lights"] = dict(center=np.zeros((1, 3)), radius=np.ones(1),
+                            emission=np.ones((1, 3)))
+    asked = []
+    monkeypatch.setattr(Scene, "to",
+                        lambda self, device: asked.append(str(device)) or self)
+    scene = scene_from_numpy(arrays)
+    assert asked == ["cuda"] and isinstance(scene.lights, SphereLight)
+    monkeypatch.undo()
+    moved = []
+    monkeypatch.setattr(SphereLight, "to",
+                        lambda self, device: moved.append(str(device)) or self)
+    scene_from_numpy(arrays, device="cpu")
+    assert moved == ["cpu"]

@@ -19,7 +19,8 @@ from raytracing_tpu.config import RenderConfig as JaxConfig
 from raytracing_tpu.geometry.scene import build_default_scene as jax_scene
 from raytracing_tpu.models.whitted import render as jax_render
 
-from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+from raytracing_tpu_torch import (RenderConfig, SphereLight,
+                                  build_cluster_accel)
 from raytracing_tpu_torch.geometry.scene import build_default_scene
 from raytracing_tpu_torch.models.whitted import render, render_rays
 
@@ -126,9 +127,10 @@ def test_odd_frame_size_and_padded_chunks(scene, accel16):
     dict(lights=True),
 ], ids=lambda c: next(iter(c)))
 def test_unported_paths_raise(scene, accel16, change):
-    """Unported options are refused by name. `primary_shared_origin` has
-    since been ported: its case now checks that the option is taken (the
-    four rays down +z hit the ground far away or the sky: finite)."""
+    """Unported options are refused by name. `primary_shared_origin` and
+    `lights` have since been ported: their cases now check that the option
+    is taken (the four rays down +z hit the ground far away or the sky:
+    finite)."""
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        **{k: v for k, v in change.items() if k != "lights"})
     o = torch.zeros((4, 3))
@@ -137,9 +139,11 @@ def test_unported_paths_raise(scene, accel16, change):
     def run():
         return render_rays(scene.mesh, accel16, scene.sun, o, d, cfg,
                            lambda depth, shape: torch.rand(shape),
-                           lights=object() if "lights" in change else None)
+                           lights=light if "lights" in change else None)
 
-    if "primary_shared_origin" in change:
+    light = SphereLight(torch.tensor([[1.0, 8.0, 7.0]]), torch.tensor([1.5]),
+                        torch.tensor([[1.5, 1.5, 1.5]]))
+    if "primary_shared_origin" in change or "lights" in change:
         assert torch.isfinite(run()).all()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

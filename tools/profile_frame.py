@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Device-time profile of the port's reference frame on one CUDA card.
+"""Device-time profile of one of the port's frames on one CUDA card.
 
 Run from the root of a checkout on a machine with a CUDA GPU:
 
     python3 tools/profile_frame.py [--out chiprun_out/profile_frame.json]
-                                   [--camera]
+                                   [--camera] [--lights]
+                                   [--path-tracer [--spp N]]
+                                   [--wq-impl dma|grid]
 
 Renders the reference frame (800x800 at 4 spp, `RenderConfig()` defaults:
 the CS=16 accel plus the auto-built CS=128 bounce accel) once to warm up,
@@ -15,7 +17,15 @@ layer, the device-busy time, and the idle share against the median
 unprofiled frame (the profiler slows the host, so the profiled frame's
 own wall time is not used). `--out` gets the same table plus every
 kernel's totals as JSON. `--camera` renders with
-`primary_shared_origin=True` (camera-mode primaries). The script never imports JAX.
+`primary_shared_origin=True` (camera-mode primaries); `--lights` adds one
+spherical area light (centre (1, 8, 7), radius 1.5, 4 shadow samples per
+level). `--path-tracer` profiles the path tracer instead (800x800, 4
+bounces, chunks of 131,072 pixels) at `--spp` samples per pixel (default
+4: every sample repeats the same levels, so a 64-spp frame is 16 of these;
+the profiler's trace of all 64 would hold half a million launches).
+`--wq-impl grid` sends the bounce queries through the work-queue walk (K4)
+instead of the `_walk_dma` entry (K2), the default. The script never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYERS = (
     ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu)",
      ("walk_kernel",)),
+    ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
     ("refine, K5 dense and gathered (refine.cu)",
      ("refine_kernel", "refine_lists_kernel")),
     ("extents, K6 (extents.cu)", ("extents_kernel",)),
@@ -68,15 +79,28 @@ def main() -> int:
                     help="JSON file for the full table")
     ap.add_argument("--camera", action="store_true",
                     help="camera-mode primaries (primary_shared_origin)")
+    ap.add_argument("--lights", action="store_true",
+                    help="one spherical area light, 4 shadow samples")
+    ap.add_argument("--path-tracer", action="store_true",
+                    help="the path tracer instead of the Whitted frame")
+    ap.add_argument("--spp", type=int, default=4,
+                    help="samples per pixel of the path-traced frame")
+    ap.add_argument("--wq-impl", choices=("dma", "grid"), default="dma",
+                    help="what the bounce (wq) queries run: K2 or K4")
     opts = ap.parse_args()
     out = opts.out
     sys.path.insert(0, HERE)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
-    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig,
+                                      SphereLight, build_cluster_accel,
+                                      build_default_scene,
+                                      render_path_traced, render_whitted)
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.kernels import traverse
+
+    traverse._WQ_IMPL = opts.wq_impl
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame: needs a CUDA device")
@@ -84,14 +108,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    cfg = RenderConfig(primary_shared_origin=opts.camera)
+    cfg = RenderConfig(primary_shared_origin=opts.camera, light_samples=4,
+                       chunk_size=131072 if opts.path_tracer else 65536)
     scene = build_default_scene(device="cuda")
+    if opts.lights:
+        scene = Scene(scene.mesh, scene.sun, SphereLight(
+            torch.tensor([[1.0, 8.0, 7.0]]), torch.tensor([1.5]),
+            torch.tensor([[1.5, 1.5, 1.5]])).to("cuda"))
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    pt = PathTracerConfig(max_bounces=4, samples_per_pixel=opts.spp)
 
     def frame():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render(scene, cfg, accel=accel)
+        if opts.path_tracer:
+            render_path_traced(scene, cfg, pt, accel=accel)
+        else:
+            render_whitted(scene, cfg, accel=accel)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -119,8 +152,13 @@ def main() -> int:
         row["launches"] += k["count"]
     busy_ms = sum(r["ms"] for r in layers.values())
     launches = sum(r["launches"] for r in layers.values())
+    what = (f"path-traced frame, {opts.spp} spp, 4 bounces"
+            if opts.path_tracer else "reference Whitted frame")
     print(f"[profile] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; {what}"
+          f"{', camera-mode primaries' if opts.camera else ''}"
+          f"{', one area light' if opts.lights else ''}"
+          f", wq queries through {opts.wq_impl}")
     print(f"[profile] unprofiled frame median {wall} s; profiled frame "
           f"{prof_wall} s")
     print("| layer | device ms | share of device | launches |")
@@ -138,7 +176,9 @@ def main() -> int:
               f"{name[:100]}")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
-        json.dump({"card": card, "frame_s": wall, "profiled_frame_s":
+        json.dump({"card": card, "what": what, "camera": opts.camera,
+                   "lights": opts.lights, "wq_impl": opts.wq_impl,
+                   "frame_s": wall, "profiled_frame_s":
                    prof_wall, "device_busy_s": busy_ms / 1e3,
                    "idle_share": idle, "layers": layers,
                    "kernels": kernels}, f, indent=1)
