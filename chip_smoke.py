@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
   1. device — require CUDA; print `nvidia-smi`'s name and power limit;
   2. build  — compile the CUDA kernels from `raytracing_tpu_torch/csrc`
-     and the host library from `csrc/raytracing_native.cpp`;
+     and the host library from `csrc/raytracing_native.cpp`; print every
+     kernel's registers, shared memory and spills as `ptxas -v` reports
+     them, and refuse a spill in the pack walk (`walk.cu`);
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes; median time of 5 runs each:
      a. the reference frame's busiest 65,536-ray chunk of camera rays
@@ -41,6 +43,13 @@ Phases (any failure raises and the script exits non-zero):
         plain version and bit-equal on alive lanes to that entry (nearest
         with attributes; occlusion under a scalar and a per-ray t_max; a
         tile with no visits);
+     g. the split pack walk (`walk`, K1/K2) under its racing early exit:
+        the `_walk_dma` launch of 3a, the primary launch with the exit
+        forced and a nearest query with the exit forced over 3d's long
+        lists, each launched 10 times, t, slots and attributes equal
+        every time on alive lanes, the visits made printed as min-max;
+        its time with and without the exit beside K4's; a tile with no
+        visits through both entries;
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
@@ -202,9 +211,23 @@ def phase_build():
     from raytracing_tpu_torch.kernels import cuda
 
     res = cuda.build()
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
+    lines = res.log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        # '_ZN2rt..._7_walk_cu_...11walk_kernelILb0EE...': file and kernel
+        mangled = line.split("'")[1]
+        kernel = next((k for k in ("walk_fill", "camera_walk", "gstream",
+                                   "wq_items", "wq_init", "wq_finish", "walk",
+                                   "refine_lists", "refine", "extents")
+                       if k + "_kernel" in mangled), mangled)
+        variant = mangled.split(kernel + "_kernel")[-1].split("Ev")[0]
+        used = next(l for l in lines[i:] if "Used" in l).split(":", 1)[1]
+        spill = next(l for l in lines[i:] if "spill" in l).strip()
+        print(f"[build] {kernel}_kernel {variant}:{used}; {spill}")
+        _require("_walk_cu_" not in mangled or " 0 bytes spill stores, 0 "
+                 "bytes spill loads" in " " + spill,
+                 f"the pack walk spills registers: {spill}")
     cuda.library()
     print(f"[build] {res.seconds:.2f} s -> {os.path.relpath(res.path, HERE)}")
     from raytracing_tpu_torch.geometry import native
@@ -274,6 +297,30 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
          f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
          plain_reps=plain_reps)
     return out
+
+
+def _check_repeats(tag, T, args, kw, alive, reps=10):
+    """One launch of the split walk `reps` times: t, slots and attributes
+    equal on alive lanes every time, though the segments race on the early
+    exit and the visits they make may differ (a dead lane does not vote, so
+    its result is meaningless)."""
+    import torch
+
+    cnt = args[2]
+    first, made = None, []
+    for _ in range(reps):
+        visits = torch.zeros(cnt.shape, dtype=torch.int32, device=cnt.device)
+        t, s, a = T.walk(*args, **kw, visits=visits)
+        made.append(int(visits.sum()))
+        out = (t[0][alive], s[0][alive], a[:, alive])
+        first = first or out
+        _require(all(torch.equal(x, y) for x, y in zip(out, first)),
+                 f"{tag}: launch {len(made)} differs from the first")
+    split = int((cnt > T._walk_segment(args[6])).sum())
+    print(f"[kernels] {tag}: {reps} launches equal (t, slots, attributes on "
+          f"{int(alive.sum())} alive lanes); {split} of {cnt.numel()} tiles "
+          f"split over blocks; visits made {min(made)}-{max(made)} of "
+          f"{int(cnt.sum())} listed")
 
 
 def phase_kernels():
@@ -425,8 +472,34 @@ def phase_kernels():
     _compare_walk("walk_wq (K4) vs walk_dma (K2), nearest+attrs", k4,
                   T.walk(*dargs, **dkw), balive, True)
     noexit = dict(dkw, tnear=None, bbox=None)
-    print(f"[kernels] walk_dma (K2) on the same lists without its early "
-          f"exit: {_median_ms(lambda: T.walk(*dargs, **noexit)):.4f} ms")
+    print(f"[kernels] walk_dma (K2) on the same lists: "
+          f"{_median_ms(lambda: T.walk(*dargs, **dkw)):.4f} ms with its "
+          f"early exit, {_median_ms(lambda: T.walk(*dargs, **noexit)):.4f} "
+          f"ms without, walk_wq (K4) "
+          f"{_median_ms(lambda: T.walk_wq(*wargs, **wkw)):.4f} ms")
+    # 3g. The racing exit: the same bits at every launch.
+    _require(dkw["tnear"] is not None, "the walk_dma row runs without exit")
+    _check_repeats("walk_dma (K2) bounce nearest+attrs", T, dargs, dkw,
+                   balive)
+    fargs, fkw = T._groups_walk_args(acc16, rp, eps, True, INF, na,
+                                     early_exit=True)
+    _check_repeats("walk (K1) primary nearest+attrs, exit forced", T, fargs,
+                   fkw, rp[7] != 0)
+    fargs, fkw = T._groups_walk_args(acc16, lp, eps, True, INF, na,
+                                     early_exit=True)
+    _require(fkw["tnear"] is not None
+             and int(fargs[2].max()) > 2 * T._walk_segment(16),
+             "the long-list query does not split its lists")
+    _compare_walk("walk (K1) nearest over the light-shadow lists, exit "
+                  "forced", T.walk(*fargs, **fkw), T.walk_plain(*fargs),
+                  lp[7] != 0, True)
+    _check_repeats("walk (K1) nearest over the light-shadow lists, exit "
+                   "forced", T, fargs, fkw, lp[7] != 0)
+    fnoexit = dict(fkw, tnear=None, bbox=None)
+    print(f"[kernels] walk (K1) on those lists: "
+          f"{_median_ms(lambda: T.walk(*fargs, **fkw)):.4f} ms with the "
+          f"exit, {_median_ms(lambda: T.walk(*fargs, **fnoexit)):.4f} ms "
+          f"without")
     brow = torch.linspace(0.5, 30.0, bp.shape[1], device=dev)[None]
     for tag, trow in (("scalar t_max", None), ("per-ray t_max", brow)):
         a4, k4kw = T._wq_walk_args(acc128, bp, eps, False, 30.0, 0,
@@ -453,6 +526,22 @@ def phase_kernels():
              "occluded")
     print("[kernels] walk_wq (K4): a tile with no visits reads miss / not "
           "occluded")
+    for entry, make, acc in (("walk", T._groups_walk_args, acc16),
+                             ("walk_dma", T._dma_walk_args, acc128)):
+        zargs, zkw = make(acc, bp0, eps, True, INF, na)
+        _require(int(zargs[2][-1]) == 0, f"{entry}: the dead tile lists "
+                 "visits")
+        zt, zs, za = T.walk(*zargs, **zkw)
+        oargs0, okw0 = make(acc, bp0, eps, False, INF, 0)
+        zo = T.walk(*oargs0, **okw0)
+        _require(bool(torch.isinf(zt[0, dead]).all())
+                 and bool((zs[0, dead] == 2 ** 30).all())
+                 and not bool(za[:, dead].any())
+                 and not bool(zo[1][0, dead].any()),
+                 f"{entry}: a tile with no visits does not read miss / not "
+                 "occluded")
+        print(f"[kernels] {entry}: a tile with no visits reads miss / not "
+              f"occluded")
     return rows
 
 

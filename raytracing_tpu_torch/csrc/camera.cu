@@ -24,7 +24,8 @@
 // more than 1024 rays is walked in passes of 1024 (each pass walks the
 // list again; results are per ray, so that is exact).
 //
-// Bound on the card: arithmetic, ~30 operations per (ray, triangle).
+// Bound on the card: scheduler slots, ~30 counted operations per (ray,
+// triangle); the staged loop is walk_core.cuh's.
 #include "walk_core.cuh"
 
 namespace rt {
@@ -43,7 +44,7 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
                    int n_attrs, int cs, float eps, int early, int ee_batch,
                    float* __restrict__ out_t, int* __restrict__ out_s,
                    float* __restrict__ out_a, int* __restrict__ visits) {
-  __shared__ float blk[12 * kMaxClusterSize];
+  __shared__ WalkRing ring;
   const int local = blockIdx.x;
   const int nbx = w / bw;
   const int tile = min(local + tile_base, nbx * (h / bh) - 1);
@@ -82,10 +83,10 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
       best_t[r] = inf();
       best_s[r] = kBigId;
     }
-    visited += walk_list<R, true>(blk, o, d, alive, ids + row,
-                                  tnear ? tnear + row : nullptr, trips, bbox,
-                                  geo, geo_stride, 0, cs, eps, t_lim, true,
-                                  early != 0, ee_batch, best_t, best_s);
+    visited += walk_list<R, true, true>(
+        ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, trips,
+        bbox, geo, geo_stride, 0, cs, eps, t_lim, early != 0, ee_batch,
+        best_t, best_s, NoShare{});
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int l = base + threadIdx.x + r * kThreads;
@@ -121,7 +122,7 @@ extern "C" int rt_walk_camera(const float* offs, int tile_base, int n_tiles,
                               int* out_s, float* out_a, int* visits,
                               void* stream) {
   if (n_tiles <= 0 || spp <= 0 || bh <= 0 || bw <= 0 || w % bw != 0
-      || h % bh != 0 || cs <= 0 || cs > rt::kMaxClusterSize || width <= 0
+      || h % bh != 0 || !rt::walk_tables_ok(geo, geo_stride, cs) || width <= 0
       || ee_batch <= 0 || tile_base < 0) {
     return cudaErrorInvalidValue;
   }

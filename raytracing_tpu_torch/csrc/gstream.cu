@@ -23,15 +23,16 @@
 // padded with zero blocks: they are never listed, and a zero block fails
 // |den| >= eps if it ever is.
 //
-// Bound on the card: arithmetic, as K1; device memory sees each group's
-// slice once if it stays in L2. Prefetching the next visit's block with
-// cp.async is later work.
+// Bound on the card: scheduler slots, as K1 (walk_core.cuh, whose staged loop
+// this runs); device memory sees each group's slice once if it stays in
+// L2. A group whose first entry lies beyond every lane's carried hit is
+// skipped by the loop's first vote.
 #include "walk_core.cuh"
 
 namespace rt {
 namespace {
 
-template <bool PMTO>
+template <bool PMTO, bool NEAREST>
 __global__ void __launch_bounds__(kThreads)
 gstream_kernel(const float* __restrict__ rays, long long np,
                const float* __restrict__ tmax_row,
@@ -40,11 +41,11 @@ gstream_kernel(const float* __restrict__ rays, long long np,
                int gsz, const float* __restrict__ bbox,
                const float* __restrict__ geo, long long geo_stride,
                const float* __restrict__ attr, long long attr_stride,
-               int n_attrs, int cs, float eps, float t_max, int nearest,
-               int early, int ee_batch, float* __restrict__ out_t,
+               int n_attrs, int cs, float eps, float t_max, int early,
+               int ee_batch, float* __restrict__ out_t,
                int* __restrict__ out_s, float* __restrict__ out_a,
                int* __restrict__ visits) {
-  __shared__ float blk[12 * kMaxClusterSize];
+  __shared__ WalkRing ring;
   const long long tile = blockIdx.x;
   const long long nt = gridDim.x;
 
@@ -54,35 +55,24 @@ gstream_kernel(const float* __restrict__ rays, long long np,
   int best_s[kRaysPerThread];
   bool alive[kRaysPerThread];
   float t_lim[kRaysPerThread];
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = ray_index(r);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      o[r][k] = rays[k * np + i];
-      d[r][k] = rays[(4 + k) * np + i];
-    }
-    alive[r] = rays[7 * np + i] != 0.0f;
-    t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
-    best_t[r] = inf();
-    best_s[r] = kBigId;
-  }
+  load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
+                 best_s);
 
   for (int g = 0; g < n_groups; ++g) {
     const long long gt = g * nt + tile;
     const long long row = gt * width;
-    const int visited = walk_list<kRaysPerThread, PMTO>(
-        blk, o, d, alive, ids + row, tnear ? tnear + row : nullptr, cnt[gt],
+    const int visited = walk_list<kRaysPerThread, PMTO, NEAREST>(
+        ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, cnt[gt],
         bbox ? bbox + 6 * g : nullptr,
         geo + static_cast<long long>(g) * gsz * geo_stride, geo_stride,
-        g * gsz * cs, cs, eps, t_lim, nearest != 0, early && nearest,
-        ee_batch, best_t, best_s);
+        g * gsz * cs, cs, eps, t_lim, early && NEAREST, ee_batch, best_t,
+        best_s, NoShare{});
     if (visits != nullptr && threadIdx.x == 0) visits[gt] = visited;
   }
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    store_result(ray_index(r), np, best_t[r], best_s[r], nearest != 0, attr,
+    store_result(ray_index(r), np, best_t[r], best_s[r], NEAREST, attr,
                  attr_stride, n_attrs, cs, out_t, out_s, out_a);
   }
 }
@@ -107,17 +97,19 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
                                int nearest, int early, int ee_batch, int pmto,
                                float* out_t, int* out_s, float* out_a,
                                int* visits, void* stream) {
-  if (np <= 0 || np % rt::kRayTile != 0 || cs <= 0
-      || cs > rt::kMaxClusterSize || width <= 0 || ee_batch <= 0
-      || n_groups <= 0 || gsz <= 0
+  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
+      || !rt::walk_tables_ok(geo, geo_stride, cs) || n_groups <= 0 || gsz <= 0
       || static_cast<long long>(n_groups) * gsz * cs >= rt::kBigId) {
     return cudaErrorInvalidValue;
   }
   const unsigned nt = static_cast<unsigned>(np / rt::kRayTile);
-  auto kern = pmto ? rt::gstream_kernel<true> : rt::gstream_kernel<false>;
+  auto kern = nearest ? (pmto ? rt::gstream_kernel<true, true>
+                                : rt::gstream_kernel<false, true>)
+                      : (pmto ? rt::gstream_kernel<true, false>
+                                : rt::gstream_kernel<false, false>);
   kern<<<nt, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       rays, np, tmax_row, ids, cnt, tnear, width, n_groups, gsz, bbox, geo,
-      geo_stride, attr, attr_stride, n_attrs, cs, eps, t_max, nearest, early,
-      ee_batch, out_t, out_s, out_a, visits);
+      geo_stride, attr, attr_stride, n_attrs, cs, eps, t_max, early, ee_batch,
+      out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
 }

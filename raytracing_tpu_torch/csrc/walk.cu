@@ -9,38 +9,124 @@
 // [C, A, CS] attribute table, K2 one combined [C, 12 + A, CS] table whose
 // attribute rows follow the geometry rows (the strides say which).
 //
-// One block per 1024-ray tile; each of 256 threads owns 4 rays. The loop
-// over the list, the two intersectors (pmt, and pmto for a pack whose rays
-// share one origin that the caller folded into the table) and the early
-// exit are walk_core.cuh's. The winner's attribute rows are read once
-// after the loop (a gather is cheap on this card; the TPU kernel carried
-// them through the loop because its gathers are serial). Lists are as wide
-// as the cluster table, so the TPU's overflow rescan has no counterpart.
+// What bounds it on this card: scheduler slots (walk_core.cuh), so the card
+// must be kept full of that arithmetic. The TPU walks a tile's list on one
+// core, in order; a block per tile here leaves the card to wait for the
+// longest lists (0 to 100 clusters in a bounce level), and a query with few
+// tiles and long lists (an area light's shadow rays: 64 tiles of ~200
+// clusters) uses half of the 132 multiprocessors.
 //
-// Bound on the card: arithmetic, ~40 operations per (ray, triangle) from
-// registers and shared memory (~30 with pmto); device memory sees each
-// visit's block once per tile. Double-buffering the visit blocks with
-// cp.async is later work.
+// So a tile's list is split over blocks. The unit of work is a segment:
+// `seg` consecutive list positions of one tile. The grid holds `tile_blocks`
+// blocks per tile, at most one per segment of the widest list the table
+// allows; block b of a tile walks segments b, b + tile_blocks, ... of its
+// list, and a block whose first segment lies past the tile's count returns
+// at once, so the host never has to know the counts. The grid is
+// segment-major: every tile's block 0 comes before any tile's block 1. A
+// launch of many tiles then reaches a tile's later segments when its
+// earlier ones have published their hits, and the early exit below skips
+// them; tile-major order starts a tile's segments together and they skip
+// nothing (2,560,000 coherent rays over a 12,640 x 128 table, NVIDIA H100
+// 80GB HBM3, 700 W, tools/kernel_ab.py: 30,361 of 30,703 listed visits and
+// 7.40 ms tile-major, 11,208 and 3.24 ms segment-major). Each of 256
+// threads owns 4 rays; the staged loop and the intersectors are
+// walk_core.cuh's.
+//
+// Segments merge per ray through the order-free key of walk_core.cuh
+// (atomicMin on (bits(t) << 32) | slot; for occlusion a 32-bit atomicMin on
+// bits(t) in the t output), so the result does not depend on the order in
+// which they run. A fill kernel writes the empty keys first.
+//
+// The front-to-back early exit stays, and stays exact. A segment of a
+// nearest query with the exit reads its rays' keys before it starts and at
+// each vote: what it holds and the card does not, it publishes; what the
+// card holds and is better, it folds into its own (best_t, best_s), so it
+// votes on, and culls against, every hit any segment has published. A key
+// written by another segment is a real hit of that ray, so whether the read
+// is fresh or stale only changes how many visits are skipped: a skipped
+// cluster's entry bound lies beyond a real hit and can hold no nearer one,
+// nor a tie. The visits made differ from run to run; the result does not.
+// The keys are read with __ldcg (L2, where the atomics resolve; never a
+// stale L1 line) and any value read is valid: a key is one aligned 8-byte
+// word written by one atomic.
+//
+// The tile's last block to finish (a per-tile counter, __threadfence()
+// before its atomicAdd) unpacks the keys and reads the winner's attribute
+// rows once (a gather is cheap on this card; the TPU kernel carried them
+// through the loop because its gathers are serial). A tile whose list fits
+// one segment skips keys and counter and writes its result directly. Lists
+// are as wide as the cluster table, so the TPU's overflow rescan has no
+// counterpart.
 #include "walk_core.cuh"
 
 namespace rt {
 namespace {
 
-template <bool PMTO>
+__global__ void walk_fill_kernel(long long np, int nearest,
+                                 unsigned long long* __restrict__ keys,
+                                 float* __restrict__ out_t,
+                                 int* __restrict__ finished,
+                                 int* __restrict__ visits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i >= np) return;
+  fill_merge(i, nearest != 0, keys, out_t);
+  if (i < np / kRayTile) {
+    finished[i] = 0;
+    if (visits != nullptr) visits[i] = 0;
+  }
+}
+
+// Publish this thread's hits into its rays' keys and fold the card's better
+// ones in (keys: ray 0 of this thread; null: the walk shares nothing).
+struct KeyShare {
+  unsigned long long* keys;
+  template <int R>
+  __device__ __forceinline__ void operator()(float (&best_t)[R],
+                                             int (&best_s)[R]) const {
+    if (keys == nullptr) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const unsigned long long mine = pack_key(best_t[r], best_s[r]);
+      const unsigned long long seen = __ldcg(keys + r * kThreads);
+      if (mine < seen) {
+        atomicMin(keys + r * kThreads, mine);
+      } else {
+        best_t[r] = key_t(seen);
+        best_s[r] = key_slot(seen);
+      }
+    }
+  }
+};
+
+// blockIdx.x = the block's index within its tile * nt + tile.
+template <bool PMTO, bool NEAREST>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const float* __restrict__ rays, long long np,
             const float* __restrict__ tmax_row,
             const int* __restrict__ ids, const int* __restrict__ cnt,
-            const float* __restrict__ tnear, int width,
-            const float* __restrict__ bbox,
+            const float* __restrict__ tnear, int width, int seg,
+            int tile_blocks, const float* __restrict__ bbox,
             const float* __restrict__ geo, long long geo_stride,
             const float* __restrict__ attr, long long attr_stride,
-            int n_attrs, int cs, float eps, float t_max,
-            int nearest, int early, int ee_batch,
-            float* __restrict__ out_t, int* __restrict__ out_s,
-            float* __restrict__ out_a, int* __restrict__ visits) {
-  __shared__ float blk[12 * kMaxClusterSize];
-  const int tile = blockIdx.x;
+            int n_attrs, int cs, float eps, float t_max, int early,
+            int ee_batch, unsigned long long* keys,
+            int* __restrict__ finished, float* out_t,
+            int* __restrict__ out_s, float* __restrict__ out_a,
+            int* __restrict__ visits) {
+  __shared__ WalkRing ring;
+  __shared__ bool last;
+  const unsigned nt = static_cast<unsigned>(np / kRayTile);
+  const long long tile = blockIdx.x % nt;
+  const int first = blockIdx.x / nt;  // this block's first segment
+  const int listed = min(cnt[tile], width);
+  // A tile's segment 0 always runs (a tile with no visits still reads
+  // miss); a later one only if the list reaches it.
+  const int n_parts = max(1, (listed + seg - 1) / seg);
+  const int parts = min(n_parts, tile_blocks);  // the tile's blocks that run
+  if (first >= parts) return;  // the whole block: no barrier is skipped
+  const bool split = parts > 1;
+  const bool use_exit = early && NEAREST;
 
   float o[kRaysPerThread][3];
   float d[kRaysPerThread][3];
@@ -48,31 +134,59 @@ walk_kernel(const float* __restrict__ rays, long long np,
   int best_s[kRaysPerThread];
   bool alive[kRaysPerThread];
   float t_lim[kRaysPerThread];
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = ray_index(r);
-    t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      o[r][k] = rays[k * np + i];
-      d[r][k] = rays[(4 + k) * np + i];
-    }
-    alive[r] = rays[7 * np + i] != 0.0f;
-    best_t[r] = inf();
-    best_s[r] = kBigId;
+  load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
+                 best_s);
+  const long long i0 = tile * kRayTile + threadIdx.x;
+  const KeyShare share{split && use_exit ? keys + i0 : nullptr};
+
+  int visited = 0;
+  for (int part = first; part < n_parts; part += tile_blocks) {
+    const long long row = tile * width + part * seg;
+    const int trips = min(seg, listed - part * seg);
+    share(best_t, best_s);  // what the tile's other blocks have found
+    const int made = walk_list<kRaysPerThread, PMTO, NEAREST>(
+        ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, trips,
+        bbox, geo, geo_stride, 0, cs, eps, t_lim, use_exit, ee_batch, best_t,
+        best_s, share);
+    visited += made;
+    if (made < trips) break;  // settled: the list's rest lies farther still
   }
+  if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + tile, visited);
 
-  const long long row = static_cast<long long>(tile) * width;
-  const int visited = walk_list<kRaysPerThread, PMTO>(
-      blk, o, d, alive, ids + row, tnear ? tnear + row : nullptr, cnt[tile],
-      bbox, geo, geo_stride, 0, cs, eps, t_lim, nearest != 0,
-      early && nearest, ee_batch, best_t, best_s);
-  if (visits != nullptr && threadIdx.x == 0) visits[tile] = visited;
-
+  if (!split) {
+#pragma unroll
+    for (int r = 0; r < kRaysPerThread; ++r) {
+      store_result(i0 + r * kThreads, np, best_t[r], best_s[r], NEAREST, attr,
+                   attr_stride, n_attrs, cs, out_t, out_s, out_a);
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    store_result(ray_index(r), np, best_t[r], best_s[r], nearest != 0, attr,
-                 attr_stride, n_attrs, cs, out_t, out_s, out_a);
+    const long long i = i0 + r * kThreads;
+    // A hit this block only folded in is on the card already.
+    if (NEAREST && !(pack_key(best_t[r], best_s[r]) < __ldcg(keys + i))) {
+      continue;
+    }
+    merge_result(i, NEAREST, best_t[r], best_s[r], keys, out_t);
+  }
+  // The tile's last block to get here sees every other one's merges.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(finished + tile, 1) == parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int r = 0; r < kRaysPerThread; ++r) {
+    const long long i = i0 + r * kThreads;
+    if (NEAREST) {
+      const unsigned long long key = __ldcg(keys + i);
+      store_result(i, np, key_t(key), key_slot(key), true, attr, attr_stride,
+                   n_attrs, cs, out_t, out_s, out_a);
+    } else {
+      out_s[i] = __ldcg(out_t + i) < inf() ? 1 : 0;
+    }
   }
 }
 
@@ -80,32 +194,50 @@ walk_kernel(const float* __restrict__ rays, long long np,
 }  // namespace rt
 
 // rays [8, np]; tmax_row [np] or null: each ray's own occlusion limit in
-// place of the scalar t_max; ids [nt, width] i32 with cnt [nt] <= width
-// listed clusters per tile; tnear [nt, width] and bbox [6] (only read when
-// early != 0); geo: cluster c's 12 geometry rows at geo + c * geo_stride,
-// each cs floats; attr likewise with attr_stride
-// (n_attrs rows; unused for occlusion). pmto != 0 selects the origin-folded
-// intersector (the caller folded the shared origin into geo). Outputs
-// t [np], slot or hit flag [np] i32, attrs [n_attrs, np], and, where
-// visits is not null, the clusters each tile visited [nt] i32.
+// place of the scalar t_max; ids [nt, width] i32 with cnt [nt] listed
+// clusters per tile (the first min(cnt, width) are walked), in segments of
+// `seg`, each tile's segments dealt to `tile_blocks` blocks; tnear
+// [nt, width] and bbox [6] (only read when early != 0); geo: cluster c's 12
+// geometry rows at geo + c * geo_stride, each cs floats, 16-byte aligned;
+// attr likewise with attr_stride (n_attrs rows; unused for occlusion).
+// pmto != 0 selects the origin-folded intersector (the caller folded the
+// shared origin into geo). Scratch the launch fills: keys, np 8-byte words,
+// 8-byte aligned (nearest only; may be null for occlusion), and finished
+// [nt] i32. Outputs t [np], slot or hit flag [np] i32, attrs [n_attrs, np],
+// and, where visits is not null, the clusters each tile visited [nt] i32
+// (they differ from run to run under the early exit). Two launches on the
+// stream: fill, blocks.
 extern "C" int rt_walk(const float* rays, long long np,
                        const float* tmax_row, const int* ids,
-                       const int* cnt, const float* tnear, int width,
-                       const float* bbox, const float* geo,
+                       const int* cnt, const float* tnear, int width, int seg,
+                       int tile_blocks, const float* bbox, const float* geo,
                        long long geo_stride, const float* attr,
                        long long attr_stride, int n_attrs, int cs,
                        float eps, float t_max, int nearest, int early,
-                       int ee_batch, int pmto, float* out_t, int* out_s,
-                       float* out_a, int* visits, void* stream) {
-  if (np <= 0 || np % rt::kRayTile != 0 || cs <= 0
-      || cs > rt::kMaxClusterSize || width <= 0 || ee_batch <= 0) {
+                       int ee_batch, int pmto, unsigned long long* keys,
+                       int* finished, float* out_t, int* out_s, float* out_a,
+                       int* visits, void* stream) {
+  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
+      || seg <= 0 || tile_blocks <= 0 || finished == nullptr
+      || !rt::walk_tables_ok(geo, geo_stride, cs)
+      || (nearest && (keys == nullptr
+                      || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
   }
-  const unsigned nt = static_cast<unsigned>(np / rt::kRayTile);
-  auto kern = pmto ? rt::walk_kernel<true> : rt::walk_kernel<false>;
-  kern<<<nt, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rays, np, tmax_row, ids, cnt, tnear, width, bbox, geo, geo_stride, attr,
-      attr_stride, n_attrs, cs, eps, t_max, nearest, early,
-      ee_batch, out_t, out_s, out_a, visits);
+  const long long nt = np / rt::kRayTile;
+  if (nt * tile_blocks > 2147483647ll) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  rt::walk_fill_kernel<<<static_cast<unsigned>((np + rt::kThreads - 1)
+                                               / rt::kThreads),
+                         rt::kThreads, 0, s>>>(np, nearest, keys, out_t,
+                                               finished, visits);
+  auto kern = nearest ? (pmto ? rt::walk_kernel<true, true>
+                                : rt::walk_kernel<false, true>)
+                      : (pmto ? rt::walk_kernel<true, false>
+                                : rt::walk_kernel<false, false>);
+  kern<<<static_cast<unsigned>(nt * tile_blocks), rt::kThreads, 0, s>>>(
+      rays, np, tmax_row, ids, cnt, tnear, width, seg, tile_blocks, bbox, geo,
+      geo_stride, attr, attr_stride, n_attrs, cs, eps, t_max, early, ee_batch,
+      keys, finished, out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
 }

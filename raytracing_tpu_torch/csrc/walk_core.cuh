@@ -1,9 +1,34 @@
-// The visit-list walk shared by walk.cu (rays read from a pack) and
-// camera.cu (rays derived from the pinhole camera): one block walks one
-// tile's front-to-back list of clusters, each thread holding R rays in
-// registers. Per visit the cluster's 12 x CS Baldwin–Weber rows are staged
-// into shared memory and every thread intersects its rays with all CS
-// triangles (broadcast reads).
+// The visit-list walk shared by walk.cu and wq.cu (rays read from a pack),
+// gstream.cu (the same over groups of the table) and camera.cu (rays
+// derived from the pinhole camera): a block walks consecutive positions of
+// one tile's front-to-back list of clusters, each thread holding R rays in
+// registers, and every thread intersects its rays with all the triangles
+// of every listed cluster (broadcast reads from shared memory).
+//
+// This loop is the inner loop of the TPU package's _walk_kernel,
+// _dma_walk_kernel, _gstream_kernel and _wq_kernel
+// (raytracing_tpu/kernels/traverse.py), which stream a visit's block into
+// VMEM by BlockSpec or by make_async_copy with two buffers.
+//
+// What bounds it on this card: scheduler slots, one per machine op of a
+// warp. The build keeps every multiply and add apart (-fmad=false) and every
+// division IEEE, so that the results are the plain version's bits; a (ray,
+// triangle) test is then 44 to 61 machine ops (~40 counted floating-point
+// operations; tools/sass_count.py), and 128 triangles x 4 rays keep a warp
+// busy for ~30,000 of them. Device memory sees 6 KB per 128 triangles per
+// tile. So the loop must not add waiting to that arithmetic:
+//   - visits are staged ahead of use: a ring of kStages buffers in shared
+//     memory, filled with 16-byte cp.async copies (L2 to shared memory, no
+//     registers), stage s + kStages - 1 in flight while stage s is
+//     intersected, and ONE barrier per stage (it carries the early-exit
+//     vote too). TMA would save nothing here: a stage is at most 6 KB in up
+//     to 32 pieces addressed through an id list, and starting the copies
+//     costs a thread two machine ops per stage;
+//   - a stage holds kMaxClusterSize / CS clusters, not one, so a table of
+//     16-triangle clusters pays a barrier per 128 triangles as a table of
+//     128-triangle clusters does;
+//   - a row of the stage is read as float4: 12 shared-memory reads serve 4
+//     triangles x R rays.
 //
 // Two intersectors, op for op with the TPU package's:
 //   pmt  (traverse.py:_pmt_tile)   t = (d0 - n·o) / den, u and v from the
@@ -15,14 +40,120 @@
 // Nearest keeps a flat (best_t, best_slot) per ray: min t, then min slot,
 // and an infinite t never ties. Occlusion keeps min t under each ray's own
 // limit (a scalar t_max, or one entry of a per-ray row).
-// Early exit, every ee_batch visits: a block vote on "every alive lane's
-// min(best_t, scene-exit t) is below the next entry's lower bound" —
-// exact, so results do not depend on it.
+// Early exit, at a stage's end once ee_batch visits were made since the
+// last vote: a block vote on "every alive lane's min(best_t, scene-exit t)
+// is below the next entry's lower bound" — exact, so results do not depend
+// on it.
+//
+// The order-free merge of walk.cu's segments and wq.cu's work items is here
+// too: one 64-bit key (bits(t) << 32) | slot per ray, merged with atomicMin.
 #pragma once
 
 #include "common.cuh"
 
 namespace rt {
+
+// Stage buffers of the ring, and the most clusters one stage holds (the
+// cluster size is a multiple of 4, so at least 4).
+constexpr int kStages = 3;
+constexpr int kMaxStageClusters = kMaxClusterSize / 4;
+
+// A block's staging ring. A stage holds up to kMaxClusterSize triangles as
+// [clusters][12 rows][CS] floats (float4: 16-byte copies and reads) and the
+// ids of its clusters.
+struct WalkRing {
+  float4 blk[kStages][3 * kMaxClusterSize];
+  int ids[kStages][kMaxStageClusters];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(__cvta_generic_to_global(gmem))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The merge key of a (t, slot) pair. An accepted t is > eps > 0, so its bit
+// pattern orders as an unsigned integer and +inf is the largest: the key's
+// order is exactly the lexicographic (min t, then min slot) rule, and
+// atomicMin merges in any order. A key is written by one 8-byte atomic on an
+// aligned word, so a reader never sees a torn one.
+constexpr unsigned long long kEmptyKey =
+    (0x7f800000ull << 32) | static_cast<unsigned long long>(kBigId);
+
+__device__ __forceinline__ unsigned long long pack_key(float t, int slot) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32)
+         | static_cast<unsigned>(slot);
+}
+__device__ __forceinline__ float key_t(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32));
+}
+__device__ __forceinline__ int key_slot(unsigned long long key) {
+  return static_cast<int>(key & 0xffffffffull);
+}
+
+// What ray i's merge state holds before any block runs: the empty key
+// (nearest), or +inf in the t output, which occlusion merges in place.
+__device__ __forceinline__ void fill_merge(long long i, bool nearest,
+                                           unsigned long long* keys,
+                                           float* out_t) {
+  if (nearest) {
+    keys[i] = kEmptyKey;
+  } else {
+    out_t[i] = inf();
+  }
+}
+
+// Merge one block's result for ray i. Only an accepted hit (t > eps, so its
+// bits order as an unsigned integer) reaches the atomic.
+__device__ __forceinline__ void merge_result(long long i, bool nearest,
+                                             float best_t, int best_s,
+                                             unsigned long long* keys,
+                                             float* out_t) {
+  if (!(best_t < inf())) return;
+  if (nearest) {
+    atomicMin(keys + i, pack_key(best_t, best_s));
+  } else {
+    atomicMin(reinterpret_cast<unsigned*>(out_t) + i, __float_as_uint(best_t));
+  }
+}
+
+// A walk that shares nothing with other blocks while it runs.
+struct NoShare {
+  template <int R>
+  __device__ __forceinline__ void operator()(float (&)[R], int (&)[R]) const {}
+};
+
+// This thread's R pack rays of `tile` (ray r is lane threadIdx.x +
+// r * kThreads of the tile: neighbouring threads read neighbouring rays),
+// their limits, and an empty result.
+template <int R>
+__device__ __forceinline__ void load_pack_rays(
+    const float* __restrict__ rays, long long np,
+    const float* __restrict__ tmax_row, float t_max, long long tile,
+    float (&o)[R][3], float (&d)[R][3], bool (&alive)[R], float (&t_lim)[R],
+    float (&best_t)[R], int (&best_s)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = tile * kRayTile + threadIdx.x + r * kThreads;
+    t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      o[r][k] = rays[k * np + i];
+      d[r][k] = rays[(4 + k) * np + i];
+    }
+    alive[r] = rays[7 * np + i] != 0.0f;
+    best_t[r] = inf();
+    best_s[r] = kBigId;
+  }
+}
 
 // Upper bound on the t of any hit inside the walked clusters' union box
 // (traverse.py:_scene_exit_row): the ray's exit parameter from the box,
@@ -48,86 +179,164 @@ __device__ __forceinline__ float scene_exit(const float o[3], const float d[3],
   return (tmin <= exit_t && exit_t >= 0.0f) ? exit_t : -inf();
 }
 
-// Walk `trips` listed clusters for this thread's R rays. `blk` is the
-// block's shared staging buffer of 12 * kMaxClusterSize floats; every
-// thread of the block must call this with the same list (it synchronises).
+// This thread's vote on the early exit: every alive lane's nearest hit, or
+// its exit from the scene box, lies before the next entry's lower bound.
+// The exit parameter is reckoned here, for the lanes whose hit does not
+// settle them, rather than held in registers through the walk.
+template <int R>
+__device__ __forceinline__ bool lanes_settled(const bool (&alive)[R],
+                                              const float (&best_t)[R],
+                                              const float (&o)[R][3],
+                                              const float (&d)[R][3],
+                                              const float* __restrict__ bbox,
+                                              float next_tnear) {
+  bool settled = true;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (alive[r] && !(best_t[r] < next_tnear)
+        && !(scene_exit(o[r], d[r], bbox) < next_tnear)) {
+      settled = false;
+    }
+  }
+  return settled;
+}
+
+// Start the copies of list positions [j0, j0 + nin) into stage buffer b and
+// commit them as one group (an empty group when nin <= 0, so that every
+// thread's group count advances alike). Positions past the list's end are
+// not staged.
+__device__ __forceinline__ void stage_start(
+    WalkRing& ring, int b, const int* __restrict__ tile_ids, int j0, int nin,
+    const float* __restrict__ geo, long long geo_stride, int cs) {
+  const int per = 3 * cs;  // 16-byte pieces of one cluster's 12 rows
+  for (int e = threadIdx.x; e < nin * per; e += kThreads) {
+    const int i = e / per;
+    const int w = e - i * per;
+    const int c = tile_ids[j0 + i];
+    if (w == 0) ring.ids[b][i] = c;
+    cp_async16(&ring.blk[b][e],
+               geo + static_cast<long long>(c) * geo_stride + 4 * w);
+  }
+  cp_async_commit();
+}
+
+// Walk `trips` listed clusters for this thread's R rays. `ring` is the
+// block's staging ring; every thread of the block must call this with the
+// same list (it synchronises), and no copy is in flight when it returns.
 // Lanes with alive == false take no part in the early-exit vote; their
 // results are meaningless. best_t / best_s come in as +inf / kBigId, or as
-// the result of an earlier call for the same rays (another list, another
-// part of the table): the (min t, min slot) rule does not depend on the
-// order of the visits, and a hit found earlier is a real hit, so the vote
-// stays exact. Listed ids index `geo`; a triangle's slot is
-// slot_base + id * cs + lane. Occlusion accepts t < t_lim[r]. Returns the
-// number of clusters visited (trips, or fewer after an early exit).
-template <int R, bool PMTO>
+// the result of an earlier walk for the same rays (another list, another
+// part of the table, another block's published key): the (min t, min slot)
+// rule does not depend on the order of the visits, and a hit found earlier
+// is a real hit, so the vote stays exact. `share` is called with
+// (best_t, best_s) just before each vote: a walk split over blocks
+// publishes and folds in the other blocks' hits there (walk.cu). Listed ids
+// index `geo`, whose rows must be 16-byte aligned (cs a multiple of 4); a
+// triangle's slot is slot_base + id * cs + lane. Occlusion (NEAREST false)
+// accepts t < t_lim[r] and never exits early. Returns the number of
+// clusters visited (trips, or fewer after an early exit).
+template <int R, bool PMTO, bool NEAREST, class Share>
 __device__ __forceinline__ int walk_list(
-    float* blk, const float (&o)[R][3], const float (&d)[R][3],
+    WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
     const float* __restrict__ tile_tnear, int trips,
     const float* __restrict__ bbox, const float* __restrict__ geo,
     long long geo_stride, int slot_base, int cs, float eps,
-    const float (&t_lim)[R], bool nearest, bool use_exit, int ee_batch,
-    float (&best_t)[R], int (&best_s)[R]) {
-  float exit_t[R];
+    const float (&t_lim)[R], bool use_exit, int ee_batch,
+    float (&best_t)[R], int (&best_s)[R], Share share) {
+  const int cps = kMaxClusterSize / cs;  // clusters per stage
+  const int q4 = cs / 4;                 // float4 per row
+  const int n_stages = trips > 0 ? (trips + cps - 1) / cps : 0;
+  // A first vote on what the rays bring with them: a list that starts
+  // beyond every lane's hit is not walked at all. Behind its barrier an
+  // earlier walk's reads of the ring are done too.
+  bool settled = use_exit && trips > 0
+                 && lanes_settled(alive, best_t, o, d, bbox, tile_tnear[0]);
+  if (__syncthreads_and(settled)) return 0;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    exit_t[r] = use_exit ? scene_exit(o[r], d[r], bbox) : 0.0f;
+  for (int s = 0; s < kStages - 1; ++s) {
+    stage_start(ring, s, tile_ids, s * cps, min(cps, trips - s * cps), geo,
+                geo_stride, cs);
   }
-  for (int j = 0; j < trips; ++j) {
-    const int c = tile_ids[j];
-    const float* g = geo + static_cast<long long>(c) * geo_stride;
-    __syncthreads();  // the previous visit's reads of blk are done
-    for (int e = threadIdx.x; e < 12 * cs; e += blockDim.x) blk[e] = g[e];
-    __syncthreads();
-    const int slot0 = slot_base + c * cs;
-    for (int k = 0; k < cs; ++k) {
-      const float nx = blk[k], ny = blk[cs + k], nz = blk[2 * cs + k];
-      const float d0 = blk[3 * cs + k];
-      const float ux = blk[4 * cs + k], uy = blk[5 * cs + k];
-      const float uz = blk[6 * cs + k], u0 = blk[7 * cs + k];
-      const float vx = blk[8 * cs + k], vy = blk[9 * cs + k];
-      const float vz = blk[10 * cs + k], v0c = blk[11 * cs + k];
+  int done = 0;
+  int voted = 0;
+  settled = false;
+  for (int s = 0; s < n_stages; ++s) {
+    // This thread's copies of stage s have landed; behind the barrier
+    // everyone's have, and everyone is done with stage s - 1, whose buffer
+    // the next copies take. The barrier carries the vote cast after
+    // stage s - 1: every thread takes the same exit.
+    cp_async_wait<kStages - 2>();
+    if (__syncthreads_and(settled)) break;
+    const int ahead = s + kStages - 1;
+    stage_start(ring, ahead % kStages, tile_ids, ahead * cps,
+                min(cps, trips - ahead * cps), geo, geo_stride, cs);
+    const int b = s % kStages;
+    const int nin = min(cps, trips - s * cps);
+    for (int i = 0; i < nin; ++i) {
+      const int slot0 = slot_base + ring.ids[b][i] * cs;
+      const float4* g = ring.blk[b] + i * 3 * cs;
+      for (int k4 = 0; k4 < q4; ++k4) {
+        float tri[12][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float den = nx * d[r][0] + ny * d[r][1] + nz * d[r][2];
-        float t, u, v;
-        if (PMTO) {
-          t = d0 / den;
-          u = u0 + t * (ux * d[r][0] + uy * d[r][1] + uz * d[r][2]);
-          v = v0c + t * (vx * d[r][0] + vy * d[r][1] + vz * d[r][2]);
-        } else {
-          t = (d0 - (nx * o[r][0] + ny * o[r][1] + nz * o[r][2])) / den;
-          const float px = o[r][0] + t * d[r][0];
-          const float py = o[r][1] + t * d[r][1];
-          const float pz = o[r][2] + t * d[r][2];
-          u = ux * px + uy * py + uz * pz + u0;
-          v = vx * px + vy * py + vz * pz + v0c;
+        for (int q = 0; q < 12; ++q) {
+          const float4 v = g[q * q4 + k4];
+          tri[q][0] = v.x;
+          tri[q][1] = v.y;
+          tri[q][2] = v.z;
+          tri[q][3] = v.w;
         }
-        const bool valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f
-                           && u + v <= 1.0f && t > eps;
-        if (nearest) {
-          const int slot = slot0 + k;
-          if (valid && (t < best_t[r]
-                        || (t == best_t[r] && t < inf() && slot < best_s[r]))) {
-            best_t[r] = t;
-            best_s[r] = slot;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float nx = tri[0][kk], ny = tri[1][kk], nz = tri[2][kk];
+          const float d0 = tri[3][kk];
+          const float ux = tri[4][kk], uy = tri[5][kk];
+          const float uz = tri[6][kk], u0 = tri[7][kk];
+          const float vx = tri[8][kk], vy = tri[9][kk];
+          const float vz = tri[10][kk], v0c = tri[11][kk];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float den = nx * d[r][0] + ny * d[r][1] + nz * d[r][2];
+            float t, u, v;
+            if (PMTO) {
+              t = d0 / den;
+              u = u0 + t * (ux * d[r][0] + uy * d[r][1] + uz * d[r][2]);
+              v = v0c + t * (vx * d[r][0] + vy * d[r][1] + vz * d[r][2]);
+            } else {
+              t = (d0 - (nx * o[r][0] + ny * o[r][1] + nz * o[r][2])) / den;
+              const float px = o[r][0] + t * d[r][0];
+              const float py = o[r][1] + t * d[r][1];
+              const float pz = o[r][2] + t * d[r][2];
+              u = ux * px + uy * py + uz * pz + u0;
+              v = vx * px + vy * py + vz * pz + v0c;
+            }
+            const bool valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f
+                               && u + v <= 1.0f && t > eps;
+            if (NEAREST) {
+              const int slot = slot0 + 4 * k4 + kk;
+              if (valid
+                  && (t < best_t[r]
+                      || (t == best_t[r] && t < inf() && slot < best_s[r]))) {
+                best_t[r] = t;
+                best_s[r] = slot;
+              }
+            } else if (valid && t < t_lim[r] && t < best_t[r]) {
+              best_t[r] = t;
+            }
           }
-        } else if (valid && t < t_lim[r] && t < best_t[r]) {
-          best_t[r] = t;
         }
       }
     }
-    if (use_exit && (j + 1) % ee_batch == 0 && j + 1 < trips) {
-      const float nxt = tile_tnear[j + 1];
-      bool settled = true;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (alive[r] && !(fminf(best_t[r], exit_t[r]) < nxt)) settled = false;
-      }
-      if (__syncthreads_and(settled)) return j + 1;
+    done = s * cps + nin;
+    settled = false;
+    if (use_exit && done < trips && done - voted >= ee_batch) {
+      voted = done;
+      share(best_t, best_s);
+      settled = lanes_settled(alive, best_t, o, d, bbox, tile_tnear[done]);
     }
   }
-  return trips > 0 ? trips : 0;
+  cp_async_wait<0>();  // an early exit leaves copies in flight: drain them
+  return done;
 }
 
 // Write ray i's result: t, then the slot (nearest) or hit flag (occlusion),
@@ -153,6 +362,14 @@ __device__ __forceinline__ void store_result(
       out_a[q * np + i] = hit ? a[q * cs] : 0.0f;
     }
   }
+}
+
+// What every walk entry refuses: a cluster size the ring cannot stage, or a
+// table whose rows the 16-byte copies cannot address.
+inline bool walk_tables_ok(const float* geo, long long geo_stride, int cs) {
+  return cs > 0 && cs <= kMaxClusterSize && cs % 4 == 0
+         && geo_stride % 4 == 0
+         && reinterpret_cast<unsigned long long>(geo) % 16 == 0;
 }
 
 }  // namespace rt

@@ -4,21 +4,20 @@
 // Replaces raytracing_tpu/kernels/traverse.py:_wq_kernel (launched by
 // _launch_wq from _walk_wq). A work item is `u` consecutive visits of one
 // tile's list; the grid holds ceil(width / u) items per tile, and an item
-// whose first visit lies past the tile's count returns at once. K1 and K2
-// give a tile one block however long its list is; here a long list is
-// spread over many blocks, which run on different SMs at the same time.
-// There is no early exit: every listed visit is walked.
+// whose first visit lies past the tile's count returns at once. A long list
+// is spread over many blocks, which run on different SMs at the same time.
+// There is no early exit: every listed visit is walked. (walk.cu splits its
+// lists the same way and keeps the exit; this kernel stays as the
+// counterpart of the TPU's, three plain launches and no sharing between
+// running blocks.)
 //
-// So the merge of a tile's items must not depend on their order. Per ray
-// one 64-bit key (bits(t) << 32) | slot is merged with atomicMin: an
-// accepted t is > eps > 0, so its bit pattern orders as an unsigned
-// integer, +inf is the largest, and the key's order is exactly the
-// lexicographic (min t, then min slot) rule of walk_core.cuh. The key
-// starts as (bits(+inf), kBigId) and only accepted hits reach the atomic,
-// so an infinite t never replaces anything and a tile with no visits reads
-// miss. Occlusion merges bits(t) alone with a 32-bit atomicMin in the t
-// output, under each ray's own limit. A second small kernel unpacks t and
-// slot and reads the winner's attribute rows once.
+// So the merge of a tile's items must not depend on their order: it is the
+// key merge of walk_core.cuh, one atomicMin per ray and item on
+// (bits(t) << 32) | slot, or for occlusion on bits(t) in the t output. The
+// key starts empty and only accepted hits reach the atomic, so an infinite
+// t never replaces anything and a tile with no visits reads miss. A second
+// small kernel unpacks t and slot and reads the winner's attribute rows
+// once.
 //
 // An item stages its visits' blocks and intersects them with
 // walk_core.cuh's loop (pmt or pmto): the code K1 runs. Each item reads
@@ -28,37 +27,30 @@
 namespace rt {
 namespace {
 
-constexpr unsigned long long kEmptyKey =
-    (0x7f800000ull << 32) | static_cast<unsigned long long>(kBigId);
-
 __global__ void wq_init_kernel(long long np, int nearest,
                                unsigned long long* __restrict__ keys,
                                float* __restrict__ out_t) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (i >= np) return;
-  if (nearest) {
-    keys[i] = kEmptyKey;
-  } else {
-    out_t[i] = inf();
-  }
+  fill_merge(i, nearest != 0, keys, out_t);
 }
 
 // blockIdx.x = tile * steps + the item's step within its tile: a tile's
 // items are neighbours in launch order, so its rays stay in L2, and the
 // number of tiles is held only by the x axis's 2^31 - 1 blocks.
-template <bool PMTO>
+template <bool PMTO, bool NEAREST>
 __global__ void __launch_bounds__(kThreads)
 wq_items_kernel(const float* __restrict__ rays, long long np,
                 const float* __restrict__ tmax_row,
                 const int* __restrict__ ids, const int* __restrict__ cnt,
                 int width, int u, const float* __restrict__ geo,
                 long long geo_stride, int cs, float eps, float t_max,
-                int nearest, unsigned steps,
+                unsigned steps,
                 unsigned long long* __restrict__ keys,
                 float* __restrict__ out_t) {
-  __shared__ float blk[12 * kMaxClusterSize];
-  const int tile = blockIdx.x / steps;
+  __shared__ WalkRing ring;
+  const long long tile = blockIdx.x / steps;
   const int j0 = (blockIdx.x % steps) * u;
   const int listed = min(cnt[tile], width);
   if (j0 >= listed) return;  // the whole block: no barrier is skipped
@@ -67,42 +59,20 @@ wq_items_kernel(const float* __restrict__ rays, long long np,
   float d[kRaysPerThread][3];
   float best_t[kRaysPerThread];
   int best_s[kRaysPerThread];
-  bool alive[kRaysPerThread];
+  bool alive[kRaysPerThread];  // no vote here: a dead lane is walked too
   float t_lim[kRaysPerThread];
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = static_cast<long long>(tile) * kRayTile + threadIdx.x
-                        + r * kThreads;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      o[r][k] = rays[k * np + i];
-      d[r][k] = rays[(4 + k) * np + i];
-    }
-    alive[r] = true;  // no vote here; a dead lane is walked as K1 walks it
-    t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
-    best_t[r] = inf();
-    best_s[r] = kBigId;
-  }
+  load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
+                 best_s);
 
-  walk_list<kRaysPerThread, PMTO>(
-      blk, o, d, alive, ids + static_cast<long long>(tile) * width + j0,
-      nullptr, min(u, listed - j0), nullptr, geo, geo_stride, 0, cs, eps,
-      t_lim, nearest != 0, false, 1, best_t, best_s);
+  walk_list<kRaysPerThread, PMTO, NEAREST>(
+      ring, o, d, alive, ids + tile * width + j0, nullptr,
+      min(u, listed - j0), nullptr, geo, geo_stride, 0, cs, eps, t_lim,
+      false, 1, best_t, best_s, NoShare{});
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    // Only an accepted hit (t > eps, so its bits order as an unsigned
-    // integer) reaches the atomic.
-    if (!(best_t[r] < inf())) continue;
-    const long long i = static_cast<long long>(tile) * kRayTile + threadIdx.x
-                        + r * kThreads;
-    const unsigned bits = __float_as_uint(best_t[r]);
-    if (nearest) {
-      atomicMin(keys + i, (static_cast<unsigned long long>(bits) << 32)
-                              | static_cast<unsigned>(best_s[r]));
-    } else {
-      atomicMin(reinterpret_cast<unsigned*>(out_t) + i, bits);
-    }
+    merge_result(tile * kRayTile + threadIdx.x + r * kThreads, NEAREST,
+                 best_t[r], best_s[r], keys, out_t);
   }
 }
 
@@ -118,9 +88,8 @@ __global__ void wq_finish_kernel(long long np, int nearest,
   if (i >= np) return;
   if (nearest) {
     const unsigned long long key = keys[i];
-    store_result(i, np, __uint_as_float(static_cast<unsigned>(key >> 32)),
-                 static_cast<int>(key & 0xffffffffull), true, attr,
-                 attr_stride, n_attrs, cs, out_t, out_s, out_a);
+    store_result(i, np, key_t(key), key_slot(key), true, attr, attr_stride,
+                 n_attrs, cs, out_t, out_s, out_a);
   } else {
     out_s[i] = out_t[i] < inf() ? 1 : 0;
   }
@@ -144,8 +113,8 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
                           unsigned long long* keys, float* out_t, int* out_s,
                           float* out_a, void* stream) {
   const long long nt = np / rt::kRayTile;
-  if (np <= 0 || np % rt::kRayTile != 0 || cs <= 0
-      || cs > rt::kMaxClusterSize || width <= 0 || u <= 0
+  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || u <= 0
+      || !rt::walk_tables_ok(geo, geo_stride, cs)
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
@@ -156,10 +125,13 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
                                               / rt::kThreads);
   auto s = static_cast<cudaStream_t>(stream);
   rt::wq_init_kernel<<<flat, rt::kThreads, 0, s>>>(np, nearest, keys, out_t);
-  auto kern = pmto ? rt::wq_items_kernel<true> : rt::wq_items_kernel<false>;
+  auto kern = nearest ? (pmto ? rt::wq_items_kernel<true, true>
+                                : rt::wq_items_kernel<false, true>)
+                      : (pmto ? rt::wq_items_kernel<true, false>
+                                : rt::wq_items_kernel<false, false>);
   kern<<<static_cast<unsigned>(nt * steps), rt::kThreads, 0, s>>>(
       rays, np, tmax_row, ids, cnt, width, u, geo, geo_stride, cs, eps,
-      t_max, nearest, steps, keys, out_t);
+      t_max, steps, keys, out_t);
   rt::wq_finish_kernel<<<flat, rt::kThreads, 0, s>>>(
       np, nearest, keys, attr, attr_stride, n_attrs, cs, out_t, out_s,
       out_a);

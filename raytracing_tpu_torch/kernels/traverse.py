@@ -20,7 +20,9 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
       an elementwise-nearest merge. With `_WQ_IMPL = "grid"` a `wq` query
       takes `walk_wq` (K4), whose unit of work is a few visits of a tile,
       instead of K2. An occlusion query may carry a per-ray limit
-      (`tmax_row`) in place of the scalar `t_max`.
+      (`tmax_row`) in place of the scalar `t_max`. K1/K2 cut a tile's list
+      into segments for many blocks themselves (`_walk_segment`), merged
+      per ray in any order, with the early exit kept exact across blocks.
 
 Camera mode (`nearest_hit_camera_soa`) answers the primary level without a
 ray pack: a tile is one bh x bw pixel block x spp samples, its frustum
@@ -79,6 +81,15 @@ STREAM_GROUPS = True
 _WQ_IMPL = "dma"
 # Visits per work item of K4.
 WQ_U = 4
+# K1/K2 split a tile's list over blocks: a block walks a segment of about
+# this many triangles (`_walk_segment`), whole stages of the kernel's
+# 128-triangle staging ring.
+_SEGMENT_TRIANGLES = 256
+_STAGE_TRIANGLES = 128
+# ... and the most blocks one tile's list is dealt to: a list of more
+# segments gives each block several, so a table far wider than the lists
+# listed from it does not fill the grid with blocks that find nothing.
+_MAX_TILE_BLOCKS = 64
 
 # Kernel launches since the last reset: "walk" counts the `_walk_groups`
 # entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
@@ -110,6 +121,31 @@ def _dma_ee_batch(cs: int) -> int:
     """The TPU `_dma_walk_kernel` votes every max(1, batch // 2) visit
     PAIRS."""
     return 2 * max(1, _ee_batch_for(cs) // 2)
+
+
+def _walk_segment(cs: int) -> int:
+    """List positions one block of the pack walk (K1/K2) takes: whole
+    stages of `_STAGE_TRIANGLES // cs` clusters, `_SEGMENT_TRIANGLES`
+    triangles or one stage if that is more — 16 visits at CS 16, 2 at
+    CS 128. A multiple of every vote batch (`_ee_batch_for`,
+    `_dma_ee_batch`)."""
+    stage = max(1, _STAGE_TRIANGLES // cs)
+    return stage * max(1, _SEGMENT_TRIANGLES // (stage * cs))
+
+
+def _walk_grid(who: str, nt: int, width: int, per_block: int,
+               most: Optional[int] = None) -> int:
+    """Blocks per tile of a walk whose grid holds ceil(width / per_block)
+    of them, at most `most`, for each of nt tiles; raises above what one
+    launch takes."""
+    tile_blocks = -(-width // per_block)
+    if most is not None:
+        tile_blocks = min(tile_blocks, most)
+    if nt * tile_blocks >= 2 ** 31:
+        raise ValueError(f"{who}: {nt} tiles of {width} listed visits, "
+                         f"{per_block} to a block, make {nt * tile_blocks} "
+                         f"blocks; one launch takes fewer than 2**31")
+    return tile_blocks
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -481,14 +517,23 @@ def _check_tmax_row(who, n, tmax_row):
 
 def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox):
     """What the walk kernels take: f32 [C, rows, CS] tables with contiguous
-    rows, contiguous i32 ids [nt, W] with cnt [nt], and for the early exit
-    a contiguous tnear [nt, W] and a bbox [6]."""
+    rows, the geometry table's blocks 16-byte aligned (the kernels stage
+    them with 16-byte copies: CS a multiple of 4 up to 128), contiguous i32
+    ids [nt, W] with cnt [nt], and for the early exit a contiguous tnear
+    [nt, W] and a bbox [6]."""
     for name, tab in (("geo", geo), ("attr", attr)):
         if tab is not None and (tab.dtype != torch.float32
                                 or tab.stride(2) != 1 or tab.stride(1) != cs
                                 or tab.shape[2] != cs):
             raise ValueError(f"{who}: {name} table must be f32 [C, rows, CS] "
                              "with contiguous rows")
+    if (cs % 4 or not 0 < cs <= _STAGE_TRIANGLES or geo.stride(0) % 4
+            or geo.data_ptr() % 16):
+        raise ValueError(f"{who}: the geo table's blocks must be 16-byte "
+                         f"aligned, CS a multiple of 4 up to "
+                         f"{_STAGE_TRIANGLES}; got CS {cs}, a block stride of "
+                         f"{geo.stride(0)} floats, the table at byte "
+                         f"{geo.data_ptr() % 16} of 16")
     if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
             or ids.dtype != torch.int32 or not ids.is_contiguous()):
         raise ValueError(f"{who}: ids [nt, W] i32 / cnt [nt] do not match "
@@ -513,6 +558,15 @@ def _walk_outputs(rays8, attr, n_attrs: int, nearest: bool):
             attr_t)
 
 
+def _merge_keys(rays8, nearest: bool):
+    """Scratch for the order-free merge of a nearest walk split over blocks
+    (K1/K2 segments, K4 work items): one (t, slot) key of 8 bytes per ray,
+    8-byte aligned; occlusion merges in its t output and needs none."""
+    if not nearest:
+        return None
+    return torch.empty(rays8.shape[1], dtype=torch.int64, device=rays8.device)
+
+
 def _no_hit(rays8):
     """(t, slot) [1, N] of rays that have hit nothing yet."""
     n, dev = rays8.shape[1], rays8.device
@@ -524,7 +578,11 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
          nearest: bool, t_max: float = INF, pmto: bool = False,
          tmax_row=None, tnear=None, bbox=None, ee_batch: int = 1,
          entry: str = "walk", visits=None):
-    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA.
+    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA. The
+    kernel splits each tile's list into segments of `_walk_segment(cs)`
+    visits, dealt to up to `_MAX_TILE_BLOCKS` blocks and merged per ray in
+    any order; the result does not depend on the split, nor on the early
+    exit.
 
     geo [C, >=12, CS] holds each cluster's Baldwin–Weber rows first; attr
     [C, >=A, CS] its attribute rows (a view into a combined table is fine).
@@ -532,10 +590,12 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     pack's origin rows are not read. tmax_row [1, N]: each ray's own
     occlusion limit in place of t_max. With tnear [nt, W] and bbox [6]
     (union-box min | max) a nearest walk votes on the front-to-back early
-    exit every ee_batch visits. `entry` names the launch count ("walk" or
-    "walk_dma"). `visits`, an i32 [nt] CUDA tensor, receives the clusters
-    each tile visited (for measuring; the plain version has no early exit
-    and ignores it)."""
+    exit at least every ee_batch visits, on its own hits and on those the
+    tile's other segments have published. `entry` names the launch count
+    ("walk" or "walk_dma"). `visits`, an i32 [nt] CUDA tensor, receives the
+    clusters each tile visited (for measuring: under the early exit they
+    differ from run to run; the plain version has no early exit and
+    ignores it)."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
                           nearest, t_max, pmto, tmax_row)
@@ -545,18 +605,23 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
                        tnear if early else None, bbox)
     n = rays8.shape[1]
     _check_tmax_row("walk", n, tmax_row)
+    seg = _walk_segment(cs)
+    tile_blocks = _walk_grid("walk", nt, ids.shape[1], seg, _MAX_TILE_BLOCKS)
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
+    # Scratch of the segments' merge; the launch fills both.
+    keys = _merge_keys(rays8, nearest)
+    finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
     cuda.check(lib.rt_walk(
         _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
-        _ptr(tnear if early else None), ids.shape[1],
+        _ptr(tnear if early else None), ids.shape[1], seg, tile_blocks,
         _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
         _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
         n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(early), int(ee_batch), int(pmto),
-        _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits), _stream()),
-        entry)
+        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
+        _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
+        _stream()), entry)
     LAUNCHES[entry] += 1
     return out_t, out_s, out_a
 
@@ -667,15 +732,9 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None)
     n = rays8.shape[1]
     _check_tmax_row("walk_wq", n, tmax_row)
-    items = nt * -(-ids.shape[1] // int(u))
-    if items >= 2 ** 31:
-        raise ValueError(f"walk_wq: {nt} tiles of {ids.shape[1]} listed "
-                         f"visits make {items} work items; one launch "
-                         f"takes fewer than 2**31")
+    _walk_grid("walk_wq", nt, ids.shape[1], int(u))
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
-    # The (t, slot) keys of the atomic merge; the launch fills them.
-    keys = (torch.empty(n, dtype=torch.int64, device=rays8.device)
-            if nearest else None)
+    keys = _merge_keys(rays8, nearest)  # the launch fills them
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
     cuda.check(lib.rt_walk_wq(

@@ -9,11 +9,14 @@ Bars: extents (K6) and entered bits (K5, dense and gathered) equal; both
 walk entries (K1 via `_walk_groups`, K2 via `_walk_dma`), with either
 intersector, and both camera entries bit-equal in t, slot and attrs on
 alive lanes (the kernels are built -fmad=false, op for op like the plain
-versions); the streamed-groups walk (K3) and the work-queue walk (K4)
-bit-equal to their plain versions and to K1 / K2, with either intersector,
-with a scalar and a per-ray t_max; camera rays on the card bit-equal to the
-CPU's; a frame on the card within 1e-4 of the CPU frame (torch's CUDA and
-CPU sin/cos in the sampler differ by ulps).
+versions); the streamed-groups walk (K3) and the work-queue walk (K4) bit-
+equal to their plain versions and to K1 / K2, with either intersector, with
+a scalar and a per-ray t_max; the pack walk with every tile's list split
+over many blocks bit-equal to its plain version and to K4 in every mode,
+and the same bits at every one of ten launches under its racing early exit;
+camera rays on the card bit-equal to the CPU's; a frame on the card within
+1e-4 of the CPU frame (torch's CUDA and CPU sin/cos in the sampler differ
+by ulps).
 """
 
 import numpy as np
@@ -241,6 +244,83 @@ def test_wq_kernel_matches_plain(setup, dev, monkeypatch, pmto, per_ray):
     assert torch.equal(got[m], want[m])
     with pytest.raises(ValueError):
         T.walk_wq(*args[:1], args[1].T, *args[2:])
+
+
+def _long_list_walk(setup, dev, cs, pmto, nearest, per_ray):
+    """(args, kw, alive) of a `walk` launch whose lists are as long as they
+    get: the bounce-like pack against the whole table's frustum lists (the
+    K1 entry), the early exit forced for nearest, the last tile dead."""
+    accels, packs = setup
+    acc = accels[cs].to(dev)
+    p, origin = _shared_origin_pack(packs[1], pmto)
+    p = p.clone()
+    p[7, 3072:] = 0.0
+    g = p.to(dev)
+    so = None if origin is None else origin.to(dev)
+    na = acc.attr_blocks.shape[1] if nearest else 0
+    args, kw = T._groups_walk_args(
+        acc, g, 1e-8, nearest, T.INF if nearest else 3.0, na,
+        early_exit=True, shared_origin=so,
+        tmax_row=_tmax_row(g.shape[1], per_ray, dev))
+    assert int(args[2][0]) > 4 * T._walk_segment(cs) and int(args[2][3]) == 0
+    assert (kw["tnear"] is not None) == nearest
+    return args, kw, (p[7] != 0).to(dev)
+
+
+@pytest.mark.parametrize("nearest,per_ray",
+                         [(True, False), (False, False), (False, True)],
+                         ids=["nearest", "occlusion", "occlusion-tmax_row"])
+@pytest.mark.parametrize("pmto", [False, True], ids=["pmt", "pmto"])
+@pytest.mark.parametrize("cs", [16, 128])
+def test_split_walk_matches_plain_and_wq(setup, dev, cs, pmto, nearest,
+                                         per_ray):
+    """Every tile's list split over many blocks: the kernel against
+    `walk_plain` and against K4 on the same lists, and a dead tile."""
+    args, kw, m = _long_list_walk(setup, dev, cs, pmto, nearest, per_ray)
+    before = T.LAUNCHES["walk"]
+    visits = torch.zeros(4, dtype=torch.int32, device=dev)
+    kern = T.walk(*args, **kw, visits=visits)
+    assert T.LAUNCHES["walk"] == before + 1
+    listed = args[2].to(torch.int32)
+    assert bool((visits <= listed).all()) and int(visits[3]) == 0
+    if not nearest:  # no exit: every listed visit is made
+        assert torch.equal(visits, listed)
+    _assert_walks_equal(kern, T.walk_plain(*args), m)
+    _assert_walks_equal(kern, T.walk_wq(*args), m)
+    dead = slice(3072, 4096)
+    assert bool(torch.isinf(kern[0][0, dead]).all())
+    if nearest:
+        assert bool((kern[1][0, dead] == 2 ** 30).all())
+        assert not bool(kern[2][:, dead].any())
+    else:
+        assert not bool(kern[1][0, dead].any())
+
+
+@pytest.mark.parametrize("cs", [16, 128])
+def test_split_walk_is_the_same_at_every_launch(setup, dev, cs):
+    """The segments race on the early exit: the visits made may differ
+    from launch to launch, the result on alive lanes may not."""
+    args, kw, m = _long_list_walk(setup, dev, cs, False, True, False)
+    first = None
+    for _ in range(10):
+        visits = torch.zeros(4, dtype=torch.int32, device=dev)
+        t, s, a = T.walk(*args, **kw, visits=visits)
+        assert 0 < int(visits.sum()) <= int(args[2].sum())
+        out = (t[0][m], s[0][m], a[:, m])
+        first = first or out
+        for x, y in zip(out, first):
+            assert torch.equal(x, y)
+
+
+def test_walk_refuses_a_misaligned_table(setup, dev):
+    """The kernels stage blocks with 16-byte copies: the wrapper refuses a
+    table that starts 4 bytes off."""
+    args, kw, _ = _long_list_walk(setup, dev, 16, False, True, False)
+    geo = args[3]
+    flat = torch.zeros(geo.numel() + 4, device=dev)
+    off = flat[1:1 + geo.numel()].view(geo.shape).copy_(geo)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        T.walk(*args[:3], off, *args[4:], **kw)
 
 
 def test_per_ray_tmax_walk_matches_plain(setup, dev):

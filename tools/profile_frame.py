@@ -43,7 +43,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (layer, substrings of the kernel name), first match wins.
 LAYERS = (
     ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu)",
-     ("walk_kernel",)),
+     ("walk_kernel", "walk_fill_kernel")),
     ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
     ("refine, K5 dense and gathered (refine.cu)",
      ("refine_kernel", "refine_lists_kernel")),

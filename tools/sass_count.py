@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Count the machine ops of the walk's inner loop in the compiled kernels,
+and reckon the scheduler-slot floor of a walk launch from them.
+
+Run from the root of a checkout on a machine with the CUDA toolkit:
+
+    python3 tools/sass_count.py [VISITS CS RAYS_PER_TILE ...]
+
+Builds the port's kernels (`raytracing_tpu_torch/kernels/cuda.py`), dumps
+the pack walk's machine code with `cuobjdump -sass`, and in each of the
+four `walk_kernel<PMTO, NEAREST>` finds the innermost loop that holds the
+(ray, triangle) tests: the innermost loop with the most reciprocals
+(`MUFU.RCP`, one per IEEE division, so one per test). Prints the loop's
+machine ops, its tests, and ops per test: a static count, so the branches
+a test mostly skips (the update of a ray's best hit) count in full, and
+the floor reckoned from it errs on the high side.
+The division's slow path (denormal quotients) is a call out of the loop
+and is not counted.
+
+Every machine op of a warp takes one slot of one of the card's 132 x 4
+warp schedulers, so a launch that makes `VISITS` cluster visits of `CS`
+triangles for tiles of `RAYS_PER_TILE` rays cannot take less than
+
+    VISITS * CS * RAYS_PER_TILE / 32 * ops per test
+        / (132 * 4 * SM clock)
+
+seconds, whatever its memory traffic: the floor the arithmetic's bound of
+PERF.md (operations over 67 TFLOP/s, a rate that counts a fused
+multiply-add as two operations and that code built with -fmad=false cannot
+reach) does not see. Each triple of arguments is one launch to reckon;
+the clock is the card's maximum SM clock as `nvidia-smi` reports it. The
+full listing goes to chiprun_out/sass_walk.txt. Never imports JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCHEDULERS = 132 * 4
+
+
+def _functions(sass):
+    """{mangled name: [(address, text), ...]} of a cuobjdump listing, a
+    branch to a label rewritten as a branch to the label's address."""
+    out, cur, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*(\.L_\w+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and cur is not None:
+            for label in pending:
+                labels[(id(cur), label)] = int(m.group(1), 16)
+            pending = []
+            cur.append((int(m.group(1), 16), m.group(2)))
+    for instrs in out.values():
+        for i, (a, text) in enumerate(instrs):
+            m = re.search(r"`\((\.L_\w+)\)", text)
+            if m and (id(instrs), m.group(1)) in labels:
+                instrs[i] = (a, text.replace(
+                    m.group(0), hex(labels[(id(instrs), m.group(1))])))
+    return out
+
+
+def inner_loop(instrs):
+    """(machine ops, tests) of the innermost loop (a backward branch with
+    no other loop inside it) that holds the most MUFU.RCP."""
+    addr = {a: i for i, (a, _) in enumerate(instrs)}
+    loops = []
+    for i, (a, text) in enumerate(instrs):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            loops.append((addr[int(m.group(1), 16)], i))
+    best = None
+    for lo, hi in loops:
+        if any((lo, hi) != (l, h) and lo <= l and h <= hi for l, h in loops):
+            continue
+        rcp = sum("MUFU.RCP" in t for _, t in instrs[lo:hi + 1])
+        if rcp and (best is None or rcp > best[1]):
+            best = (hi + 1 - lo, rcp)
+    if best is None:
+        raise SystemExit("no loop with a MUFU.RCP found")
+    return best
+
+
+def main(argv) -> int:
+    sys.path.insert(0, HERE)
+    from raytracing_tpu_torch.kernels import cuda
+
+    so = cuda.build().path
+    dump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([dump, "-sass", so], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"cuobjdump failed: {proc.stderr}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0]
+    clock = float(card.split(",")[2].split()[0]) * 1e6
+    print(f"[device] {card}")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    per_test = {}
+    with open(os.path.join(out_dir, "sass_walk.txt"), "w") as f:
+        for name, instrs in _functions(proc.stdout).items():
+            m = re.search(r"_walk_cu_.*walk_kernelILb([01])ELb([01])EE", name)
+            if not m:
+                continue
+            f.write(f"Function : {name}\n")
+            f.writelines(f"  /*{a:04x}*/ {t};\n" for a, t in instrs)
+            which = (f"{'pmto' if m.group(1) == '1' else 'pmt'}, "
+                     f"{'nearest' if m.group(2) == '1' else 'occlusion'}")
+            n, tests = inner_loop(instrs)
+            per_test[which] = n / tests
+            print(f"[sass] walk_kernel ({which}): {len(instrs)} machine ops; "
+                  f"inner loop {n} ops for {tests} (ray, triangle) tests -> "
+                  f"{n / tests} per test")
+    if len(per_test) != 4:
+        raise SystemExit(f"walk kernels found: {sorted(per_test)}")
+    for k in range(1, len(argv) - 2, 3):
+        visits, cs, rays = (int(x) for x in argv[k:k + 3])
+        for which, n in per_test.items():
+            ms = visits * cs * rays / 32 * n / (SCHEDULERS * clock) * 1e3
+            print(f"[floor] {visits} visits x {cs} triangles x {rays} rays, "
+                  f"{which}: {ms} ms at {clock / 1e6} MHz")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
