@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build  — compile the CUDA kernels from `raytracing_tpu_torch/csrc`
      and the host library from `csrc/raytracing_native.cpp`; print every
      kernel's registers, shared memory and spills as `ptxas -v` reports
-     them, and refuse a spill in the pack walk (`walk.cu`);
+     them, and refuse a spill in the split walks (`walk.cu`, `camera.cu`,
+     `gstream.cu`);
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes; median time of 5 runs each:
      a. the reference frame's busiest 65,536-ray chunk of camera rays
@@ -23,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
         against the plain version lane by lane and against the pack path
         under `shared_origin=0` on all 2,560,000 rays; phase 7 repeats
         this on every large scene, with its pooled lists held against the
-        direct ones, and the `walk_camera_dma` row is the 1.6M launch;
+        direct ones, and the `walk_camera_dma` row is the 1.6M launch
+        (launched 10 times, equal every time); phase 5 times
+        `walk_camera` at the frame's own shape (one chunk of 64 tiles, as
+        the camera-mode frame launches it, 10 times equal);
      c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
         on the depth-2 wavefront of the 404k-triangle subdivided teapot
         (3,160 bounce clusters);
@@ -37,7 +41,11 @@ Phases (any failure raises and the script exits non-zero):
         plain version lane by lane, and against the group loop with K1
         (t, slots, attributes, occlusion flags; early exit on and off);
         its time beside the loop's, at budgets of 16 and 64 MiB, and
-        beside one K1 launch over the whole table, lists included;
+        beside one K1 launch over the whole table, lists included, and 10
+        launches equal; then at the frame's own shape: the two launches of
+        the 1.6M Whitted frame's chunk 12 (65,536 rays, primary
+        nearest+attrs and sun-shadow occlusion) as the renderer made them,
+        and at 6.4M triangles (13 groups) on all 2,560,000 rays;
      f. the work-queue walk (`walk_wq`, K4) on the depth-2 wavefront of
         3a, the very lists the `_walk_dma` row is timed on: against its
         plain version and bit-equal on alive lanes to that entry (nearest
@@ -56,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
   5. the reference frame — 800x800 at 4 spp, default config: one frame
      with launch counts reset, then 2 timed frames (3 before the script
      grew phases 8 and 9); the same with `primary_shared_origin=True`
-     (camera-mode primaries);
+     (camera-mode primaries), its chunk-20 `walk_camera` launch kept
+     for 3b;
   6. headline — `nearest_hit_camera_soa` at 800x800x4 on the default
      scene, CS=16, the offsets perturbed by each call's result: primary
      rays/s, gated on a plausible hit fraction;
@@ -64,7 +73,8 @@ Phases (any failure raises and the script exits non-zero):
      (CS=64), 1.6M and 6.4M (CS=128) triangles, with mesh-generation and
      accel-build seconds, the pack-path query `nearest_hit_soa` at 1.6M and
      6.4M (it runs K3), and one Whitted frame each of the 1.6M scene (its
-     primary and sun-shadow queries run K3) and the 404k scene;
+     primary and sun-shadow queries run K3; chunk 12's two launches kept
+     for 3e) and the 404k scene;
   8. the path-traced frame — 800x800, 64 spp, 4 bounces, chunks of 131,072
      pixels, CS=16 plus the auto-built CS=128 bounce accel: a 64x64 2-spp
      frame on the card against the plain CPU path with the same uniforms,
@@ -76,9 +86,10 @@ Phases (any failure raises and the script exits non-zero):
 
 Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
 queries, 7's Whitted frame, 8, 9, 9's "grid" frame)
-runs with the launch counts set to 0 just before and read just after. The
-last two lines are the kernel table and the result, each one JSON object.
-The script never imports JAX.
+runs with the launch counts set to 0 just before and read just after. A
+plain version that takes seconds is timed once, by the run that checks the
+kernel. The last two lines are the kernel table and the result, each one
+JSON object. The script never imports JAX.
 """
 
 from __future__ import annotations
@@ -180,9 +191,27 @@ def _walk_bound(visits, alive_per_tile, cnt, geo, attr, n_attrs, cs, n_rays,
     return _bound(ops, nbytes)
 
 
-def _row(rows, name, err, kernel_fn, plain_fn, bound, shape, plain_reps=5):
+def _timed_once(fn):
+    """(fn(), its one run's ms by CUDA events): for the plain versions of
+    the big launches, which take seconds and need no warm-up."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _row(rows, name, err, kernel_fn, plain_fn, bound, shape, plain_reps=5,
+         plain_ms=None):
+    """Time a kernel (median of 5) and its plain version (median of
+    `plain_reps`, or `plain_ms` as timed already) into rows[name]."""
     ms = _median_ms(kernel_fn)
-    plain_ms = _median_ms(plain_fn, reps=plain_reps)
+    if plain_ms is None:
+        plain_ms = _median_ms(plain_fn, reps=plain_reps)
     rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound[0], bound_by=bound[1], shape=shape)
     print(f"[kernels] time {name}: kernel {ms:.4f} ms, plain "
@@ -218,16 +247,18 @@ def phase_build():
         # '_ZN2rt..._7_walk_cu_...11walk_kernelILb0EE...': file and kernel
         mangled = line.split("'")[1]
         kernel = next((k for k in ("walk_fill", "camera_walk", "gstream",
-                                   "wq_items", "wq_init", "wq_finish", "walk",
+                                   "wq_items", "wq_finish", "walk",
                                    "refine_lists", "refine", "extents")
                        if k + "_kernel" in mangled), mangled)
         variant = mangled.split(kernel + "_kernel")[-1].split("Ev")[0]
         used = next(l for l in lines[i:] if "Used" in l).split(":", 1)[1]
         spill = next(l for l in lines[i:] if "spill" in l).strip()
         print(f"[build] {kernel}_kernel {variant}:{used}; {spill}")
-        _require("_walk_cu_" not in mangled or " 0 bytes spill stores, 0 "
-                 "bytes spill loads" in " " + spill,
-                 f"the pack walk spills registers: {spill}")
+        _require(not any(f"_{src}_cu_" in mangled
+                         for src in ("walk", "camera", "gstream"))
+                 or " 0 bytes spill stores, 0 bytes spill loads"
+                 in " " + spill, f"{kernel}_kernel {variant} spills "
+                 f"registers: {spill}")
     cuda.library()
     print(f"[build] {res.seconds:.2f} s -> {os.path.relpath(res.path, HERE)}")
     from raytracing_tpu_torch.geometry import native
@@ -266,6 +297,31 @@ def _compare_walk(tag, kern, plain, alive, nearest):
     return err
 
 
+def _capture_calls(name, picks, run):
+    """Run `run()` with `kernels.traverse.<name>` wrapped, and return the
+    (args, kw) of its calls numbered `picks` (from 0, in launch order),
+    as the renderer made them."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    fn = getattr(T, name)
+    seen, calls = [0], {}
+
+    def wrapped(*args, **kw):
+        if seen[0] in picks:
+            calls[seen[0]] = (args, dict(kw))
+        seen[0] += 1
+        return fn(*args, **kw)
+
+    setattr(T, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(T, name, fn)
+    _require(len(calls) == len(picks),
+             f"{name}: calls {picks} asked for, {seen[0]} made")
+    return [calls[k] for k in picks]
+
+
 def _tile_alive_lanes(pack, ray_tile=1024):
     return (pack[7] != 0).reshape(-1, ray_tile).sum(dim=1)
 
@@ -286,7 +342,9 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
         out = fn(*args, **kw, visits=visits)
         # K3 lists per (group, tile): a tile's visits are its groups' sum.
         tile_visits = visits if visits.dim() == 1 else visits.sum(dim=0)
-    err = _compare_walk(tag, out, plain(*args), alive, nearest)
+    want, plain_ms = _timed_once(lambda: plain(*args))
+    err = _compare_walk(tag, out, want, alive, nearest)
+    del want
     tr = args[-1]  # the per-ray limit row, read once
     bound = _walk_bound(tile_visits, _tile_alive_lanes(rp), cnt, geo, attr,
                         n_attrs if nearest else 0, cs, rp.shape[1],
@@ -295,32 +353,44 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
     _row(rows, name, err, lambda: fn(*args, **kw), lambda: plain(*args),
          bound,
          f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
-         plain_reps=plain_reps)
+         plain_reps=plain_reps, plain_ms=plain_ms if plain_reps == 1 else None)
     return out
 
 
-def _check_repeats(tag, T, args, kw, alive, reps=10):
-    """One launch of the split walk `reps` times: t, slots and attributes
-    equal on alive lanes every time, though the segments race on the early
-    exit and the visits they make may differ (a dead lane does not vote, so
-    its result is meaningless)."""
+def _check_repeats(tag, fn, args, kw, alive, reps=10):
+    """One launch of a split walk (`walk`, `walk_camera` or
+    `walk_gstream`) `reps` times: t, slots and attributes equal on alive
+    lanes every time, though the segments race on the early exit and the
+    visits they make may differ (a dead lane does not vote, so its result
+    is meaningless)."""
     import torch
 
-    cnt = args[2]
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    camera = fn is T.walk_camera
+    cnt, cs = (args[5], args[9]) if camera else (args[2], args[6])
     first, made = None, []
     for _ in range(reps):
         visits = torch.zeros(cnt.shape, dtype=torch.int32, device=cnt.device)
-        t, s, a = T.walk(*args, **kw, visits=visits)
+        t, s, a = fn(*args, **kw, visits=visits)
         made.append(int(visits.sum()))
-        out = (t[0][alive], s[0][alive], a[:, alive])
+        out = (t[0][alive], s[0][alive]) + (() if a is None
+                                            else (a[:, alive],))
         first = first or out
         _require(all(torch.equal(x, y) for x, y in zip(out, first)),
                  f"{tag}: launch {len(made)} differs from the first")
-    split = int((cnt > T._walk_segment(args[6])).sum())
-    print(f"[kernels] {tag}: {reps} launches equal (t, slots, attributes on "
-          f"{int(alive.sum())} alive lanes); {split} of {cnt.numel()} tiles "
-          f"split over blocks; visits made {min(made)}-{max(made)} of "
-          f"{int(cnt.sum())} listed")
+    if camera:
+        seg = T._camera_grid(args[3], args[1].ray_tile, args[4].shape[1],
+                             cs)[0]
+    elif fn is T.walk_gstream:
+        seg = T._gstream_grid(cnt.shape[1], *args[1].shape[::2], cs)[0]
+    else:
+        seg = T._walk_segment(cs)
+    split = int((cnt > seg).sum())
+    print(f"[kernels] {tag}: {reps} launches equal (t, slots"
+          f"{'' if a is None else ', attributes'} on {int(alive.sum())} "
+          f"alive lanes); {split} of {cnt.numel()} lists split over blocks; "
+          f"visits made {min(made)}-{max(made)} of {int(cnt.sum())} listed")
 
 
 def phase_kernels():
@@ -479,12 +549,12 @@ def phase_kernels():
           f"{_median_ms(lambda: T.walk_wq(*wargs, **wkw)):.4f} ms")
     # 3g. The racing exit: the same bits at every launch.
     _require(dkw["tnear"] is not None, "the walk_dma row runs without exit")
-    _check_repeats("walk_dma (K2) bounce nearest+attrs", T, dargs, dkw,
+    _check_repeats("walk_dma (K2) bounce nearest+attrs", T.walk, dargs, dkw,
                    balive)
     fargs, fkw = T._groups_walk_args(acc16, rp, eps, True, INF, na,
                                      early_exit=True)
-    _check_repeats("walk (K1) primary nearest+attrs, exit forced", T, fargs,
-                   fkw, rp[7] != 0)
+    _check_repeats("walk (K1) primary nearest+attrs, exit forced", T.walk,
+                   fargs, fkw, rp[7] != 0)
     fargs, fkw = T._groups_walk_args(acc16, lp, eps, True, INF, na,
                                      early_exit=True)
     _require(fkw["tnear"] is not None
@@ -494,7 +564,7 @@ def phase_kernels():
                   "forced", T.walk(*fargs, **fkw), T.walk_plain(*fargs),
                   lp[7] != 0, True)
     _check_repeats("walk (K1) nearest over the light-shadow lists, exit "
-                   "forced", T, fargs, fkw, lp[7] != 0)
+                   "forced", T.walk, fargs, fkw, lp[7] != 0)
     fnoexit = dict(fkw, tnear=None, bbox=None)
     print(f"[kernels] walk (K1) on those lists: "
           f"{_median_ms(lambda: T.walk(*fargs, **fkw)):.4f} ms with the "
@@ -592,13 +662,38 @@ def _reference_camera(dev):
             stratified_offsets(spp, device=dev), T.rays_to_soa(o, d), cfg.eps)
 
 
+def _timed_camera(rows, row, args, kw, shape):
+    """Compare one camera walk launch with its plain version on every lane,
+    time both, and reckon its bound from the visits it made."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    offs, cam, _, n_tiles, ids, cnt, geo, attr, na, cs = args[:10]
+    visits = torch.zeros(n_tiles, dtype=torch.int32, device=cnt.device)
+    kern = T.walk_camera(*args, **kw, visits=visits)
+    want, plain_ms = _timed_once(lambda: T.walk_camera_plain(*args))
+    every = torch.ones(kern[0].shape[1], dtype=torch.bool, device=cnt.device)
+    err = _compare_walk(f"{row} vs plain", kern, want, every, True)
+    del want
+    full = torch.full((n_tiles,), cam.ray_tile, device=cnt.device)
+    bound = _walk_bound(visits, full, cnt, geo, attr, na, cs,
+                        n_tiles * cam.ray_tile, offs.numel() * 4, OPS_PMTO,
+                        kw["tnear"] is not None)
+    _row(rows, row, err, lambda: T.walk_camera(*args, **kw), None, bound,
+         f"{shape}, lists {ids.shape[1]} wide, {int(visits.sum())} of "
+         f"{int(cnt.sum())} listed visits", plain_ms=plain_ms)
+    return err
+
+
 def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
-                        timed=True):
+                        repeats=False):
     """Camera mode over the whole 800x800x4 frame on `acc`, with the lists
     and tables `nearest_hit_camera_soa` launches: pooled lists against the
-    direct ones as sets, the kernel against its plain version lane by lane,
-    and the public query against the pack path under shared_origin=0 on
-    all 2,560,000 rays. Times the launch into rows[row] when `timed`."""
+    direct ones as sets, the kernel against its plain version lane by lane
+    (timed into rows[row]), with `repeats` ten launches equal, and the
+    public query against the pack path under shared_origin=0 on all
+    2,560,000 rays."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
@@ -610,7 +705,7 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
     na = acc.attr_blocks.shape[1] if with_attrs else 0
     args, kw = T._camera_walk_args(acc, offs, cam, 0, n_tiles, na, eps)
     _require(kw["entry"] == entry, f"{row}: CS {cs} took entry {kw['entry']}")
-    ids, cnt, geo, attr = args[4:8]
+    ids, cnt = args[4:6]
     if c > T._SUPERTILE_MIN_C:
         d_ids, _, d_cnt = T._visit_lists_from_extents(
             *T._camera_tile_extents(n_tiles, offs, cam), acc.cluster_min,
@@ -622,11 +717,13 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
         print(f"[kernels] {row}: pooled lists {tuple(ids.shape)} hold the "
               f"direct lists' {int(cnt.sum())} entries, as sets")
         del d_ids, d_cnt
-    visits = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    kern = T.walk_camera(*args, **kw, visits=visits)
-    every = torch.ones(kern[0].shape[1], dtype=torch.bool, device=dev)
-    err = _compare_walk(f"{row} whole frame vs plain", kern,
-                        T.walk_camera_plain(*args), every, True)
+    _timed_camera(rows, row, args, kw,
+                  f"{n_tiles} tiles x {cam.ray_tile} rays, {c}x{cs}")
+    if repeats:
+        _check_repeats(f"{row} whole frame", T.walk_camera, args, kw,
+                       torch.ones(n_tiles * cam.ray_tile, dtype=torch.bool,
+                                  device=dev))
+    del args, kw
     # The public query against the pack path with the folded origin.
     zero3 = torch.zeros(3, device=dev)
     query = dict(width=cam.width, height=cam.height, spp=cam.spp,
@@ -648,17 +745,6 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
     print(f"[kernels] {row}: equal to the pack path under shared_origin=0 "
           f"on {got[0].shape[0]} rays ({int(torch.isfinite(got[0]).sum())} "
           f"hits)")
-    if not timed:
-        return
-    full = torch.full((n_tiles,), cam.ray_tile, device=dev)
-    bound = _walk_bound(visits, full, cnt, geo, attr, na, cs,
-                        n_tiles * cam.ray_tile, offs.numel() * 4, OPS_PMTO,
-                        kw["tnear"] is not None)
-    _row(rows, row, err, lambda: T.walk_camera(*args, **kw),
-         lambda: T.walk_camera_plain(*args), bound,
-         f"{n_tiles} tiles x {cam.ray_tile} rays, {c}x{cs}, lists "
-         f"{ids.shape[1]} wide, {int(visits.sum())} of {int(cnt.sum())} "
-         f"listed visits", plain_reps=1)
 
 
 def phase_kernels_camera(rows):
@@ -868,13 +954,17 @@ def _print_frame(tag, cfg, img, launches, counts, first, times):
           f"{float(img.mean())}")
 
 
-def phase_reference_frame():
+def phase_reference_frame(rows):
     """The default reference frame (pack-path primaries), then the same
-    frame with camera-mode primaries. Returns both launch counts."""
+    frame with camera-mode primaries, whose `walk_camera` launch of chunk
+    KERNEL_CHUNK (64 tiles) is then timed at that shape (rows
+    "walk_camera_chunk") and launched 10 times. Returns both launch
+    counts."""
     import torch
 
     from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                       build_default_scene)
+    from raytracing_tpu_torch.kernels import traverse as T
 
     cfg = RenderConfig()
     scene = build_default_scene(device="cuda")
@@ -889,8 +979,12 @@ def phase_reference_frame():
             ("reference frame, camera-mode primaries",
              cfg.replace(primary_shared_origin=True),
              ("walk_camera", "walk", "walk_dma", "refine", "extents"))):
-        img, launches, counts, first, times = _timed_frames(scene, c, accel,
-                                                            2)
+        camera_mode = c.primary_shared_origin
+        frame = []
+        chunk = _capture_calls(
+            "walk_camera", [KERNEL_CHUNK] if camera_mode else [],
+            lambda: frame.append(_timed_frames(scene, c, accel, 2)))
+        img, launches, counts, first, times = frame[0]
         err = float((img[2, 2].cpu() - sky).abs().max())
         _require(err <= SKY_ATOL, f"{tag}: sky pixel off by {err}")
         for k in need:
@@ -899,6 +993,16 @@ def phase_reference_frame():
         _print_frame(tag, c, img, launches, counts, first, times)
         out.append(launches)
         imgs.append(img)
+    (cargs, ckw), = chunk
+    _timed_camera(rows, "walk_camera_chunk", cargs, ckw,
+                  f"the camera-mode frame's chunk {KERNEL_CHUNK}: "
+                  f"{cargs[3]} tiles x {cargs[1].ray_tile} rays, "
+                  f"{accel.num_clusters}x16, A = {cargs[8]}")
+    _check_repeats("walk_camera (K1 camera), the frame's chunk",
+                   T.walk_camera, cargs, ckw,
+                   torch.ones(cargs[3] * cargs[1].ray_tile, dtype=torch.bool,
+                              device="cuda"))
+    del chunk, cargs, ckw
     diff = (imgs[0] - imgs[1]).abs()
     print(f"[frame] camera-mode vs pack-path primaries (pmto vs pmt, other "
           f"uniforms): {int((diff.amax(dim=2) > 1e-3).sum())} of "
@@ -987,7 +1091,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
               f"({acc.num_clusters} clusters)")
         _check_camera_frame(rows, "walk_camera_dma" if levels == 4
                             else f"walk_camera_dma_{tag}", "walk_camera_dma",
-                            acc, camera, False, timed=levels == 4)
+                            acc, camera, False, repeats=levels == 4)
         # The pack-path query of that check, as a main path of K3.
         T.reset_launches()
         t_pack, _ = T.nearest_hit_soa(acc, camera[2], camera[3],
@@ -999,17 +1103,37 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
         print(f"[large {tag}] pack-path query nearest_hit_soa: walk_gstream "
               f"(K3) over {groups} groups, "
               f"{int(torch.isfinite(t_pack).sum())} hits")
+        if levels == 5:
+            zero3 = torch.zeros(3, device="cuda")
+            na = acc.attr_blocks.shape[1]
+            args, kw = T._gstream_walk_args(acc, camera[2], camera[3], True,
+                                            T.INF, na, shared_origin=zero3)
+            _timed_walk(rows, "walk_gstream_6m4",
+                        "walk_gstream (K3) 6.4M nearest+attrs", T, args, kw,
+                        torch.ones(camera[2].shape[1], dtype=torch.bool,
+                                   device="cuda"), OPS_PMTO,
+                        f"{camera[2].shape[1]} rays, {acc.num_clusters}x128 "
+                        f"in {args[1].shape[0]} groups of {args[7]}, A = "
+                        f"{na}, pmto", plain_reps=1, kernel="walk_gstream")
+            del args, kw
         if levels == 4:
             gstream_launches = dict(T.LAUNCHES)
             _check_gstream(rows, acc, camera)
             # K3 inside a frame: the primary nearest (4 groups) and sun
             # shadow (3 groups) queries of every chunk.
-            frame = _timed_frames(
-                Scene(mesh=mesh, sun=sun_position(0.0).to("cuda")),
-                RenderConfig(), acc, 0)
+            k = 2 * LARGE_KERNEL_CHUNK  # each chunk: primary, sun shadow
+            frame = []
+            chunk = _capture_calls("walk_gstream", [k, k + 1], lambda:
+                                   frame.append(_timed_frames(
+                                       Scene(mesh=mesh, sun=sun_position(
+                                           0.0).to("cuda")),
+                                       RenderConfig(), acc, 0)))
+            frame = frame[0]
             _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0,
                      f"the 1.6M Whitted frame's launches: {frame[1]}")
             _print_frame("1.6M Whitted frame", RenderConfig(), *frame)
+            _check_gstream_chunk(rows, chunk)
+            del chunk
         torch.cuda.reset_peak_memory_stats()
         T.reset_launches()
         _camera_rate(acc, 800, 800, 4, HIT_GATE_LARGE, iters, f"large {tag}")
@@ -1062,6 +1186,8 @@ def _check_gstream(rows, acc, camera):
                 f"{rp.shape[1]} rays, {acc.num_clusters}x128 in {ng} groups "
                 f"of {gsz}, A = {na}, pmto", plain_reps=1,
                 kernel="walk_gstream")
+    _check_repeats("walk_gstream (K3) 1.6M nearest+attrs", T.walk_gstream,
+                   args, kw, every)
     del args, kw
     streamed = T.STREAM_GROUPS
     try:
@@ -1149,6 +1275,30 @@ def _check_gstream(rows, acc, camera):
             del a, k
     finally:
         packets._GROUP_BLOCK_BUDGET_BYTES = budget
+
+
+def _check_gstream_chunk(rows, chunk):
+    """K3 at the 1.6M Whitted frame's own shape: the two launches of
+    chunk LARGE_KERNEL_CHUNK as the renderer made them (65,536 rays: the
+    primary nearest+attrs query, the sun-shadow query) against their plain
+    versions, timed, the primary launched 10 times."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    for (args, kw), row in zip(chunk, ("walk_gstream_chunk",
+                                       "walk_gstream_chunk_shadow")):
+        rp, nearest, pmto = args[0], args[9], args[11]
+        what = "nearest+attrs" if nearest else "sun-shadow occlusion"
+        _timed_walk(rows, row, f"walk_gstream (K3), the 1.6M frame's chunk "
+                    f"{LARGE_KERNEL_CHUNK}, {what}", T, args, kw, rp[7] != 0,
+                    OPS_PMTO if pmto else OPS_PMT,
+                    f"{rp.shape[1]} rays, {args[3].shape[0]}x128 in "
+                    f"{args[1].shape[0]} groups of {args[7]}, {what}"
+                    f"{', pmto' if pmto else ''}", nearest=nearest,
+                    plain_reps=1, kernel="walk_gstream")
+        if nearest:
+            _check_repeats(f"walk_gstream (K3), the 1.6M frame's chunk "
+                           f"{LARGE_KERNEL_CHUNK}", T.walk_gstream, args, kw,
+                           rp[7] != 0)
 
 
 def phase_path_traced_frame():
@@ -1287,7 +1437,7 @@ def main() -> int:
     phase_kernels_camera(rows)
     large = phase_kernels_large(rows)
     phase_frame_parity()
-    ref_launches, cam_launches = phase_reference_frame()
+    ref_launches, cam_launches = phase_reference_frame(rows)
     phase_headline()
     rate_launches, big_launches, gstream_launches = phase_large_scenes(
         rows, *large)

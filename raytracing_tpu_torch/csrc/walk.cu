@@ -35,69 +35,19 @@
 // Segments merge per ray through the order-free key of walk_core.cuh
 // (atomicMin on (bits(t) << 32) | slot; for occlusion a 32-bit atomicMin on
 // bits(t) in the t output), so the result does not depend on the order in
-// which they run. A fill kernel writes the empty keys first.
-//
-// The front-to-back early exit stays, and stays exact. A segment of a
-// nearest query with the exit reads its rays' keys before it starts and at
-// each vote: what it holds and the card does not, it publishes; what the
-// card holds and is better, it folds into its own (best_t, best_s), so it
-// votes on, and culls against, every hit any segment has published. A key
-// written by another segment is a real hit of that ray, so whether the read
-// is fresh or stale only changes how many visits are skipped: a skipped
-// cluster's entry bound lies beyond a real hit and can hold no nearer one,
-// nor a tie. The visits made differ from run to run; the result does not.
-// The keys are read with __ldcg (L2, where the atomics resolve; never a
-// stale L1 line) and any value read is valid: a key is one aligned 8-byte
-// word written by one atomic.
-//
-// The tile's last block to finish (a per-tile counter, __threadfence()
-// before its atomicAdd) unpacks the keys and reads the winner's attribute
-// rows once (a gather is cheap on this card; the TPU kernel carried them
-// through the loop because its gathers are serial). A tile whose list fits
-// one segment skips keys and counter and writes its result directly. Lists
-// are as wide as the cluster table, so the TPU's overflow rescan has no
-// counterpart.
+// which they run. The front-to-back early exit stays, and stays exact: a
+// segment of a nearest query with the exit publishes its hits and folds in
+// the ones the tile's other segments have published before it starts and
+// at each vote. The visits made may differ from run to run; the result
+// does not. The fill launch, the key sharing, the segment loop and the
+// tile's last block's finish are walk_core.cuh's, shared with camera.cu
+// and gstream.cu. A tile whose list fits one segment skips keys and
+// counter and writes its result directly. Lists are as wide as the cluster
+// table, so the TPU's overflow rescan has no counterpart.
 #include "walk_core.cuh"
 
 namespace rt {
 namespace {
-
-__global__ void walk_fill_kernel(long long np, int nearest,
-                                 unsigned long long* __restrict__ keys,
-                                 float* __restrict__ out_t,
-                                 int* __restrict__ finished,
-                                 int* __restrict__ visits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (i >= np) return;
-  fill_merge(i, nearest != 0, keys, out_t);
-  if (i < np / kRayTile) {
-    finished[i] = 0;
-    if (visits != nullptr) visits[i] = 0;
-  }
-}
-
-// Publish this thread's hits into its rays' keys and fold the card's better
-// ones in (keys: ray 0 of this thread; null: the walk shares nothing).
-struct KeyShare {
-  unsigned long long* keys;
-  template <int R>
-  __device__ __forceinline__ void operator()(float (&best_t)[R],
-                                             int (&best_s)[R]) const {
-    if (keys == nullptr) return;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const unsigned long long mine = pack_key(best_t[r], best_s[r]);
-      const unsigned long long seen = __ldcg(keys + r * kThreads);
-      if (mine < seen) {
-        atomicMin(keys + r * kThreads, mine);
-      } else {
-        best_t[r] = key_t(seen);
-        best_s[r] = key_slot(seen);
-      }
-    }
-  }
-};
 
 // blockIdx.x = the block's index within its tile * nt + tile.
 template <bool PMTO, bool NEAREST>
@@ -115,14 +65,13 @@ walk_kernel(const float* __restrict__ rays, long long np,
             int* __restrict__ out_s, float* __restrict__ out_a,
             int* __restrict__ visits) {
   __shared__ WalkRing ring;
-  __shared__ bool last;
   const unsigned nt = static_cast<unsigned>(np / kRayTile);
   const long long tile = blockIdx.x % nt;
   const int first = blockIdx.x / nt;  // this block's first segment
   const int listed = min(cnt[tile], width);
   // A tile's segment 0 always runs (a tile with no visits still reads
   // miss); a later one only if the list reaches it.
-  const int n_parts = max(1, (listed + seg - 1) / seg);
+  const int n_parts = max(1, list_parts(listed, seg));
   const int parts = min(n_parts, tile_blocks);  // the tile's blocks that run
   if (first >= parts) return;  // the whole block: no barrier is skipped
   const bool split = parts > 1;
@@ -137,57 +86,17 @@ walk_kernel(const float* __restrict__ rays, long long np,
   load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
                  best_s);
   const long long i0 = tile * kRayTile + threadIdx.x;
-  const KeyShare share{split && use_exit ? keys + i0 : nullptr};
-
-  int visited = 0;
-  for (int part = first; part < n_parts; part += tile_blocks) {
-    const long long row = tile * width + part * seg;
-    const int trips = min(seg, listed - part * seg);
-    share(best_t, best_s);  // what the tile's other blocks have found
-    const int made = walk_list<kRaysPerThread, PMTO, NEAREST>(
-        ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, trips,
-        bbox, geo, geo_stride, 0, cs, eps, t_lim, use_exit, ee_batch, best_t,
-        best_s, share);
-    visited += made;
-    if (made < trips) break;  // settled: the list's rest lies farther still
-  }
+  const KeyShare share{split && use_exit ? keys + i0 : nullptr, kRayTile};
+  const long long row = tile * width;
+  ring_setup(ring, use_exit ? bbox : nullptr, 0);
+  const int visited = walk_segments<kRaysPerThread, PMTO, NEAREST>(
+      ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, listed,
+      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_lim,
+      use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + tile, visited);
-
-  if (!split) {
-#pragma unroll
-    for (int r = 0; r < kRaysPerThread; ++r) {
-      store_result(i0 + r * kThreads, np, best_t[r], best_s[r], NEAREST, attr,
-                   attr_stride, n_attrs, cs, out_t, out_s, out_a);
-    }
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = i0 + r * kThreads;
-    // A hit this block only folded in is on the card already.
-    if (NEAREST && !(pack_key(best_t[r], best_s[r]) < __ldcg(keys + i))) {
-      continue;
-    }
-    merge_result(i, NEAREST, best_t[r], best_s[r], keys, out_t);
-  }
-  // The tile's last block to get here sees every other one's merges.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(finished + tile, 1) == parts - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-#pragma unroll
-  for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = i0 + r * kThreads;
-    if (NEAREST) {
-      const unsigned long long key = __ldcg(keys + i);
-      store_result(i, np, key_t(key), key_slot(key), true, attr, attr_stride,
-                   n_attrs, cs, out_t, out_s, out_a);
-    } else {
-      out_s[i] = __ldcg(out_t + i) < inf() ? 1 : 0;
-    }
-  }
+  finish_tile<kRaysPerThread, NEAREST>(
+      split, i0, kRayTile, np, best_t, best_s, keys, finished + tile, parts,
+      attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
 }
 
 }  // namespace
@@ -227,10 +136,8 @@ extern "C" int rt_walk(const float* rays, long long np,
   const long long nt = np / rt::kRayTile;
   if (nt * tile_blocks > 2147483647ll) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  rt::walk_fill_kernel<<<static_cast<unsigned>((np + rt::kThreads - 1)
-                                               / rt::kThreads),
-                         rt::kThreads, 0, s>>>(np, nearest, keys, out_t,
-                                               finished, visits);
+  rt::launch_walk_fill(np, nearest != 0, keys, out_t, nt, finished, nt,
+                       visits, s);
   auto kern = nearest ? (pmto ? rt::walk_kernel<true, true>
                                 : rt::walk_kernel<false, true>)
                       : (pmto ? rt::walk_kernel<true, false>

@@ -45,8 +45,10 @@
 // is below the next entry's lower bound" — exact, so results do not depend
 // on it.
 //
-// The order-free merge of walk.cu's segments and wq.cu's work items is here
-// too: one 64-bit key (bits(t) << 32) | slot per ray, merged with atomicMin.
+// The order-free merge of the split walks' segments and wq.cu's work items
+// is here too: one 64-bit key (bits(t) << 32) | slot per ray, merged with
+// atomicMin, and with it the machinery every walk split over blocks shares
+// (fill, key sharing, segment loop, finish).
 #pragma once
 
 #include "common.cuh"
@@ -60,11 +62,29 @@ constexpr int kMaxStageClusters = kMaxClusterSize / 4;
 
 // A block's staging ring. A stage holds up to kMaxClusterSize triangles as
 // [clusters][12 rows][CS] floats (float4: 16-byte copies and reads) and the
-// ids of its clusters.
+// ids of its clusters. With it, what the whole walk reads of its list's
+// table besides the blocks: the union box of the early exit, and the first
+// cluster of the list's part of the table (K3's group; 0 elsewhere). Held
+// here, they cost no register through the loop (as pointers and offsets
+// made from the block index did: K3's nearest kernels spilled).
 struct WalkRing {
   float4 blk[kStages][3 * kMaxClusterSize];
   int ids[kStages][kMaxStageClusters];
+  float box[6];
+  int id_base;
 };
+
+// Set the ring's box (from bbox [6], where the walk votes on the exit) and
+// id base before a block's first walk_list.
+__device__ __forceinline__ void ring_setup(WalkRing& ring,
+                                           const float* __restrict__ bbox,
+                                           int id_base) {
+  if (bbox != nullptr && threadIdx.x < 6) {
+    ring.box[threadIdx.x] = bbox[threadIdx.x];
+  }
+  if (threadIdx.x == 0) ring.id_base = id_base;
+  __syncthreads();
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -129,6 +149,87 @@ __device__ __forceinline__ void merge_result(long long i, bool nearest,
 struct NoShare {
   template <int R>
   __device__ __forceinline__ void operator()(float (&)[R], int (&)[R]) const {}
+};
+
+// ---------------------------------------------------------------------------
+// A tile's list split over blocks (walk.cu, camera.cu, gstream.cu).
+//
+// The unit of work is a segment: `seg` consecutive positions of one list.
+// A tile's list is dealt to at most `tile_blocks` blocks, block b taking
+// segments b, b + tile_blocks, ...; blocks merge per ray through the key
+// above, in any order. A nearest walk with the front-to-back exit keeps it
+// exact by sharing: before a segment and at each vote a block publishes the
+// hits it holds that the card does not, and folds in the better ones the
+// card holds (KeyShare), so it votes on, and culls against, every hit any
+// block has published. A key written by another block is a real hit of
+// that ray, so whether the read is fresh or stale only changes how many
+// visits are skipped. The keys are read with __ldcg (L2, where the atomics
+// resolve; never a stale L1 line). The tile's last block to finish unpacks
+// the keys (finish_tile). What differs per entry is only the indexing:
+// which tile, pass, group and segment a block takes, and where its rays
+// come from.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Fills what a split walk's blocks merge into and count with: every ray's
+// merge state (fill_merge), the n_fin finish counters, and the n_vis visit
+// counts where visits is not null.
+__global__ void walk_fill_kernel(long long np, int nearest,
+                                 unsigned long long* __restrict__ keys,
+                                 float* __restrict__ out_t, long long n_fin,
+                                 int* __restrict__ finished, long long n_vis,
+                                 int* __restrict__ visits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (i < np) fill_merge(i, nearest != 0, keys, out_t);
+  if (i < n_fin) finished[i] = 0;
+  if (visits != nullptr && i < n_vis) visits[i] = 0;
+}
+
+}  // namespace
+
+// The fill launch on `stream`, before a split walk's blocks.
+inline void launch_walk_fill(long long np, bool nearest,
+                             unsigned long long* keys, float* out_t,
+                             long long n_fin, int* finished, long long n_vis,
+                             int* visits, cudaStream_t stream) {
+  const long long n = np > n_fin ? (np > n_vis ? np : n_vis)
+                                 : (n_fin > n_vis ? n_fin : n_vis);
+  walk_fill_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                     kThreads, 0, stream>>>(np, nearest ? 1 : 0, keys, out_t,
+                                            n_fin, finished, n_vis, visits);
+}
+
+// Segments of a list of `listed` positions (0 for an empty list).
+__device__ __forceinline__ int list_parts(int listed, int seg) {
+  return (listed + seg - 1) / seg;
+}
+
+// Publish this thread's hits into its rays' keys and fold the card's better
+// ones in. keys: ray 0 of this thread (null: the walk shares nothing); ray
+// r is keys + r * kThreads, and exists where threadIdx.x + r * kThreads <
+// lanes (a camera pass may hold fewer rays than its threads' lanes).
+struct KeyShare {
+  unsigned long long* keys;
+  int lanes;
+  template <int R>
+  __device__ __forceinline__ void operator()(float (&best_t)[R],
+                                             int (&best_s)[R]) const {
+    if (keys == nullptr) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (threadIdx.x + r * kThreads >= lanes) continue;
+      const unsigned long long mine = pack_key(best_t[r], best_s[r]);
+      const unsigned long long seen = __ldcg(keys + r * kThreads);
+      if (mine < seen) {
+        atomicMin(keys + r * kThreads, mine);
+      } else {
+        best_t[r] = key_t(seen);
+        best_s[r] = key_slot(seen);
+      }
+    }
+  }
 };
 
 // This thread's R pack rays of `tile` (ray r is lane threadIdx.x +
@@ -204,7 +305,7 @@ __device__ __forceinline__ bool lanes_settled(const bool (&alive)[R],
 // Start the copies of list positions [j0, j0 + nin) into stage buffer b and
 // commit them as one group (an empty group when nin <= 0, so that every
 // thread's group count advances alike). Positions past the list's end are
-// not staged.
+// not staged. A listed id plus the ring's id base indexes geo.
 __device__ __forceinline__ void stage_start(
     WalkRing& ring, int b, const int* __restrict__ tile_ids, int j0, int nin,
     const float* __restrict__ geo, long long geo_stride, int cs) {
@@ -212,7 +313,7 @@ __device__ __forceinline__ void stage_start(
   for (int e = threadIdx.x; e < nin * per; e += kThreads) {
     const int i = e / per;
     const int w = e - i * per;
-    const int c = tile_ids[j0 + i];
+    const int c = tile_ids[j0 + i] + ring.id_base;
     if (w == 0) ring.ids[b][i] = c;
     cp_async16(&ring.blk[b][e],
                geo + static_cast<long long>(c) * geo_stride + 4 * w);
@@ -230,18 +331,18 @@ __device__ __forceinline__ void stage_start(
 // rule does not depend on the order of the visits, and a hit found earlier
 // is a real hit, so the vote stays exact. `share` is called with
 // (best_t, best_s) just before each vote: a walk split over blocks
-// publishes and folds in the other blocks' hits there (walk.cu). Listed ids
-// index `geo`, whose rows must be 16-byte aligned (cs a multiple of 4); a
-// triangle's slot is slot_base + id * cs + lane. Occlusion (NEAREST false)
-// accepts t < t_lim[r] and never exits early. Returns the number of
+// publishes and folds in the other blocks' hits there. The block has set
+// the ring's box and id base (ring_setup): a listed id plus the id base
+// indexes `geo`, whose rows must be 16-byte aligned (cs a multiple of 4),
+// and a triangle's slot is (id + id base) * cs + lane. Occlusion (NEAREST
+// false) accepts t < t_lim[r] and never exits early. Returns the number of
 // clusters visited (trips, or fewer after an early exit).
 template <int R, bool PMTO, bool NEAREST, class Share>
 __device__ __forceinline__ int walk_list(
     WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
     const float* __restrict__ tile_tnear, int trips,
-    const float* __restrict__ bbox, const float* __restrict__ geo,
-    long long geo_stride, int slot_base, int cs, float eps,
+    const float* __restrict__ geo, long long geo_stride, int cs, float eps,
     const float (&t_lim)[R], bool use_exit, int ee_batch,
     float (&best_t)[R], int (&best_s)[R], Share share) {
   const int cps = kMaxClusterSize / cs;  // clusters per stage
@@ -251,7 +352,8 @@ __device__ __forceinline__ int walk_list(
   // beyond every lane's hit is not walked at all. Behind its barrier an
   // earlier walk's reads of the ring are done too.
   bool settled = use_exit && trips > 0
-                 && lanes_settled(alive, best_t, o, d, bbox, tile_tnear[0]);
+                 && lanes_settled(alive, best_t, o, d, ring.box,
+                                  tile_tnear[0]);
   if (__syncthreads_and(settled)) return 0;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -274,7 +376,7 @@ __device__ __forceinline__ int walk_list(
     const int b = s % kStages;
     const int nin = min(cps, trips - s * cps);
     for (int i = 0; i < nin; ++i) {
-      const int slot0 = slot_base + ring.ids[b][i] * cs;
+      const int slot0 = ring.ids[b][i] * cs;
       const float4* g = ring.blk[b] + i * 3 * cs;
       for (int k4 = 0; k4 < q4; ++k4) {
         float tri[12][4];
@@ -332,11 +434,44 @@ __device__ __forceinline__ int walk_list(
     if (use_exit && done < trips && done - voted >= ee_batch) {
       voted = done;
       share(best_t, best_s);
-      settled = lanes_settled(alive, best_t, o, d, bbox, tile_tnear[done]);
+      settled = lanes_settled(alive, best_t, o, d, ring.box,
+                              tile_tnear[done]);
     }
   }
   cp_async_wait<0>();  // an early exit leaves copies in flight: drain them
   return done;
+}
+
+// One block's share of a split list: segments first, first + tile_blocks,
+// ... of the n_parts segments of `seg` positions that cover the `listed`
+// positions of tile_ids (and tile_tnear), walked with walk_list and shared
+// through `share` before each. A segment that settles (fewer visits made
+// than listed) ends the block's walk of THIS list: the list is front to
+// back, so its later segments lie farther still. (The lists of other groups
+// of the table are no such thing; gstream.cu gives each group its own
+// blocks.) Returns the clusters visited.
+template <int R, bool PMTO, bool NEAREST>
+__device__ __forceinline__ int walk_segments(
+    WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
+    const bool (&alive)[R], const int* __restrict__ tile_ids,
+    const float* __restrict__ tile_tnear, int listed, int first, int n_parts,
+    int tile_blocks, int seg, const float* __restrict__ geo,
+    long long geo_stride, int cs, float eps, const float (&t_lim)[R], bool use_exit, int ee_batch,
+    float (&best_t)[R], int (&best_s)[R], const KeyShare& share) {
+  int visited = 0;
+  for (int part = first; part < n_parts; part += tile_blocks) {
+    const int j0 = part * seg;
+    const int trips = min(seg, listed - j0);
+    share(best_t, best_s);  // what the tile's other blocks have found
+    const int made = walk_list<R, PMTO, NEAREST>(
+        ring, o, d, alive, tile_ids + j0,
+        tile_tnear ? tile_tnear + j0 : nullptr, trips, geo, geo_stride, cs,
+        eps, t_lim, use_exit, ee_batch, best_t, best_s,
+        share);
+    visited += made;
+    if (made < trips) break;  // settled
+  }
+  return visited;
 }
 
 // Write ray i's result: t, then the slot (nearest) or hit flag (occlusion),
@@ -360,6 +495,62 @@ __device__ __forceinline__ void store_result(
                      + s % cs;
     for (int q = 0; q < n_attrs; ++q) {
       out_a[q * np + i] = hit ? a[q * cs] : 0.0f;
+    }
+  }
+}
+
+// The end of one block of a split walk, for the rays it holds: ray r of
+// this thread is i0 + r * kThreads, where threadIdx.x + r * kThreads <
+// lanes. A tile (or camera pass) that one block walks (`split` false)
+// writes its results directly. Otherwise the block merges the hits it holds
+// that the keys do not (one it only folded in is there already) and counts
+// itself in the tile's counter *finished; the tile's `parts`-th block to
+// get there sees every other block's merges, unpacks the keys and reads
+// the winners' attribute rows once (a gather is cheap on this card; the TPU
+// kernels carried them through the loop because their gathers are serial).
+template <int R, bool NEAREST>
+__device__ __forceinline__ void finish_tile(
+    bool split, long long i0, int lanes, long long np,
+    const float (&best_t)[R], const int (&best_s)[R],
+    unsigned long long* keys, int* finished, int parts,
+    const float* __restrict__ attr, long long attr_stride, int n_attrs,
+    int cs, float* out_t, int* __restrict__ out_s, float* __restrict__ out_a) {
+  __shared__ bool last;
+  if (!split) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (threadIdx.x + r * kThreads < lanes) {
+        store_result(i0 + r * kThreads, np, best_t[r], best_s[r], NEAREST,
+                     attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + r * kThreads;
+    if (threadIdx.x + r * kThreads >= lanes
+        || (NEAREST && !(pack_key(best_t[r], best_s[r]) < __ldcg(keys + i)))) {
+      continue;
+    }
+    merge_result(i, NEAREST, best_t[r], best_s[r], keys, out_t);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(finished, 1) == parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (threadIdx.x + r * kThreads >= lanes) continue;
+    const long long i = i0 + r * kThreads;
+    if (NEAREST) {
+      const unsigned long long key = __ldcg(keys + i);
+      store_result(i, np, key_t(key), key_slot(key), true, attr, attr_stride,
+                   n_attrs, cs, out_t, out_s, out_a);
+    } else {
+      out_s[i] = __ldcg(out_t + i) < inf() ? 1 : 0;
     }
   }
 }

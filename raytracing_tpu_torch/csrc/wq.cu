@@ -15,7 +15,8 @@
 // key merge of walk_core.cuh, one atomicMin per ray and item on
 // (bits(t) << 32) | slot, or for occlusion on bits(t) in the t output. The
 // key starts empty and only accepted hits reach the atomic, so an infinite
-// t never replaces anything and a tile with no visits reads miss. A second
+// t never replaces anything and a tile with no visits reads miss. The
+// split walks' fill launch (walk_core.cuh) empties the keys first; a second
 // small kernel unpacks t and slot and reads the winner's attribute rows
 // once.
 //
@@ -26,15 +27,6 @@
 
 namespace rt {
 namespace {
-
-__global__ void wq_init_kernel(long long np, int nearest,
-                               unsigned long long* __restrict__ keys,
-                               float* __restrict__ out_t) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (i >= np) return;
-  fill_merge(i, nearest != 0, keys, out_t);
-}
 
 // blockIdx.x = tile * steps + the item's step within its tile: a tile's
 // items are neighbours in launch order, so its rays stay in L2, and the
@@ -64,10 +56,11 @@ wq_items_kernel(const float* __restrict__ rays, long long np,
   load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
                  best_s);
 
+  ring_setup(ring, nullptr, 0);
   walk_list<kRaysPerThread, PMTO, NEAREST>(
       ring, o, d, alive, ids + tile * width + j0, nullptr,
-      min(u, listed - j0), nullptr, geo, geo_stride, 0, cs, eps, t_lim,
-      false, 1, best_t, best_s, NoShare{});
+      min(u, listed - j0), geo, geo_stride, cs, eps, t_lim, false, 1, best_t,
+      best_s, NoShare{});
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
@@ -124,7 +117,8 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
   const unsigned flat = static_cast<unsigned>((np + rt::kThreads - 1)
                                               / rt::kThreads);
   auto s = static_cast<cudaStream_t>(stream);
-  rt::wq_init_kernel<<<flat, rt::kThreads, 0, s>>>(np, nearest, keys, out_t);
+  rt::launch_walk_fill(np, nearest != 0, keys, out_t, 0, nullptr, 0,
+                       nullptr, s);
   auto kern = nearest ? (pmto ? rt::wq_items_kernel<true, true>
                                 : rt::wq_items_kernel<false, true>)
                       : (pmto ? rt::wq_items_kernel<true, false>

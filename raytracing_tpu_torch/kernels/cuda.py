@@ -38,14 +38,14 @@ _SIGNATURES = {
     "rt_refine_lists": [_P, _L, _P, _P, _I, _P, _P, _P, _P],
     "rt_walk": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I,
                 _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "rt_walk_gstream": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P,
-                        _L, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P,
-                        _P],
+    "rt_walk_gstream": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                        _L, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P, _P, _P],
     "rt_walk_wq": [_P, _L, _P, _P, _P, _I, _I, _P, _L, _P, _L, _I, _I, _F,
                    _F, _I, _I, _P, _P, _P, _P, _P],
     "rt_walk_camera": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _I,
-                       _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P, _P, _P,
-                       _P, _P],
+                       _I, _I, _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P,
+                       _P, _P, _P, _P, _P, _P],
 }
 
 

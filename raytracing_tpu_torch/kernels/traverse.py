@@ -82,10 +82,15 @@ _WQ_IMPL = "dma"
 # Visits per work item of K4.
 WQ_U = 4
 # K1/K2 split a tile's list over blocks: a block walks a segment of about
-# this many triangles (`_walk_segment`), whole stages of the kernel's
+# this many triangles (`_walk_segment`), whole stages of the kernels'
 # 128-triangle staging ring.
 _SEGMENT_TRIANGLES = 256
 _STAGE_TRIANGLES = 128
+# The camera walk's and K3's segments follow the launch (`_split_segment`):
+# one stage a segment for a launch of few tiles, four for one of many.
+_SHORT_SEGMENT_TRIANGLES = 128
+_LONG_SEGMENT_TRIANGLES = 512
+_MANY_TILES = 1024
 # ... and the most blocks one tile's list is dealt to: a list of more
 # segments gives each block several, so a table far wider than the lists
 # listed from it does not fill the grid with blocks that find nothing.
@@ -123,14 +128,15 @@ def _dma_ee_batch(cs: int) -> int:
     return 2 * max(1, _ee_batch_for(cs) // 2)
 
 
-def _walk_segment(cs: int) -> int:
-    """List positions one block of the pack walk (K1/K2) takes: whole
-    stages of `_STAGE_TRIANGLES // cs` clusters, `_SEGMENT_TRIANGLES`
-    triangles or one stage if that is more — 16 visits at CS 16, 2 at
-    CS 128. A multiple of every vote batch (`_ee_batch_for`,
+def _walk_segment(cs: int, triangles: Optional[int] = None) -> int:
+    """List positions one block of a split walk takes: whole stages of
+    `_STAGE_TRIANGLES // cs` clusters, `triangles` (default
+    `_SEGMENT_TRIANGLES`) or one stage if that is more — 16 visits at CS
+    16, 2 at CS 128. A multiple of every vote batch (`_ee_batch_for`,
     `_dma_ee_batch`)."""
+    triangles = _SEGMENT_TRIANGLES if triangles is None else triangles
     stage = max(1, _STAGE_TRIANGLES // cs)
-    return stage * max(1, _SEGMENT_TRIANGLES // (stage * cs))
+    return stage * max(1, triangles // (stage * cs))
 
 
 def _walk_grid(who: str, nt: int, width: int, per_block: int,
@@ -146,6 +152,40 @@ def _walk_grid(who: str, nt: int, width: int, per_block: int,
                          f"{per_block} to a block, make {nt * tile_blocks} "
                          f"blocks; one launch takes fewer than 2**31")
     return tile_blocks
+
+
+def _split_segment(cs: int, tiles: int) -> int:
+    """Segment of the camera walk and K3 for a launch of `tiles` tiles (or
+    camera passes): `_SHORT_SEGMENT_TRIANGLES` below `_MANY_TILES`, where
+    the tiles' lists must be cut fine to fill the card (a frame's chunk of
+    64 tiles), `_LONG_SEGMENT_TRIANGLES` above, where the tiles fill it and
+    shorter segments only add blocks that find nothing (a whole frame of
+    2,500: NVIDIA H100 80GB HBM3, 700 W, tools/kernel_ab.py --sweep, 128 /
+    256 / 512 triangles: camera chunk 0.091-0.093 / 0.118-0.124 /
+    0.121 ms, K3 chunk 0.38-0.40 / 0.45 / 0.44-0.49; camera at 1.6M 3.16 /
+    2.95-2.96 / 2.77, K3 at 1.6M 3.96-3.98 / 3.47 / 3.23-3.24)."""
+    return _walk_segment(cs, _SHORT_SEGMENT_TRIANGLES if tiles < _MANY_TILES
+                         else _LONG_SEGMENT_TRIANGLES)
+
+
+def _camera_grid(n_tiles: int, ray_tile: int, width: int, cs: int):
+    """(segment, blocks per pass, passes) of a camera walk launch: a tile
+    is walked in passes of up to `RAY_TILE` rays, each pass's list split
+    as `walk` splits one (`_split_segment`)."""
+    passes = -(-ray_tile // RAY_TILE)
+    seg = _split_segment(cs, n_tiles * passes)
+    return seg, _walk_grid("walk_camera", n_tiles * passes, width, seg,
+                           _MAX_TILE_BLOCKS), passes
+
+
+def _gstream_grid(nt: int, ng: int, width: int, cs: int):
+    """(segment, blocks per list) of a K3 launch (`_split_segment`): a
+    tile's lists in all its ng groups share one cap of `_MAX_TILE_BLOCKS`
+    blocks, so a table of many groups does not fill the grid with blocks
+    that find nothing."""
+    seg = _split_segment(cs, nt)
+    return seg, _walk_grid("walk_gstream", nt * ng, width, seg,
+                           max(1, _MAX_TILE_BLOCKS // ng))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -560,8 +600,9 @@ def _walk_outputs(rays8, attr, n_attrs: int, nearest: bool):
 
 def _merge_keys(rays8, nearest: bool):
     """Scratch for the order-free merge of a nearest walk split over blocks
-    (K1/K2 segments, K4 work items): one (t, slot) key of 8 bytes per ray,
-    8-byte aligned; occlusion merges in its t output and needs none."""
+    (K1/K2 and K3 segments, K4 work items): one (t, slot) key of 8 bytes
+    per ray, 8-byte aligned; occlusion merges in its t output and needs
+    none."""
     if not nearest:
         return None
     return torch.empty(rays8.shape[1], dtype=torch.int64, device=rays8.device)
@@ -653,15 +694,20 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
                  pmto: bool = False, tmax_row=None, tnear=None, bbox=None,
                  ee_batch: int = 1, visits=None):
     """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA. The
-    walk over a table of G groups of gsz clusters in one launch.
+    walk over a table of G groups of gsz clusters in one launch. The
+    kernel splits each (group, tile) list into segments dealt to blocks
+    (`_gstream_grid`); a tile's blocks over every group merge per ray in
+    any order.
 
     ids [G, nt, W] i32 hold group-local cluster ids with cnt [G, nt] listed
     per (group, tile) — 0 on a dead tile; geo [G * gsz, >=12, CS] and attr
     [G * gsz, >=A, CS] are the whole tables, the last group padded with
     zero blocks. With tnear [G, nt, W] and bbox [G, 6] (each group's union
-    box, min | max) a nearest walk votes on the early exit per group.
-    Returns what `walk` returns, the slots global. `visits`, an i32 [G, nt]
-    CUDA tensor, receives the clusters each (group, tile) visited."""
+    box, min | max) a nearest walk votes on the early exit with each
+    group's bounds, on its own hits and on those the tile's other blocks
+    have published. Returns what `walk` returns, the slots global.
+    `visits`, an i32 [G, nt] CUDA tensor, receives the clusters each
+    (group, tile) visited."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs, cs,
                                   gsz, eps, nearest, t_max, pmto, tmax_row)
@@ -680,17 +726,22 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
         raise ValueError(f"walk_gstream: the table must hold {ng} groups of "
                          f"{gsz} clusters (fewer than 2^30 slots), bbox "
                          f"[{ng}, 6]")
+    seg, tile_blocks = _gstream_grid(nt, ng, w, cs)
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
+    # Scratch of the blocks' merge; the launch fills both.
+    keys = _merge_keys(rays8, nearest)
+    finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
     cuda.check(lib.rt_walk_gstream(
         _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
-        _ptr(tnear if early else None), w, ng, int(gsz),
+        _ptr(tnear if early else None), w, seg, tile_blocks, ng, int(gsz),
         _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
         _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
         n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(out_t),
-        _ptr(out_s), _ptr(out_a), _ptr(visits), _stream()), "walk_gstream")
+        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
+        _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
+        _stream()), "walk_gstream")
     LAUNCHES["walk_gstream"] += 1
     return out_t, out_s, out_a
 
@@ -1294,8 +1345,10 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     on CUDA. Nearest hit of frame blocks [tile_base, tile_base + n_tiles)
     over their lists, in block ray order: (t [1, N], slot [1, N] i32,
     attrs [A, N] | None). geo is the origin-folded table; offs [spp, 2] is
-    read on the device at every launch. `entry` names the launch count
-    ("walk_camera" or "walk_camera_dma"); `visits` as in `walk`."""
+    read on the device at every launch. The kernel walks a tile in passes
+    of 1,024 rays and splits each pass's walk of the tile's list as `walk`
+    splits a list (`_camera_grid`), merged per ray in any order. `entry` names the launch
+    count ("walk_camera" or "walk_camera_dma"); `visits` as in `walk`."""
     if _on_cpu(offs, ids, cnt, geo, attr):
         return walk_camera_plain(offs, cam, tile_base, n_tiles, ids, cnt,
                                  geo, attr, n_attrs, cs, eps)
@@ -1313,18 +1366,23 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     attr_t = attr if n_attrs else None
     out_a = (torch.empty((n_attrs, n), dtype=torch.float32, device=dev)
              if attr_t is not None else None)
+    seg, tile_blocks, passes = _camera_grid(n_tiles, cam.ray_tile,
+                                            ids.shape[1], cs)
+    # Scratch of the blocks' merge; the launch fills both.
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    finished = torch.empty(n_tiles * passes, dtype=torch.int32, device=dev)
     cnt32 = cnt.to(torch.int32).contiguous()
     early = tnear is not None
     lib = cuda.library()
     cuda.check(lib.rt_walk_camera(
         _ptr(offs), int(tile_base), n_tiles, cam.width, cam.height, cam.spp,
         cam.bh, cam.bw, float(cam.aspect), float(cam.scale), _ptr(ids),
-        _ptr(cnt32), _ptr(tnear), ids.shape[1], _ptr(bbox if early else None),
-        _ptr(geo), geo.stride(0), _ptr(attr_t),
-        attr_t.stride(0) if attr_t is not None else 0,
+        _ptr(cnt32), _ptr(tnear), ids.shape[1], seg, tile_blocks,
+        _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
+        _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
         n_attrs if attr_t is not None else 0, cs, float(eps), int(early),
-        int(ee_batch), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
-        _stream()), entry)
+        int(ee_batch), _ptr(keys), _ptr(finished), _ptr(out_t), _ptr(out_s),
+        _ptr(out_a), _ptr(visits), _stream()), entry)
     LAUNCHES[entry] += 1
     return out_t, out_s, out_a
 

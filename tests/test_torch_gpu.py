@@ -14,6 +14,9 @@ equal to their plain versions and to K1 / K2, with either intersector, with
 a scalar and a per-ray t_max; the pack walk with every tile's list split
 over many blocks bit-equal to its plain version and to K4 in every mode,
 and the same bits at every one of ten launches under its racing early exit;
+the camera walk and K3 likewise split, bit-equal to their plain versions,
+the camera walk to the pack path under shared_origin=0 and K3 to one K1
+launch over the whole table, ten launches each equal;
 camera rays on the card bit-equal to the CPU's; a frame on the card within
 1e-4 of the CPU frame (torch's CUDA and CPU sin/cos in the sampler differ
 by ulps).
@@ -321,6 +324,126 @@ def test_walk_refuses_a_misaligned_table(setup, dev):
     off = flat[1:1 + geo.numel()].view(geo.shape).copy_(geo)
     with pytest.raises(ValueError, match="16-byte aligned"):
         T.walk(*args[:3], off, *args[4:], **kw)
+
+
+def _camera_split_args(setup, dev, monkeypatch, cs, shape, chunk):
+    """(args, kw) of a camera-walk launch on the default scene with the
+    lists cut into one-stage segments (a few tiles: short segments; most
+    tiles split over blocks), the early exit forced: the whole frame, or 4 tiles from the frame's
+    second-last block on (they overrun it)."""
+    accels, _ = setup
+    w, h, spp, bh, bw = shape
+    monkeypatch.setattr(T, "_LONG_SEGMENT_TRIANGLES", T._STAGE_TRIANGLES)
+    cam = T.Camera(w, h, spp, 1.0, bh, bw)
+    n_tiles = cam.grid[0] * cam.grid[1]
+    tile0, tiles = (n_tiles - 2, 4) if chunk else (0, n_tiles)
+    offs = stratified_offsets(spp, device=dev)
+    acc = accels[cs].to(dev)
+    args, kw = T._camera_walk_args(acc, offs, cam, tile0, tiles,
+                                   acc.attr_blocks.shape[1], 1e-8,
+                                   early_exit=True)
+    assert int(args[5].max()) > 2 * T._camera_grid(tiles, cam.ray_tile,
+                                                   args[4].shape[1], cs)[0]
+    return args, kw
+
+
+@pytest.mark.parametrize("chunk", [False, True], ids=["frame", "overrun"])
+@pytest.mark.parametrize("shape", [(64, 48, 1, 16, 16), (64, 48, 4, 16, 16),
+                                   (32, 32, 8, 16, 16)],
+                         ids=["rt256", "rt1024", "rt2048"])
+@pytest.mark.parametrize("cs,entry", [(16, "walk_camera"),
+                                      (128, "walk_camera_dma")])
+def test_camera_split_matches_plain(setup, dev, monkeypatch, cs, entry,
+                                    shape, chunk):
+    """Both camera entries with every tile's list split over blocks,
+    tiles of 256 (R = 2 with dead lanes), 1,024 and 2,048 rays (two
+    passes), the whole frame and an overrunning chunk: bit-equal to the
+    plain version with and without the early exit, the same at each of
+    ten launches under the racing exit."""
+    args, kw = _camera_split_args(setup, dev, monkeypatch, cs, shape, chunk)
+    assert kw["entry"] == entry
+    before = T.LAUNCHES[entry]
+    visits = torch.zeros(args[3], dtype=torch.int32, device=dev)
+    kern = T.walk_camera(*args, **kw, visits=visits)
+    assert T.LAUNCHES[entry] == before + 1
+    every = torch.ones(kern[0].shape[1], dtype=torch.bool, device=dev)
+    plain = T.walk_camera_plain(*args)
+    _assert_walks_equal(kern, plain, every)
+    assert bool((visits <= args[5] * (-(-args[1].ray_tile // 1024))).all())
+    _assert_walks_equal(T.walk_camera(*args, **dict(kw, tnear=None,
+                                                     bbox=None)),
+                        plain, every)
+    for _ in range(10):
+        _assert_walks_equal(T.walk_camera(*args, **kw), kern, every)
+
+
+@pytest.mark.parametrize("cs", [16, 128])
+def test_camera_mode_equals_the_pack_path(setup, dev, monkeypatch, cs):
+    """Camera mode (split over blocks) against the pack path under
+    shared_origin=0 on the same rays in block order."""
+    accels, _ = setup
+    monkeypatch.setattr(T, "_LONG_SEGMENT_TRIANGLES", T._STAGE_TRIANGLES)
+    acc = accels[cs].to(dev)
+    cfg = RenderConfig(width=64, height=48, samples_per_pixel=4)
+    offs = stratified_offsets(4, device=dev)
+    got = T.nearest_hit_camera_soa(acc, offs, width=64, height=48, spp=4,
+                                   scale=cfg.scale, with_attrs=True)
+    o, d = camera_rays_for_ids(block_ray_ids(0, 64 * 48 * 4, cfg,
+                                             device=dev), cfg)
+    want = T.nearest_hit_attrs_soa(acc, T.rays_to_soa(o, d), wq=cs == 128,
+                                   shared_origin=torch.zeros(3, device=dev))
+    assert bool(torch.isfinite(want[0]).any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nearest,per_ray",
+                         [(True, False), (False, False), (False, True)],
+                         ids=["nearest", "occlusion", "occlusion-tmax_row"])
+@pytest.mark.parametrize("pmto", [False, True], ids=["pmt", "pmto"])
+def test_gstream_split_matches_plain_and_one_walk(setup, dev, monkeypatch,
+                                                  pmto, nearest, per_ray):
+    """K3 over 4 groups of 256 clusters with the (group, tile) lists split
+    into one-stage segments (4 tiles: short segments), the exit forced for
+    nearest, the last tile dead: against its plain version, against one K1 launch over the whole
+    table, and the same at each of ten launches."""
+    accels, packs = setup
+    acc = accels[16].to(dev)
+    p, origin = _shared_origin_pack(packs[0], pmto)
+    p = p.clone()
+    p[7, 3072:] = 0.0
+    g = p.to(dev)
+    m = (p[7] != 0).to(dev)
+    so = None if origin is None else origin.to(dev)
+    na = acc.attr_blocks.shape[1] if nearest else 0
+    t_max = T.INF if nearest else 3.0
+    row = _tmax_row(g.shape[1], per_ray, dev)
+    query = dict(early_exit=True, shared_origin=so, tmax_row=row)
+    wargs, wkw = T._groups_walk_args(acc, g, 1e-8, nearest, t_max, na,
+                                     **query)
+    one = T.walk(*wargs, **wkw)
+    monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    args, kw = T._gstream_walk_args(acc, g, 1e-8, nearest, t_max, na,
+                                    **query)
+    assert args[1].shape[0] == 4 and int(args[2][:, 3].sum()) == 0
+    assert int(args[2].max()) > 2 * T._gstream_grid(4, 4, 256, 16)[0]
+    assert (kw["tnear"] is not None) == nearest
+    visits = torch.zeros(args[2].shape, dtype=torch.int32, device=dev)
+    kern = T.walk_gstream(*args, **kw, visits=visits)
+    assert bool((visits <= args[2]).all())
+    if not nearest:
+        assert torch.equal(visits, args[2].to(torch.int32))
+    _assert_walks_equal(kern, T.walk_gstream_plain(*args), m)
+    _assert_walks_equal(kern, one, m)
+    for _ in range(10):
+        _assert_walks_equal(T.walk_gstream(*args, **kw), kern, m)
+    dead = slice(3072, 4096)
+    assert bool(torch.isinf(kern[0][0, dead]).all())
+    if nearest:
+        assert bool((kern[1][0, dead] == 2 ** 30).all())
+        assert not bool(kern[2][:, dead].any())
+    else:
+        assert not bool(kern[1][0, dead].any())
 
 
 def test_per_ray_tmax_walk_matches_plain(setup, dev):

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels of two trees in one process on one CUDA card: the dense
-refinement (K5), the extents (K6) and the pack walk (K1/K2, `rt_walk`).
+refinement (K5), the extents (K6), the pack walk (K1/K2, `rt_walk`), the
+camera walk (K1 camera / K2 camera, `rt_walk_camera`) and the
+streamed-groups walk (K3, `rt_walk_gstream`).
 
 Run from the root of a checkout, with another commit of the repository
 unpacked somewhere (`git archive <commit> | tar -x -C _work/parent`):
@@ -18,15 +20,23 @@ the CS=16 table (the `_walk_groups` entry, occlusion under a per-ray limit,
 ~200 listed clusters per tile), the chunk's primaries (short lists), and
 the whole frame's 2,560,000 primaries over the subdivided teapot's 6,320 x
 64 and 12,640 x 128 tables (coherent rays: the early exit decides the
-work). A tree whose `rt_walk` splits a tile's list over blocks takes a
-segment size and merge scratch; one that gives a tile one block does not:
-each tree is bound by its own signature. Every kernel runs in the order
-this, other, other, this, each the median of 5 launches by CUDA events.
-Prints the kernels' registers as `ptxas -v` reports them, the four times,
-and whether the outputs are equal (the walk's on alive lanes: a dead lane
-does not vote on the early exit, so its result is meaningless). With
-`--sweep` this tree's walk is then timed on every input at segments of 256
-to 2,048 triangles and at 16, 64 and 256 blocks per tile at most. Kernel
+work). `rt_walk_camera` runs on the whole reference frame (2,500 tiles of
+1,024 rays) over the default scene's CS=16 table, on one 64-tile chunk of
+the camera-primaries reference frame as the renderer launches it, and over
+the 1.6M and 6.4M tables (CS=128, the combined-table entry);
+`rt_walk_gstream` on the whole frame's primaries over the 1.6M and 6.4M
+tables (4 and 10 groups) and on the two launches of chunk 12 of the 1.6M
+Whitted frame as the renderer makes them (65,536 rays: primary
+nearest+attrs, sun-shadow occlusion). A tree whose walk splits a tile's
+list over blocks takes a segment size and merge scratch; one that gives a
+tile one block does not: each tree's entries are bound by their own
+signatures. Every kernel runs in the order this, other, other, this, each
+the median of 5 launches by CUDA events. Prints the kernels' registers as
+`ptxas -v` reports them, the four times, the visits each tree made, and
+whether the outputs are equal (the walk's on alive lanes: a dead lane does
+not vote on the early exit, so its result is meaningless). With `--sweep`
+this tree's split walks are then timed on every input at segments of 128,
+256 and 512 triangles and at 4, 16 and 64 blocks per tile at most. Kernel
 times differ between processes on a shared machine; only times of one run
 of this script compare. Never imports JAX.
 """
@@ -58,8 +68,9 @@ def _build(tree, out):
     lines = (proc.stdout + proc.stderr).splitlines()
     for i, line in enumerate(lines):
         name = next((k for k in ("13refine_kernel", "extents_kernel",
+                                 "camera_walk_kernel", "gstream_kernel",
                                  "walk_kernel") if k in line), None)
-        if "Compiling entry" in line and name and "camera" not in line:
+        if "Compiling entry" in line and name:
             used = next(l for l in lines[i:] if "Used" in l)
             spill = next(l for l in lines[i:] if "spill" in l)
             print(f"[build] {tree}: {name.lstrip('13')}: "
@@ -69,13 +80,30 @@ def _build(tree, out):
                        ctypes.c_float)
     lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, p, p, p]
     lib.rt_tile_extents.argtypes = [p, ll, p, p, p]
-    with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
-                           "walk.cu")) as f:
-        lib.split_walk = "int* finished" in f.read()
+    split = {}
+    for name in ("walk", "camera", "gstream"):
+        with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
+                               f"{name}.cu")) as f:
+            split[name] = "int* finished" in f.read()
+    lib.split_walk, lib.split_camera, lib.split_gstream = split.values()
     head = [p, ll, p, p, p, p, i32]
     tail = [p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32]
     lib.rt_walk.argtypes = (head + [i32] * 2 + tail + [p] * 7
                             if lib.split_walk else head + tail + [p] * 5)
+    # rt_walk_camera: offs .. width, [seg, tile_blocks], bbox .. ee_batch,
+    # [keys, finished], outputs, visits, stream.
+    head = [p] + [i32] * 7 + [f32, f32, p, p, p, i32]
+    tail = [p, p, ll, p, ll, i32, i32, f32, i32, i32]
+    lib.rt_walk_camera.argtypes = (
+        head + [i32] * 2 + tail + [p] * 7 if lib.split_camera
+        else head + tail + [p] * 5)
+    # rt_walk_gstream: rays .. width, [seg, tile_blocks], n_groups .. pmto,
+    # [keys, finished], outputs, visits, stream.
+    head = [p, ll, p, p, p, p, i32]
+    tail = [i32, i32, p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32]
+    lib.rt_walk_gstream.argtypes = (
+        head + [i32] * 2 + tail + [p] * 7 if lib.split_gstream
+        else head + tail + [p] * 5)
     return lib
 
 
@@ -105,18 +133,121 @@ def _call_walk(lib, args, kw, out):
     assert rc == 0, rc
 
 
-def _walk_outputs(args):
+def _call_camera(lib, args, kw, out):
+    """`rt_walk_camera` of one tree on `walk_camera(*args, **kw)`'s
+    arguments."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    offs, cam, tile0, n_tiles, ids, cnt, geo, attr, n_attrs, cs, eps = args
+    early = kw.get("tnear") is not None
+    ptr = T._ptr
+    head = [ptr(offs), int(tile0), n_tiles, cam.width, cam.height, cam.spp,
+            cam.bh, cam.bw, float(cam.aspect), float(cam.scale), ptr(ids),
+            ptr(cnt), ptr(kw["tnear"] if early else None), ids.shape[1]]
+    tail = [ptr(kw["bbox"] if early else None), ptr(geo), geo.stride(0),
+            ptr(attr), attr.stride(0) if attr is not None else 0,
+            n_attrs if attr is not None else 0, cs, float(eps), int(early),
+            int(kw["ee_batch"])]
+    outs = [ptr(out["t"]), ptr(out["s"]), ptr(out["a"]), ptr(out["visits"]),
+            T._stream()]
+    if lib.split_camera:
+        seg, tile_blocks, _ = T._camera_grid(n_tiles, cam.ray_tile,
+                                             ids.shape[1], cs)
+        rc = lib.rt_walk_camera(*head, seg, tile_blocks, *tail,
+                                ptr(out["keys"]), ptr(out["finished"]), *outs)
+    else:
+        rc = lib.rt_walk_camera(*head, *tail, *outs)
+    assert rc == 0, rc
+
+
+def _call_gstream(lib, args, kw, out):
+    """`rt_walk_gstream` of one tree on `walk_gstream(*args, **kw)`'s
+    arguments."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    (rp, ids, cnt, geo, attr, n_attrs, cs, gsz, eps, nearest, t_max, pmto,
+     row) = args
+    early = kw.get("tnear") is not None and nearest
+    attr = attr if nearest and n_attrs else None
+    ptr = T._ptr
+    ng, nt, w = ids.shape
+    head = [ptr(rp), rp.shape[1], ptr(row), ptr(ids), ptr(cnt),
+            ptr(kw["tnear"] if early else None), w]
+    tail = [ng, int(gsz), ptr(kw["bbox"] if early else None), ptr(geo),
+            geo.stride(0), ptr(attr),
+            attr.stride(0) if attr is not None else 0,
+            n_attrs if attr is not None else 0, cs, float(eps), float(t_max),
+            int(nearest), int(early), int(kw["ee_batch"]), int(pmto)]
+    outs = [ptr(out["t"]), ptr(out["s"]), ptr(out["a"]), ptr(out["visits"]),
+            T._stream()]
+    if lib.split_gstream:
+        seg, tile_blocks = T._gstream_grid(nt, ng, w, cs)
+        rc = lib.rt_walk_gstream(*head, seg, tile_blocks, *tail,
+                                 ptr(out["keys"]), ptr(out["finished"]),
+                                 *outs)
+    else:
+        rc = lib.rt_walk_gstream(*head, *tail, *outs)
+    assert rc == 0, rc
+
+
+def _walk_outputs(kind, args):
+    """Outputs and scratch of one launch of `kind` ("walk", "camera" or
+    "gstream"): t, slot, attrs, merge keys, finish counters, visits."""
     import torch
 
-    rp, n_attrs = args[0], args[5]
-    n, dev = rp.shape[1], rp.device
+    if kind == "camera":
+        cam, n_tiles, cnt, n_attrs = args[1], args[3], args[5], args[8]
+        n, dev = n_tiles * cam.ray_tile, cnt.device
+        n_fin = n_tiles * -(-cam.ray_tile // 1024)
+        visits = (n_tiles,)
+    else:
+        rp, cnt, n_attrs = args[0], args[2], args[5]
+        n, dev = rp.shape[1], rp.device
+        n_fin = n // 1024
+        visits = cnt.shape
     return dict(t=torch.empty((1, n), device=dev),
                 s=torch.empty((1, n), dtype=torch.int32, device=dev),
                 a=torch.empty((max(n_attrs, 1), n), device=dev),
                 keys=torch.empty(n, dtype=torch.int64, device=dev),
-                finished=torch.empty(n // 1024, dtype=torch.int32,
-                                     device=dev),
-                visits=torch.zeros(n // 1024, dtype=torch.int32, device=dev))
+                finished=torch.empty(n_fin, dtype=torch.int32, device=dev),
+                visits=torch.zeros(visits, dtype=torch.int32, device=dev))
+
+
+def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
+    """The launches of the frames' own shapes, as chip_smoke.py's phases 5
+    and 7 capture them: the `walk_camera` launch of the camera-primaries
+    reference frame's chunk 20 (64 tiles), and the two `walk_gstream`
+    launches of the 1.6M Whitted frame's chunk 12 (65,536 rays: the
+    primary nearest+attrs query, then the sun-shadow query). Returns
+    {name: (args, kw)}."""
+    import torch
+
+    import chip_smoke
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import sun_position
+    from raytracing_tpu_torch.models import whitted
+
+    cfg = RenderConfig()
+    scene = build_default_scene(device=dev)
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    (camera,) = chip_smoke._capture_calls(
+        "walk_camera", [chip_smoke.KERNEL_CHUNK], lambda: whitted.render(
+            scene, cfg.replace(primary_shared_origin=True), accel=acc16,
+            generator=gen))
+    k = 2 * chip_smoke.LARGE_KERNEL_CHUNK  # each chunk: primary, sun shadow
+    prim, shadow = chip_smoke._capture_calls(
+        "walk_gstream", [k, k + 1], lambda: whitted.render(
+            Scene(mesh=mesh_1m6, sun=sun_position(0.0).to(dev)), cfg,
+            accel=acc_1m6, generator=gen))
+    if not (prim[0][9] and not shadow[0][9]):
+        raise SystemExit("walk_gstream calls of a chunk: not primary, then "
+                         "shadow")
+    return {"walk_camera_chunk": camera, "walk_gstream_chunk": prim,
+            "walk_gstream_chunk_shadow": shadow}
 
 
 def _inputs(dev):
@@ -170,18 +301,44 @@ def _inputs(dev):
         0, tmax_row=t_stop[None].contiguous())
     # Coherent rays over big tables, where the early exit decides the work:
     # the whole frame's primaries (origin folded) against the subdivided
-    # teapot, each table in one `_walk_groups` launch.
-    _, _, frame, _ = chip_smoke._reference_camera(dev)
-    for levels, cs in ((3, 64), (4, 128)):
-        acc = build_cluster_accel(
-            subdivided_teapot_mesh(levels=levels, device=dev),
-            cluster_size=cs, variants=("pmt",))
-        walks[f"walk, 2,560,000 primaries, {acc.num_clusters}x{cs}, "
-              f"nearest+attrs, pmto"] = T._groups_walk_args(
-            acc, frame, cfg.eps, True, INF, na,
-            shared_origin=torch.zeros(3, device=dev))
+    # teapot, each table in one `_walk_groups` launch; the camera walk and
+    # K3 over the same frame and tables.
+    camera = chip_smoke._reference_camera(dev)
+    cam, offs, frame, eps = camera
+    n_tiles = cam.grid[0] * cam.grid[1]
+    zero3 = torch.zeros(3, device=dev)
+    cameras = {f"walk_camera, {n_tiles} x 1,024 rays, 790x16, A = {na}":
+               T._camera_walk_args(acc16, offs, cam, 0, n_tiles, na, eps)}
+    gstreams = {}
+    for levels, cs in ((3, 64), (4, 128), (5, 128)):
+        mesh = subdivided_teapot_mesh(levels=levels, device=dev)
+        acc = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
+        c = acc.num_clusters
+        if levels < 5:
+            walks[f"walk, 2,560,000 primaries, {c}x{cs}, nearest+attrs, "
+                  f"pmto"] = T._groups_walk_args(acc, frame, eps, True, INF,
+                                                 na, shared_origin=zero3)
+        if levels > 3:
+            cameras[f"walk_camera_dma, {n_tiles} x 1,024 rays, {c}x{cs}"] = \
+                T._camera_walk_args(acc, offs, cam, 0, n_tiles, 0, eps)
+            gstreams[f"walk_gstream, 2,560,000 primaries, {c}x{cs}, "
+                     f"nearest+attrs, pmto"] = T._gstream_walk_args(
+                acc, frame, eps, True, INF, na, shared_origin=zero3)
+        if levels == 4:
+            mesh_1m6, acc_1m6 = mesh, acc
+        del mesh, acc
+    # The frames' own shapes: one 64-tile chunk of the camera-primaries
+    # reference frame, and chunk 12 of the 1.6M Whitted frame.
+    chunks = _frame_chunk_launches(dev, mesh_1m6, acc_1m6)
+    cameras["walk_camera, chunk of 64 tiles x 1,024 rays, 790x16, A = 4"] = \
+        chunks["walk_camera_chunk"]
+    gstreams["walk_gstream, 1.6M frame chunk, 65,536 primaries, "
+             "nearest+attrs"] = chunks["walk_gstream_chunk"]
+    gstreams["walk_gstream, 1.6M frame chunk, 65,536 sun-shadow rays, "
+             "occlusion"] = chunks["walk_gstream_chunk_shadow"]
     return (bp, acc128.cluster_min.contiguous(),
-            acc128.cluster_max.contiguous(), walks)
+            acc128.cluster_max.contiguous(),
+            {"walk": walks, "camera": cameras, "gstream": gstreams})
 
 
 def _median_ms(fn, reps=5):
@@ -221,7 +378,7 @@ def main(argv) -> int:
     libs = {"this": _build(HERE, os.path.join(build_dir, "ab_this.so")),
             "other": _build(os.path.abspath(argv[1]),
                             os.path.join(build_dir, "ab_other.so"))}
-    bp, cmin, cmax, walks = _inputs("cuda")
+    bp, cmin, cmax, by_kind = _inputs("cuda")
     n = bp.shape[1]
     nt, c = n // 1024, cmin.shape[0]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
@@ -256,51 +413,69 @@ def main(argv) -> int:
     same = (torch.equal(bits["this"], bits["other"])
             and torch.equal(lo["this"], lo["other"])
             and torch.equal(hi["this"], hi["other"]))
-    for name, (args, kw) in walks.items():
-        args = args[:2] + (args[2].to(torch.int32).contiguous(),) + args[3:]
-        out = {k: _walk_outputs(args) for k in libs}
-        for k in order * 3:
-            _call_walk(libs[k], args, kw, out[k])
-        ms = [_median_ms(lambda k=k: _call_walk(libs[k], args, kw, out[k]))
-              for k in order]
-        print(f"[{name}] ms, median of 5: "
-              + ", ".join(f"{k} {t}" for k, t in zip(order, ms)))
-        m = args[0][7] != 0
-        a, b = out["this"], out["other"]
-        eq = all(torch.equal(a[k][..., m], b[k][..., m])
-                 for k in (("t", "s", "a") if args[8] else ("t", "s")))
-        print(f"[{name}] visits this {int(a['visits'].sum())}, other "
-              f"{int(b['visits'].sum())} of {int(args[2].sum())} listed; "
-              f"outputs equal on alive lanes: {eq}")
-        same = same and eq
+    calls = {"walk": _call_walk, "camera": _call_camera,
+             "gstream": _call_gstream}
+    for kind, launches in by_kind.items():
+        for name, (args, kw) in launches.items():
+            icnt = 5 if kind == "camera" else 2
+            args = (args[:icnt] + (args[icnt].to(torch.int32).contiguous(),)
+                    + args[icnt + 1:])
+            call = calls[kind]
+            out = {k: _walk_outputs(kind, args) for k in libs}
+            for k in order * 3:
+                call(libs[k], args, kw, out[k])
+            ms = [_median_ms(lambda k=k: call(libs[k], args, kw, out[k]))
+                  for k in order]
+            print(f"[{name}] ms, median of 5: "
+                  + ", ".join(f"{k} {t}" for k, t in zip(order, ms)))
+            # Camera lanes are all alive; a pack's dead lanes do not vote.
+            m = (slice(None) if kind == "camera" else args[0][7] != 0)
+            nearest = kind == "camera" or args[9 if kind == "gstream" else 8]
+            with_attrs = nearest and args[8 if kind == "camera" else 5]
+            a, b = out["this"], out["other"]
+            eq = all(torch.equal(a[k][..., m], b[k][..., m])
+                     for k in ("t", "s", "a")[:3 if with_attrs else 2])
+            print(f"[{name}] visits this {int(a['visits'].sum())}, other "
+                  f"{int(b['visits'].sum())} of {int(args[icnt].sum())} "
+                  f"listed; outputs equal on alive lanes: {eq}")
+            same = same and eq
     print(f"[equal] outputs of the two trees equal: {same}")
     if sweep:
-        _sweep(libs["this"], walks)
+        _sweep(libs["this"], by_kind)
     return 0 if same else 1
 
 
-def _sweep(lib, walks):
-    """This tree's split walk at other segment sizes and other caps on a
+def _sweep(lib, by_kind):
+    """This tree's split walks at other segment sizes and other caps on a
     tile's blocks than `kernels/traverse.py` sets, two rounds."""
     from raytracing_tpu_torch.kernels import traverse as T
 
     import torch
 
-    seg0, cap0 = T._SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS
+    calls = {"walk": _call_walk, "camera": _call_camera,
+             "gstream": _call_gstream}
+    saved = (T._SEGMENT_TRIANGLES, T._SHORT_SEGMENT_TRIANGLES,
+             T._LONG_SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS)
     try:
-        for name, (args, kw) in walks.items():
-            args = (args[:2] + (args[2].to(torch.int32).contiguous(),)
-                    + args[3:])
-            out = _walk_outputs(args)
-            for seg, cap in ((256, 64), (512, 64), (1024, 64), (2048, 64),
-                             (256, 16), (256, 256)) * 2:
-                T._SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS = seg, cap
-                ms = _median_ms(lambda: _call_walk(lib, args, kw, out))
-                print(f"[sweep] {name}: {seg} triangles a segment, at most "
-                      f"{cap} blocks a tile: {ms} ms, "
-                      f"{int(out['visits'].sum())} visits")
+        for kind, launches in by_kind.items():
+            for name, (args, kw) in launches.items():
+                icnt = 5 if kind == "camera" else 2
+                args = (args[:icnt]
+                        + (args[icnt].to(torch.int32).contiguous(),)
+                        + args[icnt + 1:])
+                out = _walk_outputs(kind, args)
+                for seg, cap in ((256, 64), (128, 64), (512, 64), (256, 16),
+                                 (256, 4), (128, 16)) * 2:
+                    T._SEGMENT_TRIANGLES = seg
+                    T._SHORT_SEGMENT_TRIANGLES = T._LONG_SEGMENT_TRIANGLES = seg
+                    T._MAX_TILE_BLOCKS = cap
+                    ms = _median_ms(lambda: calls[kind](lib, args, kw, out))
+                    print(f"[sweep] {name}: {seg} triangles a segment, at "
+                          f"most {cap} blocks a tile: {ms} ms, "
+                          f"{int(out['visits'].sum())} visits")
     finally:
-        T._SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS = seg0, cap0
+        (T._SEGMENT_TRIANGLES, T._SHORT_SEGMENT_TRIANGLES,
+         T._LONG_SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS) = saved
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with a CUDA GPU:
                                    [--camera] [--lights]
                                    [--path-tracer [--spp N]]
                                    [--wq-impl dma|grid]
+                                   [--scene default|404k|1m6]
 
 Renders the reference frame (800x800 at 4 spp, `RenderConfig()` defaults:
 the CS=16 accel plus the auto-built CS=128 bounce accel) once to warm up,
@@ -24,8 +25,13 @@ bounces, chunks of 131,072 pixels) at `--spp` samples per pixel (default
 4: every sample repeats the same levels, so a 64-spp frame is 16 of these;
 the profiler's trace of all 64 would hold half a million launches).
 `--wq-impl grid` sends the bounce queries through the work-queue walk (K4)
-instead of the `_walk_dma` entry (K2), the default. The script never
-imports JAX.
+instead of the `_walk_dma` entry (K2), the default. `--scene 404k` renders
+the Whitted frame of the subdivided teapot at 404k triangles (CS=64 accel,
+CS=128 bounce accel), `--scene 1m6` at 1.6M triangles (one CS=128 accel
+for every level: its 12,640 clusters exceed the group budget, so the
+primary and sun-shadow queries run the streamed-groups walk, K3); the
+scene is built before the warm-up and its build is not profiled. The
+script never imports JAX.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (layer, substrings of the kernel name), first match wins.
 LAYERS = (
-    ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu)",
+    ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu), and the "
+     "fill launch of every split walk",
      ("walk_kernel", "walk_fill_kernel")),
     ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
     ("refine, K5 dense and gathered (refine.cu)",
@@ -87,6 +94,9 @@ def main() -> int:
                     help="samples per pixel of the path-traced frame")
     ap.add_argument("--wq-impl", choices=("dma", "grid"), default="dma",
                     help="what the bounce (wq) queries run: K2 or K4")
+    ap.add_argument("--scene", choices=("default", "404k", "1m6"),
+                    default="default",
+                    help="the two-teapot scene or a subdivided teapot")
     opts = ap.parse_args()
     out = opts.out
     sys.path.insert(0, HERE)
@@ -98,6 +108,8 @@ def main() -> int:
                                       build_default_scene,
                                       render_path_traced, render_whitted)
     from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
+                                                     sun_position)
     from raytracing_tpu_torch.kernels import traverse
 
     traverse._WQ_IMPL = opts.wq_impl
@@ -116,15 +128,25 @@ def main() -> int:
             torch.tensor([[1.0, 8.0, 7.0]]), torch.tensor([1.5]),
             torch.tensor([[1.5, 1.5, 1.5]])).to("cuda"))
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    gi_accel = None
+    if opts.scene != "default":
+        levels, cs = {"404k": (3, 64), "1m6": (4, 128)}[opts.scene]
+        mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
+        scene = Scene(mesh, sun_position(0.0).to("cuda"), scene.lights)
+        accel = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
+        if cs < 128:
+            gi_accel = build_cluster_accel(mesh, cluster_size=128,
+                                           variants=("pmt",))
     pt = PathTracerConfig(max_bounces=4, samples_per_pixel=opts.spp)
 
     def frame():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if opts.path_tracer:
-            render_path_traced(scene, cfg, pt, accel=accel)
+            render_path_traced(scene, cfg, pt, accel=accel,
+                               gi_accel=gi_accel)
         else:
-            render_whitted(scene, cfg, accel=accel)
+            render_whitted(scene, cfg, accel=accel, gi_accel=gi_accel)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -155,7 +177,7 @@ def main() -> int:
     what = (f"path-traced frame, {opts.spp} spp, 4 bounces"
             if opts.path_tracer else "reference Whitted frame")
     print(f"[profile] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {what}"
+          f"{torch.version.cuda}; {what}, scene {opts.scene}"
           f"{', camera-mode primaries' if opts.camera else ''}"
           f"{', one area light' if opts.lights else ''}"
           f", wq queries through {opts.wq_impl}")
@@ -176,7 +198,8 @@ def main() -> int:
               f"{name[:100]}")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
-        json.dump({"card": card, "what": what, "camera": opts.camera,
+        json.dump({"card": card, "what": what, "scene": opts.scene,
+                   "camera": opts.camera,
                    "lights": opts.lights, "wq_impl": opts.wq_impl,
                    "frame_s": wall, "profiled_frame_s":
                    prof_wall, "device_busy_s": busy_ms / 1e3,

@@ -7,8 +7,11 @@ Run from the root of a checkout on a machine with the CUDA toolkit:
     python3 tools/sass_count.py [VISITS CS RAYS_PER_TILE ...]
 
 Builds the port's kernels (`raytracing_tpu_torch/kernels/cuda.py`), dumps
-the pack walk's machine code with `cuobjdump -sass`, and in each of the
-four `walk_kernel<PMTO, NEAREST>` finds the innermost loop that holds the
+the walks' machine code with `cuobjdump -sass`, and in each of the pack
+walk's four `walk_kernel<PMTO, NEAREST>`, the camera walk's
+`camera_walk_kernel<R>` (R rays a thread), K3's four
+`gstream_kernel<PMTO, NEAREST>` and K4's four `wq_items_kernel<PMTO,
+NEAREST>` finds the innermost loop that holds the
 (ray, triangle) tests: the innermost loop with the most reciprocals
 (`MUFU.RCP`, one per IEEE division, so one per test). Prints the loop's
 machine ops, its tests, and ops per test: a static count, so the branches
@@ -24,7 +27,8 @@ triangles for tiles of `RAYS_PER_TILE` rays cannot take less than
     VISITS * CS * RAYS_PER_TILE / 32 * ops per test
         / (132 * 4 * SM clock)
 
-seconds, whatever its memory traffic: the floor the arithmetic's bound of
+seconds, whatever its memory traffic (every kernel variant's floor is
+printed; a camera launch with R rays a thread walks tiles of 256 R lanes): the floor the arithmetic's bound of
 PERF.md (operations over 67 TFLOP/s, a rate that counts a fused
 multiply-add as two operations and that code built with -fmad=false cannot
 reach) does not see. Each triple of arguments is one launch to reckon;
@@ -93,6 +97,20 @@ def inner_loop(instrs):
     return best
 
 
+def _variant(name):
+    """'walk_kernel (pmt, nearest)' and the like for a walk kernel's
+    mangled name, None for any other function."""
+    m = re.search(r"_(walk|gstream|wq)_cu_.*?(walk|gstream|wq_items)_kernel"
+                  r"ILb([01])ELb([01])EE", name)
+    if m:
+        return (f"{m.group(2)}_kernel ({'pmto' if m.group(3) == '1' else 'pmt'}"
+                f", {'nearest' if m.group(4) == '1' else 'occlusion'})")
+    m = re.search(r"_camera_cu_.*camera_walk_kernelILi(\d)EE", name)
+    if m:
+        return f"camera_walk_kernel (pmto, nearest, {m.group(1)} rays a thread)"
+    return None
+
+
 def main(argv) -> int:
     sys.path.insert(0, HERE)
     from raytracing_tpu_torch.kernels import cuda
@@ -113,19 +131,19 @@ def main(argv) -> int:
     per_test = {}
     with open(os.path.join(out_dir, "sass_walk.txt"), "w") as f:
         for name, instrs in _functions(proc.stdout).items():
-            m = re.search(r"_walk_cu_.*walk_kernelILb([01])ELb([01])EE", name)
-            if not m:
+            which = _variant(name)
+            if which is None:
                 continue
             f.write(f"Function : {name}\n")
             f.writelines(f"  /*{a:04x}*/ {t};\n" for a, t in instrs)
-            which = (f"{'pmto' if m.group(1) == '1' else 'pmt'}, "
-                     f"{'nearest' if m.group(2) == '1' else 'occlusion'}")
             n, tests = inner_loop(instrs)
             per_test[which] = n / tests
-            print(f"[sass] walk_kernel ({which}): {len(instrs)} machine ops; "
-                  f"inner loop {n} ops for {tests} (ray, triangle) tests -> "
+            print(f"[sass] {which}: {len(instrs)} machine ops; inner loop "
+                  f"{n} ops for {tests} (ray, triangle) tests -> "
                   f"{n / tests} per test")
-    if len(per_test) != 4:
+    kinds = {w.split(" ")[0] for w in per_test}
+    if kinds != {"walk_kernel", "camera_walk_kernel", "gstream_kernel",
+                 "wq_items_kernel"}:
         raise SystemExit(f"walk kernels found: {sorted(per_test)}")
     for k in range(1, len(argv) - 2, 3):
         visits, cs, rays = (int(x) for x in argv[k:k + 3])
