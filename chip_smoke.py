@@ -11,14 +11,16 @@ Phases (any failure raises and the script exits non-zero):
      and the host library from `csrc/raytracing_native.cpp`; print every
      kernel's registers, shared memory and spills as `ptxas -v` reports
      them, and refuse a spill in the split walks (`walk.cu`, `camera.cu`,
-     `gstream.cu`);
+     `gstream.cu`) and the refinement (`refine.cu`);
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes; median time of 5 runs each:
      a. the reference frame's busiest 65,536-ray chunk of camera rays
         (CS=16 accel, the `_walk_groups` entry, with the default and the
         origin-folded intersector) and that chunk's binned depth-2
-        wavefront of 720,896 rays (CS=128 bounce accel, dense refinement
-        and the `_walk_dma` entry);
+        wavefront of 720,896 rays (CS=128 bounce accel: the extents, the
+        dense refinement with tile-alive flags given, the dense query in
+        one launch as `_refined_lists` makes it, and the `_walk_dma`
+        entry);
      b. camera mode on the whole reference frame (2,500 tiles of 1,024
         rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
         against the plain version lane by lane and against the pack path
@@ -30,7 +32,9 @@ Phases (any failure raises and the script exits non-zero):
         the camera-mode frame launches it, 10 times equal);
      c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
         on the depth-2 wavefront of the 404k-triangle subdivided teapot
-        (3,160 bounce clusters);
+        (3,160 bounce clusters); phase 7 times `refine_lists` again at the
+        1.6M Whitted frame's busiest launch (12,640 clusters), with the
+        spread of listed candidates and alive lanes over the tiles;
      d. per-ray t_max: the busiest chunk's area-light shadow query (one
         spherical light, centre (1, 8, 7), radius 1.5) through the
         `_walk_groups` entry (CS=16) and the `_walk_dma` entry (CS=128),
@@ -116,8 +120,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
              "raytracing_tpu/kernels/traverse.py:972"),
     "walk_dma": ("raytracing_tpu_torch/csrc/walk.cu",
                  "raytracing_tpu/kernels/traverse.py:1819"),
-    "refine": ("raytracing_tpu_torch/csrc/refine.cu",
-               "raytracing_tpu/kernels/traverse.py:498"),
+    "refine_extents": ("raytracing_tpu_torch/csrc/refine.cu",
+                       "raytracing_tpu/kernels/traverse.py:498"),
     "extents": ("raytracing_tpu_torch/csrc/extents.cu",
                 "raytracing_tpu/kernels/traverse.py:163"),
     "walk_camera": ("raytracing_tpu_torch/csrc/camera.cu",
@@ -126,6 +130,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "raytracing_tpu/kernels/traverse.py:3676"),
     "refine_lists": ("raytracing_tpu_torch/csrc/refine.cu",
                      "raytracing_tpu/kernels/traverse.py:648"),
+    "refine_lists_1m6": ("raytracing_tpu_torch/csrc/refine.cu",
+                         "raytracing_tpu/kernels/traverse.py:648"),
     "walk_gstream": ("raytracing_tpu_torch/csrc/gstream.cu",
                      "raytracing_tpu/kernels/traverse.py:1414"),
     "walk_wq": ("raytracing_tpu_torch/csrc/wq.cu",
@@ -255,7 +261,7 @@ def phase_build():
         spill = next(l for l in lines[i:] if "spill" in l).strip()
         print(f"[build] {kernel}_kernel {variant}:{used}; {spill}")
         _require(not any(f"_{src}_cu_" in mangled
-                         for src in ("walk", "camera", "gstream"))
+                         for src in ("walk", "camera", "gstream", "refine"))
                  or " 0 bytes spill stores, 0 bytes spill loads"
                  in " " + spill, f"{kernel}_kernel {variant} spills "
                  f"registers: {spill}")
@@ -299,15 +305,15 @@ def _compare_walk(tag, kern, plain, alive, nearest):
 
 def _capture_calls(name, picks, run):
     """Run `run()` with `kernels.traverse.<name>` wrapped, and return the
-    (args, kw) of its calls numbered `picks` (from 0, in launch order),
-    as the renderer made them."""
+    (args, kw) of its calls numbered `picks` (from 0, in launch order; None:
+    every call), as the renderer made them."""
     from raytracing_tpu_torch.kernels import traverse as T
 
     fn = getattr(T, name)
     seen, calls = [0], {}
 
     def wrapped(*args, **kw):
-        if seen[0] in picks:
+        if picks is None or seen[0] in picks:
             calls[seen[0]] = (args, dict(kw))
         seen[0] += 1
         return fn(*args, **kw)
@@ -317,13 +323,33 @@ def _capture_calls(name, picks, run):
         run()
     finally:
         setattr(T, name, fn)
+    picks = range(seen[0]) if picks is None else picks
     _require(len(calls) == len(picks),
-             f"{name}: calls {picks} asked for, {seen[0]} made")
+             f"{name}: calls {list(picks)} asked for, {seen[0]} made")
     return [calls[k] for k in picks]
 
 
 def _tile_alive_lanes(pack, ray_tile=1024):
     return (pack[7] != 0).reshape(-1, ray_tile).sum(dim=1)
+
+
+def _list_stats(cnt, alive_lanes):
+    """The spread of a refinement's work over its tiles: listed candidates
+    per tile (max, mean, 99th percentile) and alive lanes per tile (min,
+    mean, max, tiles with 1-31), over the tiles with an alive lane."""
+    import torch
+
+    live = alive_lanes > 0
+    c = cnt[live].double()
+    a = alive_lanes[live].double()
+    if not bool(live.any()):
+        return "no tile has an alive lane"
+    return (f"{int(live.sum())} of {cnt.numel()} tiles alive; listed per "
+            f"tile max {int(c.max())}, mean {float(c.mean()):.1f}, p99 "
+            f"{float(torch.quantile(c, 0.99)):.1f}, total {int(c.sum())}; "
+            f"alive lanes per tile min {int(a.min())}, mean "
+            f"{float(a.mean()):.1f}, max {int(a.max())}, "
+            f"{int(((a > 0) & (a < 32)).sum())} tiles with 1-31")
 
 
 def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
@@ -464,21 +490,39 @@ def phase_kernels():
          _bound(OPS_EXTENTS * bp.shape[1], bp.numel() * 4 + nt * 64),
          f"{bp.shape[1]} rays")
     tile_alive = hi[:, 7] > 0.0
+    c128 = acc128.num_clusters
     rargs = (bp, acc128.cluster_min, acc128.cluster_max)
-    ent = T.refine_dense(*rargs, tile_alive=tile_alive)
     pent = T.refine_dense_plain(*rargs, tile_alive=tile_alive)
+    ms, by, tests = _refine_bound(
+        _tile_alive_lanes(bp), torch.full_like(tile_alive, c128,
+                                               dtype=torch.int32) * tile_alive,
+        pent.sum(dim=1), bp, c128, c128)
+    ent = T.refine_dense(*rargs, tile_alive=tile_alive)
     bad = int((ent != pent).sum())
     _require(bad == 0, f"refine (K5): {bad} entered bits differ")
-    print(f"[kernels] refine (K5): {int(pent.sum())} of {pent.numel()} "
-          f"bits set, equal")
-    c128 = acc128.num_clusters
+    spread = _list_stats(tile_alive * c128, _tile_alive_lanes(bp))
+    print(f"[kernels] refine (K5 dense): {int(pent.sum())} of {pent.numel()} "
+          f"bits set, equal; {spread}; (ray, box) tests the bound counts: "
+          f"{tests}")
     _row(rows, "refine", float(bad),
          lambda: T.refine_dense(*rargs, tile_alive=tile_alive),
          lambda: T.refine_dense_plain(*rargs, tile_alive=tile_alive),
-         _refine_bound(_tile_alive_lanes(bp), torch.full_like(
-             tile_alive, c128, dtype=torch.int32) * tile_alive,
-             pent.sum(dim=1), bp, c128, c128),
-         f"{bp.shape[1]} rays, {c128} clusters")
+         (ms, by), f"{bp.shape[1]} rays, {c128} clusters, tile-alive flags "
+         f"given")
+    # The dense query as `_refined_lists` launches it: K6's extents and the
+    # entered bits in one launch, the tile-alive flag from its own extents.
+    flo, fhi, fent = T.refine_dense_extents(*rargs)
+    _require(torch.equal(flo, plo) and torch.equal(fhi, phi)
+             and torch.equal(fent, pent),
+             "refine_dense_extents (K5 dense + K6): extents or bits differ "
+             "from tile_extents_plain / refine_dense_plain")
+    print("[kernels] refine_dense_extents (K5 dense + K6): extents and bits "
+          "equal")
+    _row(rows, "refine_extents", err, lambda: T.refine_dense_extents(*rargs),
+         lambda: T.refine_dense_extents_plain(*rargs),
+         _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
+                bp.numel() * 4 + c128 * 24 + nt * 64 + nt * c128 * 4),
+         f"{bp.shape[1]} rays, {c128} clusters, the extents and the bits")
     balive = bp[7] != 0
     early = True if cfg.gi_early_exit else None  # as render_rays asks
     dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
@@ -628,12 +672,13 @@ def _light(dev):
 def _refine_bound(alive_lanes, listed, entered, pack, width, n_clusters):
     """Bound of one refinement launch: a candidate that no lane enters
     needs every alive lane tested, an entered one a single witness; the
-    pack, the lists and the AABB table read once, the bits written once."""
-    ops = OPS_SLAB * float(((listed - entered).double() * alive_lanes.double()
-                            + entered.double()).sum())
+    pack, the lists and the AABB table read once, the bits written once.
+    Returns (ms, what bounds it, the (ray, box) tests counted)."""
+    tests = float(((listed - entered).double() * alive_lanes.double()
+                   + entered.double()).sum())
     nbytes = (pack.numel() * 4 + float(listed.sum()) * 4 + listed.numel() * 4
               + n_clusters * 24 + listed.numel() * width * 4)
-    return _bound(ops, nbytes)
+    return _bound(OPS_SLAB * tests, nbytes) + (tests,)
 
 
 def _listed(ids, cnt, n_clusters):
@@ -761,21 +806,80 @@ def phase_kernels_camera(rows):
         _check_camera_frame(rows, row, entry, acc, camera, True)
 
 
+def refine_lists_404k(bp, acc128):
+    """The gathered refinement's arguments on a 404k wavefront, as
+    `_refined_lists` launches it: the narrowed frustum lists over the
+    CS=128 accel."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        bp, acc128.cluster_min, acc128.cluster_max))
+    return bp, ids, cnt, acc128.cluster_min, acc128.cluster_max
+
+
+def _timed_refine_lists(rows, name, rargs, what):
+    """The gathered refinement (K5) on `rargs` against its plain version:
+    bits equal, the spread of its work over the tiles, both timed, the
+    bound reckoned from the candidates the plain version keeps."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    bp, ids, cnt, cmin = rargs[:4]
+    c = cmin.shape[0]
+    keep = T.refine_lists(*rargs)
+    pkeep, plain_ms = _timed_once(lambda: T.refine_lists_plain(*rargs))
+    bad = int((keep != pkeep).sum())
+    _require(bad == 0, f"{name} (K5 gathered): {bad} bits differ")
+    alive = _tile_alive_lanes(bp)
+    print(f"[kernels] {name} (K5 gathered), {what}: {c} clusters, lists "
+          f"{tuple(ids.shape)}: {int(pkeep.sum())} of {int(cnt.sum())} "
+          f"candidates kept, equal; {_list_stats(cnt, alive)}")
+    bound = _refine_bound(alive, cnt, pkeep.sum(dim=1), bp, ids.shape[1], c)
+    print(f"[kernels] {name}: (ray, box) tests the bound counts: "
+          f"{bound[2]}")
+    _row(rows, name, float(bad), lambda: T.refine_lists(*rargs), None,
+         bound[:2], f"{bp.shape[1]} rays, {c} clusters, lists "
+         f"{ids.shape[1]} wide", plain_ms=plain_ms)
+
+
+def _wavefront_404k(scene, acc64):
+    """The depth-2 wavefront of chunk LARGE_KERNEL_CHUNK of the 404k
+    scene's Whitted frame (seeded), padded to whole tiles: (pack, rays,
+    alive rays)."""
+    import torch
+
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+
+    cfg = RenderConfig()
+    dev = scene.mesh.verts.device
+    o, d = camera_rays_for_ids(
+        block_ray_ids(LARGE_KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev),
+        cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    ob, db, ab = whitted.bounce_wavefront(
+        scene.mesh, acc64, scene.sun, o, d, cfg,
+        lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
+    bp, nb = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
+    n_alive = int(ab.sum())
+    _require(n_alive > nb // 4,
+             f"404k depth-2 wavefront: only {n_alive} of {nb} alive")
+    return bp, nb, n_alive
+
+
 def phase_kernels_large(rows):
     """The gathered refinement and the `_walk_dma` entry above 512
     clusters: the busiest chunk's depth-2 wavefront of the 404k-triangle
     subdivided teapot against its CS=128 bounce accel. Returns the scene
     and its accels for the later phases, with their build times."""
-    import torch
-
     from raytracing_tpu_torch import RenderConfig, build_cluster_accel
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
     from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models import whitted
-    from raytracing_tpu_torch.models.camera import (block_ray_ids,
-                                                    camera_rays_for_ids)
     from raytracing_tpu_torch.ops.intersect import INF
 
     dev = "cuda"
@@ -793,34 +897,10 @@ def phase_kernels_large(rows):
           f"CS 64 accel ({acc64.num_clusters} clusters) {t2 - t1} s, CS 128 "
           f"accel ({acc128.num_clusters} clusters) {t3 - t2} s")
     scene = Scene(mesh=mesh, sun=sun_position(0.0).to(dev))
-    o, d = camera_rays_for_ids(
-        block_ray_ids(LARGE_KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev),
-        cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    ob, db, ab = whitted.bounce_wavefront(
-        mesh, acc64, scene.sun, o, d, cfg,
-        lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
-    bp, nb = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
-    _require(int(ab.sum()) > nb // 4,
-             f"404k depth-2 wavefront: only {int(ab.sum())} of {nb} alive")
+    bp, nb, n_alive = _wavefront_404k(scene, acc64)
     c = acc128.num_clusters
-    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
-        bp, acc128.cluster_min, acc128.cluster_max))
-    rargs = (bp, ids, cnt, acc128.cluster_min, acc128.cluster_max)
-    keep = T.refine_lists(*rargs)
-    pkeep = T.refine_lists_plain(*rargs)
-    bad = int((keep != pkeep).sum())
-    _require(bad == 0, f"refine_lists (K5 gathered): {bad} bits differ")
-    print(f"[kernels] refine_lists (K5 gathered): {nb} rays "
-          f"({int(ab.sum())} alive), {c} clusters, lists {tuple(ids.shape)}: "
-          f"{int(pkeep.sum())} of {int(cnt.sum())} candidates kept, equal")
-    _row(rows, "refine_lists", float(bad), lambda: T.refine_lists(*rargs),
-         lambda: T.refine_lists_plain(*rargs),
-         _refine_bound(_tile_alive_lanes(bp), cnt, pkeep.sum(dim=1), bp,
-                       ids.shape[1], c),
-         f"{bp.shape[1]} rays, {c} clusters, lists {ids.shape[1]} wide",
-         plain_reps=1)
+    _timed_refine_lists(rows, "refine_lists", refine_lists_404k(bp, acc128),
+                        f"the 404k wavefront ({n_alive} of {nb} rays alive)")
     na = acc128.attr_blocks.shape[1]
     dargs, dkw = T._dma_walk_args(acc128, bp, cfg.eps, True, INF, na,
                                   early_exit=True)
@@ -975,10 +1055,11 @@ def phase_reference_frame(rows):
     imgs = []
     for tag, c, need in (
             ("reference frame", cfg,
-             ("walk", "walk_dma", "refine", "extents")),
+             ("walk", "walk_dma", "refine_extents", "extents")),
             ("reference frame, camera-mode primaries",
              cfg.replace(primary_shared_origin=True),
-             ("walk_camera", "walk", "walk_dma", "refine", "extents"))):
+             ("walk_camera", "walk", "walk_dma", "refine_extents",
+              "extents"))):
         camera_mode = c.primary_shared_origin
         frame = []
         chunk = _capture_calls(
@@ -1061,8 +1142,11 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
     """Camera-mode primary rays/s at 404k (CS 64), 1.6M and 6.4M (CS 128)
     triangles, each held first against its plain version and the pack path
     at that very shape (`_check_camera_frame`; the 1.6M launch is the
-    `walk_camera_dma` row), and one Whitted frame of the 404k scene.
-    Returns the launches of the 1.6M query and of the frame."""
+    `walk_camera_dma` row), one Whitted frame of the 1.6M scene (its
+    chunk-12 K3 launches and its busiest gathered refinement, the
+    `refine_lists_1m6` row, kept and timed) and one of the 404k scene.
+    Returns the launches of the 1.6M camera query, of the 404k frame, of
+    the 1.6M pack query and of the 1.6M frame."""
     import torch
 
     from raytracing_tpu_torch import RenderConfig, build_cluster_accel
@@ -1078,7 +1162,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                         camera, False)
     _camera_rate(acc64, 800, 800, 4, HIT_GATE_LARGE, 10, "large 404k")
 
-    rate_launches = gstream_launches = None
+    rate_launches = gstream_launches = frame_launches = None
     for levels, tag, iters in ((4, "1m6", 10), (5, "6m4", 5)):
         t0 = time.perf_counter()
         mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
@@ -1122,18 +1206,32 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
             # K3 inside a frame: the primary nearest (4 groups) and sun
             # shadow (3 groups) queries of every chunk.
             k = 2 * LARGE_KERNEL_CHUNK  # each chunk: primary, sun shadow
-            frame = []
+            frame, refines = [], []
             chunk = _capture_calls("walk_gstream", [k, k + 1], lambda:
-                                   frame.append(_timed_frames(
-                                       Scene(mesh=mesh, sun=sun_position(
-                                           0.0).to("cuda")),
-                                       RenderConfig(), acc, 0)))
+                                   refines.extend(_capture_calls(
+                                       "refine_lists", None, lambda:
+                                       frame.append(_timed_frames(
+                                           Scene(mesh=mesh, sun=sun_position(
+                                               0.0).to("cuda")),
+                                           RenderConfig(), acc, 0)))))
             frame = frame[0]
-            _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0,
+            _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0
+                     and frame[1]["refine_lists"] > 0,
                      f"the 1.6M Whitted frame's launches: {frame[1]}")
             _print_frame("1.6M Whitted frame", RenderConfig(), *frame)
+            frame_launches = frame[1]
             _check_gstream_chunk(rows, chunk)
-            del chunk
+            # The frame's gathered refinements: the spread of their work,
+            # and the busiest launch (most listed candidates) as a row.
+            cnt = torch.cat([a[2] for a, _ in refines])
+            print(f"[kernels] the 1.6M frame's {len(refines)} refine_lists "
+                  f"launches: " + _list_stats(cnt, torch.cat(
+                      [_tile_alive_lanes(a[0]) for a, _ in refines])))
+            busiest = max(refines, key=lambda call: int(call[0][2].sum()))
+            del chunk, refines, cnt
+            _timed_refine_lists(rows, "refine_lists_1m6", busiest[0],
+                                "the 1.6M frame's busiest launch")
+            del busiest
         torch.cuda.reset_peak_memory_stats()
         T.reset_launches()
         _camera_rate(acc, 800, 800, 4, HIT_GATE_LARGE, iters, f"large {tag}")
@@ -1152,7 +1250,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                  f"kernel {k} was not launched by the 404k Whitted frame")
     _print_frame("404k Whitted frame", cfg, img, launches, counts, first,
                  times)
-    return rate_launches, launches, gstream_launches
+    return rate_launches, launches, gstream_launches, frame_launches
 
 
 def _check_gstream(rows, acc, camera):
@@ -1348,7 +1446,7 @@ def phase_path_traced_frame():
     sky = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
     err = float((img[2, 2].cpu() - sky).abs().max())
     _require(err <= SKY_ATOL, f"path-traced frame: sky pixel off by {err}")
-    for k in ("walk", "walk_dma", "refine", "extents"):
+    for k in ("walk", "walk_dma", "refine_extents", "extents"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the path-traced frame")
     paths = cfg.width * cfg.height * pt.samples_per_pixel
@@ -1382,7 +1480,7 @@ def phase_area_light_frame():
     dark = whitted.render(base, cfg, accel=accel)
     _require(bool((img.mean() > dark.mean())),
              "the light adds no radiance to the frame")
-    for k in ("walk", "walk_dma", "refine", "extents"):
+    for k in ("walk", "walk_dma", "refine_extents", "extents"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the area-light frame")
     _print_frame("area-light reference frame", cfg, img, launches, counts,
@@ -1439,8 +1537,8 @@ def main() -> int:
     phase_frame_parity()
     ref_launches, cam_launches = phase_reference_frame(rows)
     phase_headline()
-    rate_launches, big_launches, gstream_launches = phase_large_scenes(
-        rows, *large)
+    (rate_launches, big_launches, gstream_launches,
+     frame_1m6_launches) = phase_large_scenes(rows, *large)
     pt_launches = phase_path_traced_frame()
     light_launches, grid_launches = phase_area_light_frame()
     if "jax" in sys.modules:
@@ -1450,6 +1548,7 @@ def main() -> int:
     launches["walk_camera"] = cam_launches["walk_camera"]
     launches["walk_camera_dma"] = rate_launches["walk_camera_dma"]
     launches["refine_lists"] = big_launches["refine_lists"]
+    launches["refine_lists_1m6"] = frame_1m6_launches["refine_lists"]
     launches["walk_gstream"] = gstream_launches["walk_gstream"]
     launches["walk_wq"] = grid_launches["walk_wq"]
     print(f"[done] launches of the path-traced frame {pt_launches}; of the "

@@ -8,9 +8,10 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
   phase 2 — `_visit_lists_from_extents`: an interval slab test of each
       tile's frustum against every cluster AABB, compacted into a
       front-to-back list (ids sorted by entry-t lower bound). Bounce
-      queries first AND in `refine_dense` (K5): the clusters some alive
-      ray of the tile actually enters — or, above 512 clusters, re-test
-      their listed candidates with `refine_lists` (K5, gathered form);
+      queries first AND in `refine_dense_extents` (K5, which reduces the
+      extents in the same launch): the clusters some alive ray of the
+      tile actually enters — or, above 512 clusters, re-test their listed
+      candidates with `refine_lists` (K5, gathered form);
   phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
       with the Baldwin–Weber test "pmt" or, for a pack whose rays share
       one origin (`shared_origin=`), its origin-folded form "pmto". A
@@ -62,6 +63,10 @@ _EARLY_EXIT_MIN_CLUSTERS = 64
 # Largest cluster table the dense refinement (K5) takes; bigger tables go
 # through its gathered form, `refine_lists`.
 _REFINE_DENSE_MAX_C = 512
+# The gathered form deals a tile's list to blocks in runs of this many
+# positions, to at most `_MAX_REFINE_BLOCKS` blocks a tile (`_refine_grid`).
+_REFINE_RUN = 64
+_MAX_REFINE_BLOCKS = 64
 # Camera mode pools tile frustums into ~32x32-pixel supertiles above this
 # many clusters (the TPU package's rule).
 _SUPERTILE_MIN_C = 2048
@@ -96,13 +101,15 @@ _MANY_TILES = 1024
 # listed from it does not fill the grid with blocks that find nothing.
 _MAX_TILE_BLOCKS = 64
 
-# Kernel launches since the last reset: "walk" counts the `_walk_groups`
+# Kernel launches since the last reset: "refine" counts the dense
+# refinement with tile-alive flags given (K5), "refine_extents" the dense
+# refined-list query (K5 with K6's extents), "walk" the `_walk_groups`
 # entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
 # "walk_camera" / "walk_camera_dma" their camera-mode forms, "walk_gstream"
 # the streamed-groups walk (K3) and "walk_wq" the work-queue walk (K4).
-LAUNCHES = {"extents": 0, "refine": 0, "refine_lists": 0, "walk": 0,
-            "walk_dma": 0, "walk_camera": 0, "walk_camera_dma": 0,
-            "walk_gstream": 0, "walk_wq": 0}
+LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
+            "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_camera": 0,
+            "walk_camera_dma": 0, "walk_gstream": 0, "walk_wq": 0}
 
 
 class Hit(NamedTuple):
@@ -186,6 +193,14 @@ def _gstream_grid(nt: int, ng: int, width: int, cs: int):
     seg = _split_segment(cs, nt)
     return seg, _walk_grid("walk_gstream", nt * ng, width, seg,
                            max(1, _MAX_TILE_BLOCKS // ng))
+
+
+def _refine_grid(nt: int, width: int):
+    """(run, blocks per tile) of a gathered refinement launch: a tile's
+    list in runs of `_REFINE_RUN` positions, dealt to at most
+    `_MAX_REFINE_BLOCKS` blocks."""
+    return _REFINE_RUN, _walk_grid("refine_lists", nt, width, _REFINE_RUN,
+                                   _MAX_REFINE_BLOCKS)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -299,26 +314,68 @@ def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive):
     return out & tile_alive[:, None]
 
 
+def _check_boxes(who, rays8, cluster_min, cluster_max, most=None):
+    """The pack's tile count; raises unless the AABB tables are contiguous
+    f32 [C, 3] (C at most `most`)."""
+    nt = _check_pack(rays8)
+    c = cluster_min.shape[0]
+    if (cluster_min.shape != (c, 3) or cluster_max.shape != (c, 3)
+            or cluster_min.dtype != torch.float32
+            or cluster_max.dtype != torch.float32
+            or not cluster_min.is_contiguous()
+            or not cluster_max.is_contiguous()
+            or (most is not None and not 0 < c <= most)):
+        raise ValueError(f"{who}: the AABB tables must be contiguous f32 "
+                         f"[C, 3]"
+                         + ("" if most is None else f", C at most {most}"))
+    return nt
+
+
 def refine_dense(rays8, cluster_min, cluster_max, tile_alive):
     """K5 (csrc/refine.cu): plain version on CPU, kernel on CUDA."""
     if _on_cpu(rays8, cluster_min, cluster_max, tile_alive):
         return refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive)
-    nt = _check_pack(rays8)
+    nt = _check_boxes("refine_dense", rays8, cluster_min, cluster_max,
+                      _REFINE_DENSE_MAX_C)
+    if tile_alive.shape != (nt,):
+        raise ValueError("refine_dense: one alive flag per tile")
     c = cluster_min.shape[0]
-    if c > _REFINE_DENSE_MAX_C or tile_alive.shape != (nt,):
-        raise ValueError(f"the refine kernel takes at most "
-                         f"{_REFINE_DENSE_MAX_C} clusters and one alive flag "
-                         "per tile")
     alive = tile_alive.to(torch.int32).contiguous()
-    cmin = cluster_min.contiguous()
-    cmax = cluster_max.contiguous()
     out = torch.empty((nt, c), dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
     cuda.check(lib.rt_refine_dense(
-        _ptr(rays8), rays8.shape[1], _ptr(cmin), _ptr(cmax), c, _ptr(alive),
-        _ptr(out), _stream()), "refine")
+        _ptr(rays8), rays8.shape[1], _ptr(cluster_min), _ptr(cluster_max), c,
+        _ptr(alive), _ptr(out), _stream()), "refine")
     LAUNCHES["refine"] += 1
     return out != 0
+
+
+def refine_dense_extents_plain(rays8, cluster_min, cluster_max):
+    """Plain version of the dense refined-list query: (lo, hi, entered),
+    K6's extents (`tile_extents_plain`) and K5's bits with the tile-alive
+    flags hi[:, 7] > 0 (`refine_dense_plain`)."""
+    lo, hi = tile_extents_plain(rays8)
+    return lo, hi, refine_dense_plain(rays8, cluster_min, cluster_max,
+                                      hi[:, 7] > 0.0)
+
+
+def refine_dense_extents(rays8, cluster_min, cluster_max):
+    """The dense refined-list query, K6 folded into K5 (csrc/refine.cu):
+    plain version on CPU, one kernel launch on CUDA."""
+    if _on_cpu(rays8, cluster_min, cluster_max):
+        return refine_dense_extents_plain(rays8, cluster_min, cluster_max)
+    nt = _check_boxes("refine_dense_extents", rays8, cluster_min,
+                      cluster_max, _REFINE_DENSE_MAX_C)
+    c = cluster_min.shape[0]
+    lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
+    hi = torch.empty_like(lo)
+    out = torch.empty((nt, c), dtype=torch.int32, device=rays8.device)
+    lib = cuda.library()
+    cuda.check(lib.rt_refine_dense_extents(
+        _ptr(rays8), rays8.shape[1], _ptr(cluster_min), _ptr(cluster_max), c,
+        _ptr(lo), _ptr(hi), _ptr(out), _stream()), "refine_extents")
+    LAUNCHES["refine_extents"] += 1
+    return lo, hi, out != 0
 
 
 def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max):
@@ -341,23 +398,23 @@ def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max):
 
 def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
     """K5, gathered form (csrc/refine.cu): plain version on CPU, kernel on
-    CUDA. The kernel reads each candidate's box through `ids`."""
+    CUDA. The kernel reads each candidate's box through `ids`, and deals a
+    tile's list to blocks in runs (`_refine_grid`)."""
     if _on_cpu(rays8, ids, cnt, cluster_min, cluster_max):
         return refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max)
-    nt = _check_pack(rays8)
+    nt = _check_boxes("refine_lists", rays8, cluster_min, cluster_max)
     if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
-            or ids.dtype != torch.int32 or not ids.is_contiguous()
-            or not cluster_min.is_contiguous()
-            or not cluster_max.is_contiguous()):
+            or ids.dtype != torch.int32 or not ids.is_contiguous()):
         raise ValueError("refine_lists: ids must be contiguous i32 [nt, W] "
-                         "with cnt [nt], and the AABB tables contiguous")
+                         "with cnt [nt]")
+    run, tile_blocks = _refine_grid(nt, ids.shape[1])
     cnt32 = cnt.to(torch.int32).contiguous()
     out = torch.empty(ids.shape, dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
     cuda.check(lib.rt_refine_lists(
         _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
-        _ptr(cluster_min), _ptr(cluster_max), _ptr(out), _stream()),
-        "refine_lists")
+        run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max), _ptr(out),
+        _stream()), "refine_lists")
     LAUNCHES["refine_lists"] += 1
     return out != 0
 
@@ -907,14 +964,14 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
 
 def _refined_lists(accel: ClusterAccel, rp):
     """Frustum lists cut down to the clusters some alive ray of the tile
-    enters (K5), still front to back: the dense form ANDs the entered bits
-    into the interval test's flags, the gathered form (more than
+    enters (K5), still front to back: the dense form (one launch with the
+    extents, `refine_dense_extents`) ANDs the entered bits into the
+    interval test's flags, the gathered form (more than
     `_REFINE_DENSE_MAX_C` clusters) re-tests the listed candidates and
     compacts again."""
     cmin, cmax = accel.cluster_min, accel.cluster_max
     if accel.num_clusters <= _REFINE_DENSE_MAX_C:
-        lo, hi = tile_extents(rp)
-        entered = refine_dense(rp, cmin, cmax, hi[:, 7] > 0.0)
+        lo, hi, entered = refine_dense_extents(rp, cmin, cmax)
         return _visit_lists_from_extents(
             lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
             extra_mask=entered)

@@ -5,7 +5,10 @@ jax nor the JAX package, so it runs where the card is:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Bars: extents (K6) and entered bits (K5, dense and gathered) equal; both
+Bars: extents (K6) and entered bits (K5, dense and gathered) equal, also
+with a tile's list dealt to many blocks and with the extents folded into
+the dense launch, on tiles that list everything, tiles with 1-31 alive
+lanes, dead tiles and counts above the width, ten launches each; both
 walk entries (K1 via `_walk_groups`, K2 via `_walk_dma`), with either
 intersector, and both camera entries bit-equal in t, slot and attrs on
 alive lanes (the kernels are built -fmad=false, op for op like the plain
@@ -572,6 +575,116 @@ def test_refine_lists_kernel_matches_plain(dev):
         T.refine_lists(g, ids.T, cnt, acc.cluster_min, acc.cluster_max)
 
 
+def _refine_pack(seed=3):
+    """Seven tiles among the teapots: full tiles (one lane in ten dead;
+    tile 0 with degenerate directions), tiles with 1, 5 and 31 alive
+    lanes, and a dead tile."""
+    rng = np.random.default_rng(seed)
+    n = 7 * 1024
+    o = np.array([1.0, -1.2, 7.5]) + rng.normal(scale=[2.0, 0.6, 1.5],
+                                                size=(n, 3))
+    d = rng.normal(size=(n, 3))
+    alive = (rng.uniform(size=n) > 0.1).astype(np.float64)
+    for tile, k in ((1, 1), (2, 5), (3, 31), (4, 0)):
+        lanes = np.arange(tile * 1024, (tile + 1) * 1024)
+        alive[lanes] = 0.0
+        alive[rng.choice(lanes, k, replace=False)] = 1.0
+    # A grazing ray in tile 5: it enters box [0, 1]^3 only through the
+    # slab test's inflation (x enters at 1 + 3e-6, y leaves at 1).
+    o[5 * 1024] = [-1.0 - 3e-6, 0.0, 0.5]
+    d[5 * 1024] = [1.0, 1.0, 0.0]
+    # Directions with one, two or three degenerate axes (|d| < 1e-20).
+    for lane, axes in ((5, [0]), (9, [1, 2]), (17, [0, 1, 2]), (40, [2])):
+        d[lane, axes] = 1e-21 if lane == 40 else 0.0
+        alive[lane] = 1.0
+    p = np.concatenate([o.T, np.ones((1, n)), d.T, alive[None]])
+    return torch.from_numpy(np.ascontiguousarray(p, dtype=np.float32))
+
+
+def _refine_lists_case(acc, case):
+    """Lists over the CS 16 table (790 clusters) in one of the shapes the
+    gathered refinement must get right: `imbalance` (tile 0 lists every
+    cluster, tile 6 one, tile 4 — dead — one, the rest their frustum
+    lists), `width` (counts above the width), `zero` (every count 0), with
+    a grazing ray's box listed in tile 5."""
+    p = _refine_pack()
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        p, acc.cluster_min, acc.cluster_max))
+    c = acc.num_clusters
+    ids = torch.cat([ids, ids.new_zeros((7, c - ids.shape[1]))], dim=1)
+    cnt = cnt.clone()
+    ids[0], cnt[0] = torch.arange(c, dtype=torch.int32), c
+    cnt[6], cnt[4] = 1, 1
+    cmin, cmax = acc.cluster_min.clone(), acc.cluster_max.clone()
+    cmin[7], cmax[7] = 0.0, 1.0  # the grazing ray's box
+    ids[5, 0] = 7
+    cnt[5] = max(int(cnt[5]), 1)
+    if case == "width":
+        ids = ids[:, :40]
+        cnt = torch.maximum(cnt, torch.tensor(45))
+    elif case == "zero":
+        cnt = torch.zeros_like(cnt)
+    return p, ids.contiguous(), cnt, cmin, cmax
+
+
+@pytest.mark.parametrize("grid", [None, (16, 3), (512, 1)],
+                         ids=["default", "run16-cap3", "run512-cap1"])
+@pytest.mark.parametrize("case", ["imbalance", "width", "zero"])
+def test_refine_lists_split_matches_plain(setup, dev, monkeypatch, case,
+                                          grid):
+    """K5 gathered with each tile's list dealt to blocks in runs: bit-equal
+    to its plain version beside a tile that lists every cluster, tiles
+    with 1-31 alive lanes, a dead tile, counts above the width and counts
+    0; the grazing ray's box entered; ten launches the same bits."""
+    if grid is not None:
+        monkeypatch.setattr(T, "_REFINE_RUN", grid[0])
+        monkeypatch.setattr(T, "_MAX_REFINE_BLOCKS", grid[1])
+    accels, _ = setup
+    args = _refine_lists_case(accels[16], case)
+    want = T.refine_lists_plain(*args)
+    gargs = tuple(a.to(dev) for a in args)
+    before = T.LAUNCHES["refine_lists"]
+    for _ in range(10):
+        assert torch.equal(T.refine_lists(*gargs).cpu(), want)
+    assert T.LAUNCHES["refine_lists"] == before + 10
+    if case == "zero":
+        assert not want.any()
+    else:
+        assert want[0].any() and not want[4].any() and bool(want[5, 0])
+        assert 0 < int(want[1:4].sum())
+
+
+@pytest.mark.parametrize("cs,n_clusters", [(128, 100), (16, 512)])
+def test_refine_dense_extents_matches_plain(setup, dev, cs, n_clusters):
+    """The dense query in one launch (K6's extents and K5's bits, the
+    tile-alive flags from its own extents) against `tile_extents_plain` and
+    `refine_dense_plain`, and the dense entry with flags given, on full
+    tiles, tiles with 1-31 alive lanes, a dead tile and the grazing ray,
+    over the CS 128 table and over 512 clusters (the most the dense form
+    takes: the CS 16 table cut there); ten launches the same bits."""
+    accels, _ = setup
+    acc = accels[cs]
+    p = _refine_pack()
+    cmin = acc.cluster_min[:n_clusters].clone()
+    cmax = acc.cluster_max[:n_clusters].clone()
+    cmin[7], cmax[7] = 0.0, 1.0
+    plo, phi, pent = T.refine_dense_extents_plain(p, cmin, cmax)
+    g, gmin, gmax = p.to(dev), cmin.to(dev), cmax.to(dev)
+    counts = dict(T.LAUNCHES)
+    for _ in range(10):
+        lo, hi, ent = T.refine_dense_extents(g, gmin, gmax)
+        assert torch.equal(lo.cpu(), plo) and torch.equal(hi.cpu(), phi)
+        assert torch.equal(ent.cpu(), pent)
+    assert T.LAUNCHES["refine_extents"] == counts["refine_extents"] + 10
+    assert T.LAUNCHES["extents"] == counts["extents"]
+    assert pent[0].any() and pent[1:4].any() and not pent[4].any()
+    assert bool(pent[5, 7])
+    flags = torch.tensor([True, True, True, True, False, True, False])
+    want = T.refine_dense_plain(p, cmin, cmax, flags)
+    got = T.refine_dense(g, gmin, gmax, flags.to(dev))
+    assert torch.equal(got.cpu(), want) and not want[6].any()
+
+
 def test_bad_launch_raises(dev):
     """A launch the kernel refuses raises; it is never skipped."""
     lib = cuda.library()
@@ -580,8 +693,16 @@ def test_bad_launch_raises(dev):
     with pytest.raises(RuntimeError, match="extents kernel launch failed"):
         cuda.check(lib.rt_tile_extents(T._ptr(x), 1000, T._ptr(lo),
                                        T._ptr(lo), T._stream()), "extents")
+    with pytest.raises(RuntimeError, match="refine_extents kernel launch"):
+        cuda.check(lib.rt_refine_dense_extents(
+            T._ptr(x), 1024, T._ptr(lo), T._ptr(lo), 513, 1, T._ptr(lo),
+            T._ptr(lo), T._ptr(lo), T._stream()), "refine_extents")
     with pytest.raises(ValueError):
         T.tile_extents(x)
+    boxes = torch.zeros((600, 3), device=dev)
+    with pytest.raises(ValueError, match="at most 512"):
+        T.refine_dense_extents(torch.zeros((8, 1024), device=dev), boxes,
+                               boxes)
 
 
 @pytest.mark.parametrize("camera", [False, True], ids=["pack", "camera"])

@@ -2,8 +2,10 @@
 kernels), fed the exact uniforms the JAX package draws: the committed
 golden image at the JAX package's own bar (atol 2e-5,
 tests/test_render.py:70), and JAX's Pallas path (interpret mode, running
-K1, K2, K5 and K6) at `test_gi_wq_knob`'s config at atol 1e-5. Measured
-max abs difference on both: 6e-8 (no acceptance-boundary flip)."""
+K1, K2, K5 and K6) at `test_gi_wq_knob`'s config at atol 1e-5, also with
+geometric normals and 3 samples per pixel. Measured max abs difference:
+6e-8 on the golden image, the knob config and geometric normals, 1.2e-7
+at 3 samples per pixel (no acceptance-boundary flip)."""
 
 import os
 
@@ -81,6 +83,31 @@ def test_matches_jax_pallas_render(knob_image):
                                 key=jax.random.PRNGKey(5)))
     assert np.isfinite(knob_image).all()
     np.testing.assert_allclose(knob_image, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("change", [dict(normals="geometric"),
+                                    dict(samples_per_pixel=3)],
+                         ids=lambda c: next(iter(c)))
+def test_matches_jax_pallas_render_other_config(scene, accel16, knob_image,
+                                                change):
+    """Configs that change the image, against JAX's Pallas path with JAX's
+    draws: shading normals recomputed from the vertices (the forward the
+    gradient tests use) and a sample count that is not a square (a 3 x 1
+    stratification grid; 768 rays, so 3 chunks of JAX's keys). Each moves
+    the image far beyond the tolerance, so a port that ignored it would
+    fail."""
+    cfg = {**KNOB, **change}
+    n_chunks = -(-cfg["width"] * cfg["height"] * cfg["samples_per_pixel"]
+                 // cfg["chunk_size"])
+    img = render(scene, RenderConfig(**cfg), accel=accel16,
+                 uniforms=jax_uniforms(5, n_chunks)).numpy()
+    js = jax_scene(t=0.0)
+    ref = np.asarray(jax_render(js, JaxConfig(backend="pallas", **cfg),
+                                accel=jax_build(js.mesh, cluster_size=16),
+                                key=jax.random.PRNGKey(5)))
+    assert np.isfinite(img).all()
+    np.testing.assert_allclose(img, ref, atol=1e-5)
+    assert np.abs(img - knob_image).max() > 0.05
 
 
 @pytest.mark.parametrize("knob", [

@@ -496,6 +496,58 @@ def test_split_tie_takes_the_lower_slot(accels, early, order_seed):
     _equal(got, want, rp[7] != 0)
 
 
+@pytest.mark.parametrize("seg,order_seed", [(1, 0), (2, 0), (1, 1), (2, 2)])
+def test_split_vote_waits_for_a_nearer_entry(accels, seg, order_seed):
+    """A vote that settles a hair early changes a result. A tile of rays
+    in one narrow beam from the left lists two clusters: first a copy of
+    the cluster they hit moved 0.2 along the beam (every ray hits it 0.2
+    too far), then the cluster itself, whose entry bound lies 0.1 before
+    the nearest hit. After the first visit every ray holds a hit 0.3 past
+    the next entry: the exact vote walks on and finds the nearer hits, a
+    vote eager by less than the gap between the entries (0.5) would
+    settle on the far ones. Segments of one visit and of two, with the
+    vote between them; one block, or one per segment racing."""
+    acc = accels[16]
+    cs = acc.cluster_size
+    rng = np.random.default_rng(4)
+    d = np.array([1.0, 0.0, 0.0]) + rng.normal(scale=1e-5, size=(TILE, 3))
+    o = np.tile(np.array([-9.0, -0.5, 7.5]), (TILE, 1))
+    rp = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [o.T, np.ones((1, TILE)), d.T, np.ones((1, TILE))]),
+        dtype=np.float32))
+    geo, _ = T._geo_table(acc, None)
+    c = acc.num_clusters
+    t_hit, slot, _ = T.walk_plain(
+        rp, torch.arange(c, dtype=torch.int32)[None], torch.tensor([c]), geo,
+        None, 0, cs, EPS, True, INF)
+    hit = slot[0] // cs
+    assert bool(torch.isfinite(t_hit).all()) and bool((hit == hit[0]).all())
+    near = int(hit[0])
+    shift = torch.tensor([0.2, 0.0, 0.0])
+    table = torch.cat([T._fold_origin(geo[near:near + 1], -shift),
+                       geo[near:near + 1]]).contiguous()
+    cmin = torch.stack([acc.cluster_min[near] + shift,
+                        acc.cluster_min[near]])
+    cmax = torch.stack([acc.cluster_max[near] + shift,
+                        acc.cluster_max[near]])
+    tnear = torch.tensor([[0.0, float(t_hit.min()) - 0.1]])
+    args = (rp, torch.tensor([[0, 1]], dtype=torch.int32), torch.tensor([2]),
+            table, None, 0, cs, EPS, True, INF, False, None)
+    want = T.walk_plain(*args)
+    assert torch.equal(want[0], t_hit) and bool((want[1] >= cs).all())
+    far = T.walk_plain(*args[:1], args[1][:, :1], torch.tensor([1]),
+                       *args[3:])[0]
+    gap = far - t_hit
+    assert bool(((gap > 0.19) & (gap < 0.21)).all())
+    assert bool((far < tnear[0, 1] + 0.5).all())  # 0.5 too eager: settles
+    units, q = _pack_units(args, dict(tnear=tnear, bbox=T._union_box(
+        cmin, cmax), ee_batch=1))
+    got = split_walk(units, TILE, q, seg, 1, order_seed,
+                     tile_blocks=1 if order_seed == 0 else None)
+    _equal(got, want, torch.ones(TILE, dtype=torch.bool))
+    assert got[3][0] == 2  # both clusters visited
+
+
 def test_packed_key_orders_as_t_then_slot():
     t = torch.tensor([1e-7, 0.5, 0.5, 2.0, 3e38, INF])
     s = torch.tensor([9, 7, 8, 0, 1, T._BIG_ID], dtype=torch.int32)

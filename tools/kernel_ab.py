@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels of two trees in one process on one CUDA card: the dense
-refinement (K5), the extents (K6), the pack walk (K1/K2, `rt_walk`), the
-camera walk (K1 camera / K2 camera, `rt_walk_camera`) and the
-streamed-groups walk (K3, `rt_walk_gstream`).
+"""Time kernels of two trees in one process on one CUDA card: the
+refinement (K5, dense and gathered) and the extents (K6), the pack walk
+(K1/K2, `rt_walk`), the camera walk (K1 camera / K2 camera,
+`rt_walk_camera`) and the streamed-groups walk (K3, `rt_walk_gstream`).
 
 Run from the root of a checkout, with another commit of the repository
 unpacked somewhere (`git archive <commit> | tar -x -C _work/parent`):
@@ -10,10 +10,19 @@ unpacked somewhere (`git archive <commit> | tar -x -C _work/parent`):
     python3 tools/kernel_ab.py _work/parent [--sweep]
 
 Both trees' `raytracing_tpu_torch/csrc/*.cu` are compiled with this tree's
-nvcc flags. `rt_refine_dense` and `rt_tile_extents` (their C signatures are
-the same in every commit) run on the depth-2 wavefront of the reference
-frame's busiest chunk, 720,896 rays against the 100 clusters of the CS=128
-accel. `rt_walk` runs on the lists phase 3 of chip_smoke.py times it on:
+nvcc flags. The dense refined-list query runs on the depth-2 wavefront of
+the reference frame's busiest chunk, 720,896 rays against the 100 clusters
+of the CS=128 accel, as each tree's `_refined_lists` runs it: one launch
+(`rt_refine_dense_extents`) or `rt_tile_extents`, the tile-alive flags
+derived from its extents and `rt_refine_dense`; then `rt_refine_dense`
+with the flags given and `rt_tile_extents` alone. `rt_refine_lists` runs
+at chip_smoke.py's two rows: the 404k wavefront's lists (3,160 clusters)
+and the busiest of the 1.6M Whitted frame's 40 launches (12,640), captured
+from the renderer; the spread of listed candidates and alive lanes over
+the tiles is printed for both and for all 40 launches. A tree whose
+refinement deals a tile's list to blocks in runs takes a grid (this
+tree's `_refine_grid`); one that gives a tile one block does not.
+`rt_walk` runs on the lists phase 3 of chip_smoke.py times it on:
 that wavefront's refined lists over the combined table (the `_walk_dma`
 entry, nearest with attributes), the chunk's area-light shadow query over
 the CS=16 table (the `_walk_groups` entry, occlusion under a per-ray limit,
@@ -35,8 +44,10 @@ the median of 5 launches by CUDA events. Prints the kernels' registers as
 `ptxas -v` reports them, the four times, the visits each tree made, and
 whether the outputs are equal (the walk's on alive lanes: a dead lane does
 not vote on the early exit, so its result is meaningless). With `--sweep`
-this tree's split walks are then timed on every input at segments of 128,
-256 and 512 triangles and at 4, 16 and 64 blocks per tile at most. Kernel
+this tree's gathered refinement is then timed at other grids (runs of
+32-256 positions, 16-128 blocks a tile) and its split walks on every
+input at segments of 128, 256 and 512 triangles and at 4, 16 and 64
+blocks per tile at most. Kernel
 times differ between processes on a shared machine; only times of one run
 of this script compare. Never imports JAX.
 """
@@ -67,9 +78,10 @@ def _build(tree, out):
         raise SystemExit(f"nvcc failed for {tree}:\n{proc.stderr}")
     lines = (proc.stdout + proc.stderr).splitlines()
     for i, line in enumerate(lines):
-        name = next((k for k in ("13refine_kernel", "extents_kernel",
-                                 "camera_walk_kernel", "gstream_kernel",
-                                 "walk_kernel") if k in line), None)
+        name = next((k for k in ("refine_lists_kernel", "13refine_kernel",
+                                 "extents_kernel", "camera_walk_kernel",
+                                 "gstream_kernel", "walk_kernel")
+                     if k in line), None)
         if "Compiling entry" in line and name:
             used = next(l for l in lines[i:] if "Used" in l)
             spill = next(l for l in lines[i:] if "spill" in l)
@@ -78,8 +90,19 @@ def _build(tree, out):
     lib = ctypes.CDLL(out)
     p, ll, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
-    lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, p, p, p]
     lib.rt_tile_extents.argtypes = [p, ll, p, p, p]
+    lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, p, p, p]
+    # A tree whose refinement deals a tile's list to several blocks takes
+    # a grid, and folds the extents into the dense query.
+    with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
+                           "refine.cu")) as f:
+        lib.fused_refine = "rt_refine_dense_extents" in f.read()
+    if lib.fused_refine:
+        lib.rt_refine_dense_extents.argtypes = [p, ll, p, p, i32, p, p, p, p]
+        lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, i32, i32, p, p, p,
+                                        p]
+    else:
+        lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, p, p, p, p]
     split = {}
     for name in ("walk", "camera", "gstream"):
         with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
@@ -190,6 +213,53 @@ def _call_gstream(lib, args, kw, out):
     assert rc == 0, rc
 
 
+def _refine_dense(lib, rays, cmin, cmax, alive, bits):
+    """`rt_refine_dense` of one tree, tile-alive flags given."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    rc = lib.rt_refine_dense(T._ptr(rays), rays.shape[1], T._ptr(cmin),
+                             T._ptr(cmax), cmin.shape[0], T._ptr(alive),
+                             T._ptr(bits), T._stream())
+    assert rc == 0, rc
+
+
+def _dense_query(lib, rays, cmin, cmax, out):
+    """The dense refined-list query's kernels as `_refined_lists` runs them
+    in one tree: the fused launch, or the extents (K6), the tile-alive
+    flags derived from them and the entered bits (K5)."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    ptr = T._ptr
+    lo, hi, bits = out["lo"], out["hi"], out["bits"]
+    if lib.fused_refine:
+        rc = lib.rt_refine_dense_extents(
+            ptr(rays), rays.shape[1], ptr(cmin), ptr(cmax), cmin.shape[0],
+            ptr(lo), ptr(hi), ptr(bits), T._stream())
+        assert rc == 0, rc
+        return
+    rc = lib.rt_tile_extents(ptr(rays), rays.shape[1], ptr(lo), ptr(hi),
+                             T._stream())
+    assert rc == 0, rc
+    _refine_dense(lib, rays, cmin, cmax, (hi[:, 7] > 0.0).to(torch.int32),
+                  bits)
+
+
+def _refine_lists(lib, rays, ids, cnt, cmin, cmax, bits):
+    """`rt_refine_lists` of one tree, on this tree's grid if it takes
+    one."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    ptr = T._ptr
+    grid = (T._refine_grid(ids.shape[0], ids.shape[1])
+            if lib.fused_refine else ())
+    rc = lib.rt_refine_lists(ptr(rays), rays.shape[1], ptr(ids), ptr(cnt),
+                             ids.shape[1], *grid, ptr(cmin), ptr(cmax),
+                             ptr(bits), T._stream())
+    assert rc == 0, rc
+
+
 def _walk_outputs(kind, args):
     """Outputs and scratch of one launch of `kind` ("walk", "camera" or
     "gstream"): t, slot, attrs, merge keys, finish counters, visits."""
@@ -218,8 +288,9 @@ def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
     and 7 capture them: the `walk_camera` launch of the camera-primaries
     reference frame's chunk 20 (64 tiles), and the two `walk_gstream`
     launches of the 1.6M Whitted frame's chunk 12 (65,536 rays: the
-    primary nearest+attrs query, then the sun-shadow query). Returns
-    {name: (args, kw)}."""
+    primary nearest+attrs query, then the sun-shadow query), each as
+    (args, kw); and under "refine_lists_1m6" the arguments of every
+    `refine_lists` launch of that frame."""
     import torch
 
     import chip_smoke
@@ -239,15 +310,21 @@ def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
             scene, cfg.replace(primary_shared_origin=True), accel=acc16,
             generator=gen))
     k = 2 * chip_smoke.LARGE_KERNEL_CHUNK  # each chunk: primary, sun shadow
-    prim, shadow = chip_smoke._capture_calls(
-        "walk_gstream", [k, k + 1], lambda: whitted.render(
+    def frame_1m6():
+        return whitted.render(
             Scene(mesh=mesh_1m6, sun=sun_position(0.0).to(dev)), cfg,
-            accel=acc_1m6, generator=gen))
+            accel=acc_1m6, generator=gen)
+
+    refines = []
+    prim, shadow = chip_smoke._capture_calls(
+        "walk_gstream", [k, k + 1], lambda: refines.extend(
+            chip_smoke._capture_calls("refine_lists", None, frame_1m6)))
     if not (prim[0][9] and not shadow[0][9]):
         raise SystemExit("walk_gstream calls of a chunk: not primary, then "
                          "shadow")
     return {"walk_camera_chunk": camera, "walk_gstream_chunk": prim,
-            "walk_gstream_chunk_shadow": shadow}
+            "walk_gstream_chunk_shadow": shadow,
+            "refine_lists_1m6": [args for args, _ in refines]}
 
 
 def _inputs(dev):
@@ -260,7 +337,9 @@ def _inputs(dev):
     import chip_smoke
     from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                       build_default_scene)
-    from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
+                                                     sun_position)
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
     from raytracing_tpu_torch.models.camera import (block_ray_ids,
@@ -314,6 +393,12 @@ def _inputs(dev):
         mesh = subdivided_teapot_mesh(levels=levels, device=dev)
         acc = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
         c = acc.num_clusters
+        if levels == 3:  # chip_smoke.py's refine_lists row
+            bp404, _, _ = chip_smoke._wavefront_404k(
+                Scene(mesh=mesh, sun=sun_position(0.0).to(dev)), acc)
+            refines = {"refine_lists, the 404k wavefront":
+                       chip_smoke.refine_lists_404k(bp404, build_cluster_accel(
+                           mesh, cluster_size=128, variants=("pmt",)))}
         if levels < 5:
             walks[f"walk, 2,560,000 primaries, {c}x{cs}, nearest+attrs, "
                   f"pmto"] = T._groups_walk_args(acc, frame, eps, True, INF,
@@ -336,9 +421,19 @@ def _inputs(dev):
              "nearest+attrs"] = chunks["walk_gstream_chunk"]
     gstreams["walk_gstream, 1.6M frame chunk, 65,536 sun-shadow rays, "
              "occlusion"] = chunks["walk_gstream_chunk_shadow"]
+    # The 1.6M frame's gathered refinements: the spread of their work, and
+    # the busiest (most listed candidates) as a row.
+    frame = chunks["refine_lists_1m6"]
+    cnt = torch.cat([a[2] for a in frame])
+    alive = torch.cat([chip_smoke._tile_alive_lanes(a[0]) for a in frame])
+    busiest = max(frame, key=lambda a: int(a[2].sum()))
+    print(f"[input] the 1.6M frame's {len(frame)} refine_lists launches: "
+          f"{chip_smoke._list_stats(cnt, alive)}; listed per launch "
+          f"{[int(a[2].sum()) for a in frame]}")
+    refines["refine_lists, the 1.6M frame's busiest launch"] = busiest
     return (bp, acc128.cluster_min.contiguous(),
             acc128.cluster_max.contiguous(),
-            {"walk": walks, "camera": cameras, "gstream": gstreams})
+            {"walk": walks, "camera": cameras, "gstream": gstreams}, refines)
 
 
 def _median_ms(fn, reps=5):
@@ -378,41 +473,66 @@ def main(argv) -> int:
     libs = {"this": _build(HERE, os.path.join(build_dir, "ab_this.so")),
             "other": _build(os.path.abspath(argv[1]),
                             os.path.join(build_dir, "ab_other.so"))}
-    bp, cmin, cmax, by_kind = _inputs("cuda")
-    n = bp.shape[1]
-    nt, c = n // 1024, cmin.shape[0]
+    import chip_smoke
+
+    bp, cmin, cmax, by_kind, refines = _inputs("cuda")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    lo = {k: torch.empty((nt, 8), device="cuda") for k in libs}
-    hi = {k: torch.empty((nt, 8), device="cuda") for k in libs}
-    bits = {k: torch.empty((nt, c), dtype=torch.int32, device="cuda")
-            for k in libs}
-
-    def extents(k):
-        rc = libs[k].rt_tile_extents(ptr(bp), n, ptr(lo[k]), ptr(hi[k]),
-                                     stream)
-        assert rc == 0, rc
-
-    extents("this")
-    alive = (hi["this"][:, 7] > 0.0).to(torch.int32).contiguous()
-
-    def refine(k):
-        rc = libs[k].rt_refine_dense(ptr(bp), n, ptr(cmin), ptr(cmax), c,
-                                     ptr(alive), ptr(bits[k]), stream)
-        assert rc == 0, rc
-
-    print(f"[input] {n} rays, {int(alive.sum())} of {nt} tiles alive, "
-          f"{c} clusters")
+    n = bp.shape[1]
+    nt, c = n // 1024, cmin.shape[0]
+    dense_out = {k: dict(lo=torch.empty((nt, 8), device="cuda"),
+                         hi=torch.empty((nt, 8), device="cuda"),
+                         bits=torch.empty((nt, c), dtype=torch.int32,
+                                          device="cuda")) for k in libs}
+    libs["this"].rt_tile_extents(ptr(bp), n, ptr(dense_out["this"]["lo"]),
+                                 ptr(dense_out["this"]["hi"]), stream)
+    alive = (dense_out["this"]["hi"][:, 7] > 0.0).to(torch.int32).contiguous()
+    spread = chip_smoke._list_stats(alive * c,
+                                    chip_smoke._tile_alive_lanes(bp))
+    print(f"[input] dense query: {n} rays, {c} clusters; {spread}")
     order = ("this", "other", "other", "this")
-    for name, fn in (("refine", refine), ("extents", extents)):
+    dense = {
+        "dense query (extents, tile-alive flags, entered bits)":
+            lambda k: _dense_query(libs[k], bp, cmin, cmax, dense_out[k]),
+        "refine_dense, tile-alive flags given":
+            lambda k: _refine_dense(libs[k], bp, cmin, cmax, alive,
+                                    dense_out[k]["bits"]),
+        "extents": lambda k: libs[k].rt_tile_extents(
+            ptr(bp), n, ptr(dense_out[k]["lo"]), ptr(dense_out[k]["hi"]),
+            stream)}
+    same = True
+    for name, fn in dense.items():
         for k in order * 3:  # the first launches of a process run slower
             fn(k)
         ms = [_median_ms(lambda k=k: fn(k)) for k in order]
         print(f"[{name}] ms, median of 5: "
               + ", ".join(f"{k} {t}" for k, t in zip(order, ms)))
-    same = (torch.equal(bits["this"], bits["other"])
-            and torch.equal(lo["this"], lo["other"])
-            and torch.equal(hi["this"], hi["other"]))
+        eq = all(torch.equal(dense_out["this"][x], dense_out["other"][x])
+                 for x in ("lo", "hi", "bits"))
+        print(f"[{name}] extents and bits of the two trees equal: {eq}")
+        same = same and eq
+    for name, rargs in refines.items():
+        rays, ids, cnt, rmin, rmax = rargs
+        cnt = cnt.to(torch.int32).contiguous()
+        bits = {k: torch.empty(ids.shape, dtype=torch.int32, device="cuda")
+                for k in libs}
+
+        def launch(k):
+            _refine_lists(libs[k], rays, ids, cnt, rmin.contiguous(),
+                          rmax.contiguous(), bits[k])
+
+        for k in order * 3:
+            launch(k)
+        ms = [_median_ms(lambda k=k: launch(k)) for k in order]
+        spread = chip_smoke._list_stats(cnt,
+                                        chip_smoke._tile_alive_lanes(rays))
+        print(f"[{name}] {rays.shape[1]} rays, lists {tuple(ids.shape)}, "
+              f"{int(bits['this'].sum())} of {int(cnt.sum())} kept; {spread}")
+        print(f"[{name}] ms, median of 5: "
+              + ", ".join(f"{k} {t}" for k, t in zip(order, ms)))
+        eq = torch.equal(bits["this"], bits["other"])
+        print(f"[{name}] bits of the two trees equal: {eq}")
+        same = same and eq
     calls = {"walk": _call_walk, "camera": _call_camera,
              "gstream": _call_gstream}
     for kind, launches in by_kind.items():
@@ -441,8 +561,34 @@ def main(argv) -> int:
             same = same and eq
     print(f"[equal] outputs of the two trees equal: {same}")
     if sweep:
+        _sweep_refine(libs["this"], refines)
         _sweep(libs["this"], by_kind)
     return 0 if same else 1
+
+
+def _sweep_refine(lib, refines):
+    """This tree's gathered refinement at other grids than
+    `kernels/traverse.py` sets: runs of 32-256 positions and at most 16-128
+    blocks a tile; two rounds."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    saved = (T._REFINE_RUN, T._MAX_REFINE_BLOCKS)
+    try:
+        for name, (rays, ids, cnt, rmin, rmax) in refines.items():
+            cnt = cnt.to(torch.int32).contiguous()
+            bits = torch.empty(ids.shape, dtype=torch.int32, device="cuda")
+            for run, cap in ((64, 64), (32, 64), (128, 64), (256, 64),
+                             (64, 16), (64, 128), (128, 128), (32, 32)) * 2:
+                T._REFINE_RUN, T._MAX_REFINE_BLOCKS = run, cap
+                ms = _median_ms(lambda: _refine_lists(
+                    lib, rays, ids, cnt, rmin.contiguous(),
+                    rmax.contiguous(), bits))
+                print(f"[sweep] {name}: runs of {run}, at most {cap} blocks "
+                      f"a tile: {ms} ms")
+    finally:
+        T._REFINE_RUN, T._MAX_REFINE_BLOCKS = saved
 
 
 def _sweep(lib, by_kind):

@@ -52,9 +52,9 @@ LAYERS = (
      "fill launch of every split walk",
      ("walk_kernel", "walk_fill_kernel")),
     ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
-    ("refine, K5 dense and gathered (refine.cu)",
-     ("refine_kernel", "refine_lists_kernel")),
-    ("extents, K6 (extents.cu)", ("extents_kernel",)),
+    ("refine, K5 dense (with K6's extents in the dense query) and "
+     "gathered (refine.cu)", ("refine_kernel", "refine_lists_kernel")),
+    ("extents, K6 alone (extents.cu)", ("extents_kernel",)),
     ("sorts (bin keys, visit lists)", ("sort", "Sort", "radix", "Radix")),
     ("reductions (any, amin, sums)", ("reduce", "Reduce")),
     ("gathers/scatters", ("index", "gather", "scatter", "Index", "Gather",

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Count the machine ops of the walk's inner loop in the compiled kernels,
-and reckon the scheduler-slot floor of a walk launch from them.
+"""Count the machine ops of the walks' and the refinement's inner loops in
+the compiled kernels, and reckon the scheduler-slot floor of a launch from
+them.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 
     python3 tools/sass_count.py [VISITS CS RAYS_PER_TILE ...]
+                                [--refine TESTS ...]
 
 Builds the port's kernels (`raytracing_tpu_torch/kernels/cuda.py`), dumps
 the walks' machine code with `cuobjdump -sass`, and in each of the pack
@@ -18,7 +20,14 @@ machine ops, its tests, and ops per test: a static count, so the branches
 a test mostly skips (the update of a ray's best hit) count in full, and
 the floor reckoned from it errs on the high side.
 The division's slow path (denormal quotients) is a call out of the loop
-and is not counted.
+and is not counted. In the refinement's two kernels (`refine_kernel`,
+`refine_lists_kernel`) the loop is a warp's pass over the candidate
+boxes, each against the 4 lanes a thread holds: the innermost loop with
+the most `FMNMX`, 12 to a (ray, box) slab test. `--refine` takes test
+counts (chip_smoke.py prints each refinement row's, as the bound counts
+them: every alive lane of a tile against a candidate no lane enters, one
+witness for an entered one) and prints their floors, TESTS / 32 * ops
+per test / (132 x 4 x SM clock).
 
 Every machine op of a warp takes one slot of one of the card's 132 x 4
 warp schedulers, so a launch that makes `VISITS` cluster visits of `CS`
@@ -76,9 +85,9 @@ def _functions(sass):
     return out
 
 
-def inner_loop(instrs):
-    """(machine ops, tests) of the innermost loop (a backward branch with
-    no other loop inside it) that holds the most MUFU.RCP."""
+def inner_loop(instrs, marker="MUFU.RCP"):
+    """(machine ops, `marker` ops) of the innermost loop (a backward branch
+    with no other loop inside it) that holds the most `marker` ops."""
     addr = {a: i for i, (a, _) in enumerate(instrs)}
     loops = []
     for i, (a, text) in enumerate(instrs):
@@ -89,11 +98,11 @@ def inner_loop(instrs):
     for lo, hi in loops:
         if any((lo, hi) != (l, h) and lo <= l and h <= hi for l, h in loops):
             continue
-        rcp = sum("MUFU.RCP" in t for _, t in instrs[lo:hi + 1])
+        rcp = sum(marker in t for _, t in instrs[lo:hi + 1])
         if rcp and (best is None or rcp > best[1]):
             best = (hi + 1 - lo, rcp)
     if best is None:
-        raise SystemExit("no loop with a MUFU.RCP found")
+        raise SystemExit(f"no loop with a {marker} found")
     return best
 
 
@@ -108,6 +117,9 @@ def _variant(name):
     m = re.search(r"_camera_cu_.*camera_walk_kernelILi(\d)EE", name)
     if m:
         return f"camera_walk_kernel (pmto, nearest, {m.group(1)} rays a thread)"
+    m = re.search(r"_refine_cu_.*(refine_lists_kernel|refine_kernel)", name)
+    if m:
+        return f"{m.group(1)} (boxes)"
     return None
 
 
@@ -128,7 +140,7 @@ def main(argv) -> int:
     print(f"[device] {card}")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    per_test = {}
+    per_test, per_box = {}, {}
     with open(os.path.join(out_dir, "sass_walk.txt"), "w") as f:
         for name, instrs in _functions(proc.stdout).items():
             which = _variant(name)
@@ -136,21 +148,33 @@ def main(argv) -> int:
                 continue
             f.write(f"Function : {name}\n")
             f.writelines(f"  /*{a:04x}*/ {t};\n" for a, t in instrs)
-            n, tests = inner_loop(instrs)
-            per_test[which] = n / tests
+            boxes = which.endswith("(boxes)")
+            n, marks = inner_loop(instrs, "FMNMX" if boxes else "MUFU.RCP")
+            tests = marks / 12 if boxes else marks  # 12 FMNMX a slab test
+            (per_box if boxes else per_test)[which] = n / tests
             print(f"[sass] {which}: {len(instrs)} machine ops; inner loop "
-                  f"{n} ops for {tests} (ray, triangle) tests -> "
-                  f"{n / tests} per test")
-    kinds = {w.split(" ")[0] for w in per_test}
+                  f"{n} ops for {tests} (ray, "
+                  f"{'box' if boxes else 'triangle'}) tests -> {n / tests} "
+                  f"per test")
+    kinds = {w.split(" ")[0] for w in list(per_test) + list(per_box)}
     if kinds != {"walk_kernel", "camera_walk_kernel", "gstream_kernel",
-                 "wq_items_kernel"}:
-        raise SystemExit(f"walk kernels found: {sorted(per_test)}")
-    for k in range(1, len(argv) - 2, 3):
-        visits, cs, rays = (int(x) for x in argv[k:k + 3])
+                 "wq_items_kernel", "refine_kernel", "refine_lists_kernel"}:
+        raise SystemExit(f"kernels found: {sorted(kinds)}")
+    walks, refines = argv[1:], []
+    if "--refine" in walks:
+        k = walks.index("--refine")
+        walks, refines = walks[:k], walks[k + 1:]
+    for k in range(0, len(walks) - 2, 3):
+        visits, cs, rays = (int(x) for x in walks[k:k + 3])
         for which, n in per_test.items():
             ms = visits * cs * rays / 32 * n / (SCHEDULERS * clock) * 1e3
             print(f"[floor] {visits} visits x {cs} triangles x {rays} rays, "
                   f"{which}: {ms} ms at {clock / 1e6} MHz")
+    for tests in refines:
+        for which, n in per_box.items():
+            ms = float(tests) / 32 * n / (SCHEDULERS * clock) * 1e3
+            print(f"[floor] {float(tests)} (ray, box) tests, {which}: {ms} ms "
+                  f"at {clock / 1e6} MHz")
     return 0
 
 
