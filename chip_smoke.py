@@ -55,6 +55,12 @@ Phases (any failure raises and the script exits non-zero):
         plain version and bit-equal on alive lanes to that entry (nearest
         with attributes; occlusion under a scalar and a per-ray t_max; a
         tile with no visits);
+     h. the walks of a differentiated render: K1 on 3a's chunk and K2 on
+        its wavefront carrying the backward's 11 planes beside the
+        shading planes (A = 15, rows walk_both_chunk and
+        walk_dma_both_chunk; and A = 20 with a color per triangle),
+        against their plain versions and against the shading walk (the
+        rows of the kernel table come from phase 10's own launches);
      g. the split pack walk (`walk`, K1/K2) under its racing early exit:
         the `_walk_dma` launch of 3a, the primary launch with the exit
         forced and a nearest query with the exit forced over 3d's long
@@ -86,10 +92,28 @@ Phases (any failure raises and the script exits non-zero):
   9. the area-light frame — the reference frame with the light of 3d and
      4 shadow samples: one counted frame, one timed; and the same frame
      with `_WQ_IMPL = "grid"` (bounce queries through K4) against the
-     default from the same seed, bit-equal.
+     default from the same seed, bit-equal;
+ 10. the backward at full width (`bench_suite.py:80-130`): the 262,144
+     camera rays of blocks 90-105 of the reference frame through
+     `render_rays`, loss sum(rgb^2), gradients for verts, colors and
+     materials, on the CS 16 accel, with one area light, and with the CS
+     128 bounce accel: forward and forward + backward ms (median of 3),
+     their ratio, launches, peak device GiB, every gradient finite and
+     nonzero; the K1 primary and first-bounce launches of the CS 16 run
+     (rows walk_both and walk_both_bounce) and the first K2 bounce launch
+     of the CS 128 run (row walk_dma_both), as the renderer made them,
+     against their plain versions and timed;
+ 11. card against CPU gradients: one `render_rays` over the 1,024 rays of
+     a 32x32 frame, each table within GRAD_PARITY_RTOL of its largest
+     magnitude;
+ 12. the inverse fit at `cmd_fit`'s defaults: 20 steps of 4,096 rays,
+     Adam at lr 1e-2, from colors x 0.5 toward the port's own 800x800x4
+     render; the held-out loss falls, a checkpoint saved at step 10
+     loads back bit for bit.
 
 Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
-queries, 7's Whitted frame, 8, 9, 9's "grid" frame)
+queries, 7's Whitted frame, 8, 9, 9's "grid" frame, each configuration of
+10, 12's steps)
 runs with the launch counts set to 0 just before and read just after. A
 plain version that takes seconds is timed once, by the run that checks the
 kernel. The last two lines are the kernel table and the result, each one
@@ -103,6 +127,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -136,6 +161,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                      "raytracing_tpu/kernels/traverse.py:1414"),
     "walk_wq": ("raytracing_tpu_torch/csrc/wq.cu",
                 "raytracing_tpu/kernels/traverse.py:2063"),
+    "walk_both": ("raytracing_tpu_torch/csrc/walk.cu",
+                  "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_both_bounce": ("raytracing_tpu_torch/csrc/walk.cu",
+                         "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_dma_both": ("raytracing_tpu_torch/csrc/walk.cu",
+                      "raytracing_tpu/kernels/traverse.py:1819"),
 }
 LIGHT = ((1.0, 8.0, 7.0), 1.5, (1.5, 1.5, 1.5))  # centre, radius, emission
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
@@ -303,16 +334,19 @@ def _compare_walk(tag, kern, plain, alive, nearest):
     return err
 
 
-def _capture_calls(name, picks, run):
+def _capture_calls(name, picks, run, entry=None):
     """Run `run()` with `kernels.traverse.<name>` wrapped, and return the
     (args, kw) of its calls numbered `picks` (from 0, in launch order; None:
-    every call), as the renderer made them."""
+    every call), as the renderer made them; with `entry`, only the calls
+    that count as that entry are numbered."""
     from raytracing_tpu_torch.kernels import traverse as T
 
     fn = getattr(T, name)
     seen, calls = [0], {}
 
     def wrapped(*args, **kw):
+        if entry is not None and kw.get("entry") != entry:
+            return fn(*args, **kw)
         if picks is None or seen[0] in picks:
             calls[seen[0]] = (args, dict(kw))
         seen[0] += 1
@@ -536,6 +570,11 @@ def phase_kernels():
     _compare_walk("walk_dma (K2) bounce occlusion", k2_occ,
                   T.walk_plain(*oargs), balive, False)
 
+    # 3h. The walks of a differentiated render: the same chunk (K1) and
+    # wavefront (K2) carrying the backward's 11 planes beside the shading
+    # planes, A = 15 here (objid mode) and 20 with a color per triangle.
+    _both_rows(rows, rp, bp, scene.mesh, acc16, acc128, eps, early)
+
     # 3d. Per-ray t_max: the chunk's area-light shadow query (one sample of
     # `area_light_term` at the primary hits) through both pack entries.
     lights = _light(dev)
@@ -657,6 +696,67 @@ def phase_kernels():
         print(f"[kernels] {entry}: a tile with no visits reads miss / not "
               f"occluded")
     return rows
+
+
+def _full_mode(mesh):
+    """The mesh with a color per triangle: the accel's full mode, 9
+    shading planes instead of objid mode's 4."""
+    import torch
+
+    tri = torch.arange(mesh.colors.shape[0], dtype=torch.float32,
+                       device=mesh.colors.device)[:, None]
+    return mesh._replace(colors=(mesh.colors * (0.5 + 0.5 * torch.cos(tri)))
+                         .clamp(0, 1).contiguous())
+
+
+def _both_rows(rows, rp, bp, mesh, acc16, acc128, eps, early):
+    """3h. K1 on the primary chunk and K2 on its wavefront with attr_kind
+    "both" (rows walk_both_chunk, walk_dma_both_chunk; A = 15) and in full
+    mode (rows walk_both_chunk_full, walk_dma_both_chunk_full; A = 20):
+    against their plain versions, and against the shading walk in t, slots
+    and the shading planes. Phase 10 times the launches of the kernel
+    table."""
+    import torch
+
+    from raytracing_tpu_torch import build_cluster_accel
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    full = _full_mode(mesh)
+    modes = (("", acc16, acc128),
+             ("_full", build_cluster_accel(full, cluster_size=16),
+              build_cluster_accel(full, cluster_size=128)))
+    for suffix, a16, a128 in modes:
+        for name, make, acc, pack, extra in (
+                ("walk_both", T._groups_walk_args, a16, rp, {}),
+                ("walk_dma_both", T._dma_walk_args, a128, bp,
+                 dict(early_exit=early))):
+            na = acc.attr_blocks.shape[1]
+            nb = T._n_attrs(acc, "both")
+            _require(nb == na + 11 and na == (9 if suffix else 4),
+                     f"{name}{suffix}: {na} shading planes, {nb} in all")
+            args, kw = make(acc, pack, eps, True, INF, nb, attr_kind="both",
+                            **extra)
+            _require(kw["entry"] == name, f"{name}: entry {kw['entry']}")
+            alive = pack[7] != 0
+            out = _timed_walk(
+                rows, f"{name}_chunk{suffix}",
+                f"{name} (K{1 if name == 'walk_both' else 2}"
+                f") nearest, shading + backward planes, A = {nb}", T, args,
+                kw, alive, OPS_PMT,
+                f"{pack.shape[1]} rays, {acc.num_clusters}x"
+                f"{acc.cluster_size}, A = {nb}", plain_reps=1)
+            sargs, skw = make(acc, pack, eps, True, INF, na, **extra)
+            t, sl, a = T.walk(*sargs, **skw)
+            _require(torch.equal(out[0][0][alive], t[0][alive])
+                     and torch.equal(out[1][0][alive], sl[0][alive])
+                     and torch.equal(out[2][:na, alive], a[:, alive]),
+                     f"{name}{suffix}: t, slots or shading planes differ "
+                     f"from the shading walk's")
+            print(f"[kernels] {name}_chunk{suffix}: t, slots and the {na} "
+                  f"shading planes equal the shading walk's (A = {na}: "
+                  f"{_median_ms(lambda: T.walk(*sargs, **skw)):.4f} ms)")
+            del out, t, sl, a
 
 
 def _light(dev):
@@ -968,9 +1068,9 @@ def _timed_frames(scene, cfg, accel, reps, gi_accel=None, pt=None):
         queried[kind] += n
         alive_sums[kind] += n if alive is None else alive.sum()
 
-    def counted_nearest(acc, o, d, config, alive=None, **kw):
+    def counted_nearest(mesh, acc, o, d, config, alive=None, **kw):
         count("nearest", o.shape[0], alive)
-        return nearest(acc, o, d, config, alive=alive, **kw)
+        return nearest(mesh, acc, o, d, config, alive=alive, **kw)
 
     def counted_camera(acc, offs, config, tile_base, tiles, bh, bw):
         count("nearest", tiles * config.samples_per_pixel * bh * bw, None)
@@ -1287,56 +1387,47 @@ def _check_gstream(rows, acc, camera):
     _check_repeats("walk_gstream (K3) 1.6M nearest+attrs", T.walk_gstream,
                    args, kw, every)
     del args, kw
-    streamed = T.STREAM_GROUPS
-    try:
-        for early in (True, False):
-            res = {}
-            for flag in (True, False):
-                T.STREAM_GROUPS = flag
-                T.reset_launches()
-                res[flag] = T._walk_groups(*query, early_exit=early,
-                                           shared_origin=zero3)
-                which = "walk_gstream" if flag else "walk"
-                _require(T.LAUNCHES[which] == (1 if flag else ng),
-                         f"STREAM_GROUPS={flag}: launches {T.LAUNCHES}")
-            _compare_walk(f"walk_gstream (K3) vs the K1 group loop, early "
-                          f"exit {early}", res[True], res[False], every, True)
-        occ = {}
-        for flag in (True, False):
-            T.STREAM_GROUPS = flag
-            occ[flag] = T._walk_groups(acc, rp, eps, False, INF, 0,
-                                       shared_origin=zero3)
-        _compare_walk("walk_gstream (K3) vs the K1 group loop, occlusion",
-                      occ[True], occ[False], every, False)
-        del res, occ
-        # Times: the whole query either way (extents, lists, launches), and
-        # the loop's K1 launches alone beside the one K3 launch.
-        for flag in (True, False):
-            T.STREAM_GROUPS = flag
-            ms = _median_ms(lambda: T._walk_groups(*query,
-                                                   shared_origin=zero3))
-            print(f"[kernels] 1.6M nearest+attrs query through "
-                  f"{'K3' if flag else 'the K1 group loop'}, lists included: "
-                  f"{ms:.4f} ms")
-        loop = [T._groups_walk_args(*query, shared_origin=zero3,
-                                    clusters=(lo, min(lo + gsz,
-                                                      acc.num_clusters)))
-                for lo in range(0, acc.num_clusters, gsz)]
-        ms = _median_ms(lambda: [T.walk(*a, **k) for a, k in loop])
-        print(f"[kernels] the K1 group loop's {len(loop)} walk launches "
-              f"alone: {ms:.4f} ms (walk_gstream: "
-              f"{rows['walk_gstream']['ms']:.4f} ms)")
-        # The loop's groups cannot exit on a hit another group found.
-        seen = torch.zeros(rp.shape[1] // 1024, dtype=torch.int32, device=dev)
-        visited = 0
-        for a, k in loop:
-            T.walk(*a, visits=seen, **k)
-            visited += int(seen.sum())
-        print(f"[kernels] the K1 group loop visited {visited} clusters "
-              f"({rows['walk_gstream']['shape']})")
-        del loop
-    finally:
-        T.STREAM_GROUPS = streamed
+    from tools.group_loop import walk_groups_loop
+
+    for early in (True, False):
+        T.reset_launches()
+        streamed = T._walk_groups(*query, early_exit=early,
+                                  shared_origin=zero3)
+        loop = walk_groups_loop(*query, early_exit=early,
+                                shared_origin=zero3)
+        _require(T.LAUNCHES["walk_gstream"] == 1 and T.LAUNCHES["walk"] == ng,
+                 f"K3 and the K1 group loop: launches {T.LAUNCHES}")
+        _compare_walk(f"walk_gstream (K3) vs the K1 group loop, early exit "
+                      f"{early}", streamed, loop, every, True)
+    _compare_walk("walk_gstream (K3) vs the K1 group loop, occlusion",
+                  T._walk_groups(acc, rp, eps, False, INF, 0,
+                                 shared_origin=zero3),
+                  walk_groups_loop(acc, rp, eps, False, INF, 0,
+                                   shared_origin=zero3), every, False)
+    del streamed, loop
+    # Times: the whole query either way (extents, lists, launches), and the
+    # loop's K1 launches alone beside the one K3 launch.
+    for tag, fn in (("K3", T._walk_groups),
+                    ("the K1 group loop", walk_groups_loop)):
+        ms = _median_ms(lambda: fn(*query, shared_origin=zero3))
+        print(f"[kernels] 1.6M nearest+attrs query through {tag}, lists "
+              f"included: {ms:.4f} ms")
+    loop = [T._groups_walk_args(*query, shared_origin=zero3,
+                                clusters=(lo, min(lo + gsz,
+                                                  acc.num_clusters)))
+            for lo in range(0, acc.num_clusters, gsz)]
+    ms = _median_ms(lambda: [T.walk(*a, **k) for a, k in loop])
+    print(f"[kernels] the K1 group loop's {len(loop)} walk launches alone: "
+          f"{ms:.4f} ms (walk_gstream: {rows['walk_gstream']['ms']:.4f} ms)")
+    # The loop's groups cannot exit on a hit another group found.
+    seen = torch.zeros(rp.shape[1] // 1024, dtype=torch.int32, device=dev)
+    visited = 0
+    for a, k in loop:
+        T.walk(*a, visits=seen, **k)
+        visited += int(seen.sum())
+    print(f"[kernels] the K1 group loop visited {visited} clusters "
+          f"({rows['walk_gstream']['shape']})")
+    del loop
     budget = packets._GROUP_BLOCK_BUDGET_BYTES
     try:
         for mib in (16, 64, 1024):
@@ -1520,6 +1611,292 @@ def phase_area_light_frame():
     return launches, grid_launches
 
 
+GRAD_TABLES = ("verts", "colors", "materials")
+# Card against CPU gradients (11): each table within this share of its
+# largest magnitude on the CPU; the backward's scatter-adds are atomics on
+# the card, so sums come in another order, and the sampler's sin/cos differ
+# by ulps between the devices. An H100 80GB HBM3 at 700 W read 7.6e-8 to
+# 7.0e-7 over two runs (PERF.md).
+GRAD_PARITY_RTOL = 1e-5
+BACKWARD_REPS = 3
+
+
+def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
+                   keep=None):
+    """(b) One configuration of `bench_suite.py:80-130`'s backward: the
+    262,144 camera rays of blocks 90-105 (16,384 rays each) of the
+    800x800x4 reference frame through `render_rays`, loss sum(rgb^2),
+    gradients for verts, colors and materials. The forward without grad
+    and the forward + backward, synchronised, each a median of
+    BACKWARD_REPS after a warm-up; their ratio; the launches and the peak
+    device memory of one forward + backward. `keep` = (entry, picks):
+    the `walk` launches of that entry, numbered from 0 in the counted
+    forward, to keep. Returns (its launches, the kept (args, kw))."""
+    import torch
+
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    cfg = RenderConfig()
+    ids = torch.cat([block_ray_ids(i, 16384, cfg, 16, 16, device="cuda")
+                     for i in range(90, 106)])
+    o, d = camera_rays_for_ids(ids, cfg)
+
+    def run(grad):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        tables = {k: getattr(scene.mesh, k).clone().requires_grad_(grad)
+                  for k in GRAD_TABLES}
+        with torch.set_grad_enabled(grad):
+            rgb = render_rays(
+                scene.mesh._replace(**tables), accel, scene.sun, o, d, cfg,
+                lambda tag, shape: torch.rand(shape, generator=gen,
+                                              device="cuda"),
+                gi_accel=gi_accel, lights=lights)
+            loss = (rgb * rgb).sum()
+        if grad:
+            loss.backward()
+        return loss.detach(), {k: v.grad for k, v in tables.items()}
+
+    def timed(grad):
+        run(grad)  # warm-up
+        times = []
+        for _ in range(BACKWARD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(grad)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+
+    (loss_f, _), fwd = timed(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    T.reset_launches()
+    out, kept = [], []
+    if keep is None:
+        out.append(run(True))
+    else:
+        kept = _capture_calls("walk", keep[1], lambda: out.append(run(True)),
+                              entry=keep[0])
+    (loss_b, grads), = out
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, bwd = timed(True)
+    _require(torch.equal(loss_f, loss_b), f"backward {tag}: the forward "
+             f"under grad gives another loss ({float(loss_b)} against "
+             f"{float(loss_f)})")
+    for k, g in grads.items():
+        _require(g is not None and bool(torch.isfinite(g).all())
+                 and float(g.abs().max()) > 0,
+                 f"backward {tag}: the {k} gradient is not finite and "
+                 f"nonzero")
+    need = ["walk_both"] + (["walk_dma_both", "refine_extents"]
+                            if gi_accel is not None else [])
+    for k in need:
+        _require(launches[k] > 0, f"backward {tag}: {k} not launched")
+    tf, tb = statistics.median(fwd), statistics.median(bwd)
+    print(f"[backward] {tag}: 262,144 rays, loss {float(loss_b)}; forward "
+          f"(no grad) {fwd} ms, median {tf} ms; forward + backward {bwd} ms, "
+          f"median {tb} ms; ratio {tb / tf}; peak device "
+          f"{peak} GiB; launches {launches}; max |grad| "
+          + ", ".join(f"{k} {float(g.abs().max())}"
+                      for k, g in grads.items()))
+    return launches, kept
+
+
+def _backward_rows(rows, calls):
+    """The kernel rows of the differentiated walk: each kept launch of
+    phase 10, as the renderer made it, against its plain version (t,
+    slots and the A = 15 planes bit-equal on alive lanes) and timed, its
+    bound from the visits it made."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    for row, what, (args, kw) in calls:
+        rp, n_attrs, cs, pmto = args[0], args[5], args[6], args[10]
+        _timed_walk(rows, row, f"{row} ({what}) nearest, shading + backward "
+                    f"planes, A = {n_attrs}", T, args, kw, rp[7] != 0,
+                    OPS_PMTO if pmto else OPS_PMT,
+                    f"{what}: {rp.shape[1]} rays, {args[3].shape[0]}x{cs}, "
+                    f"A = {n_attrs}, early exit "
+                    f"{'on' if kw.get('tnear') is not None else 'off'}",
+                    plain_reps=1)
+
+
+def phase_backward(rows):
+    """(b) Gradients at full width, three configurations: the CS 16 accel
+    alone (as bench_suite.py runs it), the same with one area light
+    (bench_suite.py:544-546), and with the reference frame's CS 128 bounce
+    accel (so K2 and K5 dense run under grad). The first's primary and
+    first-bounce K1 launches and the third's first K2 launch become the
+    rows walk_both, walk_both_bounce and walk_dma_both. Returns the
+    launches of the first and the third."""
+    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+
+    scene = build_default_scene(device="cuda")
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    first, k1 = _backward_262k("CS 16", scene, acc16,
+                               keep=("walk_both", [0, 1]))
+    _backward_262k("CS 16, one area light", scene, acc16,
+                   lights=_light("cuda"))
+    third, k2 = _backward_262k(
+        "CS 16 + CS 128 bounce accel", scene, acc16,
+        gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
+        keep=("walk_dma_both", [0]))
+    _backward_rows(rows, [
+        ("walk_both", "K1, the CS 16 run's primaries", k1[0]),
+        ("walk_both_bounce", "K1, the CS 16 run's first bounce", k1[1]),
+        ("walk_dma_both", "K2, the CS 128 bounce accel's first bounce",
+         k2[0])])
+    return first, third
+
+
+def phase_grad_parity():
+    """(c) The gradients of one render_rays over the 1,024 block-ordered
+    rays of a 32x32 1-spp frame of the reference scene (CS 16 with the CS
+    128 bounce accel, full depth), loss sum(rgb^2), on the card against
+    the CPU port on the same rays and uniforms: each table within
+    GRAD_PARITY_RTOL of its largest magnitude."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=1)
+    draws = {}
+
+    def uniforms(tag, shape):
+        if tag not in draws:
+            draws[tag] = torch.rand(shape, generator=torch.Generator()
+                                    .manual_seed(len(draws) + 11))
+        return draws[tag]
+
+    names = ("verts", "normals", "colors", "materials")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        scene = build_default_scene(device=dev)
+        acc = build_cluster_accel(scene.mesh, cluster_size=16)
+        gi = build_cluster_accel(scene.mesh, cluster_size=128)
+        ids = block_ray_ids(0, 1024, cfg, 16, 16, device=dev)
+        o, d = camera_rays_for_ids(ids, cfg)
+        tables = {k: getattr(scene.mesh, k).clone().requires_grad_()
+                  for k in names}
+        t0 = time.perf_counter()
+        rgb = render_rays(scene.mesh._replace(**tables), acc, scene.sun, o,
+                          d, cfg, lambda tag, shape: uniforms(tag, shape)
+                          .to(dev), gi_accel=gi)
+        (rgb * rgb).sum().backward()
+        print(f"[grad parity] {dev}: forward + backward "
+              f"{time.perf_counter() - t0:.2f} s")
+        grads.append({k: v.grad.cpu() for k, v in tables.items()})
+    for k in names:
+        card, cpu = grads[0][k], grads[1][k]
+        scale = float(cpu.abs().max())
+        err = float((card - cpu).abs().max()) / scale
+        _require(bool(torch.isfinite(card).all()) and scale > 0,
+                 f"grad parity: {k} is not finite and nonzero")
+        _require(err <= GRAD_PARITY_RTOL, f"grad parity: {k} card vs CPU "
+                 f"{err} of its largest magnitude > {GRAD_PARITY_RTOL}")
+        print(f"[grad parity] {k}: max |card - CPU| / max |CPU| = {err} "
+              f"(limit {GRAD_PARITY_RTOL}; largest {scale})")
+
+
+def phase_fit():
+    """(d) The inverse fit at `cmd_fit`'s defaults (raytracing_tpu/app.py:
+    221-243, 319-322): the CS 128 accel, the target the port's own
+    800x800x4 render, colors x 0.5, 4,096 rays a step, Adam at lr 1e-2, 20
+    steps. Gates: the loss on one fixed held-out batch of 4,096 rays falls,
+    and a checkpoint saved at step 10 loads back bit for bit. Returns the
+    steps' launches."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = RenderConfig(chunk_size=16384)
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=128)
+    t0 = time.perf_counter()
+    target = render(scene, cfg, accel=accel)
+    torch.cuda.synchronize()
+    print(f"[fit] target: 800x800x4 render {time.perf_counter() - t0:.2f} s")
+    fitter = inverse.Fitter(scene, target,
+                            {"colors": scene.mesh.colors * 0.5}, cfg,
+                            accel=accel, learning_rate=1e-2)
+
+    def draws(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gen, (lambda tag, shape: torch.rand(shape, generator=gen,
+                                                   device="cuda"))
+
+    held_gen, _ = draws(123)
+    held = torch.randint(0, fitter.n_rays, (4096,), generator=held_gen,
+                         device="cuda")
+
+    def held_loss():
+        with torch.no_grad():
+            return float(fitter.loss(held, draws(77)[1]))
+
+    before = held_loss()
+    gen, uniforms = draws(0)
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "fit_step10.npz")
+    T.reset_launches()
+    losses, ms = [], []
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = torch.randint(0, fitter.n_rays, (4096,), generator=gen,
+                            device="cuda")
+        losses.append(fitter.step(idx, uniforms))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[fit] step {i + 1}: loss {losses[-1]}, {ms[-1]:.2f} ms")
+        if i + 1 == 10:
+            st = fitter.state(10)
+            ckpt.save(path, st["params"], st["opt_state"], step=10)
+            snap = {"params": {k: v.clone() for k, v in st["params"].items()},
+                    "state": {j: {n: v.clone() for n, v in e.items()}
+                              for j, e in st["opt_state"]["state"].items()},
+                    "groups": st["opt_state"]["param_groups"]}
+    launches = dict(T.LAUNCHES)
+    after = held_loss()
+    print(f"[fit] 20 steps of 4,096 rays: median {statistics.median(ms)} ms "
+          f"a step; held-out loss {before} -> {after}; launches {launches}")
+    _require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+             "fit: a step's loss is not finite")
+    _require(after < before, f"fit: the held-out loss did not fall "
+             f"({before} -> {after})")
+    params, opt_state, step, _ = ckpt.load(path, snap["params"],
+                                           fitter.optimizer.state_dict())
+    same = step == 10 and opt_state["param_groups"] == snap["groups"]
+    same = same and all(torch.equal(params[k], v)
+                        for k, v in snap["params"].items())
+    same = same and all(torch.equal(opt_state["state"][j][n], v)
+                        for j, e in snap["state"].items()
+                        for n, v in e.items())
+    tmp.cleanup()
+    _require(same, "fit: the step-10 checkpoint does not load back bit for "
+             "bit")
+    print("[fit] the step-10 checkpoint loads back bit for bit (params, "
+          "Adam's moments and step)")
+    for k in ("walk_both", "walk_dma_both"):
+        _require(launches[k] > 0, f"fit: {k} not launched")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raytracing_tpu_torch")):
         print("chip_smoke: raytracing_tpu_torch/ is not beside this script; "
@@ -1541,6 +1918,9 @@ def main() -> int:
      frame_1m6_launches) = phase_large_scenes(rows, *large)
     pt_launches = phase_path_traced_frame()
     light_launches, grid_launches = phase_area_light_frame()
+    bwd_launches, bwd_gi_launches = phase_backward(rows)
+    phase_grad_parity()
+    fit_launches = phase_fit()
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
     # Each kernel's launches on the main path that runs it.
@@ -1551,8 +1931,13 @@ def main() -> int:
     launches["refine_lists_1m6"] = frame_1m6_launches["refine_lists"]
     launches["walk_gstream"] = gstream_launches["walk_gstream"]
     launches["walk_wq"] = grid_launches["walk_wq"]
+    # Both K1 rows are launches of the CS 16 run's one walk_both count.
+    launches["walk_both"] = bwd_launches["walk_both"]
+    launches["walk_both_bounce"] = bwd_launches["walk_both"]
+    launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
     print(f"[done] launches of the path-traced frame {pt_launches}; of the "
-          f"area-light frame {light_launches}")
+          f"area-light frame {light_launches}; of the fit's 20 steps "
+          f"{fit_launches}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -13,8 +13,10 @@ Public surface:
   geometry  — OBJ loading, SoA Mesh/Scene, the default scene
   accel     — the host-side cluster build (SAH, Baldwin–Weber blocks)
   kernels   — traversal: visit lists, CUDA kernels and plain versions
-  models    — camera, the Whitted integrator (with area lights) and the
-              path tracer
+  models    — camera, the Whitted integrator (with area lights; its
+              gradients reach the mesh, the lights and the rays), the path
+              tracer and the inverse fit
+  utils     — checkpoints of a fit
 """
 
 from raytracing_tpu_torch.accel.packets import ClusterAccel, build_cluster_accel

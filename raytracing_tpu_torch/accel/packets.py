@@ -38,7 +38,19 @@ class ClusterAccel(NamedTuple):
     mode (normal(3) | obj_id) with attr_tables [O, 6] (color | material),
     A = 9 otherwise (normal | color | material) with attr_tables None;
     rest_blocks [Rr, 9] (v0 | e1 | e2), rest_ids [Rr] i32,
-    rest_attrs [Rr, A] — the dense rest set, None when empty."""
+    rest_attrs [Rr, A] — the dense rest set, None when empty;
+    grad_blocks [C, 11, CS] f32 — the backward's planes per slot, v0(3) |
+    e1(3) | e2(3) | tri_id | obj_id (padding: e1 = e2 = 0, ids of triangle
+    0), which a differentiated query carries beside the shading planes
+    (`attr_kind="both"` in `kernels.traverse`) so that its backward needs
+    no second walk; rest_grad [Rr, 11] — the same rows of the rest set.
+    The ids are exact in f32 up to 2^24 triangles.
+
+    Every field is a detached value of the mesh it was built from:
+    gradients reach the live mesh through `kernels.traverse`'s autograd
+    functions, never through these tables. After the mesh's attributes
+    change, `refit_attr_planes` refreshes the shading planes; after its
+    vertices move, rebuild."""
 
     order: torch.Tensor
     slot_valid: torch.Tensor
@@ -50,6 +62,8 @@ class ClusterAccel(NamedTuple):
     rest_blocks: Optional[torch.Tensor]
     rest_ids: Optional[torch.Tensor]
     rest_attrs: Optional[torch.Tensor]
+    grad_blocks: torch.Tensor
+    rest_grad: Optional[torch.Tensor]
 
     @property
     def num_clusters(self) -> int:
@@ -207,10 +221,11 @@ def _sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
 
 
 def _kernel_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
-                     cs: int) -> np.ndarray:
-    """Baldwin–Weber rows [C, 12, CS]: n = e1 x e2, d0 = n·v0,
-    U = (e2 x n)/|n|^2, u0 = -U·v0, V = (n x e1)/|n|^2, v0c = -V·v0.
-    Padding slots have n = 0 and never pass the |den| >= eps test."""
+                        cs: int):
+    """(tri_blocks [C, 9, CS]: v0 | e1 | e2 rows, pmt_blocks [C, 12, CS]:
+    the Baldwin–Weber rows n = e1 x e2, d0 = n·v0, U = (e2 x n)/|n|^2,
+    u0 = -U·v0, V = (n x e1)/|n|^2, v0c = -V·v0). Padding slots have
+    e1 = e2 = 0, so n = 0 and they never pass the |den| >= eps test."""
     from raytracing_tpu_torch.geometry import native
 
     if native.available():
@@ -221,6 +236,8 @@ def _kernel_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
     v0 = tri_verts[:, 0]
     e1 = (tri_verts[:, 1] - v0) * m
     e2 = (tri_verts[:, 2] - v0) * m
+    tri_blocks = np.concatenate([v0, e1, e2], axis=1).reshape(
+        c, cs, 9).transpose(0, 2, 1)
     nbw = np.cross(e1, e2)
     n2 = np.einsum("sk,sk->s", nbw, nbw)
     inv_n2 = np.where(n2 > 0, 1.0 / np.where(n2 > 0, n2, 1.0), 0.0)[:, None]
@@ -231,7 +248,8 @@ def _kernel_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
          U, -np.einsum("sk,sk->s", U, v0)[:, None],
          V, -np.einsum("sk,sk->s", V, v0)[:, None]],
         axis=1).astype(np.float32)
-    return np.ascontiguousarray(pmt.reshape(c, cs, 12).transpose(0, 2, 1))
+    return (np.ascontiguousarray(tri_blocks, dtype=np.float32),
+            np.ascontiguousarray(pmt.reshape(c, cs, 12).transpose(0, 2, 1)))
 
 
 def first_tri_per_object(obj_id: np.ndarray, n_obj: int) -> np.ndarray:
@@ -248,21 +266,25 @@ def first_tri_per_object(obj_id: np.ndarray, n_obj: int) -> np.ndarray:
 def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
                         method: str = "auto", rest_max: int = 64,
                         variants="auto", device=None) -> ClusterAccel:
-    """Host-side (numpy) build; tensors land on `device` (default: the
-    mesh's). Only the SAH method ("auto" = "sah") and the Baldwin–Weber
-    ("pmt") block family are ported."""
+    """Host-side (numpy) build from the mesh's detached values; tensors
+    land on `device` (default: the mesh's). Only the SAH method ("auto" =
+    "sah") and the Baldwin–Weber ("pmt") block family are ported."""
     if method not in ("auto", "sah"):
         raise NotImplementedError(
-            f"accel method {method!r}: only the SAH build is ported "
-            "(ROADMAP Queue 1 item 3)")
+            f"accel method {method!r}: only the SAH build is ported (ROADMAP "
+            "Queue 1, the off-main-path variants)")
     if variants not in ("auto", ("pmt",)):
         raise NotImplementedError(
-            f"block variants {variants!r}: only 'pmt' is ported "
-            "(ROADMAP Queue 1 item 13)")
+            f"block variants {variants!r}: only 'pmt' is ported (ROADMAP "
+            "Queue 1, the off-main-path variants)")
     device = mesh.verts.device if device is None else device
-    verts = mesh.verts.cpu().numpy()
-    tri_v = mesh.tri_v.cpu().numpy()
-    obj_id = mesh.obj_id.cpu().numpy()
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    verts = host(mesh.verts)
+    tri_v = host(mesh.tri_v)
+    obj_id = host(mesh.obj_id)
 
     n_obj = int(obj_id.max()) + 1 if obj_id.size else 0
     counts = [int((obj_id == oi).sum()) for oi in range(n_obj)]
@@ -303,12 +325,12 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
         c, -1, 3).min(axis=1)
     vmax = np.where(valid[:, None, None], tri_verts, -big).reshape(
         c, -1, 3).max(axis=1)
-    pmt_blocks = _kernel_blocks_host(tri_verts.astype(np.float32), valid,
-                                     c, cluster_size)
+    tri_blocks, pmt_blocks = _kernel_blocks_host(
+        tri_verts.astype(np.float32), valid, c, cluster_size)
 
-    normals = mesh.normals.cpu().numpy().astype(np.float32)
-    colors = mesh.colors.cpu().numpy().astype(np.float32)
-    materials = mesh.materials.cpu().numpy().astype(np.float32)
+    normals = host(mesh.normals).astype(np.float32)
+    colors = host(mesh.colors).astype(np.float32)
+    materials = host(mesh.materials).astype(np.float32)
     n_obj = materials.shape[0]
     obj_colors = colors[first_tri_per_object(obj_id, n_obj)]
     uniform = n_obj <= 32 and bool((colors == obj_colors[obj_id]).all())
@@ -324,8 +346,14 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
         attr_tables = None
     attr_blocks = attrs.reshape(c, cluster_size, attrs.shape[1]).transpose(
         0, 2, 1)
+    # The backward's planes: v0 | e1 | e2, triangle id, object id.
+    grad_blocks = np.concatenate(
+        [tri_blocks,
+         order.astype(np.float32).reshape(c, 1, cluster_size),
+         obj_id[order].astype(np.float32).reshape(c, 1, cluster_size)],
+        axis=1)
 
-    rest_blocks = rest_ids = rest_attrs = None
+    rest_blocks = rest_ids = rest_attrs = rest_grad = None
     if rest_parts:
         rest = np.concatenate(rest_parts).astype(np.int64)
         rv = verts[tri_v[rest]].astype(np.float32)
@@ -341,6 +369,9 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
             rest_attrs = np.concatenate(
                 [normals[rest], colors[rest], materials[obj_id[rest]]],
                 axis=1)
+        rest_grad = np.concatenate(
+            [rest_blocks, rest.astype(np.float32)[:, None],
+             obj_id[rest].astype(np.float32)[:, None]], axis=1)
 
     def f32(a):
         return None if a is None else np.asarray(a, dtype=np.float32)
@@ -356,4 +387,48 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
         rest_blocks=f32(rest_blocks),
         rest_ids=rest_ids,
         rest_attrs=f32(rest_attrs),
+        grad_blocks=f32(grad_blocks),
+        rest_grad=f32(rest_grad),
     ), device)
+
+
+def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
+                      first_tri: Optional[np.ndarray] = None
+                      ) -> ClusterAccel:
+    """The accel with its shading planes (`attr_blocks`, `rest_attrs` and,
+    in objid mode, `attr_tables`) rebuilt from the mesh's live, detached
+    normals, colors and materials — what an inverse fit does inside every
+    step, so that the walk shades with the values it differentiates.
+    Bounds, triangle blocks and `grad_blocks` are left as they are: after
+    the vertices move, rebuild. first_tri: each object's first triangle
+    (`first_tri_per_object`); computed from mesh.obj_id when not given."""
+    cs, c = accel.cluster_size, accel.num_clusters
+    order = accel.order.long()
+    valid = accel.slot_valid[:, None].to(accel.attr_blocks.dtype)
+    normals = mesh.normals.detach()
+    if accel.attr_tables is not None:
+        obj_plane = accel.attr_blocks[:, 3:4, :]  # the object ids stay
+        nrm = (normals[order] * valid).reshape(c, cs, 3).transpose(1, 2)
+        if first_tri is None:
+            first_tri = first_tri_per_object(mesh.obj_id.cpu().numpy(),
+                                             accel.attr_tables.shape[0])
+        ft = torch.as_tensor(np.asarray(first_tri), dtype=torch.int64,
+                             device=normals.device)
+        tbl = torch.cat([mesh.colors.detach()[ft], mesh.materials.detach()],
+                        dim=1)
+        accel = accel._replace(
+            attr_blocks=torch.cat([nrm, obj_plane], dim=1).contiguous(),
+            attr_tables=tbl.contiguous())
+        if accel.rest_ids is not None:
+            rn = normals[accel.rest_ids.long()]
+            accel = accel._replace(rest_attrs=torch.cat(
+                [rn, accel.rest_attrs[:, 3:4]], dim=1).contiguous())
+        return accel
+    attrs = torch.cat([normals, mesh.colors.detach(),
+                       mesh.materials.detach()[mesh.obj_id.long()]], dim=1)
+    planes = (attrs[order] * valid).reshape(c, cs, -1).transpose(1, 2)
+    accel = accel._replace(attr_blocks=planes.contiguous())
+    if accel.rest_ids is not None:
+        accel = accel._replace(
+            rest_attrs=attrs[accel.rest_ids.long()].contiguous())
+    return accel

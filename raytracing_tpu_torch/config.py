@@ -85,7 +85,8 @@ class RenderConfig:
             raise ValueError(
                 f"backend {self.backend!r} is not ported: the PyTorch port "
                 f"runs {BACKENDS} (the kernel traversal); the brute-force "
-                "and cluster backends are ROADMAP Queue 1 item 13")
+                "and cluster backends are in ROADMAP Queue 1, the "
+                "off-main-path variants")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -141,10 +141,11 @@ def sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
 
 
 def kernel_blocks(tri_verts: np.ndarray, valid: np.ndarray, c: int,
-                  cs: int) -> Optional[np.ndarray]:
-    """The Baldwin–Weber blocks [C, 12, CS] (the only block family the port
-    keeps); identical to the numpy `accel.packets._kernel_blocks_host`
-    (the library is built without FMA contraction)."""
+                  cs: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(v0 | e1 | e2 rows [C, 9, CS], the Baldwin–Weber blocks [C, 12, CS]
+    — the only intersector family the port keeps); identical to the numpy
+    `accel.packets._kernel_blocks_host` (the library is built without FMA
+    contraction)."""
     lib = _load()
     if lib is None:
         return None
@@ -155,7 +156,7 @@ def kernel_blocks(tri_verts: np.ndarray, valid: np.ndarray, c: int,
     rc = lib.rt_kernel_blocks(
         _f32p(tv), va.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
         int(c), int(cs), _f32p(tri_blocks), _f32p(pmt), None)
-    return pmt if rc == 0 else None
+    return (tri_blocks, pmt) if rc == 0 else None
 
 
 def subdivide_level(verts: np.ndarray, tri_v: np.ndarray

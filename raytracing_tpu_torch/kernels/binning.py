@@ -5,7 +5,8 @@ culling tile holds rays of one direction cone from nearby origins, which
 keeps the tile's frustum (and so its visit list) small. Everything here is
 permutation bookkeeping: results are moved back to the caller's order, so
 binning never changes an image. The sort is a plain stable `torch.sort`
-plus an index gather.
+plus an index gather; under autograd a payload's gradient moves back by
+the inverse permutation (twin of the JAX package's `_sort_cols` VJP).
 """
 
 from __future__ import annotations
@@ -90,7 +91,9 @@ def bounce_bin_key(o, d, lo, hi, alive=None) -> torch.Tensor:
 
 def bin_sort(key: torch.Tensor, *payloads):
     """Stable sort of the payloads by key. Returns (sidx, sorted payloads);
-    sidx[j] is the original index of sorted slot j (see `unsort`)."""
+    sidx[j] is the original index of sorted slot j (see `unsort`).
+    Gradients of float payloads move back by the inverse permutation
+    (autograd of the index); the permutation itself is detached."""
     sidx = torch.sort(key, stable=True).indices
     return sidx, tuple(p[sidx] for p in payloads)
 

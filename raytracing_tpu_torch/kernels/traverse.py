@@ -17,10 +17,8 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
       one origin (`shared_origin=`), its origin-folded form "pmto". A
       table bigger than the group budget (`_group_clusters`) is walked in
       groups of clusters: one launch of `walk_gstream` (K3) over per-group
-      lists, or, with `STREAM_GROUPS = False`, one K1 launch per group and
-      an elementwise-nearest merge. With `_WQ_IMPL = "grid"` a `wq` query
-      takes `walk_wq` (K4), whose unit of work is a few visits of a tile,
-      instead of K2. An occlusion query may carry a per-ray limit
+      lists. With `_WQ_IMPL = "grid"` a `wq` query takes `walk_wq` (K4),
+      whose unit of work is a few visits of a tile, instead of K2. An occlusion query may carry a per-ray limit
       (`tmax_row`) in place of the scalar `t_max`. K1/K2 cut a tile's list
       into segments for many blocks themselves (`_walk_segment`), merged
       per ray in any order, with the early exit kept exact across blocks.
@@ -35,6 +33,14 @@ a CPU tensor and launches the kernel for a CUDA tensor (raising if it
 cannot), and a launch count in `LAUNCHES`. Ray packs are SoA [8, N] with
 rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of 1024; dead lanes (row 7
 == 0) are left out of the culling and their results are meaningless.
+
+Gradients: which triangle a ray hits is a traversal decision and stays
+detached. A nearest query that something differentiates (`_ShadedWalk`)
+walks with the backward's 11 planes of the winner (v0 | e1 | e2 | tri_id
+| obj_id, `attr_kind="both"`) beside its shading planes, through the
+same kernels, and its backward re-derives t from them and adds the
+gradients into the mesh's tables (`ops.scatter`); `nearest_hit`'s t
+(`_LazyT`) re-derives from the live vertices instead.
 
 A visit list is as wide as the cluster table: the card has no scratch
 budget that forces the TPU's narrower lists, so no list is ever cut short
@@ -52,8 +58,10 @@ import torch
 from raytracing_tpu_torch.accel import packets
 from raytracing_tpu_torch.accel.packets import ClusterAccel
 from raytracing_tpu_torch.kernels import cuda
+from raytracing_tpu_torch.ops.intersect import (INF, TriangleSoA,
+                                                moller_trumbore)
 from raytracing_tpu_torch.ops.linalg import device_scalar
-from raytracing_tpu_torch.ops.intersect import INF
+from raytracing_tpu_torch.ops.scatter import segment_scatter_add
 
 RAY_TILE = 1024
 # Visits per early-exit vote for a 16-triangle cluster; scaled down for
@@ -77,10 +85,6 @@ _BIG_ID = 2 ** 30
 # of their temporaries (bound their memory).
 _PLAIN_TILE_GROUP = 64
 _PLAIN_TEMP_ELEMS = 1 << 24
-# A table above the group budget is walked by one launch of K3 over
-# per-group lists (True) or by one K1 launch per group (False); the results
-# are the same.
-STREAM_GROUPS = True
 # What a `wq` query runs: "dma", the `_walk_dma` entry (K2), or "grid", the
 # work-queue walk (K4). Both equal the `_walk_groups` entry bit for bit.
 _WQ_IMPL = "dma"
@@ -105,11 +109,14 @@ _MAX_TILE_BLOCKS = 64
 # refinement with tile-alive flags given (K5), "refine_extents" the dense
 # refined-list query (K5 with K6's extents), "walk" the `_walk_groups`
 # entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
+# "walk_both" / "walk_dma_both" the same two carrying the backward's planes
+# beside the shading planes (a differentiated query, attr_kind "both"),
 # "walk_camera" / "walk_camera_dma" their camera-mode forms, "walk_gstream"
 # the streamed-groups walk (K3) and "walk_wq" the work-queue walk (K4).
 LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
-            "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_camera": 0,
-            "walk_camera_dma": 0, "walk_gstream": 0, "walk_wq": 0}
+            "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
+            "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
+            "walk_gstream": 0, "walk_wq": 0}
 
 
 class Hit(NamedTuple):
@@ -690,10 +697,10 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     (union-box min | max) a nearest walk votes on the front-to-back early
     exit at least every ee_batch visits, on its own hits and on those the
     tile's other segments have published. `entry` names the launch count
-    ("walk" or "walk_dma"). `visits`, an i32 [nt] CUDA tensor, receives the
-    clusters each tile visited (for measuring: under the early exit they
-    differ from run to run; the plain version has no early exit and
-    ignores it)."""
+    ("walk", "walk_dma" or their "_both" forms). `visits`, an i32 [nt]
+    CUDA tensor, receives the clusters each tile visited (for measuring:
+    under the early exit they differ from run to run; the plain version
+    has no early exit and ignores it)."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
                           nearest, t_max, pmto, tmax_row)
@@ -878,6 +885,46 @@ def _group_clusters(accel: ClusterAccel, n_attrs: int) -> int:
     return max(256, packets._GROUP_BLOCK_BUDGET_BYTES // per_cluster)
 
 
+ATTR_KINDS = ("shade", "grad", "both")
+
+
+def _attr_planes(accel: ClusterAccel, attr_kind: str):
+    """The attribute tables [C, ., CS] a nearest walk carries, in order:
+    the shading planes ("shade"), the backward's planes `grad_blocks`
+    ("grad"), or both, the shading planes first ("both": what a
+    differentiated query walks, so that its backward needs no second
+    walk)."""
+    if attr_kind == "shade":
+        return [accel.attr_blocks]
+    if accel.grad_blocks is None:
+        raise ValueError("this accel has no grad_blocks: build it with "
+                         "build_cluster_accel, or hand accel_from_numpy "
+                         "the JAX package's grad_blocks and rest_grad")
+    if attr_kind == "grad":
+        return [accel.grad_blocks]
+    if attr_kind == "both":
+        return [accel.attr_blocks, accel.grad_blocks]
+    raise ValueError(f"attr_kind {attr_kind!r}: one of {ATTR_KINDS}")
+
+
+def _attr_table(accel: ClusterAccel, attr_kind: str) -> torch.Tensor:
+    """`_attr_planes` as one [C, A, CS] table."""
+    planes = _attr_planes(accel, attr_kind)
+    return planes[0] if len(planes) == 1 else torch.cat(planes, dim=1)
+
+
+def _n_attrs(accel: ClusterAccel, attr_kind: str) -> int:
+    """A = 9 (4 in objid mode) shading planes, 11 backward planes, or both
+    (20, or 15)."""
+    return sum(t.shape[1] for t in _attr_planes(accel, attr_kind))
+
+
+def _entry(name: str, attr_kind: str) -> str:
+    """The launch count of a pack walk: "<name>_both" when it carries the
+    backward's planes beside the shading planes."""
+    return name + "_both" if attr_kind == "both" else name
+
+
 def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None)):
     """(geometry table, pmto): the Baldwin–Weber blocks of a run of
     clusters (default: all), origin-folded for the pmto intersector when
@@ -890,13 +937,13 @@ def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None)):
 
 def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                       n_attrs, early_exit=None, shared_origin=None,
-                      tmax_row=None, clusters=None):
+                      tmax_row=None, clusters=None, attr_kind="shade"):
     """The `_walk_groups` launch (K1): frustum lists over the separate pmt
-    and attribute tables; with `shared_origin` [3] the origin-folded table
-    and the pmto intersector. `clusters` = (lo, hi) walks only that run of
-    the table (the group loop), with cluster ids local to it. Returns
-    (args, kw): `walk(*args, **kw)` is the launch and `walk_plain(*args)`
-    its plain version."""
+    and attribute tables (`_attr_table(accel, attr_kind)`); with
+    `shared_origin` [3] the origin-folded table and the pmto intersector.
+    `clusters` = (lo, hi) walks only that run of the table (a group loop),
+    with cluster ids local to it. Returns (args, kw): `walk(*args, **kw)`
+    is the launch and `walk_plain(*args)` its plain version."""
     cs = accel.cluster_size
     lo, hi = clusters or (0, accel.num_clusters)
     cmin, cmax = accel.cluster_min[lo:hi], accel.cluster_max[lo:hi]
@@ -904,17 +951,17 @@ def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     ids, tnear, cnt = _tile_visit_lists_soa(rp, cmin, cmax)
     geo, pmto = _geo_table(accel, shared_origin, slice(lo, hi))
     args = (rp, ids, cnt, geo,
-            accel.attr_blocks[lo:hi] if n_attrs else None,
+            _attr_table(accel, attr_kind)[lo:hi] if n_attrs else None,
             n_attrs, cs, eps, nearest, t_max, pmto, tmax_row)
     kw = dict(tnear=tnear if early else None,
               bbox=_union_box(cmin, cmax) if early else None,
-              ee_batch=_ee_batch_for(cs), entry="walk")
+              ee_batch=_ee_batch_for(cs), entry=_entry("walk", attr_kind))
     return args, kw
 
 
 def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                        n_attrs, early_exit=None, shared_origin=None,
-                       tmax_row=None):
+                       tmax_row=None, attr_kind="shade"):
     """The streamed-groups launch (K3): one extents pass (K6), then every
     group's frustum lists from it in one pass — the interval test against
     each group's run of boxes, ids local to the group, sorted within the
@@ -931,7 +978,7 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     pad_c = ng * gsz - accel.num_clusters
     cmin, cmax = accel.cluster_min, accel.cluster_max
     geo, pmto = _geo_table(accel, shared_origin)
-    attr = accel.attr_blocks if n_attrs else None
+    attr = _attr_table(accel, attr_kind) if n_attrs else None
 
     def padded(tab, fill):
         if tab is None or not pad_c:
@@ -980,23 +1027,25 @@ def _refined_lists(accel: ClusterAccel, rp):
     return _compact_lists(keep, tnear, ids)
 
 
-def _combined_table(geo, accel: ClusterAccel, n_attrs):
+def _combined_table(geo, accel: ClusterAccel, n_attrs, attr_kind="shade"):
     """(table, attribute view): the [C, 12 + A, CS] table whose attribute
-    rows follow the geometry rows, as the `_walk_dma` entries take it."""
+    rows (`_attr_table`) follow the geometry rows, as the `_walk_dma`
+    entries take it."""
     if not n_attrs:
         return geo, None
-    blocks = torch.cat([geo, accel.attr_blocks], dim=1)
+    blocks = torch.cat([geo] + _attr_planes(accel, attr_kind), dim=1)
     return blocks, blocks[:, 12:]
 
 
 def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                   early_exit=None, shared_origin=None, tmax_row=None):
+                   early_exit=None, shared_origin=None, tmax_row=None,
+                   attr_kind="shade"):
     """The `_walk_dma` launch (K2): refined lists (K5) over the combined
     [C, 12 + A, CS] table. Returns (args, kw) as `_groups_walk_args`
     does."""
     cs = accel.cluster_size
     geo, pmto = _geo_table(accel, shared_origin)
-    blocks, attr = _combined_table(geo, accel, n_attrs)
+    blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
     ids, tnear, cnt = _refined_lists(accel, rp)
     early = _early(nearest, accel.num_clusters, early_exit, tmax_row)
     args = (rp, ids, cnt, blocks, attr, n_attrs, cs, eps, nearest, t_max,
@@ -1004,12 +1053,13 @@ def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
     kw = dict(tnear=tnear if early else None,
               bbox=(_union_box(accel.cluster_min, accel.cluster_max)
                     if early else None),
-              ee_batch=_dma_ee_batch(cs), entry="walk_dma")
+              ee_batch=_dma_ee_batch(cs),
+              entry=_entry("walk_dma", attr_kind))
     return args, kw
 
 
 def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                  shared_origin=None, tmax_row=None):
+                  shared_origin=None, tmax_row=None, attr_kind="shade"):
     """The work-queue launch (K4): refined lists (K5, either form: both
     give the same walk) over the combined [C, 12 + A, CS] table. Returns
     (args, kw): `walk_wq(*args, **kw)` is the launch and
@@ -1020,54 +1070,28 @@ def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
     never cut, so K4 walks every listed visit and that residual launch has
     no counterpart."""
     geo, pmto = _geo_table(accel, shared_origin)
-    blocks, attr = _combined_table(geo, accel, n_attrs)
+    blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
     ids, _, cnt = _refined_lists(accel, rp)
     args = (rp, ids, cnt, blocks, attr, n_attrs, accel.cluster_size, eps,
             nearest, t_max, pmto, tmax_row)
     return args, dict(u=WQ_U)
 
 
-def _walk_groups_loop(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                      gsz, **query):
-    """A table above the group budget without K3: one K1 launch per group
-    of gsz clusters, each with its own lists, merged by elementwise
-    nearest (a later group wins only with a smaller t, so ties keep the
-    lower slot). Rays are independent, so grouping is exact."""
-    cs = accel.cluster_size
-    best = None
-    for lo in range(0, accel.num_clusters, gsz):
-        hi = min(lo + gsz, accel.num_clusters)
-        args, kw = _groups_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
-                                     clusters=(lo, hi), **query)
-        t_g, s_g, a_g = walk(*args, **kw)
-        if nearest:
-            s_g = s_g + lo * cs
-        if best is None:
-            best = (t_g, s_g, a_g)
-        elif nearest:
-            better = t_g < best[0]
-            best = (torch.minimum(best[0], t_g),
-                    torch.where(better, s_g, best[1]),
-                    torch.where(better, a_g, best[2]) if n_attrs else None)
-        else:
-            best = (torch.minimum(best[0], t_g), best[1] | s_g, None)
-    return best
-
-
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                  early_exit=None, wq=False, shared_origin=None,
-                 tmax_row=None):
+                 tmax_row=None, attr_kind="shade"):
     """One walk over the cluster set: (t [1, rp], slot or hit flag [1, rp],
     attrs | None). tmax_row: an optional [1, rp] per-ray limit of an
-    occlusion query.
+    occlusion query. attr_kind: which attribute planes a nearest walk
+    carries (`_attr_table`), n_attrs of them.
 
     `wq` takes the `_walk_dma` entry (K2) for a 128-multiple cluster size
     (`_WQ_IMPL == "dma"`), or the work-queue walk (K4) for a table inside
     the group budget (`_WQ_IMPL == "grid"`); whatever they do not take
     falls through. A table inside the group budget is one K1 launch; a
-    bigger one is walked in groups, by K3 (`STREAM_GROUPS`) or by K1 in a
-    loop."""
-    query = dict(shared_origin=shared_origin, tmax_row=tmax_row)
+    bigger one is walked in groups by K3."""
+    query = dict(shared_origin=shared_origin, tmax_row=tmax_row,
+                 attr_kind=attr_kind)
     gsz = _group_clusters(accel, n_attrs)
     if wq and _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
         args, kw = _dma_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
@@ -1082,12 +1106,20 @@ def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
         args, kw = _groups_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
                                      **query)
         return walk(*args, **kw)
-    if STREAM_GROUPS:
-        args, kw = _gstream_walk_args(accel, rp, eps, nearest, t_max,
-                                      n_attrs, **query)
-        return walk_gstream(*args, **kw)
-    return _walk_groups_loop(accel, rp, eps, nearest, t_max, n_attrs, gsz,
+    return _walk_over_budget(accel, rp, eps, nearest, t_max, n_attrs,
                              **query)
+
+
+def _walk_over_budget(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
+                      early_exit=None, shared_origin=None, tmax_row=None,
+                      attr_kind="shade"):
+    """`_walk_groups` for a table above the group budget: the
+    streamed-groups walk (K3)."""
+    args, kw = _gstream_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
+                                  early_exit=early_exit,
+                                  shared_origin=shared_origin,
+                                  tmax_row=tmax_row, attr_kind=attr_kind)
+    return walk_gstream(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1131,17 +1163,30 @@ def _rows(rays8):
             tuple(rays8[k:k + 1] for k in (4, 5, 6)))
 
 
-def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs):
+def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs,
+                        attr_kind="shade"):
     """Fold the rest set into the walk's nearest results; ties keep the
-    walk's hit, and the lowest rest index wins among the rest."""
+    walk's hit, and the lowest rest index wins among the rest. A winning
+    rest triangle brings its rows of the attr_kind tables (`rest_attrs`,
+    `rest_grad` or both)."""
     if accel.rest_blocks is None:
         return t, slot, attrs
     o, d = _rows(rays8)
     return _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps,
-                                    n_attrs)
+                                    n_attrs, attr_kind)
 
 
-def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs):
+def _rest_table(accel: ClusterAccel, attr_kind: str) -> torch.Tensor:
+    """The rest set's rows [Rr, A] of `_attr_planes`' tables."""
+    if attr_kind == "shade":
+        return accel.rest_attrs
+    if attr_kind == "grad":
+        return accel.rest_grad
+    return torch.cat([accel.rest_attrs, accel.rest_grad], dim=1)
+
+
+def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs,
+                             attr_kind="shade"):
     """`_merge_rest_nearest` on tuples of [1, N] rows: camera mode's
     directions are derived, never packed."""
     rb = accel.rest_blocks
@@ -1154,10 +1199,11 @@ def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs):
     t = torch.minimum(t, tmin)
     slot = torch.where(better, accel.order.shape[0] + jarg, slot)
     if n_attrs:
+        tbl = _rest_table(accel, attr_kind)
         row = torch.zeros((n_attrs, t.shape[1]), dtype=t.dtype,
                           device=t.device)
         for j in range(rr):
-            row = torch.where(jarg == j, accel.rest_attrs[j][:, None], row)
+            row = torch.where(jarg == j, tbl[j][:, None], row)
         attrs = torch.where(better, row, attrs)
     return t, slot, attrs
 
@@ -1221,18 +1267,33 @@ def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
 
 def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
                           eps: float = 1e-8, early_exit: Optional[bool] = None,
-                          wq: bool = False, shared_origin=None
+                          wq: bool = False, shared_origin=None,
+                          attr_kind: str = "shade"
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack, with the winner's attribute planes.
     Returns (t [N], slot [N] packed slot ids, attrs [A, N]); attrs are 0 on
-    miss lanes. shared_origin as in `nearest_hit_soa`."""
+    miss lanes. shared_origin as in `nearest_hit_soa`. attr_kind: the
+    shading planes (A = 9, or 4 in objid mode), the backward's 11 planes
+    ("grad") or both, the shading planes first (A = 20, or 15); t and the
+    slots do not depend on it."""
     rp, r = _pad_rays_soa(rays8)
-    n_attrs = accel.attr_blocks.shape[1]
+    n_attrs = _n_attrs(accel, attr_kind)
     t, s, a = _walk_groups(accel, rp, eps, True, INF, n_attrs,
                            early_exit=early_exit, wq=wq,
-                           shared_origin=shared_origin)
-    t, s, a = _merge_rest_nearest(accel, rp, t, s, a, eps, n_attrs)
+                           shared_origin=shared_origin, attr_kind=attr_kind)
+    t, s, a = _merge_rest_nearest(accel, rp, t, s, a, eps, n_attrs,
+                                  attr_kind)
     return t[0, :r], s[0, :r], a[:, :r]
+
+
+def grad_planes_soa(accel: ClusterAccel, rays8: torch.Tensor,
+                    eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The nearest walk with the backward's planes only: (t [N], planes
+    [11, N] = the winner's v0 | e1 | e2 | tri_id | obj_id, 0 on a miss).
+    The winner is the shading walk's (same lists, same tie rule)."""
+    t, _, planes = nearest_hit_attrs_soa(accel, rays8, eps,
+                                         attr_kind="grad")
+    return t, planes
 
 
 def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
@@ -1243,6 +1304,7 @@ def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
     tensor becomes 3e38; the lanes that pad the pack get 0."""
     tmax_row = None
     if isinstance(t_max, torch.Tensor) and t_max.dim():
+        t_max = t_max.detach()  # a traversal decision: never differentiated
         row = torch.where(torch.isfinite(t_max), t_max, _BIG)
         tmax_row = torch.nn.functional.pad(
             row.to(rays8.dtype)[None], (0, (-rays8.shape[1]) % RAY_TILE)
@@ -1272,18 +1334,6 @@ def _objid_expand(accel: ClusterAccel, attrs_k, hit):
     return torch.cat([attrs_k[:3], rest], dim=0)
 
 
-def nearest_hit_shaded(accel: ClusterAccel, o, d, eps: float = 1e-8,
-                       alive=None, early_exit=None, wq: bool = False,
-                       shared_origin=None) -> Tuple[Hit, torch.Tensor]:
-    """The renderer's nearest query: (Hit with packed slot ids, attrs
-    [N, 9] = normal | color | albedo/pi, reflectivity, roughness)."""
-    rays8 = rays_to_soa(o, d, alive=alive)
-    t, slot, attrs_k = nearest_hit_attrs_soa(accel, rays8, eps,
-                                             early_exit=early_exit, wq=wq,
-                                             shared_origin=shared_origin)
-    return _shaded(accel, t, slot, attrs_k)
-
-
 def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
     hit = torch.isfinite(t)
     attrs = _objid_expand(accel, attrs_k, hit).T
@@ -1292,8 +1342,175 @@ def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
 
 def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
             alive=None, wq: bool = False) -> torch.Tensor:
-    return any_hit_soa(accel, rays_to_soa(o, d, alive=alive), eps, t_max,
-                       wq=wq)
+    """Occlusion of rays o, d [N, 3] -> [N] bool (a traversal decision:
+    nothing of it is differentiated)."""
+    return any_hit_soa(accel, rays_to_soa(o.detach(), d.detach(),
+                                          alive=alive), eps, t_max, wq=wq)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the walk's decisions stay detached; t and the attributes are
+# re-derived from the live tables in the backward
+# ---------------------------------------------------------------------------
+
+
+def _t_math(va, vb, vc, o, d, hit):
+    """Möller–Trumbore t of rays o, d [N, 3] against triangles given by
+    their corners, 0 where the ray missed (so no NaN reaches a cotangent).
+    The edges are taken as vb - va and vc - va, as the JAX package's
+    backward takes them."""
+    t_d, _ = moller_trumbore(o, d, TriangleSoA(va, vb - va, vc - va), INF,
+                             1e-8)
+    return torch.where(hit & torch.isfinite(t_d), t_d, 0.0)
+
+
+def _t_vjp(va, vb, vc, o, d, hit, g_t):
+    """Cotangents of `_t_math` for (va, vb, vc, o, d) under g_t [N], masked
+    by hit."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (va, vb, vc, o, d)]
+        t = _t_math(*xs, hit)
+        return torch.autograd.grad(t, xs, torch.where(hit, g_t, 0.0))
+
+
+class _LazyT(torch.autograd.Function):
+    """t of a nearest walk (twin of the JAX package's `_lazy_t`): forward
+    the kernel's value; backward re-derives it from the live vertices of
+    each ray's triangle (original ids `tri`, corners `tri_v`) and adds the
+    per-corner gradients into the vertex pool; the rays get theirs."""
+
+    @staticmethod
+    def forward(ctx, verts, o, d, tri_v, tri, hit, t_k):
+        ctx.save_for_backward(verts, o, d, tri_v, tri, hit)
+        return t_k.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        verts, o, d, tri_v, tri, hit = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        tvs = tri_v[torch.where(hit, tri, 0).long()].long()
+        corners = [verts[tvs[:, k]] for k in range(3)]
+        dva, dvb, dvc, do, dd = _t_vjp(*corners, o, d, hit, g)
+        dverts = None
+        if need[0]:
+            n_v = verts.shape[0]
+            idx = torch.cat([torch.where(hit, tvs[:, k], n_v)
+                             for k in range(3)])
+            dverts = segment_scatter_add(n_v, idx,
+                                         torch.cat([dva, dvb, dvc]))
+        return (dverts, do if need[1] else None, dd if need[2] else None,
+                None, None, None, None)
+
+
+class _ShadedWalk(torch.autograd.Function):
+    """Differentiable (t, slot, attrs [N, 9]) of the nearest walk (twin of
+    the JAX package's `_shaded_walk`). The forward walks with the shading
+    and the backward's planes together (`attr_kind="both"`), so the
+    backward needs no second walk: t is re-derived from the winner's
+    v0 | e1 | e2 planes (corners v0, v0 + e1, v0 + e2), its per-corner
+    gradients summed per triangle id and then into the vertex pool; the
+    normal and color cotangents go to the triangle, the material ones to
+    the object. Gradients reach verts, normals, colors, materials and the
+    rays o, d; which triangle a ray hits stays detached."""
+
+    @staticmethod
+    def forward(ctx, verts, normals, colors, materials, o, d, tri_v, query):
+        accel, rays8, eps, early_exit, wq, shared_origin = query
+        t, slot, both = nearest_hit_attrs_soa(
+            accel, rays8, eps, early_exit=early_exit, wq=wq,
+            shared_origin=shared_origin, attr_kind="both")
+        a_rows = accel.attr_blocks.shape[1]
+        hit = torch.isfinite(t)
+        attrs = _objid_expand(accel, both[:a_rows], hit).T
+        ctx.save_for_backward(o, d, hit, both[a_rows:], tri_v)
+        ctx.rows = (verts.shape[0], normals.shape[0], materials.shape[0])
+        ctx.mark_non_differentiable(slot)
+        return t, slot, attrs
+
+    @staticmethod
+    def backward(ctx, g_t, _g_slot, g_a):
+        o, d, hit, planes, tri_v = ctx.saved_tensors
+        n_v, t_rows, n_obj = ctx.rows
+        need = ctx.needs_input_grad
+        triid = planes[9].long()
+        dverts = dn = dc = dm = do = dd = None
+        if need[0] or need[4] or need[5]:
+            v0 = planes[0:3].T
+            dva, dvb, dvc, do, dd = _t_vjp(v0, v0 + planes[3:6].T,
+                                           v0 + planes[6:9].T, o, d, hit,
+                                           g_t)
+        if need[0]:
+            # rays -> (corner, triangle) -> vertex pool; dead and missing
+            # lanes go to the drop buckets.
+            t3 = 3 * t_rows
+            idx3 = torch.cat([torch.where(hit, triid + k * t_rows, t3)
+                              for k in range(3)])
+            dtri = segment_scatter_add(t3, idx3, torch.cat([dva, dvb, dvc]))
+            dverts = segment_scatter_add(n_v, tri_v.T.reshape(-1), dtri)
+        gm = torch.where(hit[:, None], g_a, 0.0)
+        if need[1] or need[2]:
+            dnc = segment_scatter_add(
+                t_rows, torch.where(hit, triid, t_rows), gm[:, 0:6])
+            dn, dc = dnc[:, 0:3], dnc[:, 3:6]
+        if need[3]:
+            dm = segment_scatter_add(
+                n_obj, torch.where(hit, planes[10].long(), n_obj), gm[:, 6:9])
+        return (dverts, dn, dc, dm, do if need[4] else None,
+                dd if need[5] else None, None, None)
+
+
+# Triangle and object ids ride the backward's planes as f32, exact below
+# this many triangles.
+_MAX_GRAD_TRIANGLES = 1 << 24
+
+
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
+                alive=None) -> Hit:
+    """Nearest hit with ORIGINAL triangle ids (0 on a miss) and a t that is
+    the kernel's forward and differentiates through the live vertices
+    (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`)."""
+    rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
+    t_k, tri = nearest_hit_soa(accel, rays8, eps)
+    hit = torch.isfinite(t_k)
+    if _differentiated(mesh.verts, o, d):
+        t_k = _LazyT.apply(mesh.verts, o, d, mesh.tri_v, tri, hit, t_k)
+    return Hit(t=t_k, tri=tri, hit=hit)
+
+
+def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
+                       alive=None, early_exit=None, wq: bool = False,
+                       shared_origin=None) -> Tuple[Hit, torch.Tensor]:
+    """The renderer's nearest query: (Hit with packed slot ids, attrs
+    [N, 9] = normal | color | albedo/pi, reflectivity, roughness).
+
+    Under autograd, when one of the mesh's verts, normals, colors or
+    materials or the rays o, d requires grad, the query is `_ShadedWalk`:
+    t and attrs differentiate into them. Otherwise it walks the shading
+    planes alone, so a frame nobody differentiates carries no extra
+    plane."""
+    rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
+    if shared_origin is not None:
+        shared_origin = shared_origin.detach()
+    if not _differentiated(mesh.verts, mesh.normals, mesh.colors,
+                           mesh.materials, o, d):
+        t, slot, attrs_k = nearest_hit_attrs_soa(
+            accel, rays8, eps, early_exit=early_exit, wq=wq,
+            shared_origin=shared_origin)
+        return _shaded(accel, t, slot, attrs_k)
+    if mesh.num_triangles > _MAX_GRAD_TRIANGLES:
+        raise ValueError(
+            f"a differentiated query on {mesh.num_triangles} triangles: "
+            f"the backward carries triangle ids as f32, exact only up to "
+            f"{_MAX_GRAD_TRIANGLES} triangles")
+    t, slot, attrs = _ShadedWalk.apply(
+        mesh.verts, mesh.normals, mesh.colors, mesh.materials, o, d,
+        mesh.tri_v, (accel, rays8, eps, early_exit, wq, shared_origin))
+    hit = torch.isfinite(t.detach())
+    return Hit(t=t, tri=torch.where(hit, slot, 0), hit=hit), attrs
 
 
 # ---------------------------------------------------------------------------

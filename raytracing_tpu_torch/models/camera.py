@@ -21,6 +21,16 @@ from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.sampling import stratified_grid
 
 
+def camera_rays(config: RenderConfig, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All primary rays of a frame: (o, d) [spp, H, W, 3], origins 0 —
+    `camera_rays_for_ids` of every flat id, so the same bits."""
+    spp, h, w = config.samples_per_pixel, config.height, config.width
+    ids = torch.arange(spp * h * w, dtype=torch.int64, device=device)
+    o, d = camera_rays_for_ids(ids, config)
+    return o.reshape(spp, h, w, 3), d.reshape(spp, h, w, 3)
+
+
 def camera_rays_for_ids(ids: torch.Tensor, config: RenderConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary rays for flat ray ids in [spp, H, W] order -> (o, d) [N, 3]."""

@@ -90,7 +90,7 @@ def trace_paths(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                 radiance, orig)
         wq = config.gi_wq and not first
         h, attrs = nearest_hit_shaded(
-            acc_l, o, d, config, alive=alive,
+            mesh, acc_l, o, d, config, alive=alive,
             early_exit=True if not first and config.gi_early_exit else None,
             wq=wq,
             # Primaries share the pinhole origin; later segments do not.

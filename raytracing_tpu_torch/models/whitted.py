@@ -39,7 +39,7 @@ from raytracing_tpu_torch.models.camera import (
 from raytracing_tpu_torch.ops.color import gamma_correct
 from raytracing_tpu_torch.ops.intersect import (INF, ray_sphere, reflect,
                                                 triangle_normal)
-from raytracing_tpu_torch.ops.linalg import dot, normalize
+from raytracing_tpu_torch.ops.linalg import dot, normalize, sqrt0
 from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere, sample_cone,
                                                stratified_offsets)
 from raytracing_tpu_torch.tracer import (any_hit, nearest_hit_shaded,
@@ -114,7 +114,7 @@ def light_cone(lights: SphereLight, li: int, pos) -> LightCone:
     dist = torch.sqrt((to_c * to_c).sum(dim=-1))
     safe = torch.clamp_min(dist, 1e-20)
     sin_max = torch.clamp(rad / safe, 0.0, 1.0)
-    cos_max = torch.sqrt(torch.clamp_min(1.0 - sin_max * sin_max, 0.0))
+    cos_max = sqrt0(1.0 - sin_max * sin_max)
     return LightCone(c, rad, dist, to_c / safe[:, None], cos_max,
                      2.0 * math.pi * (1.0 - cos_max))
 
@@ -162,7 +162,7 @@ def _check_config(config: RenderConfig) -> None:
     if config.gi_cap_frac > 0.0:
         raise NotImplementedError(
             "gi_cap_frac > 0 (two-phase capped bounce queries) is not "
-            "ported (ROADMAP Queue 1 item 13)")
+            "ported (ROADMAP Queue 1, the off-main-path variants)")
 
 
 def _bin_bounce(o_l, d_l, alive_l):
@@ -203,7 +203,7 @@ def bounce_wavefront(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                      config: RenderConfig, uniforms):
     """The depth-2 wavefront of primary rays o, d as the renderer traces
     it: children of the primary hits, binned. Returns (o, d, alive)."""
-    h, attrs = nearest_hit_shaded(accel, o, d, config)
+    h, attrs = nearest_hit_shaded(mesh, accel, o, d, config)
     sh = shade(mesh, accel, sun, o, d, h, config, attrs, bin_shadow=False)
     o_c, d_c, a_c, _, _ = _children(d, h, sh, config, 1, uniforms)
     return _bin_bounce(o_c, d_c, a_c)[1]
@@ -226,7 +226,14 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
     camera_chunk: (first block, offs [spp, 2], bh, bw) when o, d are
     config's camera rays of whole bh x bw blocks from that block on, in
     block order: the first level then runs in camera mode and reads o, d
-    only for shading."""
+    only for shading.
+
+    Differentiable with respect to the mesh (verts, normals, colors,
+    materials), the lights (center, radius, emission), the sun and the
+    rays: the nearest queries are `_ShadedWalk`s when something requires
+    grad (camera mode stays detached, as in the JAX package), while which
+    triangle a ray hits, every occlusion query and the per-ray t_max of a
+    light's shadow ray stay detached."""
     _check_config(config)
     s = config.diffuse_scatter
     sky = torch.tensor(config.sky_color, dtype=o.dtype, device=o.device)
@@ -255,7 +262,7 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                 acc_l, offs_c, config, tb, n_l // rt_c, bh_c, bw_c)
         else:
             h, attrs = nearest_hit_shaded(
-                acc_l, o_l, d_l, config, alive=alive_l,
+                mesh, acc_l, o_l, d_l, config, alive=alive_l,
                 early_exit=True if bounce and config.gi_early_exit else None,
                 wq=wq,
                 # Primaries share the pinhole origin; bounce levels do not.

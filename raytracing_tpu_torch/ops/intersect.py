@@ -11,7 +11,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from raytracing_tpu_torch.ops.linalg import cross, dot
+from raytracing_tpu_torch.ops.linalg import cross, dot, sqrt0
 
 INF = float("inf")
 
@@ -64,7 +64,7 @@ def ray_sphere(o, d, center, radius, t_max,
     half_b = dot(oc, d)
     c = dot(oc, oc) - radius * radius
     disc = half_b * half_b - a * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt0(disc)
     t = (-half_b - sq) / torch.where(torch.abs(a) >= eps, a,
                                      torch.ones_like(a))
     valid = (disc > 0.0) & (t > eps) & (t < t_max)

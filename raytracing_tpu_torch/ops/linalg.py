@@ -30,6 +30,15 @@ def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     return a / torch.sqrt(n2)
 
 
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) whose gradient is 0 where x <= 0: the same values,
+    but no inf (sqrt's slope at 0) that a zero cotangent turns into NaN.
+    A cone sampled around a light at 1e4 units has cos_max = 1 in f32 and
+    so a sine of exactly 0."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def device_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """`value` as a 0-dim f32 tensor on `like`'s device. Dividing by it is
     an IEEE division on every device; PyTorch's CUDA division by a Python

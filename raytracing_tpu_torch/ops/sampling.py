@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from raytracing_tpu_torch.ops.linalg import cross, normalize
+from raytracing_tpu_torch.ops.linalg import cross, normalize, sqrt0
 
 
 def tangent_frame(n: torch.Tensor, eps: float = 1e-6
@@ -34,7 +34,7 @@ def cosine_hemisphere(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     u [..., N, 2]: sin_theta = sqrt(u0), cos_theta = sqrt(1 - u0),
     psi = 2 pi u1. Returns [..., N, 3]."""
     sin_theta = torch.sqrt(u[..., 0])
-    cos_theta = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
+    cos_theta = sqrt0(1.0 - u[..., 0])
     psi = 2.0 * math.pi * u[..., 1]
     a = sin_theta * torch.cos(psi)
     b = sin_theta * torch.sin(psi)
@@ -50,7 +50,7 @@ def sample_cone(u: torch.Tensor, axis: torch.Tensor,
     sampler of a spherical light: cos_theta = 1 - u0 (1 - cos_max),
     psi = 2 pi u1; pdf = 1 / (2 pi (1 - cos_max)). Returns [..., N, 3]."""
     cos_t = 1.0 - u[..., 0] * (1.0 - cos_max)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = sqrt0(1.0 - cos_t * cos_t)
     psi = 2.0 * math.pi * u[..., 1]
     t1, t2 = tangent_frame(axis)
     d = ((sin_t * torch.cos(psi))[..., None] * t1

@@ -1,6 +1,7 @@
 """Which walk a query takes, and that every one of them gives the same
-answer: the streamed-groups walk (K3) and the K1 group loop behind a table
-above the group budget, the work-queue walk (K4) behind
+answer: the streamed-groups walk (K3) behind a table above the group
+budget (and the K1 group loop of tools/group_loop.py, its witness), the
+work-queue walk (K4) behind
 `_WQ_IMPL = "grid"`. CPU tensors, so each wrapper runs its plain version;
 the kernels themselves against these are tests/test_torch_gpu.py.
 
@@ -27,6 +28,7 @@ from raytracing_tpu.geometry.scene import build_default_scene as jax_scene
 import raytracing_tpu_torch.kernels.traverse as T
 from raytracing_tpu_torch.accel import packets
 from raytracing_tpu_torch.accel.packets import accel_from_numpy
+from tools.group_loop import walk_groups_loop
 
 torch.set_num_threads(2)
 
@@ -107,7 +109,8 @@ def test_grouped_walk_matches_single_group(accels, monkeypatch, streamed,
     single = _flat(_queries(acc, p, tmax, early_exit=early))
     assert 50 < int(torch.isfinite(single[0]).sum()) < 250
     monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
-    monkeypatch.setattr(T, "STREAM_GROUPS", streamed)
+    if not streamed:
+        monkeypatch.setattr(T, "_walk_over_budget", walk_groups_loop)
     assert T._group_clusters(acc, 4) == 256
     grouped = _flat(_queries(acc, p, tmax, early_exit=early))
     for a, b in zip(grouped, single):
@@ -234,7 +237,8 @@ def test_walk_groups_dispatch(accels, monkeypatch, case, expect):
     if "budget" in case:
         monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES",
                             case["budget"])
-    monkeypatch.setattr(T, "STREAM_GROUPS", case.get("streamed", True))
+    if not case.get("streamed", True):
+        monkeypatch.setattr(T, "_walk_over_budget", walk_groups_loop)
     monkeypatch.setattr(T, "_WQ_IMPL", case.get("impl", "dma"))
     _, acc = accels[case["cs"]]
     tp = torch.from_numpy(_camera_pack(5, 1024))

@@ -22,7 +22,12 @@ the camera walk to the pack path under shared_origin=0 and K3 to one K1
 launch over the whole table, ten launches each equal;
 camera rays on the card bit-equal to the CPU's; a frame on the card within
 1e-4 of the CPU frame (torch's CUDA and CPU sin/cos in the sampler differ
-by ulps).
+by ulps); the walks that carry the backward's planes beside the shading
+planes (A = 15 in objid mode, 20 in full mode) bit-equal to their plain
+versions and to the shading walk; gradients of a render on the card within
+1e-5 of each table's largest magnitude of the CPU's (the backward's
+scatter-adds are atomics on the card, in another order), the limit
+chip_smoke.py holds its 32x32 frame's gradients to.
 """
 
 import numpy as np
@@ -39,6 +44,7 @@ from raytracing_tpu_torch.models.camera import (block_ray_ids,
                                                 camera_rays_for_ids)
 from raytracing_tpu_torch.models.whitted import render
 from raytracing_tpu_torch.ops.sampling import stratified_offsets
+from tools.group_loop import walk_groups_loop
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -194,10 +200,9 @@ def test_gstream_kernel_matches_plain(setup, dev, monkeypatch, pmto, per_ray):
     occ = T.walk_gstream(*oargs, **okw)
     _assert_walks_equal(occ, T.walk_gstream_plain(*oargs), m)
     _assert_walks_equal(occ, single_occ, m)
-    monkeypatch.setattr(T, "STREAM_GROUPS", False)
     before = T.LAUNCHES["walk"]
-    loop = T._walk_groups(acc, g, 1e-8, True, T.INF, na, early_exit=True,
-                          shared_origin=so)
+    loop = walk_groups_loop(acc, g, 1e-8, True, T.INF, na, early_exit=True,
+                            shared_origin=so)
     assert T.LAUNCHES["walk"] == before + 4
     _assert_walks_equal(kern, loop, m)
 
@@ -726,3 +731,110 @@ def test_frame_matches_cpu(dev, camera):
                     .cpu())
     assert bool(torch.isfinite(imgs[0]).all())
     assert float((imgs[0] - imgs[1]).abs().max()) <= 1e-4
+
+
+def _full_mode(mesh):
+    """The mesh with a color per triangle: 9 shading planes, not 4."""
+    tri = torch.arange(mesh.colors.shape[0], dtype=torch.float32)[:, None]
+    return mesh._replace(colors=(mesh.colors * (0.5 + 0.5 * torch.cos(tri)))
+                         .clamp(0, 1).contiguous())
+
+
+@pytest.mark.parametrize("mode", ["objid", "full"])
+@pytest.mark.parametrize("entry", ["walk", "walk_dma"])
+def test_both_walks_match_plain(setup, dev, mode, entry):
+    """K1 (CS 16, primaries) and K2 (CS 128, bounce rays, early exit)
+    carrying the shading and the backward's planes (A = 15 or 20): bit-
+    equal to their plain versions, and to the shading walk in t, slots and
+    the shading planes."""
+    _, packs = setup
+    mesh = build_default_scene(device="cpu").mesh
+    if mode == "full":
+        mesh = _full_mode(mesh)
+    cs = 16 if entry == "walk" else 128
+    acc = build_cluster_accel(mesh, cluster_size=cs).to(dev)
+    na = acc.attr_blocks.shape[1]
+    assert na == (4 if mode == "objid" else 9)
+    p = (packs[0] if entry == "walk" else packs[1]).to(dev)
+    m = p[7] != 0
+    make = T._groups_walk_args if entry == "walk" else T._dma_walk_args
+    out = {}
+    for kind in ("shade", "both"):
+        n = T._n_attrs(acc, kind)
+        args, kw = make(acc, p, 1e-8, True, T.INF, n, early_exit=True,
+                        attr_kind=kind)
+        assert args[5] == n and args[4].shape[1] >= n
+        assert kw["entry"] == entry + ("_both" if kind == "both" else "")
+        before = T.LAUNCHES[kw["entry"]]
+        out[kind] = T.walk(*args, **kw)
+        assert T.LAUNCHES[kw["entry"]] == before + 1
+        _assert_walks_equal(out[kind], T.walk_plain(*args), m)
+    assert out["both"][2].shape[0] == na + 11
+    t, s, a = out["shade"]
+    tb, sb, ab = out["both"]
+    assert torch.equal(t[..., m], tb[..., m])
+    assert torch.equal(s[..., m], sb[..., m])
+    assert torch.equal(a[:, m], ab[:na, m])
+
+
+def _tri_scene(dev):
+    """tests/test_grad.py's triangle facing the camera and the sun."""
+    from raytracing_tpu_torch.geometry.mesh import Scene, concat_objects
+
+    mesh = concat_objects([{
+        "verts": np.array([[-2.0, -2.0, 5.0], [3.0, -2.0, 5.0],
+                           [-2.0, 3.0, 5.0]], np.float32),
+        "tri_v": np.array([[0, 2, 1]], np.int32),
+        "colors": np.array([0.8, 0.6, 0.4], np.float32),
+        "material": (1.0, 0.5, 0.5)}])
+    return Scene(mesh.to(dev), torch.tensor([200.0, 300.0, -1000.0],
+                                            device=dev))
+
+
+@pytest.mark.parametrize("normals", ["geometric", "stored"])
+def test_gradients_on_the_card_match_the_cpu(dev, normals):
+    """The differentiated render (the fused "both" walk forward, the
+    re-derivation and scatter-adds backward) on the card against the CPU
+    port, same rays and uniforms, every table within 1e-5 of its largest
+    magnitude; on the card it launches the walk with A = 15."""
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    cfg = RenderConfig(width=8, height=8, samples_per_pixel=1,
+                       reflect_depth=3, diffuse_depth=2, diffuse_scatter=4,
+                       normals=normals)
+    n = 16
+    xs = np.linspace(-0.1, 0.15, n).astype(np.float32)
+    o = np.zeros((n, 3), np.float32)
+    d = np.stack([xs, xs * 0.5 + 0.02, np.ones(n, np.float32)], axis=-1)
+    g = torch.Generator().manual_seed(3)
+    draws = {}
+
+    def uniforms(tag, shape):
+        if tag not in draws:
+            draws[tag] = torch.rand(shape, generator=g)
+        return draws[tag]
+
+    names = ("verts", "normals", "colors", "materials")
+    grads = []
+    for dv in (dev, torch.device("cpu")):
+        scene = _tri_scene(dv)
+        acc = build_cluster_accel(scene.mesh, cluster_size=8)
+        tables = {k: getattr(scene.mesh, k).clone().requires_grad_()
+                  for k in names}
+        before = T.LAUNCHES["walk_both"]
+        rgb = render_rays(scene.mesh._replace(**tables), acc, scene.sun,
+                          torch.from_numpy(o).to(dv),
+                          torch.from_numpy(d).to(dv), cfg,
+                          lambda tag, shape: uniforms(tag, shape).to(dv))
+        (rgb * rgb).sum().backward()
+        if dv.type == "cuda":
+            assert T.LAUNCHES["walk_both"] > before
+        grads.append({k: tables[k].grad.cpu() for k in names})
+    for k in names:
+        card, cpu = grads[0][k], grads[1][k]
+        assert bool(torch.isfinite(card).all()), k
+        scale = float(cpu.abs().max())
+        if k != "normals" or normals == "stored":
+            assert scale > 0, k
+        err = float((card - cpu).abs().max())
+        assert err <= 1e-5 * scale, (k, err, scale)

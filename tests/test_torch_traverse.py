@@ -23,6 +23,7 @@ from raytracing_tpu.models import camera as JC
 import raytracing_tpu_torch.kernels.traverse as T
 from raytracing_tpu_torch.accel.packets import accel_from_numpy
 from raytracing_tpu_torch.config import RenderConfig
+from raytracing_tpu_torch.geometry.mesh import Mesh
 from raytracing_tpu_torch.kernels import binning as TB
 from raytracing_tpu_torch.models import camera as TC
 
@@ -168,9 +169,12 @@ def test_shaded_query_expands_objid(packs, accels):
     p = packs[0]
     o = torch.from_numpy(p[0:3].T.copy())
     d = torch.from_numpy(p[4:7].T.copy())
-    h, attrs = T.nearest_hit_shaded(t_acc, o, d)
+    jm = jax_scene(t=0.0).mesh
+    mesh = Mesh(*(torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+                  for v in jm))
+    h, attrs = T.nearest_hit_shaded(mesh, t_acc, o, d)
     jh, jattrs = JT.nearest_hit_shaded(
-        jax_scene(t=0.0).mesh, j_acc, jnp.asarray(p[0:3].T),
+        jm, j_acc, jnp.asarray(p[0:3].T),
         jnp.asarray(p[4:7].T), interpret=True)
     np.testing.assert_array_equal(h.hit.numpy(), np.asarray(jh.hit))
     np.testing.assert_array_equal(h.tri.numpy(), np.asarray(jh.tri))
