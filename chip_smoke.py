@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
      them, and refuse a spill in the split walks (`walk.cu`, `camera.cu`,
      `gstream.cu`) and the refinement (`refine.cu`);
   3. kernels against their plain PyTorch versions, on the card, at the
-     main paths' shapes; median time of 5 runs each:
+     main paths' shapes; median time of 5 runs each (K6 also read
+     steadily: 200 launches of its entry in one pair of CUDA events
+     over copies of its pack in turns, beside the graphed PyTorch
+     composite):
      a. the reference frame's busiest 65,536-ray chunk of camera rays
         (CS=16 accel, the `_walk_groups` entry, with the default and the
         origin-folded intersector) and that chunk's binned depth-2
@@ -76,9 +79,12 @@ Phases (any failure raises and the script exits non-zero):
      grew phases 8 and 9); the same with `primary_shared_origin=True`
      (camera-mode primaries), its chunk-20 `walk_camera` launch kept
      for 3b;
-  6. headline — `nearest_hit_camera_soa` at 800x800x4 on the default
-     scene, CS=16, the offsets perturbed by each call's result: primary
-     rays/s, gated on a plausible hit fraction;
+  6. headline — `python -m raytracing_tpu_torch bench` in process
+     (`raytracing_tpu_torch/bench.py`, which also times the frames, the
+     large scenes and the backward of phases 5 and 7-10):
+     `nearest_hit_camera_soa` at 800x800x4 on the default scene, CS=16,
+     the offsets perturbed by each call's result: primary rays/s, gated
+     on a plausible hit fraction;
   7. large scenes — the same query on the subdivided teapot at 404k
      (CS=64), 1.6M and 6.4M (CS=128) triangles, with mesh-generation and
      accel-build seconds, the pack-path query `nearest_hit_soa` at 1.6M and
@@ -109,11 +115,27 @@ Phases (any failure raises and the script exits non-zero):
  12. the inverse fit at `cmd_fit`'s defaults: 20 steps of 4,096 rays,
      Adam at lr 1e-2, from colors x 0.5 toward the port's own 800x800x4
      render; the held-out loss falls, a checkpoint saved at step 10
-     loads back bit for bit.
+     loads back bit for bit;
+ 13. the command line (`python -m raytracing_tpu_torch`) in process at
+     full width: `render` of the reference frame through an accel cache,
+     built then loaded (the cache equal to a fresh build, both PNGs equal
+     to `render()` in u8 bit for bit), `render` at the CLI's defaults
+     (its launches are the kernel table's "per CLI render" column; its
+     PNG has the sky's colour and the reference frame's mean; its busiest
+     K1 and K2 launches and its K5+K6 and K6 launches with the most alive
+     lanes, captured, against their plain versions: rows walk_cli,
+     walk_dma_cli, refine_extents_cli, extents_cli),
+     `render --profile` (the trace names the walk and refinement
+     kernels), `fit` at its defaults for 20 steps, then for 60 with a
+     checkpoint (the step-50 snapshot holds the live params) and
+     `--resume` for 5,
+     `animate --frames 3`;
+ 14. recovery on the card: `device_alive()`, `with_retry` past a real
+     out-of-memory error, a retried fit step bit-equal to a clean one.
 
 Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
 queries, 7's Whitted frame, 8, 9, 9's "grid" frame, each configuration of
-10, 12's steps)
+10, 12's steps, 13's default render)
 runs with the launch counts set to 0 just before and read just after. A
 plain version that takes seconds is timed once, by the run that checks the
 kernel. The last two lines are the kernel table and the result, each one
@@ -133,6 +155,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FRAME_PARITY_ATOL = 1e-4  # torch's CUDA and CPU sin/cos differ by ulps
 SKY_ATOL = 1e-3
+# The CLI's default frame against the reference frame: the same scene and
+# camera, other samples (another cluster size and other chunks): the
+# means of 640,000 pixels, in u8 counts, agree within the samples' noise,
+# which averages far below half a count; a kernel that lost or misplaced
+# hits would move whole regions.
+CLI_MEAN_ATOL = 0.5
 # Phase 3 traces chunk 20 of the reference frame: the busiest one (48,518
 # of its 65,536 primaries hit a teapot, the rest the ground); the frame's
 # first 16 chunks are all sky and would leave the bounce level empty.
@@ -167,8 +195,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                          "raytracing_tpu/kernels/traverse.py:972"),
     "walk_dma_both": ("raytracing_tpu_torch/csrc/walk.cu",
                       "raytracing_tpu/kernels/traverse.py:1819"),
+    # The launches of `render` at the CLI's defaults (phase 13).
+    "walk_cli": ("raytracing_tpu_torch/csrc/walk.cu",
+                 "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_dma_cli": ("raytracing_tpu_torch/csrc/walk.cu",
+                     "raytracing_tpu/kernels/traverse.py:1819"),
+    "refine_extents_cli": ("raytracing_tpu_torch/csrc/refine.cu",
+                           "raytracing_tpu/kernels/traverse.py:498"),
+    "extents_cli": ("raytracing_tpu_torch/csrc/extents.cu",
+                    "raytracing_tpu/kernels/traverse.py:163"),
 }
-LIGHT = ((1.0, 8.0, 7.0), 1.5, (1.5, 1.5, 1.5))  # centre, radius, emission
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
 PEAK_FP32 = 67e12
@@ -177,8 +213,10 @@ PEAK_HBM = 3.35e12
 # (t, slot) update included, as counted in csrc/walk_core.cuh; per
 # (ray, box) slab test in csrc/refine.cu; per ray in csrc/extents.cu.
 OPS_PMT, OPS_PMTO, OPS_SLAB, OPS_EXTENTS = 40, 30, 30, 16
-HIT_GATE = (0.2, 0.9)         # default scene, as the JAX benchmark gates it
-HIT_GATE_LARGE = (0.05, 0.95)  # subdivided teapot
+# K6's steady reading: back-to-back launches in one pair of CUDA events,
+# over copies of its 23 MB pack that together exceed the card's 50 MB L2.
+STEADY_LAUNCHES = 200
+L2_COPIES = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -254,6 +292,136 @@ def _row(rows, name, err, kernel_fn, plain_fn, bound, shape, plain_reps=5,
     print(f"[kernels] time {name}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
           f"({shape})")
+
+
+def _extents_row(rows, name, bp):
+    """K6 (`tile_extents`) on the pack `bp` against its plain version, bit
+    for bit, timed into rows[name]. Returns the plain (lo, hi)."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    lo, hi = T.tile_extents(bp)
+    plo, phi = T.tile_extents_plain(bp)
+    _require(torch.equal(lo, plo) and torch.equal(hi, phi),
+             f"{name} (K6): lo/hi differ")
+    live = phi[:, 7] > 0
+    err = float(torch.cat([(lo - plo)[live], (hi - phi)[live]]).abs().max()
+                ) if live.any() else 0.0
+    nt = bp.shape[1] // T.RAY_TILE
+    print(f"[kernels] {name} (K6): {nt} tiles, {int(live.sum())} alive, "
+          f"equal")
+    _row(rows, name, err, lambda: T.tile_extents(bp),
+         lambda: T.tile_extents_plain(bp),
+         _bound(OPS_EXTENTS * bp.shape[1], bp.numel() * 4 + nt * 64),
+         f"{bp.shape[1]} rays")
+    return plo, phi
+
+
+def _refine_extents_row(rows, name, rargs, shape):
+    """K5 dense with K6's extents (`refine_dense_extents`) on (pack, boxes)
+    `rargs` against its plain version, extents and bits bit for bit,
+    timed into rows[name] with its bound from this data's entered bits."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    bp = rargs[0]
+    flo, fhi, fent = T.refine_dense_extents(*rargs)
+    plo, phi, pent = T.refine_dense_extents_plain(*rargs)
+    _require(torch.equal(flo, plo) and torch.equal(fhi, phi)
+             and torch.equal(fent, pent),
+             f"{name} (K5 dense + K6): extents or bits differ from "
+             f"tile_extents_plain / refine_dense_plain")
+    live = phi[:, 7] > 0
+    err = float(torch.cat([(flo - plo)[live], (fhi - phi)[live]]).abs().max()
+                ) if live.any() else 0.0
+    c, nt = rargs[1].shape[0], bp.shape[1] // T.RAY_TILE
+    _, _, tests = _refine_bound(_tile_alive_lanes(bp),
+                                live.to(torch.int32) * c, pent.sum(dim=1),
+                                bp, c, c)
+    print(f"[kernels] {name} (K5 dense + K6): extents and bits equal; "
+          f"{int(pent.sum())} of {pent.numel()} bits set; "
+          f"{_list_stats(live * c, _tile_alive_lanes(bp))}")
+    _row(rows, name, err, lambda: T.refine_dense_extents(*rargs),
+         lambda: T.refine_dense_extents_plain(*rargs),
+         _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
+                bp.numel() * 4 + c * 24 + nt * 64 + nt * c * 4), shape)
+
+
+def _steady_ms(fn, n=STEADY_LAUNCHES):
+    """ms per call of `fn` over `n` back-to-back calls in one pair of CUDA
+    events, after 10 warm-up calls: a launch of 10-50 us, which the median
+    of 5 single calls cannot resolve."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _steady_extents(rows, bp, plo, phi):
+    """K6 read steadily at the wavefront's shape: its kernel's entry called
+    directly (no wrapper in the loop) STEADY_LAUNCHES times in one pair of
+    CUDA events, in turns on L2_COPIES copies of the pack, so each launch
+    reads its pack from device memory as the bound counts; beside it the
+    plain PyTorch composite (`where`, `amin`, `amax` and the transposes of
+    `tile_extents_plain`) on the copies in turns, replayed from a CUDA
+    graph so that its time is the card's and not the host's. The row's ms
+    becomes the entry's reading."""
+    import itertools
+
+    import torch
+
+    from raytracing_tpu_torch.kernels import cuda
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    nt = bp.shape[1] // T.RAY_TILE
+    lib = cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    packs = [bp] + [bp.clone() for _ in range(L2_COPIES - 1)]
+    outs = [(torch.empty((nt, 8), device="cuda"),
+             torch.empty((nt, 8), device="cuda")) for _ in packs]
+    calls = [(p.data_ptr(), p.shape[1], lo.data_ptr(), hi.data_ptr(), stream)
+             for p, (lo, hi) in zip(packs, outs)]
+    for args in calls:
+        cuda.check(lib.rt_tile_extents(*args), "extents")
+    _require(all(torch.equal(lo, plo) and torch.equal(hi, phi)
+                 for lo, hi in outs),
+             "extents (K6), entry called directly: lo/hi differ")
+    turns = itertools.cycle(calls)
+    entry = _steady_ms(lambda: lib.rt_tile_extents(*next(turns)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for p in packs:
+            T.tile_extents_plain(p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = [T.tile_extents_plain(p) for p in packs]
+    graph.replay()
+    _require(all(torch.equal(lo, plo) and torch.equal(hi, phi)
+                 for lo, hi in graphed),
+             "extents: the graphed composite differs from the plain version")
+    composite = _steady_ms(graph.replay) / len(packs)
+    del graph, graphed, packs
+    row = rows["extents"]
+    bound = row["bound_ms"]
+    print(f"[kernels] extents (K6) steady, {STEADY_LAUNCHES} launches in one "
+          f"pair of events: entry {entry} ms over {L2_COPIES} packs in turns "
+          f"({bound / entry} of its {bound} ms bound by {row['bound_by']}); "
+          f"the PyTorch composite (graphed, packs in turns) {composite} ms, "
+          f"{composite / entry}x the entry; median of 5 wrapper calls "
+          f"{row['ms']} ms")
+    row["ms"] = entry
 
 
 def phase_device():
@@ -456,8 +624,8 @@ def _check_repeats(tag, fn, args, kw, alive, reps=10):
 def phase_kernels():
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
     from raytracing_tpu_torch.models.camera import (block_ray_ids,
@@ -510,20 +678,9 @@ def phase_kernels():
         lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
     bp, nb = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
     print(f"[kernels] depth-2 wavefront: {nb} rays, {int(ab.sum())} alive")
-    lo, hi = T.tile_extents(bp)
-    plo, phi = T.tile_extents_plain(bp)
-    _require(torch.equal(lo, plo) and torch.equal(hi, phi),
-             "extents (K6): lo/hi differ")
-    live = phi[:, 7] > 0
-    err = float(torch.cat([(lo - plo)[live], (hi - phi)[live]]).abs().max()
-                ) if live.any() else 0.0
-    nt = bp.shape[1] // T.RAY_TILE
-    print(f"[kernels] extents (K6): {nt} tiles, equal")
-    _row(rows, "extents", err, lambda: T.tile_extents(bp),
-         lambda: T.tile_extents_plain(bp),
-         _bound(OPS_EXTENTS * bp.shape[1], bp.numel() * 4 + nt * 64),
-         f"{bp.shape[1]} rays")
-    tile_alive = hi[:, 7] > 0.0
+    plo, phi = _extents_row(rows, "extents", bp)
+    _steady_extents(rows, bp, plo, phi)
+    tile_alive = phi[:, 7] > 0.0
     c128 = acc128.num_clusters
     rargs = (bp, acc128.cluster_min, acc128.cluster_max)
     pent = T.refine_dense_plain(*rargs, tile_alive=tile_alive)
@@ -545,18 +702,9 @@ def phase_kernels():
          f"given")
     # The dense query as `_refined_lists` launches it: K6's extents and the
     # entered bits in one launch, the tile-alive flag from its own extents.
-    flo, fhi, fent = T.refine_dense_extents(*rargs)
-    _require(torch.equal(flo, plo) and torch.equal(fhi, phi)
-             and torch.equal(fent, pent),
-             "refine_dense_extents (K5 dense + K6): extents or bits differ "
-             "from tile_extents_plain / refine_dense_plain")
-    print("[kernels] refine_dense_extents (K5 dense + K6): extents and bits "
-          "equal")
-    _row(rows, "refine_extents", err, lambda: T.refine_dense_extents(*rargs),
-         lambda: T.refine_dense_extents_plain(*rargs),
-         _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
-                bp.numel() * 4 + c128 * 24 + nt * 64 + nt * c128 * 4),
-         f"{bp.shape[1]} rays, {c128} clusters, the extents and the bits")
+    _refine_extents_row(rows, "refine_extents", rargs,
+                        f"{bp.shape[1]} rays, {c128} clusters, the extents "
+                        f"and the bits")
     balive = bp[7] != 0
     early = True if cfg.gi_early_exit else None  # as render_rays asks
     dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
@@ -577,7 +725,7 @@ def phase_kernels():
 
     # 3d. Per-ray t_max: the chunk's area-light shadow query (one sample of
     # `area_light_term` at the primary hits) through both pack entries.
-    lights = _light(dev)
+    lights = bench.sphere_light(dev)
     gen.manual_seed(3)
     w_dir, ndl, l_alive, t_stop = whitted.light_shadow_rays(
         whitted.light_cone(lights, 0, pos), pos, n, hit,
@@ -757,16 +905,6 @@ def _both_rows(rows, rp, bp, mesh, acc16, acc128, eps, early):
                   f"shading planes equal the shading walk's (A = {na}: "
                   f"{_median_ms(lambda: T.walk(*sargs, **skw)):.4f} ms)")
             del out, t, sl, a
-
-
-def _light(dev):
-    import torch
-
-    from raytracing_tpu_torch import SphereLight
-
-    c, r, e = LIGHT
-    return SphereLight(torch.tensor([c]), torch.tensor([r]),
-                       torch.tensor([e])).to(dev)
 
 
 def _refine_bound(alive_lanes, listed, entered, pack, width, n_clusters):
@@ -1046,76 +1184,6 @@ def phase_frame_parity():
               f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
 
 
-def _timed_frames(scene, cfg, accel, reps, gi_accel=None, pt=None):
-    """One frame with the launch counts reset and the queries counted, then
-    `reps` timed frames: the Whitted renderer, or with `pt` (a
-    PathTracerConfig) the path tracer. The alive lanes are summed on the
-    device, without a host sync, so the counted frame runs as any other.
-    Returns (img, launches, counts, first, times)."""
-    import torch
-
-    from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models import path_tracer, whitted
-
-    sync = torch.cuda.synchronize
-    queried = {"nearest": 0, "shadow": 0}
-    alive_sums = {"nearest": torch.zeros((), dtype=torch.int64, device="cuda"),
-                  "shadow": torch.zeros((), dtype=torch.int64, device="cuda")}
-    nearest, any_hit = whitted.nearest_hit_shaded, whitted.any_hit
-    camera = whitted.nearest_hit_shaded_camera
-
-    def count(kind, n, alive):
-        queried[kind] += n
-        alive_sums[kind] += n if alive is None else alive.sum()
-
-    def counted_nearest(mesh, acc, o, d, config, alive=None, **kw):
-        count("nearest", o.shape[0], alive)
-        return nearest(mesh, acc, o, d, config, alive=alive, **kw)
-
-    def counted_camera(acc, offs, config, tile_base, tiles, bh, bw):
-        count("nearest", tiles * config.samples_per_pixel * bh * bw, None)
-        return camera(acc, offs, config, tile_base, tiles, bh, bw)
-
-    def counted_any(acc, o, d, config, alive=None, **kw):
-        count("shadow", o.shape[0], alive)
-        return any_hit(acc, o, d, config, alive=alive, **kw)
-
-    def frame():
-        if pt is not None:
-            return path_tracer.render(scene, cfg, pt, accel=accel,
-                                      gi_accel=gi_accel)
-        return whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
-
-    whitted.nearest_hit_shaded, whitted.any_hit = counted_nearest, counted_any
-    whitted.nearest_hit_shaded_camera = counted_camera
-    path_tracer.nearest_hit_shaded = counted_nearest
-    try:
-        sync()
-        T.reset_launches()
-        t0 = time.perf_counter()
-        img = frame()
-        sync()
-        first = time.perf_counter() - t0
-        launches = dict(T.LAUNCHES)
-        counts = dict(queried)
-        for kind, total in alive_sums.items():
-            counts[kind + "_alive"] = int(total)
-    finally:
-        whitted.nearest_hit_shaded, whitted.any_hit = nearest, any_hit
-        whitted.nearest_hit_shaded_camera = camera
-        path_tracer.nearest_hit_shaded = nearest
-    times = []
-    for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        img = frame()
-        sync()
-        times.append(time.perf_counter() - t0)
-    _require(img.shape == (cfg.height, cfg.width, 3), f"shape {img.shape}")
-    _require(bool(torch.isfinite(img).all()), "frame not finite")
-    return img, launches, counts, first, times
-
-
 def _print_frame(tag, cfg, img, launches, counts, first, times):
     spf = statistics.median(times) if times else first
     alive = counts["nearest_alive"] + counts["shadow_alive"]
@@ -1142,8 +1210,8 @@ def phase_reference_frame(rows):
     counts."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.kernels import traverse as T
 
     cfg = RenderConfig()
@@ -1164,7 +1232,7 @@ def phase_reference_frame(rows):
         frame = []
         chunk = _capture_calls(
             "walk_camera", [KERNEL_CHUNK] if camera_mode else [],
-            lambda: frame.append(_timed_frames(scene, c, accel, 2)))
+            lambda: frame.append(bench.timed_frames(scene, c, accel, 2)))
         img, launches, counts, first, times = frame[0]
         err = float((img[2, 2].cpu() - sky).abs().max())
         _require(err <= SKY_ATOL, f"{tag}: sky pixel off by {err}")
@@ -1192,50 +1260,40 @@ def phase_reference_frame(rows):
 
 
 def _camera_rate(accel, w, h, spp, gate, iters, tag):
-    """Primary rays/s of `nearest_hit_camera_soa`: `iters` calls chained
-    through the offsets (each call's result perturbs the next one's, as
-    the JAX benchmark chains them), CUDA events, best of 3."""
-    import torch
+    """Primary rays/s of `nearest_hit_camera_soa` (`bench.camera_rate`:
+    `iters` chained calls in CUDA events, best of 3), gated on the hit
+    fraction."""
+    from raytracing_tpu_torch import bench
 
-    from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.ops.sampling import stratified_offsets
-
-    offs0 = stratified_offsets(spp, device="cuda")
-    n = w * h * spp
-
-    def frame(state):
-        t, _ = T.nearest_hit_camera_soa(accel, offs0 + state * 1e-12,
-                                        width=w, height=h, spp=spp)
-        hit = torch.isfinite(t)
-        return torch.where(hit, t, 0.0).sum() * 1e-20, hit.sum()
-
-    state, hits = frame(torch.zeros((), device="cuda"))
-    frac = int(hits) / n
+    rate, frac = bench.camera_rate(accel, w, h, spp, iters)
     _require(gate[0] < frac < gate[1],
              f"{tag}: implausible hit fraction {frac}")
-    best = float("inf")
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        st = state
-        a.record()
-        for _ in range(iters):
-            st, _ = frame(st)
-        b.record()
-        torch.cuda.synchronize()
-        best = min(best, a.elapsed_time(b) / 1e3 / iters)
     print(f"[{tag}] {w}x{h}x{spp}spp, {accel.num_clusters} clusters of "
-          f"{accel.cluster_size}: hit fraction {frac}, {best} s per call "
-          f"(best of 3 x {iters}) -> {n / best} primary rays/s")
-    return n / best
+          f"{accel.cluster_size}: hit fraction {frac}, {w * h * spp / rate} "
+          f"s per call (best of 3 x {iters}) -> {rate} primary rays/s")
+    return rate
 
 
 def phase_headline():
-    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+    """6. The headline through the CLI, `python -m raytracing_tpu_torch
+    bench` (`bench.measure`), in process: its JSON line names the card
+    and passes the hit gate."""
+    import torch
 
-    scene = build_default_scene(device="cuda")
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    return _camera_rate(accel, 800, 800, 4, HIT_GATE, 20, "headline")
+    from raytracing_tpu_torch import bench
+
+    out = _cli(["bench"])
+    rec = json.loads(out.strip().splitlines()[-1])
+    _require(rec["metric"] == "primary_rays_per_s_per_chip_teapot"
+             and rec["unit"] == "rays/s" and rec["value"] > 0
+             and rec["device"] == torch.cuda.get_device_name(0),
+             f"bench: record {rec}")
+    frac = rec["hit_fraction"]
+    _require(bench.HIT_GATE[0] < frac < bench.HIT_GATE[1],
+             f"bench: implausible hit fraction {frac}")
+    print(f"[headline] bench: {rec['value']} primary rays/s, hit fraction "
+          f"{frac}")
+    return rec["value"]
 
 
 def phase_large_scenes(rows, scene404, acc64, gi128, built404):
@@ -1249,7 +1307,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
     the 1.6M pack query and of the 1.6M frame."""
     import torch
 
-    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch import RenderConfig, bench, build_cluster_accel
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
@@ -1260,7 +1318,8 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
     camera = _reference_camera("cuda")
     _check_camera_frame(rows, "walk_camera_404k", "walk_camera", acc64,
                         camera, False)
-    _camera_rate(acc64, 800, 800, 4, HIT_GATE_LARGE, 10, "large 404k")
+    _camera_rate(acc64, 800, 800, 4, bench.HIT_GATE_LARGE, 10,
+                 "large 404k")
 
     rate_launches = gstream_launches = frame_launches = None
     for levels, tag, iters in ((4, "1m6", 10), (5, "6m4", 5)):
@@ -1310,7 +1369,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
             chunk = _capture_calls("walk_gstream", [k, k + 1], lambda:
                                    refines.extend(_capture_calls(
                                        "refine_lists", None, lambda:
-                                       frame.append(_timed_frames(
+                                       frame.append(bench.timed_frames(
                                            Scene(mesh=mesh, sun=sun_position(
                                                0.0).to("cuda")),
                                            RenderConfig(), acc, 0)))))
@@ -1334,7 +1393,8 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
             del busiest
         torch.cuda.reset_peak_memory_stats()
         T.reset_launches()
-        _camera_rate(acc, 800, 800, 4, HIT_GATE_LARGE, iters, f"large {tag}")
+        _camera_rate(acc, 800, 800, 4, bench.HIT_GATE_LARGE, iters,
+                     f"large {tag}")
         print(f"[large {tag}] peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB")
         _require(T.LAUNCHES["walk_camera_dma"] > 0,
@@ -1343,7 +1403,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
         del acc, mesh
 
     cfg = RenderConfig()
-    img, launches, counts, first, times = _timed_frames(
+    img, launches, counts, first, times = bench.timed_frames(
         scene404, cfg, acc64, 0, gi_accel=gi128)
     for k in ("refine_lists", "walk_dma", "walk", "extents"):
         _require(launches[k] > 0,
@@ -1496,7 +1556,7 @@ def phase_path_traced_frame():
     bounces) after the counted one. Returns its launches."""
     import torch
 
-    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig,
+    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig, bench,
                                       build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.models import path_tracer
 
@@ -1532,8 +1592,8 @@ def phase_path_traced_frame():
     pt = PathTracerConfig(max_bounces=4, samples_per_pixel=64)
     scene = build_default_scene(device="cuda")
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    img, launches, counts, first, times = _timed_frames(scene, cfg, accel, 1,
-                                                        pt=pt)
+    img, launches, counts, first, times = bench.timed_frames(
+        scene, cfg, accel, 1, pt=pt)
     sky = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
     err = float((img[2, 2].cpu() - sky).abs().max())
     _require(err <= SKY_ATOL, f"path-traced frame: sky pixel off by {err}")
@@ -1557,17 +1617,18 @@ def phase_area_light_frame():
     the K4 frame."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
 
     base = build_default_scene(device="cuda")
-    scene = Scene(base.mesh, base.sun, _light("cuda"))
+    scene = Scene(base.mesh, base.sun, bench.sphere_light("cuda"))
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
     cfg = RenderConfig(light_samples=4)
-    img, launches, counts, first, times = _timed_frames(scene, cfg, accel, 1)
+    img, launches, counts, first, times = bench.timed_frames(
+        scene, cfg, accel, 1)
     dark = whitted.render(base, cfg, accel=accel)
     _require(bool((img.mean() > dark.mean())),
              "the light adds no radiance to the frame")
@@ -1611,87 +1672,39 @@ def phase_area_light_frame():
     return launches, grid_launches
 
 
-GRAD_TABLES = ("verts", "colors", "materials")
 # Card against CPU gradients (11): each table within this share of its
 # largest magnitude on the CPU; the backward's scatter-adds are atomics on
 # the card, so sums come in another order, and the sampler's sin/cos differ
 # by ulps between the devices. An H100 80GB HBM3 at 700 W read 7.6e-8 to
 # 7.0e-7 over two runs (PERF.md).
 GRAD_PARITY_RTOL = 1e-5
-BACKWARD_REPS = 3
 
 
 def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
                    keep=None):
-    """(b) One configuration of `bench_suite.py:80-130`'s backward: the
-    262,144 camera rays of blocks 90-105 (16,384 rays each) of the
-    800x800x4 reference frame through `render_rays`, loss sum(rgb^2),
-    gradients for verts, colors and materials. The forward without grad
-    and the forward + backward, synchronised, each a median of
-    BACKWARD_REPS after a warm-up; their ratio; the launches and the peak
-    device memory of one forward + backward. `keep` = (entry, picks):
-    the `walk` launches of that entry, numbered from 0 in the counted
-    forward, to keep. Returns (its launches, the kept (args, kw))."""
-    import torch
+    """(b) One configuration of `bench_suite.py:80-130`'s backward, timed
+    by `bench.backward_262k` (forward without grad, forward + backward,
+    each a median of 3 after a warm-up; one counted forward + backward),
+    gated here: the same loss under grad, every gradient finite and
+    nonzero, the walks launched. `keep` = (entry, picks): the `walk`
+    launches of that entry, numbered from 0 in the counted run, to keep.
+    Returns (its launches, the kept (args, kw))."""
+    from raytracing_tpu_torch import bench
 
-    from raytracing_tpu_torch import RenderConfig
-    from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models.camera import (block_ray_ids,
-                                                    camera_rays_for_ids)
-    from raytracing_tpu_torch.models.whitted import render_rays
+    kept = []
 
-    cfg = RenderConfig()
-    ids = torch.cat([block_ray_ids(i, 16384, cfg, 16, 16, device="cuda")
-                     for i in range(90, 106)])
-    o, d = camera_rays_for_ids(ids, cfg)
+    def around(run):
+        kept.extend(_capture_calls("walk", keep[1], run, entry=keep[0]))
 
-    def run(grad):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(3)
-        tables = {k: getattr(scene.mesh, k).clone().requires_grad_(grad)
-                  for k in GRAD_TABLES}
-        with torch.set_grad_enabled(grad):
-            rgb = render_rays(
-                scene.mesh._replace(**tables), accel, scene.sun, o, d, cfg,
-                lambda tag, shape: torch.rand(shape, generator=gen,
-                                              device="cuda"),
-                gi_accel=gi_accel, lights=lights)
-            loss = (rgb * rgb).sum()
-        if grad:
-            loss.backward()
-        return loss.detach(), {k: v.grad for k, v in tables.items()}
-
-    def timed(grad):
-        run(grad)  # warm-up
-        times = []
-        for _ in range(BACKWARD_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = run(grad)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return out, times
-
-    (loss_f, _), fwd = timed(False)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    T.reset_launches()
-    out, kept = [], []
-    if keep is None:
-        out.append(run(True))
-    else:
-        kept = _capture_calls("walk", keep[1], lambda: out.append(run(True)),
-                              entry=keep[0])
-    (loss_b, grads), = out
-    torch.cuda.synchronize()
-    launches = dict(T.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    _, bwd = timed(True)
-    _require(torch.equal(loss_f, loss_b), f"backward {tag}: the forward "
-             f"under grad gives another loss ({float(loss_b)} against "
+    b = bench.backward_262k(scene, accel, gi_accel=gi_accel, lights=lights,
+                            around_counted=None if keep is None else around)
+    loss_f, loss_b, grads = b["loss_f"], b["loss_b"], b["grads"]
+    launches, fwd, bwd = b["launches"], b["fwd_ms"], b["bwd_ms"]
+    _require(bool(loss_f == loss_b), f"backward {tag}: the forward under "
+             f"grad gives another loss ({float(loss_b)} against "
              f"{float(loss_f)})")
     for k, g in grads.items():
-        _require(g is not None and bool(torch.isfinite(g).all())
+        _require(g is not None and bool(g.isfinite().all())
                  and float(g.abs().max()) > 0,
                  f"backward {tag}: the {k} gradient is not finite and "
                  f"nonzero")
@@ -1703,7 +1716,7 @@ def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
     print(f"[backward] {tag}: 262,144 rays, loss {float(loss_b)}; forward "
           f"(no grad) {fwd} ms, median {tf} ms; forward + backward {bwd} ms, "
           f"median {tb} ms; ratio {tb / tf}; peak device "
-          f"{peak} GiB; launches {launches}; max |grad| "
+          f"{b['peak_gib']} GiB; launches {launches}; max |grad| "
           + ", ".join(f"{k} {float(g.abs().max())}"
                       for k, g in grads.items()))
     return launches, kept
@@ -1735,14 +1748,15 @@ def phase_backward(rows):
     first-bounce K1 launches and the third's first K2 launch become the
     rows walk_both, walk_both_bounce and walk_dma_both. Returns the
     launches of the first and the third."""
-    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+    from raytracing_tpu_torch import (bench, build_cluster_accel,
+                                      build_default_scene)
 
     scene = build_default_scene(device="cuda")
     acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
     first, k1 = _backward_262k("CS 16", scene, acc16,
                                keep=("walk_both", [0, 1]))
     _backward_262k("CS 16, one area light", scene, acc16,
-                   lights=_light("cuda"))
+                   lights=bench.sphere_light("cuda"))
     third, k2 = _backward_262k(
         "CS 16 + CS 128 bounce accel", scene, acc16,
         gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
@@ -1897,6 +1911,303 @@ def phase_fit():
     return launches
 
 
+def _cli(argv):
+    """`python -m raytracing_tpu_torch <argv>` in this process (the kernel
+    library is built already): its standard output, echoed line by line.
+    A failing command raises, and the smoke test with it."""
+    import contextlib
+    import io
+
+    from raytracing_tpu_torch import app
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        app.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[cli] {line}")
+    return out
+
+
+def _cli_rows(rows, calls):
+    """The kernels of `render` at the CLI's defaults, each held against its
+    plain version at a shape that render gave it (`calls`: every launch of
+    `walk`, `refine_dense_extents` and `tile_extents`, captured): the
+    busiest nearest launch (most listed visits) of the `walk` entry (K1,
+    primaries of a 16,384-ray chunk over the CS 128 table) and of the
+    `walk_dma` entry (K2, a bounce wavefront), and the launch with the most
+    alive lanes of K5+K6 and of K6: rows walk_cli, walk_dma_cli,
+    refine_extents_cli and extents_cli."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    for entry, name, k in (("walk", "walk_cli", 1),
+                           ("walk_dma", "walk_dma_cli", 2)):
+        nearest = [(a, kw) for a, kw in calls["walk"]
+                   if kw.get("entry") == entry and a[8] and a[5]]
+        _require(nearest, f"render at the CLI's defaults: no nearest "
+                 f"{entry} launch")
+        args, kw = max(nearest, key=lambda c: int(c[0][2].sum()))
+        rp, pmto = args[0], args[10]
+        _timed_walk(rows, name, f"{entry} (K{k}) at the CLI's defaults, its "
+                    f"busiest nearest launch of {len(nearest)}", T, args, kw,
+                    rp[7] != 0, OPS_PMTO if pmto else OPS_PMT,
+                    f"{rp.shape[1]} rays, {args[3].shape[0]}x{args[6]}, A = "
+                    f"{args[5]}{', pmto' if pmto else ''}", plain_reps=1)
+
+    def most_alive(cs):
+        return max(cs, key=lambda c: int((c[0][0][7] != 0).sum()))[0]
+
+    rargs = most_alive(calls["refine_dense_extents"])
+    _refine_extents_row(rows, "refine_extents_cli", rargs,
+                        f"{rargs[0].shape[1]} rays, {rargs[1].shape[0]} "
+                        f"clusters, the CLI's defaults' launch with the most "
+                        f"alive lanes of {len(calls['refine_dense_extents'])}")
+    _extents_row(rows, "extents_cli", most_alive(calls["tile_extents"])[0])
+
+
+def phase_cli(rows):
+    """13. The command line at full width, in process: `render` of the
+    reference frame (800x800x4, CS 16 with the CS 128 bounce accel,
+    chunks of 65,536 as `RenderConfig()`; the CLI's default is 16,384) twice
+    through an accel cache — built and saved, then loaded; the loaded
+    accel equal to a fresh build field by field, both PNGs (read back with
+    the raw decoder where there is no PIL) equal bit for bit to `to_u8` of
+    `render()` with the same seed; `render` at the CLI's defaults (CS 128,
+    no bounce accel given) with its launches counted and captured; `render --profile` at
+    64x64, whose trace names the walk and refinement kernels; `fit` at its
+    defaults (4,096 rays a step) for 20 steps without a checkpoint, then
+    for 60 with one, each step under the Supervisor — the
+    step-50 snapshot holds the live params (neither the start nor the
+    end) — and `--resume` for 5 more, the step and Adam's count going on;
+    `animate --frames 3 --out-pattern` at the reference frame's settings.
+    The default render's PNG has the sky's colour and the reference
+    frame's mean within CLI_MEAN_ATOL, and its kernels are held against
+    their plain versions at its shapes (`_cli_rows`). Returns the launches
+    of the default render."""
+    import numpy as np
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.accel.packets import ClusterAccel, load_accel
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.utils import checkpoint as ckpt
+    from raytracing_tpu_torch.utils.image import read_png
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    cache = os.path.join(d, "accel16.npz")
+    frame = ["--cluster-size", "16", "--gi-cluster-size", "128",
+             "--chunk-size", "65536"]  # RenderConfig()'s chunks
+    ref = ["render", *frame, "--seed", "0", "--accel-cache", cache]
+    pngs, secs = [], []
+    for how in ("built", "loaded from"):
+        pngs.append(os.path.join(d, f"ref_{len(pngs)}.png"))
+        t0 = time.perf_counter()
+        out = _cli(ref + ["--out", pngs[-1]])
+        secs.append(time.perf_counter() - t0)
+        _require(f"16, {how}" in out, f"render --accel-cache: not {how}")
+    print(f"[cli] render of the reference frame, time to first frame "
+          f"(process already up, kernels built): {secs[0]} s with the accel "
+          f"built and saved, {secs[1]} s with it loaded")
+    scene = build_default_scene(device="cuda")
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    loaded = load_accel(cache, mesh=scene.mesh, cluster_size=16)
+    for name in ClusterAccel._fields:
+        a, b = getattr(acc16, name), getattr(loaded, name)
+        _require((a is None) == (b is None)
+                 and (a is None or (b.is_cuda and torch.equal(a, b))),
+                 f"accel cache: field {name} differs from a fresh build")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    want = to_rgba_frame(render(
+        scene, RenderConfig(), accel=acc16,
+        gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
+        generator=gen))
+    for png in pngs:
+        _require(np.array_equal(read_png(png), want),
+                 f"{png}: the CLI's frame is not to_u8 of render()")
+    print(f"[cli] accel cache equal to a fresh build in all "
+          f"{len(ClusterAccel._fields)} fields; both PNGs equal to_u8 of "
+          f"render() bit for bit ({want.shape[1]}x{want.shape[0]})")
+
+    calls = {}
+
+    def captured(names):
+        if not names:
+            _cli(["render", "--out", defaults])
+            return
+        calls[names[0]] = _capture_calls(names[0], None,
+                                         lambda: captured(names[1:]))
+
+    defaults = os.path.join(d, "defaults.png")
+    torch.cuda.synchronize()
+    T.reset_launches()
+    captured(("walk", "refine_dense_extents", "tile_extents"))
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+        _require(launches[k] > 0, f"render at the CLI's defaults did not "
+                 f"launch {k}: {launches}")
+    print(f"[cli] launches per render at the CLI's defaults (800x800x4, CS "
+          f"128, chunks of 16,384): {launches}")
+    img = read_png(defaults)
+    sky = np.round(255 * (np.array([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2))
+    gap = abs(float(img[..., :3].mean()) - float(want[..., :3].mean()))
+    _require(img.shape == want.shape
+             and np.abs(img[2, 2, :3] - sky).max() <= 1
+             and gap <= CLI_MEAN_ATOL,
+             f"render at the CLI's defaults: shape {img.shape}, sky pixel "
+             f"{img[2, 2, :3]} (want {sky}), mean {gap} u8 from the "
+             f"reference frame's")
+    print(f"[cli] render at the CLI's defaults: sky pixel {img[2, 2, :3]}; "
+          f"mean {float(img[..., :3].mean())} u8 against the reference "
+          f"frame's {float(want[..., :3].mean())} (other cluster size and "
+          f"chunks, so other samples; limit {CLI_MEAN_ATOL})")
+    _cli_rows(rows, calls)
+    del calls
+
+    prof = os.path.join(d, "prof")
+    _cli(["render", "--width", "64", "--height", "64", "--cluster-size",
+          "16", "--gi-cluster-size", "128", "--profile", prof, "--out",
+          os.path.join(d, "small.png")])
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    names = [k for k in ("walk_kernel", "refine_kernel", "extents_kernel")
+             if k in trace]
+    _require({"walk_kernel", "refine_kernel"} <= set(names),
+             f"profile trace names only {names}")
+    print(f"[cli] render --profile: {len(trace)} bytes of trace naming "
+          f"{names}")
+
+    # The fit without a checkpoint (no Supervisor) for its ms a step.
+    _cli(["fit", "--steps", "20"])
+    ck = os.path.join(d, "fit.npz")
+    saved = []
+    real_save = ckpt.save
+
+    def spy(path, params, opt_state=None, step=0, metadata=None):
+        saved.append((step, {k: v.clone() for k, v in params.items()}))
+        real_save(path, params, opt_state, step, metadata)
+
+    ckpt.save = spy
+    try:
+        t0 = time.perf_counter()
+        out = _cli(["fit", "--steps", "60", "--checkpoint", ck])
+        fit_s = time.perf_counter() - t0
+        first = json.loads(out.strip().splitlines()[-1])
+        _require([st for st, _ in saved] == [50, 60],
+                 f"fit: snapshots at steps {[st for st, _ in saved]}")
+        start = scene.mesh.colors * 0.5
+        mid, end = saved[0][1]["colors"], saved[1][1]["colors"]
+        _require(not torch.equal(mid, start) and not torch.equal(mid, end),
+                 "fit: the step-50 snapshot does not hold the live params")
+        saved.clear()
+        out = _cli(["fit", "--steps", "5", "--checkpoint", ck, "--resume"])
+        last = json.loads(out.strip().splitlines()[-1])
+    finally:
+        ckpt.save = real_save
+    _require(f"resumed from {ck} @ step 60" in out, "fit --resume: no resume")
+    _, opt_state, step, _ = ckpt.load(ck, {"colors": start})
+    _require(step == 65 and float(opt_state["state"][0]["step"]) == 65,
+             f"fit --resume: step {step}, Adam's step "
+             f"{float(opt_state['state'][0]['step'])}")
+    losses = [v for rec in (first, last) for v in rec.values()]
+    _require(all(np.isfinite(losses)), f"fit: losses {first} {last}")
+    print(f"[cli] fit: 60 steps in {fit_s} s (800x800x4 target render "
+          f"included), snapshots at 50 and 60; the step-50 one holds the "
+          f"live params; --resume went on to step 65 (Adam's count 65)")
+
+    pattern = os.path.join(d, "anim_{frame:03d}.png")
+    out = _cli(["animate", *frame, "--frames", "3", "--out-pattern",
+                pattern])
+    frames = [pattern.format(frame=i) for i in range(3)]
+    _require(all(os.path.exists(f) for f in frames)
+             and "rendered 3 frames in" in out and "fps avg" in out,
+             "animate: 3 PNGs and an fps line asked for")
+    _require(read_png(frames[2]).shape == (800, 800, 4),
+             "animate: a frame of the wrong shape")
+    tmp.cleanup()
+    return launches
+
+
+def phase_resilience():
+    """14. Recovery on the card: the liveness probe; `with_retry` past a
+    real out-of-memory error (an allocation of 32 TiB); and a fit of 3
+    steps whose second step fails after `optimizer.step()` with a real
+    out-of-memory error, retried, against a clean fit: the same params and
+    losses bit for bit (both under `torch.use_deterministic_algorithms`,
+    so the backward's scatter-adds sum in one order)."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.utils.resilience import (device_alive,
+                                                       with_retry)
+
+    _require(device_alive(60.0), "device_alive() is False on the card")
+    tries = []
+
+    def alloc():
+        tries.append(1)
+        if len(tries) == 1:
+            torch.empty(2 ** 45, dtype=torch.uint8, device="cuda")
+        return float(torch.ones(4, device="cuda").sum())
+
+    _require(with_retry(alloc, retries=2, backoff_s=0.0) == 4.0
+             and len(tries) == 2, "with_retry did not get past an OOM")
+    print("[resilience] device_alive() True; with_retry got past a real "
+          "torch.cuda.OutOfMemoryError on its second attempt")
+
+    scene = build_default_scene(device="cuda")
+    acc = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
+    target = render(scene, cfg, accel=acc)
+
+    def run(**kw):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        return inverse.fit(scene, target,
+                           {"colors": scene.mesh.colors * 0.5}, cfg,
+                           accel=acc, steps=3, rays_per_step=1024,
+                           generator=gen, **kw)
+
+    real_step = inverse.Fitter.step
+    calls = []
+
+    def faulty(self, idx, uniforms):
+        loss = real_step(self, idx, uniforms)
+        calls.append(1)
+        if len(calls) == 2:
+            torch.empty(2 ** 45, dtype=torch.uint8, device="cuda")
+        return loss
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        clean = run()
+        inverse.Fitter.step = faulty
+        retried = run(retries=2,
+                      checkpoint_path=os.path.join(tmp.name, "r.npz"))
+    finally:
+        inverse.Fitter.step = real_step
+        torch.use_deterministic_algorithms(was)
+        tmp.cleanup()
+    _require(len(calls) == 4, f"fit: {len(calls)} step attempts, 4 expected")
+    _require(retried.losses == clean.losses
+             and torch.equal(retried.params["colors"], clean.params["colors"]),
+             f"fit: the retried step differs from a clean one (losses "
+             f"{retried.losses} against {clean.losses})")
+    print(f"[resilience] a fit step retried after a real OOM raised after "
+          f"optimizer.step(): params and losses bit-equal to a clean fit "
+          f"({clean.losses})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raytracing_tpu_torch")):
         print("chip_smoke: raytracing_tpu_torch/ is not beside this script; "
@@ -1921,6 +2232,8 @@ def main() -> int:
     bwd_launches, bwd_gi_launches = phase_backward(rows)
     phase_grad_parity()
     fit_launches = phase_fit()
+    cli_launches = phase_cli(rows)
+    phase_resilience()
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
     # Each kernel's launches on the main path that runs it.
@@ -1935,9 +2248,11 @@ def main() -> int:
     launches["walk_both"] = bwd_launches["walk_both"]
     launches["walk_both_bounce"] = bwd_launches["walk_both"]
     launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
+    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+        launches[k + "_cli"] = cli_launches[k]
     print(f"[done] launches of the path-traced frame {pt_launches}; of the "
           f"area-light frame {light_launches}; of the fit's 20 steps "
-          f"{fit_launches}")
+          f"{fit_launches}; of a CLI render at its defaults {cli_launches}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -432,3 +432,87 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
         accel = accel._replace(
             rest_attrs=attrs[accel.rest_ids.long()].contiguous())
     return accel
+
+
+# ---------------------------------------------------------------------------
+# Accel caches: the JAX package's .npz format (`save_accel`/`load_accel`)
+# ---------------------------------------------------------------------------
+
+_ACCEL_FORMAT_VERSION = 2
+# The fields every cache must hold; the rest of ClusterAccel may be absent
+# (None). A JAX-written cache also holds tri_blocks, pmt_t_blocks,
+# woop_blocks, order_blocks and attr_t_blocks, the tables of intersectors
+# the port does not run (ROADMAP Queue 1, the off-main-path variants):
+# they are ignored.
+_REQUIRED_FIELDS = ("order", "slot_valid", "cluster_min", "cluster_max",
+                    "pmt_blocks", "attr_blocks", "grad_blocks")
+
+
+def _mesh_fingerprint(mesh: Mesh) -> np.ndarray:
+    """64-bit content hash of the geometry an accel was built from: sha1 of
+    the verts' f32 bytes and tri_v's i32 bytes, truncated — the JAX
+    package's, so either package validates the other's caches."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t, dt in ((mesh.verts, np.float32), (mesh.tri_v, np.int32)):
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+        h.update(np.ascontiguousarray(np.asarray(a, dt)).tobytes())
+    return np.frombuffer(h.digest()[:8], dtype=np.int64).copy()
+
+
+def save_accel(path: str, accel: ClusterAccel,
+               mesh: Optional[Mesh] = None) -> None:
+    """Write a built accel to one .npz in the JAX package's format (a
+    `_version` field, one array per field, absent fields left out), copied
+    to the host; the file is replaced only once it is whole. With `mesh`, a
+    fingerprint of its geometry is stored, which `load_accel` checks."""
+    import os
+
+    arrays = {"_version": np.int64(_ACCEL_FORMAT_VERSION)}
+    if mesh is not None:
+        arrays["_mesh_fp"] = _mesh_fingerprint(mesh)
+    for name, value in accel._asdict().items():
+        if value is not None:
+            arrays[name] = value.detach().cpu().numpy()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def load_accel(path: str, mesh: Optional[Mesh] = None,
+               cluster_size: Optional[int] = None,
+               device="cuda") -> ClusterAccel:
+    """Read a `save_accel` archive of either package onto `device` (the
+    card unless told otherwise). Raises ValueError for a file that is not
+    such an archive (no `_version`, another format version, a missing
+    field), with `mesh` for a cache built from other geometry, and with
+    `cluster_size` for another cluster size."""
+    with np.load(path, allow_pickle=False) as z:
+        files = set(z.files)
+        if "_version" not in files:
+            raise ValueError(f"accel file {path}: not a save_accel archive "
+                             f"(no _version field)")
+        version = int(z["_version"])
+        if version != _ACCEL_FORMAT_VERSION:
+            raise ValueError(f"accel file {path}: format v{version}, "
+                             f"expected v{_ACCEL_FORMAT_VERSION}")
+        missing = [k for k in _REQUIRED_FIELDS if k not in files]
+        if missing:
+            raise ValueError(f"accel file {path}: fields {missing} missing")
+        if mesh is not None:
+            if "_mesh_fp" not in files:
+                raise ValueError(
+                    f"accel file {path}: no mesh fingerprint recorded; "
+                    f"cannot validate against the current scene")
+            if int(z["_mesh_fp"][0]) != int(_mesh_fingerprint(mesh)[0]):
+                raise ValueError(
+                    f"accel file {path}: built from different geometry "
+                    f"than the current scene (mesh fingerprint mismatch)")
+        arrays = {k: z[k] for k in ClusterAccel._fields if k in files}
+    accel = accel_from_numpy(arrays, device=device)
+    if cluster_size is not None and accel.cluster_size != cluster_size:
+        raise ValueError(f"accel file {path}: cluster_size "
+                         f"{accel.cluster_size}, expected {cluster_size}")
+    return accel

@@ -1,0 +1,356 @@
+"""The port's benchmark command: the headline (`measure`) and the cells of
+the JAX package's `bench_suite.py` that one card runs (`suite`).
+
+    python -m raytracing_tpu_torch bench            # the headline
+    python -m raytracing_tpu_torch bench --suite    # every cell below
+
+Each record is one JSON line, as `bench_suite.py`'s `_emit` prints it,
+under the same metric names, with the card it was measured on:
+`{"metric", "value", "unit", "device", "power_limit_w"}`. Every number is
+measured fresh on the card; a run without a card fails, it never falls
+back to the CPU. Nothing here is compared with a number of the JAX
+package.
+
+Cells (`suite`):
+  primary_rays_per_s_per_chip_teapot   the headline (`measure`)
+  backward_over_forward(_arealight),   262,144 camera rays of the reference
+  forward/backward_262k_rays(_arealight)  frame through `render_rays`, loss
+                                       sum(rgb^2), gradients for verts,
+                                       colors and materials (CS 16; one
+                                       area light), median of 3
+  whitted_frame_seconds, whitted_fps,  the reference frame, 800x800x4 and
+  whitted_frame_1600_*                 1600x1600x4 (CS 16 plus the
+                                       auto-built CS 128 bounce accel)
+  whitted_frame_arealight_seconds      the same frame lit by one spherical
+                                       light, 4 shadow samples
+  path_tracer_config3_*                800x800, 64 spp, 4 bounces
+  accel_build_teapot_scene             the CS 16 build of the default scene
+  mesh_gen_*, accel_build_*,           the headline query on the subdivided
+  rays_per_s_404k/1m6/6m4              teapot (CS 64; CS 128; CS 128)
+Beside every frame stands its count of alive ray queries and their rate
+(`*_alive_ray_queries`, `*_alive_ray_queries_per_s`): a frame's
+"rays/s" otherwise counts its primaries only. The scaling cells wait for
+multi-device rendering (ROADMAP Queue 1, multi-device).
+
+Frames are timed with the host clock around work that ends in
+`torch.cuda.synchronize()`; the headline and the large scenes with CUDA
+events over 20 (10, 5) chained calls, best of 3 (`utils.timing`).
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import time
+from typing import Callable, Optional
+
+import torch
+
+# The spherical light of bench_suite.py:542-546: centre, radius, emission.
+LIGHT = ((1.0, 8.0, 7.0), 1.5, (1.5, 1.5, 1.5))
+HIT_GATE = (0.2, 0.9)          # the default scene, as the JAX bench gates it
+HIT_GATE_LARGE = (0.05, 0.95)  # the subdivided teapot
+BACKWARD_REPS = 3
+
+
+def require_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the benchmark measures a CUDA card and there is "
+                           "none (torch.cuda.is_available() is False)")
+
+
+def card() -> dict:
+    """The card of every record: its name and its power limit in W (None
+    where `nvidia-smi` does not say)."""
+    from raytracing_tpu_torch.utils.profiling import power_limit
+
+    limit = power_limit(torch.cuda.current_device())
+    try:
+        watts = float(limit.split()[0])
+    except ValueError:
+        watts = None
+    return {"device": torch.cuda.get_device_name(), "power_limit_w": watts}
+
+
+def emit(records: list, metric: str, value, unit: str, **extra) -> None:
+    """Print one record, with the card of the run (`records.card`), as a
+    JSON line and append it to `records`."""
+    rec = {"metric": metric, "value": value, "unit": unit, **records.card,
+           **extra}
+    print(json.dumps(rec), flush=True)
+    records.append(rec)
+
+
+class Records(list):
+    """The records of one run and the card they were measured on."""
+
+    def __init__(self):
+        super().__init__()
+        self.card = card()
+
+
+def sphere_light(device="cuda"):
+    from raytracing_tpu_torch.geometry.mesh import SphereLight
+
+    c, r, e = LIGHT
+    return SphereLight(torch.tensor([c]), torch.tensor([r]),
+                       torch.tensor([e])).to(device)
+
+
+def camera_rate(accel, width: int, height: int, spp: int, iters: int):
+    """(primary rays/s, hit fraction) of `nearest_hit_camera_soa` over the
+    whole frame: `iters` calls, each call's offsets perturbed by the
+    previous call's result (`utils.timing.chain_bench`), best of 3; CUDA
+    events on a card."""
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.sampling import stratified_offsets
+    from raytracing_tpu_torch.utils.timing import chain_bench
+
+    dev = accel.cluster_min.device
+    offs0 = stratified_offsets(spp, device=dev)
+
+    def frame(state):
+        t, _ = T.nearest_hit_camera_soa(accel, offs0 + state * 1e-12,
+                                        width=width, height=height, spp=spp)
+        hit = torch.isfinite(t)
+        return torch.where(hit, t, 0.0).sum() * 1e-20, hit.sum()
+
+    n = width * height * spp
+    _, hits = frame(torch.zeros((), device=dev))
+    ms = chain_bench(lambda s: frame(s)[0], torch.zeros((), device=dev),
+                     iters=iters, trials=3)
+    return n / (ms / 1e3), int(hits) / n
+
+
+def measure() -> dict:
+    """The headline: `nearest_hit_camera_soa` at 800x800x4 on the default
+    scene's CS 16 accel, 20 chained calls in CUDA events, best of 3; gated
+    on 0.2 < hits / rays < 0.9. Returns the record (printed by `main`).
+
+    The rate is the host's, not the card's: one call queues about 300
+    launches (the lists' PyTorch glue around one camera-walk launch), and
+    the host takes longer to queue them than the card to run them, so the
+    card idles inside the events. On an H100 80GB HBM3 (700 W) the card
+    was busy 2.4 ms a call while the host took 3.8-4.1 ms to queue one,
+    and readings in one process spread from 3.4e8 to 7.3e8 rays/s with
+    the load of the shared host; the first calls were not the slow ones,
+    so it is no warm-up (`tools/headline_warmup.py`). Compare two
+    readings only within one run."""
+    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+
+    require_card()
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    rate, frac = camera_rate(accel, 800, 800, 4, 20)
+    if not HIT_GATE[0] < frac < HIT_GATE[1]:
+        raise RuntimeError(f"implausible hit fraction {frac}")
+    return {"metric": "primary_rays_per_s_per_chip_teapot", "value": rate,
+            "unit": "rays/s", **card(), "hit_fraction": frac}
+
+
+def timed_frames(scene, cfg, accel, reps: int, gi_accel=None, pt=None):
+    """One frame with the launches and the ray queries counted
+    (`kernels.traverse.LAUNCHES`, `QUERIES`), then `reps` timed frames,
+    each synchronised: the Whitted renderer, or with `pt` (a
+    PathTracerConfig) the path tracer. The alive lanes are summed on the
+    device, without a host sync, so the counted frame runs as any other.
+    Returns (img, launches, counts, first s, [s per timed frame]); counts:
+    lanes submitted and alive, nearest and shadow."""
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import path_tracer, whitted
+
+    dev = scene.mesh.verts.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def frame():
+        if pt is not None:
+            return path_tracer.render(scene, cfg, pt, accel=accel,
+                                      gi_accel=gi_accel)
+        return whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
+
+    was = T.count_queries(True)
+    try:
+        sync()
+        T.reset_launches()
+        t0 = time.perf_counter()
+        img = frame()
+        sync()
+        first = time.perf_counter() - t0
+        launches = dict(T.LAUNCHES)
+        counts = {k: int(v) for k, v in T.QUERIES.items()}
+    finally:
+        T.count_queries(was)
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        img = frame()
+        sync()
+        times.append(time.perf_counter() - t0)
+    if img.shape != (cfg.height, cfg.width, 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"frame of shape {tuple(img.shape)} is not a "
+                           "finite [H, W, 3] image")
+    return img, launches, counts, first, times
+
+
+def backward_262k(scene, accel, gi_accel=None, lights=None,
+                  around_counted: Optional[Callable] = None) -> dict:
+    """`bench_suite.py:80-130`'s backward cell: the 262,144 camera rays of
+    blocks 90-105 (16,384 rays each) of the 800x800x4 reference frame
+    through `render_rays`, loss sum(rgb^2), gradients for verts, colors
+    and materials. The forward without grad and the forward + backward,
+    synchronised, each the median of BACKWARD_REPS after a warm-up; the
+    launches and the peak device memory of one counted forward + backward,
+    run as `around_counted(run)` when given. Returns a dict: loss of the
+    forward and of the counted run, their grads, forward and backward ms
+    lists, launches, peak GiB."""
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    dev = scene.mesh.verts.device
+    cfg = RenderConfig()
+    ids = torch.cat([block_ray_ids(i, 16384, cfg, 16, 16, device=dev)
+                     for i in range(90, 106)])
+    o, d = camera_rays_for_ids(ids, cfg)
+    tables = ("verts", "colors", "materials")
+
+    def run(grad):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        live = {k: getattr(scene.mesh, k).clone().requires_grad_(grad)
+                for k in tables}
+        with torch.set_grad_enabled(grad):
+            rgb = render_rays(
+                scene.mesh._replace(**live), accel, scene.sun, o, d, cfg,
+                lambda tag, shape: torch.rand(shape, generator=gen,
+                                              device=dev),
+                gi_accel=gi_accel, lights=lights)
+            loss = (rgb * rgb).sum()
+        if grad:
+            loss.backward()
+        return loss.detach(), {k: v.grad for k, v in live.items()}
+
+    def timed(grad):
+        out = run(grad)  # warm-up
+        times = []
+        for _ in range(BACKWARD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(grad)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+
+    (loss_f, _), fwd = timed(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    T.reset_launches()
+    out = []
+    counted = lambda: out.append(run(True))  # noqa: E731
+    if around_counted is None:
+        counted()
+    else:
+        around_counted(counted)
+    (loss_b, grads), = out
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, bwd = timed(True)
+    return dict(loss_f=loss_f, loss_b=loss_b, grads=grads, fwd_ms=fwd,
+                bwd_ms=bwd, launches=launches, peak_gib=peak)
+
+
+def _frame_records(records, prefix, img_frame, primaries=None):
+    """The seconds of a frame cell and its alive ray queries beside it;
+    with `primaries`, its primary rays/s too."""
+    _, _, counts, _, times = img_frame
+    spf = min(times)
+    alive = counts["nearest_alive"] + counts["shadow_alive"]
+    emit(records, f"{prefix}_seconds", spf, "s")
+    if primaries is not None:
+        emit(records, f"{prefix}_rays_per_s", primaries / spf, "rays/s")
+    emit(records, f"{prefix}_alive_ray_queries", alive, "queries")
+    emit(records, f"{prefix}_alive_ray_queries_per_s", alive / spf,
+         "queries/s")
+    return spf
+
+
+def suite() -> list:
+    """Every cell of the module docstring, measured fresh on the card, one
+    JSON line each. Returns the records."""
+    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig,
+                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import subdivided_teapot_mesh
+
+    require_card()
+    records = Records()
+    rec = measure()
+    emit(records, rec["metric"], rec["value"], rec["unit"],
+         hit_fraction=rec["hit_fraction"])
+
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    for suffix, lights in (("", None), ("_arealight", sphere_light())):
+        b = backward_262k(scene, accel, lights=lights)
+        tf, tb = statistics.median(b["fwd_ms"]), statistics.median(b["bwd_ms"])
+        emit(records, f"backward_over_forward{suffix}", tb / tf, "x")
+        emit(records, f"forward_262k_rays{suffix}", tf, "ms")
+        emit(records, f"backward_262k_rays{suffix}", tb, "ms")
+        del b
+
+    cfg = RenderConfig()
+    spf = _frame_records(records, "whitted_frame",
+                         timed_frames(scene, cfg, accel, 2))
+    emit(records, "whitted_fps", 1.0 / spf, "fps")
+    big = cfg.replace(width=1600, height=1600)
+    _frame_records(records, "whitted_frame_1600",
+                   timed_frames(scene, big, accel, 2),
+                   primaries=1600 * 1600 * 4)
+    lit = Scene(scene.mesh, scene.sun, sphere_light())
+    _frame_records(records, "whitted_frame_arealight",
+                   timed_frames(lit, cfg.replace(light_samples=4), accel, 1))
+    pt = PathTracerConfig(max_bounces=4, samples_per_pixel=64)
+    spf = _frame_records(
+        records, "path_tracer_config3",
+        timed_frames(scene, RenderConfig(chunk_size=131072), accel, 1, pt=pt))
+    emit(records, "path_tracer_config3_paths_per_s", 800 * 800 * 64 / spf,
+         "paths/s")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_cluster_accel(scene.mesh, cluster_size=16)
+    torch.cuda.synchronize()
+    emit(records, "accel_build_teapot_scene",
+         (time.perf_counter() - t0) * 1e3, "ms")
+    del scene, accel, lit
+
+    for levels, tag, cs, iters in ((3, "404k", 64, 10), (4, "1m6", 128, 10),
+                                   (5, "6m4", 128, 5)):
+        t0 = time.perf_counter()
+        mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        emit(records, f"mesh_gen_{tag}", t1 - t0, "s")
+        acc = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
+        torch.cuda.synchronize()
+        emit(records, f"accel_build_{tag}", time.perf_counter() - t1, "s")
+        rate, frac = camera_rate(acc, 800, 800, 4, iters)
+        if not HIT_GATE_LARGE[0] < frac < HIT_GATE_LARGE[1]:
+            raise RuntimeError(f"{tag}: implausible hit fraction {frac}")
+        emit(records, f"rays_per_s_{tag}", rate, "rays/s",
+             hit_fraction=frac)
+        del acc, mesh
+    return records
+
+
+def main() -> None:
+    rec = measure()
+    print(json.dumps(rec), flush=True)

@@ -127,9 +127,35 @@ class Hit(NamedTuple):
     hit: torch.Tensor
 
 
+# Ray queries since the last reset, counted by the query entry points
+# (`nearest_hit`, `nearest_hit_shaded`, `nearest_hit_shaded_camera`,
+# `any_hit`) while `count_queries(True)`: lanes submitted ("nearest",
+# "shadow", ints) and lanes alive ("nearest_alive", "shadow_alive", summed
+# on the device without a host sync: read them with int()). Off by
+# default, since the alive sums cost two small launches a query.
+QUERIES = {"nearest": 0, "shadow": 0, "nearest_alive": 0, "shadow_alive": 0}
+_COUNT_QUERIES = [False]
+
+
 def reset_launches() -> None:
+    """Zero LAUNCHES and QUERIES."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in QUERIES:
+        QUERIES[k] = 0
+
+
+def count_queries(on: bool) -> bool:
+    """Switch the counting of QUERIES on or off; returns the old state."""
+    was, _COUNT_QUERIES[0] = _COUNT_QUERIES[0], bool(on)
+    return was
+
+
+def _count_query(kind: str, n: int, alive=None) -> None:
+    if _COUNT_QUERIES[0]:
+        QUERIES[kind] += n
+        QUERIES[kind + "_alive"] = QUERIES[kind + "_alive"] + (
+            n if alive is None else alive.sum())
 
 
 def _ee_batch_for(cs: int) -> int:
@@ -1344,6 +1370,7 @@ def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
             alive=None, wq: bool = False) -> torch.Tensor:
     """Occlusion of rays o, d [N, 3] -> [N] bool (a traversal decision:
     nothing of it is differentiated)."""
+    _count_query("shadow", o.shape[0], alive)
     return any_hit_soa(accel, rays_to_soa(o.detach(), d.detach(),
                                           alive=alive), eps, t_max, wq=wq)
 
@@ -1473,6 +1500,7 @@ def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     """Nearest hit with ORIGINAL triangle ids (0 on a miss) and a t that is
     the kernel's forward and differentiates through the live vertices
     (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`)."""
+    _count_query("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
     t_k, tri = nearest_hit_soa(accel, rays8, eps)
     hit = torch.isfinite(t_k)
@@ -1492,6 +1520,7 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     t and attrs differentiate into them. Otherwise it walks the shading
     planes alone, so a frame nobody differentiates carries no extra
     plane."""
+    _count_query("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
     if shared_origin is not None:
         shared_origin = shared_origin.detach()
@@ -1823,6 +1852,8 @@ def nearest_hit_shaded_camera(accel: ClusterAccel, offs, *, width: int,
                               ) -> Tuple[Hit, torch.Tensor]:
     """`nearest_hit_shaded` for the renderer's primary level in camera
     mode: (Hit with packed slot ids, attrs [N, 9]) in block ray order."""
+    _count_query("nearest", (tiles if tiles is not None else
+                             (height // bh) * (width // bw)) * spp * bh * bw)
     t, slot, attrs_k = nearest_hit_camera_soa(
         accel, offs, width=width, height=height, spp=spp, scale=scale,
         eps=eps, bh=bh, bw=bw, with_attrs=True, early_exit=early_exit,

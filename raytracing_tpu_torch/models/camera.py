@@ -21,10 +21,11 @@ from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.sampling import stratified_grid
 
 
-def camera_rays(config: RenderConfig, device=None
+def camera_rays(config: RenderConfig, device="cuda"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All primary rays of a frame: (o, d) [spp, H, W, 3], origins 0 —
-    `camera_rays_for_ids` of every flat id, so the same bits."""
+    `camera_rays_for_ids` of every flat id, so the same bits. They land on
+    the card unless `device` names another device."""
     spp, h, w = config.samples_per_pixel, config.height, config.width
     ids = torch.arange(spp * h * w, dtype=torch.int64, device=device)
     o, d = camera_rays_for_ids(ids, config)
@@ -58,11 +59,12 @@ def camera_rays_for_ids(ids: torch.Tensor, config: RenderConfig
 
 def block_ray_ids(i: int, chunk: int, config: RenderConfig,
                   block_h: int = 16, block_w: int = 16,
-                  device=None) -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """Flat ray ids of chunk i in block order: each block_h x block_w pixel
     block's spp samples are one contiguous run. Requires block_h | H and
     block_w | W. Ids past the frame end clamp to the last ray (the caller
-    keeps only the first spp*H*W results)."""
+    keeps only the first spp*H*W results). They land on the card unless
+    `device` names another device."""
     spp, h, w = config.samples_per_pixel, config.height, config.width
     run = spp * block_h * block_w
     nbx = w // block_w

@@ -18,8 +18,9 @@ intersection gradients.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -32,7 +33,6 @@ from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.geometry.transform import apply_pose
 from raytracing_tpu_torch.models.camera import camera_rays
 from raytracing_tpu_torch.models.whitted import render_rays
-from raytracing_tpu_torch.utils import checkpoint as ckpt
 
 # Parameters whose change the accel's shading planes must follow (the JAX
 # package's set).
@@ -124,8 +124,18 @@ class Fitter:
         self.accel = build_cluster_accel(mesh, self.accel.cluster_size)
 
     def state(self, step: int) -> dict:
+        """The live params (detached) and the optimizer's state_dict:
+        views of the fit's own tensors, not copies."""
         return dict(params={k: v.detach() for k, v in self.params.items()},
                     opt_state=self.optimizer.state_dict(), step=step)
+
+    def load_state(self, st: dict) -> None:
+        """Put the params and the optimizer's state back from `st` (as
+        `state` gives them, on any device), copied: `st` stays as it is."""
+        with torch.no_grad():
+            for k, v in st["params"].items():
+                self.params[k].copy_(v)
+        self.optimizer.load_state_dict(copy.deepcopy(st["opt_state"]))
 
 
 def fit(scene: Scene, target: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -133,26 +143,33 @@ def fit(scene: Scene, target: torch.Tensor, params: Dict[str, torch.Tensor],
         steps: int = 100, rays_per_step: int = 4096,
         learning_rate: float = 1e-2, pose_obj: int = 0,
         generator: Optional[torch.Generator] = None,
+        callback: Optional[Callable[[int, float], None]] = None,
         rebuild_every: int = 0, retries: int = 0,
         checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
-        opt_state: Optional[dict] = None) -> FitResult:
+        opt_state: Optional[dict] = None, start_step: int = 0
+        ) -> FitResult:
     """Stochastic inverse rendering: every step draws rays_per_step of the
     frame's primary rays and the render's uniforms from `generator`
     (default: seed 0 on the scene's device) and descends the squared error
-    against target [H, W, 3] (`Fitter`).
+    against target [H, W, 3] (`Fitter`); callback(i, loss) after step i
+    (from 0).
 
     rebuild_every=k (> 0): when the geometry is fitted (verts or pose),
     rebuild the accel around it every k steps — its bounds and triangle
-    blocks otherwise keep the geometry it was built from. checkpoint_path
-    with checkpoint_every=k: snapshot (params, optimizer state, step) there
-    every k steps (`utils.checkpoint`); opt_state resumes an optimizer.
-    retries > 0 (retrying steps after device faults) needs the port of
-    `utils/resilience.py`, which is not done."""
-    if retries > 0:
-        raise NotImplementedError(
-            "fit(retries > 0): retrying a step after a device fault needs "
-            "utils/resilience.py, which is not ported (ROADMAP Queue 1 "
-            "item 3)")
+    blocks otherwise keep the geometry it was built from. opt_state: an
+    Adam state_dict to resume; start_step: the step count a resumed fit
+    starts from, which its checkpoints count on from.
+
+    Recovery, as in the JAX package: retries > 0 or a checkpoint_path runs
+    every step under `utils.resilience.Supervisor`. A transient device
+    fault is retried up to `retries` times, each retry from the params,
+    optimizer state and generator state from before the failed attempt,
+    so a retried step ends as a clean one would; when the device is lost,
+    (params, optimizer state, step) of the last good step go to
+    checkpoint_path (default "fit_recovery.npz") before DeviceLost is
+    raised. checkpoint_every=k also writes them there every k steps."""
+    if retries < 0:
+        raise ValueError(f"retries must be >= 0, got {retries}")
     fitter = Fitter(scene, target, params, config, accel=accel,
                     learning_rate=learning_rate, pose_obj=pose_obj,
                     opt_state=opt_state)
@@ -164,19 +181,37 @@ def fit(scene: Scene, target: torch.Tensor, params: Dict[str, torch.Tensor],
     def uniforms(tag, shape):
         return torch.rand(shape, generator=generator, device=dev)
 
+    def one_step():
+        idx = torch.randint(0, fitter.n_rays, (rays_per_step,),
+                            generator=generator, device=dev)
+        return fitter.step(idx, uniforms)
+
+    supervisor = None
+    if retries > 0 or checkpoint_path:
+        from raytracing_tpu_torch.utils.resilience import Supervisor
+
+        supervisor = Supervisor(
+            checkpoint_path or "fit_recovery.npz",
+            state_fn=lambda: fitter.state(supervisor.step),
+            retries=retries, checkpoint_every=checkpoint_every,
+            restore_fn=fitter.load_state, step=start_step)
     rebuilds = rebuild_every > 0 and bool(_GEOMETRY_PARAMS & set(params))
     losses = []
     for i in range(steps):
         if rebuilds and i > 0 and i % rebuild_every == 0:
             fitter.rebuild()
-        idx = torch.randint(0, fitter.n_rays, (rays_per_step,),
-                            generator=generator, device=dev)
-        losses.append(fitter.step(idx, uniforms))
-        if checkpoint_path and checkpoint_every and \
-                (i + 1) % checkpoint_every == 0:
-            st = fitter.state(i + 1)
-            ckpt.save(checkpoint_path, st["params"], st["opt_state"],
-                      step=st["step"])
-    st = fitter.state(steps)
+        if supervisor is None:
+            losses.append(one_step())
+        else:
+            rng = generator.get_state()
+
+            def attempt():
+                generator.set_state(rng)
+                return one_step()
+
+            losses.append(supervisor.run_step(attempt))
+        if callback is not None:
+            callback(i, losses[-1])
+    st = fitter.state(start_step + steps)
     return FitResult(params=st["params"], losses=losses,
                      opt_state=st["opt_state"])

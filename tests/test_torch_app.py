@@ -1,0 +1,284 @@
+"""The port's command line (`python -m raytracing_tpu_torch`) on the CPU
+(`--device cpu`: the kernels' plain versions), against the JAX package's
+CLI where both run: tests/test_utils_app.py's CLI tests, the refusals of
+what the port does not do, checkpoint and resume, the accel cache, the
+frame loop, the benchmark's code paths, and the entry points' default
+device.
+
+Bars: the CLI frame within one u8 count of JAX's `render --backend
+pallas` at the same flags (a config that draws no uniforms, so both see
+the same rays; the intersectors differ in the last f32 bits), and equal
+bit for bit to `to_u8` of `render()` called with the same seed; the
+mid-fit checkpoint equal bit for bit to the live params of a fit stopped
+there."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from raytracing_tpu.app import build_parser as jax_parser
+
+from raytracing_tpu_torch import app, bench
+from raytracing_tpu_torch.models import camera as TC
+from raytracing_tpu_torch.utils import checkpoint as ckpt
+from raytracing_tpu_torch.utils.image import read_png
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--device", "cpu", "--width", "24", "--height", "24", "--spp", "1",
+         "--diffuse-depth", "0", "--cluster-size", "16"]
+
+
+def _run_port(argv, capsys):
+    app.main(argv)
+    return capsys.readouterr().out
+
+
+def test_help_exits_0_and_main_module_runs_nothing_on_import():
+    out = subprocess.run([sys.executable, "-m", "raytracing_tpu_torch",
+                          "--help"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert all(c in out.stdout for c in ("render", "animate", "bench", "fit"))
+    imp = subprocess.run([sys.executable, "-c",
+                          "import raytracing_tpu_torch.__main__ as m; "
+                          "print('imported', callable(m.main))"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert imp.returncode == 0, imp.stderr
+    assert imp.stdout == "imported True\n"
+
+
+def test_cli_render_matches_jax_pallas_cli(tmp_path, capsys):
+    """The parity frame: the port's CLI on the CPU against JAX's
+    CLI with its Pallas kernels (interpret mode) at the same flags."""
+    ours, theirs = str(tmp_path / "t.png"), str(tmp_path / "j.png")
+    out = _run_port(["render", *SMALL, "--out", ours], capsys)
+    assert "devices: 1 x cpu" in out and "triangles: 12642" in out
+    assert "frame: " in out and f"wrote {ours}" in out
+    args = jax_parser().parse_args(
+        ["render", *SMALL[2:], "--backend", "pallas", "--out", theirs])
+    args.fn(args)
+    a = read_png(ours).astype(np.int16)
+    b = read_png(theirs).astype(np.int16)
+    assert a.shape == b.shape == (24, 24, 4)
+    diff = np.abs(a - b)
+    assert diff.max() <= 1, (diff.max(), (diff > 0).sum())
+    # The file holds what render() gives for the same seed, bit for bit.
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.scene import build_default_scene
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+
+    scene = build_default_scene(device="cpu")
+    img = render(scene, RenderConfig(width=24, height=24,
+                                     samples_per_pixel=1, diffuse_depth=0,
+                                     chunk_size=16384),
+                 accel=build_cluster_accel(scene.mesh, cluster_size=16),
+                 generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(read_png(ours), to_rgba_frame(img))
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["render", "--backend", "cluster"], "Queue 1 item 5"),
+    (["render", "--backend", "bruteforce"], "Queue 1 item 5"),
+    (["render", "--coordinator", "localhost:1234"], "Queue 1 item 4"),
+    (["render", "--assemble"], "Queue 1 item 4"),
+    (["fit", "--num-processes", "2"], "Queue 1 item 4"),
+    (["bench"], "bench measures the card"),
+])
+def test_cli_refuses_what_the_port_does_not_do(argv, msg):
+    with pytest.raises(SystemExit) as ei:
+        app.main(argv + ["--device", "cpu"])
+    assert msg in str(ei.value.code)
+
+
+def test_cli_without_a_card_fails_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("there is a card here: the default device works")
+    for cmd in ("render", "animate", "bench", "fit"):
+        with pytest.raises(SystemExit) as ei:
+            app.main([cmd])
+        assert "--device cpu" in str(ei.value.code)
+
+
+def test_cli_render_accel_cache(tmp_path, capsys):
+    """--accel-cache builds and saves once, then loads; the two frames are
+    the same bits; a cache of another cluster size is refused."""
+    cache = str(tmp_path / "accel.npz")
+    pngs = []
+    for i in range(2):
+        pngs.append(str(tmp_path / f"f{i}.png"))
+        out = _run_port(["render", *SMALL, "--accel-cache", cache, "--out",
+                         pngs[-1]], capsys)
+        assert ("built" if i == 0 else "loaded from") in out
+    np.testing.assert_array_equal(read_png(pngs[0]), read_png(pngs[1]))
+    with pytest.raises(ValueError, match="cluster_size"):
+        app.main(["render", *SMALL[:-1], "64", "--accel-cache", cache])
+
+
+def test_cli_fit_with_checkpoint_and_resume(tmp_path, capsys):
+    """tests/test_utils_app.py:74, then --resume: params, Adam's state and
+    the step continue from the checkpoint."""
+    ck = str(tmp_path / "fit.npz")
+    flags = ["--device", "cpu", "--width", "12", "--height", "12", "--spp",
+             "1", "--chunk-size", "144", "--rays-per-step", "32",
+             "--diffuse-depth", "1", "--reflect-depth", "1",
+             "--checkpoint", ck]
+    out = _run_port(["fit", *flags, "--steps", "5"], capsys)
+    first = json.loads(out.strip().splitlines()[-1])
+    like = {"colors": torch.zeros((12642, 3))}
+    params5, opt5, step, _ = ckpt.load(ck, like)
+    assert step == 5 and float(opt5["state"][0]["step"]) == 5
+    out = _run_port(["fit", *flags, "--steps", "3", "--resume"], capsys)
+    assert f"resumed from {ck} @ step 5" in out
+    last = json.loads(out.strip().splitlines()[-1])
+    params8, opt8, step, _ = ckpt.load(ck, like)
+    assert step == 8 and float(opt8["state"][0]["step"]) == 8
+    assert not torch.equal(params8["colors"], params5["colors"])
+    for rec in (first, last):
+        assert set(rec) == {"final_loss", "initial_loss"}
+        assert all(np.isfinite(v) for v in rec.values())
+
+
+def test_cli_mid_fit_checkpoint_holds_the_live_params(tmp_path, capsys,
+                                                      monkeypatch):
+    """The JAX CLI's mid-fit snapshot stores the starting params
+    (app.py:233-240); the port's stores the step's own. With the snapshot
+    every 3 steps (the CLI's is every 50), the step-3 snapshot of a 5-step
+    fit equals the end of a 3-step fit."""
+    flags = ["--device", "cpu", "--width", "8", "--height", "8", "--spp",
+             "1", "--rays-per-step", "16", "--diffuse-depth", "0",
+             "--reflect-depth", "1"]
+    monkeypatch.setattr(app, "FIT_CHECKPOINT_EVERY", 3)
+    saved = []
+    real = ckpt.save
+
+    def spy(path, params, opt_state=None, step=0, metadata=None):
+        saved.append((step, {k: v.clone() for k, v in params.items()}))
+        real(path, params, opt_state, step, metadata)
+
+    monkeypatch.setattr(ckpt, "save", spy)
+    _run_port(["fit", *flags, "--steps", "3", "--checkpoint",
+               str(tmp_path / "a.npz")], capsys)
+    live3 = saved[-1]
+    saved.clear()
+    _run_port(["fit", *flags, "--steps", "5", "--checkpoint",
+               str(tmp_path / "b.npz")], capsys)
+    assert [s for s, _ in saved] == [3, 5] and live3[0] == 3
+    assert torch.equal(saved[0][1]["colors"], live3[1]["colors"])
+    assert not torch.equal(saved[0][1]["colors"], saved[1][1]["colors"])
+
+
+def test_cli_animate_writes_frames(tmp_path, capsys):
+    pattern = str(tmp_path / "frame_{frame:03d}.png")
+    out = _run_port(["animate", "--device", "cpu", "--width", "16",
+                     "--height", "16", "--spp", "1", "--diffuse-depth", "0",
+                     "--reflect-depth", "1", "--cluster-size", "16",
+                     "--frames", "3", "--out-pattern", pattern, "--live",
+                     "--live-cols", "8"], capsys)
+    frames = [pattern.format(frame=i) for i in range(3)]
+    assert all(os.path.exists(f) for f in frames)
+    assert read_png(frames[0]).shape == (16, 16, 4)
+    assert "rendered 3 frames in" in out and "fps avg" in out
+    assert out.count("\x1b[2J") == 1 and "frame 2" in out
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """camera_rays and block_ray_ids ask for the card unless told
+    otherwise; where there is none, the call raises for that reason."""
+    from raytracing_tpu_torch import RenderConfig
+
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=1)
+    asked = []
+    real = torch.arange
+
+    def spy(*a, **kw):
+        asked.append(str(kw.get("device")))
+        return real(*a, **{**kw, "device": "cpu"})
+
+    monkeypatch.setattr(TC.torch, "arange", spy)
+    TC.camera_rays(cfg)
+    TC.block_ray_ids(0, 256, cfg)
+    assert asked == ["cuda", "cuda"]
+    monkeypatch.undo()
+    o, _ = TC.camera_rays(cfg, device="cpu")
+    assert o.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            TC.camera_rays(cfg)
+
+
+def test_bench_code_paths_on_the_cpu():
+    """The benchmark's measuring code on CPU tensors at a small size (no
+    record: the records are the card's): the headline's rate and hit
+    fraction, a counted frame's queries, and no benchmark without a
+    card."""
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.scene import build_default_scene
+
+    scene = build_default_scene(device="cpu")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    rate, frac = bench.camera_rate(accel, 32, 32, 1, 1)
+    assert rate > 0 and 0.2 < frac < 0.9
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
+                       diffuse_depth=1, reflect_depth=2)
+    img, launches, counts, first, times = bench.timed_frames(
+        scene, cfg, accel, 1)
+    assert img.shape == (16, 16, 3) and len(times) == 1 and first > 0
+    assert counts["nearest"] >= 256 and \
+        0 < counts["nearest_alive"] <= counts["nearest"]
+    assert 0 < counts["shadow_alive"] <= counts["shadow"]
+    assert sum(launches.values()) == 0  # CPU tensors launch no kernel
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            bench.measure()
+
+
+def test_queries_counted_at_the_query_entry_points():
+    """`kernels.traverse.QUERIES` counts the lanes submitted to and alive
+    in every nearest and shadow query while `count_queries(True)`, nothing
+    while off, and resets with the launches; a counted frame leaves the
+    counting as it found it."""
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.scene import build_default_scene
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.camera import camera_rays
+    from raytracing_tpu_torch.ops.sampling import stratified_offsets
+
+    scene = build_default_scene(device="cpu")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=1)
+    o, d = (x.reshape(-1, 3) for x in camera_rays(cfg, device="cpu"))
+    alive = torch.arange(o.shape[0]) % 3 != 0
+
+    def queries():
+        T.nearest_hit_shaded(scene.mesh, accel, o, d, alive=alive)
+        T.nearest_hit(scene.mesh, accel, o, d)
+        T.any_hit(accel, o, d, alive=alive)
+        T.nearest_hit_shaded_camera(accel, stratified_offsets(1), width=16,
+                                    height=16, spp=1, tile_base=0, tiles=1)
+
+    T.reset_launches()
+    assert not T.count_queries(False)
+    queries()
+    assert T.QUERIES == dict(nearest=0, shadow=0, nearest_alive=0,
+                             shadow_alive=0)
+    T.count_queries(True)
+    try:
+        queries()
+        got = {k: int(v) for k, v in T.QUERIES.items()}
+    finally:
+        assert T.count_queries(False)
+    n, a = o.shape[0], int(alive.sum())
+    assert got == dict(nearest=3 * n, shadow=n, nearest_alive=2 * n + a,
+                       shadow_alive=a)
+    T.reset_launches()
+    assert all(v == 0 for v in T.QUERIES.values())
+    bench.timed_frames(scene, cfg, accel, 0)
+    assert not T.count_queries(False)

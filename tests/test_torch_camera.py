@@ -69,8 +69,8 @@ def full_frame(accels):
 
 def _pack(w, h, spp, bh=16, bw=16):
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp)
-    o, d = camera_rays_for_ids(block_ray_ids(0, spp * h * w, cfg, bh, bw),
-                               cfg)
+    o, d = camera_rays_for_ids(block_ray_ids(0, spp * h * w, cfg, bh, bw,
+                                             device="cpu"), cfg)
     return T.rays_to_soa(o, d)
 
 

@@ -27,7 +27,11 @@ planes (A = 15 in objid mode, 20 in full mode) bit-equal to their plain
 versions and to the shading walk; gradients of a render on the card within
 1e-5 of each table's largest magnitude of the CPU's (the backward's
 scatter-adds are atomics on the card, in another order), the limit
-chip_smoke.py holds its 32x32 frame's gradients to.
+chip_smoke.py holds its 32x32 frame's gradients to; the CLI's frame
+(`python -m raytracing_tpu_torch render`, the card by default) equal in u8
+to `render()` with the same seed; the liveness probe and a real
+out-of-memory error classed transient; an accel cache loaded onto the
+card.
 """
 
 import numpy as np
@@ -533,7 +537,7 @@ def test_camera_rays_on_the_card_are_the_cpu_rays(dev):
     (a multiply by 1/800) would move some directions by an ulp."""
     cfg = RenderConfig()
     r = cfg.width * cfg.height * cfg.samples_per_pixel
-    ids = block_ray_ids(3, r // 8, cfg)
+    ids = block_ray_ids(3, r // 8, cfg, device="cpu")
     _, d_cpu = camera_rays_for_ids(ids, cfg)
     _, d_dev = camera_rays_for_ids(ids.to(dev), cfg)
     assert torch.equal(d_dev.cpu(), d_cpu)
@@ -838,3 +842,54 @@ def test_gradients_on_the_card_match_the_cpu(dev, normals):
             assert scale > 0, k
         err = float((card - cpu).abs().max())
         assert err <= 1e-5 * scale, (k, err, scale)
+
+
+def test_cli_render_on_the_card_is_render(dev, tmp_path, capsys):
+    """`python -m raytracing_tpu_torch render` on the card (its default
+    device) writes `to_u8` of `render()` with the same seed, bit for bit,
+    and names the card and its power limit on its frame line."""
+    from raytracing_tpu_torch import app
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.utils.image import read_png
+
+    out = str(tmp_path / "f.png")
+    app.main(["render", "--width", "64", "--height", "48", "--spp", "2",
+              "--cluster-size", "16", "--gi-cluster-size", "128", "--seed",
+              "3", "--out", out])
+    printed = capsys.readouterr().out
+    assert "frame: " in printed and torch.cuda.get_device_name(0) in printed
+    scene = build_default_scene(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    img = render(scene, RenderConfig(width=64, height=48,
+                                     samples_per_pixel=2, chunk_size=16384),
+                 accel=build_cluster_accel(scene.mesh, cluster_size=16),
+                 gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
+                 generator=gen)
+    assert np.array_equal(read_png(out), to_rgba_frame(img))
+
+
+def test_device_alive_and_out_of_memory_on_the_card(dev):
+    """The probe answers on the card, and an allocation beyond its memory
+    raises an error the retry rule calls transient."""
+    from raytracing_tpu_torch.utils.resilience import (device_alive,
+                                                       is_transient)
+
+    assert device_alive(timeout_s=60.0, device="cuda")
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(2 ** 45, dtype=torch.uint8, device=dev)
+    assert is_transient(ei.value)
+    torch.cuda.empty_cache()
+
+
+def test_load_accel_lands_on_the_card(dev, tmp_path):
+    scene = build_default_scene(device="cpu")
+    acc = build_cluster_accel(scene.mesh, cluster_size=16)
+    p = str(tmp_path / "accel.npz")
+    packets.save_accel(p, acc, mesh=scene.mesh)
+    back = packets.load_accel(p, mesh=scene.mesh, cluster_size=16)
+    for name in packets.ClusterAccel._fields:
+        a, b = getattr(acc, name), getattr(back, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert b.device.type == "cuda" and torch.equal(b.cpu(), a), name

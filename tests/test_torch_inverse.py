@@ -107,7 +107,7 @@ def test_apply_pose_moves_only_target_object():
 
 def test_camera_rays_bit_equal_to_jax():
     cfg = dict(width=16, height=8, samples_per_pixel=3, scale=0.9)
-    o, d = TC.camera_rays(RenderConfig(**cfg))
+    o, d = TC.camera_rays(RenderConfig(**cfg), device="cpu")
     jo, jd = JC.camera_rays(JaxConfig(**cfg))
     assert d.shape == (3, 8, 16, 3)
     np.testing.assert_array_equal(o.numpy(), _np(jo))
@@ -373,9 +373,20 @@ def test_fit_rebuilds_the_accel_every_k_steps(monkeypatch):
 
 
 def test_fit_refuses_retries():
+    """A negative retry count is refused; retries > 0 runs every step
+    under the Supervisor (utils/resilience.py is ported) and, with no
+    fault, descends exactly as a fit without retries."""
     scene = _floor_scene()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    cfg = RenderConfig(width=8, height=8, samples_per_pixel=1,
+                       diffuse_depth=1)
+    with pytest.raises(ValueError, match="retries"):
         inverse.fit(scene, torch.zeros((8, 8, 3)),
-                    {"colors": scene.mesh.colors}, RenderConfig(width=8,
-                                                                height=8),
-                    steps=1, retries=1)
+                    {"colors": scene.mesh.colors}, cfg, steps=1, retries=-1)
+    accel = build_cluster_accel(scene.mesh, cluster_size=8)
+    runs = [inverse.fit(scene, torch.full((8, 8, 3), 0.5),
+                        {"colors": scene.mesh.colors * 0.3}, cfg,
+                        accel=accel, steps=2, rays_per_step=16,
+                        retries=retries)
+            for retries in (0, 2)]
+    assert runs[0].losses == runs[1].losses
+    assert torch.equal(runs[0].params["colors"], runs[1].params["colors"])

@@ -15,7 +15,8 @@ the reference frame's busiest chunk, 720,896 rays against the 100 clusters
 of the CS=128 accel, as each tree's `_refined_lists` runs it: one launch
 (`rt_refine_dense_extents`) or `rt_tile_extents`, the tile-alive flags
 derived from its extents and `rt_refine_dense`; then `rt_refine_dense`
-with the flags given and `rt_tile_extents` alone. `rt_refine_lists` runs
+with the flags given and `rt_tile_extents` alone, which is also read
+steadily: 200 launches in one pair of CUDA events. `rt_refine_lists` runs
 at chip_smoke.py's two rows: the 404k wavefront's lists (3,160 clusters)
 and the busiest of the 1.6M Whitted frame's 40 launches (12,640), captured
 from the renderer; the spread of listed candidates and alive lanes over
@@ -511,6 +512,10 @@ def main(argv) -> int:
                  for x in ("lo", "hi", "bits"))
         print(f"[{name}] extents and bits of the two trees equal: {eq}")
         same = same and eq
+    steady = [chip_smoke._steady_ms(lambda k=k: dense["extents"](k))
+              for k in order]
+    print("[extents] ms, 200 back-to-back launches in one pair of CUDA "
+          "events: " + ", ".join(f"{k} {t}" for k, t in zip(order, steady)))
     for name, rargs in refines.items():
         rays, ids, cnt, rmin, rmax = rargs
         cnt = cnt.to(torch.int32).contiguous()
