@@ -131,11 +131,20 @@ Phases (any failure raises and the script exits non-zero):
      `--resume` for 5,
      `animate --frames 3`;
  14. recovery on the card: `device_alive()`, `with_retry` past a real
-     out-of-memory error, a retried fit step bit-equal to a clean one.
+     out-of-memory error, a retried fit step bit-equal to a clean one;
+ 15. multi-device and multi-process (`raytracing_tpu_torch/parallel`) at
+     full width: `render_sharded` over the card and 4 virtual shards
+     against `render()`, 2 processes sharing the card in a gloo group
+     (`render --num-processes 2 --assemble`) against one process of 2
+     shards, the train step's all_reduce in a one-rank NCCL group, the
+     train step over 2 shards at the backward cell's 262,144 rays against
+     one `Fitter` step, `dryrun_multichip(1)` and `(2)`, and the
+     brute-force and cluster backends at 64x64 against the kernel path
+     (`phase_multi_device`).
 
 Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
 queries, 7's Whitted frame, 8, 9, 9's "grid" frame, each configuration of
-10, 12's steps, 13's default render)
+10, 12's steps, 13's default render, 15's sharded frames)
 runs with the launch counts set to 0 just before and read just after. A
 plain version that takes seconds is timed once, by the run that checks the
 kernel. The last two lines are the kernel table and the result, each one
@@ -161,6 +170,21 @@ SKY_ATOL = 1e-3
 # which averages far below half a count; a kernel that lost or misplaced
 # hits would move whole regions.
 CLI_MEAN_ATOL = 0.5
+# Phase 15: a sharded, 2-process or plain-backend frame against the frame
+# it must equal (the same rays through the same kernels or the same math:
+# only the shards, chunks and bins differ).
+MULTI_ATOL = 1e-5
+# Phase 15d: the sharded train step's gradients against one unsharded
+# Fitter step at 262,144 rays, in units of each table's largest magnitude,
+# both under deterministic algorithms (two Fitter steps then read 0.0).
+# Each entry sums the contributions of up to 2.9M rays in f32, and the two
+# steps sum them in another order: the sharded step sums each shard's
+# half, then the two halves. On an H100 80GB HBM3 (700 W) that order alone
+# read 2.07e-5 (verts), 1.52e-5 (colors) and 9.4e-6 (materials), above
+# GRAD_PARITY_RTOL (1e-5, held at 1,024 rays). The bar is the one the CPU
+# tests hold a fit step to against JAX's (rtol 1e-4); a lost or doubled
+# shard moves a gradient by half of itself.
+TRAIN_STEP_RTOL = 1e-4
 # Phase 3 traces chunk 20 of the reference frame: the busiest one (48,518
 # of its 65,536 primaries hit a teapot, the rest the ground); the frame's
 # first 16 chunks are all sky and would leave the bounce level empty.
@@ -204,6 +228,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                            "raytracing_tpu/kernels/traverse.py:498"),
     "extents_cli": ("raytracing_tpu_torch/csrc/extents.cu",
                     "raytracing_tpu/kernels/traverse.py:163"),
+    # The launches of the reference frame sharded over 4 virtual shards of
+    # the card (phase 15a): raster-order chunks of a shard's rays.
+    "walk_sharded": ("raytracing_tpu_torch/csrc/walk.cu",
+                     "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_dma_sharded": ("raytracing_tpu_torch/csrc/walk.cu",
+                         "raytracing_tpu/kernels/traverse.py:1819"),
+    "refine_extents_sharded": ("raytracing_tpu_torch/csrc/refine.cu",
+                               "raytracing_tpu/kernels/traverse.py:498"),
+    "extents_sharded": ("raytracing_tpu_torch/csrc/extents.cu",
+                        "raytracing_tpu/kernels/traverse.py:163"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
@@ -1929,26 +1963,43 @@ def _cli(argv):
     return out
 
 
-def _cli_rows(rows, calls):
-    """The kernels of `render` at the CLI's defaults, each held against its
-    plain version at a shape that render gave it (`calls`: every launch of
-    `walk`, `refine_dense_extents` and `tile_extents`, captured): the
+PATH_KERNELS = ("walk", "refine_dense_extents", "tile_extents")
+
+
+def _capture_path(run, names=PATH_KERNELS):
+    """Run `run()` with every launch of each of `names` captured
+    (`_capture_calls`): {name: [(args, kw), ...]}."""
+    calls = {}
+
+    def captured(rest):
+        if not rest:
+            run()
+            return
+        calls[rest[0]] = _capture_calls(rest[0], None,
+                                        lambda: captured(rest[1:]))
+
+    captured(tuple(names))
+    return calls
+
+
+def _path_rows(rows, calls, suffix, where):
+    """The kernels of one main path, each held against its plain version
+    at a shape that path gave it (`calls`: every launch of `walk`,
+    `refine_dense_extents` and `tile_extents`, from `_capture_path`): the
     busiest nearest launch (most listed visits) of the `walk` entry (K1,
-    primaries of a 16,384-ray chunk over the CS 128 table) and of the
-    `walk_dma` entry (K2, a bounce wavefront), and the launch with the most
-    alive lanes of K5+K6 and of K6: rows walk_cli, walk_dma_cli,
-    refine_extents_cli and extents_cli."""
+    primaries) and of the `walk_dma` entry (K2, a bounce wavefront), and
+    the launch with the most alive lanes of K5+K6 and of K6: rows
+    walk<suffix>, walk_dma<suffix>, refine_extents<suffix> and
+    extents<suffix>. where: the path, for the printed lines."""
     from raytracing_tpu_torch.kernels import traverse as T
 
-    for entry, name, k in (("walk", "walk_cli", 1),
-                           ("walk_dma", "walk_dma_cli", 2)):
+    for entry, k in (("walk", 1), ("walk_dma", 2)):
         nearest = [(a, kw) for a, kw in calls["walk"]
                    if kw.get("entry") == entry and a[8] and a[5]]
-        _require(nearest, f"render at the CLI's defaults: no nearest "
-                 f"{entry} launch")
+        _require(nearest, f"{where}: no nearest {entry} launch")
         args, kw = max(nearest, key=lambda c: int(c[0][2].sum()))
         rp, pmto = args[0], args[10]
-        _timed_walk(rows, name, f"{entry} (K{k}) at the CLI's defaults, its "
+        _timed_walk(rows, entry + suffix, f"{entry} (K{k}) {where}, its "
                     f"busiest nearest launch of {len(nearest)}", T, args, kw,
                     rp[7] != 0, OPS_PMTO if pmto else OPS_PMT,
                     f"{rp.shape[1]} rays, {args[3].shape[0]}x{args[6]}, A = "
@@ -1958,11 +2009,12 @@ def _cli_rows(rows, calls):
         return max(cs, key=lambda c: int((c[0][0][7] != 0).sum()))[0]
 
     rargs = most_alive(calls["refine_dense_extents"])
-    _refine_extents_row(rows, "refine_extents_cli", rargs,
+    _refine_extents_row(rows, "refine_extents" + suffix, rargs,
                         f"{rargs[0].shape[1]} rays, {rargs[1].shape[0]} "
-                        f"clusters, the CLI's defaults' launch with the most "
-                        f"alive lanes of {len(calls['refine_dense_extents'])}")
-    _extents_row(rows, "extents_cli", most_alive(calls["tile_extents"])[0])
+                        f"clusters, {where}: the launch with the most alive "
+                        f"lanes of {len(calls['refine_dense_extents'])}")
+    _extents_row(rows, "extents" + suffix,
+                 most_alive(calls["tile_extents"])[0])
 
 
 def phase_cli(rows):
@@ -1982,7 +2034,7 @@ def phase_cli(rows):
     `animate --frames 3 --out-pattern` at the reference frame's settings.
     The default render's PNG has the sky's colour and the reference
     frame's mean within CLI_MEAN_ATOL, and its kernels are held against
-    their plain versions at its shapes (`_cli_rows`). Returns the launches
+    their plain versions at its shapes (`_path_rows`). Returns the launches
     of the default render."""
     import numpy as np
     import torch
@@ -2033,19 +2085,10 @@ def phase_cli(rows):
           f"{len(ClusterAccel._fields)} fields; both PNGs equal to_u8 of "
           f"render() bit for bit ({want.shape[1]}x{want.shape[0]})")
 
-    calls = {}
-
-    def captured(names):
-        if not names:
-            _cli(["render", "--out", defaults])
-            return
-        calls[names[0]] = _capture_calls(names[0], None,
-                                         lambda: captured(names[1:]))
-
     defaults = os.path.join(d, "defaults.png")
     torch.cuda.synchronize()
     T.reset_launches()
-    captured(("walk", "refine_dense_extents", "tile_extents"))
+    calls = _capture_path(lambda: _cli(["render", "--out", defaults]))
     torch.cuda.synchronize()
     launches = dict(T.LAUNCHES)
     for k in ("walk", "walk_dma", "refine_extents", "extents"):
@@ -2066,7 +2109,7 @@ def phase_cli(rows):
           f"mean {float(img[..., :3].mean())} u8 against the reference "
           f"frame's {float(want[..., :3].mean())} (other cluster size and "
           f"chunks, so other samples; limit {CLI_MEAN_ATOL})")
-    _cli_rows(rows, calls)
+    _path_rows(rows, calls, "_cli", "at the CLI's defaults")
     del calls
 
     prof = os.path.join(d, "prof")
@@ -2208,6 +2251,328 @@ def phase_resilience():
           f"({clean.losses})")
 
 
+def _sharded_frame(tag, scene, cfg, mesh, accel, card, need,
+                   capture=False):
+    """One `render_sharded` frame with the launch counts set to 0 just
+    before and read just after: (image, seconds, launches, calls); with
+    `capture`, calls holds every launch of the path's kernels
+    (`_capture_path`; the seconds then include the capture), else None."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.parallel.shard import render_sharded
+
+    out = []
+
+    def run():
+        out.append(render_sharded(scene, cfg, mesh, accel=accel, seed=0))
+
+    torch.cuda.synchronize()
+    T.reset_launches()
+    t0 = time.perf_counter()
+    calls = _capture_path(run) if capture else run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(T.LAUNCHES)
+    for k in need:
+        _require(launches[k] > 0, f"{tag}: kernel {k} was not launched: "
+                 f"{launches}")
+    how = " (launches captured)" if capture else ""
+    print(f"[multi] {tag}: {dt} s a frame{how} on {card}; launches K1 "
+          f"{launches['walk']}, K2 "
+          f"{launches['walk_dma']}, K5+K6 {launches['refine_extents']}, K6 "
+          f"{launches['extents']}")
+    return out[0], dt, launches, calls
+
+
+def _two_process_render(argv, timeout=600):
+    """`python -m raytracing_tpu_torch render <argv>` in 2 new processes
+    (each started fresh, never forked from this one, whose CUDA is up) of
+    one gloo group sharing the card; their outputs."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "raytracing_tpu_torch", "render", *argv,
+         "--num-processes", "2", "--process-id", str(i), "--coordinator",
+         f"localhost:{port}", "--dist-backend", "gloo"], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"[multi] process {i}: {line}")
+        _require(p.returncode == 0, f"2-process render: process {i} exited "
+                 f"{p.returncode}")
+    return outs
+
+
+def phase_multi_device(card, rows):
+    """15. Multi-device and multi-process on the card, at full width (the
+    reference config, CS 16 plus the auto-built CS 128 bounce accel):
+    (a) `render_sharded` over the card and over 4 virtual shards of it at
+        diffuse depth 1 (no draws), each within MULTI_ATOL of `render()`
+        on the card; at the reference config (the fan on) over 4 shards,
+        finite, its u8 mean within CLI_MEAN_ATOL of `render()`'s; seconds
+        and K1, K2, K5+K6, K6 launches of each, counted from 0 (the
+        sharded frame is this slice's main path); the reference-config
+        frame's launches captured and its kernels held against their plain
+        versions at its shapes (`_path_rows`: rows walk_sharded,
+        walk_dma_sharded, refine_extents_sharded, extents_sharded);
+    (b) `render --num-processes 2 --assemble` in 2 processes of a gloo
+        group sharing the card (NCCL refuses two ranks on one card): the
+        stitched shards within MULTI_ATOL of the one-process 2-shard
+        `render_sharded` frame;
+    (c) a one-rank NCCL group on the card: `make_train_step` runs its
+        all_reduce, and its step equals the step without a group bit for
+        bit (both under deterministic algorithms);
+    (d) the train step at the backward cell's size (262,144 rays of blocks
+        90-105, CS 16, the reference config) over 2 virtual shards against
+        one unsharded `Fitter` step on the same rays and draws, all under
+        deterministic algorithms (a second Fitter step's spread, printed
+        beside, then reads 0): the loss within GRAD_PARITY_RTOL, the
+        gradients within TRAIN_STEP_RTOL of each table's largest
+        magnitude; then ms per step of each without them;
+    (e) `dryrun_multichip(1)` on the card and `dryrun_multichip(2)` over 2
+        virtual shards of it;
+    (f) the brute-force and cluster backends at 64x64x4 (the reference
+        config), each within MULTI_ATOL of the kernel path's frame from the
+        same seed. Returns the launches of (a)'s sharded frames."""
+    import functools
+    import socket
+
+    import numpy as np
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.parallel import distributed as D
+    from raytracing_tpu_torch.parallel import shard as S
+    from raytracing_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    scene = build_default_scene(device="cuda")
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    need = ("walk", "walk_dma", "refine_extents", "extents")
+
+    def gen(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return g
+
+    # (a)
+    out = {}
+    dd1 = RenderConfig(diffuse_depth=1)
+    want = render(scene, dd1, accel=acc16)
+    for n in (1, 4):
+        mesh = S.make_device_mesh(n, devices=["cuda:0"] * n)
+        img, _, out[f"dd1_{n}"], _ = _sharded_frame(
+            f"render_sharded over {n} shard(s) of the card, diffuse depth "
+            f"1", scene, dd1, mesh, acc16, card, need)
+        err = float((img - want).abs().max())
+        _require(img.shape == want.shape and err <= MULTI_ATOL,
+                 f"render_sharded over {n}: {err} from render() (limit "
+                 f"{MULTI_ATOL})")
+        print(f"[multi] render_sharded over {n} shard(s): max |sharded - "
+              f"render()| = {err} (limit {MULTI_ATOL}) on {card}")
+    ref = RenderConfig()
+    mesh4 = S.make_device_mesh(4, devices=["cuda:0"] * 4)
+    img, _, out["ref_4"], calls = _sharded_frame(
+        "render_sharded over 4 shards, the reference config", scene, ref,
+        mesh4, acc16, card, need, capture=True)
+    full = render(scene, ref, accel=acc16, generator=gen(0))
+    a = to_rgba_frame(img)[..., :3].astype(np.float64)
+    b = to_rgba_frame(full)[..., :3].astype(np.float64)
+    gap = abs(a.mean() - b.mean())
+    _require(bool(torch.isfinite(img).all()) and gap <= CLI_MEAN_ATOL,
+             f"render_sharded at the reference config: mean {a.mean()} u8 "
+             f"against render()'s {b.mean()}")
+    print(f"[multi] reference config over 4 shards: mean {a.mean()} u8 "
+          f"against render()'s {b.mean()} (other draws; limit "
+          f"{CLI_MEAN_ATOL}) on {card}")
+    _path_rows(rows, calls, "_sharded", "in the reference frame over 4 "
+               "shards")
+    del calls
+
+    # (b)
+    tmp = tempfile.TemporaryDirectory()
+    png = os.path.join(tmp.name, "two.png")
+    t0 = time.perf_counter()
+    outs = _two_process_render(["--cluster-size", "16", "--gi-cluster-size",
+                                "128", "--chunk-size", "65536", "--seed",
+                                "0", "--assemble", "--out", png])
+    wall = time.perf_counter() - t0
+    _require(f"wrote {png}" in outs[0] and os.path.exists(png),
+             "2-process render: process 0 wrote no frame")
+    got = D.assemble_shards(png + ".shards", ref)
+    two = S.render_sharded(scene, ref, S.make_device_mesh(
+        2, devices=["cuda:0"] * 2), accel=acc16, seed=0).cpu().numpy()
+    err = float(np.abs(got - two).max())
+    _require(err <= MULTI_ATOL, f"2-process render: {err} from the "
+             f"one-process 2-shard frame (limit {MULTI_ATOL})")
+    print(f"[multi] 2 processes sharing the card (gloo): {wall} s wall for "
+          f"both, start-up included; stitched frame max |2 processes - 1 "
+          f"process of 2 shards| = {err} (limit {MULTI_ATOL}) on {card}")
+    tmp.cleanup()
+
+    # (c)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
+    ids = block_ray_ids(0, 4096, cfg, device="cuda")
+    o, d = camera_rays_for_ids(ids, cfg)
+    target = torch.rand((4096, 3), generator=gen(5), device="cuda")
+    mesh1 = S.make_device_mesh(1)
+    step = S.make_train_step(cfg, functools.partial(torch.optim.Adam,
+                                                    lr=1e-2), mesh1)
+    params = {"colors": scene.mesh.colors * 0.5}
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    # Deterministic algorithms: the backward's scatter-adds then sum in one
+    # order, so two steps can be held bit for bit.
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        alone = step(params, None, scene.mesh, acc16, scene.sun, o, d,
+                     target)
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+            rank=0)
+        try:
+            S.COLLECTIVES["all_reduce"] = 0
+            grouped = step(params, None, scene.mesh, acc16, scene.sun, o, d,
+                           target)
+            torch.cuda.synchronize()
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    _require(S.COLLECTIVES["all_reduce"] == 1 and backend == "nccl",
+             f"NCCL: {S.COLLECTIVES['all_reduce']} all_reduce in a "
+             f"{backend} group")
+    _require(torch.equal(alone[0]["colors"], grouped[0]["colors"])
+             and bool(alone[2] == grouped[2]),
+             "NCCL: the one-rank step differs from the step without a group")
+    print(f"[multi] one-rank NCCL group: the train step ran 1 all_reduce, "
+          f"its params and loss ({float(grouped[2])}) equal to the step "
+          f"without a group on {card}")
+
+    # (d)
+    pixels = 800 * 800
+    idx = torch.cat([block_ray_ids(i, 16384, ref, 16, 16, device="cuda")
+                     for i in range(90, 106)])
+    n = idx.shape[0]
+    u1 = torch.rand((ref.diffuse_scatter, n, 2), generator=gen(7),
+                    device="cuda")
+
+    def draw(tag, shape, lo=0):
+        _require(tag == 1 and shape == (ref.diffuse_scatter,
+                                        shape[1], 2),
+                 f"train step: an unexpected draw {tag} {shape}")
+        return u1[:, lo:lo + shape[1]].contiguous()
+
+    tgt_img = torch.rand((800, 800, 3), generator=gen(8), device="cuda")
+    tables = {k: getattr(scene.mesh, k) for k in ("verts", "colors",
+                                                  "materials")}
+    mesh2 = S.make_device_mesh(2, devices=["cuda:0"] * 2)
+    step2 = S.make_train_step(ref, functools.partial(torch.optim.Adam,
+                                                     lr=1e-2), mesh2)
+    per = n // 2
+
+    def fitter_step():
+        fitter = inverse.Fitter(scene, tgt_img, tables, ref, accel=acc16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fitter.step(idx, draw)
+        torch.cuda.synchronize()
+        return (fitter, loss, {k: v.grad for k, v in fitter.params.items()},
+                (time.perf_counter() - t0) * 1e3)
+
+    def sharded_step(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = step2(
+            tables, None, scene.mesh, acc16, scene.sun, o2, d2, t2,
+            uniforms=lambda g, tag, shape: draw(tag, shape, g * per),
+            grads_out=grads)
+        torch.cuda.synchronize()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    # Deterministic algorithms: the backward's scatter-adds sum in one
+    # order, so what is left between the two is the split into shards.
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fitter, loss_1, grads_1, _ = fitter_step()
+        _, _, again, _ = fitter_step()
+        o2, d2 = fitter.o[idx], fitter.d[idx]
+        t2 = fitter.target[idx % pixels]
+        grads_2 = {}
+        loss_2, _ = sharded_step(grads_2)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    spread = {k: float((again[k] - grads_1[k]).abs().max())
+              / float(grads_1[k].abs().max()) for k in tables}
+    times = [sharded_step({})[1] for _ in range(2)]
+    fit_ms = fitter_step()[3]
+    rel = abs(float(loss_2) - loss_1) / abs(loss_1)
+    _require(rel <= GRAD_PARITY_RTOL, f"train step: loss {float(loss_2)} "
+             f"against the Fitter's {loss_1}")
+    errs = {}
+    for k in tables:
+        scale = float(grads_1[k].abs().max())
+        errs[k] = float((grads_2[k] - grads_1[k]).abs().max()) / scale
+        _require(scale > 0 and errs[k] <= TRAIN_STEP_RTOL,
+                 f"train step: {k} gradient {errs[k]} of its largest "
+                 f"magnitude from the Fitter's (limit {TRAIN_STEP_RTOL})")
+    print(f"[multi] train step, 262,144 rays over 2 shards of the card: "
+          f"{times} ms a step ({fit_ms} ms for the unsharded Fitter step); "
+          f"under deterministic algorithms: loss {float(loss_2)} against "
+          f"{loss_1} (rel {rel}); gradients max |sharded - Fitter| / max "
+          f"|Fitter| {errs} (limit {TRAIN_STEP_RTOL}); two Fitter steps on "
+          f"the same inputs differ by {spread} on {card}")
+    del fitter, again, grads_1, grads_2, u1
+
+    # (e)
+    for nd, dev in ((1, None), (2, "cuda:0")):
+        loss = dryrun_multichip(nd, device=dev)
+        print(f"[multi] dryrun_multichip({nd}"
+              f"{'' if dev is None else ', ' + repr(dev)}): loss {loss} on "
+              f"{card}")
+
+    # (f)
+    c64 = RenderConfig(width=64, height=64)
+    kern = render(scene, c64, accel=acc16, generator=gen(3))
+    for backend, acc in (("bruteforce", None), ("cluster", acc16)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(scene, c64.replace(backend=backend), accel=acc,
+                     generator=gen(3))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = float((img - kern).abs().max())
+        _require(err <= MULTI_ATOL, f"{backend} backend at 64x64: {err} "
+                 f"from the kernel path (limit {MULTI_ATOL})")
+        print(f"[multi] {backend} backend, 64x64x4 reference config: "
+              f"{dt} s, max |{backend} - kernels| = {err} (limit "
+              f"{MULTI_ATOL}) on {card}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "raytracing_tpu_torch")):
         print("chip_smoke: raytracing_tpu_torch/ is not beside this script; "
@@ -2234,6 +2599,7 @@ def main() -> int:
     fit_launches = phase_fit()
     cli_launches = phase_cli(rows)
     phase_resilience()
+    multi_launches = phase_multi_device(card, rows)
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
     # Each kernel's launches on the main path that runs it.
@@ -2250,9 +2616,11 @@ def main() -> int:
     launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
     for k in ("walk", "walk_dma", "refine_extents", "extents"):
         launches[k + "_cli"] = cli_launches[k]
+        launches[k + "_sharded"] = multi_launches["ref_4"][k]
     print(f"[done] launches of the path-traced frame {pt_launches}; of the "
           f"area-light frame {light_launches}; of the fit's 20 steps "
-          f"{fit_launches}; of a CLI render at its defaults {cli_launches}")
+          f"{fit_launches}; of a CLI render at its defaults {cli_launches}; "
+          f"of the sharded frames {multi_launches}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

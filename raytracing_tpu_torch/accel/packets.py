@@ -1,5 +1,7 @@
 """Host-side build of the flat cluster structure (twin of
-`raytracing_tpu.accel.packets`, SAH method and Baldwin–Weber blocks only).
+`raytracing_tpu.accel.packets`, SAH method and Baldwin–Weber blocks only),
+and the "cluster" backend that walks it in plain PyTorch
+(`nearest_hit_cluster`, `any_hit_cluster`).
 
 Each object's triangles are ordered by an exact-sweep SAH split into
 contiguous runs of `cluster_size`, padded so no cluster spans two objects.
@@ -16,7 +18,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raytracing_tpu_torch.geometry.mesh import Mesh
+from raytracing_tpu_torch.geometry.mesh import Mesh, triangle_soa
+from raytracing_tpu_torch.ops.intersect import (INF, TriangleSoA,
+                                                moller_trumbore, slab_test)
 
 
 # Bytes of cluster table (12 geometry rows plus the attribute rows, f32)
@@ -432,6 +436,111 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
         accel = accel._replace(
             rest_attrs=attrs[accel.rest_ids.long()].contiguous())
     return accel
+
+
+# ---------------------------------------------------------------------------
+# The cluster backend: the flat cluster structure walked in plain PyTorch
+# (the JAX package's pure-XLA backend; no kernel)
+# ---------------------------------------------------------------------------
+
+# Elements of one [R, clusters, CS] temporary of the occlusion scan, which
+# takes its clusters in groups (the nearest scan goes one by one), by the
+# device's type: small enough to stay in the CPU's caches, large enough to
+# fill a card.
+_SCAN_TEMP_ELEMS = {"cpu": 1 << 20, "cuda": 1 << 26}
+
+
+def packed_triangles(mesh: Mesh, accel: ClusterAccel) -> TriangleSoA:
+    """The triangles in packed (cluster) order from the live vertex pool,
+    so gradients reach mesh.verts; padding slots get e1 = e2 = 0 (det 0:
+    never hit)."""
+    tri = triangle_soa(mesh.verts, mesh.tri_v[accel.order.long()])
+    m = accel.slot_valid[:, None].to(mesh.verts.dtype)
+    return TriangleSoA(v0=tri.v0, e1=tri.e1 * m, e2=tri.e2 * m)
+
+
+def rest_triangles(mesh: Mesh, accel: ClusterAccel) -> TriangleSoA:
+    """The rest set's triangles from the live vertex pool."""
+    return triangle_soa(mesh.verts, mesh.tri_v[accel.rest_ids.long()])
+
+
+def _cluster_scan(tri: TriangleSoA, accel: ClusterAccel, o, d, eps,
+                  nearest: bool, t_max=INF):
+    """The cluster walk of the JAX package's XLA backend: every cluster's
+    slab test and its members' intersections, culled work masked, not
+    skipped. The nearest scan runs the clusters in order, each bounded by
+    the best t so far (ties keep the earlier cluster, then the lower
+    slot); occlusion ORs over groups of clusters under one fixed t_max.
+    Returns (t, slot, occluded)."""
+    cs, c = accel.cluster_size, accel.num_clusters
+    v0, e1, e2 = (x.reshape(c, cs, 3) for x in tri)
+    # Near-zero direction components are clamped before the reciprocal, so
+    # that a ray starting on a box face gives no 0 * inf = NaN.
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    r = o.shape[0]
+    ob, db = o[:, None, :], d[:, None, :]
+    if nearest:
+        best_t = torch.full((r,), INF, dtype=o.dtype, device=o.device)
+        best_i = torch.zeros(r, dtype=torch.int32, device=o.device)
+        for k in range(c):
+            limit = best_t.detach()
+            in_box = slab_test(o, inv_d, accel.cluster_min[k],
+                               accel.cluster_max[k], limit)
+            t, _ = moller_trumbore(ob, db, TriangleSoA(v0[k], e1[k], e2[k]),
+                                   limit[:, None], eps)
+            t = torch.where(in_box[:, None], t, INF)
+            j = torch.argmin(t, dim=1)
+            tj = torch.gather(t, 1, j[:, None])[:, 0]
+            better = tj < best_t
+            best_t = torch.where(better, tj, best_t)
+            best_i = torch.where(better, (j + k * cs).to(torch.int32), best_i)
+        return best_t, best_i, None
+    tm = torch.as_tensor(t_max, dtype=o.dtype, device=o.device).expand(r)
+    occ = torch.zeros(r, dtype=torch.bool, device=o.device)
+    g = max(1, _SCAN_TEMP_ELEMS.get(o.device.type, 1 << 20)
+            // max(1, r * cs))
+    for k0 in range(0, c, g):
+        ks = slice(k0, min(c, k0 + g))
+        in_box = slab_test(ob, inv_d[:, None, :], accel.cluster_min[ks],
+                           accel.cluster_max[ks], tm[:, None])  # [R, g]
+        _, valid = moller_trumbore(
+            ob[:, :, None, :], db[:, :, None, :],
+            TriangleSoA(v0[ks], e1[ks], e2[ks]), tm[:, None, None], eps)
+        occ = occ | (in_box & valid.any(dim=2)).any(dim=1)
+    return None, None, occ
+
+
+def nearest_hit_cluster(mesh: Mesh, accel: ClusterAccel, o, d,
+                        eps: float = 1e-8):
+    """Nearest hit through the cluster structure, with ORIGINAL triangle
+    ids; the rest set merges in through a brute-force pass over the live
+    vertex pool. t differentiates into mesh.verts."""
+    from raytracing_tpu_torch.ops.trace import Hit, nearest_hit_brute
+
+    t, slot, _ = _cluster_scan(packed_triangles(mesh, accel), accel, o, d,
+                               eps, nearest=True)
+    tri_id = accel.order[slot.long()]
+    if accel.rest_ids is not None:
+        hb = nearest_hit_brute(rest_triangles(mesh, accel), o, d, eps,
+                               block=max(8, accel.rest_ids.shape[0]))
+        better = hb.t < t
+        t = torch.minimum(t, hb.t)
+        tri_id = torch.where(better, accel.rest_ids[hb.tri.long()], tri_id)
+    return Hit(t=t, tri=tri_id, hit=torch.isfinite(t))
+
+
+def any_hit_cluster(mesh: Mesh, accel: ClusterAccel, o, d, t_max=INF,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """Occlusion through the cluster structure and the rest set: [R] bool.
+    t_max: a number or an [R] tensor."""
+    from raytracing_tpu_torch.ops.trace import any_hit_brute
+
+    _, _, occ = _cluster_scan(packed_triangles(mesh, accel), accel, o, d,
+                              eps, nearest=False, t_max=t_max)
+    if accel.rest_ids is not None:
+        occ = occ | any_hit_brute(rest_triangles(mesh, accel), o, d, t_max,
+                                  eps, block=max(8, accel.rest_ids.shape[0]))
+    return occ
 
 
 # ---------------------------------------------------------------------------

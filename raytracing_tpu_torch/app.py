@@ -13,7 +13,22 @@ Run: python -m raytracing_tpu_torch <subcommand> [flags]
 The flags and their defaults are the JAX package's, plus `--device`: the
 card ("cuda", the default) or "cpu", where the kernels' plain PyTorch
 versions run. Without a card and without `--device cpu` a command fails;
-it never renders on the CPU in the card's place.
+it never renders on the CPU in the card's place. `--backend` picks the
+traversal: the kernels ("auto", "cuda", "pallas") or the plain PyTorch
+"bruteforce" (no accel is built) and "cluster" backends.
+
+Multi-process rendering, as the JAX CLI does it: `render` with
+`--num-processes N --process-id i --coordinator host:port` (or the
+RTPU_NUM_PROCESSES / RTPU_PROCESS_ID / RTPU_COORDINATOR variables; `auto`
+reads torchrun's) joins a `torch.distributed` group, renders this
+process's shards of the frame and writes them to `<out>.shards/`; with
+`--assemble` process 0 stitches them into `<out>` once every process has
+written. The group runs NCCL on a card and gloo on the CPU;
+`--dist-backend gloo` puts processes that share one card in a gloo group
+(NCCL refuses two ranks on one card). `--device cuda` gives each process
+of a group its own card: torchrun's LOCAL_RANK, else its rank modulo the
+host's cards; `--device cuda:i` names one. The other commands run in one
+process and ignore these flags, as the JAX CLI's do.
 """
 
 from __future__ import annotations
@@ -28,8 +43,6 @@ from typing import Optional
 import torch
 
 FIT_CHECKPOINT_EVERY = 50  # steps between mid-fit snapshots (as the JAX CLI)
-_MULTI_PROCESS_FLAGS = ("coordinator", "num_processes", "process_id",
-                        "assemble")
 
 
 def _sync(dev: torch.device) -> None:
@@ -38,17 +51,7 @@ def _sync(dev: torch.device) -> None:
 
 
 def _check_args(args) -> torch.device:
-    """The device to run on, or SystemExit for what the port cannot do."""
-    given = [f for f in _MULTI_PROCESS_FLAGS if getattr(args, f, None)]
-    if given:
-        raise SystemExit(
-            f"--{given[0].replace('_', '-')}: multi-process rendering is not "
-            "ported yet (ROADMAP Queue 1 item 4, multi-device)")
-    if args.backend in ("bruteforce", "cluster"):
-        raise SystemExit(
-            f"--backend {args.backend}: not ported (ROADMAP Queue 1 item 5, "
-            "the off-main-path variants); the port runs its CUDA kernels "
-            "(auto, cuda, pallas)")
+    """The device to run on, or SystemExit without the card asked for."""
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -57,23 +60,63 @@ def _check_args(args) -> torch.device:
     return dev
 
 
+def _rank_card(rank: int) -> int:
+    """The card of process `rank` of a group when --device names none:
+    torchrun's LOCAL_RANK, else rank modulo the cards of this host."""
+    local = os.environ.get("LOCAL_RANK")
+    return int(local) if local is not None else \
+        rank % torch.cuda.device_count()
+
+
+def _maybe_init_distributed(args) -> bool:
+    """Join a process group (`parallel.distributed.initialize`) from the
+    multi-process flags or the RTPU_* variables; False, and nothing done,
+    for a single process. NCCL on a card unless --dist-backend says
+    otherwise; gloo for --device cpu. In a group, `--device cuda` (no
+    index) becomes this process's card (`_rank_card`), which is made the
+    current card, so that the processes of a host spread over its
+    cards."""
+    from raytracing_tpu_torch.parallel.distributed import (initialize,
+                                                           process_index)
+
+    dev = torch.device(args.device)
+    backend = args.dist_backend or ("gloo" if dev.type == "cpu" else None)
+    joined = initialize(
+        coordinator_address=args.coordinator,
+        num_processes=args.num_processes, process_id=args.process_id,
+        local_device_ids=([dev.index] if dev.type == "cuda"
+                          and dev.index is not None else None),
+        backend=backend)
+    if joined and dev.type == "cuda" and dev.index is None:
+        card = _rank_card(process_index())
+        torch.cuda.set_device(card)
+        args.device = f"cuda:{card}"
+    return joined
+
+
 def _build(args):
-    """(config, scene, accel, gi_accel, device) from the common flags."""
+    """(config, scene, accel, gi_accel, device) from the common flags;
+    under --backend bruteforce no accel is built (accel and gi_accel
+    None), as in the JAX CLI."""
     from raytracing_tpu_torch.accel.packets import (build_cluster_accel,
                                                     load_accel, save_accel)
     from raytracing_tpu_torch.config import RenderConfig
     from raytracing_tpu_torch.geometry.scene import build_default_scene
+    from raytracing_tpu_torch.tracer import resolve_backend
 
     dev = torch.device(args.device)
     cfg = RenderConfig(
         width=args.width, height=args.height,
         samples_per_pixel=args.spp,
-        backend="auto" if args.backend == "auto" else "cuda",
+        backend=resolve_backend(args.backend),
         chunk_size=args.chunk_size,
         reflect_depth=args.reflect_depth, diffuse_depth=args.diffuse_depth,
         diffuse_scatter=args.diffuse_scatter,
     )
     scene = build_default_scene(t=0.0, obj_path=args.obj, device=dev)
+    if cfg.backend == "bruteforce":
+        print("accel: none (--backend bruteforce tests every triangle)")
+        return cfg, scene, None, None, dev
     t0 = time.perf_counter()
     cache = getattr(args, "accel_cache", None)
     if cache and os.path.exists(cache):
@@ -112,10 +155,14 @@ def cmd_render(args) -> None:
     from raytracing_tpu_torch.utils.profiling import (device_summary,
                                                       profile_trace)
 
+    multi = _maybe_init_distributed(args)
     cfg, scene, accel, gi_accel, dev = _build(args)
     summary = device_summary(dev)
     print(f"devices: {summary}")
     print(f"triangles: {scene.mesh.num_triangles}")
+    if multi:
+        _render_distributed(args, cfg, scene, accel, gi_accel, dev, summary)
+        return
     with profile_trace(args.profile):
         _sync(dev)
         t0 = time.perf_counter()
@@ -128,6 +175,35 @@ def cmd_render(args) -> None:
           f"rays/s) on {summary}")
     write_png(args.out, img)
     print(f"wrote {args.out}")
+
+
+def _render_distributed(args, cfg, scene, accel, gi_accel, dev, summary):
+    """This process's shards of the frame to `<out>.shards/`; with
+    --assemble, process 0 stitches the frame into `<out>` once every
+    process has written. Leaves the group at the end."""
+    from raytracing_tpu_torch.parallel import distributed as D
+    from raytracing_tpu_torch.utils.image import write_png
+
+    try:
+        mesh = D.global_ray_mesh(devices=[dev])
+        _sync(dev)
+        t0 = time.perf_counter()
+        shards = D.render_distributed(scene, cfg, accel=accel, seed=args.seed,
+                                      mesh=mesh, gi_accel=gi_accel)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        out_dir = args.out + ".shards"
+        files = D.save_local_shards(shards, out_dir)
+        print(f"frame: {dt * 1e3:.1f} ms; wrote {len(files)} shard files "
+              f"to {out_dir} (process {mesh.process_index} of "
+              f"{mesh.process_count}, shards {[g for g, _, _ in shards]}) "
+              f"on {summary}")
+        D.barrier()
+        if mesh.process_index == 0 and args.assemble:
+            write_png(args.out, D.assemble_shards(out_dir, cfg))
+            print(f"wrote {args.out}")
+    finally:
+        D.shutdown()
 
 
 def cmd_animate(args) -> None:
@@ -261,8 +337,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(sp):
         sp.add_argument("--device", default="cuda",
-                        help="cuda (the default: the hand-written kernels) "
-                             "or cpu (their plain PyTorch versions)")
+                        help="cuda (the default: the hand-written kernels; "
+                             "in a process group, the card LOCAL_RANK, else "
+                             "the rank modulo the cards), cuda:i, or cpu "
+                             "(their plain PyTorch versions)")
         sp.add_argument("--width", type=int, default=800)
         sp.add_argument("--height", type=int, default=800)
         sp.add_argument("--spp", type=int, default=4)
@@ -271,8 +349,8 @@ def build_parser() -> argparse.ArgumentParser:
                                  "cluster"],
                         help="auto and cuda: the port's kernels; pallas "
                              "names the same role (the TPU kernels these "
-                             "port) and maps to them; bruteforce and "
-                             "cluster are not ported and exit")
+                             "port); bruteforce (no accel) and cluster: "
+                             "plain PyTorch backends")
         sp.add_argument("--cluster-size", type=int, default=128)
         sp.add_argument("--gi-cluster-size", type=int, default=None,
                         help="build a second, coarser accel for the bounce "
@@ -293,20 +371,26 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--profile", default=None,
                         help="torch.profiler logdir: a Chrome trace of the "
                              "frame is written to DIR/trace.json")
-        # Parsed as the JAX CLI parses them; multi-process rendering is not
-        # ported yet, so giving one exits.
+        # Multi-process rendering (`render`); explicit flags, else the
+        # RTPU_COORDINATOR / RTPU_NUM_PROCESSES / RTPU_PROCESS_ID
+        # variables, or --num-processes auto under torchrun.
         sp.add_argument("--coordinator", default=None,
-                        help="host:port of process 0 (not ported yet)")
+                        help="host:port of process 0's group")
         sp.add_argument("--num-processes", default=None,
-                        help="process count (not ported yet)")
-        sp.add_argument("--process-id", type=int, default=None,
-                        help="(not ported yet)")
+                        help="process count (or 'auto': torchrun's)")
+        sp.add_argument("--process-id", type=int, default=None)
+        sp.add_argument("--dist-backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="the group's backend: nccl on a card and "
+                             "gloo on the CPU by default; gloo for "
+                             "processes sharing one card")
 
     sp = sub.add_parser("render", help="render one frame to PNG")
     common(sp)
     sp.add_argument("--out", default="frame.png")
     sp.add_argument("--assemble", action="store_true",
-                    help="(multi-process, not ported yet)")
+                    help="multi-process: process 0 stitches every "
+                         "process's shards into --out")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("animate", help="N-frame loop w/ orbiting sun + fps")

@@ -27,10 +27,24 @@ Cells (`suite`):
   accel_build_teapot_scene             the CS 16 build of the default scene
   mesh_gen_*, accel_build_*,           the headline query on the subdivided
   rays_per_s_404k/1m6/6m4              teapot (CS 64; CS 128; CS 128)
+  sharding_overhead_virtual8_weak,     `bench_suite.py:275-343`'s weak pair on
+  virtual8_t1, virtual8_t8             8 virtual shards of the one card:
+                                       128x128 at spp 1 over 1 shard against
+                                       spp 8 over 8 (the same rays a shard),
+                                       the reference pipeline, CS 16, chunks
+                                       of 8,192; t8 / (8 t1)
+  scaling_efficiency_2proc,            `:346-465`: one 128x128x2 frame
+  twoproc_t1, twoproc_t2               (reflect depth 3, 6 fan rays) at fixed
+                                       total work, 1 process of 2 shards
+                                       against 2 processes of 1 (a gloo
+                                       group) sharing the card; t1 / t2
+  scaling_efficiency_n<N>              `:243-268`: per-card rays/s of
+                                       `render_sharded` at N cards against 1
+                                       (256x256x4, reflect depth 1, no fan),
+                                       only where N = device_count() > 1
 Beside every frame stands its count of alive ray queries and their rate
 (`*_alive_ray_queries`, `*_alive_ray_queries_per_s`): a frame's
-"rays/s" otherwise counts its primaries only. The scaling cells wait for
-multi-device rendering (ROADMAP Queue 1, multi-device).
+"rays/s" otherwise counts its primaries only.
 
 Frames are timed with the host clock around work that ends in
 `torch.cuda.synchronize()`; the headline and the large scenes with CUDA
@@ -330,6 +344,7 @@ def suite() -> list:
     torch.cuda.synchronize()
     emit(records, "accel_build_teapot_scene",
          (time.perf_counter() - t0) * 1e3, "ms")
+    scaling_cells(records, scene, accel)
     del scene, accel, lit
 
     for levels, tag, cs, iters in ((3, "404k", 64, 10), (4, "1m6", 128, 10),
@@ -349,6 +364,123 @@ def suite() -> list:
              hit_fraction=frac)
         del acc, mesh
     return records
+
+
+def _sharded_seconds(scene, cfg, mesh, accel, reps: int = 3) -> float:
+    """Mean seconds of `render_sharded` over `reps` synchronised frames,
+    after one frame of warm-up."""
+    from raytracing_tpu_torch.parallel.shard import render_sharded
+
+    render_sharded(scene, cfg, mesh, accel=accel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(reps):
+        img = render_sharded(scene, cfg, mesh, accel=accel, seed=k + 1)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(img).all()):
+        raise RuntimeError("render_sharded: a frame that is not finite")
+    return (time.perf_counter() - t0) / reps
+
+
+# One process of the 2-process cell: argv = process id, port, processes,
+# shards of this process. Prints {"t_s": best seconds a frame} from
+# process 0. Each frame ends with a barrier, so the time covers the
+# slowest process.
+_TWO_PROC_SNIPPET = r'''
+import json, sys, time, torch
+from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+from raytracing_tpu_torch.geometry.scene import build_default_scene
+from raytracing_tpu_torch.parallel import distributed as D
+pid, port, nprocs, shards = map(int, sys.argv[1:5])
+if nprocs > 1:
+    assert D.initialize(f"localhost:{port}", nprocs, pid, backend="gloo")
+scene = build_default_scene(device="cuda")
+accel = build_cluster_accel(scene.mesh, cluster_size=16)
+cfg = RenderConfig(width=128, height=128, samples_per_pixel=2,
+                   chunk_size=8192, reflect_depth=3, diffuse_scatter=6)
+mesh = D.global_ray_mesh(devices=["cuda:0"] * shards)
+def frame(seed):
+    D.render_distributed(scene, cfg, accel=accel, seed=seed, mesh=mesh)
+    torch.cuda.synchronize()
+    D.barrier()
+frame(0)
+best = float("inf")
+for trial in range(3):
+    t0 = time.perf_counter()
+    for k in range(2):
+        frame(1 + trial * 2 + k)
+    best = min(best, (time.perf_counter() - t0) / 2)
+if pid == 0:
+    print(json.dumps({"t_s": best}), flush=True)
+D.shutdown()
+'''
+
+
+def two_process_seconds(nprocs: int, shards: int, timeout: float = 600.0
+                        ) -> float:
+    """Seconds a frame of `_TWO_PROC_SNIPPET` with `nprocs` processes of
+    `shards` shards each on the card (a gloo group when nprocs > 1, whose
+    processes share it), each process started fresh from this checkout."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TWO_PROC_SNIPPET, str(i), str(port),
+         str(nprocs), str(shards)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(nprocs)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"2-process cell: a process failed:\n"
+                               f"{out[-2000:]}")
+    line = [ln for ln in outs[0].splitlines() if ln.startswith("{")][-1]
+    return json.loads(line)["t_s"]
+
+
+def scaling_cells(records, scene, accel) -> None:
+    """The scaling cells of the module docstring, on the cards there
+    are."""
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.parallel.shard import make_device_mesh
+
+    t = {}
+    for n in (1, 8):
+        cfg = RenderConfig(width=128, height=128, samples_per_pixel=n,
+                           chunk_size=8192)
+        t[n] = _sharded_seconds(
+            scene, cfg, make_device_mesh(n, devices=["cuda:0"] * n), accel)
+    emit(records, "sharding_overhead_virtual8_weak", t[8] / (8.0 * t[1]),
+         "x")
+    emit(records, "virtual8_t1", t[1], "s")
+    emit(records, "virtual8_t8", t[8], "s")
+
+    t1, t2 = two_process_seconds(1, 2), two_process_seconds(2, 1)
+    emit(records, "scaling_efficiency_2proc", t1 / t2, "x")
+    emit(records, "twoproc_t1", t1, "s")
+    emit(records, "twoproc_t2", t2, "s")
+
+    n_all = torch.cuda.device_count()
+    if n_all > 1:
+        cfg = RenderConfig(width=256, height=256, samples_per_pixel=4,
+                           diffuse_depth=0, reflect_depth=1)
+        rate = {}
+        for n in (1, n_all):
+            rate[n] = 256 * 256 * 4 / _sharded_seconds(
+                scene, cfg, make_device_mesh(n), accel) / n
+        emit(records, f"scaling_efficiency_n{n_all}", rate[n_all] / rate[1],
+             "x")
 
 
 def main() -> None:

@@ -1,10 +1,19 @@
 """Render configuration — the PyTorch port's twin of `raytracing_tpu.config`.
 
 `RenderConfig` keeps the JAX package's field names and defaults, so one
-dict builds both configs. The one difference is `backend`: the port has a
-single traversal (the hand-written CUDA kernels, with their plain PyTorch
-versions on CPU tensors), named "cuda"; "auto" is the same thing. The JAX
-package's "bruteforce", "cluster" and "pallas" backends are not ported.
+dict builds both configs. `backend` names the traversal:
+  "cuda"        the hand-written CUDA kernels (their plain PyTorch versions
+                on CPU tensors);
+  "pallas"      a second name for the same kernel path, so that a JAX
+                config dict (whose kernel path is "pallas") builds a port
+                config;
+  "auto"        the kernel path too, on the card and on the CPU (the JAX
+                package resolves "auto" to "cluster" off the TPU; see
+                `tracer.resolve_backend`);
+  "bruteforce"  every ray against every triangle (`ops.trace`), the oracle;
+  "cluster"     the flat cluster structure walked in plain PyTorch
+                (`accel.packets.nearest_hit_cluster`).
+The last two are plain PyTorch on either device: no kernel runs.
 
 Knobs that only tune the TPU kernels keep their fields so that a config
 means the same in both packages; the port documents where it ignores one.
@@ -15,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-BACKENDS = ("auto", "cuda")
+BACKENDS = ("auto", "cuda", "pallas", "bruteforce", "cluster")
 
 
 def _u8(r: int, g: int, b: int) -> Tuple[float, float, float]:
@@ -42,8 +51,9 @@ class RenderConfig:
     # Primary rays per wavefront chunk; the bounce levels hold
     # chunk_size * (1 + diffuse_scatter) rays.
     chunk_size: int = 65536
-    # "auto" and "cuda" both name the kernel traversal (CUDA kernels on
-    # CUDA tensors, their plain PyTorch versions on CPU tensors).
+    # "auto", "cuda" and "pallas" name the kernel traversal (CUDA kernels
+    # on CUDA tensors, their plain PyTorch versions on CPU tensors);
+    # "bruteforce" and "cluster" the plain PyTorch backends.
     backend: str = "auto"
     # "stored" face normals, or "geometric" ones recomputed from vertices.
     normals: str = "stored"
@@ -83,10 +93,7 @@ class RenderConfig:
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(
-                f"backend {self.backend!r} is not ported: the PyTorch port "
-                f"runs {BACKENDS} (the kernel traversal); the brute-force "
-                "and cluster backends are in ROADMAP Queue 1, the "
-                "off-main-path variants")
+                f"unknown backend {self.backend!r}: one of {BACKENDS}")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

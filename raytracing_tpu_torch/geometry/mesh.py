@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from raytracing_tpu_torch.ops.intersect import TriangleSoA
+
 
 class Mesh(NamedTuple):
     """verts [V, 3] f32, tri_v [T, 3] i32, normals [T, 3] f32 (stored face
@@ -59,6 +61,14 @@ class Scene(NamedTuple):
     def to(self, device) -> "Scene":
         return Scene(self.mesh.to(device), self.sun.to(device),
                      None if self.lights is None else self.lights.to(device))
+
+
+def triangle_soa(verts: torch.Tensor, tri_v: torch.Tensor) -> TriangleSoA:
+    """v0 | e1 | e2 of triangles tri_v [T, 3] gathered from the vertex pool
+    verts, so gradients reach verts (the brute-force backend's input)."""
+    tv = tri_v.long()
+    va, vb, vc = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
+    return TriangleSoA(v0=va, e1=vb - va, e2=vc - va)
 
 
 def concat_objects(objects: Sequence[dict]) -> Mesh:

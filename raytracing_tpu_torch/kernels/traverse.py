@@ -240,8 +240,12 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(t: Optional[torch.Tensor] = None):
+    """The current stream of t's device (of the current card without t).
+    A wrapper launches under `torch.cuda.device(t.device)` on this stream,
+    so tensors on one card launch there whichever card is current."""
+    return ctypes.c_void_p(torch.cuda.current_stream(
+        None if t is None else t.device).cuda_stream)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -251,6 +255,10 @@ def _on_cpu(*tensors) -> bool:
     if devs == {"cpu"}:
         return True
     if devs == {"cuda"}:
+        cards = {t.device for t in tensors if t is not None}
+        if len(cards) > 1:
+            raise ValueError(f"tensors on {sorted(map(str, cards))}: one "
+                             "launch takes the tensors of one card")
         return False
     raise ValueError(f"tensors on {sorted(devs)}: the traversal runs on "
                      "CPU tensors (plain PyTorch) or CUDA tensors (kernels)")
@@ -290,8 +298,9 @@ def tile_extents(rays8: torch.Tensor):
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
     lib = cuda.library()
-    cuda.check(lib.rt_tile_extents(_ptr(rays8), rays8.shape[1], _ptr(lo),
-                                   _ptr(hi), _stream()), "extents")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_tile_extents(_ptr(rays8), rays8.shape[1], _ptr(lo),
+                                       _ptr(hi), _stream(rays8)), "extents")
     LAUNCHES["extents"] += 1
     return lo, hi
 
@@ -376,9 +385,10 @@ def refine_dense(rays8, cluster_min, cluster_max, tile_alive):
     alive = tile_alive.to(torch.int32).contiguous()
     out = torch.empty((nt, c), dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
-    cuda.check(lib.rt_refine_dense(
-        _ptr(rays8), rays8.shape[1], _ptr(cluster_min), _ptr(cluster_max), c,
-        _ptr(alive), _ptr(out), _stream()), "refine")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_refine_dense(
+            _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
+            _ptr(cluster_max), c, _ptr(alive), _ptr(out), _stream(rays8)), "refine")
     LAUNCHES["refine"] += 1
     return out != 0
 
@@ -404,9 +414,10 @@ def refine_dense_extents(rays8, cluster_min, cluster_max):
     hi = torch.empty_like(lo)
     out = torch.empty((nt, c), dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
-    cuda.check(lib.rt_refine_dense_extents(
-        _ptr(rays8), rays8.shape[1], _ptr(cluster_min), _ptr(cluster_max), c,
-        _ptr(lo), _ptr(hi), _ptr(out), _stream()), "refine_extents")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_refine_dense_extents(
+            _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
+            _ptr(cluster_max), c, _ptr(lo), _ptr(hi), _ptr(out), _stream(rays8)), "refine_extents")
     LAUNCHES["refine_extents"] += 1
     return lo, hi, out != 0
 
@@ -444,10 +455,11 @@ def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
     cnt32 = cnt.to(torch.int32).contiguous()
     out = torch.empty(ids.shape, dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
-    cuda.check(lib.rt_refine_lists(
-        _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
-        run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max), _ptr(out),
-        _stream()), "refine_lists")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_refine_lists(
+            _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
+            run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max), _ptr(out),
+            _stream(rays8)), "refine_lists")
     LAUNCHES["refine_lists"] += 1
     return out != 0
 
@@ -744,15 +756,16 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
-    cuda.check(lib.rt_walk(
-        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
-        _ptr(tnear if early else None), ids.shape[1], seg, tile_blocks,
-        _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
-        _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
-        n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
-        _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
-        _stream()), entry)
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_walk(
+            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            _ptr(tnear if early else None), ids.shape[1], seg, tile_blocks,
+            _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
+            _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
+            n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
+            int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
+            _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a),
+            _ptr(visits), _stream(rays8)), entry)
     LAUNCHES[entry] += 1
     return out_t, out_s, out_a
 
@@ -823,15 +836,16 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
-    cuda.check(lib.rt_walk_gstream(
-        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
-        _ptr(tnear if early else None), w, seg, tile_blocks, ng, int(gsz),
-        _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
-        _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
-        n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
-        _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
-        _stream()), "walk_gstream")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_walk_gstream(
+            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            _ptr(tnear if early else None), w, seg, tile_blocks, ng, int(gsz),
+            _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
+            _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
+            n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
+            int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
+            _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a),
+            _ptr(visits), _stream(rays8)), "walk_gstream")
     LAUNCHES["walk_gstream"] += 1
     return out_t, out_s, out_a
 
@@ -878,13 +892,14 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     keys = _merge_keys(rays8, nearest)  # the launch fills them
     cnt32 = cnt.to(torch.int32).contiguous()
     lib = cuda.library()
-    cuda.check(lib.rt_walk_wq(
-        _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32), ids.shape[1],
-        int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
-        attr_t.stride(0) if attr_t is not None else 0,
-        n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-        int(nearest), int(pmto), _ptr(keys), _ptr(out_t), _ptr(out_s),
-        _ptr(out_a), _stream()), "walk_wq")
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_walk_wq(
+            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            ids.shape[1], int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
+            attr_t.stride(0) if attr_t is not None else 0,
+            n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
+            int(nearest), int(pmto), _ptr(keys), _ptr(out_t), _ptr(out_s),
+            _ptr(out_a), _stream(rays8)), "walk_wq")
     LAUNCHES["walk_wq"] += 1
     return out_t, out_s, out_a
 
@@ -1677,15 +1692,16 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     cnt32 = cnt.to(torch.int32).contiguous()
     early = tnear is not None
     lib = cuda.library()
-    cuda.check(lib.rt_walk_camera(
-        _ptr(offs), int(tile_base), n_tiles, cam.width, cam.height, cam.spp,
-        cam.bh, cam.bw, float(cam.aspect), float(cam.scale), _ptr(ids),
-        _ptr(cnt32), _ptr(tnear), ids.shape[1], seg, tile_blocks,
-        _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
-        _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
-        n_attrs if attr_t is not None else 0, cs, float(eps), int(early),
-        int(ee_batch), _ptr(keys), _ptr(finished), _ptr(out_t), _ptr(out_s),
-        _ptr(out_a), _ptr(visits), _stream()), entry)
+    with torch.cuda.device(ids.device):
+        cuda.check(lib.rt_walk_camera(
+            _ptr(offs), int(tile_base), n_tiles, cam.width, cam.height,
+            cam.spp, cam.bh, cam.bw, float(cam.aspect), float(cam.scale), _ptr(ids),
+            _ptr(cnt32), _ptr(tnear), ids.shape[1], seg, tile_blocks,
+            _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
+            _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
+            n_attrs if attr_t is not None else 0, cs, float(eps), int(early),
+            int(ee_batch), _ptr(keys), _ptr(finished), _ptr(out_t),
+            _ptr(out_s), _ptr(out_a), _ptr(visits), _stream(ids)), entry)
     LAUNCHES[entry] += 1
     return out_t, out_s, out_a
 

@@ -32,7 +32,7 @@ from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.geometry.transform import apply_pose
 from raytracing_tpu_torch.models.camera import camera_rays
-from raytracing_tpu_torch.models.whitted import render_rays
+from raytracing_tpu_torch.models.whitted import default_accel, render_rays
 
 # Parameters whose change the accel's shading planes must follow (the JAX
 # package's set).
@@ -65,10 +65,11 @@ class Fitter:
     params are copied into leaf tensors that require grad, which
     `torch.optim.Adam` at learning_rate descends (optax.adam's update);
     opt_state: an Adam state_dict to resume from. accel defaults to
-    `build_cluster_accel(scene.mesh)` (the JAX package's fit renders
-    without one through its brute-force backend, which is not ported);
-    its shading planes are refit from the live parameters inside every
-    step."""
+    `build_cluster_accel(scene.mesh)`, except under config.backend
+    "bruteforce", which renders without one (as the JAX package's fit
+    does when given none); an accel's shading planes are refit from the
+    live parameters inside every step. Any backend of `RenderConfig`
+    runs."""
 
     def __init__(self, scene: Scene, target: torch.Tensor,
                  params: Dict[str, torch.Tensor], config: RenderConfig,
@@ -82,9 +83,8 @@ class Fitter:
                                           lr=learning_rate)
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
-        self.accel = (build_cluster_accel(scene.mesh) if accel is None
-                      else accel)
-        self.refits = bool(_REFIT_PARAMS & set(params))
+        self.accel = accel = default_accel(scene.mesh, config, accel)
+        self.refits = accel is not None and bool(_REFIT_PARAMS & set(params))
         self.first_tri = None
         if self.refits and self.accel.attr_tables is not None:
             self.first_tri = first_tri_per_object(
@@ -119,7 +119,10 @@ class Fitter:
         return float(loss.detach())
 
     def rebuild(self) -> None:
-        """Rebuild the accel around the current (detached) geometry."""
+        """Rebuild the accel around the current (detached) geometry (none
+        to rebuild without one)."""
+        if self.accel is None:
+            return
         mesh = apply_params(self.scene.mesh, self.params, self.pose_obj)
         self.accel = build_cluster_accel(mesh, self.accel.cluster_size)
 

@@ -29,17 +29,17 @@ from typing import Callable, Optional
 
 import torch
 
-from raytracing_tpu_torch.accel.packets import ClusterAccel, build_cluster_accel
+from raytracing_tpu_torch.accel.packets import ClusterAccel
 from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.kernels.binning import (batch_bounds, bin_sort,
                                                   bounce_bin_key)
 from raytracing_tpu_torch.models.camera import camera_rays_for_ids
-from raytracing_tpu_torch.models.whitted import _auto_gi_accel, shade
+from raytracing_tpu_torch.models.whitted import frame_accels, shade
 from raytracing_tpu_torch.ops.color import gamma_correct
 from raytracing_tpu_torch.ops.intersect import reflect
 from raytracing_tpu_torch.ops.sampling import cosine_hemisphere
-from raytracing_tpu_torch.tracer import nearest_hit_shaded
+from raytracing_tpu_torch.tracer import nearest_hit_shaded, uses_kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +56,7 @@ class PathTracerConfig:
     bin_every: int = 1
 
 
-def trace_paths(mesh: Mesh, accel: ClusterAccel, sun, o, d,
+def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 uniforms: Callable[[tuple, tuple], torch.Tensor],
                 config: RenderConfig, pt: PathTracerConfig,
                 gi_accel: Optional[ClusterAccel] = None) -> torch.Tensor:
@@ -66,9 +66,11 @@ def trace_paths(mesh: Mesh, accel: ClusterAccel, sun, o, d,
     uniforms(tag, shape): tag ("branch", b) with shape [R] and
     ("scatter", b) with shape [R, 2] for bounce b. gi_accel: an optional
     coarser accel of the same mesh for the segments after the first (the
-    same estimator). With `config.bin_secondary` the whole path state is
-    re-sorted by (direction cone, origin cell) before each bounce after
-    the first, and the result returns to the caller's order at the end.
+    same estimator). With `config.bin_secondary` on the kernel path (as in
+    the JAX package) the whole path state is re-sorted by (direction cone,
+    origin cell) before each bounce after the first, and the result
+    returns to the caller's order at the end. accel is None only under
+    backend "bruteforce", which brute-forces every query.
     One host sync per bounce: the loop stops once no path is alive (exact:
     a dead path adds nothing)."""
     r = o.shape[0]
@@ -77,7 +79,7 @@ def trace_paths(mesh: Mesh, accel: ClusterAccel, sun, o, d,
     radiance = torch.zeros((r, 3), dtype=o.dtype, device=dev)
     throughput = torch.ones((r, 3), dtype=o.dtype, device=dev)
     alive = torch.ones(r, dtype=torch.bool, device=dev)
-    binning = config.bin_secondary
+    binning = config.bin_secondary and uses_kernels(config)
     orig = torch.arange(r, dtype=torch.int32, device=dev)
 
     for bounce in range(pt.max_bounces):
@@ -154,16 +156,14 @@ def render(scene: Scene, config: RenderConfig,
     of `config.chunk_size` in scanline order (the last chunk repeats the
     last pixel and its surplus is dropped); a chunk's samples are averaged
     in linear space and gamma is applied to the mean. accel defaults to
-    `build_cluster_accel(mesh)`, gi_accel to the auto-built coarse bounce
-    accel. Uniforms come from `uniforms(chunk, sample, tag, shape)` when
-    given (the tags are `trace_paths`'), else from `generator` (default:
-    seed 0 on the scene's device)."""
+    `build_cluster_accel(mesh)` (none under backend "bruteforce"),
+    gi_accel to the auto-built coarse bounce accel on the kernel path.
+    Uniforms come from `uniforms(chunk, sample, tag, shape)` when given
+    (the tags are `trace_paths`'), else from `generator` (default: seed 0
+    on the scene's device)."""
     mesh = scene.mesh
     device = mesh.verts.device
-    if accel is None:
-        accel = build_cluster_accel(mesh)
-    if gi_accel is None:
-        gi_accel = _auto_gi_accel(mesh, accel, config)
+    accel, gi_accel = frame_accels(scene, config, accel, gi_accel)
     if uniforms is None:
         if generator is None:
             generator = torch.Generator(device=device)

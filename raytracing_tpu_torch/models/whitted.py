@@ -43,7 +43,16 @@ from raytracing_tpu_torch.ops.linalg import dot, normalize, sqrt0
 from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere, sample_cone,
                                                stratified_offsets)
 from raytracing_tpu_torch.tracer import (any_hit, nearest_hit_shaded,
-                                         nearest_hit_shaded_camera)
+                                         nearest_hit_shaded_camera,
+                                         uses_kernels)
+
+
+def _attribute_rows(mesh: Mesh) -> torch.Tensor:
+    """Per-triangle shading attributes as one [T, 9] row table: normal |
+    color | albedo/pi, reflectivity, roughness (what the kernel path's
+    walk accumulates; the other backends gather it by triangle id)."""
+    return torch.cat([mesh.normals, mesh.colors,
+                      mesh.materials[mesh.obj_id.long()]], dim=1)
 
 
 class Shaded(NamedTuple):
@@ -58,14 +67,22 @@ class Shaded(NamedTuple):
     albedo_pi: torch.Tensor  # [N]
 
 
-def shade(mesh: Mesh, accel: ClusterAccel, sun, o, d, hit: Hit,
-          config: RenderConfig, attrs: torch.Tensor,
+def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
+          config: RenderConfig, attrs: Optional[torch.Tensor] = None,
           bin_shadow: Optional[bool] = None, wq: bool = False) -> Shaded:
     """Direct sun light at the hit points, with the shadow (any-hit) query.
-    attrs [N, 9] are the walk's attribute rows; hit.tri are packed slots."""
+    attrs [N, 9]: the walk's attribute rows, hit.tri then packed slots (the
+    kernel path); None: hit.tri are original triangle ids and one row
+    gather of `_attribute_rows` fetches the attributes (the other
+    backends). The shadow rays are re-sorted by hit position only on the
+    kernel path, as in the JAX package (the order changes no result)."""
     t_safe = torch.where(hit.hit, hit.t, 1.0)
+    idx_is_slot = attrs is not None
+    if attrs is None:
+        attrs = _attribute_rows(mesh)[hit.tri.long()]
     if config.normals == "geometric":
-        tv = mesh.tri_v[accel.order_ext[hit.tri].long()].long()
+        tri_ids = accel.order_ext[hit.tri.long()] if idx_is_slot else hit.tri
+        tv = mesh.tri_v[tri_ids.long()].long()
         n = triangle_normal(mesh.verts[tv[:, 0]], mesh.verts[tv[:, 1]],
                             mesh.verts[tv[:, 2]])
     else:
@@ -79,17 +96,18 @@ def shade(mesh: Mesh, accel: ClusterAccel, sun, o, d, hit: Hit,
     sh_alive = hit.hit & facing
     if bin_shadow is None:
         bin_shadow = config.bin_shadow in (True, "auto")
-    if bin_shadow:
+    if bin_shadow and uses_kernels(config) and accel is not None:
         # Sort the shadow rays by hit position so their tiles are compact.
         lo, hi = batch_bounds(pos, sh_alive)
         k = bin_key(pos, sun_dir, lo, hi, sh_alive)
         sidx, (pos_s, alive_s) = bin_sort(k, pos, sh_alive)
         dir_s = normalize(sun - pos_s, eps=1e-20)
-        occ_s = any_hit(accel, pos_s, dir_s, config, alive=alive_s, wq=wq)
+        occ_s = any_hit(mesh, accel, pos_s, dir_s, config, alive=alive_s,
+                        wq=wq)
         (occluded,) = unsort(sidx, occ_s)
     else:
-        occluded = any_hit(accel, pos, sun_dir, config, alive=sh_alive,
-                           wq=wq)
+        occluded = any_hit(mesh, accel, pos, sun_dir, config,
+                           alive=sh_alive, wq=wq)
     lit = hit.hit & facing & ~occluded
     direct = torch.where(lit[:, None], color * (ndl * albedo_pi)[:, None],
                          0.0)
@@ -132,15 +150,18 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
     return w_dir, ndl, hit_mask & (ndl > 0.0), t_light * (1.0 - 1e-4)
 
 
-def area_light_term(accel: ClusterAccel, lights: SphereLight, sh: Shaded,
-                    hit_mask, uniforms, config: RenderConfig,
-                    wq: bool = False) -> torch.Tensor:
+def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
+                    sh: Shaded, hit_mask, uniforms, config: RenderConfig,
+                    wq: bool = False, mesh: Optional[Mesh] = None
+                    ) -> torch.Tensor:
     """Soft-shadowed direct radiance [N, 3] from spherical area lights at
     the shaded points. Per light: `config.light_samples` directions drawn
     uniformly in the cone the light subtends, each a visibility ray whose
     any-hit query has its own t_max (`light_shadow_rays`). The estimator is
     mean(emission cos_theta V) x cone solid angle x albedo/pi x color.
-    uniforms((light, sample), [N, 2]) returns each draw's uniforms."""
+    uniforms((light, sample), [N, 2]) returns each draw's uniforms. mesh:
+    the scene's mesh, which the brute-force and cluster backends read (the
+    kernel path needs only the accel)."""
     pos, n = sh.pos, sh.n
     total = torch.zeros_like(pos)
     for li in range(lights.center.shape[0]):
@@ -149,8 +170,8 @@ def area_light_term(accel: ClusterAccel, lights: SphereLight, sh: Shaded,
         for s in range(config.light_samples):
             w_dir, ndl, alive, t_stop = light_shadow_rays(
                 cone, pos, n, hit_mask, uniforms((li, s), (pos.shape[0], 2)))
-            occluded = any_hit(accel, pos, w_dir, config, t_max=t_stop,
-                               alive=alive, wq=wq)
+            occluded = any_hit(mesh, accel, pos, w_dir, config,
+                               t_max=t_stop, alive=alive, wq=wq)
             vis = alive & ~occluded
             acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
         total = total + ((acc / config.light_samples * cone.omega)[:, None]
@@ -209,7 +230,7 @@ def bounce_wavefront(mesh: Mesh, accel: ClusterAccel, sun, o, d,
     return _bin_bounce(o_c, d_c, a_c)[1]
 
 
-def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
+def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 config: RenderConfig,
                 uniforms: Callable[[object, tuple], torch.Tensor],
                 gi_accel: Optional[ClusterAccel] = None,
@@ -217,6 +238,8 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
                 camera_chunk=None) -> torch.Tensor:
     """Gamma-corrected radiance [R, 3] for primary rays o, d [R, 3].
 
+    accel: the cluster structure the kernel path and the "cluster" backend
+    walk (None under backend "bruteforce", which brute-forces every query).
     uniforms(tag, shape) returns a draw's uniforms: tag = depth for the
     diffuse fan at `depth`, ("light", depth, light, sample) for one shadow
     sample of an area light.
@@ -230,8 +253,9 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
 
     Differentiable with respect to the mesh (verts, normals, colors,
     materials), the lights (center, radius, emission), the sun and the
-    rays: the nearest queries are `_ShadedWalk`s when something requires
-    grad (camera mode stays detached, as in the JAX package), while which
+    rays: on the kernel path the nearest queries are `_ShadedWalk`s when
+    something requires grad (camera mode stays detached, as in the JAX
+    package), off it autograd runs through the plain queries; which
     triangle a ray hits, every occlusion query and the per-ray t_max of a
     light's shadow ray stay detached."""
     _check_config(config)
@@ -239,13 +263,15 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
     sky = torch.tensor(config.sky_color, dtype=o.dtype, device=o.device)
     bin_sh = (config.bin_shadow if isinstance(config.bin_shadow, bool)
               else gi_accel is None)
+    # Bounce levels are re-sorted on the kernel path only (JAX package).
+    kernels = uses_kernels(config)
 
     def level_radiance(o_l, d_l, alive_l, depth):
         n_l = o_l.shape[0]
         sidx = None
         bounce = depth > 1
         acc_l = gi_accel if (bounce and gi_accel is not None) else accel
-        if (bounce and config.bin_secondary
+        if (bounce and config.bin_secondary and kernels
                 and (depth <= config.diffuse_depth
                      or config.bin_reflect_levels)):
             sidx, (o_l, d_l, alive_l) = _bin_bounce(o_l, d_l, alive_l)
@@ -275,7 +301,7 @@ def render_rays(mesh: Mesh, accel: ClusterAccel, sun, o, d,
             area = area_light_term(
                 acc_l, lights, sh, h.hit,
                 lambda ls, shape: uniforms(("light", depth) + ls, shape),
-                config, wq=wq)
+                config, wq=wq, mesh=mesh)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         if depth < config.reflect_depth or depth < config.diffuse_depth:
             o_c, d_c, a_c, w_refl, w_diff = _children(d_l, h, sh, config,
@@ -311,13 +337,15 @@ _GI_ACCEL_CACHE: OrderedDict = OrderedDict()
 _GI_ACCEL_CACHE_MAX = 8
 
 
-def _auto_gi_accel(mesh: Mesh, accel: ClusterAccel,
+def _auto_gi_accel(mesh: Mesh, accel: Optional[ClusterAccel],
                    config: RenderConfig) -> Optional[ClusterAccel]:
     """The coarse accel for bounce levels (config.gi_cluster_size), built
-    once per (mesh, size, device); None when disabled or when the primary
-    accel is already at least that coarse."""
+    once per (mesh, size, device); None when disabled, off the kernel path
+    (as in the JAX package) or when the primary accel is already at least
+    that coarse."""
     cs = config.gi_cluster_size
-    if cs <= 0 or accel.cluster_size >= cs:
+    if (cs <= 0 or accel is None or not uses_kernels(config)
+            or accel.cluster_size >= cs):
         return None
     key = (id(mesh), cs, str(mesh.verts.device))
     hit = _GI_ACCEL_CACHE.get(key)
@@ -329,6 +357,27 @@ def _auto_gi_accel(mesh: Mesh, accel: ClusterAccel,
     gi = build_cluster_accel(mesh, cluster_size=cs)
     _GI_ACCEL_CACHE[key] = (gi, mesh)
     return gi
+
+
+def default_accel(mesh: Mesh, config: RenderConfig,
+                  accel: Optional[ClusterAccel]) -> Optional[ClusterAccel]:
+    """accel, else `build_cluster_accel(mesh)` for a backend that walks
+    one: no query brute-forces for want of an accel; None only under
+    "bruteforce"."""
+    if accel is None and config.backend != "bruteforce":
+        accel = build_cluster_accel(mesh)
+    return accel
+
+
+def frame_accels(scene: Scene, config: RenderConfig,
+                 accel: Optional[ClusterAccel],
+                 gi_accel: Optional[ClusterAccel]):
+    """The (accel, gi_accel) a frame renders with: `default_accel`, and
+    the auto-built bounce accel on the kernel path when none is given."""
+    accel = default_accel(scene.mesh, config, accel)
+    if gi_accel is None:
+        gi_accel = _auto_gi_accel(scene.mesh, accel, config)
+    return accel, gi_accel
 
 
 def render(scene: Scene, config: RenderConfig,
@@ -344,19 +393,17 @@ def render(scene: Scene, config: RenderConfig,
     order; the last chunk repeats the frame's last ray and its surplus
     results are dropped. With config.primary_shared_origin the primary
     level runs in camera mode (see RenderConfig), where a chunk past the
-    frame's end repeats the last block instead. accel defaults to
-    `build_cluster_accel(mesh)`; gi_accel to the auto-built coarse bounce
-    accel. Uniforms come from
+    frame's end repeats the last block instead. accel and gi_accel
+    default as `frame_accels` chooses them: `build_cluster_accel(mesh)`
+    except under backend "bruteforce", which needs none, and the
+    auto-built coarse bounce accel on the kernel path. Uniforms come from
     `uniforms(chunk_index, tag, shape)` when given (the tags are
     `render_rays`'), else from `generator` (default: seed 0 on the scene's
     device). A scene with `lights` gets their soft-shadowed direct term."""
     _check_config(config)
     mesh = scene.mesh
     device = mesh.verts.device
-    if accel is None:
-        accel = build_cluster_accel(mesh)
-    if gi_accel is None:
-        gi_accel = _auto_gi_accel(mesh, accel, config)
+    accel, gi_accel = frame_accels(scene, config, accel, gi_accel)
     if uniforms is None:
         if generator is None:
             generator = torch.Generator(device=device)
@@ -375,7 +422,8 @@ def render(scene: Scene, config: RenderConfig,
     # walk kernel from the chunk's first block index.
     rt_cam = spp * bh * bw
     use_camera = (by_formula and config.primary_shared_origin
-                  and chunk % rt_cam == 0 and camera_mode_supported(accel))
+                  and chunk % rt_cam == 0 and uses_kernels(config)
+                  and camera_mode_supported(accel))
     offs_cam = stratified_offsets(spp, device=device) if use_camera else None
     if not by_formula:
         perm, inv = block_permutation(spp, h, w, bh, bw)

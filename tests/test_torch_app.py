@@ -85,17 +85,51 @@ def test_cli_render_matches_jax_pallas_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["render", "--backend", "cluster"], "Queue 1 item 5"),
-    (["render", "--backend", "bruteforce"], "Queue 1 item 5"),
-    (["render", "--coordinator", "localhost:1234"], "Queue 1 item 4"),
-    (["render", "--assemble"], "Queue 1 item 4"),
-    (["fit", "--num-processes", "2"], "Queue 1 item 4"),
+    (["render", *SMALL, "--reflect-depth", "1", "--backend", "cluster"],
+     "accel: 790 clusters of 16"),
+    (["render", *SMALL, "--reflect-depth", "1", "--backend", "bruteforce"],
+     "accel: none"),
+    (["render", *SMALL, "--coordinator", "localhost:1234"], "frame: "),
+    (["render", *SMALL, "--assemble"], "frame: "),
+    (["fit", *SMALL, "--num-processes", "2", "--steps", "2",
+      "--rays-per-step", "16"], "fit: 2 steps"),
     (["bench"], "bench measures the card"),
-])
-def test_cli_refuses_what_the_port_does_not_do(argv, msg):
-    with pytest.raises(SystemExit) as ei:
-        app.main(argv + ["--device", "cpu"])
-    assert msg in str(ei.value.code)
+], ids=["argv0-Queue 1 item 5", "argv1-Queue 1 item 5",
+        "argv2-Queue 1 item 4", "argv3-Queue 1 item 4",
+        "argv4-Queue 1 item 4", "argv5-bench measures the card"])
+def test_cli_refuses_what_the_port_does_not_do(argv, msg, tmp_path, capsys):
+    """The CLI refuses only what the port does not do: the benchmark
+    without a card. The plain backends and the JAX CLI's multi-process
+    flags run (without a process count the flags render in one process,
+    and `fit` ignores them, as the JAX CLI does); the rendered frame of a
+    backend is `render()`'s under it. (The ids are those of the refusals
+    these cases were before the port had the backends and the flags.)"""
+    if argv == ["bench"]:
+        with pytest.raises(SystemExit) as ei:
+            app.main(argv + ["--device", "cpu"])
+        assert msg in str(ei.value.code)
+        return
+    png = str(tmp_path / "f.png")
+    out = _run_port(argv + (["--out", png] if argv[0] == "render" else []),
+                    capsys)
+    assert msg in out
+    if "--backend" not in argv:
+        return
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+    from raytracing_tpu_torch.geometry.scene import build_default_scene
+    from raytracing_tpu_torch.models.whitted import render
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+
+    backend = argv[argv.index("--backend") + 1]
+    scene = build_default_scene(device="cpu")
+    img = render(scene, RenderConfig(width=24, height=24,
+                                     samples_per_pixel=1, diffuse_depth=0,
+                                     reflect_depth=1, chunk_size=16384,
+                                     backend=backend),
+                 accel=(build_cluster_accel(scene.mesh, cluster_size=16)
+                        if backend == "cluster" else None),
+                 generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(read_png(png), to_rgba_frame(img))
 
 
 def test_cli_without_a_card_fails_unless_asked_for_the_cpu():
@@ -282,3 +316,33 @@ def test_queries_counted_at_the_query_entry_points():
     assert all(v == 0 for v in T.QUERIES.values())
     bench.timed_frames(scene, cfg, accel, 0)
     assert not T.count_queries(False)
+
+
+@pytest.mark.parametrize("device,local_rank,want", [
+    ("cuda", None, "cuda:3"),    # rank 7 of a host with 4 cards
+    ("cuda", "1", "cuda:1"),     # torchrun's LOCAL_RANK
+    ("cuda:2", None, "cuda:2"),  # a named card stays
+])
+def test_group_render_spreads_its_processes_over_the_cards(
+        device, local_rank, want, monkeypatch):
+    """In a process group, `--device cuda` becomes this process's card
+    (LOCAL_RANK, else the rank modulo the cards) and is made current, so
+    that the ranks of a host do not all land on card 0 (NCCL refuses two
+    ranks on one card). torch.cuda and the group are stood in for, so
+    this runs without a card."""
+    from raytracing_tpu_torch.parallel import distributed as D
+
+    current = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.setattr(D, "initialize", lambda **kw: True)
+    monkeypatch.setattr(D, "process_index", lambda: 7)
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    args = app.build_parser().parse_args(
+        ["render", "--device", device, "--num-processes", "8"])
+    assert app._maybe_init_distributed(args)
+    assert args.device == want
+    assert current == ([] if device == "cuda:2" else [int(want[-1])])

@@ -701,11 +701,11 @@ def test_bad_launch_raises(dev):
     lo = torch.empty((1, 8), device=dev)
     with pytest.raises(RuntimeError, match="extents kernel launch failed"):
         cuda.check(lib.rt_tile_extents(T._ptr(x), 1000, T._ptr(lo),
-                                       T._ptr(lo), T._stream()), "extents")
+                                       T._ptr(lo), T._stream(x)), "extents")
     with pytest.raises(RuntimeError, match="refine_extents kernel launch"):
         cuda.check(lib.rt_refine_dense_extents(
             T._ptr(x), 1024, T._ptr(lo), T._ptr(lo), 513, 1, T._ptr(lo),
-            T._ptr(lo), T._ptr(lo), T._stream()), "refine_extents")
+            T._ptr(lo), T._ptr(lo), T._stream(x)), "refine_extents")
     with pytest.raises(ValueError):
         T.tile_extents(x)
     boxes = torch.zeros((600, 3), device=dev)
@@ -893,3 +893,67 @@ def test_load_accel_lands_on_the_card(dev, tmp_path):
         assert (a is None) == (b is None), name
         if a is not None:
             assert b.device.type == "cuda" and torch.equal(b.cpu(), a), name
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_sharded_frame_on_the_card_is_render(dev, n):
+    """`render_sharded` over the card (n = 1) and over 4 virtual shards of
+    it, at diffuse depth 1 (no draws), within 1e-5 of `render()` on the
+    card: the same rays through the same kernels, only split otherwise.
+    The tables stay contiguous on their way to each shard's device."""
+    from raytracing_tpu_torch.parallel.shard import (make_device_mesh,
+                                                     render_sharded,
+                                                     replicate)
+
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=2,
+                       chunk_size=2048, diffuse_depth=1)
+    mesh = make_device_mesh(n, devices=["cuda:0"] * n)
+    T.reset_launches()
+    img = render_sharded(scene, cfg, mesh, accel=accel)
+    assert T.LAUNCHES["walk"] > 0 and T.LAUNCHES["walk_dma"] > 0
+    want = render(scene, cfg, accel=accel)
+    assert float((img - want).abs().max()) <= 1e-5
+    (acc,) = replicate((accel,), "cuda:0")
+    assert all(t is None or t.is_contiguous() for t in acc)
+
+
+def test_two_cards_each_launch_on_its_own(dev):
+    """With two cards, a frame sharded over both: each shard's kernels run
+    on its own card (its tensors' device, whichever card is current), and
+    the frame is `render()`'s. Skips on a machine with one card."""
+    from raytracing_tpu_torch.parallel.shard import (make_device_mesh,
+                                                     render_sharded)
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    scene = build_default_scene(device="cuda:0")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1,
+                       chunk_size=1024, diffuse_depth=1)
+    with torch.cuda.device(0):
+        img = render_sharded(scene, cfg, make_device_mesh(2), accel=accel)
+    want = render(scene, cfg, accel=accel)
+    assert float((img - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("backend", ["bruteforce", "cluster"])
+def test_plain_backends_on_the_card_are_the_kernel_frame(dev, backend):
+    """The brute-force and cluster backends on the card at 32x32x2 (the
+    reference config's depths and fan) within 1e-5 of the kernel path's
+    frame from the same seed."""
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=2)
+
+    def gen():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4)
+        return g
+
+    kern = render(scene, cfg, accel=accel, generator=gen())
+    img = render(scene, cfg.replace(backend=backend),
+                 accel=accel if backend == "cluster" else None,
+                 generator=gen())
+    assert img.is_cuda and float((img - kern).abs().max()) <= 1e-5

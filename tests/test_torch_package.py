@@ -50,8 +50,11 @@ def test_config_fields_and_defaults_match_jax():
 
 @pytest.mark.parametrize("backend", ["pallas", "cluster", "bruteforce"])
 def test_unported_backend_raises(backend):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        RenderConfig(backend=backend)
+    """The JAX package's backends are all the port's now ("pallas" names
+    the kernel path); a name that is no backend of either raises."""
+    assert RenderConfig(backend=backend).backend == backend
+    with pytest.raises(ValueError, match="unknown backend"):
+        RenderConfig(backend=backend + "_x")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
@@ -124,3 +127,92 @@ def test_lights_go_where_the_scene_goes(monkeypatch):
                         lambda self, device: moved.append(str(device)) or self)
     scene_from_numpy(arrays, device="cpu")
     assert moved == ["cpu"]
+
+
+class _CardPack:
+    """A stand-in for a CUDA ray pack on card 1 (this machine may have no
+    card): what `tile_extents` reads of its tensor before the launch."""
+
+    device = torch.device("cuda", 1)
+    dtype = torch.float32
+    shape = (8, 2048)
+
+    def dim(self):
+        return 2
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 4096
+
+
+def test_launch_binds_its_tensors_card(monkeypatch):
+    """A wrapper launches under `torch.cuda.device(t.device)` on
+    `torch.cuda.current_stream(t.device)`: the stream of the launched
+    tensors' card, not of the current card (a tensor on cuda:1 while cuda:0
+    is current). torch.cuda is stood in for, so this runs without a card;
+    every launch site of kernels/traverse.py has the same form."""
+    import ctypes
+    import inspect
+    import re
+
+    from raytracing_tpu_torch.kernels import cuda
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    seen = []
+
+    class Stream:
+        cuda_stream = 77
+
+    class Device:
+        def __init__(self, d):
+            self.d = d
+
+        def __enter__(self):
+            seen.append(("device", self.d))
+
+        def __exit__(self, *exc):
+            seen.append(("exit", self.d))
+
+    class Lib:
+        def rt_tile_extents(self, *args):
+            seen.append(("launch", args[-1].value))
+            return 0
+
+    def current_stream(device=None):
+        seen.append(("stream", device))
+        return Stream()
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(cuda, "library", lambda: Lib())
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k:
+                        real_empty(*a, **k))
+    before = T.LAUNCHES["extents"]
+    T.tile_extents(_CardPack())
+    card = torch.device("cuda", 1)
+    assert seen == [("device", card), ("stream", card), ("launch", 77),
+                    ("exit", card)]
+    assert T.LAUNCHES["extents"] == before + 1
+    assert isinstance(T._stream(_CardPack()), ctypes.c_void_p)
+    # Every launch: under the device of the tensor whose stream it takes.
+    src = inspect.getsource(T)
+    sites = re.findall(r"with torch\.cuda\.device\((\w+)\.device\):\n"
+                       r"\s+cuda\.check\(lib\.rt_\w+\((?:[^()]|\([^()]*\))*"
+                       r"_stream\((\w+)\)\)", src)
+    assert len(sites) == src.count("cuda.check(lib.rt_") == 8
+    assert all(a == b for a, b in sites), sites
+    assert "_stream()" not in src
+
+
+def test_one_launch_takes_one_cards_tensors():
+    """Tensors of two cards in one launch are refused before any launch."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    class Other(_CardPack):
+        device = torch.device("cuda", 0)
+
+    with pytest.raises(ValueError, match="one card"):
+        T._on_cpu(_CardPack(), Other())
