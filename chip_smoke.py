@@ -8,10 +8,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure raises and the script exits non-zero):
   1. device — require CUDA; print `nvidia-smi`'s name and power limit;
   2. build  — compile the CUDA kernels from `raytracing_tpu_torch/csrc`
-     and the host library from `csrc/raytracing_native.cpp`; print every
+     and the port's host library from
+     `raytracing_tpu_torch/native/raytracing_native.cpp`; print every
      kernel's registers, shared memory and spills as `ptxas -v` reports
-     them, and refuse a spill in the split walks (`walk.cu`, `camera.cu`,
-     `gstream.cu`) and the refinement (`refine.cu`);
+     them, and refuse a spill in any instance of the split walks
+     (`walk.cu`: every intersector family, with and without the lane
+     cull; `camera.cu`, `gstream.cu`) and the refinement (`refine.cu`,
+     capped or not);
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes; median time of 5 runs each (K6 also read
      steadily: 200 launches of its entry in one pair of CUDA events
@@ -71,6 +74,15 @@ Phases (any failure raises and the script exits non-zero):
         every time on alive lanes, the visits made printed as min-max;
         its time with and without the exit beside K4's; a tile with no
         visits through both entries;
+     i. the off-main-path forms (`phase_variants`), each against its
+        plain version bit for bit on alive lanes and timed beside the main
+        path's form at the same shape: K1 mt and woop on 3a's chunk (CS
+        16), K2 mt and K4 mt on 3a's wavefront (CS 128), K3 mt and woop on
+        the chunk over the CS 16 table in 4 groups, the capped K2 walk and
+        capped K5 dense query on the wavefront under the reference frame's
+        cap, the K1 lane-cull walk on the wavefront; then the reference
+        frame with gi_cap_frac 0.1 equal to the default frame, and a
+        gi_wq=False frame equal with gi_lane_cull on and off;
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
@@ -142,10 +154,11 @@ Phases (any failure raises and the script exits non-zero):
      brute-force and cluster backends at 64x64 against the kernel path
      (`phase_multi_device`).
 
-Each main path (5, 5 with camera mode, 7's 1.6M camera and pack-path
-queries, 7's Whitted frame, 8, 9, 9's "grid" frame, each configuration of
-10, 12's steps, 13's default render, 15's sharded frames)
-runs with the launch counts set to 0 just before and read just after. A
+Each main path (5, 5 with camera mode, 3i's family queries and frames, 7's
+1.6M camera and pack-path queries, 7's Whitted frame, 8, 9, 9's "grid"
+frame, each configuration of 10, 12's steps, 13's default render, 15's
+sharded frames) runs with the launch counts set to 0 just before and read
+just after. A
 plain version that takes seconds is timed once, by the run that checks the
 kernel. The last two lines are the kernel table and the result, each one
 JSON object. The script never imports JAX.
@@ -238,6 +251,26 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                                "raytracing_tpu/kernels/traverse.py:498"),
     "extents_sharded": ("raytracing_tpu_torch/csrc/extents.cu",
                         "raytracing_tpu/kernels/traverse.py:163"),
+    # The off-main-path forms (phase 3i): the intersector families, the
+    # two-phase query's capped walk and refinement, the lane cull.
+    "walk_mt": ("raytracing_tpu_torch/csrc/walk.cu",
+                "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_woop": ("raytracing_tpu_torch/csrc/walk.cu",
+                  "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_dma_mt": ("raytracing_tpu_torch/csrc/walk.cu",
+                    "raytracing_tpu/kernels/traverse.py:1819"),
+    "walk_gstream_mt": ("raytracing_tpu_torch/csrc/gstream.cu",
+                        "raytracing_tpu/kernels/traverse.py:1414"),
+    "walk_gstream_woop": ("raytracing_tpu_torch/csrc/gstream.cu",
+                          "raytracing_tpu/kernels/traverse.py:1414"),
+    "walk_wq_mt": ("raytracing_tpu_torch/csrc/wq.cu",
+                   "raytracing_tpu/kernels/traverse.py:2063"),
+    "walk_dma_capped": ("raytracing_tpu_torch/csrc/walk.cu",
+                        "raytracing_tpu/kernels/traverse.py:1819"),
+    "refine_extents_capped": ("raytracing_tpu_torch/csrc/refine.cu",
+                              "raytracing_tpu/kernels/traverse.py:498"),
+    "walk_lc": ("raytracing_tpu_torch/csrc/walk.cu",
+                "raytracing_tpu/kernels/traverse.py:972"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
@@ -247,6 +280,12 @@ PEAK_HBM = 3.35e12
 # (t, slot) update included, as counted in csrc/walk_core.cuh; per
 # (ray, box) slab test in csrc/refine.cu; per ray in csrc/extents.cu.
 OPS_PMT, OPS_PMTO, OPS_SLAB, OPS_EXTENTS = 40, 30, 30, 16
+# ... and of the other intersector families' tests, counted the same way:
+# mt's cross products, determinant, reciprocal and three dots; woop's six
+# transform rows and its epilogue.
+OPS_MT, OPS_WOOP = 55, 51
+# Phase 3i's two-phase cap: the renderer's gi_cap_frac of the frame.
+CAP_FRAC = 0.1
 # K6's steady reading: back-to-back launches in one pair of CUDA events,
 # over copies of its 23 MB pack that together exceed the card's 50 MB L2.
 STEADY_LAUNCHES = 200
@@ -285,7 +324,7 @@ def _bound(ops, nbytes):
 
 
 def _walk_bound(visits, alive_per_tile, cnt, geo, attr, n_attrs, cs, n_rays,
-                pack_bytes, ops_per_test, early):
+                pack_bytes, ops_per_test, early, geo_rows=12):
     """Bound of one walk launch from what this run's data needed: every
     alive lane of a tile against every triangle of the clusters the tile
     visited (the kernel reports them; the early exit is exact); each input
@@ -294,7 +333,7 @@ def _walk_bound(visits, alive_per_tile, cnt, geo, attr, n_attrs, cs, n_rays,
     ops = float((visits.double() * alive_per_tile.double()).sum()) \
         * cs * ops_per_test
     listed = float(cnt.sum())
-    tables = geo.shape[0] * cs * 4 * (12 + n_attrs)
+    tables = geo.shape[0] * cs * 4 * (geo_rows + n_attrs)
     nbytes = (pack_bytes + listed * (8 if early else 4) + cnt.numel() * 4
               + tables + n_rays * (8 + 4 * n_attrs))
     return _bound(ops, nbytes)
@@ -504,8 +543,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     _require(native.available(),
-             "the host library (csrc/raytracing_native.cpp) did not build: "
-             "the large scenes need it")
+             "the host library (raytracing_tpu_torch/native/"
+             "raytracing_native.cpp) did not build: the large scenes need "
+             "it")
     print(f"[build] host library {time.perf_counter() - t0:.2f} s")
     return res.seconds
 
@@ -589,13 +629,20 @@ def _list_stats(cnt, alive_lanes):
 
 
 def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
-                nearest=True, plain_reps=5, kernel="walk"):
+                nearest=True, plain_reps=5, kernel="walk", bound_visits=None):
     """Compare one pack walk launch (`walk`, `walk_gstream` or `walk_wq`)
     with its plain version, then time both and reckon the launch's bound
-    from the visits it made. Returns the kernel's result."""
+    from the visits it made (or `bound_visits` per tile: the lane cull's
+    kernel reports the visits it staged, not those it tested). The
+    geometry rows the bound reads are the intersector family's. Returns
+    the kernel's result."""
+    import functools
+
     import torch
 
     fn, plain = getattr(T, kernel), getattr(T, kernel + "_plain")
+    if kw.get("lane_bounds") is not None:
+        plain = functools.partial(plain, lane_bounds=kw["lane_bounds"])
     rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
     if kernel == "walk_wq":  # no early exit: every listed visit is made
         visits, tile_visits, out = cnt, cnt, fn(*args, **kw)
@@ -608,10 +655,12 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
     err = _compare_walk(tag, out, want, alive, nearest)
     del want
     tr = args[-1]  # the per-ray limit row, read once
-    bound = _walk_bound(tile_visits, _tile_alive_lanes(rp), cnt, geo, attr,
+    bound = _walk_bound(tile_visits if bound_visits is None else bound_visits,
+                        _tile_alive_lanes(rp), cnt, geo, attr,
                         n_attrs if nearest else 0, cs, rp.shape[1],
                         rp.numel() * 4 + (0 if tr is None else tr.numel() * 4),
-                        ops_per_test, kw.get("tnear") is not None)
+                        ops_per_test, kw.get("tnear") is not None,
+                        T._FAMILY_ROWS[int(args[-2])])
     _row(rows, name, err, lambda: fn(*args, **kw), lambda: plain(*args),
          bound,
          f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
@@ -1180,6 +1229,261 @@ def phase_kernels_large(rows):
                 dkw, bp[7] != 0, OPS_PMT, f"{bp.shape[1]} rays, {c}x128",
                 plain_reps=1)
     return scene, acc64, acc128, built
+
+
+def _variant_row(rows, name, tag, T, args, kw, alive, ops, shape, base,
+                 kernel="walk", bound_visits=None):
+    """One off-main-path form (phase 3i) against its plain version, timed
+    with its bound, and `base` = (args, kw) of the main path's form at the
+    same shape timed beside it in the same turns (row key "pmt_ms")."""
+    fn = getattr(T, kernel)
+    _timed_walk(rows, name, tag, T, args, kw, alive, ops, shape,
+                kernel=kernel, bound_visits=bound_visits,
+                plain_reps=5 if args[0].shape[1] <= 65536 else 1)
+    bargs, bkw = base
+    rows[name]["pmt_ms"] = _median_ms(lambda: fn(*bargs, **bkw))
+    print(f"[variants] {name}: {rows[name]['ms']:.4f} ms beside the main "
+          f"path's form at the same shape {rows[name]['pmt_ms']:.4f} ms "
+          f"({shape})")
+
+
+def _query_launches(run, key):
+    """LAUNCHES[key] over one query through the public entry."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    T.reset_launches()
+    run()
+    n = T.LAUNCHES.get(key, 0)
+    _require(n > 0, f"{key}: the query launched no such kernel "
+             f"({ {k: v for k, v in T.LAUNCHES.items() if v} })")
+    return n
+
+
+def _lane_cull_visits(args, kw):
+    """Per tile, the listed visits some alive lane of the tile enters (the
+    per-tile vote of `_lane_cull_keep`): the visits the lane-cull walk's
+    bound counts (its warps, voting apart, test no more)."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    rp, ids, cnt = args[:3]
+    pack = rp.reshape(8, -1, 1, T.RAY_TILE)
+    kept = torch.zeros(cnt.shape, dtype=torch.int64, device=rp.device)
+    for j in range(int(cnt.max())):
+        act = torch.nonzero(cnt > j).squeeze(1)
+        keep = T._lane_cull_keep(pack, act, ids[act, j], kw["lane_bounds"])
+        kept[act] += keep.long()
+    return kept
+
+
+def phase_variants(rows):
+    """3i. The forms no default path runs, on the card against their plain
+    versions at the main paths' shapes, bit for bit on alive lanes, each
+    timed beside the main path's form at the same shape: K1 mt and woop
+    on 3a's 65,536-ray chunk at CS 16; K2 mt and K4 mt on 3a's 720,896-ray
+    wavefront at CS 128; K3 mt and woop on the chunk with the CS 16 table
+    split into 4 groups of 256 (the group budget patched, as 3e does); the
+    capped K2 walk and the capped K5 dense query on the wavefront under
+    the reference frame's cap (gi_cap_frac 0.1 of its cluster-box
+    diagonal); the K1 lane-cull walk on the wavefront (the walk of a
+    gi_wq=False frame's bounce level). The launches of each family's row
+    are counted over a query through `nearest_hit_attrs_soa(variant=)`.
+    Then the reference frame with gi_cap_frac 0.1 against the default
+    frame, and a gi_wq=False frame with gi_lane_cull on and off: the
+    images equal, the times side by side; the capped and lane-cull rows'
+    launches are those frames'. Returns the rows' launches."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch.accel import packets
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    dev = "cuda"
+    cfg = RenderConfig()
+    scene = build_default_scene(device=dev)
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    acc128 = build_cluster_accel(scene.mesh, cluster_size=128)
+    _require(all(getattr(a, f) is not None for a in (acc16, acc128)
+                 for f in ("tri_blocks", "pmt_t_blocks", "woop_blocks")),
+             "the default scene's accels lack a family's table")
+    eps, na = cfg.eps, acc16.attr_blocks.shape[1]
+    early = True if cfg.gi_early_exit else None
+    launches = {}
+    o, d = camera_rays_for_ids(
+        block_ray_ids(KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev), cfg)
+    rp = T.rays_to_soa(o, d)
+    alive = rp[7] != 0
+    chunk = f"{rp.shape[1]} rays, {acc16.num_clusters}x16"
+    base = T._groups_walk_args(acc16, rp, eps, True, INF, na)
+    for v, ops in (("mt", OPS_MT), ("woop", OPS_WOOP)):
+        args, kw = T._groups_walk_args(acc16, rp, eps, True, INF, na,
+                                       variant=v)
+        _variant_row(rows, f"walk_{v}", f"walk (K1) primary nearest+attrs, "
+                     f"{v}", T, args, kw, alive, ops, f"{chunk}, {v}", base)
+        launches[f"walk_{v}"] = _query_launches(
+            lambda: T.nearest_hit_attrs_soa(acc16, rp, variant=v), f"walk_{v}")
+        # Another family, the same winners: its t may differ in the last
+        # bits (another rounding path), its slots and attributes not.
+        kt, ks, _ = T.walk(*args, **kw)
+        pt, ps, _ = T.walk(*base[0], **base[1])
+        hit = alive & torch.isfinite(pt[0])
+        print(f"[variants] walk (K1) {v} vs pmt on the chunk: "
+              f"{int((ks[0][alive] != ps[0][alive]).sum())} of "
+              f"{int(alive.sum())} alive lanes' slots differ; max |t "
+              f"difference| {float((kt - pt)[0][hit].abs().max())}")
+
+    # The chunk's depth-2 wavefront, as 3a makes it.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ob, db, ab = whitted.bounce_wavefront(
+        scene.mesh, acc16, scene.sun, o, d, cfg,
+        lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
+    bp, _ = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
+    balive = bp[7] != 0
+    wave = f"{bp.shape[1]} rays, {acc128.num_clusters}x128"
+    dbase = T._dma_walk_args(acc128, bp, eps, True, INF, na, early_exit=early)
+    args, kw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                                early_exit=early, variant="mt")
+    _variant_row(rows, "walk_dma_mt", "walk_dma (K2) bounce nearest+attrs, "
+                 "mt", T, args, kw, balive, OPS_MT, f"{wave}, mt", dbase)
+    k2_mt = T.walk(*args, **kw)
+    launches["walk_dma_mt"] = _query_launches(
+        lambda: T.nearest_hit_attrs_soa(acc128, bp, early_exit=early, wq=True,
+                                        variant="mt"), "walk_dma_mt")
+    wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na,
+                                 variant="mt")
+    _variant_row(rows, "walk_wq_mt", "walk_wq (K4) bounce nearest+attrs, mt",
+                 T, wargs, wkw, balive, OPS_MT, f"{wave}, mt, {wkw['u']} "
+                 f"visits per work item",
+                 T._wq_walk_args(acc128, bp, eps, True, INF, na),
+                 kernel="walk_wq")
+    _compare_walk("walk_wq (K4) mt vs walk_dma (K2) mt", T.walk_wq(*wargs,
+                                                                   **wkw),
+                  k2_mt, balive, True)
+    impl = T._WQ_IMPL
+    T._WQ_IMPL = "grid"
+    try:
+        launches["walk_wq_mt"] = _query_launches(
+            lambda: T.nearest_hit_attrs_soa(acc128, bp, wq=True,
+                                            variant="mt"), "walk_wq_mt")
+    finally:
+        T._WQ_IMPL = impl
+
+    # K3: the CS 16 table in 4 groups of 256 clusters.
+    budget = packets._GROUP_BLOCK_BUDGET_BYTES
+    packets._GROUP_BLOCK_BUDGET_BYTES = 1
+    try:
+        gbase = T._gstream_walk_args(acc16, rp, eps, True, INF, na)
+        _require(gbase[0][1].shape[0] == 4, "K3: not 4 groups")
+        for v, ops in (("mt", OPS_MT), ("woop", OPS_WOOP)):
+            args, kw = T._gstream_walk_args(acc16, rp, eps, True, INF, na,
+                                            variant=v)
+            _variant_row(rows, f"walk_gstream_{v}", f"walk_gstream (K3) "
+                         f"primary nearest+attrs, {v}", T, args, kw, alive,
+                         ops, f"{chunk} in 4 groups of 256, {v}", gbase,
+                         kernel="walk_gstream")
+            _compare_walk(f"walk_gstream (K3) {v} vs walk (K1) {v}",
+                          T.walk_gstream(*args, **kw),
+                          T.walk(*T._groups_walk_args(
+                              acc16, rp, eps, True, INF, na, variant=v)[0]),
+                          alive, True)
+            launches[f"walk_gstream_{v}"] = _query_launches(
+                lambda: T.nearest_hit_attrs_soa(acc16, rp, variant=v),
+                f"walk_gstream_{v}")
+    finally:
+        packets._GROUP_BLOCK_BUDGET_BYTES = budget
+
+    # The two-phase query's first phase on the wavefront, under the frame's
+    # cap: the capped K2 walk and the capped dense K5 query.
+    cap = whitted.bounce_cap(acc16, cfg.replace(gi_cap_frac=CAP_FRAC))
+    print(f"[variants] the reference frame's cap at gi_cap_frac {CAP_FRAC}: "
+          f"{cap}")
+    cargs, ckw = T._dma_walk_args(acc128, bp, eps, True, cap, na,
+                                  early_exit=early)
+    _variant_row(rows, "walk_dma_capped", "walk_dma (K2) bounce "
+                 "nearest+attrs under the cap", T, cargs, ckw, balive,
+                 OPS_PMT, f"{wave}, t < {cap}", dbase)
+    rargs = (bp, acc128.cluster_min, acc128.cluster_max)
+    flo, fhi, fent = T.refine_dense_extents(*rargs, cap)
+    plo, phi, pent = T.refine_dense_extents_plain(*rargs, cap)
+    _require(torch.equal(flo, plo) and torch.equal(fhi, phi)
+             and torch.equal(fent, pent),
+             "refine_extents_capped (K5 dense + K6 under the cap): differs "
+             "from its plain version")
+    _, _, uent = T.refine_dense_extents(*rargs)
+    _require(bool((fent <= uent).all()),
+             "refine_extents_capped: a bit set the uncapped query clears")
+    c = acc128.num_clusters
+    nt = bp.shape[1] // T.RAY_TILE
+    live = phi[:, 7] > 0
+    _, _, tests = _refine_bound(_tile_alive_lanes(bp),
+                                live.to(torch.int32) * c, pent.sum(dim=1),
+                                bp, c, c)
+    print(f"[variants] refine_extents_capped: {int(pent.sum())} of "
+          f"{int(uent.sum())} uncapped bits set, equal to plain; (ray, box) "
+          f"tests the bound counts: {tests}")
+    _row(rows, "refine_extents_capped", 0.0,
+         lambda: T.refine_dense_extents(*rargs, cap),
+         lambda: T.refine_dense_extents_plain(*rargs, cap),
+         _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
+                bp.numel() * 4 + c * 24 + nt * 64 + nt * c * 4),
+         f"{bp.shape[1]} rays, {c} clusters, under the cap {cap}")
+    rows["refine_extents_capped"]["pmt_ms"] = _median_ms(
+        lambda: T.refine_dense_extents(*rargs))
+    print(f"[variants] refine_extents_capped "
+          f"{rows['refine_extents_capped']['ms']:.4f} ms beside the "
+          f"uncapped query {rows['refine_extents_capped']['pmt_ms']:.4f} ms")
+    full = T.nearest_hit_attrs_soa(acc128, bp, early_exit=early, wq=True)
+    two = T.nearest_hit_attrs_soa(acc128, bp, early_exit=early, wq=True,
+                                  t_cap=cap)
+    _require(all(torch.equal(x[..., balive], y[..., balive])
+                 for x, y in zip(two, full)),
+             "the two-phase query differs from the uncapped one")
+    print("[variants] the two-phase query on the wavefront equals the "
+          "uncapped one (t, slots, attributes on alive lanes)")
+
+    # The lane cull: K1 on the wavefront as a gi_wq=False frame walks it.
+    largs, lkw = T._groups_walk_args(acc128, bp, eps, True, INF, na,
+                                     early_exit=early, lane_cull=True)
+    kept = _lane_cull_visits(largs, lkw)
+    print(f"[variants] walk_lc: {int(kept.sum())} of {int(largs[2].sum())} "
+          f"listed visits entered by some alive lane of their tile")
+    _variant_row(rows, "walk_lc", "walk (K1) bounce nearest+attrs, lane "
+                 "cull", T, largs, lkw, balive, OPS_PMT, f"{wave}, lane cull",
+                 T._groups_walk_args(acc128, bp, eps, True, INF, na,
+                                     early_exit=early), bound_visits=kept)
+
+    # Frames: the cap, and the lane cull on against off.
+    frames = {}
+    for tag, c in (("default", cfg),
+                   ("gi_cap_frac 0.1", cfg.replace(gi_cap_frac=CAP_FRAC)),
+                   ("gi_wq False, lane cull", cfg.replace(gi_wq=False)),
+                   ("gi_wq False, no lane cull",
+                    cfg.replace(gi_wq=False, gi_lane_cull=False))):
+        img, fl, _, first, times = bench.timed_frames(scene, c, acc16, 1)
+        frames[tag] = (img, fl)
+        print(f"[variants] reference frame, {tag}: {first:.3f} s counted, "
+              f"{times[0]:.3f} s timed; launches "
+              f"{ {k: v for k, v in fl.items() if v} }")
+    for a, b in (("gi_cap_frac 0.1", "default"),
+                 ("gi_wq False, lane cull", "gi_wq False, no lane cull")):
+        _require(torch.equal(frames[a][0], frames[b][0]),
+                 f"the reference frame, {a}, differs from {b}")
+        print(f"[variants] reference frame, {a}: equal to {b}")
+    launches["walk_dma_capped"] = frames["gi_cap_frac 0.1"][1].get(
+        "walk_dma_capped", 0)
+    launches["refine_extents_capped"] = frames["gi_cap_frac 0.1"][1].get(
+        "refine_extents_capped", 0)
+    launches["walk_lc"] = frames["gi_wq False, lane cull"][1].get("walk_lc", 0)
+    _require(not frames["gi_wq False, no lane cull"][1].get("walk_lc", 0),
+             "the frame without lane cull launched the lane-cull walk")
+    return launches
 
 
 def phase_frame_parity():
@@ -2589,6 +2893,7 @@ def main() -> int:
     large = phase_kernels_large(rows)
     phase_frame_parity()
     ref_launches, cam_launches = phase_reference_frame(rows)
+    variant_launches = phase_variants(rows)
     phase_headline()
     (rate_launches, big_launches, gstream_launches,
      frame_1m6_launches) = phase_large_scenes(rows, *large)
@@ -2614,6 +2919,7 @@ def main() -> int:
     launches["walk_both"] = bwd_launches["walk_both"]
     launches["walk_both_bounce"] = bwd_launches["walk_both"]
     launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
+    launches.update(variant_launches)
     for k in ("walk", "walk_dma", "refine_extents", "extents"):
         launches[k + "_cli"] = cli_launches[k]
         launches[k + "_sharded"] = multi_launches["ref_4"][k]

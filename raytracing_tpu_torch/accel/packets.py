@@ -1,14 +1,18 @@
 """Host-side build of the flat cluster structure (twin of
-`raytracing_tpu.accel.packets`, SAH method and Baldwin–Weber blocks only),
-and the "cluster" backend that walks it in plain PyTorch
-(`nearest_hit_cluster`, `any_hit_cluster`).
+`raytracing_tpu.accel.packets`), and the "cluster" backend that walks it in
+plain PyTorch (`nearest_hit_cluster`, `any_hit_cluster`).
 
-Each object's triangles are ordered by an exact-sweep SAH split into
-contiguous runs of `cluster_size`, padded so no cluster spans two objects.
-Objects smaller than a cluster go to a dense "rest set" (the ground plane).
-Every field is built with numpy exactly as the JAX package builds it, so
-the tables are bit-identical; `accel_from_numpy` takes the JAX package's
-tables as they are.
+Each object's triangles are ordered into contiguous runs of
+`cluster_size` — by the exact-sweep SAH split (the default), its
+recursive oracle, a median split, a Morton sort or the reference's vertex
+index sort — padded so no cluster spans two objects. Objects smaller than
+a cluster go to a dense "rest set" (the ground plane). Beside the
+Baldwin–Weber blocks every walk reads, the build makes the tables of the
+other intersector families a query can pick (`variant=` in
+`kernels.traverse`: "mt", "pmtt", "woop"). Every field is built with
+numpy (or the host library, `geometry.native`, which gives the same bits)
+exactly as the JAX package builds it, so the tables are bit-identical;
+`accel_from_numpy` takes the JAX package's tables as they are.
 """
 
 from __future__ import annotations
@@ -50,6 +54,17 @@ class ClusterAccel(NamedTuple):
     no second walk; rest_grad [Rr, 11] — the same rows of the rest set.
     The ids are exact in f32 up to 2^24 triangles.
 
+    The tables of the other intersector families, None when not built
+    (`build_cluster_accel(variants=...)`): tri_blocks [C, 9, CS] — v0 |
+    e1 | e2 rows (Möller–Trumbore, "mt"; padding e1 = e2 = 0);
+    pmt_t_blocks [C, CS, 12] — pmt_blocks transposed (the TPU layout of
+    "pmtt"; the card walks pmt_blocks, which hold the same numbers);
+    woop_blocks [C, 8, 6 CS] — the Woop unit-triangle transforms in the TPU
+    matmul layout ("woop"; `kernels.traverse._woop_table` rearranges them
+    for the card). order_blocks [C, CS] i32 (order by cluster) and
+    attr_t_blocks [C, CS, A] (attr_blocks transposed) are built with
+    every accel, as in the JAX package.
+
     Every field is a detached value of the mesh it was built from:
     gradients reach the live mesh through `kernels.traverse`'s autograd
     functions, never through these tables. After the mesh's attributes
@@ -68,6 +83,11 @@ class ClusterAccel(NamedTuple):
     rest_attrs: Optional[torch.Tensor]
     grad_blocks: torch.Tensor
     rest_grad: Optional[torch.Tensor]
+    tri_blocks: Optional[torch.Tensor] = None
+    pmt_t_blocks: Optional[torch.Tensor] = None
+    woop_blocks: Optional[torch.Tensor] = None
+    order_blocks: Optional[torch.Tensor] = None
+    attr_t_blocks: Optional[torch.Tensor] = None
 
     @property
     def num_clusters(self) -> int:
@@ -225,15 +245,23 @@ def _sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
 
 
 def _kernel_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
-                        cs: int):
+                        cs: int, build_woop: bool = True):
     """(tri_blocks [C, 9, CS]: v0 | e1 | e2 rows, pmt_blocks [C, 12, CS]:
     the Baldwin–Weber rows n = e1 x e2, d0 = n·v0, U = (e2 x n)/|n|^2,
-    u0 = -U·v0, V = (n x e1)/|n|^2, v0c = -V·v0). Padding slots have
-    e1 = e2 = 0, so n = 0 and they never pass the |den| >= eps test."""
+    u0 = -U·v0, V = (n x e1)/|n|^2, v0c = -V·v0, woop_blocks [C, 8, 6 CS]
+    or None without `build_woop`). Padding slots have e1 = e2 = 0, so
+    n = 0 and they never pass the |den| >= eps test.
+
+    woop_blocks: per triangle M = [e1 | e2 | n]^-1 (rows c23 / det,
+    c31 / det, n / det with c23 = e2 x n, c31 = n x e1, det = e1·c23) and
+    const = -M v0, so that oL = M o + const and dL = M d; laid out as the
+    TPU's [8, 6] matmul block per triangle (rows ox oy oz 1 dx dy dz alive,
+    columns oLx oLy oLz dLx dLy dLz), quantity-major over the cluster's
+    lanes. A degenerate triangle (|det| <= 1e-20) gets M = 0."""
     from raytracing_tpu_torch.geometry import native
 
     if native.available():
-        nat = native.kernel_blocks(tri_verts, valid, c, cs)
+        nat = native.kernel_blocks(tri_verts, valid, c, cs, build_woop)
         if nat is not None:
             return nat
     m = valid[:, None].astype(np.float32)
@@ -252,8 +280,150 @@ def _kernel_blocks_host(tri_verts: np.ndarray, valid: np.ndarray, c: int,
          U, -np.einsum("sk,sk->s", U, v0)[:, None],
          V, -np.einsum("sk,sk->s", V, v0)[:, None]],
         axis=1).astype(np.float32)
-    return (np.ascontiguousarray(tri_blocks, dtype=np.float32),
-            np.ascontiguousarray(pmt.reshape(c, cs, 12).transpose(0, 2, 1)))
+    tri_blocks = np.ascontiguousarray(tri_blocks, dtype=np.float32)
+    pmt_blocks = np.ascontiguousarray(
+        pmt.reshape(c, cs, 12).transpose(0, 2, 1))
+    if not build_woop:
+        return tri_blocks, pmt_blocks, None
+    n = np.cross(e1, e2)
+    c23 = np.cross(e2, n)
+    c31 = np.cross(n, e1)
+    det = np.einsum("sk,sk->s", e1, c23)  # = |n|^2
+    ok = np.abs(det) > 1e-20
+    inv_det = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)[:, None]
+    m_rows = np.stack([c23 * inv_det, c31 * inv_det, n * inv_det], axis=1)
+    const = -np.einsum("sqk,sk->sq", m_rows, v0)  # [S, 3]
+    w = np.zeros((v0.shape[0], 8, 6), dtype=np.float32)
+    w[:, 0:3, 0:3] = m_rows.transpose(0, 2, 1)
+    w[:, 3, 0:3] = const
+    w[:, 4:7, 3:6] = m_rows.transpose(0, 2, 1)
+    woop_blocks = w.reshape(c, cs, 8, 6).transpose(0, 2, 3, 1).reshape(
+        c, 8, 6 * cs)
+    return tri_blocks, pmt_blocks, np.ascontiguousarray(woop_blocks)
+
+
+# Orders of the build (`build_cluster_accel(method=...)`), each of one
+# object's triangles into contiguous cluster-size runs.
+
+
+def _morton_codes(centroids: np.ndarray) -> np.ndarray:
+    """30-bit Morton (Z-order) codes of points normalized to their AABB."""
+    lo = centroids.min(axis=0)
+    hi = centroids.max(axis=0)
+    q = ((centroids - lo) / np.maximum(hi - lo, 1e-20) * 1023.0).astype(
+        np.uint32)
+    q = np.minimum(q, 1023)
+
+    def expand(v):  # spread 10 bits to every 3rd bit
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return (expand(q[:, 0]) << 2) | (expand(q[:, 1]) << 1) | expand(q[:, 2])
+
+
+def _median_split_order(cent: np.ndarray, cs: int) -> np.ndarray:
+    """Longest-axis median split into contiguous `cs`-sized runs (the leaf
+    layer of an object-median BVH, flattened), level-synchronous: one
+    lexsort per depth over every segment. Split counts stay multiples of
+    cs so that clusters never straddle a split plane."""
+    n = cent.shape[0]
+    order = np.arange(n)
+    bounds = np.array([0, n], dtype=np.int64)
+    while True:
+        lens = np.diff(bounds)
+        if (lens <= cs).all():
+            return order
+        starts = bounds[:-1]
+        c = cent[order]
+        mins = np.minimum.reduceat(c, starts, axis=0)
+        maxs = np.maximum.reduceat(c, starts, axis=0)
+        axis = np.argmax(maxs - mins, axis=1)  # each segment's split axis
+        seg_id = np.searchsorted(bounds, np.arange(n), side="right") - 1
+        keyc = c[np.arange(n), axis[seg_id]]
+        idx = np.lexsort((keyc, seg_id))  # stable within a segment
+        order = order[idx]
+        half = np.where(lens > cs,
+                        np.maximum((lens // 2 // cs) * cs, cs), 0)
+        new_b = (starts + half)[half > 0]
+        bounds = np.unique(np.concatenate([bounds, new_b]))
+
+
+def _sah_split_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
+                     cs: int) -> np.ndarray:
+    """Recursive SAH sweep split into contiguous `cs`-sized runs: at each
+    node all three axes and every cs-aligned split position, the one of
+    least surface area x triangle count. The per-node oracle of
+    `_sah_sweep_order` (same objective and candidates); minutes at a
+    million triangles."""
+    out = []
+
+    def sa(lo, hi):
+        e = np.maximum(hi - lo, 0.0)
+        return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] \
+            + e[..., 2] * e[..., 0]
+
+    def rec(ids: np.ndarray) -> None:
+        k = len(ids)
+        if k <= cs:
+            out.append(ids)
+            return
+        best = None
+        for ax in range(3):
+            srt = ids[np.argsort(cent[ids, ax], kind="stable")]
+            lo_pre = np.minimum.accumulate(blo[srt], axis=0)
+            hi_pre = np.maximum.accumulate(bhi[srt], axis=0)
+            lo_suf = np.minimum.accumulate(blo[srt][::-1], axis=0)[::-1]
+            hi_suf = np.maximum.accumulate(bhi[srt][::-1], axis=0)[::-1]
+            cands = np.arange(cs, k, cs)
+            costs = (sa(lo_pre[cands - 1], hi_pre[cands - 1]) * cands
+                     + sa(lo_suf[cands], hi_suf[cands]) * (k - cands))
+            j = int(np.argmin(costs))
+            if best is None or costs[j] < best[0]:
+                best = (costs[j], srt, int(cands[j]))
+        _, srt, half = best
+        rec(srt[:half])
+        rec(srt[half:])
+
+    rec(np.arange(cent.shape[0]))
+    return np.concatenate(out)
+
+
+def _index_sort_order(tri_v: np.ndarray) -> np.ndarray:
+    """The reference's locality sort: stable sort by min vertex index
+    ascending, max vertex index descending."""
+    mn = tri_v.min(axis=1).astype(np.int64)
+    mx = tri_v.max(axis=1).astype(np.int64)
+    return np.lexsort((-mx, mn)).astype(np.int32)
+
+
+def _object_order(method: str, verts: np.ndarray, tv: np.ndarray,
+                  cs: int) -> np.ndarray:
+    """One object's triangles (corner ids tv [n, 3]) in the order of
+    `method` (the JAX package's dispatch), as positions into tv."""
+    from raytracing_tpu_torch.geometry import native
+
+    if method == "index":
+        return _index_sort_order(tv)
+    tvv = verts[tv]
+    if method == "sah":
+        cent_s, blo_s, bhi_s = tvv.mean(axis=1), tvv.min(axis=1), \
+            tvv.max(axis=1)
+        sub = (native.sah_sweep_order(cent_s, blo_s, bhi_s, cs)
+               if native.available() else None)
+        return sub if sub is not None else _sah_sweep_order(
+            cent_s, blo_s, bhi_s, cs)
+    if method == "sah-recursive":
+        return _sah_split_order(tvv.mean(axis=1), tvv.min(axis=1),
+                                tvv.max(axis=1), cs)
+    cent = tvv.mean(axis=1)
+    if method == "median":
+        return _median_split_order(cent, cs)
+    nat = native.morton_order(cent) if native.available() else None
+    return nat if nat is not None else np.argsort(_morton_codes(cent),
+                                                  kind="stable")
 
 
 def first_tri_per_object(obj_id: np.ndarray, n_obj: int) -> np.ndarray:
@@ -267,20 +437,45 @@ def first_tri_per_object(obj_id: np.ndarray, n_obj: int) -> np.ndarray:
     return np.argsort(obj_id, kind="stable")[ft]
 
 
+METHODS = ("sah", "sah-recursive", "median", "morton", "index")
+VARIANTS = ("pmt", "mt", "pmtt", "woop")
+# variants="auto" builds every family up to this many triangles, only
+# "pmt" above (the JAX package's rule: the woop blocks alone are 307 MB at
+# 1.6M triangles).
+_AUTO_VARIANTS_MAX_TRIANGLES = 100_000
+
+
 def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
                         method: str = "auto", rest_max: int = 64,
                         variants="auto", device=None) -> ClusterAccel:
     """Host-side (numpy) build from the mesh's detached values; tensors
-    land on `device` (default: the mesh's). Only the SAH method ("auto" =
-    "sah") and the Baldwin–Weber ("pmt") block family are ported."""
-    if method not in ("auto", "sah"):
-        raise NotImplementedError(
-            f"accel method {method!r}: only the SAH build is ported (ROADMAP "
-            "Queue 1, the off-main-path variants)")
-    if variants not in ("auto", ("pmt",)):
-        raise NotImplementedError(
-            f"block variants {variants!r}: only 'pmt' is ported (ROADMAP "
-            "Queue 1, the off-main-path variants)")
+    land on `device` (default: the mesh's).
+
+    method: "auto" (= "sah"), "sah" (the exact-sweep SAH split,
+    level-synchronous), "sah-recursive" (its per-node oracle, minutes at a
+    million triangles), "median" (longest-axis median split), "morton"
+    (Z-order sort of the centroids; the host library's when it is there)
+    or "index" (the reference's vertex-index locality sort). The JAX
+    package takes any other name for "morton"; the port raises ValueError.
+
+    variants: which intersector families' tables to build beside "pmt",
+    which is always built: "auto" = all of VARIANTS up to 100,000
+    triangles, ("pmt",) above; or a tuple of VARIANTS. A query that picks
+    a family whose table was not built raises."""
+    if method == "auto":
+        method = "sah"
+    if method not in METHODS:
+        # The JAX package's `else` branch takes any unknown name for
+        # "morton"; a misspelt method is refused here instead.
+        raise ValueError(f"accel method {method!r}: one of "
+                         f"{('auto',) + METHODS}")
+    if variants == "auto":
+        variants = (VARIANTS if mesh.tri_v.shape[0]
+                    <= _AUTO_VARIANTS_MAX_TRIANGLES else ("pmt",))
+    unknown = [v for v in tuple(variants) if v not in VARIANTS]
+    if unknown or isinstance(variants, str):
+        raise ValueError(f"block variants {variants!r}: a tuple of "
+                         f"{VARIANTS} or 'auto'")
     device = mesh.verts.device if device is None else device
 
     def host(x):
@@ -304,15 +499,7 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
             rest_parts.append(sel)
             rest_budget -= len(sel)
             continue
-        tvv = verts[tri_v[sel]]
-        cent_s, blo_s, bhi_s = tvv.mean(axis=1), tvv.min(axis=1), tvv.max(axis=1)
-        from raytracing_tpu_torch.geometry import native
-
-        sub = (native.sah_sweep_order(cent_s, blo_s, bhi_s, cluster_size)
-               if native.available() else None)
-        if sub is None:
-            sub = _sah_sweep_order(cent_s, blo_s, bhi_s, cluster_size)
-        part = sel[sub]
+        part = sel[_object_order(method, verts, tri_v[sel], cluster_size)]
         pad = (-len(part)) % cluster_size
         if pad:
             part = np.concatenate([part, np.full(pad, -1, dtype=part.dtype)])
@@ -329,8 +516,9 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
         c, -1, 3).min(axis=1)
     vmax = np.where(valid[:, None, None], tri_verts, -big).reshape(
         c, -1, 3).max(axis=1)
-    tri_blocks, pmt_blocks = _kernel_blocks_host(
-        tri_verts.astype(np.float32), valid, c, cluster_size)
+    tri_blocks, pmt_blocks, woop_blocks = _kernel_blocks_host(
+        tri_verts.astype(np.float32), valid, c, cluster_size,
+        build_woop="woop" in variants)
 
     normals = host(mesh.normals).astype(np.float32)
     colors = host(mesh.colors).astype(np.float32)
@@ -348,8 +536,8 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
             [normals[order], colors[order], materials[obj_id[order]]],
             axis=1) * valid[:, None]
         attr_tables = None
-    attr_blocks = attrs.reshape(c, cluster_size, attrs.shape[1]).transpose(
-        0, 2, 1)
+    attr_t = attrs.reshape(c, cluster_size, attrs.shape[1])
+    attr_blocks = attr_t.transpose(0, 2, 1)
     # The backward's planes: v0 | e1 | e2, triangle id, object id.
     grad_blocks = np.concatenate(
         [tri_blocks,
@@ -393,6 +581,12 @@ def build_cluster_accel(mesh: Mesh, cluster_size: int = 128,
         rest_attrs=f32(rest_attrs),
         grad_blocks=f32(grad_blocks),
         rest_grad=f32(rest_grad),
+        tri_blocks=tri_blocks if "mt" in variants else None,
+        pmt_t_blocks=(np.ascontiguousarray(pmt_blocks.transpose(0, 2, 1))
+                      if "pmtt" in variants else None),
+        woop_blocks=woop_blocks,
+        order_blocks=order.astype(np.int32).reshape(c, cluster_size),
+        attr_t_blocks=f32(np.ascontiguousarray(attr_t)),
     ), device)
 
 
@@ -402,8 +596,9 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
     """The accel with its shading planes (`attr_blocks`, `rest_attrs` and,
     in objid mode, `attr_tables`) rebuilt from the mesh's live, detached
     normals, colors and materials — what an inverse fit does inside every
-    step, so that the walk shades with the values it differentiates.
-    Bounds, triangle blocks and `grad_blocks` are left as they are: after
+    step, so that the walk shades with the values it differentiates
+    (`attr_t_blocks` follows). Bounds, triangle blocks and `grad_blocks`
+    are left as they are: after
     the vertices move, rebuild. first_tri: each object's first triangle
     (`first_tri_per_object`); computed from mesh.obj_id when not given."""
     cs, c = accel.cluster_size, accel.num_clusters
@@ -420,9 +615,9 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
                              device=normals.device)
         tbl = torch.cat([mesh.colors.detach()[ft], mesh.materials.detach()],
                         dim=1)
-        accel = accel._replace(
-            attr_blocks=torch.cat([nrm, obj_plane], dim=1).contiguous(),
-            attr_tables=tbl.contiguous())
+        accel = _with_attr_planes(
+            accel, torch.cat([nrm, obj_plane], dim=1)
+        )._replace(attr_tables=tbl.contiguous())
         if accel.rest_ids is not None:
             rn = normals[accel.rest_ids.long()]
             accel = accel._replace(rest_attrs=torch.cat(
@@ -431,11 +626,21 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
     attrs = torch.cat([normals, mesh.colors.detach(),
                        mesh.materials.detach()[mesh.obj_id.long()]], dim=1)
     planes = (attrs[order] * valid).reshape(c, cs, -1).transpose(1, 2)
-    accel = accel._replace(attr_blocks=planes.contiguous())
+    accel = _with_attr_planes(accel, planes)
     if accel.rest_ids is not None:
         accel = accel._replace(
             rest_attrs=attrs[accel.rest_ids.long()].contiguous())
     return accel
+
+
+def _with_attr_planes(accel: ClusterAccel, planes) -> ClusterAccel:
+    """The accel with shading planes [C, A, CS], and their transposed copy
+    where the accel keeps one."""
+    accel = accel._replace(attr_blocks=planes.contiguous())
+    if accel.attr_t_blocks is None:
+        return accel
+    return accel._replace(
+        attr_t_blocks=planes.transpose(1, 2).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -549,10 +754,7 @@ def any_hit_cluster(mesh: Mesh, accel: ClusterAccel, o, d, t_max=INF,
 
 _ACCEL_FORMAT_VERSION = 2
 # The fields every cache must hold; the rest of ClusterAccel may be absent
-# (None). A JAX-written cache also holds tri_blocks, pmt_t_blocks,
-# woop_blocks, order_blocks and attr_t_blocks, the tables of intersectors
-# the port does not run (ROADMAP Queue 1, the off-main-path variants):
-# they are ignored.
+# (None), as the tables of intersector families that were not built are.
 _REQUIRED_FIELDS = ("order", "slot_valid", "cluster_min", "cluster_max",
                     "pmt_blocks", "attr_blocks", "grad_blocks")
 

@@ -70,14 +70,16 @@ class RenderConfig:
     # Culling-tile size for bounce levels. The port always walks 1024-ray
     # tiles; the image is the same for any value.
     gi_ray_tile: int = 0
-    # Per-visit lane-cull pre-test of the TPU walk. It skips visits
-    # without changing any result; the port does not run it yet.
+    # Per-visit lane-cull pre-test of bounce queries in the K1 walk (the
+    # `_walk_groups` entry; not K2, K3 or K4, as on the TPU). It skips
+    # visits without changing any result.
     gi_lane_cull: bool = True
     # Bounce queries through per-ray refined visit lists and the combined
     # geometry+attribute table (the `_walk_dma` entry). Exact either way.
     gi_wq: bool = True
     light_samples: int = 4
-    # Two-phase capped bounce queries; only 0.0 is ported.
+    # Two-phase capped bounce nearest queries: the cap is this fraction of
+    # the primary accel's cluster-box diagonal (0 = off). Exact either way.
     gi_cap_frac: float = 0.0
     # Batched front-to-back early exit for bounce nearest queries. Exact.
     gi_early_exit: bool = True

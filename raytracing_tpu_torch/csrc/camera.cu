@@ -18,7 +18,10 @@
 // the f32 op order of traverse.py:_camera_dirs (two separate multiplies,
 // IEEE division), bit-equal to the materialised pack. offs [spp, 2] is
 // read from device memory at every launch. The origin is 0 and every lane
-// is alive; the intersector is walk_core.cuh's pmto.
+// is alive; the intersector is walk_core.cuh's pmto (the only family the
+// TPU's camera walks run). With lane_bounds, the lane-cull pre-test of
+// walk_core.cuh skips a visit no ray of a warp enters (the TPU's K1 camera
+// option, traverse.py:3673).
 //
 // Each of 256 threads owns R rays, R = ceil(rt / 256) between 2 and 4
 // (tiles of at most 256 rays take R = 2 with dead lanes: R = 1 spilled); a
@@ -43,7 +46,7 @@ namespace {
 
 // blockIdx.x = the block's index within its pass * n_tiles * passes
 // + local * passes + pass.
-template <int R>
+template <int R, bool LC>
 __global__ void __launch_bounds__(kThreads)
 camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
                    int bh, int bw, float aspect, float scale, int rt_rays,
@@ -54,6 +57,7 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
                    const float* __restrict__ geo, long long geo_stride,
                    const float* __restrict__ attr, long long attr_stride,
                    int n_attrs, int cs, float eps, int early, int ee_batch,
+                   const float* __restrict__ lcb,
                    unsigned long long* keys, int* __restrict__ finished,
                    float* out_t, int* __restrict__ out_s,
                    float* __restrict__ out_a, int* __restrict__ visits) {
@@ -110,14 +114,24 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
   const KeyShare share{split && use_exit ? keys + i0 : nullptr, lanes};
   const long long row = static_cast<long long>(local) * width;
   ring_setup(ring, use_exit ? bbox : nullptr, 0);
-  const int visited = walk_segments<R, true, true>(
+  const int visited = walk_segments<R, kPmto, true, LC, false>(
       ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, listed,
-      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_lim,
-      use_exit, ee_batch, best_t, best_s, share);
+      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, inf(),
+      t_lim, lcb, use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + local, visited);
   finish_tile<R, true>(split, i0, lanes, np, best_t, best_s, keys,
                        finished + sub, parts, attr, attr_stride, n_attrs, cs,
                        out_t, out_s, out_a);
+}
+
+using CameraKernel = decltype(&camera_walk_kernel<4, false>);
+
+// The instance of R rays a thread, with or without the lane cull.
+template <bool LC>
+CameraKernel camera_instance(int per_thread) {
+  if (per_thread <= 2) return camera_walk_kernel<2, LC>;
+  if (per_thread == 3) return camera_walk_kernel<3, LC>;
+  return camera_walk_kernel<4, LC>;
 }
 
 }  // namespace
@@ -128,7 +142,9 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
 // (clamped to the last block). ids [n_tiles, width] i32, cnt [n_tiles],
 // each tile's list in segments of `seg` dealt to `tile_blocks` blocks;
 // tnear [n_tiles, width] and bbox [6] (only read when early != 0); geo and
-// attr as rt_walk takes them, geo origin-folded. Scratch the launch fills:
+// attr as rt_walk takes them, geo origin-folded; lane_bounds [C, 6] or null
+// as rt_walk takes it (the boxes of the unfolded geometry: the origin is
+// 0). Scratch the launch fills:
 // keys, np 8-byte words, 8-byte aligned, and finished [n_tiles * passes]
 // i32, passes = ceil(spp * bh * bw / 1024). Outputs in block order: t [np],
 // slot [np] i32, attrs [n_attrs, np], np = n_tiles * spp * bh * bw, and,
@@ -143,11 +159,13 @@ extern "C" int rt_walk_camera(const float* offs, int tile_base, int n_tiles,
                               const float* geo, long long geo_stride,
                               const float* attr, long long attr_stride,
                               int n_attrs, int cs, float eps, int early,
-                              int ee_batch, unsigned long long* keys,
+                              int ee_batch, const float* lane_bounds,
+                              unsigned long long* keys,
                               int* finished, float* out_t, int* out_s,
                               float* out_a, int* visits, void* stream) {
   if (n_tiles <= 0 || spp <= 0 || bh <= 0 || bw <= 0 || w % bw != 0
-      || h % bh != 0 || !rt::walk_tables_ok(geo, geo_stride, cs) || width <= 0
+      || h % bh != 0 || !rt::walk_tables_ok(geo, geo_stride, cs, rt::kPmto)
+      || width <= 0
       || ee_batch <= 0 || tile_base < 0 || seg <= 0 || tile_blocks <= 0
       || finished == nullptr || keys == nullptr
       || reinterpret_cast<unsigned long long>(keys) % 8) {
@@ -162,13 +180,12 @@ extern "C" int rt_walk_camera(const float* offs, int tile_base, int n_tiles,
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, true, keys, out_t, n_sub, finished, n_tiles,
                        visits, s);
-  auto kern = rt::camera_walk_kernel<4>;
-  if (per_thread <= 2) kern = rt::camera_walk_kernel<2>;
-  else if (per_thread == 3) kern = rt::camera_walk_kernel<3>;
+  auto kern = lane_bounds != nullptr ? rt::camera_instance<true>(per_thread)
+                                     : rt::camera_instance<false>(per_thread);
   kern<<<static_cast<unsigned>(n_sub * tile_blocks), rt::kThreads, 0, s>>>(
       offs, tile_base, w, h, bh, bw, aspect, scale, rt_rays, n_tiles, ids,
       cnt, tnear, width, seg, tile_blocks, bbox, geo, geo_stride, attr,
-      attr_stride, n_attrs, cs, eps, early, ee_batch, keys, finished, out_t,
-      out_s, out_a, visits);
+      attr_stride, n_attrs, cs, eps, early, ee_batch, lane_bounds, keys,
+      finished, out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
 }

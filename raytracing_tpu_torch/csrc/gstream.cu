@@ -6,8 +6,9 @@
 // streams a table that does not fit on chip; each (group, tile) pair has
 // its own list, front to back within the group, with ids local to the
 // group, and the walk of group g reads geo + g * gsz * geo_stride with slot
-// base g * gsz * cs. The loop, both intersectors, the tie rule and the vote
-// are walk_core.cuh's, the code K1 runs; a group's ids are offset by its
+// base g * gsz * cs. The loop, the four intersector families (pmt, pmto,
+// mt, woop, as the TPU's K3 runs them), the tie rule and the vote are
+// walk_core.cuh's, the code K1 runs; a group's ids are offset by its
 // first cluster where the loop stages them. The result equals K1's over the
 // whole table because (min t, then min slot, +inf never ties) does not
 // depend on the order of the visits. The last group may be padded with
@@ -47,7 +48,7 @@ namespace {
 
 // blockIdx.x = (group * tile_blocks + the block's index within its
 // (group, tile) list) * nt + tile.
-template <bool PMTO, bool NEAREST>
+template <int F, bool NEAREST, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 gstream_kernel(const float* __restrict__ rays, long long np,
                const float* __restrict__ tmax_row,
@@ -101,16 +102,30 @@ gstream_kernel(const float* __restrict__ rays, long long np,
   const long long row = gt * width;
   // The group's box and first cluster: its ids are local to it.
   ring_setup(ring, use_exit ? bbox + 6 * g : nullptr, g * gsz);
-  const int visited = walk_segments<kRaysPerThread, PMTO, NEAREST>(
+  const int visited = walk_segments<kRaysPerThread, F, NEAREST, false,
+                                    CAPPED>(
       ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, listed,
-      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_lim,
-      use_exit, ee_batch, best_t, best_s, share);
+      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_max,
+      t_lim, nullptr, use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) {  // the group read back
     atomicAdd(visits + (ring.id_base / gsz) * nt + tile, visited);
   }
   finish_tile<kRaysPerThread, NEAREST>(
       split, i0, kRayTile, np, best_t, best_s, keys, finished + tile, parts,
       attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
+}
+
+using GstreamKernel = decltype(&gstream_kernel<kPmt, true, false>);
+
+// The instance of family f (walk_core.cuh's Family).
+template <bool NEAREST, bool CAPPED>
+GstreamKernel gstream_instance(int f) {
+  switch (f) {
+    case kPmto: return gstream_kernel<kPmto, NEAREST, CAPPED>;
+    case kMt: return gstream_kernel<kMt, NEAREST, CAPPED>;
+    case kWoop: return gstream_kernel<kWoop, NEAREST, CAPPED>;
+    default: return gstream_kernel<kPmt, NEAREST, CAPPED>;
+  }
 }
 
 }  // namespace
@@ -121,7 +136,7 @@ gstream_kernel(const float* __restrict__ rays, long long np,
 // of `seg` dealt to `tile_blocks` blocks; tnear [G, nt, width] and bbox
 // [G, 6] (each group's union-box min | max; only read when early != 0); geo
 // and attr hold G * gsz clusters as rt_walk takes them (the last group
-// padded). Scratch the launch fills: keys, np 8-byte words, 8-byte aligned
+// padded); family and t_max as rt_walk takes them. Scratch the launch fills: keys, np 8-byte words, 8-byte aligned
 // (nearest only; may be null for occlusion), and finished [nt] i32. Outputs
 // t [np], global slot or hit flag [np] i32, attrs [n_attrs, np], and, where
 // visits is not null, the clusters each (group, tile) visited [G, nt] i32
@@ -135,13 +150,14 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
                                long long geo_stride, const float* attr,
                                long long attr_stride, int n_attrs, int cs,
                                float eps, float t_max, int nearest, int early,
-                               int ee_batch, int pmto,
+                               int ee_batch, int family,
                                unsigned long long* keys, int* finished,
                                float* out_t, int* out_s, float* out_a,
                                int* visits, void* stream) {
   if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
       || seg <= 0 || tile_blocks <= 0 || finished == nullptr
-      || !rt::walk_tables_ok(geo, geo_stride, cs) || n_groups <= 0 || gsz <= 0
+      || !rt::walk_tables_ok(geo, geo_stride, cs, family) || n_groups <= 0
+      || gsz <= 0
       || static_cast<long long>(n_groups) * gsz * cs >= rt::kBigId
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
@@ -152,10 +168,9 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, nearest != 0, keys, out_t, nt, finished,
                        nt * n_groups, visits, s);
-  auto kern = nearest ? (pmto ? rt::gstream_kernel<true, true>
-                                : rt::gstream_kernel<false, true>)
-                      : (pmto ? rt::gstream_kernel<true, false>
-                                : rt::gstream_kernel<false, false>);
+  auto kern = !nearest ? rt::gstream_instance<false, false>(family)
+              : rt::is_capped(t_max) ? rt::gstream_instance<true, true>(family)
+                                     : rt::gstream_instance<true, false>(family);
   kern<<<static_cast<unsigned>(nt * n_groups * tile_blocks), rt::kThreads, 0,
          s>>>(rays, np, tmax_row, ids, cnt, tnear, width, seg, tile_blocks,
               n_groups, gsz, bbox, geo, geo_stride, attr, attr_stride,

@@ -8,9 +8,11 @@
 // boxes through the id list). Bit (tile, c) is 1 iff some alive lane of
 // the tile enters cluster c's AABB. The slab test gives the bits of
 // traverse.py:526-546: reciprocal first, degenerate axes unbounded, the
-// interval inflated by 2e-6*|t| + 1e-7, '<=' and '>=' as written. (The
-// TPU kernel's t_cap serves the two-phase capped query, which is not
-// ported.)
+// interval inflated by 2e-6*|t| + 1e-7, '<=' and '>=' as written. A
+// two-phase capped query's first phase gives a cap: tf is clipped to it
+// after the inflation (traverse.py:539-543), a box entered only beyond it
+// is not entered. The capped forms are their own instances, so the
+// uncapped test keeps its operation count.
 //
 // Bound on the card: issue slots. A candidate that no lane enters needs
 // every alive lane tested (9 in 10 of a refined list's input at 404k and
@@ -51,6 +53,8 @@
 // every tile before block b + 1 of any. Positions past min(cnt, width)
 // are written 0 by the block that owns them; a block that owns no listed
 // position reads no ray.
+#include <limits>
+
 #include "common.cuh"
 
 namespace rt {
@@ -69,10 +73,11 @@ struct Lanes {
 // traverse.py:526-546 for one ray and one box (lo, hi): the slab bounds of
 // each axis folded from -inf / +inf (a NaN bound, a degenerate axis, is
 // dropped), the interval inflated by 2e-6*|t| + 1e-7.
+template <bool CAPPED>
 __device__ __forceinline__ bool slab_enters(const float o[3],
                                             const float inv[3],
                                             const float lo[3],
-                                            const float hi[3]) {
+                                            const float hi[3], float cap) {
   float tn = -inf();
   float tf = inf();
 #pragma unroll
@@ -86,6 +91,7 @@ __device__ __forceinline__ bool slab_enters(const float o[3],
   const float abs_ = static_cast<float>(1e-7);
   tf = tf + (fabsf(tf) * rel + abs_);
   tn = tn - (fabsf(tn) * rel + abs_);
+  if (CAPPED) tf = fminf(tf, cap);
   return tn <= tf && tf >= 0.0f;
 }
 
@@ -110,9 +116,10 @@ __device__ __forceinline__ void keep_row(int row, float v, int r, Lanes& L) {
 // block's lanes: every warp takes every candidate, from its own offset
 // on, and skips one another warp has marked entered. s_bit (zeroed
 // before) gets the marks. A warp with no alive lane tests nothing.
+template <bool CAPPED>
 __device__ __forceinline__ void test_candidates(const Lanes& L, int m,
                                                 const float* s_box,
-                                                int* s_bit) {
+                                                int* s_bit, float cap) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   bool mine = false;
@@ -131,7 +138,8 @@ __device__ __forceinline__ void test_candidates(const Lanes& L, int m,
     for (int r = 0; r < kRaysPerThread; ++r) {
       // Every lane's test evaluated, not behind `any ||`: a short-circuit
       // makes the warp's lanes diverge.
-      const bool enters = slab_enters(L.o[r], L.inv[r], lo, hi);
+      const bool enters = slab_enters<CAPPED>(L.o[r], L.inv[r], lo, hi,
+                                              cap);
       any = any | (L.alive[r] & enters);
     }
     if (__any_sync(0xffffffffu, any) && lane == 0) mark[j] = 1;
@@ -139,10 +147,11 @@ __device__ __forceinline__ void test_candidates(const Lanes& L, int m,
 }
 
 // Dynamic shared memory: 6 floats (lo | hi) and one mark per cluster.
+template <bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 refine_kernel(const float* __restrict__ rays, long long np,
               const float* __restrict__ cmin, const float* __restrict__ cmax,
-              int n_clusters, const int* __restrict__ tile_alive,
+              int n_clusters, float cap, const int* __restrict__ tile_alive,
               float* __restrict__ lo, float* __restrict__ hi,
               int* __restrict__ out) {
   __shared__ float s_lo[kWarps][8];
@@ -216,7 +225,7 @@ refine_kernel(const float* __restrict__ rays, long long np,
     }
   }
   __syncthreads();
-  if (s_live) test_candidates(L, n_clusters, s_box, s_bit);
+  if (s_live) test_candidates<CAPPED>(L, n_clusters, s_box, s_bit, cap);
   __syncthreads();
   int* row_out = out + static_cast<long long>(tile) * n_clusters;
   for (int c = threadIdx.x; c < n_clusters; c += kThreads) {
@@ -225,12 +234,14 @@ refine_kernel(const float* __restrict__ rays, long long np,
 }
 
 // Dynamic shared memory: 6 floats and one mark per position of a run.
+template <bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 refine_lists_kernel(const float* __restrict__ rays, long long np,
                     const int* __restrict__ ids, const int* __restrict__ cnt,
                     int width, int run, int tile_blocks,
                     const float* __restrict__ cmin,
-                    const float* __restrict__ cmax, int* __restrict__ out) {
+                    const float* __restrict__ cmax, float cap,
+                    int* __restrict__ out) {
   extern __shared__ float s_box[];
   int* s_bit = reinterpret_cast<int*>(s_box + 6 * run);
   const int nt = gridDim.x / tile_blocks;
@@ -271,7 +282,7 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
       s_bit[j] = 0;
     }
     __syncthreads();
-    test_candidates(L, listed, s_box, s_bit);
+    test_candidates<CAPPED>(L, listed, s_box, s_bit, cap);
     __syncthreads();
     for (int j = threadIdx.x; j < owned; j += kThreads) {
       out[list + p0 + j] = j < listed ? s_bit[j] : 0;
@@ -280,31 +291,36 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
   }
 }
 
+// A finite cap takes the capped instances.
+bool capped(float cap) { return cap < std::numeric_limits<float>::infinity(); }
+
 int launch_dense(const float* rays, long long np, const float* cmin,
-                 const float* cmax, int n_clusters, const int* tile_alive,
-                 float* lo, float* hi, int* out, void* stream) {
+                 const float* cmax, int n_clusters, float cap,
+                 const int* tile_alive, float* lo, float* hi, int* out,
+                 void* stream) {
   if (np <= 0 || np % kRayTile != 0 || n_clusters <= 0
       || n_clusters > kMaxRefineClusters) {
     return cudaErrorInvalidValue;
   }
-  refine_kernel<<<static_cast<unsigned>(np / kRayTile), kThreads,
-                  n_clusters * 7 * sizeof(float),
-                  static_cast<cudaStream_t>(stream)>>>(
-      rays, np, cmin, cmax, n_clusters, tile_alive, lo, hi, out);
+  auto kern = capped(cap) ? refine_kernel<true> : refine_kernel<false>;
+  kern<<<static_cast<unsigned>(np / kRayTile), kThreads,
+         n_clusters * 7 * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      rays, np, cmin, cmax, n_clusters, cap, tile_alive, lo, hi, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; cmin, cmax [C, 3]; tile_alive [np / 1024] i32;
-// out [np / 1024, C] i32.
+// rays [8, np]; cmin, cmax [C, 3]; cap: +inf, or the cap of a two-phase
+// query's first phase; tile_alive [np / 1024] i32; out [np / 1024, C] i32.
 extern "C" int rt_refine_dense(const float* rays, long long np,
                                const float* cmin, const float* cmax,
-                               int n_clusters, const int* tile_alive,
-                               int* out, void* stream) {
+                               int n_clusters, float cap,
+                               const int* tile_alive, int* out,
+                               void* stream) {
   if (tile_alive == nullptr) return cudaErrorInvalidValue;
-  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, tile_alive,
+  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, cap, tile_alive,
                           nullptr, nullptr, out, stream);
 }
 
@@ -313,31 +329,33 @@ extern "C" int rt_refine_dense(const float* rays, long long np,
 // rt_refine_dense with tile-alive flags hi[:, 7] > 0.
 extern "C" int rt_refine_dense_extents(const float* rays, long long np,
                                        const float* cmin, const float* cmax,
-                                       int n_clusters, float* lo, float* hi,
-                                       int* out, void* stream) {
+                                       int n_clusters, float cap, float* lo,
+                                       float* hi, int* out, void* stream) {
   if (lo == nullptr || hi == nullptr) return cudaErrorInvalidValue;
-  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, nullptr, lo, hi,
-                          out, stream);
+  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, cap, nullptr, lo,
+                          hi, out, stream);
 }
 
 // rays [8, np]; ids [np / 1024, width] i32 with cnt [np / 1024] listed
-// candidates per tile; cmin, cmax [C, 3]; out [np / 1024, width] i32:
-// 1 iff position j < min(cnt, width) and some alive lane of the tile
-// enters cluster ids[tile, j]'s box. Each tile's positions in runs of
-// `run`, dealt to `tile_blocks` blocks.
+// candidates per tile; cmin, cmax [C, 3]; cap as rt_refine_dense takes it;
+// out [np / 1024, width] i32: 1 iff position j < min(cnt, width) and some
+// alive lane of the tile enters cluster ids[tile, j]'s box. Each tile's
+// positions in runs of `run`, dealt to `tile_blocks` blocks.
 extern "C" int rt_refine_lists(const float* rays, long long np, const int* ids,
                                const int* cnt, int width, int run,
                                int tile_blocks, const float* cmin,
-                               const float* cmax, int* out, void* stream) {
+                               const float* cmax, float cap, int* out,
+                               void* stream) {
   if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || run <= 0
       || run > rt::kMaxRefineClusters || tile_blocks <= 0) {
     return cudaErrorInvalidValue;
   }
   const long long blocks = np / rt::kRayTile * tile_blocks;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  rt::refine_lists_kernel<<<static_cast<unsigned>(blocks), rt::kThreads,
-                            run * 7 * sizeof(float),
-                            static_cast<cudaStream_t>(stream)>>>(
-      rays, np, ids, cnt, width, run, tile_blocks, cmin, cmax, out);
+  auto kern = rt::capped(cap) ? rt::refine_lists_kernel<true>
+                              : rt::refine_lists_kernel<false>;
+  kern<<<static_cast<unsigned>(blocks), rt::kThreads,
+         run * 7 * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      rays, np, ids, cnt, width, run, tile_blocks, cmin, cmax, cap, out);
   return static_cast<int>(cudaGetLastError());
 }

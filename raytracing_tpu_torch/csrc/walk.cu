@@ -29,8 +29,12 @@
 // nothing (2,560,000 coherent rays over a 12,640 x 128 table, NVIDIA H100
 // 80GB HBM3, 700 W, tools/kernel_ab.py: 30,361 of 30,703 listed visits and
 // 7.40 ms tile-major, 11,208 and 3.24 ms segment-major). Each of 256
-// threads owns 4 rays; the staged loop and the intersectors are
-// walk_core.cuh's.
+// threads owns 4 rays; the staged loop, the four intersector families
+// (pmt, pmto, mt, woop: one instance each), the lane-cull pre-test and the
+// cap of a two-phase query (instances of their own) are walk_core.cuh's. K1 runs every family; the TPU's K2 takes pmt, pmto and
+// mt, whose combined table then holds 9 geometry rows before the
+// attribute rows. The lane cull is the TPU's K1 option (lane_bounds not
+// null), for nearest and occlusion queries alike.
 //
 // Segments merge per ray through the order-free key of walk_core.cuh
 // (atomicMin on (bits(t) << 32) | slot; for occlusion a 32-bit atomicMin on
@@ -50,7 +54,7 @@ namespace rt {
 namespace {
 
 // blockIdx.x = the block's index within its tile * nt + tile.
-template <bool PMTO, bool NEAREST>
+template <int F, bool NEAREST, bool LC, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 walk_kernel(const float* __restrict__ rays, long long np,
             const float* __restrict__ tmax_row,
@@ -60,10 +64,10 @@ walk_kernel(const float* __restrict__ rays, long long np,
             const float* __restrict__ geo, long long geo_stride,
             const float* __restrict__ attr, long long attr_stride,
             int n_attrs, int cs, float eps, float t_max, int early,
-            int ee_batch, unsigned long long* keys,
-            int* __restrict__ finished, float* out_t,
-            int* __restrict__ out_s, float* __restrict__ out_a,
-            int* __restrict__ visits) {
+            int ee_batch, const float* __restrict__ lcb,
+            unsigned long long* keys, int* __restrict__ finished,
+            float* out_t, int* __restrict__ out_s,
+            float* __restrict__ out_a, int* __restrict__ visits) {
   __shared__ WalkRing ring;
   const unsigned nt = static_cast<unsigned>(np / kRayTile);
   const long long tile = blockIdx.x % nt;
@@ -89,14 +93,42 @@ walk_kernel(const float* __restrict__ rays, long long np,
   const KeyShare share{split && use_exit ? keys + i0 : nullptr, kRayTile};
   const long long row = tile * width;
   ring_setup(ring, use_exit ? bbox : nullptr, 0);
-  const int visited = walk_segments<kRaysPerThread, PMTO, NEAREST>(
+  const int visited = walk_segments<kRaysPerThread, F, NEAREST, LC, CAPPED>(
       ring, o, d, alive, ids + row, tnear ? tnear + row : nullptr, listed,
-      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_lim,
-      use_exit, ee_batch, best_t, best_s, share);
+      first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_max,
+      t_lim, lcb, use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + tile, visited);
   finish_tile<kRaysPerThread, NEAREST>(
       split, i0, kRayTile, np, best_t, best_s, keys, finished + tile, parts,
       attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
+}
+
+using WalkKernel = decltype(&walk_kernel<kPmt, true, false, false>);
+
+// The instance of family f (walk_core.cuh's Family).
+template <bool NEAREST, bool LC, bool CAPPED>
+WalkKernel walk_instance(int f) {
+  switch (f) {
+    case kPmto: return walk_kernel<kPmto, NEAREST, LC, CAPPED>;
+    case kMt: return walk_kernel<kMt, NEAREST, LC, CAPPED>;
+    case kWoop: return walk_kernel<kWoop, NEAREST, LC, CAPPED>;
+    default: return walk_kernel<kPmt, NEAREST, LC, CAPPED>;
+  }
+}
+
+// The instance for a launch: nearest (capped where t_max is finite) or
+// occlusion, with or without the lane cull.
+WalkKernel walk_instance(int f, bool nearest, bool lc, bool capped) {
+  if (!nearest) {
+    return lc ? walk_instance<false, true, false>(f)
+              : walk_instance<false, false, false>(f);
+  }
+  if (capped) {
+    return lc ? walk_instance<true, true, true>(f)
+              : walk_instance<true, false, true>(f);
+  }
+  return lc ? walk_instance<true, true, false>(f)
+            : walk_instance<true, false, false>(f);
 }
 
 }  // namespace
@@ -106,16 +138,19 @@ walk_kernel(const float* __restrict__ rays, long long np,
 // place of the scalar t_max; ids [nt, width] i32 with cnt [nt] listed
 // clusters per tile (the first min(cnt, width) are walked), in segments of
 // `seg`, each tile's segments dealt to `tile_blocks` blocks; tnear
-// [nt, width] and bbox [6] (only read when early != 0); geo: cluster c's 12
-// geometry rows at geo + c * geo_stride, each cs floats, 16-byte aligned;
-// attr likewise with attr_stride (n_attrs rows; unused for occlusion).
-// pmto != 0 selects the origin-folded intersector (the caller folded the
-// shared origin into geo). Scratch the launch fills: keys, np 8-byte words,
-// 8-byte aligned (nearest only; may be null for occlusion), and finished
-// [nt] i32. Outputs t [np], slot or hit flag [np] i32, attrs [n_attrs, np],
-// and, where visits is not null, the clusters each tile visited [nt] i32
-// (they differ from run to run under the early exit). Two launches on the
-// stream: fill, blocks.
+// [nt, width] and bbox [6] (only read when early != 0); geo: cluster c's
+// geometry rows of the family at geo + c * geo_stride (12 rows, mt's 9),
+// each cs floats, 16-byte aligned; attr likewise with attr_stride (n_attrs
+// rows; unused for occlusion). family: 0 pmt, 1 pmto (the caller folded
+// the shared origin into geo), 2 mt, 3 woop (walk_core.cuh). t_max: a
+// nearest query accepts only t < t_max (+inf: every hit), an occlusion
+// query without tmax_row only t < t_max. lane_bounds [C, 6] (min | max of
+// each cluster's box, indexed like geo) or null: the lane-cull pre-test.
+// Scratch the launch fills: keys, np 8-byte words, 8-byte aligned (nearest
+// only; may be null for occlusion), and finished [nt] i32. Outputs t [np],
+// slot or hit flag [np] i32, attrs [n_attrs, np], and, where visits is not
+// null, the clusters each tile visited [nt] i32 (they differ from run to
+// run under the early exit). Two launches on the stream: fill, blocks.
 extern "C" int rt_walk(const float* rays, long long np,
                        const float* tmax_row, const int* ids,
                        const int* cnt, const float* tnear, int width, int seg,
@@ -123,12 +158,12 @@ extern "C" int rt_walk(const float* rays, long long np,
                        long long geo_stride, const float* attr,
                        long long attr_stride, int n_attrs, int cs,
                        float eps, float t_max, int nearest, int early,
-                       int ee_batch, int pmto, unsigned long long* keys,
-                       int* finished, float* out_t, int* out_s, float* out_a,
-                       int* visits, void* stream) {
+                       int ee_batch, int family, const float* lane_bounds,
+                       unsigned long long* keys, int* finished, float* out_t,
+                       int* out_s, float* out_a, int* visits, void* stream) {
   if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
       || seg <= 0 || tile_blocks <= 0 || finished == nullptr
-      || !rt::walk_tables_ok(geo, geo_stride, cs)
+      || !rt::walk_tables_ok(geo, geo_stride, cs, family)
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
@@ -138,13 +173,11 @@ extern "C" int rt_walk(const float* rays, long long np,
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, nearest != 0, keys, out_t, nt, finished, nt,
                        visits, s);
-  auto kern = nearest ? (pmto ? rt::walk_kernel<true, true>
-                                : rt::walk_kernel<false, true>)
-                      : (pmto ? rt::walk_kernel<true, false>
-                                : rt::walk_kernel<false, false>);
+  auto kern = rt::walk_instance(family, nearest != 0, lane_bounds != nullptr,
+                                rt::is_capped(t_max));
   kern<<<static_cast<unsigned>(nt * tile_blocks), rt::kThreads, 0, s>>>(
       rays, np, tmax_row, ids, cnt, tnear, width, seg, tile_blocks, bbox, geo,
       geo_stride, attr, attr_stride, n_attrs, cs, eps, t_max, early, ee_batch,
-      keys, finished, out_t, out_s, out_a, visits);
+      lane_bounds, keys, finished, out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,18 +28,42 @@
 //     16-triangle clusters pays a barrier per 128 triangles as a table of
 //     128-triangle clusters does;
 //   - a row of the stage is read as float4: 12 shared-memory reads serve 4
-//     triangles x R rays.
+//     triangles x R rays (woop reads float2s: 2 triangles, family_column).
 //
-// Two intersectors, op for op with the TPU package's:
-//   pmt  (traverse.py:_pmt_tile)   t = (d0 - n·o) / den, u and v from the
-//        hit point;
-//   pmto (traverse.py:_pmt_o_tile) every ray leaves one point and that
-//        origin is folded into d0, u0, v0c before the launch:
+// Four intersector families (the template parameter F of walk_list), op
+// for op with the TPU package's; each stages its own rows per triangle:
+//   pmt  (traverse.py:_pmt_tile, 12 rows)   t = (d0 - n·o) / den, u and v
+//        from the hit point. The TPU's "pmtt" (_pmt_t_tile) is the same
+//        arithmetic on a transposed table: the card walks this one;
+//   pmto (traverse.py:_pmt_o_tile, 12 rows) every ray leaves one point and
+//        that origin is folded into d0, u0, v0c before the launch:
 //        t = d0 / den, u = u0 + t (U·d), v = v0c + t (V·d). The origin rows
-//        are never read.
+//        are never read;
+//   mt   (traverse.py:_mt_tile, 9 rows: v0 | e1 | e2) Möller–Trumbore:
+//        p = d x e2, det = e1·p, inv = 1 / det, s = o - v0, u = (s·p) inv,
+//        q = s x e1, v = (d·q) inv, t = (e2·q) inv; accepted on
+//        |det| >= eps (padding has e1 = e2 = 0: det 0);
+//   woop (traverse.py:_woop_tile_t, 12 rows: the 3x3 M by rows | const)
+//        oL = M o + const, dL = M d as explicit multiplies and adds in a
+//        fixed order (the TPU's one f32 matmul at HIGHEST precision),
+//        rcp = 1 / dLz (|dLz| < 1e-20 taken as 1e-20), t = -oLz rcp,
+//        u = oLx + t dLx, v = oLy + t dLy; accepted on |dLz| >= 1e-20.
 // Nearest keeps a flat (best_t, best_slot) per ray: min t, then min slot,
-// and an infinite t never ties. Occlusion keeps min t under each ray's own
-// limit (a scalar t_max, or one entry of a per-ray row).
+// and an infinite t never ties; a capped instance (CAPPED: the first phase
+// of a two-phase query, traverse.py:1896-1900) accepts only t < t_cap. The
+// cap is a template parameter so that the uncapped walks, the main path,
+// spend no issue slot on it.
+// Occlusion keeps min t under each ray's own limit (a scalar t_max, or one
+// entry of a per-ray row).
+//
+// The lane-cull pre-test (LC, traverse.py:lane_cull_cond): before a
+// visit's triangles, each thread slab-tests its alive rays against the
+// cluster's box (6 floats, lcb[6 c..6 c + 5] = min | max, read through L1:
+// a warp reads one address), with the TPU's inflation tf += |tf| 2e-6 +
+// 1e-7, tn -= |tn| 2e-6 + 1e-7, entered when tn <= tf and tf >= 0; a warp
+// none of whose alive rays enters skips the visit (__any_sync: no
+// barrier, finer than the TPU's per-tile vote). The inflation covers the
+// rounding of both tests, so no result changes.
 // Early exit, at a stage's end once ee_batch visits were made since the
 // last vote: a block vote on "every alive lane's min(best_t, scene-exit t)
 // is below the next entry's lower bound" — exact, so results do not depend
@@ -60,8 +84,42 @@ namespace rt {
 constexpr int kStages = 3;
 constexpr int kMaxStageClusters = kMaxClusterSize / 4;
 
+// The intersector families, as the entries take them (an int: 0 and 1 are
+// the pmto flag the entries took before the families), and the geometry
+// rows each stages per triangle.
+enum Family : int { kPmt = 0, kPmto = 1, kMt = 2, kWoop = 3 };
+constexpr int kFamilies = 4;
+__host__ __device__ constexpr int family_rows(int f) {
+  return f == kMt ? 9 : 12;
+}
+// Triangles a thread reads from each staged row per step: 4 (one float4),
+// woop's 2 (one float2). woop's transform keeps six values per (ray,
+// triangle) live beside its 12 rows, and a column of 4 spilled at the
+// 128-register cap (K3's nearest instance, NVIDIA H100 80GB HBM3).
+__host__ __device__ constexpr int family_column(int f) {
+  return f == kWoop ? 2 : 4;
+}
+
+// Column k of a staged row (row: the row's float4s), kC triangles wide.
+template <int kC>
+__device__ __forceinline__ void load_column(const float4* row, int k,
+                                            float (&out)[kC]) {
+  if constexpr (kC == 4) {
+    const float4 v = row[k];
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    const float2 v = reinterpret_cast<const float2*>(row)[k];
+    out[0] = v.x;
+    out[1] = v.y;
+  }
+}
+
 // A block's staging ring. A stage holds up to kMaxClusterSize triangles as
-// [clusters][12 rows][CS] floats (float4: 16-byte copies and reads) and the
+// [clusters][rows][CS] floats (12 rows, or mt's 9; float4: 16-byte copies
+// and reads) and the
 // ids of its clusters. With it, what the whole walk reads of its list's
 // table besides the blocks: the union box of the early exit, and the first
 // cluster of the list's part of the table (K3's group; 0 elsewhere). Held
@@ -302,14 +360,56 @@ __device__ __forceinline__ bool lanes_settled(const bool (&alive)[R],
   return settled;
 }
 
+// This thread's vote on a visit of the lane-cull pre-test: some alive ray
+// of it enters the box (min | max, 6 floats), by the TPU's slab test
+// (traverse.py:lane_cull_cond: IEEE division, a degenerate axis
+// unbounded, the interval inflated).
+template <int R>
+__device__ __forceinline__ bool lanes_enter(const float (&o)[R][3],
+                                            const float (&d)[R][3],
+                                            const bool (&alive)[R],
+                                            const float* __restrict__ box) {
+  float lo[3], hi[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    lo[k] = __ldg(box + k);
+    hi[k] = __ldg(box + 3 + k);
+  }
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float tn = 0.0f;
+    float tf = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const bool deg = fabsf(d[r][k]) < tiny();
+      const float dk = deg ? tiny() : d[r][k];
+      const float t1 = (lo[k] - o[r][k]) / dk;
+      const float t2 = (hi[k] - o[r][k]) / dk;
+      const float a = deg ? -inf() : fminf(t1, t2);
+      const float b = deg ? inf() : fmaxf(t1, t2);
+      tn = k == 0 ? a : fmaxf(tn, a);
+      tf = k == 0 ? b : fminf(tf, b);
+    }
+    const float rel = static_cast<float>(2e-6);
+    const float abs_ = static_cast<float>(1e-7);
+    tf = tf + (fabsf(tf) * rel + abs_);
+    tn = tn - (fabsf(tn) * rel + abs_);
+    // Every ray's test evaluated, not behind `any ||`: no divergence.
+    any = any | (alive[r] & (tn <= tf) & (tf >= 0.0f));
+  }
+  return any;
+}
+
 // Start the copies of list positions [j0, j0 + nin) into stage buffer b and
 // commit them as one group (an empty group when nin <= 0, so that every
 // thread's group count advances alike). Positions past the list's end are
-// not staged. A listed id plus the ring's id base indexes geo.
+// not staged. A listed id plus the ring's id base indexes geo, whose first
+// `rows` rows of each cluster are staged.
 __device__ __forceinline__ void stage_start(
     WalkRing& ring, int b, const int* __restrict__ tile_ids, int j0, int nin,
-    const float* __restrict__ geo, long long geo_stride, int cs) {
-  const int per = 3 * cs;  // 16-byte pieces of one cluster's 12 rows
+    const float* __restrict__ geo, long long geo_stride, int cs, int rows) {
+  const int per = rows * cs / 4;  // 16-byte pieces of one cluster's rows
   for (int e = threadIdx.x; e < nin * per; e += kThreads) {
     const int i = e / per;
     const int w = e - i * per;
@@ -319,6 +419,78 @@ __device__ __forceinline__ void stage_start(
                geo + static_cast<long long>(c) * geo_stride + 4 * w);
   }
   cp_async_commit();
+}
+
+// One (ray, triangle) test of family F: triangle kk of the staged rows
+// tri (a column of family_column(F) triangles), ray o, d. t is
+// meaningless where valid is false.
+template <int F>
+__device__ __forceinline__ void intersect(
+    const float (&tri)[family_rows(F)][family_column(F)], int kk,
+    const float (&o)[3], const float (&d)[3], float eps, float& t,
+    bool& valid) {
+  if constexpr (F == kMt) {
+    const float v0x = tri[0][kk], v0y = tri[1][kk], v0z = tri[2][kk];
+    const float e1x = tri[3][kk], e1y = tri[4][kk], e1z = tri[5][kk];
+    const float e2x = tri[6][kk], e2y = tri[7][kk], e2z = tri[8][kk];
+    const float px = d[1] * e2z - d[2] * e2y;
+    const float py = d[2] * e2x - d[0] * e2z;
+    const float pz = d[0] * e2y - d[1] * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const float inv = 1.0f / det;
+    const float sx = o[0] - v0x, sy = o[1] - v0y, sz = o[2] - v0z;
+    const float u = (sx * px + sy * py + sz * pz) * inv;
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv;
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+    valid = fabsf(det) >= eps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+            && t > eps;
+  } else if constexpr (F == kWoop) {
+    // Rows: M's row 0 (x, y, z coefficients), row 1, row 2, const.
+    const float olx = ((tri[0][kk] * o[0] + tri[1][kk] * o[1])
+                       + tri[2][kk] * o[2]) + tri[9][kk];
+    const float oly = ((tri[3][kk] * o[0] + tri[4][kk] * o[1])
+                       + tri[5][kk] * o[2]) + tri[10][kk];
+    const float olz = ((tri[6][kk] * o[0] + tri[7][kk] * o[1])
+                       + tri[8][kk] * o[2]) + tri[11][kk];
+    const float dlx = (tri[0][kk] * d[0] + tri[1][kk] * d[1])
+                      + tri[2][kk] * d[2];
+    const float dly = (tri[3][kk] * d[0] + tri[4][kk] * d[1])
+                      + tri[5][kk] * d[2];
+    const float dlz = (tri[6][kk] * d[0] + tri[7][kk] * d[1])
+                      + tri[8][kk] * d[2];
+    const bool flat = fabsf(dlz) < tiny();
+    const float rcp = 1.0f / (flat ? tiny() : dlz);
+    t = -olz * rcp;
+    const float u = olx + t * dlx;
+    const float v = oly + t * dly;
+    valid = !flat && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps;
+  } else {
+    const float nx = tri[0][kk], ny = tri[1][kk], nz = tri[2][kk];
+    const float d0 = tri[3][kk];
+    const float ux = tri[4][kk], uy = tri[5][kk];
+    const float uz = tri[6][kk], u0 = tri[7][kk];
+    const float vx = tri[8][kk], vy = tri[9][kk];
+    const float vz = tri[10][kk], v0c = tri[11][kk];
+    const float den = nx * d[0] + ny * d[1] + nz * d[2];
+    float u, v;
+    if constexpr (F == kPmto) {
+      t = d0 / den;
+      u = u0 + t * (ux * d[0] + uy * d[1] + uz * d[2]);
+      v = v0c + t * (vx * d[0] + vy * d[1] + vz * d[2]);
+    } else {
+      t = (d0 - (nx * o[0] + ny * o[1] + nz * o[2])) / den;
+      const float px = o[0] + t * d[0];
+      const float py = o[1] + t * d[1];
+      const float pz = o[2] + t * d[2];
+      u = ux * px + uy * py + uz * pz + u0;
+      v = vx * px + vy * py + vz * pz + v0c;
+    }
+    valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
+            && t > eps;
+  }
 }
 
 // Walk `trips` listed clusters for this thread's R rays. `ring` is the
@@ -334,19 +506,27 @@ __device__ __forceinline__ void stage_start(
 // publishes and folds in the other blocks' hits there. The block has set
 // the ring's box and id base (ring_setup): a listed id plus the id base
 // indexes `geo`, whose rows must be 16-byte aligned (cs a multiple of 4),
-// and a triangle's slot is (id + id base) * cs + lane. Occlusion (NEAREST
-// false) accepts t < t_lim[r] and never exits early. Returns the number of
+// and a triangle's slot is (id + id base) * cs + lane. F is the intersector
+// family (the rows of geo it reads). Nearest accepts t < t_cap only where
+// CAPPED.
+// Occlusion (NEAREST false) accepts t < t_lim[r] and never exits early.
+// With LC, a warp skips a visit none of its alive rays enters (lanes_enter
+// on lcb, the [C, 6] boxes indexed like geo). Returns the number of
 // clusters visited (trips, or fewer after an early exit).
-template <int R, bool PMTO, bool NEAREST, class Share>
+template <int R, int F, bool NEAREST, bool LC, bool CAPPED, class Share>
 __device__ __forceinline__ int walk_list(
     WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
     const float* __restrict__ tile_tnear, int trips,
     const float* __restrict__ geo, long long geo_stride, int cs, float eps,
-    const float (&t_lim)[R], bool use_exit, int ee_batch,
-    float (&best_t)[R], int (&best_s)[R], Share share) {
+    float t_cap, const float (&t_lim)[R], const float* __restrict__ lcb,
+    bool use_exit, int ee_batch, float (&best_t)[R], int (&best_s)[R],
+    Share share) {
+  constexpr int kRows = family_rows(F);
+  constexpr int kCol = family_column(F);
   const int cps = kMaxClusterSize / cs;  // clusters per stage
   const int q4 = cs / 4;                 // float4 per row
+  const int per = kRows * q4;            // float4 per staged cluster
   const int n_stages = trips > 0 ? (trips + cps - 1) / cps : 0;
   // A first vote on what the rays bring with them: a list that starts
   // beyond every lane's hit is not walked at all. Behind its barrier an
@@ -358,7 +538,7 @@ __device__ __forceinline__ int walk_list(
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     stage_start(ring, s, tile_ids, s * cps, min(cps, trips - s * cps), geo,
-                geo_stride, cs);
+                geo_stride, cs, kRows);
   }
   int done = 0;
   int voted = 0;
@@ -372,51 +552,31 @@ __device__ __forceinline__ int walk_list(
     if (__syncthreads_and(settled)) break;
     const int ahead = s + kStages - 1;
     stage_start(ring, ahead % kStages, tile_ids, ahead * cps,
-                min(cps, trips - ahead * cps), geo, geo_stride, cs);
+                min(cps, trips - ahead * cps), geo, geo_stride, cs, kRows);
     const int b = s % kStages;
     const int nin = min(cps, trips - s * cps);
     for (int i = 0; i < nin; ++i) {
+      if (LC && !__any_sync(0xffffffffu,
+                            lanes_enter(o, d, alive,
+                                        lcb + 6LL * ring.ids[b][i]))) {
+        continue;
+      }
       const int slot0 = ring.ids[b][i] * cs;
-      const float4* g = ring.blk[b] + i * 3 * cs;
-      for (int k4 = 0; k4 < q4; ++k4) {
-        float tri[12][4];
+      const float4* g = ring.blk[b] + i * per;
+      for (int k = 0; k < cs / kCol; ++k) {
+        float tri[kRows][kCol];
 #pragma unroll
-        for (int q = 0; q < 12; ++q) {
-          const float4 v = g[q * q4 + k4];
-          tri[q][0] = v.x;
-          tri[q][1] = v.y;
-          tri[q][2] = v.z;
-          tri[q][3] = v.w;
-        }
+        for (int q = 0; q < kRows; ++q) load_column(g + q * q4, k, tri[q]);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float nx = tri[0][kk], ny = tri[1][kk], nz = tri[2][kk];
-          const float d0 = tri[3][kk];
-          const float ux = tri[4][kk], uy = tri[5][kk];
-          const float uz = tri[6][kk], u0 = tri[7][kk];
-          const float vx = tri[8][kk], vy = tri[9][kk];
-          const float vz = tri[10][kk], v0c = tri[11][kk];
+        for (int kk = 0; kk < kCol; ++kk) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            const float den = nx * d[r][0] + ny * d[r][1] + nz * d[r][2];
-            float t, u, v;
-            if (PMTO) {
-              t = d0 / den;
-              u = u0 + t * (ux * d[r][0] + uy * d[r][1] + uz * d[r][2]);
-              v = v0c + t * (vx * d[r][0] + vy * d[r][1] + vz * d[r][2]);
-            } else {
-              t = (d0 - (nx * o[r][0] + ny * o[r][1] + nz * o[r][2])) / den;
-              const float px = o[r][0] + t * d[r][0];
-              const float py = o[r][1] + t * d[r][1];
-              const float pz = o[r][2] + t * d[r][2];
-              u = ux * px + uy * py + uz * pz + u0;
-              v = vx * px + vy * py + vz * pz + v0c;
-            }
-            const bool valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f
-                               && u + v <= 1.0f && t > eps;
+            float t;
+            bool valid;
+            intersect<F>(tri, kk, o[r], d[r], eps, t, valid);
             if (NEAREST) {
-              const int slot = slot0 + 4 * k4 + kk;
-              if (valid
+              const int slot = slot0 + kCol * k + kk;
+              if (valid && (!CAPPED || t < t_cap)
                   && (t < best_t[r]
                       || (t == best_t[r] && t < inf() && slot < best_s[r]))) {
                 best_t[r] = t;
@@ -450,24 +610,25 @@ __device__ __forceinline__ int walk_list(
 // back, so its later segments lie farther still. (The lists of other groups
 // of the table are no such thing; gstream.cu gives each group its own
 // blocks.) Returns the clusters visited.
-template <int R, bool PMTO, bool NEAREST>
+template <int R, int F, bool NEAREST, bool LC, bool CAPPED>
 __device__ __forceinline__ int walk_segments(
     WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
     const float* __restrict__ tile_tnear, int listed, int first, int n_parts,
     int tile_blocks, int seg, const float* __restrict__ geo,
-    long long geo_stride, int cs, float eps, const float (&t_lim)[R], bool use_exit, int ee_batch,
-    float (&best_t)[R], int (&best_s)[R], const KeyShare& share) {
+    long long geo_stride, int cs, float eps, float t_cap,
+    const float (&t_lim)[R], const float* __restrict__ lcb, bool use_exit,
+    int ee_batch, float (&best_t)[R], int (&best_s)[R],
+    const KeyShare& share) {
   int visited = 0;
   for (int part = first; part < n_parts; part += tile_blocks) {
     const int j0 = part * seg;
     const int trips = min(seg, listed - j0);
     share(best_t, best_s);  // what the tile's other blocks have found
-    const int made = walk_list<R, PMTO, NEAREST>(
+    const int made = walk_list<R, F, NEAREST, LC, CAPPED>(
         ring, o, d, alive, tile_ids + j0,
         tile_tnear ? tile_tnear + j0 : nullptr, trips, geo, geo_stride, cs,
-        eps, t_lim, use_exit, ee_batch, best_t, best_s,
-        share);
+        eps, t_cap, t_lim, lcb, use_exit, ee_batch, best_t, best_s, share);
     visited += made;
     if (made < trips) break;  // settled
   }
@@ -555,11 +716,19 @@ __device__ __forceinline__ void finish_tile(
   }
 }
 
-// What every walk entry refuses: a cluster size the ring cannot stage, or a
-// table whose rows the 16-byte copies cannot address.
-inline bool walk_tables_ok(const float* geo, long long geo_stride, int cs) {
+// Whether a nearest walk's t_max is a cap (finite): the capped instances.
+inline bool is_capped(float t_max) {
+  return t_max < __builtin_huge_valf();
+}
+
+// What every walk entry refuses: a cluster size the ring cannot stage, a
+// table whose rows the 16-byte copies cannot address, or an unknown
+// intersector family.
+inline bool walk_tables_ok(const float* geo, long long geo_stride, int cs,
+                           int family) {
   return cs > 0 && cs <= kMaxClusterSize && cs % 4 == 0
-         && geo_stride % 4 == 0
+         && geo_stride % 4 == 0 && family >= 0 && family < kFamilies
+         && geo_stride >= static_cast<long long>(family_rows(family)) * cs
          && reinterpret_cast<unsigned long long>(geo) % 16 == 0;
 }
 

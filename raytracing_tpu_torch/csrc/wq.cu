@@ -21,8 +21,8 @@
 // once.
 //
 // An item stages its visits' blocks and intersects them with
-// walk_core.cuh's loop (pmt or pmto): the code K1 runs. Each item reads
-// its tile's 1024 rays again (32 KB).
+// walk_core.cuh's loop (pmt, pmto or mt: the families the TPU's K4 takes):
+// the code K1 runs. Each item reads its tile's 1024 rays again (32 KB).
 #include "walk_core.cuh"
 
 namespace rt {
@@ -31,7 +31,7 @@ namespace {
 // blockIdx.x = tile * steps + the item's step within its tile: a tile's
 // items are neighbours in launch order, so its rays stay in L2, and the
 // number of tiles is held only by the x axis's 2^31 - 1 blocks.
-template <bool PMTO, bool NEAREST>
+template <int F, bool NEAREST, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 wq_items_kernel(const float* __restrict__ rays, long long np,
                 const float* __restrict__ tmax_row,
@@ -57,10 +57,10 @@ wq_items_kernel(const float* __restrict__ rays, long long np,
                  best_s);
 
   ring_setup(ring, nullptr, 0);
-  walk_list<kRaysPerThread, PMTO, NEAREST>(
+  walk_list<kRaysPerThread, F, NEAREST, false, CAPPED>(
       ring, o, d, alive, ids + tile * width + j0, nullptr,
-      min(u, listed - j0), geo, geo_stride, cs, eps, t_lim, false, 1, best_t,
-      best_s, NoShare{});
+      min(u, listed - j0), geo, geo_stride, cs, eps, t_max, t_lim, nullptr,
+      false, 1, best_t, best_s, NoShare{});
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
@@ -88,12 +88,25 @@ __global__ void wq_finish_kernel(long long np, int nearest,
   }
 }
 
+using WqKernel = decltype(&wq_items_kernel<kPmt, true, false>);
+
+// The instance of family f: pmt, pmto or mt.
+template <bool NEAREST, bool CAPPED>
+WqKernel wq_instance(int f) {
+  switch (f) {
+    case kPmto: return wq_items_kernel<kPmto, NEAREST, CAPPED>;
+    case kMt: return wq_items_kernel<kMt, NEAREST, CAPPED>;
+    default: return wq_items_kernel<kPmt, NEAREST, CAPPED>;
+  }
+}
+
 }  // namespace
 }  // namespace rt
 
 // rays [8, np]; tmax_row [np] or null; ids [nt, width] i32 with cnt [nt]
 // listed clusters per tile (every one of the first min(cnt, width) is
-// walked); u visits per work item; geo and attr as rt_walk takes them;
+// walked); u visits per work item; geo, attr and t_max as rt_walk takes
+// them, family 0 (pmt), 1 (pmto) or 2 (mt);
 // keys: np 8-byte words of scratch, 8-byte aligned (nearest only; may be
 // null for occlusion). Outputs t [np], slot or hit flag [np] i32, attrs
 // [n_attrs, np]. Three launches on the stream: fill, items, finish.
@@ -102,12 +115,13 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
                           const int* cnt, int width, int u, const float* geo,
                           long long geo_stride, const float* attr,
                           long long attr_stride, int n_attrs, int cs,
-                          float eps, float t_max, int nearest, int pmto,
+                          float eps, float t_max, int nearest, int family,
                           unsigned long long* keys, float* out_t, int* out_s,
                           float* out_a, void* stream) {
   const long long nt = np / rt::kRayTile;
   if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || u <= 0
-      || !rt::walk_tables_ok(geo, geo_stride, cs)
+      || !rt::walk_tables_ok(geo, geo_stride, cs, family)
+      || family == rt::kWoop
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
@@ -119,10 +133,9 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, nearest != 0, keys, out_t, 0, nullptr, 0,
                        nullptr, s);
-  auto kern = nearest ? (pmto ? rt::wq_items_kernel<true, true>
-                                : rt::wq_items_kernel<false, true>)
-                      : (pmto ? rt::wq_items_kernel<true, false>
-                                : rt::wq_items_kernel<false, false>);
+  auto kern = !nearest ? rt::wq_instance<false, false>(family)
+              : rt::is_capped(t_max) ? rt::wq_instance<true, true>(family)
+                                     : rt::wq_instance<true, false>(family);
   kern<<<static_cast<unsigned>(nt * steps), rt::kThreads, 0, s>>>(
       rays, np, tmax_row, ids, cnt, width, u, geo, geo_stride, cs, eps,
       t_max, steps, keys, out_t);

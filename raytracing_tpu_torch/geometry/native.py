@@ -1,9 +1,10 @@
-"""ctypes binding of the framework-neutral host library
-`csrc/raytracing_native.cpp`.
+"""ctypes binding of the port's host library
+`raytracing_tpu_torch/native/raytracing_native.cpp`.
 
-Host build code only — OBJ parsing, midpoint subdivision, the SAH cluster
-order and the kernel data blocks. The port compiles its own copy of the
-library with `g++` at first use, into `raytracing_tpu_torch/_build/`
+Host build code only — OBJ parsing, midpoint subdivision, the Morton and
+SAH cluster orders and the kernel data blocks. The port compiles its own
+copy of the library with `g++` at first use, into
+`raytracing_tpu_torch/_build/`
 (named by a hash of the source and flags; nothing is built when the
 package is imported). Every entry point returns None when there is no
 compiler or the build fails, and the callers use their numpy versions,
@@ -24,11 +25,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO_DIR, "csrc", "raytracing_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "native", "raytracing_native.cpp")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 CXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-std=c++17", "-shared")
 _lib = None
 _load_failed = False
@@ -78,6 +77,10 @@ def _load():
     lib.rt_parse_obj_fill.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_long,
         ctypes.POINTER(ctypes.c_int), ctypes.c_long]
+    lib.rt_morton_order.restype = ctypes.c_int
+    lib.rt_morton_order.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_int)]
     lib.rt_sah_sweep_order.restype = ctypes.c_int
     lib.rt_sah_sweep_order.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -123,6 +126,19 @@ def parse_obj(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return (verts, tris) if rc == 0 else None
 
 
+def morton_order(centroids: np.ndarray) -> Optional[np.ndarray]:
+    """Stable Morton (Z-curve) order of triangle centroids [T, 3];
+    identical to `np.argsort(accel.packets._morton_codes(c), kind="stable")`."""
+    lib = _load()
+    if lib is None:
+        return None
+    c = np.ascontiguousarray(centroids, dtype=np.float32)
+    out = np.empty(c.shape[0], dtype=np.int32)
+    rc = lib.rt_morton_order(
+        _f32p(c), c.shape[0], out.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    return out if rc == 0 else None
+
+
 def sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
                     cs: int) -> Optional[np.ndarray]:
     """Exact-sweep SAH cluster order; identical to the numpy
@@ -141,11 +157,13 @@ def sah_sweep_order(cent: np.ndarray, blo: np.ndarray, bhi: np.ndarray,
 
 
 def kernel_blocks(tri_verts: np.ndarray, valid: np.ndarray, c: int,
-                  cs: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """(v0 | e1 | e2 rows [C, 9, CS], the Baldwin–Weber blocks [C, 12, CS]
-    — the only intersector family the port keeps); identical to the numpy
-    `accel.packets._kernel_blocks_host` (the library is built without FMA
-    contraction)."""
+                  cs: int, build_woop: bool = False
+                  ) -> Optional[Tuple[np.ndarray, np.ndarray,
+                                      Optional[np.ndarray]]]:
+    """(v0 | e1 | e2 rows [C, 9, CS], the Baldwin–Weber blocks [C, 12, CS],
+    the Woop blocks [C, 8, 6 CS] or None without `build_woop`); identical
+    to the numpy `accel.packets._kernel_blocks_host` (the library is built
+    without FMA contraction)."""
     lib = _load()
     if lib is None:
         return None
@@ -153,10 +171,13 @@ def kernel_blocks(tri_verts: np.ndarray, valid: np.ndarray, c: int,
     va = np.ascontiguousarray(valid, dtype=np.uint8)
     tri_blocks = np.empty((c, 9, cs), dtype=np.float32)
     pmt = np.empty((c, 12, cs), dtype=np.float32)
+    woop = (np.empty((c, 8, 6 * cs), dtype=np.float32) if build_woop
+            else None)
     rc = lib.rt_kernel_blocks(
         _f32p(tv), va.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-        int(c), int(cs), _f32p(tri_blocks), _f32p(pmt), None)
-    return (tri_blocks, pmt) if rc == 0 else None
+        int(c), int(cs), _f32p(tri_blocks), _f32p(pmt),
+        None if woop is None else _f32p(woop))
+    return (tri_blocks, pmt, woop) if rc == 0 else None
 
 
 def subdivide_level(verts: np.ndarray, tri_v: np.ndarray

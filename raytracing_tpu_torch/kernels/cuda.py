@@ -34,11 +34,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "rt_tile_extents": [_P, _L, _P, _P, _P],
-    "rt_refine_dense": [_P, _L, _P, _P, _I, _P, _P, _P],
-    "rt_refine_dense_extents": [_P, _L, _P, _P, _I, _P, _P, _P, _P],
-    "rt_refine_lists": [_P, _L, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "rt_refine_dense": [_P, _L, _P, _P, _I, _F, _P, _P, _P],
+    "rt_refine_dense_extents": [_P, _L, _P, _P, _I, _F, _P, _P, _P, _P],
+    "rt_refine_lists": [_P, _L, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P],
     "rt_walk": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I,
-                _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "rt_walk_gstream": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _L, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P,
                         _P, _P, _P, _P, _P],
@@ -46,7 +46,7 @@ _SIGNATURES = {
                    _F, _I, _I, _P, _P, _P, _P, _P],
     "rt_walk_camera": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _I,
                        _I, _I, _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P,
-                       _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P],
 }
 
 

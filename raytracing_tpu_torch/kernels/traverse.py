@@ -14,7 +14,10 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
       candidates with `refine_lists` (K5, gathered form);
   phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
       with the Baldwin–Weber test "pmt" or, for a pack whose rays share
-      one origin (`shared_origin=`), its origin-folded form "pmto". A
+      one origin (`shared_origin=`), its origin-folded form "pmto"; a
+      query may pick another intersector family (`variant=`: "mt"
+      Möller–Trumbore, "woop" the Woop transform, "pmtt" the TPU's
+      transposed pmt layout, whose arithmetic the card runs as "pmt"). A
       table bigger than the group budget (`_group_clusters`) is walked in
       groups of clusters: one launch of `walk_gstream` (K3) over per-group
       lists. With `_WQ_IMPL = "grid"` a `wq` query takes `walk_wq` (K4),
@@ -22,6 +25,13 @@ A pack query runs in three phases over tiles of 1024 consecutive rays:
       (`tmax_row`) in place of the scalar `t_max`. K1/K2 cut a tile's list
       into segments for many blocks themselves (`_walk_segment`), merged
       per ray in any order, with the early exit kept exact across blocks.
+      With `lane_cull=` K1 skips a visit none of a warp's alive rays
+      enters (the TPU's lane-cull pre-test).
+
+A capped nearest query (`nearest_hit_attrs_soa(t_cap=)`) runs in two
+phases: the first accepts only hits before the cap, with the frustum lists
+and the refinement clipped to it; the rays it settles are done, the rest
+are walked again uncapped.
 
 Camera mode (`nearest_hit_camera_soa`) answers the primary level without a
 ray pack: a tile is one bh x bw pixel block x spp samples, its frustum
@@ -51,6 +61,7 @@ launch) has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -105,6 +116,15 @@ _MANY_TILES = 1024
 # listed from it does not fill the grid with blocks that find nothing.
 _MAX_TILE_BLOCKS = 64
 
+# The intersector families a query may pick (`variant=`; the accel build's
+# names), and the codes the walk kernels take for them (csrc/walk_core.cuh's
+# Family): "pmto" is "pmt" with a shared origin folded into the table,
+# "pmtt" runs as "pmt".
+VARIANTS = packets.VARIANTS
+PMT, PMTO, MT, WOOP = 0, 1, 2, 3
+# Geometry rows a family's table holds per cluster.
+_FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
+
 # Kernel launches since the last reset: "refine" counts the dense
 # refinement with tile-alive flags given (K5), "refine_extents" the dense
 # refined-list query (K5 with K6's extents), "walk" the `_walk_groups`
@@ -113,10 +133,27 @@ _MAX_TILE_BLOCKS = 64
 # beside the shading planes (a differentiated query, attr_kind "both"),
 # "walk_camera" / "walk_camera_dma" their camera-mode forms, "walk_gstream"
 # the streamed-groups walk (K3) and "walk_wq" the work-queue walk (K4).
+# The forms off the main paths count under the same names with a suffix
+# (`_count_key`): "_mt" / "_woop" for those intersector families,
+# "_capped" for a launch under a two-phase query's cap, "_lc" with the
+# lane-cull pre-test.
 LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
             "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
             "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
             "walk_gstream": 0, "walk_wq": 0}
+
+
+def _count_key(entry: str, family: int = PMT, capped: bool = False,
+               lane_cull: bool = False) -> str:
+    """The LAUNCHES name of a launch: `entry`, suffixed by its family
+    ("_mt", "_woop"; pmt and pmto count as the entry itself), "_capped"
+    and "_lc"."""
+    return (entry + {MT: "_mt", WOOP: "_woop"}.get(int(family), "")
+            + ("_capped" if capped else "") + ("_lc" if lane_cull else ""))
+
+
+def _count(key: str) -> None:
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 class Hit(NamedTuple):
@@ -310,12 +347,12 @@ def tile_extents(rays8: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _slab_enter(r, box_lo, box_hi):
+def _slab_enter(r, box_lo, box_hi, t_cap=None):
     """traverse.py:526-546: r [8, g, 1, RT] ray rows against boxes given
     per axis by box_lo(k) / box_hi(k), each broadcastable to [g, c, 1].
     Returns [g, c, RT] bool: the alive lanes that enter each box
     (reciprocal first, degenerate axes unbounded, bounds inflated by
-    2e-6*|t| + 1e-7)."""
+    2e-6*|t| + 1e-7; with t_cap, tf clipped to it after the inflation)."""
     tn = tf = None
     for k in range(3):
         dk = r[4 + k]
@@ -329,6 +366,8 @@ def _slab_enter(r, box_lo, box_hi):
         tf = hi_ if k == 0 else torch.minimum(tf, hi_)
     tf = tf + (torch.abs(tf) * 2e-6 + 1e-7)
     tn = tn - (torch.abs(tn) * 2e-6 + 1e-7)
+    if t_cap is not None:
+        tf = torch.clamp_max(tf, float(t_cap))
     return (tn <= tf) & (tf >= 0.0) & (r[7] != 0.0)
 
 
@@ -341,9 +380,11 @@ def _plain_groups(nt: int, width: int, ray_tile: int = RAY_TILE):
     return [(g0, min(nt, g0 + g)) for g0 in range(0, nt, g)]
 
 
-def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive):
+def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive,
+                       t_cap=None):
     """Plain version of K5: [nt, C] bool, True iff the tile is alive and
-    some alive lane of it enters the cluster's AABB (`_slab_enter`)."""
+    some alive lane of it enters the cluster's AABB (`_slab_enter`,
+    before t_cap where one is given)."""
     nt = rays8.shape[1] // RAY_TILE
     c = cluster_min.shape[0]
     out = torch.zeros((nt, c), dtype=torch.bool, device=rays8.device)
@@ -351,9 +392,15 @@ def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive):
         r = rays8[:, g0 * RAY_TILE:g1 * RAY_TILE].reshape(8, g1 - g0, 1,
                                                           RAY_TILE)
         enter = _slab_enter(r, lambda k: cluster_min[:, k].reshape(1, c, 1),
-                            lambda k: cluster_max[:, k].reshape(1, c, 1))
+                            lambda k: cluster_max[:, k].reshape(1, c, 1),
+                            t_cap)
         out[g0:g1] = enter.any(dim=2)
     return out & tile_alive[:, None]
+
+
+def _cap_arg(t_cap) -> float:
+    """A kernel's cap argument: +inf for none."""
+    return INF if t_cap is None else float(t_cap)
 
 
 def _check_boxes(who, rays8, cluster_min, cluster_max, most=None):
@@ -373,10 +420,11 @@ def _check_boxes(who, rays8, cluster_min, cluster_max, most=None):
     return nt
 
 
-def refine_dense(rays8, cluster_min, cluster_max, tile_alive):
+def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None):
     """K5 (csrc/refine.cu): plain version on CPU, kernel on CUDA."""
     if _on_cpu(rays8, cluster_min, cluster_max, tile_alive):
-        return refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive)
+        return refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive,
+                                  t_cap)
     nt = _check_boxes("refine_dense", rays8, cluster_min, cluster_max,
                       _REFINE_DENSE_MAX_C)
     if tile_alive.shape != (nt,):
@@ -388,25 +436,28 @@ def refine_dense(rays8, cluster_min, cluster_max, tile_alive):
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_dense(
             _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
-            _ptr(cluster_max), c, _ptr(alive), _ptr(out), _stream(rays8)), "refine")
-    LAUNCHES["refine"] += 1
+            _ptr(cluster_max), c, _cap_arg(t_cap), _ptr(alive), _ptr(out),
+            _stream(rays8)), "refine")
+    _count(_count_key("refine", capped=t_cap is not None))
     return out != 0
 
 
-def refine_dense_extents_plain(rays8, cluster_min, cluster_max):
+def refine_dense_extents_plain(rays8, cluster_min, cluster_max, t_cap=None):
     """Plain version of the dense refined-list query: (lo, hi, entered),
     K6's extents (`tile_extents_plain`) and K5's bits with the tile-alive
     flags hi[:, 7] > 0 (`refine_dense_plain`)."""
     lo, hi = tile_extents_plain(rays8)
     return lo, hi, refine_dense_plain(rays8, cluster_min, cluster_max,
-                                      hi[:, 7] > 0.0)
+                                      hi[:, 7] > 0.0, t_cap)
 
 
-def refine_dense_extents(rays8, cluster_min, cluster_max):
+def refine_dense_extents(rays8, cluster_min, cluster_max, t_cap=None):
     """The dense refined-list query, K6 folded into K5 (csrc/refine.cu):
-    plain version on CPU, one kernel launch on CUDA."""
+    plain version on CPU, one kernel launch on CUDA. t_cap: a two-phase
+    query's cap (a box entered only beyond it is not entered)."""
     if _on_cpu(rays8, cluster_min, cluster_max):
-        return refine_dense_extents_plain(rays8, cluster_min, cluster_max)
+        return refine_dense_extents_plain(rays8, cluster_min, cluster_max,
+                                          t_cap)
     nt = _check_boxes("refine_dense_extents", rays8, cluster_min,
                       cluster_max, _REFINE_DENSE_MAX_C)
     c = cluster_min.shape[0]
@@ -417,15 +468,18 @@ def refine_dense_extents(rays8, cluster_min, cluster_max):
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_dense_extents(
             _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
-            _ptr(cluster_max), c, _ptr(lo), _ptr(hi), _ptr(out), _stream(rays8)), "refine_extents")
-    LAUNCHES["refine_extents"] += 1
+            _ptr(cluster_max), c, _cap_arg(t_cap), _ptr(lo), _ptr(hi),
+            _ptr(out), _stream(rays8)), "refine_extents")
+    _count(_count_key("refine_extents", capped=t_cap is not None))
     return lo, hi, out != 0
 
 
-def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max):
+def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max,
+                       t_cap=None):
     """Plain version of K5's gathered form: [nt, W] bool, True at list
     position j < min(cnt, W) iff some alive lane of the tile enters cluster
-    ids[tile, j]'s AABB (`_slab_enter`)."""
+    ids[tile, j]'s AABB (`_slab_enter`, before t_cap where one is
+    given)."""
     nt, w = ids.shape
     out = torch.zeros((nt, w), dtype=torch.bool, device=rays8.device)
     for g0, g1 in _plain_groups(nt, w):
@@ -434,18 +488,19 @@ def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max):
         idg = ids[g0:g1].long()
         bmin, bmax = cluster_min[idg], cluster_max[idg]  # [g, W, 3]
         enter = _slab_enter(r, lambda k: bmin[:, :, k, None],
-                            lambda k: bmax[:, :, k, None])
+                            lambda k: bmax[:, :, k, None], t_cap)
         out[g0:g1] = enter.any(dim=2)
     pos = torch.arange(w, device=rays8.device)[None]
     return out & (pos < cnt[:, None])
 
 
-def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
+def refine_lists(rays8, ids, cnt, cluster_min, cluster_max, t_cap=None):
     """K5, gathered form (csrc/refine.cu): plain version on CPU, kernel on
     CUDA. The kernel reads each candidate's box through `ids`, and deals a
     tile's list to blocks in runs (`_refine_grid`)."""
     if _on_cpu(rays8, ids, cnt, cluster_min, cluster_max):
-        return refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max)
+        return refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max,
+                                  t_cap)
     nt = _check_boxes("refine_lists", rays8, cluster_min, cluster_max)
     if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
             or ids.dtype != torch.int32 or not ids.is_contiguous()):
@@ -458,9 +513,9 @@ def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_lists(
             _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
-            run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max), _ptr(out),
-            _stream(rays8)), "refine_lists")
-    LAUNCHES["refine_lists"] += 1
+            run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max),
+            _cap_arg(t_cap), _ptr(out), _stream(rays8)), "refine_lists")
+    _count(_count_key("refine_lists", capped=t_cap is not None))
     return out != 0
 
 
@@ -469,13 +524,15 @@ def refine_lists(rays8, ids, cnt, cluster_min, cluster_max):
 # ---------------------------------------------------------------------------
 
 
-def _frustum_slabs(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi):
+def _frustum_slabs(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi, t_cap=None):
     """Interval slab test of frustums against AABBs
     (traverse.py:_visit_lists_single): the extents are [..., 3] and
     box_lo(k) / box_hi(k) give axis k of the boxes, broadcastable against
     extents[..., k, None]. An axis whose direction interval spans 0 is
-    unbounded. Returns (flags, t_near): which boxes each frustum may
-    enter, and a lower bound of the entry t."""
+    unbounded. With t_cap (a capped query) the exit bound is clipped to it
+    (traverse.py:351-356): no hit beyond the cap is accepted. Returns
+    (flags, t_near): which boxes each frustum may enter, and a lower bound
+    of the entry t."""
     t_near = t_far = None
     for k in range(3):
         spans0 = (d_lo[..., k] <= 0.0) & (d_hi[..., k] >= 0.0)
@@ -494,6 +551,8 @@ def _frustum_slabs(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi):
         t_max_ax = torch.where(unb, INF, t_max_ax)
         t_near = t_min_ax if k == 0 else torch.maximum(t_near, t_min_ax)
         t_far = t_max_ax if k == 0 else torch.minimum(t_far, t_max_ax)
+    if t_cap is not None:
+        t_far = torch.clamp_max(t_far, float(t_cap))
     return (t_near <= t_far) & (t_far >= 0.0), t_near
 
 
@@ -517,24 +576,24 @@ def _narrow_lists(ids, tnear, cnt):
 
 
 def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                              cluster_max, extra_mask=None):
-    """Each tile frustum against every cluster AABB. Returns (ids [nt, C]
-    i32 sorted by entry-t lower bound, tnear [nt, C], cnt [nt] i32 =
-    flagged clusters); positions past cnt hold unflagged clusters with
-    tnear = +inf."""
+                              cluster_max, extra_mask=None, t_cap=None):
+    """Each tile frustum against every cluster AABB (clipped at t_cap, if
+    given). Returns (ids [nt, C] i32 sorted by entry-t lower bound, tnear
+    [nt, C], cnt [nt] i32 = flagged clusters); positions past cnt hold
+    unflagged clusters with tnear = +inf."""
     flags, t_near = _frustum_slabs(
         o_lo, o_hi, d_lo, d_hi, lambda k: cluster_min[None, :, k],
-        lambda k: cluster_max[None, :, k])
+        lambda k: cluster_max[None, :, k], t_cap)
     if extra_mask is not None:
         flags = flags & extra_mask
     return _compact_lists(flags, t_near)
 
 
-def _tile_visit_lists_soa(rays8, cluster_min, cluster_max):
+def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, t_cap=None):
     lo, hi = tile_extents(rays8)
     ids, tnear, cnt = _visit_lists_from_extents(
         lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cluster_min,
-        cluster_max)
+        cluster_max, t_cap=t_cap)
     cnt = torch.where(hi[:, 7] > 0.0, cnt, 0)
     return ids, tnear, cnt
 
@@ -578,19 +637,132 @@ def _merge_nearest(best_t, best_s, t, s):
     return torch.minimum(best_t, t), torch.where(upd, s, best_s)
 
 
+def _woop_table(woop_blocks) -> torch.Tensor:
+    """The [C, 12, CS] table the woop walk stages, from the TPU's
+    [C, 8, 6 CS] matmul blocks by copies alone: rows 3 q + k = M[q][k]
+    (the coefficient of axis k in oL's and dL's component q, block row k,
+    column q), rows 9 + q = const[q] (block row 3, column q). Block rows
+    4-6 repeat M for the direction and row 7 (the alive flag) meets
+    zeros: neither is staged. Built once per table (`_WOOP_TABLES`)."""
+    key = id(woop_blocks)
+    held = _WOOP_TABLES.get(key)
+    if held is not None and held[0]() is woop_blocks:
+        return held[1]
+    c, _, cs6 = woop_blocks.shape
+    w = woop_blocks.reshape(c, 8, 6, cs6 // 6)
+    m = w[:, 0:3, 0:3].transpose(1, 2).reshape(c, 9, cs6 // 6)
+    tab = torch.cat([m, w[:, 3, 0:3]], dim=1).contiguous()
+    _WOOP_TABLES[key] = (weakref.ref(woop_blocks), tab)
+    weakref.finalize(woop_blocks, _WOOP_TABLES.pop, key, None)
+    return tab
+
+
+# id(woop_blocks) -> (a weak reference to it, its `_woop_table`); an entry
+# goes with its table.
+_WOOP_TABLES: dict = {}
+
+
+def _lane_cull_keep(pack, act, cl, lane_bounds):
+    """The visits of the lane-cull pre-test (traverse.py:lane_cull_cond):
+    [na] bool, True where some alive ray of tile act[i] enters cluster
+    cl[i]'s box (lane_bounds [C, 6], min | max) by the TPU's slab test —
+    IEEE division, a degenerate axis unbounded, the interval inflated by
+    2e-6 |t| + 1e-7."""
+    box = lane_bounds[cl.long()][:, :, None]  # [na, 6, 1]
+    tn = tf = None
+    for k in range(3):
+        dk = pack[4 + k, act, 0]  # [na, RT]
+        ok = pack[k, act, 0]
+        deg = torch.abs(dk) < _TINY
+        dsafe = torch.where(deg, _TINY, dk)
+        t1 = (box[:, k] - ok) / dsafe
+        t2 = (box[:, 3 + k] - ok) / dsafe
+        lo_ = torch.where(deg, -INF, torch.minimum(t1, t2))
+        hi_ = torch.where(deg, INF, torch.maximum(t1, t2))
+        tn = lo_ if k == 0 else torch.maximum(tn, lo_)
+        tf = hi_ if k == 0 else torch.minimum(tf, hi_)
+    tf = tf + (torch.abs(tf) * 2e-6 + 1e-7)
+    tn = tn - (torch.abs(tn) * 2e-6 + 1e-7)
+    enter = (tn <= tf) & (tf >= 0.0) & (pack[7, act, 0] != 0.0)
+    return enter.any(dim=1)
+
+
+def _intersect_plain(family: int, col, o, d, eps):
+    """One visit's tests in family `family` (csrc/walk_core.cuh's
+    `intersect`, op for op): col(q) [na, cs, 1] is row q of the visited
+    blocks, o and d the rays' rows [na, 1, RT]. Returns (t, valid)
+    [na, cs, RT]."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    if family == MT:
+        v0x, v0y, v0z = col(0), col(1), col(2)
+        e1x, e1y, e1z = col(3), col(4), col(5)
+        e2x, e2y, e2z = col(6), col(7), col(8)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv = 1.0 / det
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        u = (sx * px + sy * py + sz * pz) * inv
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv
+        ok = torch.abs(det) >= eps
+    elif family == WOOP:
+        olx = ((col(0) * ox + col(1) * oy) + col(2) * oz) + col(9)
+        oly = ((col(3) * ox + col(4) * oy) + col(5) * oz) + col(10)
+        olz = ((col(6) * ox + col(7) * oy) + col(8) * oz) + col(11)
+        dlx = (col(0) * dx + col(1) * dy) + col(2) * dz
+        dly = (col(3) * dx + col(4) * dy) + col(5) * dz
+        dlz = (col(6) * dx + col(7) * dy) + col(8) * dz
+        flat = torch.abs(dlz) < _TINY
+        rcp = 1.0 / torch.where(flat, _TINY, dlz)
+        t = -olz * rcp
+        u = olx + t * dlx
+        v = oly + t * dly
+        ok = ~flat
+    else:
+        nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
+        den = nx * dx + ny * dy + nz * dz
+        if family == PMTO:
+            t = d0 / den
+            u = col(7) + t * (col(4) * dx + col(5) * dy + col(6) * dz)
+            v = col(11) + t * (col(8) * dx + col(9) * dy + col(10) * dz)
+        else:
+            t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
+            px = ox + t * dx
+            py = oy + t * dy
+            pz = oz + t * dz
+            u = col(4) * px + col(5) * py + col(6) * pz + col(7)
+            v = col(8) * px + col(9) * py + col(10) * pz + col(11)
+        ok = torch.abs(den) >= eps
+    valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    return t, valid
+
+
 def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                eps: float, nearest: bool, t_max: float = INF,
-               pmto: bool = False, tmax_row=None, ray_tile: int = RAY_TILE):
+               family: int = PMT, tmax_row=None, ray_tile: int = RAY_TILE,
+               lane_bounds=None):
     """Plain version of the walk: for each list position j, gather every
-    still-walking tile's j-th cluster block and intersect (the TPU's
-    `_pmt_tile`, or `_pmt_o_tile` with `pmto`, op for op). Nearest keeps
-    min t, then min slot, with no tie at +inf; occlusion keeps min t with
-    t < t_max, or t < tmax_row [1, N] per ray where that is given. Returns
-    (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None); missing
-    lanes get t = +inf, slot 2^30, attrs 0. No early exit (it is exact)."""
+    still-walking tile's j-th cluster block and intersect in `family`
+    (PMT, PMTO, MT or WOOP: the TPU's `_pmt_tile`, `_pmt_o_tile`,
+    `_mt_tile` or `_woop_tile_t`, op for op; a bool is PMTO or PMT).
+    Nearest keeps min t, then min slot, with no tie at +inf, over t <
+    t_max; occlusion keeps min t with t < t_max, or t < tmax_row [1, N]
+    per ray where that is given. With lane_bounds [C, 6] a visit that no
+    alive ray of the tile enters is skipped (the lane-cull pre-test).
+    Returns (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None);
+    missing lanes get t = +inf, slot 2^30, attrs 0. No early exit (it is
+    exact)."""
     dev = rays8.device
     n = rays8.shape[1]
     nt = n // ray_tile
+    family = int(family)
+    rows = _FAMILY_ROWS[family]
     trips = cnt.to(torch.int64)
     best_t = torch.full((nt, ray_tile), INF, dtype=torch.float32, device=dev)
     best_s = torch.full((nt, ray_tile), _BIG_ID, dtype=torch.int32,
@@ -604,31 +776,19 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
         for j in range(max(trips_host[g0:g1], default=0)):
             act = torch.nonzero(trips[g0:g1] > j).squeeze(1) + g0
             cl = ids[act, j]
-            blk = geo[cl.long(), :12]  # [na, 12, cs]
+            if lane_bounds is not None:
+                keep = _lane_cull_keep(pack, act, cl, lane_bounds)
+                act, cl = act[keep], cl[keep]
+            blk = geo[cl.long(), :rows]  # [na, rows, cs]
 
             def col(q):
                 return blk[:, q, :, None]  # [na, cs, 1]
 
-            dx, dy, dz = pack[4, act], pack[5, act], pack[6, act]
-            nx, ny, nz, d0 = col(0), col(1), col(2), col(3)
-            den = nx * dx + ny * dy + nz * dz
-            if pmto:
-                t = d0 / den
-                u = col(7) + t * (col(4) * dx + col(5) * dy + col(6) * dz)
-                v = col(11) + t * (col(8) * dx + col(9) * dy + col(10) * dz)
-            else:
-                ox, oy, oz = pack[0, act], pack[1, act], pack[2, act]
-                t = (d0 - (nx * ox + ny * oy + nz * oz)) / den
-                px = ox + t * dx
-                py = oy + t * dy
-                pz = oz + t * dz
-                u = col(4) * px + col(5) * py + col(6) * pz + col(7)
-                v = col(8) * px + col(9) * py + col(10) * pz + col(11)
-            valid = (torch.abs(den) >= eps) & (u >= 0.0) & (v >= 0.0) \
-                & (u + v <= 1.0) & (t > eps)
-            if not nearest:
-                valid = valid & (t < (t_max if limit is None
-                                      else limit[act]))
+            t, valid = _intersect_plain(
+                family, col, (pack[0, act], pack[1, act], pack[2, act]),
+                (pack[4, act], pack[5, act], pack[6, act]), eps)
+            valid = valid & (t < (t_max if limit is None or nearest
+                                  else limit[act]))
             t = torch.where(valid, t, INF)
             tmin_v = t.amin(dim=1)  # [na, ray_tile]
             acc_t = best_t[act]
@@ -657,12 +817,25 @@ def _check_tmax_row(who, n, tmax_row):
                          f"[1, {n}] row")
 
 
-def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox):
+def _check_walk_tables(who, nt, ids, cnt, geo, attr, cs, tnear, bbox,
+                       family=PMT, lane_bounds=None):
     """What the walk kernels take: f32 [C, rows, CS] tables with contiguous
-    rows, the geometry table's blocks 16-byte aligned (the kernels stage
-    them with 16-byte copies: CS a multiple of 4 up to 128), contiguous i32
-    ids [nt, W] with cnt [nt], and for the early exit a contiguous tnear
-    [nt, W] and a bbox [6]."""
+    rows, at least the family's rows of geometry, the geometry table's
+    blocks 16-byte aligned (the kernels stage them with 16-byte copies: CS
+    a multiple of 4 up to 128), contiguous i32 ids [nt, W] with cnt [nt],
+    for the early exit a contiguous tnear [nt, W] and a bbox [6], and for
+    the lane cull contiguous f32 boxes [C, 6]."""
+    if int(family) not in _FAMILY_ROWS or geo.shape[1] < _FAMILY_ROWS[
+            int(family)]:
+        raise ValueError(f"{who}: family {family} needs "
+                         f"{_FAMILY_ROWS.get(int(family))} geometry rows; "
+                         f"the table has {geo.shape[1]}")
+    if lane_bounds is not None and (
+            lane_bounds.dtype != torch.float32
+            or lane_bounds.shape != (geo.shape[0], 6)
+            or not lane_bounds.is_contiguous()):
+        raise ValueError(f"{who}: lane_bounds must be contiguous f32 "
+                         f"[{geo.shape[0]}, 6]")
     for name, tab in (("geo", geo), ("attr", attr)):
         if tab is not None and (tab.dtype != torch.float32
                                 or tab.stride(2) != 1 or tab.stride(1) != cs
@@ -718,34 +891,41 @@ def _no_hit(rays8):
 
 
 def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
-         nearest: bool, t_max: float = INF, pmto: bool = False,
+         nearest: bool, t_max: float = INF, family: int = PMT,
          tmax_row=None, tnear=None, bbox=None, ee_batch: int = 1,
-         entry: str = "walk", visits=None):
+         entry: str = "walk", visits=None, lane_bounds=None):
     """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA. The
     kernel splits each tile's list into segments of `_walk_segment(cs)`
     visits, dealt to up to `_MAX_TILE_BLOCKS` blocks and merged per ray in
     any order; the result does not depend on the split, nor on the early
     exit.
 
-    geo [C, >=12, CS] holds each cluster's Baldwin–Weber rows first; attr
+    geo [C, >=rows, CS] holds each cluster's rows of the intersector
+    family first (PMT: the 12 Baldwin–Weber rows; PMTO: the same
+    origin-folded by `_fold_origin`, the pack's origin rows then unread;
+    MT: the 9 rows v0 | e1 | e2; WOOP: `_woop_table`'s 12); attr
     [C, >=A, CS] its attribute rows (a view into a combined table is fine).
-    With `pmto` the geo table is origin-folded (`_fold_origin`) and the
-    pack's origin rows are not read. tmax_row [1, N]: each ray's own
-    occlusion limit in place of t_max. With tnear [nt, W] and bbox [6]
-    (union-box min | max) a nearest walk votes on the front-to-back early
-    exit at least every ee_batch visits, on its own hits and on those the
-    tile's other segments have published. `entry` names the launch count
-    ("walk", "walk_dma" or their "_both" forms). `visits`, an i32 [nt]
-    CUDA tensor, receives the clusters each tile visited (for measuring:
-    under the early exit they differ from run to run; the plain version
-    has no early exit and ignores it)."""
-    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
+    A nearest walk accepts only t < t_max (a two-phase query's cap; +inf
+    by default). tmax_row [1, N]: each ray's own occlusion limit in place
+    of t_max. With tnear [nt, W] and bbox [6] (union-box min | max) a
+    nearest walk votes on the front-to-back early exit at least every
+    ee_batch visits, on its own hits and on those the tile's other
+    segments have published. With lane_bounds [C, 6] (each cluster's box,
+    min | max) a warp skips a visit none of its alive rays enters (the
+    lane-cull pre-test; the plain version votes per tile). `entry` names
+    the launch count ("walk", "walk_dma" or their "_both" forms; suffixed
+    by `_count_key`). `visits`, an i32 [nt] CUDA tensor, receives the
+    clusters each tile visited (for measuring: under the early exit they
+    differ from run to run; the plain version has no early exit and
+    ignores it)."""
+    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row, lane_bounds):
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                          nearest, t_max, pmto, tmax_row)
+                          nearest, t_max, family, tmax_row,
+                          lane_bounds=lane_bounds)
     nt = _check_pack(rays8)
     early = tnear is not None and nearest
     _check_walk_tables("walk", nt, ids, cnt, geo, attr, cs,
-                       tnear if early else None, bbox)
+                       tnear if early else None, bbox, family, lane_bounds)
     n = rays8.shape[1]
     _check_tmax_row("walk", n, tmax_row)
     seg = _walk_segment(cs)
@@ -763,16 +943,17 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
             _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-            int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
-            _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a),
-            _ptr(visits), _stream(rays8)), entry)
-    LAUNCHES[entry] += 1
+            int(nearest), int(early), int(ee_batch), int(family),
+            _ptr(lane_bounds), _ptr(keys), _ptr(finished), _ptr(out_t),
+            _ptr(out_s), _ptr(out_a), _ptr(visits), _stream(rays8)), entry)
+    _count(_count_key(entry, family, nearest and t_max < INF,
+                      lane_bounds is not None))
     return out_t, out_s, out_a
 
 
 def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                         gsz: int, eps: float, nearest: bool,
-                        t_max: float = INF, pmto: bool = False,
+                        t_max: float = INF, family: int = PMT,
                         tmax_row=None):
     """Plain version of K3: `walk_plain` over each group's lists and its
     slice of the table, the groups folded by (min t, then min slot) with
@@ -781,7 +962,7 @@ def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     for g in range(ids.shape[0]):
         t_g, s_g, _ = walk_plain(rays8, ids[g], cnt[g],
                                  geo[g * gsz:(g + 1) * gsz], None, 0, cs,
-                                 eps, nearest, t_max, pmto, tmax_row)
+                                 eps, nearest, t_max, family, tmax_row)
         if nearest:
             s_g = torch.where(s_g != _BIG_ID, s_g + g * gsz * cs, _BIG_ID)
             best_t, best_s = _merge_nearest(best_t, best_s, t_g, s_g)
@@ -794,7 +975,7 @@ def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
 
 def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
                  eps: float, nearest: bool, t_max: float = INF,
-                 pmto: bool = False, tmax_row=None, tnear=None, bbox=None,
+                 family: int = PMT, tmax_row=None, tnear=None, bbox=None,
                  ee_batch: int = 1, visits=None):
     """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA. The
     walk over a table of G groups of gsz clusters in one launch. The
@@ -808,12 +989,13 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     zero blocks. With tnear [G, nt, W] and bbox [G, 6] (each group's union
     box, min | max) a nearest walk votes on the early exit with each
     group's bounds, on its own hits and on those the tile's other blocks
-    have published. Returns what `walk` returns, the slots global.
+    have published. family and t_max as `walk` takes them. Returns what
+    `walk` returns, the slots global.
     `visits`, an i32 [G, nt] CUDA tensor, receives the clusters each
     (group, tile) visited."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs, cs,
-                                  gsz, eps, nearest, t_max, pmto, tmax_row)
+                                  gsz, eps, nearest, t_max, family, tmax_row)
     nt = _check_pack(rays8)
     early = tnear is not None and nearest
     if ids.dim() != 3 or cnt.shape != ids.shape[:2]:
@@ -821,7 +1003,8 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     ng, _, w = ids.shape
     _check_walk_tables("walk_gstream", nt * ng, ids.reshape(ng * nt, w),
                        cnt.reshape(-1), geo, attr, cs,
-                       tnear.reshape(ng * nt, w) if early else None, bbox)
+                       tnear.reshape(ng * nt, w) if early else None, bbox,
+                       family)
     n = rays8.shape[1]
     _check_tmax_row("walk_gstream", n, tmax_row)
     if geo.shape[0] != ng * gsz or ng * gsz * cs >= _BIG_ID or (
@@ -843,16 +1026,16 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
             _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
             _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-            int(nearest), int(early), int(ee_batch), int(pmto), _ptr(keys),
+            int(nearest), int(early), int(ee_batch), int(family), _ptr(keys),
             _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a),
             _ptr(visits), _stream(rays8)), "walk_gstream")
-    LAUNCHES["walk_gstream"] += 1
+    _count(_count_key("walk_gstream", family, nearest and t_max < INF))
     return out_t, out_s, out_a
 
 
 def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                   eps: float, nearest: bool, t_max: float = INF,
-                  pmto: bool = False, tmax_row=None, u: int = WQ_U):
+                  family: int = PMT, tmax_row=None, u: int = WQ_U):
     """Plain version of K4: the lists cut into work items of `u` visits,
     each item walked on its own (`walk_plain`) and the items of a tile
     folded by (min t, then min slot) — in any order the same. A tile with
@@ -862,7 +1045,7 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     for j0 in range(0, int(listed.max()) if listed.numel() else 0, u):
         t_k, s_k, _ = walk_plain(rays8, ids[:, j0:j0 + u],
                                  torch.clamp(listed - j0, 0, u), geo, None, 0,
-                                 cs, eps, nearest, t_max, pmto, tmax_row)
+                                 cs, eps, nearest, t_max, family, tmax_row)
         if nearest:
             best_t, best_s = _merge_nearest(best_t, best_s, t_k, s_k)
         else:
@@ -873,18 +1056,23 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
 
 
 def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
-            nearest: bool, t_max: float = INF, pmto: bool = False,
+            nearest: bool, t_max: float = INF, family: int = PMT,
             tmax_row=None, u: int = WQ_U):
     """K4 (csrc/wq.cu): plain version on CPU, kernel on CUDA. The walk with
     `u` visits of one tile as the unit of work: a tile's work items run in
     any order on any multiprocessor and merge per ray through one atomic
     minimum of (t, slot). Tables, lists and results as `walk`; there is no
-    early exit, every listed visit is walked."""
+    early exit, every listed visit is walked. The families are the TPU
+    K4's: PMT, PMTO and MT."""
+    if int(family) == WOOP:
+        raise ValueError("walk_wq: the work-queue walk takes the pmt, pmto "
+                         "and mt families")
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                             nearest, t_max, pmto, tmax_row, u)
+                             nearest, t_max, family, tmax_row, u)
     nt = _check_pack(rays8)
-    _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None)
+    _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None,
+                       family)
     n = rays8.shape[1]
     _check_tmax_row("walk_wq", n, tmax_row)
     _walk_grid("walk_wq", nt, ids.shape[1], int(u))
@@ -898,9 +1086,9 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             ids.shape[1], int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
             attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-            int(nearest), int(pmto), _ptr(keys), _ptr(out_t), _ptr(out_s),
+            int(nearest), int(family), _ptr(keys), _ptr(out_t), _ptr(out_s),
             _ptr(out_a), _stream(rays8)), "walk_wq")
-    LAUNCHES["walk_wq"] += 1
+    _count(_count_key("walk_wq", family, nearest and t_max < INF))
     return out_t, out_s, out_a
 
 
@@ -921,7 +1109,8 @@ def _group_clusters(accel: ClusterAccel, n_attrs: int) -> int:
     """Most clusters one walk launch takes as a whole: as many as put
     their 12 geometry and n_attrs attribute rows of cluster_size floats
     inside the group budget (`accel.packets._GROUP_BLOCK_BUDGET_BYTES`), and
-    at least 256. A bigger table is walked in groups of this size."""
+    at least 256. A bigger table is walked in groups of this size (for
+    every family: mt's 9 rows leave a group a little under budget)."""
     per_cluster = 4 * (12 + n_attrs) * accel.cluster_size
     return max(256, packets._GROUP_BLOCK_BUDGET_BYTES // per_cluster)
 
@@ -966,43 +1155,90 @@ def _entry(name: str, attr_kind: str) -> str:
     return name + "_both" if attr_kind == "both" else name
 
 
-def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None)):
-    """(geometry table, pmto): the Baldwin–Weber blocks of a run of
-    clusters (default: all), origin-folded for the pmto intersector when
-    every ray leaves `shared_origin` [3]."""
+def _check_variant(accel: ClusterAccel, variant: str) -> None:
+    """Raise ValueError unless `variant` is one of VARIANTS and its table
+    was built (traverse.py:2836-2838)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
+    table = {"pmt": accel.pmt_blocks, "mt": accel.tri_blocks,
+             "pmtt": accel.pmt_t_blocks, "woop": accel.woop_blocks}[variant]
+    if table is None:
+        raise ValueError(
+            f"variant {variant!r} blocks were not built for this accel "
+            "(build_cluster_accel(..., variants=...))")
+
+
+def _family_of(variant: str, shared_origin) -> int:
+    """The kernels' family for a query's variant: "pmt" with a shared
+    origin is PMTO, as in the JAX package; "pmtt" is PMT (the same
+    arithmetic, the card's layout)."""
+    if variant in ("pmt", "pmtt"):
+        return PMTO if variant == "pmt" and shared_origin is not None else PMT
+    return MT if variant == "mt" else WOOP
+
+
+def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None),
+               variant: str = "pmt"):
+    """(geometry table, family) of a run of clusters (default: all) for a
+    query's variant (`_family_of`): the Baldwin–Weber blocks,
+    origin-folded for PMTO when every ray leaves `shared_origin` [3]; the
+    v0 | e1 | e2 rows for MT; `_woop_table` for WOOP."""
+    family = _family_of(variant, shared_origin)
+    if family == MT:
+        return accel.tri_blocks[clusters], family
+    if family == WOOP:
+        return _woop_table(accel.woop_blocks)[clusters], family
     blocks = accel.pmt_blocks[clusters]
-    if shared_origin is None:
-        return blocks, False
-    return _fold_origin(blocks, shared_origin), True
+    if family == PMTO:
+        return _fold_origin(blocks, shared_origin), family
+    return blocks, family
+
+
+def _lane_bounds(cluster_min, cluster_max) -> torch.Tensor:
+    """The lane-cull pre-test's boxes [C, 6]: min | max."""
+    return torch.cat([cluster_min, cluster_max], dim=1).contiguous()
+
+
+def _cap_of(nearest: bool, t_max) -> Optional[float]:
+    """A nearest query's cap (traverse.py:2649): its t_max when finite."""
+    return float(t_max) if nearest and t_max < INF else None
 
 
 def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                       n_attrs, early_exit=None, shared_origin=None,
-                      tmax_row=None, clusters=None, attr_kind="shade"):
-    """The `_walk_groups` launch (K1): frustum lists over the separate pmt
-    and attribute tables (`_attr_table(accel, attr_kind)`); with
-    `shared_origin` [3] the origin-folded table and the pmto intersector.
+                      tmax_row=None, clusters=None, attr_kind="shade",
+                      variant="pmt", lane_cull=False):
+    """The `_walk_groups` launch (K1): frustum lists over the separate
+    geometry table of the variant (`_geo_table`; with `shared_origin` [3]
+    and "pmt", the origin-folded table and the pmto intersector) and
+    attribute table (`_attr_table(accel, attr_kind)`). A nearest query
+    with a finite t_max is capped there: the lists are clipped to it.
     `clusters` = (lo, hi) walks only that run of the table (a group loop),
-    with cluster ids local to it. Returns (args, kw): `walk(*args, **kw)`
-    is the launch and `walk_plain(*args)` its plain version."""
+    with cluster ids local to it. With `lane_cull` the launch takes the
+    run's boxes for the lane-cull pre-test. Returns (args, kw):
+    `walk(*args, **kw)` is the launch and `walk_plain(*args, **kw')` its
+    plain version (kw' = kw's lane_bounds, if any)."""
     cs = accel.cluster_size
     lo, hi = clusters or (0, accel.num_clusters)
     cmin, cmax = accel.cluster_min[lo:hi], accel.cluster_max[lo:hi]
     early = _early(nearest, hi - lo, early_exit, tmax_row)
-    ids, tnear, cnt = _tile_visit_lists_soa(rp, cmin, cmax)
-    geo, pmto = _geo_table(accel, shared_origin, slice(lo, hi))
+    ids, tnear, cnt = _tile_visit_lists_soa(rp, cmin, cmax,
+                                            _cap_of(nearest, t_max))
+    geo, family = _geo_table(accel, shared_origin, slice(lo, hi), variant)
     args = (rp, ids, cnt, geo,
             _attr_table(accel, attr_kind)[lo:hi] if n_attrs else None,
-            n_attrs, cs, eps, nearest, t_max, pmto, tmax_row)
+            n_attrs, cs, eps, nearest, t_max, family, tmax_row)
     kw = dict(tnear=tnear if early else None,
               bbox=_union_box(cmin, cmax) if early else None,
               ee_batch=_ee_batch_for(cs), entry=_entry("walk", attr_kind))
+    if lane_cull:
+        kw["lane_bounds"] = _lane_bounds(cmin, cmax)
     return args, kw
 
 
 def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                        n_attrs, early_exit=None, shared_origin=None,
-                       tmax_row=None, attr_kind="shade"):
+                       tmax_row=None, attr_kind="shade", variant="pmt"):
     """The streamed-groups launch (K3): one extents pass (K6), then every
     group's frustum lists from it in one pass — the interval test against
     each group's run of boxes, ids local to the group, sorted within the
@@ -1010,15 +1246,16 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     groups' union boxes for the early exit. The last group is padded with
     inverted boxes and zero blocks (never accepted); the interval test
     would take an inverted box for one that covers everything, so the
-    padded clusters are struck from the lists by their index.
+    padded clusters are struck from the lists by their index. The
+    variant's table and cap as in `_groups_walk_args`.
     Returns (args, kw): `walk_gstream(*args, **kw)` is the launch and
     `walk_gstream_plain(*args)` its plain version."""
     cs = accel.cluster_size
+    geo, family = _geo_table(accel, shared_origin, variant=variant)
     gsz = _group_clusters(accel, n_attrs)
     ng = -(-accel.num_clusters // gsz)
     pad_c = ng * gsz - accel.num_clusters
     cmin, cmax = accel.cluster_min, accel.cluster_max
-    geo, pmto = _geo_table(accel, shared_origin)
     attr = _attr_table(accel, attr_kind) if n_attrs else None
 
     def padded(tab, fill):
@@ -1036,7 +1273,8 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     gmin, gmax = cmin.reshape(ng, 1, gsz, 3), cmax.reshape(ng, 1, gsz, 3)
     flags, t_near = _frustum_slabs(
         lo[None, :, 0:3], hi[None, :, 0:3], lo[None, :, 4:7],
-        hi[None, :, 4:7], lambda k: gmin[..., k], lambda k: gmax[..., k])
+        hi[None, :, 4:7], lambda k: gmin[..., k], lambda k: gmax[..., k],
+        _cap_of(nearest, t_max))
     real = torch.arange(ng * gsz, device=rp.device) < accel.num_clusters
     ids, tnear, cnt = _compact_lists(flags & real.reshape(ng, 1, gsz), t_near)
     cnt = torch.where(tile_alive[None], cnt, 0)
@@ -1044,53 +1282,54 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                        cmax.reshape(ng, gsz, 3).amax(dim=1)], dim=1)
             if early else None)
     args = (rp, ids, cnt, geo, attr, n_attrs, cs, gsz, eps, nearest, t_max,
-            pmto, tmax_row)
+            family, tmax_row)
     kw = dict(tnear=tnear if early else None, bbox=bbox,
               ee_batch=_ee_batch_for(cs))
     return args, kw
 
 
-def _refined_lists(accel: ClusterAccel, rp):
+def _refined_lists(accel: ClusterAccel, rp, t_cap=None):
     """Frustum lists cut down to the clusters some alive ray of the tile
     enters (K5), still front to back: the dense form (one launch with the
     extents, `refine_dense_extents`) ANDs the entered bits into the
     interval test's flags, the gathered form (more than
     `_REFINE_DENSE_MAX_C` clusters) re-tests the listed candidates and
-    compacts again."""
+    compacts again. With t_cap, the frustum test and K5 clip at it."""
     cmin, cmax = accel.cluster_min, accel.cluster_max
     if accel.num_clusters <= _REFINE_DENSE_MAX_C:
-        lo, hi, entered = refine_dense_extents(rp, cmin, cmax)
+        lo, hi, entered = refine_dense_extents(rp, cmin, cmax, t_cap)
         return _visit_lists_from_extents(
             lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
-            extra_mask=entered)
-    ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(rp, cmin, cmax))
-    keep = refine_lists(rp, ids, cnt, cmin, cmax)
+            extra_mask=entered, t_cap=t_cap)
+    ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(rp, cmin, cmax,
+                                                           t_cap))
+    keep = refine_lists(rp, ids, cnt, cmin, cmax, t_cap)
     return _compact_lists(keep, tnear, ids)
 
 
 def _combined_table(geo, accel: ClusterAccel, n_attrs, attr_kind="shade"):
-    """(table, attribute view): the [C, 12 + A, CS] table whose attribute
-    rows (`_attr_table`) follow the geometry rows, as the `_walk_dma`
-    entries take it."""
+    """(table, attribute view): the [C, rows + A, CS] table whose attribute
+    rows (`_attr_table`) follow the geometry rows (12, mt's 9), as the
+    `_walk_dma` entries take it."""
     if not n_attrs:
         return geo, None
     blocks = torch.cat([geo] + _attr_planes(accel, attr_kind), dim=1)
-    return blocks, blocks[:, 12:]
+    return blocks, blocks[:, geo.shape[1]:]
 
 
 def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                    early_exit=None, shared_origin=None, tmax_row=None,
-                   attr_kind="shade"):
+                   attr_kind="shade", variant="pmt"):
     """The `_walk_dma` launch (K2): refined lists (K5) over the combined
-    [C, 12 + A, CS] table. Returns (args, kw) as `_groups_walk_args`
-    does."""
+    [C, rows + A, CS] table of the variant ("pmt" or "mt"). Returns
+    (args, kw) as `_groups_walk_args` does."""
     cs = accel.cluster_size
-    geo, pmto = _geo_table(accel, shared_origin)
+    geo, family = _geo_table(accel, shared_origin, variant=variant)
     blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
-    ids, tnear, cnt = _refined_lists(accel, rp)
+    ids, tnear, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max))
     early = _early(nearest, accel.num_clusters, early_exit, tmax_row)
     args = (rp, ids, cnt, blocks, attr, n_attrs, cs, eps, nearest, t_max,
-            pmto, tmax_row)
+            family, tmax_row)
     kw = dict(tnear=tnear if early else None,
               bbox=(_union_box(accel.cluster_min, accel.cluster_max)
                     if early else None),
@@ -1100,52 +1339,62 @@ def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
 
 
 def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
-                  shared_origin=None, tmax_row=None, attr_kind="shade"):
+                  shared_origin=None, tmax_row=None, attr_kind="shade",
+                  variant="pmt"):
     """The work-queue launch (K4): refined lists (K5, either form: both
-    give the same walk) over the combined [C, 12 + A, CS] table. Returns
-    (args, kw): `walk_wq(*args, **kw)` is the launch and
-    `walk_wq_plain(*args)` its plain version.
+    give the same walk) over the combined [C, rows + A, CS] table of the
+    variant ("pmt" or "mt"). Returns (args, kw): `walk_wq(*args, **kw)` is
+    the launch and `walk_wq_plain(*args)` its plain version.
 
     The TPU package cuts its lists to a fixed width and covers the tiles
     that overflow it with a second, ordinary launch; the lists here are
     never cut, so K4 walks every listed visit and that residual launch has
     no counterpart."""
-    geo, pmto = _geo_table(accel, shared_origin)
+    geo, family = _geo_table(accel, shared_origin, variant=variant)
     blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
-    ids, _, cnt = _refined_lists(accel, rp)
+    ids, _, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max))
     args = (rp, ids, cnt, blocks, attr, n_attrs, accel.cluster_size, eps,
-            nearest, t_max, pmto, tmax_row)
+            nearest, t_max, family, tmax_row)
     return args, dict(u=WQ_U)
 
 
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                  early_exit=None, wq=False, shared_origin=None,
-                 tmax_row=None, attr_kind="shade"):
+                 tmax_row=None, attr_kind="shade", variant="pmt",
+                 lane_cull=False):
     """One walk over the cluster set: (t [1, rp], slot or hit flag [1, rp],
     attrs | None). tmax_row: an optional [1, rp] per-ray limit of an
     occlusion query. attr_kind: which attribute planes a nearest walk
-    carries (`_attr_table`), n_attrs of them.
+    carries (`_attr_table`), n_attrs of them. variant: the intersector
+    family's name (VARIANTS; its table must have been built). A nearest
+    query with a finite t_max accepts only hits before it, its lists
+    clipped there (the first phase of a capped query).
 
-    `wq` takes the `_walk_dma` entry (K2) for a 128-multiple cluster size
-    (`_WQ_IMPL == "dma"`), or the work-queue walk (K4) for a table inside
-    the group budget (`_WQ_IMPL == "grid"`); whatever they do not take
-    falls through. A table inside the group budget is one K1 launch; a
-    bigger one is walked in groups by K3."""
+    `wq` with variant "pmt" or "mt" takes the `_walk_dma` entry (K2) for
+    a 128-multiple cluster size (`_WQ_IMPL == "dma"`), or the work-queue
+    walk (K4) for a table inside the group budget (`_WQ_IMPL == "grid"`);
+    whatever they do not take falls through, as in the JAX package. A
+    table inside the group budget is one K1 launch, with the lane-cull
+    pre-test where `lane_cull`; a bigger one is walked in groups by K3
+    (no lane cull, as the TPU's streamed walk)."""
+    _check_variant(accel, variant)
     query = dict(shared_origin=shared_origin, tmax_row=tmax_row,
-                 attr_kind=attr_kind)
+                 attr_kind=attr_kind, variant=variant)
     gsz = _group_clusters(accel, n_attrs)
-    if wq and _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
-        args, kw = _dma_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
-                                  early_exit=early_exit, **query)
-        return walk(*args, **kw)
-    if wq and _WQ_IMPL == "grid" and accel.num_clusters <= gsz:
-        args, kw = _wq_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
-                                 **query)
-        return walk_wq(*args, **kw)
+    if wq and variant in ("pmt", "mt"):
+        if _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
+            args, kw = _dma_walk_args(accel, rp, eps, nearest, t_max,
+                                      n_attrs, early_exit=early_exit,
+                                      **query)
+            return walk(*args, **kw)
+        if _WQ_IMPL == "grid" and accel.num_clusters <= gsz:
+            args, kw = _wq_walk_args(accel, rp, eps, nearest, t_max,
+                                     n_attrs, **query)
+            return walk_wq(*args, **kw)
     query["early_exit"] = early_exit
     if accel.num_clusters <= gsz:
         args, kw = _groups_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
-                                     **query)
+                                     lane_cull=lane_cull, **query)
         return walk(*args, **kw)
     return _walk_over_budget(accel, rp, eps, nearest, t_max, n_attrs,
                              **query)
@@ -1153,13 +1402,14 @@ def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
 
 def _walk_over_budget(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                       early_exit=None, shared_origin=None, tmax_row=None,
-                      attr_kind="shade"):
+                      attr_kind="shade", variant="pmt"):
     """`_walk_groups` for a table above the group budget: the
     streamed-groups walk (K3)."""
     args, kw = _gstream_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
                                   early_exit=early_exit,
                                   shared_origin=shared_origin,
-                                  tmax_row=tmax_row, attr_kind=attr_kind)
+                                  tmax_row=tmax_row, attr_kind=attr_kind,
+                                  variant=variant)
     return walk_gstream(*args, **kw)
 
 
@@ -1289,16 +1539,19 @@ def _pad_rays_soa(rays8):
 
 
 def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
-                    eps: float = 1e-8, shared_origin=None
+                    eps: float = 1e-8, shared_origin=None,
+                    variant: str = "pmt"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack without attributes: (t [N], tri [N]
     original triangle ids, 0 on miss). shared_origin: a [3] origin that
-    EVERY ray of the pack leaves (the caller asserts it); selects the
-    origin-folded intersector, whose results can differ from the default
-    one's only at acceptance boundaries, within one f32 rounding."""
+    EVERY ray of the pack leaves (the caller asserts it); with "pmt" it
+    selects the origin-folded intersector, whose results can differ from
+    the default one's only at acceptance boundaries, within one f32
+    rounding. variant: the intersector family (VARIANTS), whose table must
+    have been built."""
     rp, r = _pad_rays_soa(rays8)
     t, s, _ = _walk_groups(accel, rp, eps, True, INF, 0,
-                           shared_origin=shared_origin)
+                           shared_origin=shared_origin, variant=variant)
     t, s, _ = _merge_rest_nearest(accel, rp, t, s, None, eps, 0)
     t, s = t[0, :r], s[0, :r]
     hit = torch.isfinite(t)
@@ -1309,21 +1562,43 @@ def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
 def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
                           eps: float = 1e-8, early_exit: Optional[bool] = None,
                           wq: bool = False, shared_origin=None,
-                          attr_kind: str = "shade"
+                          attr_kind: str = "shade", variant: str = "pmt",
+                          t_cap: Optional[float] = None,
+                          lane_cull: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack, with the winner's attribute planes.
     Returns (t [N], slot [N] packed slot ids, attrs [A, N]); attrs are 0 on
-    miss lanes. shared_origin as in `nearest_hit_soa`. attr_kind: the
-    shading planes (A = 9, or 4 in objid mode), the backward's 11 planes
-    ("grad") or both, the shading planes first (A = 20, or 15); t and the
-    slots do not depend on it."""
+    miss lanes. shared_origin and variant as in `nearest_hit_soa`.
+    attr_kind: the shading planes (A = 9, or 4 in objid mode), the
+    backward's 11 planes ("grad") or both, the shading planes first (A =
+    20, or 15); t and the slots do not depend on it. lane_cull: the K1
+    walk's lane-cull pre-test (no result changes).
+
+    t_cap: the two-phase query (traverse.py:3184-3238). Phase 1 walks with
+    every frustum, refinement and intersection cut at t_cap, and merges the
+    rest set over the full range; a ray whose nearest hit lies before the
+    cap is done. Phase 2 walks the others uncapped (the done rays dead),
+    and the two merge elementwise. The result is the uncapped query's."""
     rp, r = _pad_rays_soa(rays8)
     n_attrs = _n_attrs(accel, attr_kind)
-    t, s, a = _walk_groups(accel, rp, eps, True, INF, n_attrs,
-                           early_exit=early_exit, wq=wq,
-                           shared_origin=shared_origin, attr_kind=attr_kind)
-    t, s, a = _merge_rest_nearest(accel, rp, t, s, a, eps, n_attrs,
-                                  attr_kind)
+    walk_kw = dict(early_exit=early_exit, wq=wq, shared_origin=shared_origin,
+                   attr_kind=attr_kind, variant=variant, lane_cull=lane_cull)
+    t1, s1, a1 = _walk_groups(accel, rp, eps, True,
+                              INF if t_cap is None else float(t_cap),
+                              n_attrs, **walk_kw)
+    t1, s1, a1 = _merge_rest_nearest(accel, rp, t1, s1, a1, eps, n_attrs,
+                                     attr_kind)
+    if t_cap is None:
+        return t1[0, :r], s1[0, :r], a1[:, :r]
+    done = t1 < float(t_cap)  # a rest hit beyond the cap settles nothing
+    alive2 = (rp[7:8] != 0.0) & ~done
+    rp2 = torch.cat([rp[:7], alive2.to(rp.dtype)], dim=0)
+    t2, s2, a2 = _walk_groups(accel, rp2, eps, True, INF, n_attrs, **walk_kw)
+    # A survivor's rest candidate, merged in phase 1, may still win.
+    keep1 = done | ~(t2 < t1)
+    t = torch.where(done, t1, torch.minimum(t1, t2))
+    s = torch.where(keep1, s1, s2)
+    a = torch.where(keep1, a1, a2)
     return t[0, :r], s[0, :r], a[:, :r]
 
 
@@ -1338,11 +1613,13 @@ def grad_planes_soa(accel: ClusterAccel, rays8: torch.Tensor,
 
 
 def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
-                t_max=INF, wq: bool = False) -> torch.Tensor:
+                t_max=INF, wq: bool = False, variant: str = "pmt",
+                lane_cull: bool = False) -> torch.Tensor:
     """Occlusion over the pack -> [N] bool. t_max: a number (one bound for
     every ray) or an [N] tensor (each ray's own bound — an area light's
     shadow sample stops at its light's surface). An infinite entry of the
-    tensor becomes 3e38; the lanes that pad the pack get 0."""
+    tensor becomes 3e38; the lanes that pad the pack get 0. variant and
+    lane_cull as in `nearest_hit_attrs_soa`."""
     tmax_row = None
     if isinstance(t_max, torch.Tensor) and t_max.dim():
         t_max = t_max.detach()  # a traversal decision: never differentiated
@@ -1354,7 +1631,8 @@ def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
     t_max = float(t_max)
     rp, r = _pad_rays_soa(rays8)
     _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq,
-                             tmax_row=tmax_row)
+                             tmax_row=tmax_row, variant=variant,
+                             lane_cull=lane_cull)
     occ = _merge_rest_occlusion(accel, rp, occ[0] != 0, eps, t_max, tmax_row)
     return occ[:r]
 
@@ -1382,12 +1660,14 @@ def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
 
 
 def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
-            alive=None, wq: bool = False) -> torch.Tensor:
+            alive=None, wq: bool = False, variant: str = "pmt",
+            lane_cull: bool = False) -> torch.Tensor:
     """Occlusion of rays o, d [N, 3] -> [N] bool (a traversal decision:
     nothing of it is differentiated)."""
     _count_query("shadow", o.shape[0], alive)
     return any_hit_soa(accel, rays_to_soa(o.detach(), d.detach(),
-                                          alive=alive), eps, t_max, wq=wq)
+                                          alive=alive), eps, t_max, wq=wq,
+                       variant=variant, lane_cull=lane_cull)
 
 
 # ---------------------------------------------------------------------------
@@ -1457,10 +1737,9 @@ class _ShadedWalk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, verts, normals, colors, materials, o, d, tri_v, query):
-        accel, rays8, eps, early_exit, wq, shared_origin = query
-        t, slot, both = nearest_hit_attrs_soa(
-            accel, rays8, eps, early_exit=early_exit, wq=wq,
-            shared_origin=shared_origin, attr_kind="both")
+        accel, rays8, eps, walk_kw = query
+        t, slot, both = nearest_hit_attrs_soa(accel, rays8, eps,
+                                              attr_kind="both", **walk_kw)
         a_rows = accel.attr_blocks.shape[1]
         hit = torch.isfinite(t)
         attrs = _objid_expand(accel, both[:a_rows], hit).T
@@ -1511,13 +1790,14 @@ def _differentiated(*tensors) -> bool:
 
 
 def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
-                alive=None) -> Hit:
+                alive=None, variant: str = "pmt") -> Hit:
     """Nearest hit with ORIGINAL triangle ids (0 on a miss) and a t that is
     the kernel's forward and differentiates through the live vertices
-    (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`)."""
+    (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`). variant:
+    the intersector family (VARIANTS)."""
     _count_query("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
-    t_k, tri = nearest_hit_soa(accel, rays8, eps)
+    t_k, tri = nearest_hit_soa(accel, rays8, eps, variant=variant)
     hit = torch.isfinite(t_k)
     if _differentiated(mesh.verts, o, d):
         t_k = _LazyT.apply(mesh.verts, o, d, mesh.tri_v, tri, hit, t_k)
@@ -1526,9 +1806,13 @@ def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
 
 def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
                        alive=None, early_exit=None, wq: bool = False,
-                       shared_origin=None) -> Tuple[Hit, torch.Tensor]:
+                       shared_origin=None, variant: str = "pmt",
+                       t_cap: Optional[float] = None,
+                       lane_cull: bool = False) -> Tuple[Hit, torch.Tensor]:
     """The renderer's nearest query: (Hit with packed slot ids, attrs
     [N, 9] = normal | color | albedo/pi, reflectivity, roughness).
+    variant, t_cap (the two-phase query) and lane_cull as in
+    `nearest_hit_attrs_soa`.
 
     Under autograd, when one of the mesh's verts, normals, colors or
     materials or the rays o, d requires grad, the query is `_ShadedWalk`:
@@ -1539,11 +1823,12 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
     if shared_origin is not None:
         shared_origin = shared_origin.detach()
+    walk_kw = dict(early_exit=early_exit, wq=wq, shared_origin=shared_origin,
+                   variant=variant, t_cap=t_cap, lane_cull=lane_cull)
     if not _differentiated(mesh.verts, mesh.normals, mesh.colors,
                            mesh.materials, o, d):
-        t, slot, attrs_k = nearest_hit_attrs_soa(
-            accel, rays8, eps, early_exit=early_exit, wq=wq,
-            shared_origin=shared_origin)
+        t, slot, attrs_k = nearest_hit_attrs_soa(accel, rays8, eps,
+                                                 **walk_kw)
         return _shaded(accel, t, slot, attrs_k)
     if mesh.num_triangles > _MAX_GRAD_TRIANGLES:
         raise ValueError(
@@ -1552,7 +1837,7 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
             f"{_MAX_GRAD_TRIANGLES} triangles")
     t, slot, attrs = _ShadedWalk.apply(
         mesh.verts, mesh.normals, mesh.colors, mesh.materials, o, d,
-        mesh.tri_v, (accel, rays8, eps, early_exit, wq, shared_origin))
+        mesh.tri_v, (accel, rays8, eps, walk_kw))
     hit = torch.isfinite(t.detach())
     return Hit(t=t, tri=torch.where(hit, slot, 0), hit=hit), attrs
 
@@ -1643,40 +1928,44 @@ def _camera_dir_rows(n: int, offs, cam: Camera, ray_base: int = 0):
 
 
 def walk_camera_plain(offs, cam: Camera, tile_base: int, n_tiles: int, ids,
-                      cnt, geo, attr, n_attrs: int, cs: int, eps: float):
+                      cnt, geo, attr, n_attrs: int, cs: int, eps: float,
+                      lane_bounds=None):
     """Plain version of the camera walk: materialise the directions
     (`_camera_dir_rows`) and run `walk_plain` with the origin-folded
-    intersector over tiles of cam.ray_tile rays."""
+    intersector over tiles of cam.ray_tile rays (with the lane-cull
+    pre-test on lane_bounds, if given)."""
     n = n_tiles * cam.ray_tile
     dx, dy, dz = _camera_dir_rows(n, offs, cam, tile_base * cam.ray_tile)
     zero, one = torch.zeros_like(dx), torch.ones_like(dx)
     rays8 = torch.cat([zero, zero, zero, one, dx, dy, dz, one], dim=0)
     return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps, True,
-                      INF, pmto=True, ray_tile=cam.ray_tile)
+                      INF, PMTO, ray_tile=cam.ray_tile,
+                      lane_bounds=lane_bounds)
 
 
 def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
                 geo, attr, n_attrs: int, cs: int, eps: float, tnear=None,
                 bbox=None, ee_batch: int = 1, entry: str = "walk_camera",
-                visits=None):
+                visits=None, lane_bounds=None):
     """K1 camera / K2 camera (csrc/camera.cu): plain version on CPU, kernel
     on CUDA. Nearest hit of frame blocks [tile_base, tile_base + n_tiles)
     over their lists, in block ray order: (t [1, N], slot [1, N] i32,
     attrs [A, N] | None). geo is the origin-folded table; offs [spp, 2] is
     read on the device at every launch. The kernel walks a tile in passes
     of 1,024 rays and splits each pass's walk of the tile's list as `walk`
-    splits a list (`_camera_grid`), merged per ray in any order. `entry` names the launch
-    count ("walk_camera" or "walk_camera_dma"); `visits` as in `walk`."""
-    if _on_cpu(offs, ids, cnt, geo, attr):
+    splits a list (`_camera_grid`), merged per ray in any order. `entry`
+    names the launch count ("walk_camera" or "walk_camera_dma"); `visits`
+    and lane_bounds (the unfolded boxes: the origin is 0) as in `walk`."""
+    if _on_cpu(offs, ids, cnt, geo, attr, lane_bounds):
         return walk_camera_plain(offs, cam, tile_base, n_tiles, ids, cnt,
-                                 geo, attr, n_attrs, cs, eps)
+                                 geo, attr, n_attrs, cs, eps, lane_bounds)
     if (offs.dtype != torch.float32 or offs.shape != (cam.spp, 2)
             or not offs.is_contiguous()):
         raise ValueError("walk_camera: offs must be contiguous f32 [spp, 2]")
     if cam.width % cam.bw or cam.height % cam.bh:
         raise ValueError("walk_camera: bw | width and bh | height")
     _check_walk_tables("walk_camera", n_tiles, ids, cnt, geo, attr, cs, tnear,
-                       bbox)
+                       bbox, PMTO, lane_bounds)
     dev = ids.device
     n = n_tiles * cam.ray_tile
     out_t = torch.empty((1, n), dtype=torch.float32, device=dev)
@@ -1700,9 +1989,10 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
             _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
             _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), int(early),
-            int(ee_batch), _ptr(keys), _ptr(finished), _ptr(out_t),
-            _ptr(out_s), _ptr(out_a), _ptr(visits), _stream(ids)), entry)
-    LAUNCHES[entry] += 1
+            int(ee_batch), _ptr(lane_bounds), _ptr(keys), _ptr(finished),
+            _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
+            _stream(ids)), entry)
+    _count(_count_key(entry, lane_cull=lane_bounds is not None))
     return out_t, out_s, out_a
 
 
@@ -1764,12 +2054,14 @@ def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
 
 def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
                       n_tiles: int, n_attrs: int, eps: float,
-                      early_exit=None):
+                      early_exit=None, lane_cull=False):
     """The camera-mode launch: closed-form frustum lists (through
     supertiles for the whole frame over more than `_SUPERTILE_MIN_C`
     clusters) over the origin-folded table — separate
     tables (K1 camera) or, for a cluster size that is a multiple of 128,
-    the combined one (K2 camera). Returns (args, kw):
+    the combined one (K2 camera). `lane_cull` gives K1 camera the boxes of
+    the lane-cull pre-test (the TPU's K2 camera has none). Returns
+    (args, kw):
     `walk_camera(*args, **kw)` is the launch and `walk_camera_plain(*args)`
     its plain version."""
     cs = accel.cluster_size
@@ -1795,6 +2087,9 @@ def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
                     if early else None),
               ee_batch=_dma_ee_batch(cs) if dma else _ee_batch_for(cs),
               entry="walk_camera_dma" if dma else "walk_camera")
+    if lane_cull and not dma:
+        kw["lane_bounds"] = _lane_bounds(accel.cluster_min,
+                                         accel.cluster_max)
     return args, kw
 
 
@@ -1812,7 +2107,8 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
                            with_attrs: bool = False,
                            early_exit: Optional[bool] = None,
                            tile_base: Optional[int] = None,
-                           tiles: Optional[int] = None):
+                           tiles: Optional[int] = None,
+                           lane_cull: bool = False):
     """Primary nearest hit with the rays derived in the kernel from the
     pinhole formula (camera mode): no ray pack exists anywhere. Tile
     frustums come from the closed form, the walk derives each direction
@@ -1830,7 +2126,8 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
     repeat the last one. Supertile pooling serves whole-frame calls over
     more than `_SUPERTILE_MIN_C` clusters (a chunk's run of blocks wraps
     screen rows). A cluster size that is a multiple of 128 takes the
-    combined-table entry (K2 camera), as `_walk_groups(wq=True)` does."""
+    combined-table entry (K2 camera), as `_walk_groups(wq=True)` does.
+    lane_cull: K1 camera's lane-cull pre-test (no result changes)."""
     if width % bw or height % bh:
         raise ValueError("camera mode needs bw | width and bh | height")
     if (tile_base is None) != (tiles is None):
@@ -1846,7 +2143,8 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
     offs = offs.to(device=accel.pmt_blocks.device,
                    dtype=torch.float32).contiguous()
     args, kw = _camera_walk_args(accel, offs, cam, tile0, n_tiles, n_attrs,
-                                 eps, early_exit=early_exit)
+                                 eps, early_exit=early_exit,
+                                 lane_cull=lane_cull)
     t, slot, attrs = walk_camera(*args, **kw)
     if accel.rest_blocks is not None:
         n = n_tiles * cam.ray_tile

@@ -91,14 +91,16 @@ def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 bounce_bin_key(o, d, lo, hi, alive), o, d, alive, throughput,
                 radiance, orig)
         wq = config.gi_wq and not first
+        lane_cull = config.gi_lane_cull and not first
         h, attrs = nearest_hit_shaded(
             mesh, acc_l, o, d, config, alive=alive,
             early_exit=True if not first and config.gi_early_exit else None,
-            wq=wq,
+            wq=wq, lane_cull=lane_cull,
             # Primaries share the pinhole origin; later segments do not.
             shared_origin=(o[0] if first and config.primary_shared_origin
                            else None))
-        sh = shade(mesh, acc_l, sun, o, d, h, config, attrs, wq=wq)
+        sh = shade(mesh, acc_l, sun, o, d, h, config, attrs, wq=wq,
+                   lane_cull=lane_cull)
         hit = h.hit & alive
         # A miss sees the sky and ends the path.
         radiance = radiance + torch.where((alive & ~h.hit)[:, None],

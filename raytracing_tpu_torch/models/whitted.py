@@ -69,13 +69,15 @@ class Shaded(NamedTuple):
 
 def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
           config: RenderConfig, attrs: Optional[torch.Tensor] = None,
-          bin_shadow: Optional[bool] = None, wq: bool = False) -> Shaded:
+          bin_shadow: Optional[bool] = None, wq: bool = False,
+          lane_cull: bool = False) -> Shaded:
     """Direct sun light at the hit points, with the shadow (any-hit) query.
     attrs [N, 9]: the walk's attribute rows, hit.tri then packed slots (the
     kernel path); None: hit.tri are original triangle ids and one row
     gather of `_attribute_rows` fetches the attributes (the other
     backends). The shadow rays are re-sorted by hit position only on the
-    kernel path, as in the JAX package (the order changes no result)."""
+    kernel path, as in the JAX package (the order changes no result).
+    wq and lane_cull: how the shadow query walks (no result changes)."""
     t_safe = torch.where(hit.hit, hit.t, 1.0)
     idx_is_slot = attrs is not None
     if attrs is None:
@@ -103,11 +105,11 @@ def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
         sidx, (pos_s, alive_s) = bin_sort(k, pos, sh_alive)
         dir_s = normalize(sun - pos_s, eps=1e-20)
         occ_s = any_hit(mesh, accel, pos_s, dir_s, config, alive=alive_s,
-                        wq=wq)
+                        wq=wq, lane_cull=lane_cull)
         (occluded,) = unsort(sidx, occ_s)
     else:
         occluded = any_hit(mesh, accel, pos, sun_dir, config,
-                           alive=sh_alive, wq=wq)
+                           alive=sh_alive, wq=wq, lane_cull=lane_cull)
     lit = hit.hit & facing & ~occluded
     direct = torch.where(lit[:, None], color * (ndl * albedo_pi)[:, None],
                          0.0)
@@ -152,8 +154,8 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
 
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                     sh: Shaded, hit_mask, uniforms, config: RenderConfig,
-                    wq: bool = False, mesh: Optional[Mesh] = None
-                    ) -> torch.Tensor:
+                    wq: bool = False, mesh: Optional[Mesh] = None,
+                    lane_cull: bool = False) -> torch.Tensor:
     """Soft-shadowed direct radiance [N, 3] from spherical area lights at
     the shaded points. Per light: `config.light_samples` directions drawn
     uniformly in the cone the light subtends, each a visibility ray whose
@@ -161,7 +163,8 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
     mean(emission cos_theta V) x cone solid angle x albedo/pi x color.
     uniforms((light, sample), [N, 2]) returns each draw's uniforms. mesh:
     the scene's mesh, which the brute-force and cluster backends read (the
-    kernel path needs only the accel)."""
+    kernel path needs only the accel). wq and lane_cull: how the shadow
+    queries walk."""
     pos, n = sh.pos, sh.n
     total = torch.zeros_like(pos)
     for li in range(lights.center.shape[0]):
@@ -171,7 +174,8 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
             w_dir, ndl, alive, t_stop = light_shadow_rays(
                 cone, pos, n, hit_mask, uniforms((li, s), (pos.shape[0], 2)))
             occluded = any_hit(mesh, accel, pos, w_dir, config,
-                               t_max=t_stop, alive=alive, wq=wq)
+                               t_max=t_stop, alive=alive, wq=wq,
+                               lane_cull=lane_cull)
             vis = alive & ~occluded
             acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
         total = total + ((acc / config.light_samples * cone.omega)[:, None]
@@ -179,11 +183,18 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
     return total * sh.albedo_pi[:, None] * sh.color
 
 
-def _check_config(config: RenderConfig) -> None:
-    if config.gi_cap_frac > 0.0:
-        raise NotImplementedError(
-            "gi_cap_frac > 0 (two-phase capped bounce queries) is not "
-            "ported (ROADMAP Queue 1, the off-main-path variants)")
+def bounce_cap(accel: Optional[ClusterAccel],
+               config: RenderConfig) -> Optional[float]:
+    """The two-phase cap of the bounce levels' nearest queries:
+    gi_cap_frac x the diagonal of the union of the primary accel's cluster
+    boxes (the JAX package's `binning.scene_bounds`: the rest set's ground
+    plane is left out), or None with gi_cap_frac 0 or no accel. Exact
+    either way: the capped query gives the uncapped one's result. (The
+    JAX package skips the cap when the accel is traced.)"""
+    if config.gi_cap_frac <= 0.0 or accel is None:
+        return None
+    diag = accel.cluster_max.amax(dim=0) - accel.cluster_min.amin(dim=0)
+    return config.gi_cap_frac * float(torch.linalg.norm(diag))
 
 
 def _bin_bounce(o_l, d_l, alive_l):
@@ -258,13 +269,13 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     package), off it autograd runs through the plain queries; which
     triangle a ray hits, every occlusion query and the per-ray t_max of a
     light's shadow ray stay detached."""
-    _check_config(config)
     s = config.diffuse_scatter
     sky = torch.tensor(config.sky_color, dtype=o.dtype, device=o.device)
     bin_sh = (config.bin_shadow if isinstance(config.bin_shadow, bool)
               else gi_accel is None)
     # Bounce levels are re-sorted on the kernel path only (JAX package).
     kernels = uses_kernels(config)
+    t_cap = bounce_cap(accel, config) if kernels else None
 
     def level_radiance(o_l, d_l, alive_l, depth):
         n_l = o_l.shape[0]
@@ -276,6 +287,7 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                      or config.bin_reflect_levels)):
             sidx, (o_l, d_l, alive_l) = _bin_bounce(o_l, d_l, alive_l)
         wq = config.gi_wq and bounce
+        lane_cull = config.gi_lane_cull and bounce
         if not bounce and camera_chunk is not None:
             tb, offs_c, bh_c, bw_c = camera_chunk
             rt_c = config.samples_per_pixel * bh_c * bw_c
@@ -290,18 +302,18 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
             h, attrs = nearest_hit_shaded(
                 mesh, acc_l, o_l, d_l, config, alive=alive_l,
                 early_exit=True if bounce and config.gi_early_exit else None,
-                wq=wq,
+                wq=wq, t_cap=t_cap if bounce else None, lane_cull=lane_cull,
                 # Primaries share the pinhole origin; bounce levels do not.
                 shared_origin=(o_l[0] if not bounce
                                and config.primary_shared_origin else None))
         sh = shade(mesh, acc_l, sun, o_l, d_l, h, config, attrs,
-                   bin_shadow=bin_sh, wq=wq)
+                   bin_shadow=bin_sh, wq=wq, lane_cull=lane_cull)
         contrib = sh.direct
         if lights is not None:
             area = area_light_term(
                 acc_l, lights, sh, h.hit,
                 lambda ls, shape: uniforms(("light", depth) + ls, shape),
-                config, wq=wq, mesh=mesh)
+                config, wq=wq, mesh=mesh, lane_cull=lane_cull)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         if depth < config.reflect_depth or depth < config.diffuse_depth:
             o_c, d_c, a_c, w_refl, w_diff = _children(d_l, h, sh, config,
@@ -354,7 +366,8 @@ def _auto_gi_accel(mesh: Mesh, accel: Optional[ClusterAccel],
         return hit[0]
     if len(_GI_ACCEL_CACHE) >= _GI_ACCEL_CACHE_MAX:
         _GI_ACCEL_CACHE.popitem(last=False)
-    gi = build_cluster_accel(mesh, cluster_size=cs)
+    # Bounce queries walk the Baldwin–Weber table only (JAX package).
+    gi = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
     _GI_ACCEL_CACHE[key] = (gi, mesh)
     return gi
 
@@ -400,7 +413,6 @@ def render(scene: Scene, config: RenderConfig,
     `uniforms(chunk_index, tag, shape)` when given (the tags are
     `render_rays`'), else from `generator` (default: seed 0 on the scene's
     device). A scene with `lights` gets their soft-shadowed direct term."""
-    _check_config(config)
     mesh = scene.mesh
     device = mesh.verts.device
     accel, gi_accel = frame_accels(scene, config, accel, gi_accel)

@@ -31,7 +31,10 @@ chip_smoke.py holds its 32x32 frame's gradients to; the CLI's frame
 (`python -m raytracing_tpu_torch render`, the card by default) equal in u8
 to `render()` with the same seed; the liveness probe and a real
 out-of-memory error classed transient; an accel cache loaded onto the
-card.
+card; the off-main-path forms — K1 mt and woop, K2 mt, K3 mt and woop, K4
+mt, the capped walks and refinements of the two-phase query, the lane
+cull in K1 and the camera walk — equal to their plain versions on alive
+lanes.
 """
 
 import numpy as np
@@ -957,3 +960,147 @@ def test_plain_backends_on_the_card_are_the_kernel_frame(dev, backend):
                  accel=accel if backend == "cluster" else None,
                  generator=gen())
     assert img.is_cuda and float((img - kern).abs().max()) <= 1e-5
+
+
+def _same_on_alive(kern, want, m):
+    """Kernel results (CUDA) equal to `want` on the alive lanes m."""
+    for a, b in zip(kern, want):
+        if b is not None:
+            assert torch.equal(a[..., m], b[..., m])
+
+
+@pytest.fixture
+def plain_on_card(monkeypatch):
+    """plain(fn, *args, **kw): fn with every kernel wrapper taking its
+    plain version on the card's tensors (`_on_cpu` answers yes), as
+    chip_smoke.py holds the kernels against them."""
+    def plain(fn, *args, **kw):
+        with monkeypatch.context() as mp:
+            mp.setattr(T, "_on_cpu", lambda *tensors: True)
+            return fn(*args, **kw)
+    return plain
+
+
+@pytest.mark.parametrize("variant,cs,form", [
+    ("mt", 16, "walk"), ("woop", 16, "walk"), ("mt", 128, "walk_dma"),
+    ("mt", 128, "walk_wq"), ("mt", 16, "walk_gstream"),
+    ("woop", 16, "walk_gstream")], ids=lambda x: str(x))
+def test_variant_walks_match_plain(setup, dev, monkeypatch, plain_on_card,
+                                   variant, cs, form):
+    """K1 mt and woop, K2 mt, K4 mt and K3 mt and woop (the CS 16 table in
+    4 groups under a patched budget) through `nearest_hit_attrs_soa` and
+    `any_hit_soa` with the family's variant: t, slots and attributes equal
+    to the plain version's on alive lanes, nearest and occlusion, each
+    launch counted under its family's name."""
+    accels, packs = setup
+    acc = accels[cs].to(dev)
+    wq = form in ("walk_dma", "walk_wq")
+    if form == "walk_wq":
+        monkeypatch.setattr(T, "_WQ_IMPL", "grid")
+    if form == "walk_gstream":
+        monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    key = f"{form}_{variant}"
+    for p in packs:
+        g = p.to(dev)
+        m = g[7] != 0
+        before = T.LAUNCHES.get(key, 0)
+        query = dict(early_exit=True, wq=wq, variant=variant)
+        kern = T.nearest_hit_attrs_soa(acc, g, **query)
+        assert T.LAUNCHES[key] == before + 1
+        plain = plain_on_card(T.nearest_hit_attrs_soa, acc, g, **query)
+        assert bool(torch.isfinite(plain[0][m]).any())
+        _same_on_alive(kern, plain, m)
+        for t_max in (float("inf"), 3.0):
+            occ = T.any_hit_soa(acc, g, t_max=t_max, wq=wq, variant=variant)
+            want = plain_on_card(T.any_hit_soa, acc, g, t_max=t_max, wq=wq,
+                                 variant=variant)
+            assert torch.equal(occ[m], want[m])
+
+
+@pytest.mark.parametrize("form", ["walk", "walk_dma", "walk_dma_lists",
+                                  "walk_wq", "walk_gstream"])
+def test_capped_walks_match_plain(setup, dev, monkeypatch, plain_on_card,
+                                  form):
+    """The two-phase query at a cap of 3 through K1 (CS 16), K2 with the
+    dense and the gathered K5 under the cap (CS 128), K4 and K3: equal on
+    alive lanes to the plain version's and to the uncapped query's; the
+    first phase's launches count as capped."""
+    accels, packs = setup
+    cs = 16 if form in ("walk", "walk_gstream") else 128
+    acc = accels[cs].to(dev)
+    if form == "walk_dma_lists":
+        monkeypatch.setattr(T, "_REFINE_DENSE_MAX_C", 8)
+    if form == "walk_wq":
+        monkeypatch.setattr(T, "_WQ_IMPL", "grid")
+    if form == "walk_gstream":
+        monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    key = ("walk_dma" if form == "walk_dma_lists" else form) + "_capped"
+    refine = {"walk_dma": "refine_extents_capped",
+              "walk_dma_lists": "refine_lists_capped",
+              "walk_wq": "refine_extents_capped"}.get(form)
+    for p in packs:
+        g = p.to(dev)
+        m = g[7] != 0
+        counts = {k: T.LAUNCHES.get(k, 0) for k in (key, refine) if k}
+        kern = T.nearest_hit_attrs_soa(acc, g, wq=cs == 128, t_cap=3.0)
+        for k, n in counts.items():
+            assert T.LAUNCHES[k] == n + 1, k
+        _same_on_alive(kern, plain_on_card(
+            T.nearest_hit_attrs_soa, acc, g, wq=cs == 128, t_cap=3.0), m)
+        _same_on_alive(kern, T.nearest_hit_attrs_soa(acc, g, wq=cs == 128),
+                       m)
+
+
+def test_capped_refinement_matches_plain(setup, dev):
+    """K5 dense (with the extents, and with tile-alive flags given) and
+    gathered under a cap: the bits of the plain versions, a subset of the
+    uncapped bits."""
+    accels, packs = setup
+    acc = accels[128].to(dev)
+    g = packs[1].to(dev)
+    boxes = (acc.cluster_min, acc.cluster_max)
+    k = T.refine_dense_extents(g, *boxes, 2.0)
+    p = T.refine_dense_extents_plain(g, *boxes, 2.0)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert bool((k[2] <= T.refine_dense_extents(g, *boxes)[2]).all())
+    alive = torch.ones(g.shape[1] // 1024, dtype=torch.bool, device=dev)
+    assert torch.equal(T.refine_dense(g, *boxes, alive, 2.0),
+                       T.refine_dense_plain(g, *boxes, alive, 2.0))
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(g, *boxes))
+    assert torch.equal(T.refine_lists(g, ids, cnt, *boxes, 2.0),
+                       T.refine_lists_plain(g, ids, cnt, *boxes, 2.0))
+
+
+def test_lane_cull_walks_match_plain(setup, dev, plain_on_card):
+    """The lane-cull pre-test in K1 (nearest with attributes, occlusion)
+    and in the camera walk: equal to the plain versions and to the walks
+    without it on alive lanes, launches counted as "_lc"."""
+    accels, packs = setup
+    for cs in (16, 128):
+        acc = accels[cs].to(dev)
+        g = packs[1].to(dev)
+        m = g[7] != 0
+        before = T.LAUNCHES.get("walk_lc", 0)
+        kern = T.nearest_hit_attrs_soa(acc, g, early_exit=True,
+                                       lane_cull=True)
+        assert T.LAUNCHES["walk_lc"] == before + 1
+        _same_on_alive(kern, plain_on_card(
+            T.nearest_hit_attrs_soa, acc, g, early_exit=True,
+            lane_cull=True), m)
+        _same_on_alive(kern, T.nearest_hit_attrs_soa(acc, g,
+                                                     early_exit=True), m)
+        occ = T.any_hit_soa(acc, g, t_max=3.0, lane_cull=True)
+        assert torch.equal(occ[m], T.any_hit_soa(acc, g, t_max=3.0)[m])
+        assert torch.equal(occ[m], plain_on_card(
+            T.any_hit_soa, acc, g, t_max=3.0, lane_cull=True)[m])
+    acc = accels[16].to(dev)
+    offs = stratified_offsets(2)
+    cam = dict(width=64, height=64, spp=2, with_attrs=True)
+    before = T.LAUNCHES.get("walk_camera_lc", 0)
+    on = T.nearest_hit_camera_soa(acc, offs, lane_cull=True, **cam)
+    assert T.LAUNCHES["walk_camera_lc"] == before + 1
+    off = T.nearest_hit_camera_soa(acc, offs, **cam)
+    plain = plain_on_card(T.nearest_hit_camera_soa, acc, offs,
+                          lane_cull=True, **cam)
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert all(torch.equal(a, b) for a, b in zip(on, plain))

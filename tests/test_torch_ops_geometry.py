@@ -165,8 +165,22 @@ def test_accel_from_numpy_round_trip(scenes):
 
 
 def test_unported_accel_variants_raise(scenes):
+    """Every build method and intersector family is ported now: what is
+    refused is an unknown method (the JAX package would take it for
+    "morton"), an unknown family, and a query of a family whose table was
+    not built."""
+    import raytracing_tpu_torch.kernels.traverse as T
+
     _, ts = scenes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.build_cluster_accel(ts.mesh, method="median")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.build_cluster_accel(ts.mesh, variants=("pmt", "woop"))
+    with pytest.raises(ValueError, match="accel method 'mortom'"):
+        TP.build_cluster_accel(ts.mesh, method="mortom")
+    with pytest.raises(ValueError, match="block variants"):
+        TP.build_cluster_accel(ts.mesh, variants=("pmt", "wop"))
+    acc = TP.build_cluster_accel(ts.mesh, cluster_size=16,
+                                 variants=("pmt", "mt"))
+    rays8 = T.rays_to_soa(torch.zeros((2, 3)),
+                          torch.tensor([[0.0, 0.0, 1.0]] * 2))
+    with pytest.raises(ValueError, match="'woop' blocks were not built"):
+        T.nearest_hit_soa(acc, rays8, variant="woop")
+    with pytest.raises(ValueError, match="variant 'wop'"):
+        T.any_hit_soa(acc, rays8, variant="wop")

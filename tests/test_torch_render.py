@@ -85,6 +85,22 @@ def test_matches_jax_pallas_render(knob_image):
     np.testing.assert_allclose(knob_image, ref, atol=1e-5)
 
 
+def test_gi_cap_frac_frame_matches_default_and_jax(scene, accel16,
+                                                   knob_image):
+    """The two-phase capped bounce queries (`gi_cap_frac=0.1`) give the
+    default frame bit for bit, and JAX's Pallas frame with the same cap at
+    atol 1e-5."""
+    cfg = dict(KNOB, gi_cap_frac=0.1)
+    img = render(scene, RenderConfig(**cfg), accel=accel16,
+                 uniforms=jax_uniforms(5, 1)).numpy()
+    np.testing.assert_array_equal(img, knob_image)
+    js = jax_scene(t=0.0)
+    ref = np.asarray(jax_render(js, JaxConfig(backend="pallas", **cfg),
+                                accel=jax_build(js.mesh, cluster_size=16),
+                                key=jax.random.PRNGKey(5)))
+    np.testing.assert_allclose(img, ref, atol=1e-5)
+
+
 @pytest.mark.parametrize("change", [dict(normals="geometric"),
                                     dict(samples_per_pixel=3)],
                          ids=lambda c: next(iter(c)))
@@ -154,10 +170,10 @@ def test_odd_frame_size_and_padded_chunks(scene, accel16):
     dict(lights=True),
 ], ids=lambda c: next(iter(c)))
 def test_unported_paths_raise(scene, accel16, change):
-    """Unported options are refused by name. `primary_shared_origin` and
-    `lights` have since been ported: their cases now check that the option
-    is taken (the four rays down +z hit the ground far away or the sky:
-    finite)."""
+    """Unported options were refused by name. `primary_shared_origin`,
+    `lights` and `gi_cap_frac` have since been ported: every case now
+    checks that the option is taken (the four rays down +z hit the ground
+    far away or the sky: finite)."""
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        **{k: v for k, v in change.items() if k != "lights"})
     o = torch.zeros((4, 3))
@@ -170,8 +186,4 @@ def test_unported_paths_raise(scene, accel16, change):
 
     light = SphereLight(torch.tensor([[1.0, 8.0, 7.0]]), torch.tensor([1.5]),
                         torch.tensor([[1.5, 1.5, 1.5]]))
-    if "primary_shared_origin" in change or "lights" in change:
-        assert torch.isfinite(run()).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run()
+    assert torch.isfinite(run()).all()

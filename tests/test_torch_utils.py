@@ -254,7 +254,9 @@ def test_jax_written_cache_loads_in_the_port(tmp_path, scenes, accels):
 def test_port_written_cache_loads_in_jax(tmp_path, scenes, accels):
     """tests/test_utils_app.py:89 across packages: the port's cache
     round-trips in the port bit for bit and loads in JAX's load_accel,
-    every shared field equal to JAX's own build."""
+    every field equal to JAX's own build — the tables of the mt, pmtt and
+    woop intersectors and the transposed order and attribute tables
+    included, which the port builds and carries too."""
     js, ts = scenes
     ja, ta = accels
     p = str(tmp_path / "port.npz")
@@ -275,7 +277,7 @@ def test_port_written_cache_loads_in_jax(tmp_path, scenes, accels):
                                           err_msg=name)
     for name in ("tri_blocks", "pmt_t_blocks", "woop_blocks",
                  "order_blocks", "attr_t_blocks"):
-        assert getattr(jb, name) is None
+        assert getattr(jb, name) is not None, name
 
 
 def test_accel_cache_rejects_wrong_files(tmp_path, scenes, accels):

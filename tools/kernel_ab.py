@@ -92,32 +92,42 @@ def _build(tree, out):
     p, ll, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
     lib.rt_tile_extents.argtypes = [p, ll, p, p, p]
-    lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, p, p, p]
     # A tree whose refinement deals a tile's list to several blocks takes
-    # a grid, and folds the extents into the dense query.
+    # a grid, and folds the extents into the dense query; one that serves
+    # the two-phase capped query takes a cap (+inf here) after the boxes.
     with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
                            "refine.cu")) as f:
-        lib.fused_refine = "rt_refine_dense_extents" in f.read()
+        text = f.read()
+    lib.fused_refine = "rt_refine_dense_extents" in text
+    lib.cap = (f32,) if "float cap" in text else ()
+    lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, *lib.cap, p, p, p]
     if lib.fused_refine:
-        lib.rt_refine_dense_extents.argtypes = [p, ll, p, p, i32, p, p, p, p]
-        lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, i32, i32, p, p, p,
-                                        p]
+        lib.rt_refine_dense_extents.argtypes = [p, ll, p, p, i32, *lib.cap,
+                                                p, p, p, p]
+        lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, i32, i32, p, p,
+                                        *lib.cap, p, p]
     else:
         lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, p, p, p, p]
-    split = {}
+    split, culls = {}, {}
     for name in ("walk", "camera", "gstream"):
         with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
                                f"{name}.cu")) as f:
-            split[name] = "int* finished" in f.read()
+            text = f.read()
+        split[name] = "int* finished" in text
+        # A walk with the lane-cull pre-test takes its boxes (null here)
+        # after ee_batch / the family.
+        culls[name] = [p] if "lane_bounds" in text else []
     lib.split_walk, lib.split_camera, lib.split_gstream = split.values()
+    lib.cull_walk, lib.cull_camera = culls["walk"], culls["camera"]
     head = [p, ll, p, p, p, p, i32]
-    tail = [p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32]
+    tail = [p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32,
+            *lib.cull_walk]
     lib.rt_walk.argtypes = (head + [i32] * 2 + tail + [p] * 7
                             if lib.split_walk else head + tail + [p] * 5)
     # rt_walk_camera: offs .. width, [seg, tile_blocks], bbox .. ee_batch,
     # [keys, finished], outputs, visits, stream.
     head = [p] + [i32] * 7 + [f32, f32, p, p, p, i32]
-    tail = [p, p, ll, p, ll, i32, i32, f32, i32, i32]
+    tail = [p, p, ll, p, ll, i32, i32, f32, i32, i32, *lib.cull_camera]
     lib.rt_walk_camera.argtypes = (
         head + [i32] * 2 + tail + [p] * 7 if lib.split_camera
         else head + tail + [p] * 5)
@@ -143,7 +153,7 @@ def _call_walk(lib, args, kw, out):
     tail = [ptr(kw["bbox"] if early else None), ptr(geo), geo.stride(0),
             ptr(attr), attr.stride(0) if attr is not None else 0, n_attrs,
             cs, float(eps), float(t_max), int(nearest), int(early),
-            int(kw["ee_batch"]), int(pmto)]
+            int(kw["ee_batch"]), int(pmto)] + [None] * len(lib.cull_walk)
     outs = [ptr(out["t"]), ptr(out["s"]), ptr(out["a"]), ptr(out["visits"]),
             T._stream()]
     if lib.split_walk:
@@ -171,7 +181,7 @@ def _call_camera(lib, args, kw, out):
     tail = [ptr(kw["bbox"] if early else None), ptr(geo), geo.stride(0),
             ptr(attr), attr.stride(0) if attr is not None else 0,
             n_attrs if attr is not None else 0, cs, float(eps), int(early),
-            int(kw["ee_batch"])]
+            int(kw["ee_batch"])] + [None] * len(lib.cull_camera)
     outs = [ptr(out["t"]), ptr(out["s"]), ptr(out["a"]), ptr(out["visits"]),
             T._stream()]
     if lib.split_camera:
@@ -219,7 +229,8 @@ def _refine_dense(lib, rays, cmin, cmax, alive, bits):
     from raytracing_tpu_torch.kernels import traverse as T
 
     rc = lib.rt_refine_dense(T._ptr(rays), rays.shape[1], T._ptr(cmin),
-                             T._ptr(cmax), cmin.shape[0], T._ptr(alive),
+                             T._ptr(cmax), cmin.shape[0],
+                             *(T.INF,) * len(lib.cap), T._ptr(alive),
                              T._ptr(bits), T._stream())
     assert rc == 0, rc
 
@@ -237,7 +248,8 @@ def _dense_query(lib, rays, cmin, cmax, out):
     if lib.fused_refine:
         rc = lib.rt_refine_dense_extents(
             ptr(rays), rays.shape[1], ptr(cmin), ptr(cmax), cmin.shape[0],
-            ptr(lo), ptr(hi), ptr(bits), T._stream())
+            *(T.INF,) * len(lib.cap), ptr(lo), ptr(hi), ptr(bits),
+            T._stream())
         assert rc == 0, rc
         return
     rc = lib.rt_tile_extents(ptr(rays), rays.shape[1], ptr(lo), ptr(hi),
@@ -257,7 +269,8 @@ def _refine_lists(lib, rays, ids, cnt, cmin, cmax, bits):
             if lib.fused_refine else ())
     rc = lib.rt_refine_lists(ptr(rays), rays.shape[1], ptr(ids), ptr(cnt),
                              ids.shape[1], *grid, ptr(cmin), ptr(cmax),
-                             ptr(bits), T._stream())
+                             *(T.INF,) * len(lib.cap), ptr(bits),
+                             T._stream())
     assert rc == 0, rc
 
 
@@ -295,8 +308,8 @@ def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
     import torch
 
     import chip_smoke
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import sun_position
     from raytracing_tpu_torch.models import whitted
@@ -336,8 +349,8 @@ def _inputs(dev):
     import torch
 
     import chip_smoke
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
@@ -373,7 +386,7 @@ def _inputs(dev):
     pos = o + torch.where(hit, t[0], 1.0)[:, None] * d + n * cfg.normal_offset
     gen.manual_seed(3)
     w_dir, _, l_alive, t_stop = whitted.light_shadow_rays(
-        whitted.light_cone(chip_smoke._light(dev), 0, pos), pos, n, hit,
+        whitted.light_cone(bench.sphere_light(dev), 0, pos), pos, n, hit,
         torch.rand((pos.shape[0], 2), generator=gen, device=dev))
     walks["walk, 65,536 light-shadow rays, 790x16, occlusion under "
           "tmax_row"] = T._groups_walk_args(
@@ -517,7 +530,8 @@ def main(argv) -> int:
     print("[extents] ms, 200 back-to-back launches in one pair of CUDA "
           "events: " + ", ".join(f"{k} {t}" for k, t in zip(order, steady)))
     for name, rargs in refines.items():
-        rays, ids, cnt, rmin, rmax = rargs
+        # (a captured call of this tree also passes its cap: None here)
+        rays, ids, cnt, rmin, rmax = rargs[:5]
         cnt = cnt.to(torch.int32).contiguous()
         bits = {k: torch.empty(ids.shape, dtype=torch.int32, device="cuda")
                 for k in libs}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Count the machine ops of the walks' and the refinement's inner loops in
 the compiled kernels, and reckon the scheduler-slot floor of a launch from
-them.
+them: every intersector family (pmt, pmto, mt, woop) and form (lane cull,
+capped refinement) of them.
 
 Run from the root of a checkout on a machine with the CUDA toolkit:
 
@@ -10,12 +11,15 @@ Run from the root of a checkout on a machine with the CUDA toolkit:
 
 Builds the port's kernels (`raytracing_tpu_torch/kernels/cuda.py`), dumps
 the walks' machine code with `cuobjdump -sass`, and in each of the pack
-walk's four `walk_kernel<PMTO, NEAREST>`, the camera walk's
-`camera_walk_kernel<R>` (R rays a thread), K3's four
-`gstream_kernel<PMTO, NEAREST>` and K4's four `wq_items_kernel<PMTO,
-NEAREST>` finds the innermost loop that holds the
+walk's 24 `walk_kernel<FAMILY, NEAREST, LANE_CULL, CAPPED>`, the camera
+walk's `camera_walk_kernel<R, LANE_CULL>` (R rays a thread), K3's 12
+`gstream_kernel<FAMILY, NEAREST, CAPPED>` and K4's 9
+`wq_items_kernel<FAMILY, NEAREST, CAPPED>` finds the innermost loop that
+holds the
 (ray, triangle) tests: the innermost loop with the most reciprocals
-(`MUFU.RCP`, one per IEEE division, so one per test). Prints the loop's
+(`MUFU.RCP`, one per IEEE division, so one per test in every family: pmt's
+and pmto's t, mt's 1 / det, woop's 1 / dLz; the lane cull's divisions
+are outside that loop). Prints the loop's
 machine ops, its tests, and ops per test: a static count, so the branches
 a test mostly skips (the update of a ray's best hit) count in full, and
 the floor reckoned from it errs on the high side.
@@ -106,20 +110,37 @@ def inner_loop(instrs, marker="MUFU.RCP"):
     return best
 
 
+# walk_core.cuh's Family codes.
+FAMILIES = {"0": "pmt", "1": "pmto", "2": "mt", "3": "woop"}
+# FMNMX of one (ray, box) slab test: 12, and the cap's in a capped form.
+SLAB_FMNMX = {False: 12, True: 13}
+
+
 def _variant(name):
-    """'walk_kernel (pmt, nearest)' and the like for a walk kernel's
+    """'walk_kernel (mt, nearest)' and the like for a walk kernel's
     mangled name, None for any other function."""
     m = re.search(r"_(walk|gstream|wq)_cu_.*?(walk|gstream|wq_items)_kernel"
-                  r"ILb([01])ELb([01])EE", name)
+                  r"ILi(\d)((?:ELb[01])+)EE", name)
     if m:
-        return (f"{m.group(2)}_kernel ({'pmto' if m.group(3) == '1' else 'pmt'}"
-                f", {'nearest' if m.group(4) == '1' else 'occlusion'})")
-    m = re.search(r"_camera_cu_.*camera_walk_kernelILi(\d)EE", name)
+        # walk_kernel<F, NEAREST, LANE_CULL, CAPPED>; K3's and K4's
+        # <F, NEAREST, CAPPED>.
+        flags = re.findall(r"Lb([01])", m.group(4))
+        names = (("nearest", "lane cull", "capped") if m.group(2) == "walk"
+                 else ("nearest", "capped"))
+        on = dict(zip(names, (f == "1" for f in flags)))
+        return (f"{m.group(2)}_kernel ({FAMILIES[m.group(3)]}, "
+                f"{'nearest' if on['nearest'] else 'occlusion'}"
+                f"{', lane cull' if on.get('lane cull') else ''}"
+                f"{', capped' if on['capped'] else ''})")
+    m = re.search(r"_camera_cu_.*camera_walk_kernelILi(\d)ELb([01])EE", name)
     if m:
-        return f"camera_walk_kernel (pmto, nearest, {m.group(1)} rays a thread)"
-    m = re.search(r"_refine_cu_.*(refine_lists_kernel|refine_kernel)", name)
+        return (f"camera_walk_kernel (pmto, nearest, {m.group(1)} rays a "
+                f"thread{', lane cull' if m.group(2) == '1' else ''})")
+    m = re.search(r"_refine_cu_.*(refine_lists_kernel|refine_kernel)"
+                  r"ILb([01])EE", name)
     if m:
-        return f"{m.group(1)} (boxes)"
+        return (f"{m.group(1)} ({'capped ' if m.group(2) == '1' else ''}"
+                f"boxes)")
     return None
 
 
@@ -148,9 +169,11 @@ def main(argv) -> int:
                 continue
             f.write(f"Function : {name}\n")
             f.writelines(f"  /*{a:04x}*/ {t};\n" for a, t in instrs)
-            boxes = which.endswith("(boxes)")
+            boxes = which.endswith("boxes)")
             n, marks = inner_loop(instrs, "FMNMX" if boxes else "MUFU.RCP")
-            tests = marks / 12 if boxes else marks  # 12 FMNMX a slab test
+            # 12 FMNMX a slab test (13 capped); one RCP a (ray, triangle)
+            # test in every family: its one IEEE division.
+            tests = marks / SLAB_FMNMX["capped" in which] if boxes else marks
             (per_box if boxes else per_test)[which] = n / tests
             print(f"[sass] {which}: {len(instrs)} machine ops; inner loop "
                   f"{n} ops for {tests} (ray, "
