@@ -14,7 +14,10 @@ Phases (any failure raises and the script exits non-zero):
      them, and refuse a spill in any instance of the split walks
      (`walk.cu`: every intersector family, with and without the lane
      cull; `camera.cu`, `gstream.cu`) and the refinement (`refine.cu`,
-     capped or not);
+     capped or not); print each pack kernel instance's resident blocks
+     and warps a multiprocessor at every accepted culling tile's block
+     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the build's
+     seconds;
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes; median time of 5 runs each (K6 also read
      steadily: 200 launches of its entry in one pair of CUDA events
@@ -83,6 +86,17 @@ Phases (any failure raises and the script exits non-zero):
         cap, the K1 lane-cull walk on the wavefront; then the reference
         frame with gi_cap_frac 0.1 equal to the default frame, and a
         gi_wq=False frame equal with gi_lane_cull on and off;
+     j. the bounce levels' culling tile (`phase_ray_tile`): every pack
+        kernel at a tile of 256 rays against its plain version at 256
+        (K6, K5 dense + K6, K2 ten launches equal, K1 with and without
+        the lane cull, K4 on 3a's wavefront; K5 gathered on 3c's 404k
+        wavefront; K3 on the 1.6M frame's chunk-12 primaries and sun
+        shadows), the wavefront's kernels at 1,024, 512, 256 and 128 in
+        turns (K6, K5 dense + K6, K2 and K1's visits and times), the
+        reference frame at gi_ray_tile 1,024, 512 and 256 in turns
+        (bit-equal, seconds, launches), and the gi_wq=False, "grid" and
+        over-budget frames at 256 equal to theirs at 1,024 (the rows'
+        launches);
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
@@ -154,7 +168,8 @@ Phases (any failure raises and the script exits non-zero):
      brute-force and cluster backends at 64x64 against the kernel path
      (`phase_multi_device`).
 
-Each main path (5, 5 with camera mode, 3i's family queries and frames, 7's
+Each main path (5, 5 with camera mode, 3i's family queries and frames, 3j's
+frames, 7's
 1.6M camera and pack-path queries, 7's Whitted frame, 8, 9, 9's "grid"
 frame, each configuration of 10, 12's steps, 13's default render, 15's
 sharded frames) runs with the launch counts set to 0 just before and read
@@ -271,6 +286,24 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                               "raytracing_tpu/kernels/traverse.py:498"),
     "walk_lc": ("raytracing_tpu_torch/csrc/walk.cu",
                 "raytracing_tpu/kernels/traverse.py:972"),
+    # The bounce levels at gi_ray_tile 256 (phase 3j): every pack kernel
+    # with a block of 64 threads a tile.
+    "extents_rt256": ("raytracing_tpu_torch/csrc/extents.cu",
+                      "raytracing_tpu/kernels/traverse.py:163"),
+    "refine_extents_rt256": ("raytracing_tpu_torch/csrc/refine.cu",
+                             "raytracing_tpu/kernels/traverse.py:498"),
+    "refine_lists_rt256": ("raytracing_tpu_torch/csrc/refine.cu",
+                           "raytracing_tpu/kernels/traverse.py:648"),
+    "walk_rt256": ("raytracing_tpu_torch/csrc/walk.cu",
+                   "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_lc_rt256": ("raytracing_tpu_torch/csrc/walk.cu",
+                      "raytracing_tpu/kernels/traverse.py:972"),
+    "walk_dma_rt256": ("raytracing_tpu_torch/csrc/walk.cu",
+                       "raytracing_tpu/kernels/traverse.py:1819"),
+    "walk_gstream_rt256": ("raytracing_tpu_torch/csrc/gstream.cu",
+                           "raytracing_tpu/kernels/traverse.py:1414"),
+    "walk_wq_rt256": ("raytracing_tpu_torch/csrc/wq.cu",
+                      "raytracing_tpu/kernels/traverse.py:2063"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
@@ -286,6 +319,8 @@ OPS_PMT, OPS_PMTO, OPS_SLAB, OPS_EXTENTS = 40, 30, 30, 16
 OPS_MT, OPS_WOOP = 55, 51
 # Phase 3i's two-phase cap: the renderer's gi_cap_frac of the frame.
 CAP_FRAC = 0.1
+# Phase 3j's culling tile of the bounce levels (gi_ray_tile): JAX's test's.
+GI_TILE = 256
 # K6's steady reading: back-to-back launches in one pair of CUDA events,
 # over copies of its 23 MB pack that together exceed the card's 50 MB L2.
 STEADY_LAUNCHES = 200
@@ -367,41 +402,44 @@ def _row(rows, name, err, kernel_fn, plain_fn, bound, shape, plain_reps=5,
           f"({shape})")
 
 
-def _extents_row(rows, name, bp):
-    """K6 (`tile_extents`) on the pack `bp` against its plain version, bit
-    for bit, timed into rows[name]. Returns the plain (lo, hi)."""
+def _extents_row(rows, name, bp, ray_tile=1024):
+    """K6 (`tile_extents`) on the pack `bp` in tiles of `ray_tile` against
+    its plain version, bit for bit, timed into rows[name]. Returns the
+    plain (lo, hi)."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
 
-    lo, hi = T.tile_extents(bp)
-    plo, phi = T.tile_extents_plain(bp)
+    lo, hi = T.tile_extents(bp, ray_tile)
+    plo, phi = T.tile_extents_plain(bp, ray_tile)
     _require(torch.equal(lo, plo) and torch.equal(hi, phi),
              f"{name} (K6): lo/hi differ")
     live = phi[:, 7] > 0
     err = float(torch.cat([(lo - plo)[live], (hi - phi)[live]]).abs().max()
                 ) if live.any() else 0.0
-    nt = bp.shape[1] // T.RAY_TILE
-    print(f"[kernels] {name} (K6): {nt} tiles, {int(live.sum())} alive, "
-          f"equal")
-    _row(rows, name, err, lambda: T.tile_extents(bp),
-         lambda: T.tile_extents_plain(bp),
+    nt = bp.shape[1] // ray_tile
+    print(f"[kernels] {name} (K6): {nt} tiles of {ray_tile}, "
+          f"{int(live.sum())} alive, equal")
+    _row(rows, name, err, lambda: T.tile_extents(bp, ray_tile),
+         lambda: T.tile_extents_plain(bp, ray_tile),
          _bound(OPS_EXTENTS * bp.shape[1], bp.numel() * 4 + nt * 64),
          f"{bp.shape[1]} rays")
     return plo, phi
 
 
-def _refine_extents_row(rows, name, rargs, shape):
+def _refine_extents_row(rows, name, rargs, shape, ray_tile=1024):
     """K5 dense with K6's extents (`refine_dense_extents`) on (pack, boxes)
-    `rargs` against its plain version, extents and bits bit for bit,
-    timed into rows[name] with its bound from this data's entered bits."""
+    `rargs` in tiles of `ray_tile` against its plain version, extents and
+    bits bit for bit, timed into rows[name] with its bound from this
+    data's entered bits."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
 
     bp = rargs[0]
-    flo, fhi, fent = T.refine_dense_extents(*rargs)
-    plo, phi, pent = T.refine_dense_extents_plain(*rargs)
+    tile = dict(ray_tile=ray_tile)
+    flo, fhi, fent = T.refine_dense_extents(*rargs, **tile)
+    plo, phi, pent = T.refine_dense_extents_plain(*rargs, **tile)
     _require(torch.equal(flo, plo) and torch.equal(fhi, phi)
              and torch.equal(fent, pent),
              f"{name} (K5 dense + K6): extents or bits differ from "
@@ -409,15 +447,15 @@ def _refine_extents_row(rows, name, rargs, shape):
     live = phi[:, 7] > 0
     err = float(torch.cat([(flo - plo)[live], (fhi - phi)[live]]).abs().max()
                 ) if live.any() else 0.0
-    c, nt = rargs[1].shape[0], bp.shape[1] // T.RAY_TILE
-    _, _, tests = _refine_bound(_tile_alive_lanes(bp),
-                                live.to(torch.int32) * c, pent.sum(dim=1),
-                                bp, c, c)
+    c, nt = rargs[1].shape[0], bp.shape[1] // ray_tile
+    lanes = _tile_alive_lanes(bp, ray_tile)
+    _, _, tests = _refine_bound(lanes, live.to(torch.int32) * c,
+                                pent.sum(dim=1), bp, c, c)
     print(f"[kernels] {name} (K5 dense + K6): extents and bits equal; "
           f"{int(pent.sum())} of {pent.numel()} bits set; "
-          f"{_list_stats(live * c, _tile_alive_lanes(bp))}")
-    _row(rows, name, err, lambda: T.refine_dense_extents(*rargs),
-         lambda: T.refine_dense_extents_plain(*rargs),
+          f"{_list_stats(live * c, lanes)}")
+    _row(rows, name, err, lambda: T.refine_dense_extents(*rargs, **tile),
+         lambda: T.refine_dense_extents_plain(*rargs, **tile),
          _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
                 bp.numel() * 4 + c * 24 + nt * 64 + nt * c * 4), shape)
 
@@ -462,8 +500,8 @@ def _steady_extents(rows, bp, plo, phi):
     packs = [bp] + [bp.clone() for _ in range(L2_COPIES - 1)]
     outs = [(torch.empty((nt, 8), device="cuda"),
              torch.empty((nt, 8), device="cuda")) for _ in packs]
-    calls = [(p.data_ptr(), p.shape[1], lo.data_ptr(), hi.data_ptr(), stream)
-             for p, (lo, hi) in zip(packs, outs)]
+    calls = [(p.data_ptr(), p.shape[1], T.RAY_TILE, lo.data_ptr(),
+              hi.data_ptr(), stream) for p, (lo, hi) in zip(packs, outs)]
     for args in calls:
         cuda.check(lib.rt_tile_extents(*args), "extents")
     _require(all(torch.equal(lo, plo) and torch.equal(hi, phi)
@@ -537,7 +575,7 @@ def phase_build():
                  or " 0 bytes spill stores, 0 bytes spill loads"
                  in " " + spill, f"{kernel}_kernel {variant} spills "
                  f"registers: {spill}")
-    cuda.library()
+    _print_occupancy(cuda.library())
     print(f"[build] {res.seconds:.2f} s -> {os.path.relpath(res.path, HERE)}")
     from raytracing_tpu_torch.geometry import native
 
@@ -548,6 +586,54 @@ def phase_build():
              "it")
     print(f"[build] host library {time.perf_counter() - t0:.2f} s")
     return res.seconds
+
+
+def _print_occupancy(lib):
+    """Resident blocks (and warps) per multiprocessor of every instance of
+    the pack kernels at each accepted tile's block of T / 4 threads, as
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor` reads them: the K2
+    instance (walk.cu, pmt nearest) first."""
+    import ctypes
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    threads = [t // 4 for t in reversed(T.RAY_TILES)]
+
+    def line(name, fn, *args, smem=None):
+        got = []
+        for n in threads:
+            blocks = ctypes.c_int(0)
+            extra = () if smem is None else (smem,)
+            _require(fn(*args, n, *extra, ctypes.byref(blocks)) == 0,
+                     f"occupancy of {name} at {n} threads failed")
+            got.append(f"{n} threads {blocks.value} blocks "
+                       f"({blocks.value * n // 32} warps)")
+        print(f"[build] occupancy {name}: {'; '.join(got)}")
+
+    families = {"pmt": 0, "pmto": 1, "mt": 2, "woop": 3}
+    line("walk (K1/K2) pmt nearest", lib.rt_walk_occupancy, 0, 1, 0, 0)
+    for fam, f in families.items():
+        for nearest, lc, capped in ((1, 0, 0), (1, 0, 1), (1, 1, 0),
+                                    (1, 1, 1), (0, 0, 0), (0, 1, 0)):
+            line(f"walk {fam} {'nearest' if nearest else 'occlusion'}"
+                 f"{' lane-cull' if lc else ''}{' capped' if capped else ''}",
+                 lib.rt_walk_occupancy, f, nearest, lc, capped)
+        for nearest, capped in ((1, 0), (1, 1), (0, 0)):
+            tag = f"{'nearest' if nearest else 'occlusion'}" \
+                  f"{' capped' if capped else ''}"
+            line(f"gstream {fam} {tag}", lib.rt_gstream_occupancy, f,
+                 nearest, capped)
+            if fam != "woop":
+                line(f"wq {fam} {tag}", lib.rt_wq_occupancy, f, nearest,
+                     capped)
+    line("extents", lib.rt_extents_occupancy)
+    for lists, capped in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        # the dense form's boxes for 100 clusters (the CS 128 bounce
+        # accel), the gathered form's for a run of _REFINE_RUN
+        smem = 7 * 4 * (T._REFINE_RUN if lists else 100)
+        line(f"refine {'gathered' if lists else 'dense'}"
+             f"{' capped' if capped else ''}", lib.rt_refine_occupancy,
+             lists, capped, smem=smem)
 
 
 def _compare_walk(tag, kern, plain, alive, nearest):
@@ -644,6 +730,8 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
     if kw.get("lane_bounds") is not None:
         plain = functools.partial(plain, lane_bounds=kw["lane_bounds"])
     rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
+    ray_tile = kw.get("ray_tile", T.RAY_TILE)
+    plain = functools.partial(plain, ray_tile=ray_tile)
     if kernel == "walk_wq":  # no early exit: every listed visit is made
         visits, tile_visits, out = cnt, cnt, fn(*args, **kw)
     else:
@@ -656,7 +744,7 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
     del want
     tr = args[-1]  # the per-ray limit row, read once
     bound = _walk_bound(tile_visits if bound_visits is None else bound_visits,
-                        _tile_alive_lanes(rp), cnt, geo, attr,
+                        _tile_alive_lanes(rp, ray_tile), cnt, geo, attr,
                         n_attrs if nearest else 0, cs, rp.shape[1],
                         rp.numel() * 4 + (0 if tr is None else tr.numel() * 4),
                         ops_per_test, kw.get("tnear") is not None,
@@ -1150,7 +1238,7 @@ def _timed_refine_lists(rows, name, rargs, what):
     pkeep, plain_ms = _timed_once(lambda: T.refine_lists_plain(*rargs))
     bad = int((keep != pkeep).sum())
     _require(bad == 0, f"{name} (K5 gathered): {bad} bits differ")
-    alive = _tile_alive_lanes(bp)
+    alive = _tile_alive_lanes(bp, bp.shape[1] // ids.shape[0])
     print(f"[kernels] {name} (K5 gathered), {what}: {c} clusters, lists "
           f"{tuple(ids.shape)}: {int(pkeep.sum())} of {int(cnt.sum())} "
           f"candidates kept, equal; {_list_stats(cnt, alive)}")
@@ -1268,7 +1356,7 @@ def _lane_cull_visits(args, kw):
     from raytracing_tpu_torch.kernels import traverse as T
 
     rp, ids, cnt = args[:3]
-    pack = rp.reshape(8, -1, 1, T.RAY_TILE)
+    pack = rp.reshape(8, -1, 1, kw.get("ray_tile", T.RAY_TILE))
     kept = torch.zeros(cnt.shape, dtype=torch.int64, device=rp.device)
     for j in range(int(cnt.max())):
         act = torch.nonzero(cnt > j).squeeze(1)
@@ -1483,6 +1571,287 @@ def phase_variants(rows):
     launches["walk_lc"] = frames["gi_wq False, lane cull"][1].get("walk_lc", 0)
     _require(not frames["gi_wq False, no lane cull"][1].get("walk_lc", 0),
              "the frame without lane cull launched the lane-cull walk")
+    return launches
+
+
+def _steady_extents_entry(bp, ray_tile):
+    """K6's entry at `ray_tile` read steadily as `_steady_extents` reads
+    it: STEADY_LAUNCHES direct calls in one pair of CUDA events, over
+    L2_COPIES copies of the pack in turns (ms per launch)."""
+    import itertools
+
+    import torch
+
+    from raytracing_tpu_torch.kernels import cuda
+
+    nt = bp.shape[1] // ray_tile
+    lib = cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    packs = [bp] + [bp.clone() for _ in range(L2_COPIES - 1)]
+    outs = [torch.empty((2, nt, 8), device="cuda") for _ in packs]
+    calls = itertools.cycle([(p.data_ptr(), p.shape[1], ray_tile,
+                              o[0].data_ptr(), o[1].data_ptr(), stream)
+                             for p, o in zip(packs, outs)])
+    return _steady_ms(lambda: lib.rt_tile_extents(*next(calls)))
+
+
+def _tile_sweep(bp, acc128, eps, na, early):
+    """The depth-2 wavefront's kernels at every accepted tile, in turns
+    (1,024 first and last): K6 (its entry, steady), K5 dense + K6 (steady,
+    200 wrapper calls), K2 (`_walk_dma`, median of 5, with the visits it
+    made and the lists' length) and K1 with the lane cull (a gi_wq=False
+    frame's bounce walk; median of 5, visits staged). Prints each reading
+    and returns {tile: {metric: value}}."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    cmin, cmax = acc128.cluster_min, acc128.cluster_max
+    tiles = T.RAY_TILES[::-1]
+    out = {t: {} for t in tiles}
+    walks = {}
+    for t in tiles:
+        walks[t] = {
+            "k2": T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                                   early_exit=early, ray_tile=t),
+            "k1_lc": T._groups_walk_args(acc128, bp, eps, True, INF, na,
+                                         early_exit=early, lane_cull=True,
+                                         ray_tile=t)}
+    for rnd, order in enumerate((tiles, tiles[::-1])):
+        for t in order:
+            o = out[t]
+            o.setdefault("k6_ms", []).append(_steady_extents_entry(bp, t))
+            o.setdefault("k5k6_ms", []).append(_steady_ms(
+                lambda: T.refine_dense_extents(bp, cmin, cmax, ray_tile=t)))
+            for name, (args, kw) in walks[t].items():
+                o.setdefault(f"{name}_ms", []).append(
+                    _median_ms(lambda: T.walk(*args, **kw)))
+                if rnd == 0:
+                    visits = torch.zeros(args[2].shape, dtype=torch.int32,
+                                         device="cuda")
+                    T.walk(*args, **kw, visits=visits)
+                    o[f"{name}_visits"] = int(visits.sum())
+                    o[f"{name}_listed"] = int(args[2].sum())
+                    o[f"{name}_tiles"] = int(args[2].numel())
+    for t in tiles:
+        o = out[t]
+        print(f"[ray_tile] wavefront {bp.shape[1]} rays, 100x128, tile {t} "
+              f"({bp.shape[1] // t} tiles): K6 entry {o['k6_ms']} ms; "
+              f"K5 dense + K6 {o['k5k6_ms']} ms; K2 {o['k2_ms']} ms, "
+              f"{o['k2_visits']} of {o['k2_listed']} listed visits; K1 "
+              f"lane cull {o['k1_lc_ms']} ms, {o['k1_lc_visits']} of "
+              f"{o['k1_lc_listed']} listed visits staged")
+    return out
+
+
+def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
+    """3j. The bounce levels' culling tile (`RenderConfig.gi_ray_tile`,
+    `ray_tile=` of every pack kernel): every kernel at a tile of 256
+    against its plain version at 256, bit for bit on alive lanes, timed
+    (rows "<kernel>_rt256"): K6, K5 dense + K6, K2, K1 with and without
+    the lane cull and K4 on 3a's 720,896-ray wavefront (CS 128), K2 ten
+    launches equal under its racing exit; K5 gathered on the 404k
+    wavefront (3,160 clusters, 3c's shape) and K3 on the 1.6M Whitted
+    frame's chunk-12 primaries and sun shadows (12,640 x 128 in 4
+    groups, 3e's shape). Then the wavefront's kernels at every accepted
+    tile in turns (`_tile_sweep`), and frames: the reference frame at
+    gi_ray_tile 1,024, 512 and 256 timed in turns, equal bit for bit,
+    each one's launches; and the frames whose launches count the other
+    rows at 256, each equal to its frame at 1,024: gi_wq=False (K1 with
+    the lane cull, K6), gi_wq=False without the lane cull (K1),
+    `_WQ_IMPL = "grid"` with no coarse bounce accel (K4 over K5
+    gathered's lists: 790 clusters), and gi_wq=False with no coarse
+    bounce accel and the group budget patched (K3 in 4 groups). Returns
+    the rows' launches."""
+    import torch
+
+    from raytracing_tpu_torch import (RenderConfig, bench,
+                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch.accel import packets
+    from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
+                                                     sun_position)
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.ops.intersect import INF
+    from raytracing_tpu_torch.ops.linalg import dot, normalize
+
+    dev = "cuda"
+    t = GI_TILE
+    cfg = RenderConfig()
+    scene = build_default_scene(device=dev)
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    acc128 = build_cluster_accel(scene.mesh, cluster_size=128)
+    eps, na = cfg.eps, acc16.attr_blocks.shape[1]
+    early = True if cfg.gi_early_exit else None
+    o, d = camera_rays_for_ids(
+        block_ray_ids(KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev), cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ob, db, ab = whitted.bounce_wavefront(
+        scene.mesh, acc16, scene.sun, o, d, cfg,
+        lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
+    bp, _ = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
+    balive = bp[7] != 0
+    c128 = acc128.num_clusters
+    wave = f"{bp.shape[1]} rays, {c128}x128, tiles of {t}"
+    _extents_row(rows, f"extents_rt{t}", bp, t)
+    rargs = (bp, acc128.cluster_min, acc128.cluster_max)
+    _refine_extents_row(rows, f"refine_extents_rt{t}", rargs,
+                        f"{wave}, the extents and the bits", t)
+    _, phi = T.tile_extents_plain(bp, t)
+    flags = phi[:, 7] > 0.0
+    _require(torch.equal(T.refine_dense(*rargs, flags, ray_tile=t),
+                         T.refine_dense_plain(*rargs, flags, ray_tile=t)),
+             f"refine (K5 dense, flags given) at {t}: bits differ")
+    dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                                  early_exit=early, ray_tile=t)
+    _timed_walk(rows, f"walk_dma_rt{t}", f"walk_dma (K2) bounce "
+                f"nearest+attrs at {t}", T, dargs, dkw, balive, OPS_PMT,
+                wave, plain_reps=1)
+    _check_repeats(f"walk_dma (K2) bounce nearest+attrs at {t}", T.walk,
+                   dargs, dkw, balive)
+    oargs, okw = T._dma_walk_args(acc128, bp, eps, False, INF, 0,
+                                  ray_tile=t)
+    _compare_walk(f"walk_dma (K2) bounce occlusion at {t}",
+                  T.walk(*oargs, **okw), T.walk_plain(*oargs, ray_tile=t),
+                  balive, False)
+    for name, lc in ((f"walk_rt{t}", False), (f"walk_lc_rt{t}", True)):
+        largs, lkw = T._groups_walk_args(acc128, bp, eps, True, INF, na,
+                                         early_exit=early, lane_cull=lc,
+                                         ray_tile=t)
+        _timed_walk(rows, name, f"walk (K1) bounce nearest+attrs at {t}"
+                    f"{', lane cull' if lc else ''}", T, largs, lkw, balive,
+                    OPS_PMT, f"{wave}{', lane cull' if lc else ''}",
+                    plain_reps=1,
+                    bound_visits=_lane_cull_visits(largs, lkw) if lc
+                    else None)
+    largs, lkw = T._groups_walk_args(acc128, bp, eps, False, INF, 0,
+                                     lane_cull=True, ray_tile=t)
+    _compare_walk(f"walk (K1) bounce occlusion at {t}, lane cull",
+                  T.walk(*largs, **lkw),
+                  T.walk_plain(*largs, ray_tile=t,
+                               lane_bounds=lkw["lane_bounds"]),
+                  balive, False)
+    wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na, ray_tile=t)
+    k4 = _timed_walk(rows, f"walk_wq_rt{t}", f"walk_wq (K4) bounce "
+                     f"nearest+attrs at {t}", T, wargs, wkw, balive, OPS_PMT,
+                     f"{wave}, {wkw['u']} visits per work item",
+                     plain_reps=1, kernel="walk_wq")
+    _compare_walk(f"walk_wq (K4) vs walk_dma (K2) at {t}", k4,
+                  T.walk(*dargs, **dkw), balive, True)
+    # Against the default tile: the same winners, lane by lane.
+    a1024, k1024 = T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                                    early_exit=early)
+    _compare_walk(f"walk_dma (K2) at {t} vs at {T.RAY_TILE}",
+                  T.walk(*dargs, **dkw), T.walk(*a1024, **k1024), balive,
+                  True)
+    del a1024, k1024, k4
+
+    # K5 gathered on the 404k wavefront (3c's shape).
+    bp404, nb404, alive404 = _wavefront_404k(scene404, acc64_404k)
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        bp404, acc128_404k.cluster_min, acc128_404k.cluster_max,
+        ray_tile=t))
+    _timed_refine_lists(rows, f"refine_lists_rt{t}",
+                        (bp404, ids, cnt, acc128_404k.cluster_min,
+                         acc128_404k.cluster_max, None, t),
+                        f"the 404k wavefront ({alive404} of {nb404} rays "
+                        f"alive), tiles of {t}")
+    del bp404, ids, cnt
+
+    # K3 on the 1.6M frame's chunk-12 primaries and their sun shadows.
+    mesh = subdivided_teapot_mesh(levels=4, device=dev)
+    acc = build_cluster_accel(mesh, cluster_size=128, variants=("pmt",))
+    o12, d12 = camera_rays_for_ids(
+        block_ray_ids(LARGE_KERNEL_CHUNK, cfg.chunk_size, cfg, device=dev),
+        cfg)
+    rp = T.rays_to_soa(o12, d12)
+    gargs, gkw = T._gstream_walk_args(acc, rp, eps, True, INF,
+                                      acc.attr_blocks.shape[1], ray_tile=t)
+    _require(gargs[1].shape[0] == 4, "K3 at 1.6M: not 4 groups")
+    gt, gs, ga = _timed_walk(
+        rows, f"walk_gstream_rt{t}", f"walk_gstream (K3) 1.6M chunk "
+        f"primaries at {t}", T, gargs, gkw, rp[7] != 0, OPS_PMT,
+        f"{rp.shape[1]} rays, {acc.num_clusters}x128 in 4 groups, tiles of "
+        f"{t}", kernel="walk_gstream", plain_reps=1)
+    _check_repeats(f"walk_gstream (K3) 1.6M chunk primaries at {t}",
+                   T.walk_gstream, gargs, gkw, rp[7] != 0)
+    hit = torch.isfinite(gt[0])
+    pos = o12 + torch.where(hit, gt[0], 1.0)[:, None] * d12 \
+        + ga[0:3].T * cfg.normal_offset
+    sun_dir = normalize(sun_position(0.0).to(dev) - pos, eps=1e-20)
+    sh = T.rays_to_soa(pos, sun_dir, alive=hit & (dot(ga[0:3].T, sun_dir)
+                                                  > 0.0))
+    sargs, skw = T._gstream_walk_args(acc, sh, eps, False, INF, 0,
+                                      ray_tile=t)
+    _compare_walk(f"walk_gstream (K3) 1.6M chunk sun shadows at {t}",
+                  T.walk_gstream(*sargs, **skw),
+                  T.walk_gstream_plain(*sargs, ray_tile=t), sh[7] != 0,
+                  False)
+    del mesh, acc, gargs, gkw, sargs, skw, gt, gs, ga
+
+    sweep = _tile_sweep(bp, acc128, eps, na, early)
+    del bp
+
+    # Frames: the reference frame at 1,024, 512 and 256 in turns.
+    frames = {}
+    for tile in (1024, 512, 256, 256, 512, 1024):
+        img, fl, _, first, times = bench.timed_frames(
+            scene, cfg.replace(gi_ray_tile=tile), acc16, 1)
+        f = frames.setdefault(tile, dict(img=img, launches=fl, s=[]))
+        f["s"] += [first] + times
+        _require(torch.equal(img, frames[1024]["img"]),
+                 f"the reference frame at gi_ray_tile {tile} differs from "
+                 f"the default frame")
+    for tile, f in frames.items():
+        print(f"[ray_tile] reference frame, gi_ray_tile {tile}: counted / "
+              f"timed s in turns {f['s']}; equal to the default frame; "
+              f"launches { {k: v for k, v in f['launches'].items() if v} }")
+    launches = {k: v for k, v in frames[t]["launches"].items()
+                if k.endswith(f"_rt{t}")}
+    # The frames that run the other kernels at 256, each against 1,024.
+    budget, impl = packets._GROUP_BLOCK_BUDGET_BYTES, T._WQ_IMPL
+    cases = (("gi_wq False", dict(gi_wq=False), {}),
+             ("gi_wq False, no lane cull",
+              dict(gi_wq=False, gi_lane_cull=False), {}),
+             ("grid, no coarse bounce accel", dict(gi_cluster_size=0),
+              dict(impl="grid")),
+             ("gi_wq False, no coarse bounce accel, budget patched",
+              dict(gi_wq=False, gi_cluster_size=0), dict(budget=1)))
+    try:
+        for tag, change, patch in cases:
+            T._WQ_IMPL = patch.get("impl", impl)
+            packets._GROUP_BLOCK_BUDGET_BYTES = patch.get("budget", budget)
+            imgs = {}
+            for tile in (1024, t):
+                img, fl, _, first, times = bench.timed_frames(
+                    scene, cfg.replace(gi_ray_tile=tile, **change), acc16,
+                    1)
+                imgs[tile] = img
+                print(f"[ray_tile] reference frame, {tag}, gi_ray_tile "
+                      f"{tile}: {first:.3f} s counted, {times[0]:.3f} s "
+                      f"timed; launches "
+                      f"{ {k: v for k, v in fl.items() if v} }")
+                if tile == t:
+                    for k, v in fl.items():
+                        if k.endswith(f"_rt{t}"):
+                            launches[k] = max(launches.get(k, 0), v)
+            _require(torch.equal(imgs[1024], imgs[t]),
+                     f"the reference frame, {tag}: gi_ray_tile {t} differs "
+                     f"from 1,024")
+            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile {t} "
+                  f"equal to 1,024")
+    finally:
+        T._WQ_IMPL = impl
+        packets._GROUP_BLOCK_BUDGET_BYTES = budget
+    print("[ray_tile] summary " + json.dumps({
+        "card": card, "sweep": sweep,
+        "frames": {tile: dict(s=f["s"], launches={
+            k: v for k, v in f["launches"].items() if v})
+            for tile, f in frames.items()}}))
     return launches
 
 
@@ -2312,11 +2681,15 @@ def _path_rows(rows, calls, suffix, where):
     def most_alive(cs):
         return max(cs, key=lambda c: int((c[0][0][7] != 0).sum()))[0]
 
+    # `_refined_lists` calls (pack, boxes, t_cap, ray_tile); these paths
+    # run no cap.
     rargs = most_alive(calls["refine_dense_extents"])
-    _refine_extents_row(rows, "refine_extents" + suffix, rargs,
+    _require(rargs[3] is None, f"{where}: a capped dense query")
+    _refine_extents_row(rows, "refine_extents" + suffix, rargs[:3],
                         f"{rargs[0].shape[1]} rays, {rargs[1].shape[0]} "
                         f"clusters, {where}: the launch with the most alive "
-                        f"lanes of {len(calls['refine_dense_extents'])}")
+                        f"lanes of {len(calls['refine_dense_extents'])}",
+                        rargs[4])
     _extents_row(rows, "extents" + suffix,
                  most_alive(calls["tile_extents"])[0])
 
@@ -2894,6 +3267,7 @@ def main() -> int:
     phase_frame_parity()
     ref_launches, cam_launches = phase_reference_frame(rows)
     variant_launches = phase_variants(rows)
+    tile_launches = phase_ray_tile(rows, card, *large[:3])
     phase_headline()
     (rate_launches, big_launches, gstream_launches,
      frame_1m6_launches) = phase_large_scenes(rows, *large)
@@ -2920,6 +3294,7 @@ def main() -> int:
     launches["walk_both_bounce"] = bwd_launches["walk_both"]
     launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
     launches.update(variant_launches)
+    launches.update(tile_launches)
     for k in ("walk", "walk_dma", "refine_extents", "extents"):
         launches[k + "_cli"] = cli_launches[k]
         launches[k + "_sharded"] = multi_launches["ref_4"][k]

@@ -67,8 +67,12 @@ class RenderConfig:
     # Cluster size of the auto-built coarse accel for bounce levels
     # (0 disables it). Exact either way.
     gi_cluster_size: int = 128
-    # Culling-tile size for bounce levels. The port always walks 1024-ray
-    # tiles; the image is the same for any value.
+    # Culling tile (rays per tile) of the bounce levels' (depth > 1)
+    # nearest and shadow queries on the kernel path: bounce rays diverge,
+    # so a 1024-ray tile's frustum balloons; a smaller tile tightens it
+    # (fewer clusters listed) for more tiles. 0 = the kernels' default
+    # (kernels/traverse.RAY_TILE, 1024); else one of traverse.RAY_TILES
+    # (128, 256, 512, 1024; another value raises). Exact either way.
     gi_ray_tile: int = 0
     # Per-visit lane-cull pre-test of bounce queries in the K1 walk (the
     # `_walk_groups` entry; not K2, K3 or K4, as on the TPU). It skips

@@ -111,7 +111,8 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
                        + threadIdx.x;
   const int lanes = rt_rays - base;  // the pass's rays
   const bool use_exit = early != 0;
-  const KeyShare share{split && use_exit ? keys + i0 : nullptr, lanes};
+  const KeyShare<kThreads> share{split && use_exit ? keys + i0 : nullptr,
+                                 lanes};
   const long long row = static_cast<long long>(local) * width;
   ring_setup(ring, use_exit ? bbox : nullptr, 0);
   const int visited = walk_segments<R, kPmto, true, LC, false>(
@@ -119,9 +120,10 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
       first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, inf(),
       t_lim, lcb, use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + local, visited);
-  finish_tile<R, true>(split, i0, lanes, np, best_t, best_s, keys,
-                       finished + sub, parts, attr, attr_stride, n_attrs, cs,
-                       out_t, out_s, out_a);
+  finish_tile<R, true, kThreads>(split, i0, lanes, np, best_t, best_s,
+                                 keys, finished + sub, parts, attr,
+                                 attr_stride, n_attrs, cs, out_t, out_s,
+                                 out_a);
 }
 
 using CameraKernel = decltype(&camera_walk_kernel<4, false>);

@@ -50,7 +50,7 @@ namespace {
 // (group, tile) list) * nt + tile.
 template <int F, bool NEAREST, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
-gstream_kernel(const float* __restrict__ rays, long long np,
+gstream_kernel(const float* __restrict__ rays, long long np, unsigned nt,
                const float* __restrict__ tmax_row,
                const int* __restrict__ ids, const int* __restrict__ cnt,
                const float* __restrict__ tnear, int width, int seg,
@@ -64,7 +64,9 @@ gstream_kernel(const float* __restrict__ rays, long long np,
                int* __restrict__ out_s, float* __restrict__ out_a,
                int* __restrict__ visits) {
   __shared__ WalkRing ring;
-  const unsigned nt = static_cast<unsigned>(np / kRayTile);
+  // nt = np / ray_tile tiles: a parameter, so that no register holds it
+  // through the walk (K3's pmto nearest instance spilled).
+  const int tile_rays = block_tile();
   const long long tile = blockIdx.x % nt;
   const unsigned rest = blockIdx.x / nt;
   const int g = rest / tile_blocks;
@@ -97,8 +99,9 @@ gstream_kernel(const float* __restrict__ rays, long long np,
   float t_lim[kRaysPerThread];
   load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
                  best_s);
-  const long long i0 = tile * kRayTile + threadIdx.x;
-  const KeyShare share{split && use_exit ? keys + i0 : nullptr, kRayTile};
+  const long long i0 = ray_index(tile, 0);
+  const KeyShare<kPackStride> share{split && use_exit ? keys + i0 : nullptr,
+                                    tile_rays};
   const long long row = gt * width;
   // The group's box and first cluster: its ids are local to it.
   ring_setup(ring, use_exit ? bbox + 6 * g : nullptr, g * gsz);
@@ -110,8 +113,8 @@ gstream_kernel(const float* __restrict__ rays, long long np,
   if (visits != nullptr && threadIdx.x == 0) {  // the group read back
     atomicAdd(visits + (ring.id_base / gsz) * nt + tile, visited);
   }
-  finish_tile<kRaysPerThread, NEAREST>(
-      split, i0, kRayTile, np, best_t, best_s, keys, finished + tile, parts,
+  finish_tile<kRaysPerThread, NEAREST, kPackStride>(
+      split, i0, tile_rays, np, best_t, best_s, keys, finished + tile, parts,
       attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
 }
 
@@ -131,20 +134,23 @@ GstreamKernel gstream_instance(int f) {
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; tmax_row [np] or null; ids [G, nt, width] i32 group-local
+// rays [8, np] in tiles of ray_tile (common.cuh's ray_tile_ok), nt =
+// np / ray_tile; tmax_row [np] or null; ids [G, nt, width] i32 group-local
 // with cnt [G, nt] listed clusters per (group, tile), each list in segments
 // of `seg` dealt to `tile_blocks` blocks; tnear [G, nt, width] and bbox
 // [G, 6] (each group's union-box min | max; only read when early != 0); geo
 // and attr hold G * gsz clusters as rt_walk takes them (the last group
-// padded); family and t_max as rt_walk takes them. Scratch the launch fills: keys, np 8-byte words, 8-byte aligned
-// (nearest only; may be null for occlusion), and finished [nt] i32. Outputs
+// padded); family and t_max as rt_walk takes them. Scratch the launch
+// fills: keys, np 8-byte words, 8-byte aligned (nearest only; may be null
+// for occlusion), and finished [nt] i32. Outputs
 // t [np], global slot or hit flag [np] i32, attrs [n_attrs, np], and, where
 // visits is not null, the clusters each (group, tile) visited [G, nt] i32
 // (they differ from run to run under the early exit). Slots must fit below
 // 2^30. Two launches on the stream: fill, blocks.
 extern "C" int rt_walk_gstream(const float* rays, long long np,
-                               const float* tmax_row, const int* ids,
-                               const int* cnt, const float* tnear, int width,
+                               int ray_tile, const float* tmax_row,
+                               const int* ids, const int* cnt,
+                               const float* tnear, int width,
                                int seg, int tile_blocks, int n_groups,
                                int gsz, const float* bbox, const float* geo,
                                long long geo_stride, const float* attr,
@@ -154,7 +160,7 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
                                unsigned long long* keys, int* finished,
                                float* out_t, int* out_s, float* out_a,
                                int* visits, void* stream) {
-  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
+  if (!rt::ray_tile_ok(np, ray_tile) || width <= 0 || ee_batch <= 0
       || seg <= 0 || tile_blocks <= 0 || finished == nullptr
       || !rt::walk_tables_ok(geo, geo_stride, cs, family) || n_groups <= 0
       || gsz <= 0
@@ -163,7 +169,7 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
   }
-  const long long nt = np / rt::kRayTile;
+  const long long nt = np / ray_tile;
   if (nt * n_groups * tile_blocks > 2147483647ll) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, nearest != 0, keys, out_t, nt, finished,
@@ -171,10 +177,23 @@ extern "C" int rt_walk_gstream(const float* rays, long long np,
   auto kern = !nearest ? rt::gstream_instance<false, false>(family)
               : rt::is_capped(t_max) ? rt::gstream_instance<true, true>(family)
                                      : rt::gstream_instance<true, false>(family);
-  kern<<<static_cast<unsigned>(nt * n_groups * tile_blocks), rt::kThreads, 0,
-         s>>>(rays, np, tmax_row, ids, cnt, tnear, width, seg, tile_blocks,
-              n_groups, gsz, bbox, geo, geo_stride, attr, attr_stride,
-              n_attrs, cs, eps, t_max, early, ee_batch, keys, finished, out_t,
-              out_s, out_a, visits);
+  kern<<<static_cast<unsigned>(nt * n_groups * tile_blocks),
+         rt::tile_threads(ray_tile), 0, s>>>(
+      rays, np, static_cast<unsigned>(nt), tmax_row, ids, cnt, tnear,
+      width, seg, tile_blocks, n_groups, gsz, bbox, geo, geo_stride, attr,
+      attr_stride, n_attrs, cs, eps, t_max, early, ee_batch, keys, finished,
+      out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a multiprocessor holds of the instance rt_walk_gstream
+// launches for (family, nearest, capped) at `threads` a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int rt_gstream_occupancy(int family, int nearest, int capped,
+                                    int threads, int* blocks) {
+  auto kern = !nearest ? rt::gstream_instance<false, false>(family)
+              : capped ? rt::gstream_instance<true, true>(family)
+                       : rt::gstream_instance<true, false>(family);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, threads, 0));
 }

@@ -19,7 +19,9 @@
 // 1.6M triangles, 4 in 5 of the dense table's), so the design makes each
 // (ray, box) test cheap and keeps every warp busy:
 //  - a thread holds its 4 lanes of the tile in registers (origin and
-//    reciprocal direction); a degenerate axis gets a NaN reciprocal: its
+//    reciprocal direction; a block of ray_tile / 4 threads holds the
+//    tile, each warp 128 consecutive lanes of it: common.cuh's
+//    ray_index); a degenerate axis gets a NaN reciprocal: its
 //    slab bounds are NaN, which fminf / fmaxf drop, so the axis bounds
 //    nothing, as the plain version's -inf / +inf do, with no flag or
 //    select per test;
@@ -60,7 +62,9 @@
 namespace rt {
 namespace {
 
-constexpr int kWarps = kThreads / 32;
+// Most warps a block holds (a tile of kRayTile rays); a smaller tile's
+// block holds ray_tile / 128.
+constexpr int kMaxWarps = kThreads / 32;
 
 // A thread's 4 lanes of the tile: origin and reciprocal direction (NaN on
 // a degenerate axis), alive flag.
@@ -95,11 +99,6 @@ __device__ __forceinline__ bool slab_enters(const float o[3],
   return tn <= tf && tf >= 0.0f;
 }
 
-// Lane tile * 1024 + threadIdx.x + r * kThreads: neighbouring threads
-// read neighbouring rays, so every row load is coalesced.
-__device__ __forceinline__ long long lane_index(int tile, int r) {
-  return static_cast<long long>(tile) * kRayTile + threadIdx.x + r * kThreads;
-}
 
 // Row `row` of lane r: an origin, or a reciprocal direction (1 / d as the
 // plain version takes it where |d| >= tiny; NaN on a degenerate axis).
@@ -127,7 +126,7 @@ __device__ __forceinline__ void test_candidates(const Lanes& L, int m,
   for (int r = 0; r < kRaysPerThread; ++r) mine = mine | L.alive[r];
   if (!__any_sync(0xffffffffu, mine)) return;
   volatile int* mark = s_bit;
-  int j = warp * m / kWarps;
+  int j = warp * m / static_cast<int>(blockDim.x / 32);
   for (int i = 0; i < m; ++i, j = j + 1 == m ? 0 : j + 1) {
     if (__any_sync(0xffffffffu, mark[j] != 0)) continue;
     const float lo[3] = {s_box[6 * j], s_box[6 * j + 1], s_box[6 * j + 2]};
@@ -154,8 +153,8 @@ refine_kernel(const float* __restrict__ rays, long long np,
               int n_clusters, float cap, const int* __restrict__ tile_alive,
               float* __restrict__ lo, float* __restrict__ hi,
               int* __restrict__ out) {
-  __shared__ float s_lo[kWarps][8];
-  __shared__ float s_hi[kWarps][8];
+  __shared__ float s_lo[kMaxWarps][8];
+  __shared__ float s_hi[kMaxWarps][8];
   __shared__ int s_live;
   extern __shared__ float s_box[];
   int* s_bit = reinterpret_cast<int*>(s_box + 6 * n_clusters);
@@ -169,7 +168,7 @@ refine_kernel(const float* __restrict__ rays, long long np,
   float v[kRaysPerThread];
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    v[r] = rays[7 * np + lane_index(tile, r)];
+    v[r] = rays[7 * np + ray_index(tile, r)];
     L.alive[r] = v[r] != 0.0f;
   }
 #pragma unroll
@@ -177,7 +176,7 @@ refine_kernel(const float* __restrict__ rays, long long np,
     if (row != 7) {
 #pragma unroll
       for (int r = 0; r < kRaysPerThread; ++r) {
-        v[r] = rays[row * np + lane_index(tile, r)];
+        v[r] = rays[row * np + ray_index(tile, r)];
       }
     }
     float m_lo = big();
@@ -200,19 +199,19 @@ refine_kernel(const float* __restrict__ rays, long long np,
       s_hi[warp][row] = m_hi;
     }
   }
-  for (int e = threadIdx.x; e < 3 * n_clusters; e += kThreads) {
+  for (int e = threadIdx.x; e < 3 * n_clusters; e += blockDim.x) {
     const int c = e / 3;
     const int k = e % 3;
     s_box[6 * c + k] = cmin[e];
     s_box[6 * c + 3 + k] = cmax[e];
   }
-  for (int c = threadIdx.x; c < n_clusters; c += kThreads) s_bit[c] = 0;
+  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) s_bit[c] = 0;
   __syncthreads();
   if (threadIdx.x < 8) {
     const int row = threadIdx.x;
     float m_lo = s_lo[0][row];
     float m_hi = s_hi[0][row];
-    for (int w = 1; w < kWarps; ++w) {
+    for (int w = 1; w < static_cast<int>(blockDim.x / 32); ++w) {
       m_lo = fminf(m_lo, s_lo[w][row]);
       m_hi = fmaxf(m_hi, s_hi[w][row]);
     }
@@ -228,7 +227,7 @@ refine_kernel(const float* __restrict__ rays, long long np,
   if (s_live) test_candidates<CAPPED>(L, n_clusters, s_box, s_bit, cap);
   __syncthreads();
   int* row_out = out + static_cast<long long>(tile) * n_clusters;
-  for (int c = threadIdx.x; c < n_clusters; c += kThreads) {
+  for (int c = threadIdx.x; c < n_clusters; c += blockDim.x) {
     row_out[c] = s_bit[c];
   }
 }
@@ -252,7 +251,7 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
   const int stride = tile_blocks * run;
   if (b * run >= n) {  // no listed position: its runs read 0
     for (int p0 = b * run; p0 < width; p0 += stride) {
-      for (int j = threadIdx.x; j < run && p0 + j < width; j += kThreads) {
+      for (int j = threadIdx.x; j < run && p0 + j < width; j += blockDim.x) {
         out[list + p0 + j] = 0;
       }
     }
@@ -261,7 +260,7 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
   Lanes L;
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    const long long i = lane_index(tile, r);
+    const long long i = ray_index(tile, r);
     L.alive[r] = rays[7 * np + i] != 0.0f;
 #pragma unroll
     for (int row = 0; row < 7; ++row) {
@@ -272,7 +271,7 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
   for (int p0 = b * run; p0 < width; p0 += stride) {
     const int listed = max(0, min(run, n - p0));  // positions to test
     const int owned = min(run, width - p0);
-    for (int j = threadIdx.x; j < listed; j += kThreads) {
+    for (int j = threadIdx.x; j < listed; j += blockDim.x) {
       const int c = ids[list + p0 + j];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -284,7 +283,7 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
     __syncthreads();
     test_candidates<CAPPED>(L, listed, s_box, s_bit, cap);
     __syncthreads();
-    for (int j = threadIdx.x; j < owned; j += kThreads) {
+    for (int j = threadIdx.x; j < owned; j += blockDim.x) {
       out[list + p0 + j] = j < listed ? s_bit[j] : 0;
     }
     __syncthreads();
@@ -294,16 +293,16 @@ refine_lists_kernel(const float* __restrict__ rays, long long np,
 // A finite cap takes the capped instances.
 bool capped(float cap) { return cap < std::numeric_limits<float>::infinity(); }
 
-int launch_dense(const float* rays, long long np, const float* cmin,
-                 const float* cmax, int n_clusters, float cap,
-                 const int* tile_alive, float* lo, float* hi, int* out,
-                 void* stream) {
-  if (np <= 0 || np % kRayTile != 0 || n_clusters <= 0
+int launch_dense(const float* rays, long long np, int ray_tile,
+                 const float* cmin, const float* cmax, int n_clusters,
+                 float cap, const int* tile_alive, float* lo, float* hi,
+                 int* out, void* stream) {
+  if (!ray_tile_ok(np, ray_tile) || n_clusters <= 0
       || n_clusters > kMaxRefineClusters) {
     return cudaErrorInvalidValue;
   }
   auto kern = capped(cap) ? refine_kernel<true> : refine_kernel<false>;
-  kern<<<static_cast<unsigned>(np / kRayTile), kThreads,
+  kern<<<static_cast<unsigned>(np / ray_tile), tile_threads(ray_tile),
          n_clusters * 7 * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       rays, np, cmin, cmax, n_clusters, cap, tile_alive, lo, hi, out);
   return static_cast<int>(cudaGetLastError());
@@ -312,50 +311,67 @@ int launch_dense(const float* rays, long long np, const float* cmin,
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; cmin, cmax [C, 3]; cap: +inf, or the cap of a two-phase
-// query's first phase; tile_alive [np / 1024] i32; out [np / 1024, C] i32.
-extern "C" int rt_refine_dense(const float* rays, long long np,
+// rays [8, np] in tiles of ray_tile (common.cuh's ray_tile_ok); cmin,
+// cmax [C, 3]; cap: +inf, or the cap of a two-phase query's first phase;
+// tile_alive [nt] i32; out [nt, C] i32, nt = np / ray_tile.
+extern "C" int rt_refine_dense(const float* rays, long long np, int ray_tile,
                                const float* cmin, const float* cmax,
                                int n_clusters, float cap,
                                const int* tile_alive, int* out,
                                void* stream) {
   if (tile_alive == nullptr) return cudaErrorInvalidValue;
-  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, cap, tile_alive,
-                          nullptr, nullptr, out, stream);
+  return rt::launch_dense(rays, np, ray_tile, cmin, cmax, n_clusters, cap,
+                          tile_alive, nullptr, nullptr, out, stream);
 }
 
-// The dense refined-list query in one launch: lo, hi [np / 1024, 8] f32 as
-// rt_tile_extents writes them, and out [np / 1024, C] i32 as
-// rt_refine_dense with tile-alive flags hi[:, 7] > 0.
+// The dense refined-list query in one launch: lo, hi [nt, 8] f32 as
+// rt_tile_extents writes them, and out [nt, C] i32 as rt_refine_dense with
+// tile-alive flags hi[:, 7] > 0.
 extern "C" int rt_refine_dense_extents(const float* rays, long long np,
-                                       const float* cmin, const float* cmax,
-                                       int n_clusters, float cap, float* lo,
-                                       float* hi, int* out, void* stream) {
+                                       int ray_tile, const float* cmin,
+                                       const float* cmax, int n_clusters,
+                                       float cap, float* lo, float* hi,
+                                       int* out, void* stream) {
   if (lo == nullptr || hi == nullptr) return cudaErrorInvalidValue;
-  return rt::launch_dense(rays, np, cmin, cmax, n_clusters, cap, nullptr, lo,
-                          hi, out, stream);
+  return rt::launch_dense(rays, np, ray_tile, cmin, cmax, n_clusters, cap,
+                          nullptr, lo, hi, out, stream);
 }
 
-// rays [8, np]; ids [np / 1024, width] i32 with cnt [np / 1024] listed
-// candidates per tile; cmin, cmax [C, 3]; cap as rt_refine_dense takes it;
-// out [np / 1024, width] i32: 1 iff position j < min(cnt, width) and some
-// alive lane of the tile enters cluster ids[tile, j]'s box. Each tile's
-// positions in runs of `run`, dealt to `tile_blocks` blocks.
-extern "C" int rt_refine_lists(const float* rays, long long np, const int* ids,
-                               const int* cnt, int width, int run,
-                               int tile_blocks, const float* cmin,
+// rays [8, np] in tiles of ray_tile; ids [nt, width] i32 with cnt [nt]
+// listed candidates per tile; cmin, cmax [C, 3]; cap as rt_refine_dense
+// takes it; out [nt, width] i32: 1 iff position j < min(cnt, width) and
+// some alive lane of the tile enters cluster ids[tile, j]'s box. Each
+// tile's positions in runs of `run`, dealt to `tile_blocks` blocks.
+extern "C" int rt_refine_lists(const float* rays, long long np, int ray_tile,
+                               const int* ids, const int* cnt, int width,
+                               int run, int tile_blocks, const float* cmin,
                                const float* cmax, float cap, int* out,
                                void* stream) {
-  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || run <= 0
+  if (!rt::ray_tile_ok(np, ray_tile) || width <= 0 || run <= 0
       || run > rt::kMaxRefineClusters || tile_blocks <= 0) {
     return cudaErrorInvalidValue;
   }
-  const long long blocks = np / rt::kRayTile * tile_blocks;
+  const long long blocks = np / ray_tile * tile_blocks;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
   auto kern = rt::capped(cap) ? rt::refine_lists_kernel<true>
                               : rt::refine_lists_kernel<false>;
-  kern<<<static_cast<unsigned>(blocks), rt::kThreads,
+  kern<<<static_cast<unsigned>(blocks), rt::tile_threads(ray_tile),
          run * 7 * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       rays, np, ids, cnt, width, run, tile_blocks, cmin, cmax, cap, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a multiprocessor holds of the dense (lists 0) or
+// gathered (lists 1) form, capped or not, at `threads` a block and `smem`
+// bytes of dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int rt_refine_occupancy(int lists, int capped, int threads,
+                                   int smem, int* blocks) {
+  auto dense = capped ? rt::refine_kernel<true> : rt::refine_kernel<false>;
+  auto gathered = capped ? rt::refine_lists_kernel<true>
+                         : rt::refine_lists_kernel<false>;
+  return static_cast<int>(
+      lists ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, gathered, threads, smem)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks, dense, threads, smem));
 }

@@ -28,8 +28,11 @@
 // them; tile-major order starts a tile's segments together and they skip
 // nothing (2,560,000 coherent rays over a 12,640 x 128 table, NVIDIA H100
 // 80GB HBM3, 700 W, tools/kernel_ab.py: 30,361 of 30,703 listed visits and
-// 7.40 ms tile-major, 11,208 and 3.24 ms segment-major). Each of 256
-// threads owns 4 rays; the staged loop, the four intersector families
+// 7.40 ms tile-major, 11,208 and 3.24 ms segment-major). A tile holds
+// ray_tile rays (the caller's culling tile, common.cuh's ray_tile_ok; 1024
+// by default, smaller for bounce levels whose 1024-ray frustums balloon):
+// each of ray_tile / 4 threads owns 4 rays, so a smaller tile is one
+// instance with fewer threads a block. The staged loop, the four intersector families
 // (pmt, pmto, mt, woop: one instance each), the lane-cull pre-test and the
 // cap of a two-phase query (instances of their own) are walk_core.cuh's. K1 runs every family; the TPU's K2 takes pmt, pmto and
 // mt, whose combined table then holds 9 geometry rows before the
@@ -56,7 +59,7 @@ namespace {
 // blockIdx.x = the block's index within its tile * nt + tile.
 template <int F, bool NEAREST, bool LC, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
-walk_kernel(const float* __restrict__ rays, long long np,
+walk_kernel(const float* __restrict__ rays, long long np, unsigned nt,
             const float* __restrict__ tmax_row,
             const int* __restrict__ ids, const int* __restrict__ cnt,
             const float* __restrict__ tnear, int width, int seg,
@@ -69,7 +72,9 @@ walk_kernel(const float* __restrict__ rays, long long np,
             float* out_t, int* __restrict__ out_s,
             float* __restrict__ out_a, int* __restrict__ visits) {
   __shared__ WalkRing ring;
-  const unsigned nt = static_cast<unsigned>(np / kRayTile);
+  // nt = np / ray_tile tiles: a parameter, so that no register holds it
+  // through the walk (K3's pmto nearest instance spilled).
+  const int tile_rays = block_tile();
   const long long tile = blockIdx.x % nt;
   const int first = blockIdx.x / nt;  // this block's first segment
   const int listed = min(cnt[tile], width);
@@ -89,8 +94,9 @@ walk_kernel(const float* __restrict__ rays, long long np,
   float t_lim[kRaysPerThread];
   load_pack_rays(rays, np, tmax_row, t_max, tile, o, d, alive, t_lim, best_t,
                  best_s);
-  const long long i0 = tile * kRayTile + threadIdx.x;
-  const KeyShare share{split && use_exit ? keys + i0 : nullptr, kRayTile};
+  const long long i0 = ray_index(tile, 0);
+  const KeyShare<kPackStride> share{split && use_exit ? keys + i0 : nullptr,
+                                    tile_rays};
   const long long row = tile * width;
   ring_setup(ring, use_exit ? bbox : nullptr, 0);
   const int visited = walk_segments<kRaysPerThread, F, NEAREST, LC, CAPPED>(
@@ -98,8 +104,8 @@ walk_kernel(const float* __restrict__ rays, long long np,
       first, n_parts, tile_blocks, seg, geo, geo_stride, cs, eps, t_max,
       t_lim, lcb, use_exit, ee_batch, best_t, best_s, share);
   if (visits != nullptr && threadIdx.x == 0) atomicAdd(visits + tile, visited);
-  finish_tile<kRaysPerThread, NEAREST>(
-      split, i0, kRayTile, np, best_t, best_s, keys, finished + tile, parts,
+  finish_tile<kRaysPerThread, NEAREST, kPackStride>(
+      split, i0, tile_rays, np, best_t, best_s, keys, finished + tile, parts,
       attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
 }
 
@@ -134,7 +140,8 @@ WalkKernel walk_instance(int f, bool nearest, bool lc, bool capped) {
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; tmax_row [np] or null: each ray's own occlusion limit in
+// rays [8, np] in tiles of ray_tile (common.cuh's ray_tile_ok), nt =
+// np / ray_tile; tmax_row [np] or null: each ray's own occlusion limit in
 // place of the scalar t_max; ids [nt, width] i32 with cnt [nt] listed
 // clusters per tile (the first min(cnt, width) are walked), in segments of
 // `seg`, each tile's segments dealt to `tile_blocks` blocks; tnear
@@ -151,7 +158,7 @@ WalkKernel walk_instance(int f, bool nearest, bool lc, bool capped) {
 // slot or hit flag [np] i32, attrs [n_attrs, np], and, where visits is not
 // null, the clusters each tile visited [nt] i32 (they differ from run to
 // run under the early exit). Two launches on the stream: fill, blocks.
-extern "C" int rt_walk(const float* rays, long long np,
+extern "C" int rt_walk(const float* rays, long long np, int ray_tile,
                        const float* tmax_row, const int* ids,
                        const int* cnt, const float* tnear, int width, int seg,
                        int tile_blocks, const float* bbox, const float* geo,
@@ -161,23 +168,37 @@ extern "C" int rt_walk(const float* rays, long long np,
                        int ee_batch, int family, const float* lane_bounds,
                        unsigned long long* keys, int* finished, float* out_t,
                        int* out_s, float* out_a, int* visits, void* stream) {
-  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || ee_batch <= 0
+  if (!rt::ray_tile_ok(np, ray_tile) || width <= 0 || ee_batch <= 0
       || seg <= 0 || tile_blocks <= 0 || finished == nullptr
       || !rt::walk_tables_ok(geo, geo_stride, cs, family)
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
   }
-  const long long nt = np / rt::kRayTile;
+  const long long nt = np / ray_tile;
   if (nt * tile_blocks > 2147483647ll) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   rt::launch_walk_fill(np, nearest != 0, keys, out_t, nt, finished, nt,
                        visits, s);
   auto kern = rt::walk_instance(family, nearest != 0, lane_bounds != nullptr,
                                 rt::is_capped(t_max));
-  kern<<<static_cast<unsigned>(nt * tile_blocks), rt::kThreads, 0, s>>>(
-      rays, np, tmax_row, ids, cnt, tnear, width, seg, tile_blocks, bbox, geo,
-      geo_stride, attr, attr_stride, n_attrs, cs, eps, t_max, early, ee_batch,
-      lane_bounds, keys, finished, out_t, out_s, out_a, visits);
+  kern<<<static_cast<unsigned>(nt * tile_blocks), rt::tile_threads(ray_tile),
+         0, s>>>(
+      rays, np, static_cast<unsigned>(nt), tmax_row, ids, cnt, tnear,
+      width, seg, tile_blocks, bbox, geo, geo_stride, attr, attr_stride,
+      n_attrs, cs, eps, t_max, early, ee_batch, lane_bounds, keys, finished,
+      out_t, out_s, out_a, visits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a multiprocessor holds of the instance rt_walk launches
+// for (family, nearest, lane cull, capped) at `threads` a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the ring is static shared
+// memory).
+extern "C" int rt_walk_occupancy(int family, int nearest, int lane_cull,
+                                 int capped, int threads, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rt::walk_instance(family, nearest != 0, lane_cull != 0,
+                                capped != 0),
+      threads, 0));
 }

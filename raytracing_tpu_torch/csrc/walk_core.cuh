@@ -3,7 +3,14 @@
 // derived from the pinhole camera): a block walks consecutive positions of
 // one tile's front-to-back list of clusters, each thread holding R rays in
 // registers, and every thread intersects its rays with all the triangles
-// of every listed cluster (broadcast reads from shared memory).
+// of every listed cluster (broadcast reads from shared memory). A pack
+// walk's block holds its tile (ray_tile / 4 threads), each warp 128
+// consecutive lanes of it, a thread's rays 32 lanes apart (common.cuh's
+// ray_index); a camera pass's block is kThreads threads, a thread's rays
+// kThreads lanes apart. Both strides are compile-time constants, so no
+// register holds one through the loop (ptxas -v, this build's flags: a
+// stride read from blockDim spilled K3's mt nearest instance at the
+// 128-register cap).
 //
 // This loop is the inner loop of the TPU package's _walk_kernel,
 // _dma_walk_kernel, _gstream_kernel and _wq_kernel
@@ -264,10 +271,21 @@ __device__ __forceinline__ int list_parts(int listed, int seg) {
   return (listed + seg - 1) / seg;
 }
 
+// The lanes between a thread's rays: a pack walk's (common.cuh's
+// ray_index) and camera.cu's (kThreads; a pass may hold fewer rays than its
+// threads' lanes). A pack tile is full: every lane of it exists.
+constexpr int kPackStride = kRayStride;
+
+// Whether ray r of this thread exists in a unit of `lanes` rays.
+template <int kStride>
+__device__ __forceinline__ bool ray_exists(int r, int lanes) {
+  return kStride != kThreads || threadIdx.x + r * kThreads < lanes;
+}
+
 // Publish this thread's hits into its rays' keys and fold the card's better
 // ones in. keys: ray 0 of this thread (null: the walk shares nothing); ray
-// r is keys + r * kThreads, and exists where threadIdx.x + r * kThreads <
-// lanes (a camera pass may hold fewer rays than its threads' lanes).
+// r is keys + r * kStride, where it exists (ray_exists).
+template <int kStride>
 struct KeyShare {
   unsigned long long* keys;
   int lanes;
@@ -277,11 +295,11 @@ struct KeyShare {
     if (keys == nullptr) return;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (threadIdx.x + r * kThreads >= lanes) continue;
+      if (!ray_exists<kStride>(r, lanes)) continue;
       const unsigned long long mine = pack_key(best_t[r], best_s[r]);
-      const unsigned long long seen = __ldcg(keys + r * kThreads);
+      const unsigned long long seen = __ldcg(keys + r * kStride);
       if (mine < seen) {
-        atomicMin(keys + r * kThreads, mine);
+        atomicMin(keys + r * kStride, mine);
       } else {
         best_t[r] = key_t(seen);
         best_s[r] = key_slot(seen);
@@ -290,18 +308,18 @@ struct KeyShare {
   }
 };
 
-// This thread's R pack rays of `tile` (ray r is lane threadIdx.x +
-// r * kThreads of the tile: neighbouring threads read neighbouring rays),
-// their limits, and an empty result.
+// This thread's R = kRaysPerThread pack rays of `tile` (ray_index), their
+// limits, and an empty result.
 template <int R>
 __device__ __forceinline__ void load_pack_rays(
     const float* __restrict__ rays, long long np,
     const float* __restrict__ tmax_row, float t_max, long long tile,
     float (&o)[R][3], float (&d)[R][3], bool (&alive)[R], float (&t_lim)[R],
     float (&best_t)[R], int (&best_s)[R]) {
+  static_assert(R == kRaysPerThread, "a pack tile holds 4 rays a thread");
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const long long i = tile * kRayTile + threadIdx.x + r * kThreads;
+    const long long i = ray_index(tile, r);
     t_lim[r] = tmax_row != nullptr ? tmax_row[i] : t_max;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -410,7 +428,7 @@ __device__ __forceinline__ void stage_start(
     WalkRing& ring, int b, const int* __restrict__ tile_ids, int j0, int nin,
     const float* __restrict__ geo, long long geo_stride, int cs, int rows) {
   const int per = rows * cs / 4;  // 16-byte pieces of one cluster's rows
-  for (int e = threadIdx.x; e < nin * per; e += kThreads) {
+  for (int e = threadIdx.x; e < nin * per; e += static_cast<int>(blockDim.x)) {
     const int i = e / per;
     const int w = e - i * per;
     const int c = tile_ids[j0 + i] + ring.id_base;
@@ -610,7 +628,7 @@ __device__ __forceinline__ int walk_list(
 // back, so its later segments lie farther still. (The lists of other groups
 // of the table are no such thing; gstream.cu gives each group its own
 // blocks.) Returns the clusters visited.
-template <int R, int F, bool NEAREST, bool LC, bool CAPPED>
+template <int R, int F, bool NEAREST, bool LC, bool CAPPED, int kStride>
 __device__ __forceinline__ int walk_segments(
     WalkRing& ring, const float (&o)[R][3], const float (&d)[R][3],
     const bool (&alive)[R], const int* __restrict__ tile_ids,
@@ -619,7 +637,7 @@ __device__ __forceinline__ int walk_segments(
     long long geo_stride, int cs, float eps, float t_cap,
     const float (&t_lim)[R], const float* __restrict__ lcb, bool use_exit,
     int ee_batch, float (&best_t)[R], int (&best_s)[R],
-    const KeyShare& share) {
+    const KeyShare<kStride>& share) {
   int visited = 0;
   for (int part = first; part < n_parts; part += tile_blocks) {
     const int j0 = part * seg;
@@ -661,15 +679,14 @@ __device__ __forceinline__ void store_result(
 }
 
 // The end of one block of a split walk, for the rays it holds: ray r of
-// this thread is i0 + r * kThreads, where threadIdx.x + r * kThreads <
-// lanes. A tile (or camera pass) that one block walks (`split` false)
+// this thread is i0 + r * kStride, where it exists (ray_exists). A tile (or camera pass) that one block walks (`split` false)
 // writes its results directly. Otherwise the block merges the hits it holds
 // that the keys do not (one it only folded in is there already) and counts
 // itself in the tile's counter *finished; the tile's `parts`-th block to
 // get there sees every other block's merges, unpacks the keys and reads
 // the winners' attribute rows once (a gather is cheap on this card; the TPU
 // kernels carried them through the loop because their gathers are serial).
-template <int R, bool NEAREST>
+template <int R, bool NEAREST, int kStride>
 __device__ __forceinline__ void finish_tile(
     bool split, long long i0, int lanes, long long np,
     const float (&best_t)[R], const int (&best_s)[R],
@@ -680,8 +697,8 @@ __device__ __forceinline__ void finish_tile(
   if (!split) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (threadIdx.x + r * kThreads < lanes) {
-        store_result(i0 + r * kThreads, np, best_t[r], best_s[r], NEAREST,
+      if (ray_exists<kStride>(r, lanes)) {
+        store_result(i0 + r * kStride, np, best_t[r], best_s[r], NEAREST,
                      attr, attr_stride, n_attrs, cs, out_t, out_s, out_a);
       }
     }
@@ -689,8 +706,8 @@ __device__ __forceinline__ void finish_tile(
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const long long i = i0 + r * kThreads;
-    if (threadIdx.x + r * kThreads >= lanes
+    const long long i = i0 + r * kStride;
+    if (!ray_exists<kStride>(r, lanes)
         || (NEAREST && !(pack_key(best_t[r], best_s[r]) < __ldcg(keys + i)))) {
       continue;
     }
@@ -704,8 +721,8 @@ __device__ __forceinline__ void finish_tile(
   __threadfence();
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (threadIdx.x + r * kThreads >= lanes) continue;
-    const long long i = i0 + r * kThreads;
+    if (!ray_exists<kStride>(r, lanes)) continue;
+    const long long i = i0 + r * kStride;
     if (NEAREST) {
       const unsigned long long key = __ldcg(keys + i);
       store_result(i, np, key_t(key), key_slot(key), true, attr, attr_stride,

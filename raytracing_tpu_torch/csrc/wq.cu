@@ -22,7 +22,8 @@
 //
 // An item stages its visits' blocks and intersects them with
 // walk_core.cuh's loop (pmt, pmto or mt: the families the TPU's K4 takes):
-// the code K1 runs. Each item reads its tile's 1024 rays again (32 KB).
+// the code K1 runs, ray_tile / 4 threads a block of 4 rays each. Each item
+// reads its tile's rays again (32 KB at 1024 rays).
 #include "walk_core.cuh"
 
 namespace rt {
@@ -64,8 +65,8 @@ wq_items_kernel(const float* __restrict__ rays, long long np,
 
 #pragma unroll
   for (int r = 0; r < kRaysPerThread; ++r) {
-    merge_result(tile * kRayTile + threadIdx.x + r * kThreads, NEAREST,
-                 best_t[r], best_s[r], keys, out_t);
+    merge_result(ray_index(tile, r), NEAREST, best_t[r], best_s[r], keys,
+                 out_t);
   }
 }
 
@@ -103,14 +104,15 @@ WqKernel wq_instance(int f) {
 }  // namespace
 }  // namespace rt
 
-// rays [8, np]; tmax_row [np] or null; ids [nt, width] i32 with cnt [nt]
+// rays [8, np] in tiles of ray_tile (common.cuh's ray_tile_ok), nt =
+// np / ray_tile; tmax_row [np] or null; ids [nt, width] i32 with cnt [nt]
 // listed clusters per tile (every one of the first min(cnt, width) is
 // walked); u visits per work item; geo, attr and t_max as rt_walk takes
 // them, family 0 (pmt), 1 (pmto) or 2 (mt);
 // keys: np 8-byte words of scratch, 8-byte aligned (nearest only; may be
 // null for occlusion). Outputs t [np], slot or hit flag [np] i32, attrs
 // [n_attrs, np]. Three launches on the stream: fill, items, finish.
-extern "C" int rt_walk_wq(const float* rays, long long np,
+extern "C" int rt_walk_wq(const float* rays, long long np, int ray_tile,
                           const float* tmax_row, const int* ids,
                           const int* cnt, int width, int u, const float* geo,
                           long long geo_stride, const float* attr,
@@ -118,14 +120,14 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
                           float eps, float t_max, int nearest, int family,
                           unsigned long long* keys, float* out_t, int* out_s,
                           float* out_a, void* stream) {
-  const long long nt = np / rt::kRayTile;
-  if (np <= 0 || np % rt::kRayTile != 0 || width <= 0 || u <= 0
+  if (!rt::ray_tile_ok(np, ray_tile) || width <= 0 || u <= 0
       || !rt::walk_tables_ok(geo, geo_stride, cs, family)
       || family == rt::kWoop
       || (nearest && (keys == nullptr
                       || reinterpret_cast<unsigned long long>(keys) % 8))) {
     return cudaErrorInvalidValue;
   }
+  const long long nt = np / ray_tile;
   const unsigned steps = static_cast<unsigned>((width + u - 1) / u);
   if (nt * steps > 2147483647ll) return cudaErrorInvalidValue;
   const unsigned flat = static_cast<unsigned>((np + rt::kThreads - 1)
@@ -136,11 +138,24 @@ extern "C" int rt_walk_wq(const float* rays, long long np,
   auto kern = !nearest ? rt::wq_instance<false, false>(family)
               : rt::is_capped(t_max) ? rt::wq_instance<true, true>(family)
                                      : rt::wq_instance<true, false>(family);
-  kern<<<static_cast<unsigned>(nt * steps), rt::kThreads, 0, s>>>(
+  kern<<<static_cast<unsigned>(nt * steps), rt::tile_threads(ray_tile), 0,
+         s>>>(
       rays, np, tmax_row, ids, cnt, width, u, geo, geo_stride, cs, eps,
       t_max, steps, keys, out_t);
   rt::wq_finish_kernel<<<flat, rt::kThreads, 0, s>>>(
       np, nearest, keys, attr, attr_stride, n_attrs, cs, out_t, out_s,
       out_a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a multiprocessor holds of the instance rt_walk_wq
+// launches for (family, nearest, capped) at `threads` a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int rt_wq_occupancy(int family, int nearest, int capped,
+                               int threads, int* blocks) {
+  auto kern = !nearest ? rt::wq_instance<false, false>(family)
+              : capped ? rt::wq_instance<true, true>(family)
+                       : rt::wq_instance<true, false>(family);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, threads, 0));
 }

@@ -70,6 +70,18 @@ def _dead_last(key: torch.Tensor, alive: Optional[torch.Tensor]):
     return torch.where(alive, key, torch.full_like(key, _DEAD_KEY))
 
 
+def ray_bin_order(o: torch.Tensor, d: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor, alive: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The permutation that groups rays by (origin cell, direction cone)
+    (`bin_key`), dead rays last: (order, inv) i32; trace x[order], read
+    results back through inv. `bin_sort` / `unsort` move payloads by the
+    same stable order."""
+    order = torch.argsort(bin_key(o, d, lo, hi, alive), stable=True)
+    inv = torch.argsort(order, stable=True)
+    return order.to(torch.int32), inv.to(torch.int32)
+
+
 def bin_key(o, d, lo, hi, alive=None, pos_bits: int = POS_BITS,
             dir_ratio_bits: int = 0) -> torch.Tensor:
     """(origin Morton cell << dir bits) | direction cone; dead lanes get a
@@ -106,6 +118,12 @@ def unsort(sidx: torch.Tensor, *payloads):
         q[sidx] = p
         out.append(q)
     return tuple(out)
+
+
+def scene_bounds(accel) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantization box of the accel's cluster AABBs (the rest set,
+    the ground plane, is not in them): (min, max) [3]."""
+    return accel.cluster_min.amin(dim=0), accel.cluster_max.amax(dim=0)
 
 
 def batch_bounds(o: torch.Tensor, alive: Optional[torch.Tensor] = None

@@ -32,18 +32,28 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+# The pack entries take (rays, np, ray_tile, ...): the culling tile at run
+# time (csrc/common.cuh's ray_tile_ok).
 _SIGNATURES = {
-    "rt_tile_extents": [_P, _L, _P, _P, _P],
-    "rt_refine_dense": [_P, _L, _P, _P, _I, _F, _P, _P, _P],
-    "rt_refine_dense_extents": [_P, _L, _P, _P, _I, _F, _P, _P, _P, _P],
-    "rt_refine_lists": [_P, _L, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P],
-    "rt_walk": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I,
-                _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "rt_walk_gstream": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                        _L, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P,
-                        _P, _P, _P, _P, _P],
-    "rt_walk_wq": [_P, _L, _P, _P, _P, _I, _I, _P, _L, _P, _L, _I, _I, _F,
-                   _F, _I, _I, _P, _P, _P, _P, _P],
+    "rt_tile_extents": [_P, _L, _I, _P, _P, _P],
+    "rt_refine_dense": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P],
+    "rt_refine_dense_extents": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P, _P],
+    "rt_refine_lists": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P],
+    "rt_walk": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P, _L,
+                _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                _P],
+    "rt_walk_gstream": [_P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                        _P, _L, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _P,
+                        _P, _P, _P, _P, _P, _P],
+    "rt_walk_wq": [_P, _L, _I, _P, _P, _P, _I, _I, _P, _L, _P, _L, _I, _I,
+                   _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    # Resident blocks per multiprocessor of an instance at a block size
+    # (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the last argument.
+    "rt_extents_occupancy": [_I, _P],
+    "rt_refine_occupancy": [_I, _I, _I, _I, _P],
+    "rt_walk_occupancy": [_I, _I, _I, _I, _I, _P],
+    "rt_gstream_occupancy": [_I, _I, _I, _I, _P],
+    "rt_wq_occupancy": [_I, _I, _I, _I, _P],
     "rt_walk_camera": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _I,
                        _I, _I, _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P,
                        _P, _P, _P, _P, _P, _P, _P],

@@ -1,7 +1,10 @@
 """Cluster traversal: visit lists, the hand-written CUDA kernels and their
 plain PyTorch versions (twin of `raytracing_tpu.kernels.traverse`).
 
-A pack query runs in three phases over tiles of 1024 consecutive rays:
+A pack query runs in three phases over tiles of consecutive rays, 1024 by
+default (`RAY_TILE`; a query's `ray_tile=` picks another of `RAY_TILES`:
+the renderer's bounce levels take `RenderConfig.gi_ray_tile`, whose
+smaller tiles give their incoherent rays tighter frustums):
 
   phase 1 — `tile_extents` (K6): per-tile min/max of the alive rays'
       origins and directions;
@@ -41,8 +44,10 @@ comes from a closed form (`_camera_tile_extents`), and `walk_camera`
 Each kernel has a public function that runs its plain PyTorch version for
 a CPU tensor and launches the kernel for a CUDA tensor (raising if it
 cannot), and a launch count in `LAUNCHES`. Ray packs are SoA [8, N] with
-rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of 1024; dead lanes (row 7
-== 0) are left out of the culling and their results are meaningless.
+rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of the tile (the public
+queries pad to whole `RAY_TILE`s, which every tile divides); dead lanes
+(row 7 == 0) are left out of the culling and their results are
+meaningless.
 
 Gradients: which triangle a ray hits is a traversal decision and stays
 detached. A nearest query that something differentiates (`_ShadedWalk`)
@@ -75,6 +80,11 @@ from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.scatter import segment_scatter_add
 
 RAY_TILE = 1024
+# The culling tiles the kernels take (csrc/common.cuh's ray_tile_ok): whole
+# warps of 4-ray threads, a block of ray_tile / 4, that divide RAY_TILE, to
+# which a query pads its pack. Above RAY_TILE the port refuses (the JAX
+# package pads to any ray_tile * SUBTILES).
+RAY_TILES = (128, 256, 512, 1024)
 # Visits per early-exit vote for a 16-triangle cluster; scaled down for
 # bigger clusters (_ee_batch_for), as the TPU walk does.
 EARLY_EXIT_BATCH = 4
@@ -136,7 +146,7 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # The forms off the main paths count under the same names with a suffix
 # (`_count_key`): "_mt" / "_woop" for those intersector families,
 # "_capped" for a launch under a two-phase query's cap, "_lc" with the
-# lane-cull pre-test.
+# lane-cull pre-test, "_rt256" (and so on) for a tile other than RAY_TILE.
 LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
             "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
             "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
@@ -144,12 +154,24 @@ LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
 
 
 def _count_key(entry: str, family: int = PMT, capped: bool = False,
-               lane_cull: bool = False) -> str:
+               lane_cull: bool = False, ray_tile: int = RAY_TILE) -> str:
     """The LAUNCHES name of a launch: `entry`, suffixed by its family
-    ("_mt", "_woop"; pmt and pmto count as the entry itself), "_capped"
-    and "_lc"."""
+    ("_mt", "_woop"; pmt and pmto count as the entry itself), "_capped",
+    "_lc" and its tile where that is not RAY_TILE ("_rt256")."""
     return (entry + {MT: "_mt", WOOP: "_woop"}.get(int(family), "")
-            + ("_capped" if capped else "") + ("_lc" if lane_cull else ""))
+            + ("_capped" if capped else "") + ("_lc" if lane_cull else "")
+            + ("" if ray_tile == RAY_TILE else f"_rt{ray_tile}"))
+
+
+def check_ray_tile(ray_tile: Optional[int]) -> int:
+    """A query's culling tile: `ray_tile`, or RAY_TILE for None; raises
+    ValueError unless it is one of RAY_TILES."""
+    if ray_tile is None:
+        return RAY_TILE
+    if isinstance(ray_tile, bool) or ray_tile not in RAY_TILES:
+        raise ValueError(f"ray_tile {ray_tile!r}: the kernels take tiles of "
+                         f"{', '.join(map(str, RAY_TILES))} rays")
+    return int(ray_tile)
 
 
 def _count(key: str) -> None:
@@ -301,14 +323,28 @@ def _on_cpu(*tensors) -> bool:
                      "CPU tensors (plain PyTorch) or CUDA tensors (kernels)")
 
 
-def _check_pack(rays8: torch.Tensor) -> int:
+def _check_pack(rays8: torch.Tensor, ray_tile: int = RAY_TILE) -> int:
+    """The pack's tile count; raises unless the tile is one of RAY_TILES and
+    the pack a contiguous f32 [8, N] with N a multiple of it."""
+    ray_tile = check_ray_tile(ray_tile)
     if (rays8.dtype != torch.float32 or rays8.dim() != 2
             or rays8.shape[0] != 8 or not rays8.is_contiguous()
-            or rays8.shape[1] % RAY_TILE):
+            or rays8.shape[1] % ray_tile):
         raise ValueError(f"kernels take a contiguous f32 [8, N] ray pack with "
-                         f"N a multiple of {RAY_TILE}; got "
+                         f"N a multiple of {ray_tile}; got "
                          f"{tuple(rays8.shape)} {rays8.dtype}")
-    return rays8.shape[1] // RAY_TILE
+    return rays8.shape[1] // ray_tile
+
+
+def _plain_tiles(rays8: torch.Tensor, ray_tile: int) -> int:
+    """The tile count of a plain version's pack; raises as `_check_pack`
+    does on the tile and N (the plain versions take any dtype and
+    layout)."""
+    ray_tile = check_ray_tile(ray_tile)
+    if rays8.shape[1] % ray_tile:
+        raise ValueError(f"a pack of {rays8.shape[1]} rays is not whole "
+                         f"tiles of {ray_tile}")
+    return rays8.shape[1] // ray_tile
 
 
 # ---------------------------------------------------------------------------
@@ -316,29 +352,32 @@ def _check_pack(rays8: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
-def tile_extents_plain(rays8: torch.Tensor):
-    """Plain version of K6: (lo, hi) [N/1024, 8], the masked min/max of the
-    8 rows per tile over alive lanes (dead lanes count as +/-3e38)."""
-    nt = rays8.shape[1] // RAY_TILE
-    r = rays8.reshape(8, nt, RAY_TILE)
+def tile_extents_plain(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
+    """Plain version of K6: (lo, hi) [N / ray_tile, 8], the masked min/max
+    of the 8 rows per tile over alive lanes (dead lanes count as
+    +/-3e38)."""
+    nt = _plain_tiles(rays8, ray_tile)
+    r = rays8.reshape(8, nt, ray_tile)
     alive = (r[7] != 0.0)[None]
     lo = torch.where(alive, r, _BIG).amin(dim=2).T.contiguous()
     hi = torch.where(alive, r, -_BIG).amax(dim=2).T.contiguous()
     return lo, hi
 
 
-def tile_extents(rays8: torch.Tensor):
-    """K6 (csrc/extents.cu): plain version on CPU, kernel on CUDA."""
+def tile_extents(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
+    """K6 (csrc/extents.cu): plain version on CPU, kernel on CUDA; tiles
+    of ray_tile rays (one of RAY_TILES)."""
     if _on_cpu(rays8):
-        return tile_extents_plain(rays8)
-    nt = _check_pack(rays8)
+        return tile_extents_plain(rays8, ray_tile)
+    nt = _check_pack(rays8, ray_tile)
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
-        cuda.check(lib.rt_tile_extents(_ptr(rays8), rays8.shape[1], _ptr(lo),
-                                       _ptr(hi), _stream(rays8)), "extents")
-    LAUNCHES["extents"] += 1
+        cuda.check(lib.rt_tile_extents(_ptr(rays8), rays8.shape[1], ray_tile,
+                                       _ptr(lo), _ptr(hi), _stream(rays8)),
+                   "extents")
+    _count(_count_key("extents", ray_tile=ray_tile))
     return lo, hi
 
 
@@ -348,7 +387,7 @@ def tile_extents(rays8: torch.Tensor):
 
 
 def _slab_enter(r, box_lo, box_hi, t_cap=None):
-    """traverse.py:526-546: r [8, g, 1, RT] ray rows against boxes given
+    """traverse.py:526-546: r [8, g, 1, RT] ray rows (RT the tile) against boxes given
     per axis by box_lo(k) / box_hi(k), each broadcastable to [g, c, 1].
     Returns [g, c, RT] bool: the alive lanes that enter each box
     (reciprocal first, degenerate axes unbounded, bounds inflated by
@@ -381,16 +420,16 @@ def _plain_groups(nt: int, width: int, ray_tile: int = RAY_TILE):
 
 
 def refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive,
-                       t_cap=None):
-    """Plain version of K5: [nt, C] bool, True iff the tile is alive and
-    some alive lane of it enters the cluster's AABB (`_slab_enter`,
-    before t_cap where one is given)."""
-    nt = rays8.shape[1] // RAY_TILE
+                       t_cap=None, ray_tile: int = RAY_TILE):
+    """Plain version of K5: [nt, C] bool over tiles of ray_tile rays, True
+    iff the tile is alive and some alive lane of it enters the cluster's
+    AABB (`_slab_enter`, before t_cap where one is given)."""
+    nt = _plain_tiles(rays8, ray_tile)
     c = cluster_min.shape[0]
     out = torch.zeros((nt, c), dtype=torch.bool, device=rays8.device)
-    for g0, g1 in _plain_groups(nt, c):
-        r = rays8[:, g0 * RAY_TILE:g1 * RAY_TILE].reshape(8, g1 - g0, 1,
-                                                          RAY_TILE)
+    for g0, g1 in _plain_groups(nt, c, ray_tile):
+        r = rays8[:, g0 * ray_tile:g1 * ray_tile].reshape(8, g1 - g0, 1,
+                                                          ray_tile)
         enter = _slab_enter(r, lambda k: cluster_min[:, k].reshape(1, c, 1),
                             lambda k: cluster_max[:, k].reshape(1, c, 1),
                             t_cap)
@@ -403,10 +442,11 @@ def _cap_arg(t_cap) -> float:
     return INF if t_cap is None else float(t_cap)
 
 
-def _check_boxes(who, rays8, cluster_min, cluster_max, most=None):
-    """The pack's tile count; raises unless the AABB tables are contiguous
-    f32 [C, 3] (C at most `most`)."""
-    nt = _check_pack(rays8)
+def _check_boxes(who, rays8, cluster_min, cluster_max, most=None,
+                 ray_tile: int = RAY_TILE):
+    """The pack's tile count (`_check_pack`); raises unless the AABB tables
+    are contiguous f32 [C, 3] (C at most `most`)."""
+    nt = _check_pack(rays8, ray_tile)
     c = cluster_min.shape[0]
     if (cluster_min.shape != (c, 3) or cluster_max.shape != (c, 3)
             or cluster_min.dtype != torch.float32
@@ -420,13 +460,15 @@ def _check_boxes(who, rays8, cluster_min, cluster_max, most=None):
     return nt
 
 
-def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None):
-    """K5 (csrc/refine.cu): plain version on CPU, kernel on CUDA."""
+def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None,
+                 ray_tile: int = RAY_TILE):
+    """K5 (csrc/refine.cu): plain version on CPU, kernel on CUDA; tiles of
+    ray_tile rays."""
     if _on_cpu(rays8, cluster_min, cluster_max, tile_alive):
         return refine_dense_plain(rays8, cluster_min, cluster_max, tile_alive,
-                                  t_cap)
+                                  t_cap, ray_tile)
     nt = _check_boxes("refine_dense", rays8, cluster_min, cluster_max,
-                      _REFINE_DENSE_MAX_C)
+                      _REFINE_DENSE_MAX_C, ray_tile)
     if tile_alive.shape != (nt,):
         raise ValueError("refine_dense: one alive flag per tile")
     c = cluster_min.shape[0]
@@ -435,31 +477,34 @@ def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None):
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_dense(
-            _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
+            _ptr(rays8), rays8.shape[1], ray_tile, _ptr(cluster_min),
             _ptr(cluster_max), c, _cap_arg(t_cap), _ptr(alive), _ptr(out),
             _stream(rays8)), "refine")
-    _count(_count_key("refine", capped=t_cap is not None))
+    _count(_count_key("refine", capped=t_cap is not None, ray_tile=ray_tile))
     return out != 0
 
 
-def refine_dense_extents_plain(rays8, cluster_min, cluster_max, t_cap=None):
+def refine_dense_extents_plain(rays8, cluster_min, cluster_max, t_cap=None,
+                               ray_tile: int = RAY_TILE):
     """Plain version of the dense refined-list query: (lo, hi, entered),
     K6's extents (`tile_extents_plain`) and K5's bits with the tile-alive
-    flags hi[:, 7] > 0 (`refine_dense_plain`)."""
-    lo, hi = tile_extents_plain(rays8)
+    flags hi[:, 7] > 0 (`refine_dense_plain`), over tiles of ray_tile."""
+    lo, hi = tile_extents_plain(rays8, ray_tile)
     return lo, hi, refine_dense_plain(rays8, cluster_min, cluster_max,
-                                      hi[:, 7] > 0.0, t_cap)
+                                      hi[:, 7] > 0.0, t_cap, ray_tile)
 
 
-def refine_dense_extents(rays8, cluster_min, cluster_max, t_cap=None):
+def refine_dense_extents(rays8, cluster_min, cluster_max, t_cap=None,
+                         ray_tile: int = RAY_TILE):
     """The dense refined-list query, K6 folded into K5 (csrc/refine.cu):
-    plain version on CPU, one kernel launch on CUDA. t_cap: a two-phase
-    query's cap (a box entered only beyond it is not entered)."""
+    plain version on CPU, one kernel launch on CUDA, tiles of ray_tile
+    rays. t_cap: a two-phase query's cap (a box entered only beyond it is
+    not entered)."""
     if _on_cpu(rays8, cluster_min, cluster_max):
         return refine_dense_extents_plain(rays8, cluster_min, cluster_max,
-                                          t_cap)
+                                          t_cap, ray_tile)
     nt = _check_boxes("refine_dense_extents", rays8, cluster_min,
-                      cluster_max, _REFINE_DENSE_MAX_C)
+                      cluster_max, _REFINE_DENSE_MAX_C, ray_tile)
     c = cluster_min.shape[0]
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
@@ -467,24 +512,28 @@ def refine_dense_extents(rays8, cluster_min, cluster_max, t_cap=None):
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_dense_extents(
-            _ptr(rays8), rays8.shape[1], _ptr(cluster_min),
+            _ptr(rays8), rays8.shape[1], ray_tile, _ptr(cluster_min),
             _ptr(cluster_max), c, _cap_arg(t_cap), _ptr(lo), _ptr(hi),
             _ptr(out), _stream(rays8)), "refine_extents")
-    _count(_count_key("refine_extents", capped=t_cap is not None))
+    _count(_count_key("refine_extents", capped=t_cap is not None,
+                      ray_tile=ray_tile))
     return lo, hi, out != 0
 
 
 def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max,
-                       t_cap=None):
-    """Plain version of K5's gathered form: [nt, W] bool, True at list
-    position j < min(cnt, W) iff some alive lane of the tile enters cluster
-    ids[tile, j]'s AABB (`_slab_enter`, before t_cap where one is
-    given)."""
+                       t_cap=None, ray_tile: int = RAY_TILE):
+    """Plain version of K5's gathered form: [nt, W] bool over tiles of
+    ray_tile rays, True at list position j < min(cnt, W) iff some alive
+    lane of the tile enters cluster ids[tile, j]'s AABB (`_slab_enter`,
+    before t_cap where one is given)."""
     nt, w = ids.shape
+    if nt != _plain_tiles(rays8, ray_tile):
+        raise ValueError(f"refine_lists: {nt} lists for "
+                         f"{rays8.shape[1] // ray_tile} tiles of {ray_tile}")
     out = torch.zeros((nt, w), dtype=torch.bool, device=rays8.device)
-    for g0, g1 in _plain_groups(nt, w):
-        r = rays8[:, g0 * RAY_TILE:g1 * RAY_TILE].reshape(8, g1 - g0, 1,
-                                                          RAY_TILE)
+    for g0, g1 in _plain_groups(nt, w, ray_tile):
+        r = rays8[:, g0 * ray_tile:g1 * ray_tile].reshape(8, g1 - g0, 1,
+                                                          ray_tile)
         idg = ids[g0:g1].long()
         bmin, bmax = cluster_min[idg], cluster_max[idg]  # [g, W, 3]
         enter = _slab_enter(r, lambda k: bmin[:, :, k, None],
@@ -494,14 +543,17 @@ def refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max,
     return out & (pos < cnt[:, None])
 
 
-def refine_lists(rays8, ids, cnt, cluster_min, cluster_max, t_cap=None):
+def refine_lists(rays8, ids, cnt, cluster_min, cluster_max, t_cap=None,
+                 ray_tile: int = RAY_TILE):
     """K5, gathered form (csrc/refine.cu): plain version on CPU, kernel on
-    CUDA. The kernel reads each candidate's box through `ids`, and deals a
-    tile's list to blocks in runs (`_refine_grid`)."""
+    CUDA, tiles of ray_tile rays. The kernel reads each candidate's box
+    through `ids`, and deals a tile's list to blocks in runs
+    (`_refine_grid`)."""
     if _on_cpu(rays8, ids, cnt, cluster_min, cluster_max):
         return refine_lists_plain(rays8, ids, cnt, cluster_min, cluster_max,
-                                  t_cap)
-    nt = _check_boxes("refine_lists", rays8, cluster_min, cluster_max)
+                                  t_cap, ray_tile)
+    nt = _check_boxes("refine_lists", rays8, cluster_min, cluster_max,
+                      ray_tile=ray_tile)
     if (ids.dim() != 2 or ids.shape[0] != nt or cnt.shape != (nt,)
             or ids.dtype != torch.int32 or not ids.is_contiguous()):
         raise ValueError("refine_lists: ids must be contiguous i32 [nt, W] "
@@ -512,10 +564,12 @@ def refine_lists(rays8, ids, cnt, cluster_min, cluster_max, t_cap=None):
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_refine_lists(
-            _ptr(rays8), rays8.shape[1], _ptr(ids), _ptr(cnt32), ids.shape[1],
-            run, tile_blocks, _ptr(cluster_min), _ptr(cluster_max),
-            _cap_arg(t_cap), _ptr(out), _stream(rays8)), "refine_lists")
-    _count(_count_key("refine_lists", capped=t_cap is not None))
+            _ptr(rays8), rays8.shape[1], ray_tile, _ptr(ids), _ptr(cnt32),
+            ids.shape[1], run, tile_blocks, _ptr(cluster_min),
+            _ptr(cluster_max), _cap_arg(t_cap), _ptr(out), _stream(rays8)),
+            "refine_lists")
+    _count(_count_key("refine_lists", capped=t_cap is not None,
+                      ray_tile=ray_tile))
     return out != 0
 
 
@@ -589,8 +643,11 @@ def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
     return _compact_lists(flags, t_near)
 
 
-def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, t_cap=None):
-    lo, hi = tile_extents(rays8)
+def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, t_cap=None,
+                          ray_tile: int = RAY_TILE):
+    """Frustum lists of the pack's tiles of ray_tile rays (K6's extents,
+    then `_visit_lists_from_extents`); a dead tile lists nothing."""
+    lo, hi = tile_extents(rays8, ray_tile)
     ids, tnear, cnt = _visit_lists_from_extents(
         lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cluster_min,
         cluster_max, t_cap=t_cap)
@@ -755,12 +812,16 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     t_max; occlusion keeps min t with t < t_max, or t < tmax_row [1, N]
     per ray where that is given. With lane_bounds [C, 6] a visit that no
     alive ray of the tile enters is skipped (the lane-cull pre-test).
-    Returns (t [1, N], slot or hit flag [1, N] i32, attrs [A, N] | None);
-    missing lanes get t = +inf, slot 2^30, attrs 0. No early exit (it is
-    exact)."""
+    The tiles hold ray_tile rays (one of RAY_TILES; the lists one row
+    per tile). Returns (t [1, N], slot or hit flag [1, N] i32, attrs
+    [A, N] | None); missing lanes get t = +inf, slot 2^30, attrs 0. No
+    early exit (it is exact)."""
     dev = rays8.device
     n = rays8.shape[1]
     nt = n // ray_tile
+    if cnt.shape[0] != nt or ids.shape[0] != nt:
+        raise ValueError(f"walk: lists for {ids.shape[0]} tiles, the pack "
+                         f"holds {nt} tiles of {ray_tile}")
     family = int(family)
     rows = _FAMILY_ROWS[family]
     trips = cnt.to(torch.int64)
@@ -893,8 +954,11 @@ def _no_hit(rays8):
 def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
          nearest: bool, t_max: float = INF, family: int = PMT,
          tmax_row=None, tnear=None, bbox=None, ee_batch: int = 1,
-         entry: str = "walk", visits=None, lane_bounds=None):
-    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA. The
+         entry: str = "walk", visits=None, lane_bounds=None,
+         ray_tile: int = RAY_TILE):
+    """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA, over
+    tiles of ray_tile rays (one of RAY_TILES; a block of ray_tile / 4
+    threads walks a tile). The
     kernel splits each tile's list into segments of `_walk_segment(cs)`
     visits, dealt to up to `_MAX_TILE_BLOCKS` blocks and merged per ray in
     any order; the result does not depend on the split, nor on the early
@@ -920,9 +984,9 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     ignores it)."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row, lane_bounds):
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                          nearest, t_max, family, tmax_row,
+                          nearest, t_max, family, tmax_row, ray_tile,
                           lane_bounds=lane_bounds)
-    nt = _check_pack(rays8)
+    nt = _check_pack(rays8, ray_tile)
     early = tnear is not None and nearest
     _check_walk_tables("walk", nt, ids, cnt, geo, attr, cs,
                        tnear if early else None, bbox, family, lane_bounds)
@@ -938,7 +1002,7 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_walk(
-            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            _ptr(rays8), n, ray_tile, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
             _ptr(tnear if early else None), ids.shape[1], seg, tile_blocks,
             _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
             _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
@@ -947,14 +1011,14 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             _ptr(lane_bounds), _ptr(keys), _ptr(finished), _ptr(out_t),
             _ptr(out_s), _ptr(out_a), _ptr(visits), _stream(rays8)), entry)
     _count(_count_key(entry, family, nearest and t_max < INF,
-                      lane_bounds is not None))
+                      lane_bounds is not None, ray_tile))
     return out_t, out_s, out_a
 
 
 def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                         gsz: int, eps: float, nearest: bool,
                         t_max: float = INF, family: int = PMT,
-                        tmax_row=None):
+                        tmax_row=None, ray_tile: int = RAY_TILE):
     """Plain version of K3: `walk_plain` over each group's lists and its
     slice of the table, the groups folded by (min t, then min slot) with
     slot = (g * gsz + id) * cs + lane; attributes from the final winner."""
@@ -962,7 +1026,8 @@ def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     for g in range(ids.shape[0]):
         t_g, s_g, _ = walk_plain(rays8, ids[g], cnt[g],
                                  geo[g * gsz:(g + 1) * gsz], None, 0, cs,
-                                 eps, nearest, t_max, family, tmax_row)
+                                 eps, nearest, t_max, family, tmax_row,
+                                 ray_tile)
         if nearest:
             s_g = torch.where(s_g != _BIG_ID, s_g + g * gsz * cs, _BIG_ID)
             best_t, best_s = _merge_nearest(best_t, best_s, t_g, s_g)
@@ -976,8 +1041,9 @@ def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
 def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
                  eps: float, nearest: bool, t_max: float = INF,
                  family: int = PMT, tmax_row=None, tnear=None, bbox=None,
-                 ee_batch: int = 1, visits=None):
-    """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA. The
+                 ee_batch: int = 1, visits=None, ray_tile: int = RAY_TILE):
+    """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA, over
+    tiles of ray_tile rays. The
     walk over a table of G groups of gsz clusters in one launch. The
     kernel splits each (group, tile) list into segments dealt to blocks
     (`_gstream_grid`); a tile's blocks over every group merge per ray in
@@ -995,8 +1061,9 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     (group, tile) visited."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs, cs,
-                                  gsz, eps, nearest, t_max, family, tmax_row)
-    nt = _check_pack(rays8)
+                                  gsz, eps, nearest, t_max, family, tmax_row,
+                                  ray_tile)
+    nt = _check_pack(rays8, ray_tile)
     early = tnear is not None and nearest
     if ids.dim() != 3 or cnt.shape != ids.shape[:2]:
         raise ValueError("walk_gstream: ids [G, nt, W] / cnt [G, nt]")
@@ -1021,7 +1088,7 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_walk_gstream(
-            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            _ptr(rays8), n, ray_tile, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
             _ptr(tnear if early else None), w, seg, tile_blocks, ng, int(gsz),
             _ptr(bbox if early else None), _ptr(geo), geo.stride(0),
             _ptr(attr_t), attr_t.stride(0) if attr_t is not None else 0,
@@ -1029,13 +1096,15 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
             int(nearest), int(early), int(ee_batch), int(family), _ptr(keys),
             _ptr(finished), _ptr(out_t), _ptr(out_s), _ptr(out_a),
             _ptr(visits), _stream(rays8)), "walk_gstream")
-    _count(_count_key("walk_gstream", family, nearest and t_max < INF))
+    _count(_count_key("walk_gstream", family, nearest and t_max < INF,
+                      ray_tile=ray_tile))
     return out_t, out_s, out_a
 
 
 def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                   eps: float, nearest: bool, t_max: float = INF,
-                  family: int = PMT, tmax_row=None, u: int = WQ_U):
+                  family: int = PMT, tmax_row=None, u: int = WQ_U,
+                  ray_tile: int = RAY_TILE):
     """Plain version of K4: the lists cut into work items of `u` visits,
     each item walked on its own (`walk_plain`) and the items of a tile
     folded by (min t, then min slot) — in any order the same. A tile with
@@ -1045,7 +1114,8 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     for j0 in range(0, int(listed.max()) if listed.numel() else 0, u):
         t_k, s_k, _ = walk_plain(rays8, ids[:, j0:j0 + u],
                                  torch.clamp(listed - j0, 0, u), geo, None, 0,
-                                 cs, eps, nearest, t_max, family, tmax_row)
+                                 cs, eps, nearest, t_max, family, tmax_row,
+                                 ray_tile)
         if nearest:
             best_t, best_s = _merge_nearest(best_t, best_s, t_k, s_k)
         else:
@@ -1057,8 +1127,9 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
 
 def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             nearest: bool, t_max: float = INF, family: int = PMT,
-            tmax_row=None, u: int = WQ_U):
-    """K4 (csrc/wq.cu): plain version on CPU, kernel on CUDA. The walk with
+            tmax_row=None, u: int = WQ_U, ray_tile: int = RAY_TILE):
+    """K4 (csrc/wq.cu): plain version on CPU, kernel on CUDA, over tiles of
+    ray_tile rays. The walk with
     `u` visits of one tile as the unit of work: a tile's work items run in
     any order on any multiprocessor and merge per ray through one atomic
     minimum of (t, slot). Tables, lists and results as `walk`; there is no
@@ -1069,8 +1140,8 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
                          "and mt families")
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
         return walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
-                             nearest, t_max, family, tmax_row, u)
-    nt = _check_pack(rays8)
+                             nearest, t_max, family, tmax_row, u, ray_tile)
+    nt = _check_pack(rays8, ray_tile)
     _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None,
                        family)
     n = rays8.shape[1]
@@ -1082,13 +1153,14 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_walk_wq(
-            _ptr(rays8), n, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
+            _ptr(rays8), n, ray_tile, _ptr(tmax_row), _ptr(ids), _ptr(cnt32),
             ids.shape[1], int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
             attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
             int(nearest), int(family), _ptr(keys), _ptr(out_t), _ptr(out_s),
             _ptr(out_a), _stream(rays8)), "walk_wq")
-    _count(_count_key("walk_wq", family, nearest and t_max < INF))
+    _count(_count_key("walk_wq", family, nearest and t_max < INF,
+                      ray_tile=ray_tile))
     return out_t, out_s, out_a
 
 
@@ -1207,7 +1279,8 @@ def _cap_of(nearest: bool, t_max) -> Optional[float]:
 def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                       n_attrs, early_exit=None, shared_origin=None,
                       tmax_row=None, clusters=None, attr_kind="shade",
-                      variant="pmt", lane_cull=False):
+                      variant="pmt", lane_cull=False,
+                      ray_tile: int = RAY_TILE):
     """The `_walk_groups` launch (K1): frustum lists over the separate
     geometry table of the variant (`_geo_table`; with `shared_origin` [3]
     and "pmt", the origin-folded table and the pmto intersector) and
@@ -1215,22 +1288,24 @@ def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     with a finite t_max is capped there: the lists are clipped to it.
     `clusters` = (lo, hi) walks only that run of the table (a group loop),
     with cluster ids local to it. With `lane_cull` the launch takes the
-    run's boxes for the lane-cull pre-test. Returns (args, kw):
-    `walk(*args, **kw)` is the launch and `walk_plain(*args, **kw')` its
-    plain version (kw' = kw's lane_bounds, if any)."""
+    run's boxes for the lane-cull pre-test. The tiles hold ray_tile rays.
+    Returns (args, kw): `walk(*args, **kw)` is the launch and
+    `walk_plain(*args, **kw')` its plain version (kw' = kw's ray_tile and
+    lane_bounds, if any)."""
     cs = accel.cluster_size
     lo, hi = clusters or (0, accel.num_clusters)
     cmin, cmax = accel.cluster_min[lo:hi], accel.cluster_max[lo:hi]
     early = _early(nearest, hi - lo, early_exit, tmax_row)
     ids, tnear, cnt = _tile_visit_lists_soa(rp, cmin, cmax,
-                                            _cap_of(nearest, t_max))
+                                            _cap_of(nearest, t_max), ray_tile)
     geo, family = _geo_table(accel, shared_origin, slice(lo, hi), variant)
     args = (rp, ids, cnt, geo,
             _attr_table(accel, attr_kind)[lo:hi] if n_attrs else None,
             n_attrs, cs, eps, nearest, t_max, family, tmax_row)
     kw = dict(tnear=tnear if early else None,
               bbox=_union_box(cmin, cmax) if early else None,
-              ee_batch=_ee_batch_for(cs), entry=_entry("walk", attr_kind))
+              ee_batch=_ee_batch_for(cs), entry=_entry("walk", attr_kind),
+              ray_tile=ray_tile)
     if lane_cull:
         kw["lane_bounds"] = _lane_bounds(cmin, cmax)
     return args, kw
@@ -1238,7 +1313,8 @@ def _groups_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
 
 def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                        n_attrs, early_exit=None, shared_origin=None,
-                       tmax_row=None, attr_kind="shade", variant="pmt"):
+                       tmax_row=None, attr_kind="shade", variant="pmt",
+                       ray_tile: int = RAY_TILE):
     """The streamed-groups launch (K3): one extents pass (K6), then every
     group's frustum lists from it in one pass — the interval test against
     each group's run of boxes, ids local to the group, sorted within the
@@ -1247,9 +1323,10 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     inverted boxes and zero blocks (never accepted); the interval test
     would take an inverted box for one that covers everything, so the
     padded clusters are struck from the lists by their index. The
-    variant's table and cap as in `_groups_walk_args`.
+    variant's table, cap and tile as in `_groups_walk_args`.
     Returns (args, kw): `walk_gstream(*args, **kw)` is the launch and
-    `walk_gstream_plain(*args)` its plain version."""
+    `walk_gstream_plain(*args, ray_tile=kw["ray_tile"])` its plain
+    version."""
     cs = accel.cluster_size
     geo, family = _geo_table(accel, shared_origin, variant=variant)
     gsz = _group_clusters(accel, n_attrs)
@@ -1265,7 +1342,7 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
 
     cmin, cmax = padded(cmin, _BIG), padded(cmax, -_BIG)
     geo, attr = padded(geo, 0.0), padded(attr, 0.0)
-    lo, hi = tile_extents(rp)
+    lo, hi = tile_extents(rp, ray_tile)
     tile_alive = hi[:, 7] > 0.0
     early = _early(nearest, gsz, early_exit, tmax_row)
     # Every group's lists in one pass: the boxes as [G, 1, gsz] against the
@@ -1284,26 +1361,28 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     args = (rp, ids, cnt, geo, attr, n_attrs, cs, gsz, eps, nearest, t_max,
             family, tmax_row)
     kw = dict(tnear=tnear if early else None, bbox=bbox,
-              ee_batch=_ee_batch_for(cs))
+              ee_batch=_ee_batch_for(cs), ray_tile=ray_tile)
     return args, kw
 
 
-def _refined_lists(accel: ClusterAccel, rp, t_cap=None):
-    """Frustum lists cut down to the clusters some alive ray of the tile
-    enters (K5), still front to back: the dense form (one launch with the
-    extents, `refine_dense_extents`) ANDs the entered bits into the
-    interval test's flags, the gathered form (more than
-    `_REFINE_DENSE_MAX_C` clusters) re-tests the listed candidates and
+def _refined_lists(accel: ClusterAccel, rp, t_cap=None,
+                   ray_tile: int = RAY_TILE):
+    """Frustum lists of the tiles of ray_tile rays cut down to the clusters
+    some alive ray of the tile enters (K5), still front to back: the dense
+    form (one launch with the extents, `refine_dense_extents`) ANDs the
+    entered bits into the interval test's flags, the gathered form (more
+    than `_REFINE_DENSE_MAX_C` clusters) re-tests the listed candidates and
     compacts again. With t_cap, the frustum test and K5 clip at it."""
     cmin, cmax = accel.cluster_min, accel.cluster_max
     if accel.num_clusters <= _REFINE_DENSE_MAX_C:
-        lo, hi, entered = refine_dense_extents(rp, cmin, cmax, t_cap)
+        lo, hi, entered = refine_dense_extents(rp, cmin, cmax, t_cap,
+                                               ray_tile)
         return _visit_lists_from_extents(
             lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
             extra_mask=entered, t_cap=t_cap)
-    ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(rp, cmin, cmax,
-                                                           t_cap))
-    keep = refine_lists(rp, ids, cnt, cmin, cmax, t_cap)
+    ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(
+        rp, cmin, cmax, t_cap, ray_tile))
+    keep = refine_lists(rp, ids, cnt, cmin, cmax, t_cap, ray_tile)
     return _compact_lists(keep, tnear, ids)
 
 
@@ -1319,14 +1398,16 @@ def _combined_table(geo, accel: ClusterAccel, n_attrs, attr_kind="shade"):
 
 def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                    early_exit=None, shared_origin=None, tmax_row=None,
-                   attr_kind="shade", variant="pmt"):
+                   attr_kind="shade", variant="pmt",
+                   ray_tile: int = RAY_TILE):
     """The `_walk_dma` launch (K2): refined lists (K5) over the combined
     [C, rows + A, CS] table of the variant ("pmt" or "mt"). Returns
     (args, kw) as `_groups_walk_args` does."""
     cs = accel.cluster_size
     geo, family = _geo_table(accel, shared_origin, variant=variant)
     blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
-    ids, tnear, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max))
+    ids, tnear, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max),
+                                     ray_tile)
     early = _early(nearest, accel.num_clusters, early_exit, tmax_row)
     args = (rp, ids, cnt, blocks, attr, n_attrs, cs, eps, nearest, t_max,
             family, tmax_row)
@@ -1334,17 +1415,18 @@ def _dma_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
               bbox=(_union_box(accel.cluster_min, accel.cluster_max)
                     if early else None),
               ee_batch=_dma_ee_batch(cs),
-              entry=_entry("walk_dma", attr_kind))
+              entry=_entry("walk_dma", attr_kind), ray_tile=ray_tile)
     return args, kw
 
 
 def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                   shared_origin=None, tmax_row=None, attr_kind="shade",
-                  variant="pmt"):
+                  variant="pmt", ray_tile: int = RAY_TILE):
     """The work-queue launch (K4): refined lists (K5, either form: both
     give the same walk) over the combined [C, rows + A, CS] table of the
-    variant ("pmt" or "mt"). Returns (args, kw): `walk_wq(*args, **kw)` is
-    the launch and `walk_wq_plain(*args)` its plain version.
+    variant ("pmt" or "mt"), tiles of ray_tile rays. Returns (args, kw):
+    `walk_wq(*args, **kw)` is the launch and `walk_wq_plain(*args, **kw)`
+    its plain version.
 
     The TPU package cuts its lists to a fixed width and covers the tiles
     that overflow it with a second, ordinary launch; the lists here are
@@ -1352,16 +1434,17 @@ def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
     no counterpart."""
     geo, family = _geo_table(accel, shared_origin, variant=variant)
     blocks, attr = _combined_table(geo, accel, n_attrs, attr_kind)
-    ids, _, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max))
+    ids, _, cnt = _refined_lists(accel, rp, _cap_of(nearest, t_max),
+                                 ray_tile)
     args = (rp, ids, cnt, blocks, attr, n_attrs, accel.cluster_size, eps,
             nearest, t_max, family, tmax_row)
-    return args, dict(u=WQ_U)
+    return args, dict(u=WQ_U, ray_tile=ray_tile)
 
 
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                  early_exit=None, wq=False, shared_origin=None,
                  tmax_row=None, attr_kind="shade", variant="pmt",
-                 lane_cull=False):
+                 lane_cull=False, ray_tile: int = RAY_TILE):
     """One walk over the cluster set: (t [1, rp], slot or hit flag [1, rp],
     attrs | None). tmax_row: an optional [1, rp] per-ray limit of an
     occlusion query. attr_kind: which attribute planes a nearest walk
@@ -1376,10 +1459,12 @@ def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
     whatever they do not take falls through, as in the JAX package. A
     table inside the group budget is one K1 launch, with the lane-cull
     pre-test where `lane_cull`; a bigger one is walked in groups by K3
-    (no lane cull, as the TPU's streamed walk)."""
+    (no lane cull, as the TPU's streamed walk). Every launch culls in
+    tiles of ray_tile rays."""
     _check_variant(accel, variant)
     query = dict(shared_origin=shared_origin, tmax_row=tmax_row,
-                 attr_kind=attr_kind, variant=variant)
+                 attr_kind=attr_kind, variant=variant,
+                 ray_tile=check_ray_tile(ray_tile))
     gsz = _group_clusters(accel, n_attrs)
     if wq and variant in ("pmt", "mt"):
         if _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
@@ -1402,14 +1487,15 @@ def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
 
 def _walk_over_budget(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                       early_exit=None, shared_origin=None, tmax_row=None,
-                      attr_kind="shade", variant="pmt"):
+                      attr_kind="shade", variant="pmt",
+                      ray_tile: int = RAY_TILE):
     """`_walk_groups` for a table above the group budget: the
     streamed-groups walk (K3)."""
     args, kw = _gstream_walk_args(accel, rp, eps, nearest, t_max, n_attrs,
                                   early_exit=early_exit,
                                   shared_origin=shared_origin,
                                   tmax_row=tmax_row, attr_kind=attr_kind,
-                                  variant=variant)
+                                  variant=variant, ray_tile=ray_tile)
     return walk_gstream(*args, **kw)
 
 
@@ -1540,7 +1626,7 @@ def _pad_rays_soa(rays8):
 
 def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
                     eps: float = 1e-8, shared_origin=None,
-                    variant: str = "pmt"
+                    variant: str = "pmt", ray_tile: int = RAY_TILE
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack without attributes: (t [N], tri [N]
     original triangle ids, 0 on miss). shared_origin: a [3] origin that
@@ -1548,10 +1634,12 @@ def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
     selects the origin-folded intersector, whose results can differ from
     the default one's only at acceptance boundaries, within one f32
     rounding. variant: the intersector family (VARIANTS), whose table must
-    have been built."""
+    have been built. ray_tile: the culling tile (RAY_TILES; no result
+    depends on it)."""
     rp, r = _pad_rays_soa(rays8)
     t, s, _ = _walk_groups(accel, rp, eps, True, INF, 0,
-                           shared_origin=shared_origin, variant=variant)
+                           shared_origin=shared_origin, variant=variant,
+                           ray_tile=ray_tile)
     t, s, _ = _merge_rest_nearest(accel, rp, t, s, None, eps, 0)
     t, s = t[0, :r], s[0, :r]
     hit = torch.isfinite(t)
@@ -1564,7 +1652,7 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
                           wq: bool = False, shared_origin=None,
                           attr_kind: str = "shade", variant: str = "pmt",
                           t_cap: Optional[float] = None,
-                          lane_cull: bool = False
+                          lane_cull: bool = False, ray_tile: int = RAY_TILE
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit over the pack, with the winner's attribute planes.
     Returns (t [N], slot [N] packed slot ids, attrs [A, N]); attrs are 0 on
@@ -1572,7 +1660,8 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
     attr_kind: the shading planes (A = 9, or 4 in objid mode), the
     backward's 11 planes ("grad") or both, the shading planes first (A =
     20, or 15); t and the slots do not depend on it. lane_cull: the K1
-    walk's lane-cull pre-test (no result changes).
+    walk's lane-cull pre-test, ray_tile: the culling tile of every launch
+    (RAY_TILES); no result depends on either.
 
     t_cap: the two-phase query (traverse.py:3184-3238). Phase 1 walks with
     every frustum, refinement and intersection cut at t_cap, and merges the
@@ -1582,7 +1671,8 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
     rp, r = _pad_rays_soa(rays8)
     n_attrs = _n_attrs(accel, attr_kind)
     walk_kw = dict(early_exit=early_exit, wq=wq, shared_origin=shared_origin,
-                   attr_kind=attr_kind, variant=variant, lane_cull=lane_cull)
+                   attr_kind=attr_kind, variant=variant, lane_cull=lane_cull,
+                   ray_tile=ray_tile)
     t1, s1, a1 = _walk_groups(accel, rp, eps, True,
                               INF if t_cap is None else float(t_cap),
                               n_attrs, **walk_kw)
@@ -1603,23 +1693,25 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
 
 
 def grad_planes_soa(accel: ClusterAccel, rays8: torch.Tensor,
-                    eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+                    eps: float = 1e-8, ray_tile: int = RAY_TILE
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The nearest walk with the backward's planes only: (t [N], planes
     [11, N] = the winner's v0 | e1 | e2 | tri_id | obj_id, 0 on a miss).
     The winner is the shading walk's (same lists, same tie rule)."""
     t, _, planes = nearest_hit_attrs_soa(accel, rays8, eps,
-                                         attr_kind="grad")
+                                         attr_kind="grad", ray_tile=ray_tile)
     return t, planes
 
 
 def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
                 t_max=INF, wq: bool = False, variant: str = "pmt",
-                lane_cull: bool = False) -> torch.Tensor:
+                lane_cull: bool = False, ray_tile: int = RAY_TILE
+                ) -> torch.Tensor:
     """Occlusion over the pack -> [N] bool. t_max: a number (one bound for
     every ray) or an [N] tensor (each ray's own bound — an area light's
     shadow sample stops at its light's surface). An infinite entry of the
-    tensor becomes 3e38; the lanes that pad the pack get 0. variant and
-    lane_cull as in `nearest_hit_attrs_soa`."""
+    tensor becomes 3e38; the lanes that pad the pack get 0. variant,
+    lane_cull and ray_tile as in `nearest_hit_attrs_soa`."""
     tmax_row = None
     if isinstance(t_max, torch.Tensor) and t_max.dim():
         t_max = t_max.detach()  # a traversal decision: never differentiated
@@ -1632,7 +1724,7 @@ def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
     rp, r = _pad_rays_soa(rays8)
     _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq,
                              tmax_row=tmax_row, variant=variant,
-                             lane_cull=lane_cull)
+                             lane_cull=lane_cull, ray_tile=ray_tile)
     occ = _merge_rest_occlusion(accel, rp, occ[0] != 0, eps, t_max, tmax_row)
     return occ[:r]
 
@@ -1661,13 +1753,15 @@ def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
 
 def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
             alive=None, wq: bool = False, variant: str = "pmt",
-            lane_cull: bool = False) -> torch.Tensor:
+            lane_cull: bool = False, ray_tile: int = RAY_TILE
+            ) -> torch.Tensor:
     """Occlusion of rays o, d [N, 3] -> [N] bool (a traversal decision:
-    nothing of it is differentiated)."""
+    nothing of it is differentiated), culled in tiles of ray_tile rays."""
     _count_query("shadow", o.shape[0], alive)
     return any_hit_soa(accel, rays_to_soa(o.detach(), d.detach(),
                                           alive=alive), eps, t_max, wq=wq,
-                       variant=variant, lane_cull=lane_cull)
+                       variant=variant, lane_cull=lane_cull,
+                       ray_tile=ray_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -1727,8 +1821,8 @@ class _LazyT(torch.autograd.Function):
 class _ShadedWalk(torch.autograd.Function):
     """Differentiable (t, slot, attrs [N, 9]) of the nearest walk (twin of
     the JAX package's `_shaded_walk`). The forward walks with the shading
-    and the backward's planes together (`attr_kind="both"`), so the
-    backward needs no second walk: t is re-derived from the winner's
+    and the backward's planes together (`attr_kind="both"`, in the
+    query's culling tile), so the backward needs no second walk: t is re-derived from the winner's
     v0 | e1 | e2 planes (corners v0, v0 + e1, v0 + e2), its per-corner
     gradients summed per triangle id and then into the vertex pool; the
     normal and color cotangents go to the triangle, the material ones to
@@ -1790,14 +1884,16 @@ def _differentiated(*tensors) -> bool:
 
 
 def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
-                alive=None, variant: str = "pmt") -> Hit:
+                alive=None, variant: str = "pmt",
+                ray_tile: int = RAY_TILE) -> Hit:
     """Nearest hit with ORIGINAL triangle ids (0 on a miss) and a t that is
     the kernel's forward and differentiates through the live vertices
     (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`). variant:
-    the intersector family (VARIANTS)."""
+    the intersector family (VARIANTS); ray_tile: the culling tile."""
     _count_query("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
-    t_k, tri = nearest_hit_soa(accel, rays8, eps, variant=variant)
+    t_k, tri = nearest_hit_soa(accel, rays8, eps, variant=variant,
+                               ray_tile=ray_tile)
     hit = torch.isfinite(t_k)
     if _differentiated(mesh.verts, o, d):
         t_k = _LazyT.apply(mesh.verts, o, d, mesh.tri_v, tri, hit, t_k)
@@ -1808,10 +1904,11 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
                        alive=None, early_exit=None, wq: bool = False,
                        shared_origin=None, variant: str = "pmt",
                        t_cap: Optional[float] = None,
-                       lane_cull: bool = False) -> Tuple[Hit, torch.Tensor]:
+                       lane_cull: bool = False, ray_tile: int = RAY_TILE
+                       ) -> Tuple[Hit, torch.Tensor]:
     """The renderer's nearest query: (Hit with packed slot ids, attrs
     [N, 9] = normal | color | albedo/pi, reflectivity, roughness).
-    variant, t_cap (the two-phase query) and lane_cull as in
+    variant, t_cap (the two-phase query), lane_cull and ray_tile as in
     `nearest_hit_attrs_soa`.
 
     Under autograd, when one of the mesh's verts, normals, colors or
@@ -1824,7 +1921,8 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     if shared_origin is not None:
         shared_origin = shared_origin.detach()
     walk_kw = dict(early_exit=early_exit, wq=wq, shared_origin=shared_origin,
-                   variant=variant, t_cap=t_cap, lane_cull=lane_cull)
+                   variant=variant, t_cap=t_cap, lane_cull=lane_cull,
+                   ray_tile=ray_tile)
     if not _differentiated(mesh.verts, mesh.normals, mesh.colors,
                            mesh.materials, o, d):
         t, slot, attrs_k = nearest_hit_attrs_soa(accel, rays8, eps,

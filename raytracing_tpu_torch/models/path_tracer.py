@@ -34,6 +34,7 @@ from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.kernels.binning import (batch_bounds, bin_sort,
                                                   bounce_bin_key)
+from raytracing_tpu_torch.kernels.traverse import check_ray_tile
 from raytracing_tpu_torch.models.camera import camera_rays_for_ids
 from raytracing_tpu_torch.models.whitted import frame_accels, shade
 from raytracing_tpu_torch.ops.color import gamma_correct
@@ -81,6 +82,9 @@ def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     alive = torch.ones(r, dtype=torch.bool, device=dev)
     binning = config.bin_secondary and uses_kernels(config)
     orig = torch.arange(r, dtype=torch.int32, device=dev)
+    # The culling tile of the segments after the first (kernel path).
+    rt_gi = (check_ray_tile(config.gi_ray_tile or None)
+             if uses_kernels(config) else None)
 
     for bounce in range(pt.max_bounces):
         first = bounce == 0
@@ -92,15 +96,16 @@ def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 radiance, orig)
         wq = config.gi_wq and not first
         lane_cull = config.gi_lane_cull and not first
+        ray_tile = None if first else rt_gi
         h, attrs = nearest_hit_shaded(
             mesh, acc_l, o, d, config, alive=alive,
             early_exit=True if not first and config.gi_early_exit else None,
-            wq=wq, lane_cull=lane_cull,
+            wq=wq, lane_cull=lane_cull, ray_tile=ray_tile,
             # Primaries share the pinhole origin; later segments do not.
             shared_origin=(o[0] if first and config.primary_shared_origin
                            else None))
         sh = shade(mesh, acc_l, sun, o, d, h, config, attrs, wq=wq,
-                   lane_cull=lane_cull)
+                   lane_cull=lane_cull, ray_tile=ray_tile)
         hit = h.hit & alive
         # A miss sees the sky and ends the path.
         radiance = radiance + torch.where((alive & ~h.hit)[:, None],

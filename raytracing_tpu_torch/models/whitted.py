@@ -32,8 +32,9 @@ from raytracing_tpu_torch.accel.packets import ClusterAccel, build_cluster_accel
 from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene, SphereLight
 from raytracing_tpu_torch.kernels.binning import (
-    batch_bounds, bin_key, bin_sort, bounce_bin_key, unsort)
-from raytracing_tpu_torch.kernels.traverse import Hit, camera_mode_supported
+    batch_bounds, bin_key, bin_sort, bounce_bin_key, scene_bounds, unsort)
+from raytracing_tpu_torch.kernels.traverse import (Hit, camera_mode_supported,
+                                                   check_ray_tile)
 from raytracing_tpu_torch.models.camera import (
     block_permutation, block_ray_ids, blocks_to_image, camera_rays_for_ids)
 from raytracing_tpu_torch.ops.color import gamma_correct
@@ -70,14 +71,15 @@ class Shaded(NamedTuple):
 def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
           config: RenderConfig, attrs: Optional[torch.Tensor] = None,
           bin_shadow: Optional[bool] = None, wq: bool = False,
-          lane_cull: bool = False) -> Shaded:
+          lane_cull: bool = False, ray_tile: Optional[int] = None) -> Shaded:
     """Direct sun light at the hit points, with the shadow (any-hit) query.
     attrs [N, 9]: the walk's attribute rows, hit.tri then packed slots (the
     kernel path); None: hit.tri are original triangle ids and one row
     gather of `_attribute_rows` fetches the attributes (the other
     backends). The shadow rays are re-sorted by hit position only on the
     kernel path, as in the JAX package (the order changes no result).
-    wq and lane_cull: how the shadow query walks (no result changes)."""
+    wq, lane_cull and ray_tile (the culling tile; None: the default): how
+    the shadow query walks (no result changes)."""
     t_safe = torch.where(hit.hit, hit.t, 1.0)
     idx_is_slot = attrs is not None
     if attrs is None:
@@ -105,11 +107,12 @@ def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
         sidx, (pos_s, alive_s) = bin_sort(k, pos, sh_alive)
         dir_s = normalize(sun - pos_s, eps=1e-20)
         occ_s = any_hit(mesh, accel, pos_s, dir_s, config, alive=alive_s,
-                        wq=wq, lane_cull=lane_cull)
+                        wq=wq, lane_cull=lane_cull, ray_tile=ray_tile)
         (occluded,) = unsort(sidx, occ_s)
     else:
         occluded = any_hit(mesh, accel, pos, sun_dir, config,
-                           alive=sh_alive, wq=wq, lane_cull=lane_cull)
+                           alive=sh_alive, wq=wq, lane_cull=lane_cull,
+                           ray_tile=ray_tile)
     lit = hit.hit & facing & ~occluded
     direct = torch.where(lit[:, None], color * (ndl * albedo_pi)[:, None],
                          0.0)
@@ -155,7 +158,8 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                     sh: Shaded, hit_mask, uniforms, config: RenderConfig,
                     wq: bool = False, mesh: Optional[Mesh] = None,
-                    lane_cull: bool = False) -> torch.Tensor:
+                    lane_cull: bool = False,
+                    ray_tile: Optional[int] = None) -> torch.Tensor:
     """Soft-shadowed direct radiance [N, 3] from spherical area lights at
     the shaded points. Per light: `config.light_samples` directions drawn
     uniformly in the cone the light subtends, each a visibility ray whose
@@ -163,8 +167,8 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
     mean(emission cos_theta V) x cone solid angle x albedo/pi x color.
     uniforms((light, sample), [N, 2]) returns each draw's uniforms. mesh:
     the scene's mesh, which the brute-force and cluster backends read (the
-    kernel path needs only the accel). wq and lane_cull: how the shadow
-    queries walk."""
+    kernel path needs only the accel). wq, lane_cull and ray_tile (the
+    culling tile): how the shadow queries walk."""
     pos, n = sh.pos, sh.n
     total = torch.zeros_like(pos)
     for li in range(lights.center.shape[0]):
@@ -175,7 +179,7 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                 cone, pos, n, hit_mask, uniforms((li, s), (pos.shape[0], 2)))
             occluded = any_hit(mesh, accel, pos, w_dir, config,
                                t_max=t_stop, alive=alive, wq=wq,
-                               lane_cull=lane_cull)
+                               lane_cull=lane_cull, ray_tile=ray_tile)
             vis = alive & ~occluded
             acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
         total = total + ((acc / config.light_samples * cone.omega)[:, None]
@@ -193,8 +197,8 @@ def bounce_cap(accel: Optional[ClusterAccel],
     JAX package skips the cap when the accel is traced.)"""
     if config.gi_cap_frac <= 0.0 or accel is None:
         return None
-    diag = accel.cluster_max.amax(dim=0) - accel.cluster_min.amin(dim=0)
-    return config.gi_cap_frac * float(torch.linalg.norm(diag))
+    lo, hi = scene_bounds(accel)
+    return config.gi_cap_frac * float(torch.linalg.norm(hi - lo))
 
 
 def _bin_bounce(o_l, d_l, alive_l):
@@ -276,6 +280,8 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     # Bounce levels are re-sorted on the kernel path only (JAX package).
     kernels = uses_kernels(config)
     t_cap = bounce_cap(accel, config) if kernels else None
+    # The bounce levels' culling tile (the kernel path's; checked up front).
+    rt_gi = check_ray_tile(config.gi_ray_tile or None) if kernels else None
 
     def level_radiance(o_l, d_l, alive_l, depth):
         n_l = o_l.shape[0]
@@ -288,6 +294,7 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
             sidx, (o_l, d_l, alive_l) = _bin_bounce(o_l, d_l, alive_l)
         wq = config.gi_wq and bounce
         lane_cull = config.gi_lane_cull and bounce
+        ray_tile = rt_gi if bounce else None
         if not bounce and camera_chunk is not None:
             tb, offs_c, bh_c, bw_c = camera_chunk
             rt_c = config.samples_per_pixel * bh_c * bw_c
@@ -303,17 +310,20 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 mesh, acc_l, o_l, d_l, config, alive=alive_l,
                 early_exit=True if bounce and config.gi_early_exit else None,
                 wq=wq, t_cap=t_cap if bounce else None, lane_cull=lane_cull,
+                ray_tile=ray_tile,
                 # Primaries share the pinhole origin; bounce levels do not.
                 shared_origin=(o_l[0] if not bounce
                                and config.primary_shared_origin else None))
         sh = shade(mesh, acc_l, sun, o_l, d_l, h, config, attrs,
-                   bin_shadow=bin_sh, wq=wq, lane_cull=lane_cull)
+                   bin_shadow=bin_sh, wq=wq, lane_cull=lane_cull,
+                   ray_tile=ray_tile)
         contrib = sh.direct
         if lights is not None:
             area = area_light_term(
                 acc_l, lights, sh, h.hit,
                 lambda ls, shape: uniforms(("light", depth) + ls, shape),
-                config, wq=wq, mesh=mesh, lane_cull=lane_cull)
+                config, wq=wq, mesh=mesh, lane_cull=lane_cull,
+                ray_tile=ray_tile)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         if depth < config.reflect_depth or depth < config.diffuse_depth:
             o_c, d_c, a_c, w_refl, w_diff = _children(d_l, h, sh, config,

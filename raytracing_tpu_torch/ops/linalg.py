@@ -22,12 +22,23 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
 
 
+def norm(a: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the trailing axis."""
+    return torch.sqrt(dot(a, a))
+
+
 def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """Normalize over the trailing axis; eps > 0 guards the zero vector."""
     n2 = dot(a, a)[..., None]
     if eps:
         n2 = torch.clamp_min(n2, eps)
     return a / torch.sqrt(n2)
+
+
+def safe_reciprocal(a: torch.Tensor) -> torch.Tensor:
+    """1 / a, +/-inf where a component is +/-0 (the slab tests' reciprocal
+    ray direction): IEEE division already gives it; named for intent."""
+    return 1.0 / a
 
 
 def sqrt0(x: torch.Tensor) -> torch.Tensor:

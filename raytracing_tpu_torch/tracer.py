@@ -77,20 +77,23 @@ def nearest_hit_shaded(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
                        config: RenderConfig, alive=None, early_exit=None,
                        wq: bool = False, shared_origin=None,
                        t_cap: Optional[float] = None,
-                       lane_cull: bool = False):
+                       lane_cull: bool = False,
+                       ray_tile: Optional[int] = None):
     """Nearest hit plus, on the kernel path, the winner's shading
     attributes: (Hit, attrs [N, 9]) with Hit.tri packed slot ids. Off the
     kernel path (Hit with original triangle ids, None): the caller gathers
     the attributes itself. t and attrs differentiate into the mesh and the
     rays when one of them requires grad. shared_origin: a [3] origin every
     ray leaves (selects the origin-folded intersector); t_cap: the
-    two-phase capped query; lane_cull: the walk's lane-cull pre-test (the
-    last three on the kernel path only; no result depends on them)."""
+    two-phase capped query; lane_cull: the walk's lane-cull pre-test;
+    ray_tile: the culling tile (None: `traverse.RAY_TILE`) (the last four
+    on the kernel path only; no result depends on them)."""
     if _engine(config, accel) == "kernels":
         return T.nearest_hit_shaded(mesh, accel, o, d, config.eps,
                                     alive=alive, early_exit=early_exit,
                                     wq=wq, shared_origin=shared_origin,
-                                    t_cap=t_cap, lane_cull=lane_cull)
+                                    t_cap=t_cap, lane_cull=lane_cull,
+                                    ray_tile=ray_tile)
     return nearest_hit(mesh, accel, o, d, config, alive=alive), None
 
 
@@ -110,10 +113,11 @@ def nearest_hit_shaded_camera(accel: ClusterAccel, offs,
 
 def any_hit(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
             config: RenderConfig, t_max=INF, alive=None, wq: bool = False,
-            lane_cull: bool = False):
+            lane_cull: bool = False, ray_tile: Optional[int] = None):
     """Occlusion of rays o, d [N, 3] -> [N] bool. t_max: a number, or an
     [N] tensor of per-ray bounds (an area light's shadow samples).
-    lane_cull: the walk's lane-cull pre-test (kernel path only)."""
+    lane_cull: the walk's lane-cull pre-test; ray_tile: the culling tile
+    (None: `traverse.RAY_TILE`) (kernel path only)."""
     engine = _engine(config, accel)
     if engine == "bruteforce":
         return any_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d,
@@ -121,4 +125,4 @@ def any_hit(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
     if engine == "cluster":
         return any_hit_cluster(mesh, accel, o, d, t_max, config.eps)
     return T.any_hit(accel, o, d, config.eps, t_max=t_max, alive=alive,
-                     wq=wq, lane_cull=lane_cull)
+                     wq=wq, lane_cull=lane_cull, ray_tile=ray_tile)

@@ -698,19 +698,30 @@ def test_refine_dense_extents_matches_plain(setup, dev, cs, n_clusters):
 
 
 def test_bad_launch_raises(dev):
-    """A launch the kernel refuses raises; it is never skipped."""
+    """A launch the kernel refuses raises; it is never skipped: a pack that
+    is not whole tiles, a tile outside the accepted set (384; 2,048, above
+    the largest), more clusters than the dense form takes."""
     lib = cuda.library()
     x = torch.zeros((8, 1000), device=dev)
+    x4 = torch.zeros((8, 4096), device=dev)
     lo = torch.empty((1, 8), device=dev)
     with pytest.raises(RuntimeError, match="extents kernel launch failed"):
-        cuda.check(lib.rt_tile_extents(T._ptr(x), 1000, T._ptr(lo),
+        cuda.check(lib.rt_tile_extents(T._ptr(x), 1000, 1024, T._ptr(lo),
                                        T._ptr(lo), T._stream(x)), "extents")
+    for tile in (384, 2048):
+        with pytest.raises(RuntimeError, match="extents kernel launch"):
+            cuda.check(lib.rt_tile_extents(T._ptr(x4), 4096, tile,
+                                           T._ptr(lo), T._ptr(lo),
+                                           T._stream(x4)), "extents")
     with pytest.raises(RuntimeError, match="refine_extents kernel launch"):
         cuda.check(lib.rt_refine_dense_extents(
-            T._ptr(x), 1024, T._ptr(lo), T._ptr(lo), 513, 1, T._ptr(lo),
-            T._ptr(lo), T._ptr(lo), T._stream(x)), "refine_extents")
+            T._ptr(x), 1024, 1024, T._ptr(lo), T._ptr(lo), 513, 1,
+            T._ptr(lo), T._ptr(lo), T._ptr(lo), T._stream(x)),
+            "refine_extents")
     with pytest.raises(ValueError):
         T.tile_extents(x)
+    with pytest.raises(ValueError, match="128, 256, 512, 1024"):
+        T.tile_extents(x4, 2048)
     boxes = torch.zeros((600, 3), device=dev)
     with pytest.raises(ValueError, match="at most 512"):
         T.refine_dense_extents(torch.zeros((8, 1024), device=dev), boxes,
@@ -1104,3 +1115,149 @@ def test_lane_cull_walks_match_plain(setup, dev, plain_on_card):
                           lane_cull=True, **cam)
     assert all(torch.equal(a, b) for a, b in zip(on, off))
     assert all(torch.equal(a, b) for a, b in zip(on, plain))
+
+
+# ---------------------------------------------------------------------------
+# The bounce levels' culling tile: every pack kernel at tiles of 128-512
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ray_tile", [256, 128, 512])
+def test_extents_and_dense_refine_at_a_smaller_tile(setup, dev, ray_tile):
+    """K6 and K5 dense (with K6's extents in the launch, and with flags
+    given) at a tile of `ray_tile` rays (a block of ray_tile / 4
+    threads): equal to their plain versions at that tile on the refine
+    pack (tiles with 1-31 alive lanes, a dead tile, degenerate
+    directions, the grazing ray), ten launches; counted as "_rt<T>"."""
+    accels, _ = setup
+    acc = accels[128]
+    p = _refine_pack()
+    cmin, cmax = acc.cluster_min.clone(), acc.cluster_max.clone()
+    cmin[7], cmax[7] = 0.0, 1.0
+    g, gmin, gmax = p.to(dev), cmin.to(dev), cmax.to(dev)
+    plo, phi = T.tile_extents_plain(p, ray_tile)
+    _, _, pent = T.refine_dense_extents_plain(p, cmin, cmax,
+                                              ray_tile=ray_tile)
+    assert plo.shape == (p.shape[1] // ray_tile, 8)
+    counts = dict(T.LAUNCHES)
+    for _ in range(10):
+        lo, hi = T.tile_extents(g, ray_tile)
+        assert torch.equal(lo.cpu(), plo) and torch.equal(hi.cpu(), phi)
+        flo, fhi, fent = T.refine_dense_extents(g, gmin, gmax,
+                                                ray_tile=ray_tile)
+        assert torch.equal(flo.cpu(), plo) and torch.equal(fhi.cpu(), phi)
+        assert torch.equal(fent.cpu(), pent)
+    key = f"_rt{ray_tile}"
+    assert T.LAUNCHES["extents" + key] == counts.get("extents" + key, 0) + 10
+    assert T.LAUNCHES["refine_extents" + key] == counts.get(
+        "refine_extents" + key, 0) + 10
+    assert T.LAUNCHES["extents"] == counts["extents"]
+    assert pent.any() and not pent[4 * 1024 // ray_tile].any()
+    flags = phi[:, 7] > 0.0
+    flags[0] = False
+    want = T.refine_dense_plain(p, cmin, cmax, flags, ray_tile=ray_tile)
+    got = T.refine_dense(g, gmin, gmax, flags.to(dev), ray_tile=ray_tile)
+    assert torch.equal(got.cpu(), want) and not want[0].any()
+
+
+@pytest.mark.parametrize("ray_tile", [256, 128])
+@pytest.mark.parametrize("case", ["imbalance", "width"])
+def test_refine_lists_at_a_smaller_tile(setup, dev, case, ray_tile):
+    """K5 gathered at a smaller tile over the CS 16 table's lists, a tile
+    that lists every cluster beside short ones, a dead tile, counts above
+    the width: the plain version's bits, ten launches."""
+    accels, _ = setup
+    acc = accels[16]
+    p = _refine_pack()
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        p, acc.cluster_min, acc.cluster_max, ray_tile=ray_tile))
+    c = acc.num_clusters
+    ids = torch.cat([ids, ids.new_zeros((ids.shape[0], c - ids.shape[1]))],
+                    dim=1)
+    cnt = cnt.clone()
+    ids[0], cnt[0] = torch.arange(c, dtype=torch.int32), c
+    if case == "width":
+        ids = ids[:, :40]
+        cnt = torch.maximum(cnt, torch.tensor(45))
+    args = (p, ids.contiguous(), cnt, acc.cluster_min, acc.cluster_max)
+    want = T.refine_lists_plain(*args, ray_tile=ray_tile)
+    gargs = tuple(a.to(dev) for a in args)
+    for _ in range(10):
+        assert torch.equal(T.refine_lists(*gargs, ray_tile=ray_tile).cpu(),
+                           want)
+    dead = 4 * 1024 // ray_tile
+    assert want[0].any() and not want[dead].any()
+
+
+@pytest.mark.parametrize("form,ray_tile", [
+    ("walk", 256), ("walk_lc", 256), ("walk_dma", 256), ("walk_dma", 128),
+    ("walk_dma", 512), ("walk_dma_lists", 256), ("walk_wq", 256),
+    ("walk_gstream", 256)], ids=lambda x: str(x))
+def test_walks_at_a_smaller_tile_match_plain(setup, dev, monkeypatch,
+                                             plain_on_card, form, ray_tile):
+    """K1 (nearest with attributes and occlusion under a scalar and a
+    per-ray t_max; with the lane cull), K2 over the dense and the
+    gathered K5's lists, K4 and K3 at a smaller tile, through
+    `nearest_hit_attrs_soa` / `any_hit_soa(ray_tile=)`: equal on alive
+    lanes to the plain versions at that tile and to the default tile's
+    kernels; each launch counted as "<form>_rt<T>"."""
+    accels, packs = setup
+    cs = 16 if form in ("walk", "walk_lc", "walk_gstream") else 128
+    acc = accels[cs].to(dev)
+    if form == "walk_dma_lists":
+        monkeypatch.setattr(T, "_REFINE_DENSE_MAX_C", 8)
+    if form == "walk_wq":
+        monkeypatch.setattr(T, "_WQ_IMPL", "grid")
+    if form == "walk_gstream":
+        monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    query = dict(early_exit=True, wq=cs == 128, lane_cull=form == "walk_lc")
+    key = {"walk_dma_lists": "walk_dma"}.get(form, form) + f"_rt{ray_tile}"
+    for p in packs:
+        g = p.to(dev)
+        m = g[7] != 0
+        before = T.LAUNCHES.get(key, 0)
+        kern = T.nearest_hit_attrs_soa(acc, g, ray_tile=ray_tile, **query)
+        assert T.LAUNCHES[key] == before + 1
+        plain = plain_on_card(T.nearest_hit_attrs_soa, acc, g,
+                              ray_tile=ray_tile, **query)
+        assert bool(torch.isfinite(plain[0][m]).any())
+        _same_on_alive(kern, plain, m)
+        _same_on_alive(kern, T.nearest_hit_attrs_soa(acc, g, **query), m)
+        row = torch.linspace(0.5, 6.0, g.shape[1], device=dev)
+        for t_max in (3.0, row):
+            occ = T.any_hit_soa(acc, g, t_max=t_max, ray_tile=ray_tile,
+                                **{k: v for k, v in query.items()
+                                   if k != "early_exit"})
+            want = plain_on_card(T.any_hit_soa, acc, g, t_max=t_max,
+                                 ray_tile=ray_tile, wq=query["wq"],
+                                 lane_cull=query["lane_cull"])
+            assert torch.equal(occ[m], want[m])
+
+
+@pytest.mark.parametrize("cs", [16, 128])
+def test_split_walk_at_a_smaller_tile_is_the_same_at_every_launch(
+        setup, dev, cs):
+    """The pack walk at 256 over the bounce pack's long lists (a block of
+    64 threads, keys and a finish counter per tile of 256), the exit
+    forced: ten launches, the same t, slots and attributes on alive lanes,
+    the plain version's."""
+    accels, packs = setup
+    acc = accels[cs].to(dev)
+    g = packs[1].to(dev)
+    m = g[7] != 0
+    args, kw = T._groups_walk_args(acc, g, 1e-8, True, float("inf"),
+                                   acc.attr_blocks.shape[1],
+                                   early_exit=True, ray_tile=256)
+    assert kw["ray_tile"] == 256 and args[2].shape == (16,)
+    assert int(args[2].max()) > 2 * T._walk_segment(cs)
+    want = T.walk_plain(*args, ray_tile=256)
+    first = None
+    for _ in range(10):
+        visits = torch.zeros(16, dtype=torch.int32, device=dev)
+        t, s, a = T.walk(*args, **kw, visits=visits)
+        assert 0 < int(visits.sum()) <= int(args[2].sum())
+        out = (t[0][m], s[0][m], a[:, m])
+        first = first or out
+        for x, y in zip(out, first):
+            assert torch.equal(x, y)
+    _same_on_alive((t, s, a), want, m)

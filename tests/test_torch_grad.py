@@ -3,8 +3,10 @@ kernels), against finite differences and against the JAX package's
 `jax.grad` through its Pallas backend (interpret mode), with the very
 uniforms JAX draws.
 
-Scenes: tests/test_grad.py's one triangle (its brute-force cases become a
-CS 8 accel here: the port has no brute-force backend), the default scene
+Scenes: tests/test_grad.py's one triangle (walked through a CS 8 accel on
+the kernel path, and through the port's "cluster" and "bruteforce"
+backends, as tests/test_grad.py:135 and :154 hold them against each
+other), the default scene
 for the lights (tests/test_lights.py:59) and the teapot for the lazy t
 (tests/test_kernels.py:104). Bars: the finite-difference tolerances of
 tests/test_grad.py, and JAX's gradients at rtol 2e-4 + atol 1e-7 (the bar
@@ -243,8 +245,9 @@ def test_grad_through_reflection_and_diffuse(tri):
 
 
 def test_grad_coarse_accel_matches_fine(tri, base):
-    """tests/test_grad.py's cluster-vs-brute test: the gradient does not
-    depend on how the accel clusters the mesh (CS 128 against CS 8)."""
+    """The gradient does not depend on how the accel clusters the mesh:
+    the kernel path over a CS 128 accel against the CS 8 one (the
+    backends themselves: `test_grad_plain_backend_matches_kernels`)."""
     _, _, _, ts, _ = tri
     o, d = _rays()
     coarse = port_grads(ts, build_cluster_accel(ts.mesh, cluster_size=128),
@@ -254,6 +257,26 @@ def test_grad_coarse_accel_matches_fine(tri, base):
         np.testing.assert_allclose(coarse[k], port[k], rtol=1e-4, atol=1e-7,
                                    err_msg=k)
     _assert_jax(coarse, want)
+
+
+@pytest.mark.parametrize("backend", ["cluster", "bruteforce"])
+def test_grad_plain_backend_matches_kernels(tri, base, backend):
+    """tests/test_grad.py:135 and :154: the plain backends' gradients
+    (autograd through `accel.packets.nearest_hit_cluster` over a CS 128
+    accel, and through `ops.trace`'s brute force with no accel) of verts,
+    colors and materials against the kernel path's (CS 8) and JAX's
+    `jax.grad` through its Pallas backend, at rtol 2e-4 + atol 1e-7."""
+    _, _, _, ts, _ = tri
+    o, d = _rays()
+    acc = (build_cluster_accel(ts.mesh, cluster_size=128)
+           if backend == "cluster" else None)
+    got = port_grads(ts, acc, o, d, dict(CFG, backend=backend))
+    port, want = base
+    for k in TABLES:
+        assert np.abs(got[k]).max() > 0, k
+        np.testing.assert_allclose(got[k], port[k], rtol=JAX_RTOL,
+                                   atol=JAX_ATOL, err_msg=k)
+    _assert_jax(got, want)
 
 
 def test_grad_every_table_matches_jax_pallas(base):

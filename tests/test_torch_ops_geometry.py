@@ -184,3 +184,22 @@ def test_unported_accel_variants_raise(scenes):
         T.nearest_hit_soa(acc, rays8, variant="woop")
     with pytest.raises(ValueError, match="variant 'wop'"):
         T.any_hit_soa(acc, rays8, variant="wop")
+
+
+def test_norm_and_safe_reciprocal_match_jax():
+    """The public linalg helpers: `norm` at rtol 1e-6 (XLA's reduction
+    may fuse), `safe_reciprocal` equal, its infinities (+/-0 components)
+    signed as JAX's."""
+    rng = np.random.default_rng(4)
+    a = _vecs(rng, 64)
+    a[0] = 0.0
+    a[1, 1] = -0.0
+    a[2, 2] = 1e-30
+    np.testing.assert_allclose(tlin.norm(torch.from_numpy(a)).numpy(),
+                               np.asarray(jlin.norm(jnp.asarray(a))), **TOL)
+    got = tlin.safe_reciprocal(torch.from_numpy(a)).numpy()
+    want = np.asarray(jlin.safe_reciprocal(jnp.asarray(a)))
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got[0]).all() and got[1, 1] == -np.inf
+    assert got[2, 2] == np.float32(1.0) / np.float32(1e-30)
+    assert np.isfinite(got[2:]).all()

@@ -2,7 +2,7 @@
 made executable on the CPU.
 
 Both forms of K5 keep a tile's rays in registers, 4 lanes a thread (ray
-r * 256 + t of the tile in thread t), a degenerate axis as a NaN
+128 w + 32 r + l of the tile in lane l of warp w), a degenerate axis as a NaN
 reciprocal that the slab folds drop; every warp tests every candidate of
 its block against its 128 lanes, from its own offset on, and skips a
 candidate another warp has marked entered. The gathered form
@@ -42,7 +42,7 @@ torch.set_num_threads(2)
 
 INF = float("inf")
 TILE = T.RAY_TILE
-THREADS, WARPS, PER_THREAD = 256, 8, 4
+WARPS, PER_THREAD = 8, 4
 TINY = torch.tensor(1e-20, dtype=torch.float32)
 BIG = 3e38
 
@@ -97,15 +97,17 @@ def _lists(rays8, accel):
 
 
 def _lanes(tile_rays):
-    """The kernel's registers, per warp: the 128 lanes r * 256 + 32 w + l
+    """The kernel's registers, per warp: the 128 lanes 128 w + 32 r + l
     of its threads (origin, reciprocal direction with NaN on a degenerate
-    axis, alive flag)."""
+    axis, alive flag; csrc/common.cuh's ray_index); a tile of T rays has
+    T / 128 warps, 8 at the default tile."""
     d = tile_rays[4:7]
     inv = torch.where(d.abs() < TINY, float("nan"), 1.0 / d)
     alive = tile_rays[7] != 0.0
+    threads = tile_rays.shape[1] // PER_THREAD
     warps = []
-    for w in range(WARPS):
-        lanes = torch.tensor([r * THREADS + w * 32 + lane
+    for w in range(threads // 32):
+        lanes = torch.tensor([w * 128 + r * 32 + lane
                               for r in range(PER_THREAD)
                               for lane in range(32)])
         warps.append((tile_rays[0:3, lanes], inv[:, lanes], alive[lanes]))
@@ -128,14 +130,15 @@ def _slab(o, inv, lo, hi):
     return (tn <= tf) & (tf >= 0.0)
 
 
-def _warp(lanes, w, boxes, mark, work):
-    """test_candidates for warp w as a coroutine: every candidate from
-    w * m / 8 on, a marked one skipped; yields after each candidate."""
+def _warp(lanes, w, boxes, mark, work, n_warps=WARPS):
+    """test_candidates for warp w of n_warps as a coroutine: every
+    candidate from w * m / n_warps on, a marked one skipped; yields after
+    each candidate."""
     o, inv, alive = lanes
     m = boxes.shape[0]
     if not bool(alive.any()):
         return
-    j = w * m // WARPS
+    j = w * m // n_warps
     for _ in range(m):
         if mark[j]:
             work.append((w, j, "skip"))
@@ -153,7 +156,7 @@ def _test_candidates(warps, boxes, rng, work):
     """One block's warps over `boxes` [m, 6], interleaved by `rng`:
     the marks [m]."""
     mark = torch.zeros(boxes.shape[0], dtype=torch.int32)
-    running = [_warp(lanes, w, boxes, mark, work)
+    running = [_warp(lanes, w, boxes, mark, work, len(warps))
                for w, lanes in enumerate(warps)]
     while running:
         k = int(rng.integers(len(running)))
@@ -165,10 +168,10 @@ def _test_candidates(warps, boxes, rng, work):
 
 
 def refine_lists_model(rays8, ids, cnt, cmin, cmax, run, tile_blocks,
-                       order_seed=0):
-    """refine_lists_kernel, block by block on its segment-major grid.
-    Returns (bits [nt, W] bool, per block: (tile, listed positions tested,
-    records (warp, list position, outcome)))."""
+                       order_seed=0, ray_tile=TILE):
+    """refine_lists_kernel, block by block on its segment-major grid, over
+    tiles of `ray_tile` rays. Returns (bits [nt, W] bool, per block: (tile,
+    listed positions tested, records (warp, list position, outcome)))."""
     rng = np.random.default_rng(order_seed)
     nt, width = ids.shape
     out = torch.full((nt, width), -1, dtype=torch.int32)
@@ -178,7 +181,7 @@ def refine_lists_model(rays8, ids, cnt, cmin, cmax, run, tile_blocks,
         tile, b = blk % nt, blk // nt
         n = max(0, min(int(cnt[tile]), width))
         warps = (None if b * run >= n else
-                 _lanes(rays8[:, tile * TILE:(tile + 1) * TILE]))
+                 _lanes(rays8[:, tile * ray_tile:(tile + 1) * ray_tile]))
         work, swept = [], 0
         for p0 in range(b * run, width, stride):
             owned = min(run, width - p0)
@@ -200,26 +203,29 @@ def refine_lists_model(rays8, ids, cnt, cmin, cmax, run, tile_blocks,
 
 def _block_extents(tile_rays):
     """The fused launch's reduction: per row, each thread over its 4 rays,
-    the warp's 32 threads, then the 8 warps in order (dead lanes out)."""
+    the warp's 32 threads, then the block's warps in order (dead lanes
+    out)."""
     alive = tile_rays[7] != 0.0
-    v = tile_rays.reshape(8, PER_THREAD, WARPS, 32)
-    a = alive.reshape(PER_THREAD, WARPS, 32)
-    lo = torch.where(a, v, BIG).amin(dim=1).amin(dim=2)  # [8, warps]
-    hi = torch.where(a, v, -BIG).amax(dim=1).amax(dim=2)
+    warps = tile_rays.shape[1] // (PER_THREAD * 32)
+    v = tile_rays.reshape(8, warps, PER_THREAD, 32)
+    a = alive.reshape(warps, PER_THREAD, 32)
+    lo = torch.where(a, v, BIG).amin(dim=2).amin(dim=2)  # [8, warps]
+    hi = torch.where(a, v, -BIG).amax(dim=2).amax(dim=2)
     return lo.amin(dim=1), hi.amax(dim=1)
 
 
-def refine_dense_model(rays8, cmin, cmax, tile_alive=None, order_seed=0):
-    """refine_kernel, block by block: ((lo, hi) [nt, 8], bits [nt, C],
-    per block: records)."""
+def refine_dense_model(rays8, cmin, cmax, tile_alive=None, order_seed=0,
+                       ray_tile=TILE):
+    """refine_kernel, block by block over tiles of `ray_tile` rays: ((lo,
+    hi) [nt, 8], bits [nt, C], per block: records)."""
     rng = np.random.default_rng(order_seed)
-    nt = rays8.shape[1] // TILE
+    nt = rays8.shape[1] // ray_tile
     lo = torch.empty((nt, 8))
     hi = torch.empty((nt, 8))
     out = torch.zeros((nt, cmin.shape[0]), dtype=torch.int32)
     blocks = []
     for tile in range(nt):
-        tile_rays = rays8[:, tile * TILE:(tile + 1) * TILE]
+        tile_rays = rays8[:, tile * ray_tile:(tile + 1) * ray_tile]
         lo[tile], hi[tile] = _block_extents(tile_rays)
         live = (bool(tile_alive[tile]) if tile_alive is not None
                 else bool(hi[tile, 7] > 0.0))
@@ -319,8 +325,8 @@ def test_warps_test_only_what_they_must(accel):
     rays8, ids, cnt = _imbalance(accel)
     args = (rays8, ids, cnt, accel.cluster_min, accel.cluster_max)
     _, blocks = refine_lists_model(*args, 64, 4, order_seed=7)
-    alive = (rays8[7] != 0).reshape(-1, PER_THREAD, WARPS, 32)
-    holders = alive.any(dim=3).any(dim=1).sum(dim=1)  # warps with a lane
+    alive = (rays8[7] != 0).reshape(-1, WARPS, PER_THREAD, 32)
+    holders = alive.any(dim=3).any(dim=2).sum(dim=1)  # warps with a lane
     skipped = 0
     for tile, _, work in blocks:
         tested = {}
@@ -363,6 +369,49 @@ def test_dense_model_equals_plain(accel, order_seed, flags):
                                                 acc.cluster_max)
         assert torch.equal(flo, plo) and torch.equal(fhi, phi)
         assert torch.equal(fent, want)
+
+
+@pytest.mark.parametrize("ray_tile,order_seed", [(256, 0), (256, 1),
+                                                  (128, 2)])
+def test_models_at_a_smaller_tile_equal_plain(accel, ray_tile, order_seed):
+    """Both forms at a tile of 256 or 128 rays (a block of 64 or 32
+    threads: 2 warps or 1, each still 128 lanes): the gathered form over
+    the tiles' own narrowed frustum lists at the production grid, the
+    dense form over the CS 128 table (its extents reduced over the
+    block's warps, its tile-alive flag from them); bits and extents
+    `torch.equal` to the plain versions at that tile. The pack's 5 tiles
+    of 1,024 become 20 (or 40): the tile of 5 alive lanes spreads them
+    over up to 4 tiles, the dead tile stays dead."""
+    rays8 = _pack()
+    cmin, cmax = accel.cluster_min, accel.cluster_max
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        rays8, cmin, cmax, ray_tile=ray_tile))
+    nt, width = ids.shape
+    assert nt == rays8.shape[1] // ray_tile
+    run, tile_blocks = T._refine_grid(nt, width)
+    got, blocks = refine_lists_model(rays8, ids, cnt, cmin, cmax, run,
+                                     tile_blocks, order_seed, ray_tile)
+    want = T.refine_lists_plain(rays8, ids, cnt, cmin, cmax,
+                                ray_tile=ray_tile)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(cnt.sum())
+    dead = slice(2 * TILE // ray_tile, 3 * TILE // ray_tile)
+    assert not want[dead].any() and not any(
+        work for tile, _, work in blocks if dead.start <= tile < dead.stop)
+    acc = build_cluster_accel(build_default_scene(device="cpu").mesh,
+                              cluster_size=128)
+    (lo, hi), dense, _ = refine_dense_model(
+        rays8, acc.cluster_min, acc.cluster_max, None, order_seed, ray_tile)
+    plo, phi = T.tile_extents_plain(rays8, ray_tile)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    assert torch.equal(dense, T.refine_dense_plain(
+        rays8, acc.cluster_min, acc.cluster_max, phi[:, 7] > 0.0,
+        ray_tile=ray_tile))
+    flo, fhi, fent = T.refine_dense_extents(rays8, acc.cluster_min,
+                                            acc.cluster_max,
+                                            ray_tile=ray_tile)
+    assert torch.equal(flo, plo) and torch.equal(fhi, phi)
+    assert torch.equal(fent, dense) and not dense[dead].any()
 
 
 def test_grazing_ray_enters_through_the_inflation():

@@ -102,16 +102,19 @@ def test_gi_cap_frac_frame_matches_default_and_jax(scene, accel16,
 
 
 @pytest.mark.parametrize("change", [dict(normals="geometric"),
-                                    dict(samples_per_pixel=3)],
+                                    dict(samples_per_pixel=3),
+                                    dict(gi_ray_tile=256)],
                          ids=lambda c: next(iter(c)))
 def test_matches_jax_pallas_render_other_config(scene, accel16, knob_image,
                                                 change):
-    """Configs that change the image, against JAX's Pallas path with JAX's
-    draws: shading normals recomputed from the vertices (the forward the
-    gradient tests use) and a sample count that is not a square (a 3 x 1
-    stratification grid; 768 rays, so 3 chunks of JAX's keys). Each moves
-    the image far beyond the tolerance, so a port that ignored it would
-    fail."""
+    """Other configs against JAX's Pallas path with JAX's draws: shading
+    normals recomputed from the vertices (the forward the gradient tests
+    use) and a sample count that is not a square (a 3 x 1 stratification
+    grid; 768 rays, so 3 chunks of JAX's keys), each of which moves the
+    image far beyond the tolerance, so a port that ignored it would fail;
+    and the bounce levels' culling tile at 256 rays (both sides walk
+    their depth-2 queries in tiles of 256; the image is the default's bit
+    for bit)."""
     cfg = {**KNOB, **change}
     n_chunks = -(-cfg["width"] * cfg["height"] * cfg["samples_per_pixel"]
                  // cfg["chunk_size"])
@@ -123,7 +126,10 @@ def test_matches_jax_pallas_render_other_config(scene, accel16, knob_image,
                                 key=jax.random.PRNGKey(5)))
     assert np.isfinite(img).all()
     np.testing.assert_allclose(img, ref, atol=1e-5)
-    assert np.abs(img - knob_image).max() > 0.05
+    if "gi_ray_tile" in change:
+        np.testing.assert_array_equal(img, knob_image)
+    else:
+        assert np.abs(img - knob_image).max() > 0.05
 
 
 @pytest.mark.parametrize("knob", [

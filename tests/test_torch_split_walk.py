@@ -228,14 +228,15 @@ def split_walk(units, n, q, seg, stage, order_seed, attr=None, n_attrs=0,
             visits)
 
 
-def _pack_units(args, kw):
-    """The K1/K2 launch `walk(*args, **kw)` as units: one per tile."""
+def _pack_units(args, kw, tile_rays=TILE):
+    """The K1/K2 launch `walk(*args, **kw)` as units: one per tile of
+    `tile_rays` rays."""
     rays8, ids, cnt, geo, _, _, cs, eps, nearest, t_max, pmto, row = args
     early = kw.get("tnear") is not None and nearest
     units = []
-    for tile in range(rays8.shape[1] // TILE):
-        lanes = slice(tile * TILE, (tile + 1) * TILE)
-        units.append(Unit(rays8[:, lanes].contiguous(), tile * TILE,
+    for tile in range(rays8.shape[1] // tile_rays):
+        lanes = slice(tile * tile_rays, (tile + 1) * tile_rays)
+        units.append(Unit(rays8[:, lanes].contiguous(), lanes.start,
                           None if row is None else row[:, lanes].contiguous(),
                           [WalkList(ids[tile], min(int(cnt[tile]),
                                                    ids.shape[1]),
@@ -269,22 +270,22 @@ def _camera_units(args, kw):
     return units, Query(True, INF, True, cs, eps, kw.get("ee_batch", 1))
 
 
-def _group_units(args, kw):
-    """The K3 launch `walk_gstream(*args, **kw)` as units: one per tile,
-    with one list per group."""
+def _group_units(args, kw, tile_rays=TILE):
+    """The K3 launch `walk_gstream(*args, **kw)` as units: one per tile of
+    `tile_rays` rays, with one list per group."""
     (rays8, ids, cnt, geo, _, _, cs, gsz, eps, nearest, t_max, pmto,
      row) = args
     early = kw.get("tnear") is not None and nearest
     units = []
-    for tile in range(rays8.shape[1] // TILE):
-        lanes = slice(tile * TILE, (tile + 1) * TILE)
+    for tile in range(rays8.shape[1] // tile_rays):
+        lanes = slice(tile * tile_rays, (tile + 1) * tile_rays)
         lists = [WalkList(ids[g, tile], min(int(cnt[g, tile]), ids.shape[2]),
                           kw["tnear"][g, tile] if early else None,
                           kw["bbox"][g] if early else None,
                           geo[g * gsz:(g + 1) * gsz], g * gsz * cs,
                           (g, tile))
                  for g in range(ids.shape[0])]
-        units.append(Unit(rays8[:, lanes].contiguous(), tile * TILE,
+        units.append(Unit(rays8[:, lanes].contiguous(), lanes.start,
                           None if row is None else row[:, lanes].contiguous(),
                           lists))
     return units, Query(nearest, t_max, pmto, cs, eps, kw.get("ee_batch", 1))
@@ -546,6 +547,51 @@ def test_split_vote_waits_for_a_nearer_entry(accels, seg, order_seed):
                      tile_blocks=1 if order_seed == 0 else None)
     _equal(got, want, torch.ones(TILE, dtype=torch.bool))
     assert got[3][0] == 2  # both clusters visited
+
+
+TILE_CASES = [(w, cs, 256) for w in ("pack", "groups")
+              for cs in (16, 128)] + [("pack", 128, 128)]
+
+
+@pytest.mark.parametrize("walk,cs,ray_tile", TILE_CASES,
+                         ids=[_case_ids(w, cs, f"rt{t}")
+                              for w, cs, t in TILE_CASES])
+def test_split_walk_at_a_smaller_tile(accels, monkeypatch, walk, cs,
+                                      ray_tile):
+    """The pack walk (K1/K2) and K3 at the bounce levels' smaller tiles:
+    a unit (a tile's rays, its keys and finish counter) of 256 or 128
+    lanes, each list dealt to at most 2 blocks racing on the exit:
+    nearest with attributes `torch.equal` to the plain version at that
+    tile on alive lanes, and to the default tile's result (the tile
+    changes which clusters a lane meets, never its winner); occlusion
+    the same without an exit."""
+    acc = accels[cs]
+    na = acc.attr_blocks.shape[1]
+    rp = _pack(5)
+    alive = rp[7] != 0
+    if walk == "groups":
+        _four_groups(monkeypatch)
+    make, units_of, plain = (
+        (T._groups_walk_args, _pack_units, T.walk_plain) if walk == "pack"
+        else (T._gstream_walk_args, _group_units, T.walk_gstream_plain))
+    stage = 128 // cs
+    for nearest in (True, False):
+        args, kw = make(acc, rp, EPS, nearest, INF if nearest else 6.0,
+                        na if nearest else 0, early_exit=True,
+                        ray_tile=ray_tile)
+        assert args[2].shape[-1] == rp.shape[1] // ray_tile
+        units, q = units_of(args, kw, ray_tile)
+        want = plain(*args, ray_tile=ray_tile)
+        default = plain(*make(acc, rp, EPS, nearest,
+                              INF if nearest else 6.0,
+                              na if nearest else 0)[0])
+        got = split_walk(units, rp.shape[1], q, 2 * stage, stage, 1,
+                         args[4], na if nearest else 0, tile_blocks=2)
+        _equal(got, want, alive)
+        _equal(got, default, alive)
+        if nearest:
+            hits = int(torch.isfinite(want[0][0][alive]).sum())
+            assert 300 < hits < int(alive.sum())
 
 
 def test_packed_key_orders_as_t_then_slot():

@@ -227,3 +227,36 @@ def test_bin_keys_and_sort_bit_equal(packs):
     np.testing.assert_array_equal(to_s.numpy(), np.asarray(jo_s))
     (back,) = TB.unsort(tsidx, to_s)
     assert torch.equal(back, to)
+
+
+@pytest.mark.parametrize("with_alive", [True, False], ids=["alive", "all"])
+def test_ray_bin_order_and_scene_bounds_bit_equal(packs, accels, with_alive):
+    """The public binning helpers: `ray_bin_order`'s permutation and its
+    inverse (dead rays last; keys tie, so the order is the stable one) and
+    `scene_bounds` of the CS 16 accel, bit-equal to JAX's; the renderer's
+    two-phase cap is reckoned from those bounds."""
+    p = packs[1]
+    o, d = p[0:3].T.copy(), p[4:7].T.copy()
+    alive = (p[7] != 0) if with_alive else None
+    j_acc, t_acc = accels[16]
+    jlo, jhi = JB.scene_bounds(j_acc)
+    tlo, thi = TB.scene_bounds(t_acc)
+    np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
+    jorder, jinv = JB.ray_bin_order(
+        jnp.asarray(o), jnp.asarray(d), jlo, jhi,
+        None if alive is None else jnp.asarray(alive))
+    torder, tinv = TB.ray_bin_order(
+        torch.from_numpy(o), torch.from_numpy(d), tlo, thi,
+        None if alive is None else torch.from_numpy(alive))
+    assert torder.dtype == tinv.dtype == torch.int32
+    np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+    assert torch.equal(torder[tinv.long()], torch.arange(o.shape[0],
+                                                         dtype=torch.int32))
+    if alive is not None:  # dead rays compacted to the end
+        n_alive = int(alive.sum())
+        assert bool(torch.from_numpy(alive)[torder[:n_alive].long()].all())
+    cfg = RenderConfig(gi_cap_frac=0.1)
+    from raytracing_tpu_torch.models.whitted import bounce_cap
+    assert bounce_cap(t_acc, cfg) == 0.1 * float(torch.linalg.norm(thi - tlo))

@@ -86,23 +86,29 @@ def calls(monkeypatch):
                 t_max=T.INF, family=T.PMT, tmax_row=None, **kw):
             return T._count_key(kw.get("entry", entry), family,
                                 nearest and t_max < T.INF,
-                                kw.get("lane_bounds") is not None)
+                                kw.get("lane_bounds") is not None,
+                                kw.get("ray_tile", T.RAY_TILE))
         return key
 
     def gstream(rp, ids, cnt, geo, attr, n_attrs, cs, gsz, eps, nearest,
                 t_max=T.INF, family=T.PMT, tmax_row=None, **kw):
         return T._count_key("walk_gstream", family,
-                            nearest and t_max < T.INF)
+                            nearest and t_max < T.INF,
+                            ray_tile=kw.get("ray_tile", T.RAY_TILE))
 
     spy("walk", pack_walk("walk"))
     spy("walk_wq", pack_walk("walk_wq"))
     spy("walk_gstream", gstream)
     spy("walk_camera", lambda *a, entry="walk_camera", lane_bounds=None,
         **kw: T._count_key(entry, lane_cull=lane_bounds is not None))
-    spy("refine_dense_extents", lambda rp, cmin, cmax, t_cap=None:
-        T._count_key("refine_extents", capped=t_cap is not None))
-    spy("refine_lists", lambda rp, ids, cnt, cmin, cmax, t_cap=None:
-        T._count_key("refine_lists", capped=t_cap is not None))
+    spy("refine_dense_extents", lambda rp, cmin, cmax, t_cap=None,
+        ray_tile=T.RAY_TILE: T._count_key("refine_extents",
+                                          capped=t_cap is not None,
+                                          ray_tile=ray_tile))
+    spy("refine_lists", lambda rp, ids, cnt, cmin, cmax, t_cap=None,
+        ray_tile=T.RAY_TILE: T._count_key("refine_lists",
+                                          capped=t_cap is not None,
+                                          ray_tile=ray_tile))
     return seen
 
 

@@ -20,10 +20,10 @@ from raytracing_tpu_torch.kernels import traverse as T
 
 def walk_groups_loop(accel, rp, eps, nearest, t_max, n_attrs,
                      early_exit=None, shared_origin=None, tmax_row=None,
-                     attr_kind="shade", variant="pmt"):
+                     attr_kind="shade", variant="pmt", ray_tile=T.RAY_TILE):
     """What `traverse._walk_over_budget` returns (a table above the group
     budget), from one K1 launch per group of `_group_clusters` clusters,
-    in the intersector family of `variant`."""
+    in the intersector family of `variant`, in tiles of `ray_tile`."""
     cs = accel.cluster_size
     gsz = T._group_clusters(accel, n_attrs)
     best = None
@@ -32,7 +32,8 @@ def walk_groups_loop(accel, rp, eps, nearest, t_max, n_attrs,
         args, kw = T._groups_walk_args(
             accel, rp, eps, nearest, t_max, n_attrs, early_exit=early_exit,
             shared_origin=shared_origin, tmax_row=tmax_row,
-            clusters=(lo, hi), attr_kind=attr_kind, variant=variant)
+            clusters=(lo, hi), attr_kind=attr_kind, variant=variant,
+            ray_tile=ray_tile)
         t_g, s_g, a_g = T.walk(*args, **kw)
         if nearest:
             s_g = s_g + lo * cs

@@ -40,7 +40,9 @@ Whitted frame as the renderer makes them (65,536 rays: primary
 nearest+attrs, sun-shadow occlusion). A tree whose walk splits a tile's
 list over blocks takes a segment size and merge scratch; one that gives a
 tile one block does not: each tree's entries are bound by their own
-signatures. Every kernel runs in the order this, other, other, this, each
+signatures (a tree whose pack entries take the culling tile at run time
+is called at 1,024, the tile both trees walk). Every kernel runs in the
+order this, other, other, this, each
 the median of 5 launches by CUDA events. Prints the kernels' registers as
 `ptxas -v` reports them, the four times, the visits each tree made, and
 whether the outputs are equal (the walk's on alive lanes: a dead lane does
@@ -91,7 +93,13 @@ def _build(tree, out):
     lib = ctypes.CDLL(out)
     p, ll, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
-    lib.rt_tile_extents.argtypes = [p, ll, p, p, p]
+    # A tree whose pack entries take the culling tile at run time takes it
+    # after np (1,024 here: the tile both trees walk).
+    with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
+                           "extents.cu")) as f:
+        tiled = "int ray_tile" in f.read()
+    lib.tile, lib.tile_arg = ((i32,), (1024,)) if tiled else ((), ())
+    lib.rt_tile_extents.argtypes = [p, ll, *lib.tile, p, p, p]
     # A tree whose refinement deals a tile's list to several blocks takes
     # a grid, and folds the extents into the dense query; one that serves
     # the two-phase capped query takes a cap (+inf here) after the boxes.
@@ -100,12 +108,13 @@ def _build(tree, out):
         text = f.read()
     lib.fused_refine = "rt_refine_dense_extents" in text
     lib.cap = (f32,) if "float cap" in text else ()
-    lib.rt_refine_dense.argtypes = [p, ll, p, p, i32, *lib.cap, p, p, p]
+    lib.rt_refine_dense.argtypes = [p, ll, *lib.tile, p, p, i32, *lib.cap,
+                                    p, p, p]
     if lib.fused_refine:
-        lib.rt_refine_dense_extents.argtypes = [p, ll, p, p, i32, *lib.cap,
-                                                p, p, p, p]
-        lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, i32, i32, p, p,
-                                        *lib.cap, p, p]
+        lib.rt_refine_dense_extents.argtypes = [p, ll, *lib.tile, p, p, i32,
+                                                *lib.cap, p, p, p, p]
+        lib.rt_refine_lists.argtypes = [p, ll, *lib.tile, p, p, i32, i32,
+                                        i32, p, p, *lib.cap, p, p]
     else:
         lib.rt_refine_lists.argtypes = [p, ll, p, p, i32, p, p, p, p]
     split, culls = {}, {}
@@ -119,7 +128,7 @@ def _build(tree, out):
         culls[name] = [p] if "lane_bounds" in text else []
     lib.split_walk, lib.split_camera, lib.split_gstream = split.values()
     lib.cull_walk, lib.cull_camera = culls["walk"], culls["camera"]
-    head = [p, ll, p, p, p, p, i32]
+    head = [p, ll, *lib.tile, p, p, p, p, i32]
     tail = [p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32,
             *lib.cull_walk]
     lib.rt_walk.argtypes = (head + [i32] * 2 + tail + [p] * 7
@@ -133,7 +142,7 @@ def _build(tree, out):
         else head + tail + [p] * 5)
     # rt_walk_gstream: rays .. width, [seg, tile_blocks], n_groups .. pmto,
     # [keys, finished], outputs, visits, stream.
-    head = [p, ll, p, p, p, p, i32]
+    head = [p, ll, *lib.tile, p, p, p, p, i32]
     tail = [i32, i32, p, p, ll, p, ll, i32, i32, f32, f32, i32, i32, i32, i32]
     lib.rt_walk_gstream.argtypes = (
         head + [i32] * 2 + tail + [p] * 7 if lib.split_gstream
@@ -148,8 +157,8 @@ def _call_walk(lib, args, kw, out):
     rp, ids, cnt, geo, attr, n_attrs, cs, eps, nearest, t_max, pmto, row = args
     early = kw.get("tnear") is not None and nearest
     ptr = T._ptr
-    head = [ptr(rp), rp.shape[1], ptr(row), ptr(ids), ptr(cnt),
-            ptr(kw["tnear"] if early else None), ids.shape[1]]
+    head = [ptr(rp), rp.shape[1], *lib.tile_arg, ptr(row), ptr(ids),
+            ptr(cnt), ptr(kw["tnear"] if early else None), ids.shape[1]]
     tail = [ptr(kw["bbox"] if early else None), ptr(geo), geo.stride(0),
             ptr(attr), attr.stride(0) if attr is not None else 0, n_attrs,
             cs, float(eps), float(t_max), int(nearest), int(early),
@@ -205,8 +214,8 @@ def _call_gstream(lib, args, kw, out):
     attr = attr if nearest and n_attrs else None
     ptr = T._ptr
     ng, nt, w = ids.shape
-    head = [ptr(rp), rp.shape[1], ptr(row), ptr(ids), ptr(cnt),
-            ptr(kw["tnear"] if early else None), w]
+    head = [ptr(rp), rp.shape[1], *lib.tile_arg, ptr(row), ptr(ids),
+            ptr(cnt), ptr(kw["tnear"] if early else None), w]
     tail = [ng, int(gsz), ptr(kw["bbox"] if early else None), ptr(geo),
             geo.stride(0), ptr(attr),
             attr.stride(0) if attr is not None else 0,
@@ -228,8 +237,8 @@ def _refine_dense(lib, rays, cmin, cmax, alive, bits):
     """`rt_refine_dense` of one tree, tile-alive flags given."""
     from raytracing_tpu_torch.kernels import traverse as T
 
-    rc = lib.rt_refine_dense(T._ptr(rays), rays.shape[1], T._ptr(cmin),
-                             T._ptr(cmax), cmin.shape[0],
+    rc = lib.rt_refine_dense(T._ptr(rays), rays.shape[1], *lib.tile_arg,
+                             T._ptr(cmin), T._ptr(cmax), cmin.shape[0],
                              *(T.INF,) * len(lib.cap), T._ptr(alive),
                              T._ptr(bits), T._stream())
     assert rc == 0, rc
@@ -247,13 +256,14 @@ def _dense_query(lib, rays, cmin, cmax, out):
     lo, hi, bits = out["lo"], out["hi"], out["bits"]
     if lib.fused_refine:
         rc = lib.rt_refine_dense_extents(
-            ptr(rays), rays.shape[1], ptr(cmin), ptr(cmax), cmin.shape[0],
+            ptr(rays), rays.shape[1], *lib.tile_arg, ptr(cmin), ptr(cmax),
+            cmin.shape[0],
             *(T.INF,) * len(lib.cap), ptr(lo), ptr(hi), ptr(bits),
             T._stream())
         assert rc == 0, rc
         return
-    rc = lib.rt_tile_extents(ptr(rays), rays.shape[1], ptr(lo), ptr(hi),
-                             T._stream())
+    rc = lib.rt_tile_extents(ptr(rays), rays.shape[1], *lib.tile_arg,
+                             ptr(lo), ptr(hi), T._stream())
     assert rc == 0, rc
     _refine_dense(lib, rays, cmin, cmax, (hi[:, 7] > 0.0).to(torch.int32),
                   bits)
@@ -267,7 +277,8 @@ def _refine_lists(lib, rays, ids, cnt, cmin, cmax, bits):
     ptr = T._ptr
     grid = (T._refine_grid(ids.shape[0], ids.shape[1])
             if lib.fused_refine else ())
-    rc = lib.rt_refine_lists(ptr(rays), rays.shape[1], ptr(ids), ptr(cnt),
+    rc = lib.rt_refine_lists(ptr(rays), rays.shape[1], *lib.tile_arg,
+                             ptr(ids), ptr(cnt),
                              ids.shape[1], *grid, ptr(cmin), ptr(cmax),
                              *(T.INF,) * len(lib.cap), ptr(bits),
                              T._stream())
@@ -498,7 +509,8 @@ def main(argv) -> int:
                          hi=torch.empty((nt, 8), device="cuda"),
                          bits=torch.empty((nt, c), dtype=torch.int32,
                                           device="cuda")) for k in libs}
-    libs["this"].rt_tile_extents(ptr(bp), n, ptr(dense_out["this"]["lo"]),
+    libs["this"].rt_tile_extents(ptr(bp), n, *libs["this"].tile_arg,
+                                 ptr(dense_out["this"]["lo"]),
                                  ptr(dense_out["this"]["hi"]), stream)
     alive = (dense_out["this"]["hi"][:, 7] > 0.0).to(torch.int32).contiguous()
     spread = chip_smoke._list_stats(alive * c,
@@ -512,8 +524,8 @@ def main(argv) -> int:
             lambda k: _refine_dense(libs[k], bp, cmin, cmax, alive,
                                     dense_out[k]["bits"]),
         "extents": lambda k: libs[k].rt_tile_extents(
-            ptr(bp), n, ptr(dense_out[k]["lo"]), ptr(dense_out[k]["hi"]),
-            stream)}
+            ptr(bp), n, *libs[k].tile_arg, ptr(dense_out[k]["lo"]),
+            ptr(dense_out[k]["hi"]), stream)}
     same = True
     for name, fn in dense.items():
         for k in order * 3:  # the first launches of a process run slower
