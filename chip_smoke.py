@@ -13,9 +13,11 @@ Phases (any failure raises and the script exits non-zero):
      kernel's registers, shared memory and spills as `ptxas -v` reports
      them, and refuse a spill in any instance of the split walks
      (`walk.cu`: every intersector family, with and without the lane
-     cull; `camera.cu`, `gstream.cu`) and the refinement (`refine.cu`,
-     capped or not); print each pack kernel instance's resident blocks
-     and warps a multiprocessor at every accepted culling tile's block
+     cull; `camera.cu`, `gstream.cu`), the refinement (`refine.cu`,
+     capped or not) and the work-queue walk (`wq.cu`); print each pack
+     kernel instance's resident blocks and warps a multiprocessor at
+     every accepted culling tile's block (K4's blocks of 256 threads at
+     CS 128 and 16: its warps take any tile's work)
      (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the build's
      seconds;
   3. kernels against their plain PyTorch versions, on the card, at the
@@ -62,8 +64,11 @@ Phases (any failure raises and the script exits non-zero):
      f. the work-queue walk (`walk_wq`, K4) on the depth-2 wavefront of
         3a, the very lists the `_walk_dma` row is timed on: against its
         plain version and bit-equal on alive lanes to that entry (nearest
-        with attributes; occlusion under a scalar and a per-ray t_max; a
-        tile with no visits);
+        with attributes; occlusion under a scalar and a per-ray t_max;
+        capped; a tile with no visits); its work (`_wq_row`: the real
+        items, its queue against the plain one, the (ray, triangle) tests
+        its per-warp cull makes and skips, its bound ray by ray beside
+        the tile-granular one, K2 on the same lists in turns);
      h. the walks of a differentiated render: K1 on 3a's chunk and K2 on
         its wavefront carrying the backward's 11 planes beside the
         shading planes (A = 15, rows walk_both_chunk and
@@ -80,7 +85,8 @@ Phases (any failure raises and the script exits non-zero):
      i. the off-main-path forms (`phase_variants`), each against its
         plain version bit for bit on alive lanes and timed beside the main
         path's form at the same shape: K1 mt and woop on 3a's chunk (CS
-        16), K2 mt and K4 mt on 3a's wavefront (CS 128), K3 mt and woop on
+        16), K2 mt and K4 mt on 3a's wavefront (CS 128; K4 as 3f's rows
+        are), K3 mt and woop on
         the chunk over the CS 16 table in 4 groups, the capped K2 walk and
         capped K5 dense query on the wavefront under the reference frame's
         cap, the K1 lane-cull walk on the wavefront; then the reference
@@ -89,14 +95,14 @@ Phases (any failure raises and the script exits non-zero):
      j. the bounce levels' culling tile (`phase_ray_tile`): every pack
         kernel at a tile of 256 rays against its plain version at 256
         (K6, K5 dense + K6, K2 ten launches equal, K1 with and without
-        the lane cull, K4 on 3a's wavefront; K5 gathered on 3c's 404k
-        wavefront; K3 on the 1.6M frame's chunk-12 primaries and sun
-        shadows), the wavefront's kernels at 1,024, 512, 256 and 128 in
-        turns (K6, K5 dense + K6, K2 and K1's visits and times), the
-        reference frame at gi_ray_tile 1,024, 512 and 256 in turns
-        (bit-equal, seconds, launches), and the gi_wq=False, "grid" and
-        over-budget frames at 256 equal to theirs at 1,024 (the rows'
-        launches);
+        the lane cull, K4 on 3a's wavefront, and K4 at 128 too; K5
+        gathered on 3c's 404k wavefront; K3 on the 1.6M frame's chunk-12
+        primaries and sun shadows), the wavefront's kernels at 1,024,
+        512, 256 and 128 in turns (K6, K5 dense + K6, K2 and K1's visits
+        and times), the reference frame at gi_ray_tile 1,024, 512 and 256
+        in turns (bit-equal, seconds, launches), and the gi_wq=False,
+        "grid" and over-budget frames at 256 (the "grid" one at 128 too)
+        equal to theirs at 1,024 (the rows' launches);
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
@@ -303,6 +309,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "walk_gstream_rt256": ("raytracing_tpu_torch/csrc/gstream.cu",
                            "raytracing_tpu/kernels/traverse.py:1414"),
     "walk_wq_rt256": ("raytracing_tpu_torch/csrc/wq.cu",
+                      "raytracing_tpu/kernels/traverse.py:2063"),
+    "walk_wq_rt128": ("raytracing_tpu_torch/csrc/wq.cu",
                       "raytracing_tpu/kernels/traverse.py:2063"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
@@ -563,15 +571,16 @@ def phase_build():
         # '_ZN2rt..._7_walk_cu_...11walk_kernelILb0EE...': file and kernel
         mangled = line.split("'")[1]
         kernel = next((k for k in ("walk_fill", "camera_walk", "gstream",
-                                   "wq_items", "wq_finish", "walk",
-                                   "refine_lists", "refine", "extents")
+                                   "wq_plan", "wq_warp", "wq_finish", "walk", "refine_lists",
+                                   "refine", "extents")
                        if k + "_kernel" in mangled), mangled)
         variant = mangled.split(kernel + "_kernel")[-1].split("Ev")[0]
         used = next(l for l in lines[i:] if "Used" in l).split(":", 1)[1]
         spill = next(l for l in lines[i:] if "spill" in l).strip()
         print(f"[build] {kernel}_kernel {variant}:{used}; {spill}")
         _require(not any(f"_{src}_cu_" in mangled
-                         for src in ("walk", "camera", "gstream", "refine"))
+                         for src in ("walk", "camera", "gstream", "refine",
+                                     "wq"))
                  or " 0 bytes spill stores, 0 bytes spill loads"
                  in " " + spill, f"{kernel}_kernel {variant} spills "
                  f"registers: {spill}")
@@ -623,9 +632,20 @@ def _print_occupancy(lib):
                   f"{' capped' if capped else ''}"
             line(f"gstream {fam} {tag}", lib.rt_gstream_occupancy, f,
                  nearest, capped)
-            if fam != "woop":
-                line(f"wq {fam} {tag}", lib.rt_wq_occupancy, f, nearest,
-                     capped)
+            if fam == "woop":
+                continue
+            # K4's blocks are 256 threads at every tile: its warps take
+            # 128-lane units of any tile.
+            got = []
+            for cs in (128, 16):
+                blocks = ctypes.c_int(0)
+                _require(lib.rt_wq_occupancy(f, nearest, capped, cs,
+                                             ctypes.byref(blocks)) == 0,
+                         f"occupancy of wq {fam} {tag} failed")
+                got.append(f"CS {cs} {blocks.value} blocks "
+                           f"({blocks.value * 8} warps)")
+            print(f"[build] occupancy wq {fam} {tag}, 256 threads: "
+                  f"{'; '.join(got)}")
     line("extents", lib.rt_extents_occupancy)
     for lists, capped in ((0, 0), (0, 1), (1, 0), (1, 1)):
         # the dense form's boxes for 100 clusters (the CS 128 bounce
@@ -753,6 +773,104 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
          bound,
          f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
          plain_reps=plain_reps, plain_ms=plain_ms if plain_reps == 1 else None)
+    return out
+
+
+def _wq_work(args, kw):
+    """What K4's launch `walk_wq(*args, **kw)` has to do on this data,
+    counted in plain PyTorch: its work items (`wq_queue_plain`), the listed
+    visits, the visits of a 128-lane warp some alive ray of which enters
+    the cluster (`_lane_enters`: the (ray, triangle) tests the per-warp
+    cull makes are these x 128 x CS), and the (ray, listed cluster) pairs
+    whose ray enters (the least work any walk of these lists needs)."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    rp, ids, cnt = args[:3]
+    sub = kw.get("ray_tile", T.RAY_TILE) // 128
+    listed = torch.clamp_max(cnt.to(torch.int64), ids.shape[1])
+    pack = rp.reshape(8, -1, 1, 128)
+    lanes = torch.arange(sub, device=rp.device)
+    warp_visits = ray_visits = 0
+    for j in range(int(listed.max()) if listed.numel() else 0):
+        act = torch.nonzero(listed > j).squeeze(1)
+        enter = T._lane_enters(pack, (act[:, None] * sub + lanes).reshape(-1),
+                               ids[act, j].repeat_interleave(sub),
+                               kw["lane_bounds"])
+        warp_visits += int(enter.any(dim=1).sum())
+        ray_visits += int(enter.sum())
+    queue = T.wq_queue_plain(cnt, ids.shape[1], kw["u"])
+    # The runs the warps merge: unit x of warp w of tile t is first[t] *
+    # sub + w * items + k, a take the units [run c, run (c + 1)).
+    items = (queue[1:] - queue[:-1]).to(torch.int64)[:, None]
+    start = queue[:-1].to(torch.int64)[:, None] * sub + lanes * items
+    run = T.WQ_RUN
+    runs = ((start + items - 1) // run - start // run + 1)[
+        items.expand(-1, sub) > 0]
+    return dict(items=int(queue[-1]), visits=int(listed.sum()),
+                warp_visits=warp_visits, ray_visits=ray_visits,
+                queue=queue, runs=int(runs.sum()), warps=int(runs.numel()))
+
+
+def _wq_row(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
+            k2=None):
+    """A K4 row: `_timed_walk` against the plain version, then the work
+    the launch made (`_wq_work`): its real items (the queue the launch
+    writes, held against the plain one), the tests the warp cull makes
+    and skips, and its bound from the ray-granular work — each ray against
+    only the listed clusters it enters — beside the tile-granular bound
+    `_timed_walk` reckons (every alive lane of a tile). With k2 = (args,
+    kw) of K2 on the same lists, both are timed in turns (K4, K2, K2,
+    K4)."""
+    import torch
+
+    out = _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test,
+                      shape, plain_reps=1, kernel="walk_wq")
+    rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
+    nearest, tr = args[8], args[-1]
+    work = _wq_work(args, kw)
+    queue = torch.empty(cnt.shape[0] + 2, dtype=torch.int32, device="cuda")
+    T.walk_wq(*args, **kw, queue=queue)
+    _require(torch.equal(queue[:-1], work["queue"]),
+             f"{name} (K4): the work queue differs from wq_queue_plain")
+    row = rows[name]
+    row["tile_bound_ms"] = row["bound_ms"]
+    row["bound_ms"], row["bound_by"] = _walk_bound(
+        torch.tensor([work["ray_visits"]]), torch.ones(1), cnt, geo, attr,
+        n_attrs if nearest else 0, cs, rp.shape[1],
+        rp.numel() * 4 + (0 if tr is None else tr.numel() * 4),
+        ops_per_test, False, T._FAMILY_ROWS[int(args[-2])])
+    rt = kw.get("ray_tile", T.RAY_TILE)
+    made = work["warp_visits"] * 128 * cs
+    every = work["visits"] * rt * cs
+    warps = max(work["warps"], 1)
+    row.update(items=work["items"], tests=made,
+               warp_visits=work["warp_visits"])
+    print(f"[kernels] {name} (K4): {work['items']} work items of "
+          f"{kw['u']} visits ({work['visits']} listed visits, queue equal); "
+          f"{work['warp_visits']} of {work['visits'] * (rt // 128)} "
+          f"warp-visits entered: {made} (ray, triangle) tests made, "
+          f"{every - made} of {every} skipped ({made / every:.4f} made); "
+          f"{work['ray_visits'] * cs} tests ray by ray; bound "
+          f"{row['bound_ms']:.6f} ms ray-granular "
+          f"({row['bound_ms'] / row['ms']:.4f} of the kernel's time), "
+          f"{row['tile_bound_ms']:.6f} ms tile-granular "
+          f"({row['tile_bound_ms'] / row['ms']:.4f}); {work['runs']} runs "
+          f"merged by {work['warps']} 128-lane warps with work "
+          f"({work['runs'] / warps:.3f} merges a lane, against "
+          f"{work['items'] * (rt // 128) / warps:.3f} at one an item)")
+    if k2 is not None:
+        dargs, dkw = k2
+        _require(torch.equal(dargs[1], ids) and torch.equal(dargs[2], cnt),
+                 f"{name} (K4): K2 is not given the same lists")
+        turns = [_median_ms(lambda: T.walk_wq(*args, **kw)),
+                 _median_ms(lambda: T.walk(*dargs, **dkw)),
+                 _median_ms(lambda: T.walk(*dargs, **dkw)),
+                 _median_ms(lambda: T.walk_wq(*args, **kw))]
+        row["k2_ms"] = turns[1:3]
+        print(f"[kernels] {name} (K4) beside K2 on the same lists, in turns "
+              f"K4, K2, K2, K4: {turns} ms")
     return out
 
 
@@ -934,21 +1052,17 @@ def phase_kernels():
 
     # 3f. K4 on the very lists the walk_dma row is timed on.
     wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na)
-    _require(torch.equal(wargs[1], dargs[1]) and torch.equal(wargs[2],
-                                                             dargs[2]),
-             "walk_wq (K4): not the lists of the walk_dma row")
-    k4 = _timed_walk(rows, "walk_wq", "walk_wq (K4) bounce nearest+attrs", T,
-                     wargs, wkw, balive, OPS_PMT,
-                     f"{bp.shape[1]} rays, {c128}x128, {wkw['u']} visits per "
-                     f"work item", plain_reps=1, kernel="walk_wq")
+    k4 = _wq_row(rows, "walk_wq", "walk_wq (K4) bounce nearest+attrs", T,
+                 wargs, wkw, balive, OPS_PMT,
+                 f"{bp.shape[1]} rays, {c128}x128, {wkw['u']} visits per "
+                 f"work item", k2=(dargs, dkw))
     _compare_walk("walk_wq (K4) vs walk_dma (K2), nearest+attrs", k4,
                   T.walk(*dargs, **dkw), balive, True)
     noexit = dict(dkw, tnear=None, bbox=None)
     print(f"[kernels] walk_dma (K2) on the same lists: "
           f"{_median_ms(lambda: T.walk(*dargs, **dkw)):.4f} ms with its "
           f"early exit, {_median_ms(lambda: T.walk(*dargs, **noexit)):.4f} "
-          f"ms without, walk_wq (K4) "
-          f"{_median_ms(lambda: T.walk_wq(*wargs, **wkw)):.4f} ms")
+          f"ms without")
     # 3g. The racing exit: the same bits at every launch.
     _require(dkw["tnear"] is not None, "the walk_dma row runs without exit")
     _check_repeats("walk_dma (K2) bounce nearest+attrs", T.walk, dargs, dkw,
@@ -983,6 +1097,9 @@ def phase_kernels():
                       T.walk_wq_plain(*a4), balive, False)
         _compare_walk(f"walk_wq (K4) occlusion, {tag}, vs walk_dma (K2)",
                       k4o, T.walk(*a2, **k2kw), balive, False)
+    a4, k4kw = T._wq_walk_args(acc128, bp, eps, True, 1.2873, na)
+    _compare_walk("walk_wq (K4) capped, vs plain", T.walk_wq(*a4, **k4kw),
+                  T.walk_wq_plain(*a4, **k4kw), balive, True)
     # A tile with no visits reads miss / not occluded.
     bp0 = bp.clone()
     bp0[7, -T.RAY_TILE:] = 0.0
@@ -990,7 +1107,8 @@ def phase_kernels():
     z4, zkw = T._wq_walk_args(acc128, bp0, eps, True, INF, na)
     _require(int(z4[2][-1]) == 0, "walk_wq (K4): the dead tile lists visits")
     zt, zs, za = T.walk_wq(*z4, **zkw)
-    zo = T.walk_wq(*T._wq_walk_args(acc128, bp0, eps, False, INF, 0)[0])
+    o4, okw = T._wq_walk_args(acc128, bp0, eps, False, INF, 0)
+    zo = T.walk_wq(*o4, **okw)
     _require(bool(torch.isinf(zt[0, dead]).all())
              and bool((zs[0, dead] == 2 ** 30).all())
              and not bool(za[:, dead].any()) and not bool(zo[1][0, dead].any()),
@@ -1446,11 +1564,15 @@ def phase_variants(rows):
                                         variant="mt"), "walk_dma_mt")
     wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na,
                                  variant="mt")
-    _variant_row(rows, "walk_wq_mt", "walk_wq (K4) bounce nearest+attrs, mt",
-                 T, wargs, wkw, balive, OPS_MT, f"{wave}, mt, {wkw['u']} "
-                 f"visits per work item",
-                 T._wq_walk_args(acc128, bp, eps, True, INF, na),
-                 kernel="walk_wq")
+    _wq_row(rows, "walk_wq_mt", "walk_wq (K4) bounce nearest+attrs, mt", T,
+            wargs, wkw, balive, OPS_MT, f"{wave}, mt, {wkw['u']} visits per "
+            f"work item", k2=(args, kw))
+    bargs, bkw = T._wq_walk_args(acc128, bp, eps, True, INF, na)
+    rows["walk_wq_mt"]["pmt_ms"] = _median_ms(lambda: T.walk_wq(*bargs,
+                                                                **bkw))
+    print(f"[variants] walk_wq_mt: {rows['walk_wq_mt']['ms']:.4f} ms beside "
+          f"pmt's {rows['walk_wq_mt']['pmt_ms']:.4f} ms ({wave})")
+    del bargs, bkw
     _compare_walk("walk_wq (K4) mt vs walk_dma (K2) mt", T.walk_wq(*wargs,
                                                                    **wkw),
                   k2_mt, balive, True)
@@ -1736,12 +1858,27 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                                lane_bounds=lkw["lane_bounds"]),
                   balive, False)
     wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na, ray_tile=t)
-    k4 = _timed_walk(rows, f"walk_wq_rt{t}", f"walk_wq (K4) bounce "
-                     f"nearest+attrs at {t}", T, wargs, wkw, balive, OPS_PMT,
-                     f"{wave}, {wkw['u']} visits per work item",
-                     plain_reps=1, kernel="walk_wq")
+    k4 = _wq_row(rows, f"walk_wq_rt{t}", f"walk_wq (K4) bounce "
+                 f"nearest+attrs at {t}", T, wargs, wkw, balive, OPS_PMT,
+                 f"{wave}, {wkw['u']} visits per work item", k2=(dargs, dkw))
     _compare_walk(f"walk_wq (K4) vs walk_dma (K2) at {t}", k4,
                   T.walk(*dargs, **dkw), balive, True)
+    # K4 at the finest tile: the per-warp cull has nothing left to skip
+    # that the tile's own lists do not.
+    a128, k128 = T._wq_walk_args(acc128, bp, eps, True, INF, na,
+                                 ray_tile=128)
+    d128 = T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                            early_exit=early, ray_tile=128)
+    _wq_row(rows, "walk_wq_rt128", "walk_wq (K4) bounce nearest+attrs at 128",
+            T, a128, k128, balive, OPS_PMT,
+            f"{bp.shape[1]} rays, {c128}x128, tiles of 128, {k128['u']} "
+            f"visits per work item", k2=d128)
+    a128o, k128o = T._wq_walk_args(acc128, bp, eps, False, 30.0, 0,
+                                   ray_tile=128)
+    _compare_walk("walk_wq (K4) bounce occlusion at 128",
+                  T.walk_wq(*a128o, **k128o), T.walk_wq_plain(*a128o, **k128o),
+                  balive, False)
+    del a128, k128, d128, a128o, k128o
     # Against the default tile: the same winners, lane by lane.
     a1024, k1024 = T._dma_walk_args(acc128, bp, eps, True, INF, na,
                                     early_exit=early)
@@ -1819,6 +1956,8 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
               dict(gi_wq=False, gi_lane_cull=False), {}),
              ("grid, no coarse bounce accel", dict(gi_cluster_size=0),
               dict(impl="grid")),
+             ("grid, no coarse bounce accel, tile 128",
+              dict(gi_cluster_size=0), dict(impl="grid", tile=128)),
              ("gi_wq False, no coarse bounce accel, budget patched",
               dict(gi_wq=False, gi_cluster_size=0), dict(budget=1)))
     try:
@@ -1826,7 +1965,8 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
             T._WQ_IMPL = patch.get("impl", impl)
             packets._GROUP_BLOCK_BUDGET_BYTES = patch.get("budget", budget)
             imgs = {}
-            for tile in (1024, t):
+            small = patch.get("tile", t)
+            for tile in (1024, small):
                 img, fl, _, first, times = bench.timed_frames(
                     scene, cfg.replace(gi_ray_tile=tile, **change), acc16,
                     1)
@@ -1835,14 +1975,14 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                       f"{tile}: {first:.3f} s counted, {times[0]:.3f} s "
                       f"timed; launches "
                       f"{ {k: v for k, v in fl.items() if v} }")
-                if tile == t:
+                if tile == small:
                     for k, v in fl.items():
-                        if k.endswith(f"_rt{t}"):
+                        if k.endswith(f"_rt{small}"):
                             launches[k] = max(launches.get(k, 0), v)
-            _require(torch.equal(imgs[1024], imgs[t]),
-                     f"the reference frame, {tag}: gi_ray_tile {t} differs "
-                     f"from 1,024")
-            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile {t} "
+            _require(torch.equal(imgs[1024], imgs[small]),
+                     f"the reference frame, {tag}: gi_ray_tile {small} "
+                     f"differs from 1,024")
+            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile {small} "
                   f"equal to 1,024")
     finally:
         T._WQ_IMPL = impl

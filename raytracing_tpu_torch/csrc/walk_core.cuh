@@ -1,7 +1,9 @@
-// The visit-list walk shared by walk.cu and wq.cu (rays read from a pack),
+// The visit-list walk shared by walk.cu (rays read from a pack),
 // gstream.cu (the same over groups of the table) and camera.cu (rays
-// derived from the pinhole camera): a block walks consecutive positions of
-// one tile's front-to-back list of clusters, each thread holding R rays in
+// derived from the pinhole camera), and the pieces of it wq.cu's own loop
+// takes (a cluster's tests, the lane cull, the merge): a block walks
+// consecutive positions of one tile's front-to-back list of clusters,
+// each thread holding R rays in
 // registers, and every thread intersects its rays with all the triangles
 // of every listed cluster (broadcast reads from shared memory). A pack
 // walk's block holds its tile (ray_tile / 4 threads), each warp 128
@@ -76,10 +78,10 @@
 // is below the next entry's lower bound" — exact, so results do not depend
 // on it.
 //
-// The order-free merge of the split walks' segments and wq.cu's work items
-// is here too: one 64-bit key (bits(t) << 32) | slot per ray, merged with
-// atomicMin, and with it the machinery every walk split over blocks shares
-// (fill, key sharing, segment loop, finish).
+// The order-free merge of the split walks' segments and wq.cu's runs of
+// work items is here too: one 64-bit key (bits(t) << 32) | slot per ray,
+// merged with atomicMin, and with it the machinery every walk split over
+// blocks shares (fill, key sharing, segment loop, finish).
 #pragma once
 
 #include "common.cuh"
@@ -508,6 +510,46 @@ __device__ __forceinline__ void intersect(
     }
     valid = fabsf(den) >= eps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f
             && t > eps;
+  }
+}
+
+// Intersect this thread's R rays with the cs triangles of one staged
+// cluster (g: its rows, cs floats each, as float4; slot0: the slot of its
+// first triangle) and fold the hits into best_t / best_s: wq.cu's loop
+// body, the same tests as walk_list's (which keeps its own copy: the
+// shared walks' machine code does not move with wq.cu's).
+template <int R, int F, bool NEAREST, bool CAPPED>
+__device__ __forceinline__ void walk_cluster(
+    const float4* g, int slot0, int cs, const float (&o)[R][3],
+    const float (&d)[R][3], float eps, float t_cap, const float (&t_lim)[R],
+    float (&best_t)[R], int (&best_s)[R]) {
+  constexpr int kRows = family_rows(F);
+  constexpr int kCol = family_column(F);
+  const int q4 = cs / 4;  // float4 per row
+  for (int k = 0; k < cs / kCol; ++k) {
+    float tri[kRows][kCol];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) load_column(g + q * q4, k, tri[q]);
+#pragma unroll
+    for (int kk = 0; kk < kCol; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float t;
+        bool valid;
+        intersect<F>(tri, kk, o[r], d[r], eps, t, valid);
+        if (NEAREST) {
+          const int slot = slot0 + kCol * k + kk;
+          if (valid && (!CAPPED || t < t_cap)
+              && (t < best_t[r]
+                  || (t == best_t[r] && t < inf() && slot < best_s[r]))) {
+            best_t[r] = t;
+            best_s[r] = slot;
+          }
+        } else if (valid && t < t_lim[r] && t < best_t[r]) {
+          best_t[r] = t;
+        }
+      }
+    }
   }
 }
 

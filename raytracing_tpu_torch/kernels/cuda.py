@@ -46,7 +46,7 @@ _SIGNATURES = {
                         _P, _L, _P, _L, _I, _I, _F, _F, _I, _I, _I, _I, _P,
                         _P, _P, _P, _P, _P, _P],
     "rt_walk_wq": [_P, _L, _I, _P, _P, _P, _I, _I, _P, _L, _P, _L, _I, _I,
-                   _F, _F, _I, _I, _P, _P, _P, _P, _P],
+                   _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # Resident blocks per multiprocessor of an instance at a block size
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the last argument.
     "rt_extents_occupancy": [_I, _P],

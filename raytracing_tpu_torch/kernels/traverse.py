@@ -24,7 +24,9 @@ smaller tiles give their incoherent rays tighter frustums):
       table bigger than the group budget (`_group_clusters`) is walked in
       groups of clusters: one launch of `walk_gstream` (K3) over per-group
       lists. With `_WQ_IMPL = "grid"` a `wq` query takes `walk_wq` (K4),
-      whose unit of work is a few visits of a tile, instead of K2. An occlusion query may carry a per-ray limit
+      whose unit of work is a few visits of a tile for one 128-lane warp,
+      each warp culling the visits none of its rays enters, instead of
+      K2. An occlusion query may carry a per-ray limit
       (`tmax_row`) in place of the scalar `t_max`. K1/K2 cut a tile's list
       into segments for many blocks themselves (`_walk_segment`), merged
       per ray in any order, with the early exit kept exact across blocks.
@@ -109,8 +111,11 @@ _PLAIN_TEMP_ELEMS = 1 << 24
 # What a `wq` query runs: "dma", the `_walk_dma` entry (K2), or "grid", the
 # work-queue walk (K4). Both equal the `_walk_groups` entry bit for bit.
 _WQ_IMPL = "dma"
-# Visits per work item of K4.
+# Visits per work item of K4, and the work units (one item of a 128-lane
+# warp of a tile) a warp of K4 takes at a time: csrc/wq.cu's kRun, for
+# counting what a launch merges.
 WQ_U = 4
+WQ_RUN = 2
 # K1/K2 split a tile's list over blocks: a block walks a segment of about
 # this many triangles (`_walk_segment`), whole stages of the kernels'
 # 128-triangle staging ring.
@@ -722,9 +727,15 @@ _WOOP_TABLES: dict = {}
 def _lane_cull_keep(pack, act, cl, lane_bounds):
     """The visits of the lane-cull pre-test (traverse.py:lane_cull_cond):
     [na] bool, True where some alive ray of tile act[i] enters cluster
-    cl[i]'s box (lane_bounds [C, 6], min | max) by the TPU's slab test —
-    IEEE division, a degenerate axis unbounded, the interval inflated by
-    2e-6 |t| + 1e-7."""
+    cl[i]'s box (`_lane_enters`)."""
+    return _lane_enters(pack, act, cl, lane_bounds).any(dim=1)
+
+
+def _lane_enters(pack, act, cl, lane_bounds):
+    """[na, RT] bool: lane k of tile act[i] (pack [8, nt, 1, RT]) is alive
+    and enters cluster cl[i]'s box (lane_bounds [C, 6], min | max) by the
+    TPU's slab test — IEEE division, a degenerate axis unbounded, the
+    interval inflated by 2e-6 |t| + 1e-7."""
     box = lane_bounds[cl.long()][:, :, None]  # [na, 6, 1]
     tn = tf = None
     for k in range(3):
@@ -740,8 +751,7 @@ def _lane_cull_keep(pack, act, cl, lane_bounds):
         tf = hi_ if k == 0 else torch.minimum(tf, hi_)
     tf = tf + (torch.abs(tf) * 2e-6 + 1e-7)
     tn = tn - (torch.abs(tn) * 2e-6 + 1e-7)
-    enter = (tn <= tf) & (tf >= 0.0) & (pack[7, act, 0] != 0.0)
-    return enter.any(dim=1)
+    return (tn <= tf) & (tf >= 0.0) & (pack[7, act, 0] != 0.0)
 
 
 def _intersect_plain(family: int, col, o, d, eps):
@@ -1101,14 +1111,25 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     return out_t, out_s, out_a
 
 
+def wq_queue_plain(cnt, width: int, u: int = WQ_U):
+    """K4's work queue (csrc/wq.cu's plan launch): first [nt + 1] i32,
+    first[t] the work items of the tiles before t, first[nt] all of them;
+    tile t holds ceil(min(cnt[t], width) / u) items of u visits."""
+    items = (torch.clamp(cnt.to(torch.int64), 0, width) + u - 1) // u
+    return torch.cat([items.new_zeros(1), torch.cumsum(items, 0)]).to(
+        torch.int32)
+
+
 def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
                   eps: float, nearest: bool, t_max: float = INF,
                   family: int = PMT, tmax_row=None, u: int = WQ_U,
-                  ray_tile: int = RAY_TILE):
+                  ray_tile: int = RAY_TILE, lane_bounds=None):
     """Plain version of K4: the lists cut into work items of `u` visits,
     each item walked on its own (`walk_plain`) and the items of a tile
     folded by (min t, then min slot) — in any order the same. A tile with
-    no visits reads miss / not occluded."""
+    no visits reads miss / not occluded. lane_bounds is ignored: the
+    kernel's cull skips only clusters no alive ray of a warp enters, which
+    changes no alive lane's result."""
     listed = torch.clamp_max(cnt.to(torch.int64), ids.shape[1])
     best_t, best_s = _no_hit(rays8)
     for j0 in range(0, int(listed.max()) if listed.numel() else 0, u):
@@ -1127,26 +1148,44 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
 
 def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             nearest: bool, t_max: float = INF, family: int = PMT,
-            tmax_row=None, u: int = WQ_U, ray_tile: int = RAY_TILE):
+            tmax_row=None, u: int = WQ_U, ray_tile: int = RAY_TILE,
+            lane_bounds=None, queue=None):
     """K4 (csrc/wq.cu): plain version on CPU, kernel on CUDA, over tiles of
-    ray_tile rays. The walk with
-    `u` visits of one tile as the unit of work: a tile's work items run in
-    any order on any multiprocessor and merge per ray through one atomic
-    minimum of (t, slot). Tables, lists and results as `walk`; there is no
-    early exit, every listed visit is walked. The families are the TPU
-    K4's: PMT, PMTO and MT."""
+    ray_tile rays. The walk with `u` visits of one tile as the unit of
+    work: a persistent grid's warps take the real items
+    (`wq_queue_plain`) for one 128-lane warp of a tile at a time,
+    `WQ_RUN` consecutive ones per take, and merge once per take through
+    one atomic minimum of (t, slot). A warp skips a cluster none of its
+    alive rays enters by the boxes lane_bounds [C, 6] (min | max), which
+    the kernel needs and the plain version ignores. Tables, lists and
+    results as `walk` (defined on alive lanes); there is no early exit.
+    The families are the TPU K4's: PMT, PMTO and MT. `queue`, an i32
+    [nt + 2] CUDA tensor, receives the work queue and the count of units
+    taken (for measuring)."""
     if int(family) == WOOP:
         raise ValueError("walk_wq: the work-queue walk takes the pmt, pmto "
                          "and mt families")
-    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
+    if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row, lane_bounds):
         return walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
                              nearest, t_max, family, tmax_row, u, ray_tile)
     nt = _check_pack(rays8, ray_tile)
     _check_walk_tables("walk_wq", nt, ids, cnt, geo, attr, cs, None, None,
-                       family)
+                       family, lane_bounds)
+    if lane_bounds is None:
+        raise ValueError("walk_wq: the kernel culls by the clusters' boxes: "
+                         "give lane_bounds [C, 6]")
     n = rays8.shape[1]
     _check_tmax_row("walk_wq", n, tmax_row)
-    _walk_grid("walk_wq", nt, ids.shape[1], int(u))
+    units = nt * ray_tile // 128 * -(-ids.shape[1] // int(u))
+    if units > 2 ** 30:
+        raise ValueError(f"walk_wq: {units} work units of 128 lanes; the "
+                         f"queue takes at most 2**30")
+    if queue is None:
+        queue = torch.empty(nt + 2, dtype=torch.int32, device=rays8.device)
+    elif (queue.dtype != torch.int32 or queue.shape != (nt + 2,)
+          or not queue.is_contiguous()):
+        raise ValueError(f"walk_wq: queue must be a contiguous i32 "
+                         f"[{nt + 2}]")
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
     keys = _merge_keys(rays8, nearest)  # the launch fills them
     cnt32 = cnt.to(torch.int32).contiguous()
@@ -1157,8 +1196,9 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             ids.shape[1], int(u), _ptr(geo), geo.stride(0), _ptr(attr_t),
             attr_t.stride(0) if attr_t is not None else 0,
             n_attrs if attr_t is not None else 0, cs, float(eps), float(t_max),
-            int(nearest), int(family), _ptr(keys), _ptr(out_t), _ptr(out_s),
-            _ptr(out_a), _stream(rays8)), "walk_wq")
+            int(nearest), int(family), _ptr(lane_bounds), _ptr(queue),
+            _ptr(keys), _ptr(out_t), _ptr(out_s), _ptr(out_a),
+            _stream(rays8)), "walk_wq")
     _count(_count_key("walk_wq", family, nearest and t_max < INF,
                       ray_tile=ray_tile))
     return out_t, out_s, out_a
@@ -1424,9 +1464,10 @@ def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                   variant="pmt", ray_tile: int = RAY_TILE):
     """The work-queue launch (K4): refined lists (K5, either form: both
     give the same walk) over the combined [C, rows + A, CS] table of the
-    variant ("pmt" or "mt"), tiles of ray_tile rays. Returns (args, kw):
-    `walk_wq(*args, **kw)` is the launch and `walk_wq_plain(*args, **kw)`
-    its plain version.
+    variant ("pmt" or "mt"), tiles of ray_tile rays, with the clusters'
+    boxes for the per-warp cull (as `_groups_walk_args` passes them to the
+    lane cull). Returns (args, kw): `walk_wq(*args, **kw)` is the launch
+    and `walk_wq_plain(*args, **kw)` its plain version.
 
     The TPU package cuts its lists to a fixed width and covers the tiles
     that overflow it with a second, ordinary launch; the lists here are
@@ -1438,7 +1479,9 @@ def _wq_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
                                  ray_tile)
     args = (rp, ids, cnt, blocks, attr, n_attrs, accel.cluster_size, eps,
             nearest, t_max, family, tmax_row)
-    return args, dict(u=WQ_U, ray_tile=ray_tile)
+    return args, dict(u=WQ_U, ray_tile=ray_tile,
+                      lane_bounds=_lane_bounds(accel.cluster_min,
+                                               accel.cluster_max))
 
 
 def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,

@@ -264,6 +264,99 @@ def test_wq_kernel_matches_plain(setup, dev, monkeypatch, pmto, per_ray):
         T.walk_wq(*args[:1], args[1].T, *args[2:])
 
 
+def _wq_launch(setup, dev, family, mode, tile, pack=1):
+    """(args, kw, alive lanes) of a K4 launch over the refined lists of
+    the bounce-like pack (CS 128, the family's table; pmto: every ray
+    leaves one point), nearest, capped at 3, or occlusion under a scalar
+    limit or a per-ray row. A warp of the first tile has no alive ray."""
+    accels, packs = setup
+    acc = accels[128].to(dev)
+    p, origin = _shared_origin_pack(packs[pack], family == "pmto")
+    p = p.clone()
+    p[7, 256:384] = 0.0
+    g = p.to(dev)
+    nearest = mode in ("nearest", "capped")
+    na = acc.attr_blocks.shape[1] if nearest else 0
+    args, kw = T._wq_walk_args(
+        acc, g, 1e-8, nearest, {"nearest": T.INF, "capped": 3.0}.get(mode,
+                                                                     30.0),
+        na, shared_origin=None if origin is None else origin.to(dev),
+        tmax_row=_tmax_row(g.shape[1], mode == "tmax_row", dev),
+        variant="mt" if family == "mt" else "pmt", ray_tile=tile)
+    return args, kw, g[7] != 0
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512, 1024])
+@pytest.mark.parametrize("family", ["pmt", "pmto", "mt"])
+def test_wq_every_instance_matches_plain(setup, dev, plain_on_card, family,
+                                         tile):
+    """The redesigned K4 at every family and tile, nearest, capped and
+    occlusion under a scalar limit and a per-ray row, against
+    `walk_wq_plain` on the card's tensors: equal on alive lanes, the work
+    queue equal to `wq_queue_plain`, the warp with no alive ray reading
+    miss, and one launch counted each."""
+    for mode in ("nearest", "capped", "occlusion", "tmax_row"):
+        args, kw, m = _wq_launch(setup, dev, family, mode, tile)
+        key = T._count_key("walk_wq", T.MT if family == "mt" else T.PMT,
+                           mode == "capped", ray_tile=tile)
+        before = T.LAUNCHES.get(key, 0)
+        queue = torch.empty(args[2].shape[0] + 2, dtype=torch.int32,
+                            device=dev)
+        kern = T.walk_wq(*args, **kw, queue=queue)
+        assert T.LAUNCHES[key] == before + 1
+        assert torch.equal(queue[:-1].cpu(), T.wq_queue_plain(
+            args[2].cpu(), args[1].shape[1], kw["u"]))
+        _assert_walks_equal(kern, plain_on_card(T.walk_wq, *args, **kw), m)
+        assert bool(torch.isinf(kern[0][0, 256:384]).all())
+
+
+@pytest.mark.parametrize("case", ["cnt0", "over_width", "one_tile"])
+def test_wq_queue_edges_on_the_card(setup, dev, case):
+    """Lists with nothing (every lane reads miss / not occluded), counts
+    past the width (the width is walked), one tile holding all the work:
+    K4 against its plain version on the same lists."""
+    args, kw, m = _wq_launch(setup, dev, "pmt", "nearest", 1024)
+    cnt = args[2].clone()
+    if case == "cnt0":
+        cnt.zero_()
+    elif case == "over_width":
+        cnt[:] = args[1].shape[1] + 5
+    else:
+        cnt[1:] = 0
+    for nearest in (True, False):
+        a = (args[:2] + (cnt,) + args[3:4]
+             + ((args[4], args[5]) if nearest else (None, 0)) + args[6:8]
+             + (nearest,) + args[9:])
+        kern = T.walk_wq(*a, **kw)
+        want = T.walk_wq_plain(*(x.cpu() if isinstance(x, torch.Tensor)
+                                 else x for x in a))
+        for x, y in zip(kern, want):
+            if y is not None:
+                assert torch.equal(x[..., m].cpu(), y[..., m.cpu()])
+        if case == "cnt0":
+            assert bool(torch.isinf(kern[0]).all())
+            miss = 2 ** 30 if nearest else 0
+            assert bool((kern[1] == miss).all())
+
+
+@pytest.mark.parametrize("tile", [128, 1024])
+def test_wq_is_the_same_at_every_launch_and_equals_k2(setup, dev, tile):
+    """Ten launches of K4 give equal results (its warps take their work
+    from a counter, in an order that differs from launch to launch), equal
+    to K2 on the same lists."""
+    args, kw, m = _wq_launch(setup, dev, "pmt", "nearest", tile, pack=0)
+    first = T.walk_wq(*args, **kw)
+    for _ in range(9):
+        _assert_walks_equal(T.walk_wq(*args, **kw), first, m)
+    dargs, dkw = T._dma_walk_args(setup[0][128].to(dev), args[0], 1e-8, True,
+                                  T.INF, args[5], early_exit=True,
+                                  ray_tile=tile)
+    assert torch.equal(dargs[1], args[1]) and torch.equal(dargs[2], args[2])
+    _assert_walks_equal(first, T.walk(*dargs, **dkw), m)
+    with pytest.raises(ValueError):
+        T.walk_wq(*args, **dict(kw, lane_bounds=None))
+
+
 def _long_list_walk(setup, dev, cs, pmto, nearest, per_ray):
     """(args, kw, alive) of a `walk` launch whose lists are as long as they
     get: the bounce-like pack against the whole table's frustum lists (the
@@ -304,7 +397,9 @@ def test_split_walk_matches_plain_and_wq(setup, dev, cs, pmto, nearest,
     if not nearest:  # no exit: every listed visit is made
         assert torch.equal(visits, listed)
     _assert_walks_equal(kern, T.walk_plain(*args), m)
-    _assert_walks_equal(kern, T.walk_wq(*args), m)
+    acc = setup[0][cs]
+    bounds = T._lane_bounds(acc.cluster_min, acc.cluster_max).to(dev)
+    _assert_walks_equal(kern, T.walk_wq(*args, lane_bounds=bounds), m)
     dead = slice(3072, 4096)
     assert bool(torch.isinf(kern[0][0, dead]).all())
     if nearest:

@@ -84,9 +84,11 @@ def calls(monkeypatch):
     def pack_walk(entry):
         def key(rp, ids, cnt, geo, attr, n_attrs, cs, eps, nearest,
                 t_max=T.INF, family=T.PMT, tmax_row=None, **kw):
+            # K4's per-warp cull is part of K4: it counts as "walk_wq".
             return T._count_key(kw.get("entry", entry), family,
                                 nearest and t_max < T.INF,
-                                kw.get("lane_bounds") is not None,
+                                kw.get("lane_bounds") is not None
+                                and entry != "walk_wq",
                                 kw.get("ray_tile", T.RAY_TILE))
         return key
 

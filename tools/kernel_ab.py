@@ -2,7 +2,8 @@
 """Time kernels of two trees in one process on one CUDA card: the
 refinement (K5, dense and gathered) and the extents (K6), the pack walk
 (K1/K2, `rt_walk`), the camera walk (K1 camera / K2 camera,
-`rt_walk_camera`) and the streamed-groups walk (K3, `rt_walk_gstream`).
+`rt_walk_camera`), the streamed-groups walk (K3, `rt_walk_gstream`) and
+the work-queue walk (K4, `rt_walk_wq`).
 
 Run from the root of a checkout, with another commit of the repository
 unpacked somewhere (`git archive <commit> | tar -x -C _work/parent`):
@@ -37,8 +38,10 @@ the 1.6M and 6.4M tables (CS=128, the combined-table entry);
 `rt_walk_gstream` on the whole frame's primaries over the 1.6M and 6.4M
 tables (4 and 10 groups) and on the two launches of chunk 12 of the 1.6M
 Whitted frame as the renderer makes them (65,536 rays: primary
-nearest+attrs, sun-shadow occlusion). A tree whose walk splits a tile's
-list over blocks takes a segment size and merge scratch; one that gives a
+nearest+attrs, sun-shadow occlusion). `rt_walk_wq` (K4) runs on the
+`_walk_dma` row's lists, pmt and mt (a tree whose K4 takes its work from a
+queue also takes the clusters' boxes for its per-warp cull). A tree whose
+walk splits a tile's list over blocks takes a segment size and merge scratch; one that gives a
 tile one block does not: each tree's entries are bound by their own
 signatures (a tree whose pack entries take the culling tile at run time
 is called at 1,024, the tile both trees walk). Every kernel runs in the
@@ -83,7 +86,9 @@ def _build(tree, out):
     for i, line in enumerate(lines):
         name = next((k for k in ("refine_lists_kernel", "13refine_kernel",
                                  "extents_kernel", "camera_walk_kernel",
-                                 "gstream_kernel", "walk_kernel")
+                                 "gstream_kernel", "wq_warp_kernel",
+                                 "wq_items_kernel", "wq_plan_kernel",
+                                 "walk_kernel")
                      if k in line), None)
         if "Compiling entry" in line and name:
             used = next(l for l in lines[i:] if "Used" in l)
@@ -147,6 +152,14 @@ def _build(tree, out):
     lib.rt_walk_gstream.argtypes = (
         head + [i32] * 2 + tail + [p] * 7 if lib.split_gstream
         else head + tail + [p] * 5)
+    # rt_walk_wq: rays .. family, [lane_bounds, queue] in a tree whose K4
+    # takes work from a queue, keys, outputs, stream.
+    with open(os.path.join(tree, "raytracing_tpu_torch", "csrc",
+                           "wq.cu")) as f:
+        lib.queued_wq = "const float* lane_bounds, int* first" in f.read()
+    lib.rt_walk_wq.argtypes = (
+        [p, ll, *lib.tile, p, p, p, i32, i32, p, ll, p, ll, i32, i32, f32, f32,
+         i32, i32] + ([p, p] if lib.queued_wq else []) + [p] * 5)
     return lib
 
 
@@ -233,6 +246,27 @@ def _call_gstream(lib, args, kw, out):
     assert rc == 0, rc
 
 
+def _call_wq(lib, args, kw, out):
+    """`rt_walk_wq` of one tree on `walk_wq(*args, **kw)`'s arguments (a
+    tree whose K4 culls per warp takes the boxes)."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    rp, ids, cnt, geo, attr, n_attrs, cs, eps, nearest, t_max, family, row = \
+        args
+    attr = attr if nearest and n_attrs else None
+    ptr = T._ptr
+    head = [ptr(rp), rp.shape[1], *lib.tile_arg, ptr(row), ptr(ids),
+            ptr(cnt), ids.shape[1], int(kw["u"]), ptr(geo), geo.stride(0),
+            ptr(attr), attr.stride(0) if attr is not None else 0,
+            n_attrs if attr is not None else 0, cs, float(eps), float(t_max),
+            int(nearest), int(family)]
+    queue = ([ptr(kw["lane_bounds"]), ptr(out["queue"])]
+             if lib.queued_wq else [])
+    rc = lib.rt_walk_wq(*head, *queue, ptr(out["keys"]), ptr(out["t"]),
+                        ptr(out["s"]), ptr(out["a"]), T._stream())
+    assert rc == 0, rc
+
+
 def _refine_dense(lib, rays, cmin, cmax, alive, bits):
     """`rt_refine_dense` of one tree, tile-alive flags given."""
     from raytracing_tpu_torch.kernels import traverse as T
@@ -304,6 +338,8 @@ def _walk_outputs(kind, args):
                 s=torch.empty((1, n), dtype=torch.int32, device=dev),
                 a=torch.empty((max(n_attrs, 1), n), device=dev),
                 keys=torch.empty(n, dtype=torch.int64, device=dev),
+                queue=torch.empty(n // 1024 + 2, dtype=torch.int32,
+                                  device=dev),
                 finished=torch.empty(n_fin, dtype=torch.int32, device=dev),
                 visits=torch.zeros(visits, dtype=torch.int32, device=dev))
 
@@ -387,6 +423,10 @@ def _inputs(dev):
     walks = {"walk_dma, 720,896 bounce rays, 100x128, nearest+attrs":
              T._dma_walk_args(acc128, bp, cfg.eps, True, INF, na,
                               early_exit=True if cfg.gi_early_exit else None)}
+    wqs = {"walk_wq, the same lists, nearest+attrs":
+           T._wq_walk_args(acc128, bp, cfg.eps, True, INF, na),
+           "walk_wq, the same lists, mt, nearest+attrs":
+           T._wq_walk_args(acc128, bp, cfg.eps, True, INF, na, variant="mt")}
     rp = T.rays_to_soa(o, d)
     pargs, pkw = T._groups_walk_args(acc16, rp, cfg.eps, True, INF, na)
     walks["walk, 65,536 primaries, 790x16, nearest+attrs"] = (pargs, pkw)
@@ -458,7 +498,8 @@ def _inputs(dev):
     refines["refine_lists, the 1.6M frame's busiest launch"] = busiest
     return (bp, acc128.cluster_min.contiguous(),
             acc128.cluster_max.contiguous(),
-            {"walk": walks, "camera": cameras, "gstream": gstreams}, refines)
+            {"walk": walks, "camera": cameras, "gstream": gstreams,
+             "wq": wqs}, refines)
 
 
 def _median_ms(fn, reps=5):
@@ -565,7 +606,7 @@ def main(argv) -> int:
         print(f"[{name}] bits of the two trees equal: {eq}")
         same = same and eq
     calls = {"walk": _call_walk, "camera": _call_camera,
-             "gstream": _call_gstream}
+             "gstream": _call_gstream, "wq": _call_wq}
     for kind, launches in by_kind.items():
         for name, (args, kw) in launches.items():
             icnt = 5 if kind == "camera" else 2
@@ -586,9 +627,11 @@ def main(argv) -> int:
             a, b = out["this"], out["other"]
             eq = all(torch.equal(a[k][..., m], b[k][..., m])
                      for k in ("t", "s", "a")[:3 if with_attrs else 2])
-            print(f"[{name}] visits this {int(a['visits'].sum())}, other "
-                  f"{int(b['visits'].sum())} of {int(args[icnt].sum())} "
-                  f"listed; outputs equal on alive lanes: {eq}")
+            made = ("" if kind == "wq" else
+                    f"visits this {int(a['visits'].sum())}, other "
+                    f"{int(b['visits'].sum())} of {int(args[icnt].sum())} "
+                    f"listed; ")
+            print(f"[{name}] {made}outputs equal on alive lanes: {eq}")
             same = same and eq
     print(f"[equal] outputs of the two trees equal: {same}")
     if sweep:
@@ -631,6 +674,7 @@ def _sweep(lib, by_kind):
 
     calls = {"walk": _call_walk, "camera": _call_camera,
              "gstream": _call_gstream}
+    by_kind = {k: v for k, v in by_kind.items() if k in calls}
     saved = (T._SEGMENT_TRIANGLES, T._SHORT_SEGMENT_TRIANGLES,
              T._LONG_SEGMENT_TRIANGLES, T._MAX_TILE_BLOCKS)
     try:

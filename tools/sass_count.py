@@ -14,7 +14,7 @@ the walks' machine code with `cuobjdump -sass`, and in each of the pack
 walk's 24 `walk_kernel<FAMILY, NEAREST, LANE_CULL, CAPPED>`, the camera
 walk's `camera_walk_kernel<R, LANE_CULL>` (R rays a thread), K3's 12
 `gstream_kernel<FAMILY, NEAREST, CAPPED>` and K4's 9
-`wq_items_kernel<FAMILY, NEAREST, CAPPED>` finds the innermost loop that
+`wq_warp_kernel<FAMILY, NEAREST, CAPPED>` finds the innermost loop that
 holds the
 (ray, triangle) tests: the innermost loop with the most reciprocals
 (`MUFU.RCP`, one per IEEE division, so one per test in every family: pmt's
@@ -119,7 +119,8 @@ SLAB_FMNMX = {False: 12, True: 13}
 def _variant(name):
     """'walk_kernel (mt, nearest)' and the like for a walk kernel's
     mangled name, None for any other function."""
-    m = re.search(r"_(walk|gstream|wq)_cu_.*?(walk|gstream|wq_items)_kernel"
+    m = re.search(r"_(walk|gstream|wq)_cu_.*?(walk|gstream|wq_warp)"
+                  r"_kernel"
                   r"ILi(\d)((?:ELb[01])+)EE", name)
     if m:
         # walk_kernel<F, NEAREST, LANE_CULL, CAPPED>; K3's and K4's
@@ -181,7 +182,7 @@ def main(argv) -> int:
                   f"per test")
     kinds = {w.split(" ")[0] for w in list(per_test) + list(per_box)}
     if kinds != {"walk_kernel", "camera_walk_kernel", "gstream_kernel",
-                 "wq_items_kernel", "refine_kernel", "refine_lists_kernel"}:
+                 "wq_warp_kernel", "refine_kernel", "refine_lists_kernel"}:
         raise SystemExit(f"kernels found: {sorted(kinds)}")
     walks, refines = argv[1:], []
     if "--refine" in walks:
