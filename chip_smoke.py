@@ -97,12 +97,18 @@ Phases (any failure raises and the script exits non-zero):
         (K6, K5 dense + K6, K2 ten launches equal, K1 with and without
         the lane cull, K4 on 3a's wavefront, and K4 at 128 too; K5
         gathered on 3c's 404k wavefront; K3 on the 1.6M frame's chunk-12
-        primaries and sun shadows), the wavefront's kernels at 1,024,
-        512, 256 and 128 in turns (K6, K5 dense + K6, K2 and K1's visits
-        and times), the reference frame at gi_ray_tile 1,024, 512 and 256
-        in turns (bit-equal, seconds, launches), and the gi_wq=False,
-        "grid" and over-budget frames at 256 (the "grid" one at 128 too)
-        equal to theirs at 1,024 (the rows' launches);
+        primaries and sun shadows); at 384 and 2,048, tiles the wrappers
+        build from launches at 128 and 1,024 with the lists repeated and
+        the results folded, K6, K5 dense + K6, K2, K1 with the lane cull
+        and K4 on 3a's wavefront and K5 gathered on 3c's, each against its
+        plain version at the tile and timed beside its launch at 128 or
+        1,024 alone; the wavefront's kernels at 1,024, 512, 256 and 128
+        in turns (K6, K5 dense + K6, K2 and K1's visits and times), the
+        reference frame at gi_ray_tile 1,024, 512, 256, 384 and 2,048 in
+        turns (bit-equal, seconds, launches: as many a wrapper at 384 and
+        2,048 as at 1,024), and the gi_wq=False, "grid" and over-budget
+        frames at 256 (the "grid" one at 128 too; it and gi_wq=False at
+        384 and 2,048) equal to theirs at 1,024 (the rows' launches);
   4. frame parity — a 64x64 1-spp frame on the card against the same frame
      through the plain CPU path, same uniforms, with pack-path and with
      camera-mode primaries;
@@ -313,6 +319,15 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "walk_wq_rt128": ("raytracing_tpu_torch/csrc/wq.cu",
                       "raytracing_tpu/kernels/traverse.py:2063"),
 }
+# Phase 3j's tiles outside RAY_TILES, which the wrappers build from
+# launches at the largest tile of RAY_TILES dividing them (`_split_tile`):
+# 3 x 128 and 2 x 1,024. The rows "<entry>_rt<tile>" of these entries
+# hold each composed wrapper against its plain version at the tile.
+COMPOSED_TILES = (384, 2048)
+COMPOSED = ("extents", "refine_extents", "refine_lists", "walk_lc",
+            "walk_dma", "walk_wq")
+KERNELS.update({f"{e}_rt{t}": KERNELS[f"{e}_rt256"]
+                for t in COMPOSED_TILES for e in COMPOSED})
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory.
 PEAK_FP32 = 67e12
@@ -461,7 +476,8 @@ def _refine_extents_row(rows, name, rargs, shape, ray_tile=1024):
                                 pent.sum(dim=1), bp, c, c)
     print(f"[kernels] {name} (K5 dense + K6): extents and bits equal; "
           f"{int(pent.sum())} of {pent.numel()} bits set; "
-          f"{_list_stats(live * c, lanes)}")
+          f"{_list_stats(live * c, lanes)}; (ray, box) tests the bound "
+          f"counts: {tests}")
     _row(rows, name, err, lambda: T.refine_dense_extents(*rargs, **tile),
          lambda: T.refine_dense_extents_plain(*rargs, **tile),
          _bound(OPS_SLAB * tests + OPS_EXTENTS * bp.shape[1],
@@ -734,14 +750,35 @@ def _list_stats(cnt, alive_lanes):
             f"{int(((a > 0) & (a < 32)).sum())} tiles with 1-31")
 
 
+def _launch_args(kernel, args, kw):
+    """(args, kw) of the launch that a pack walk wrapper (`walk`,
+    `walk_gstream`, `walk_wq`) makes at a tile outside RAY_TILES: its
+    lists repeated for the k launch tiles of each tile (along the tile
+    axis: K3's is the second), at s (`_split_tile`)."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    s, k = T._split_tile(kw.get("ray_tile"))
+    dim = 1 if kernel == "walk_gstream" else 0
+    args = (args[0], T._per_subtile(args[1], k, dim),
+            T._per_subtile(args[2], k, dim)) + tuple(args[3:])
+    kw = dict(kw, ray_tile=s)
+    if kw.get("tnear") is not None:
+        kw["tnear"] = T._per_subtile(kw["tnear"], k, dim)
+    return args, kw
+
+
 def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
                 nearest=True, plain_reps=5, kernel="walk", bound_visits=None):
     """Compare one pack walk launch (`walk`, `walk_gstream` or `walk_wq`)
     with its plain version, then time both and reckon the launch's bound
     from the visits it made (or `bound_visits` per tile: the lane cull's
     kernel reports the visits it staged, not those it tested). The
-    geometry rows the bound reads are the intersector family's. Returns
-    the kernel's result."""
+    geometry rows the bound reads are the intersector family's. At a tile
+    outside RAY_TILES the bound counts the visits of its launch tiles
+    (`bound_visits` then per launch tile), and the launch alone at s on
+    the repeated lists (`_launch_args`) is timed into the row's
+    "launch_ms", beside the wrapper's time with the fold. Returns the
+    kernel's result."""
     import functools
 
     import torch
@@ -751,6 +788,7 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
         plain = functools.partial(plain, lane_bounds=kw["lane_bounds"])
     rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
     ray_tile = kw.get("ray_tile", T.RAY_TILE)
+    s, k = T._split_tile(ray_tile)
     plain = functools.partial(plain, ray_tile=ray_tile)
     if kernel == "walk_wq":  # no early exit: every listed visit is made
         visits, tile_visits, out = cnt, cnt, fn(*args, **kw)
@@ -759,21 +797,45 @@ def _timed_walk(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
         out = fn(*args, **kw, visits=visits)
         # K3 lists per (group, tile): a tile's visits are its groups' sum.
         tile_visits = visits if visits.dim() == 1 else visits.sum(dim=0)
+    bound_tile = ray_tile
+    if k > 1:
+        sargs, skw = _launch_args(kernel, args, kw)
+        if kernel != "walk_wq":  # each launch tile's own visits
+            bound_tile = s
+            v = torch.zeros(sargs[2].shape, dtype=torch.int32,
+                            device=rp.device)
+            fn(*sargs, **skw, visits=v)
+            tile_visits = v if v.dim() == 1 else v.sum(dim=0)
     want, plain_ms = _timed_once(lambda: plain(*args))
     err = _compare_walk(tag, out, want, alive, nearest)
     del want
     tr = args[-1]  # the per-ray limit row, read once
     bound = _walk_bound(tile_visits if bound_visits is None else bound_visits,
-                        _tile_alive_lanes(rp, ray_tile), cnt, geo, attr,
+                        _tile_alive_lanes(rp, bound_tile), cnt, geo, attr,
                         n_attrs if nearest else 0, cs, rp.shape[1],
                         rp.numel() * 4 + (0 if tr is None else tr.numel() * 4),
                         ops_per_test, kw.get("tnear") is not None,
                         T._FAMILY_ROWS[int(args[-2])])
+    made, listed = int(visits.sum()), int(cnt.sum())
+    if k > 1:  # each launch tile walks its tile's whole list
+        listed *= k
+        made = listed if kernel == "walk_wq" else made
     _row(rows, name, err, lambda: fn(*args, **kw), lambda: plain(*args),
-         bound,
-         f"{shape}, {int(visits.sum())} of {int(cnt.sum())} listed visits",
+         bound, f"{shape}, {made} of {listed} listed visits",
          plain_reps=plain_reps, plain_ms=plain_ms if plain_reps == 1 else None)
+    if k > 1:
+        _launch_row(rows[name], name, lambda: fn(*sargs, **skw), s, k)
     return out
+
+
+def _launch_row(row, name, launch, s, k):
+    """Time `launch`, the kernel at s that a wrapper at a tile of k launch
+    tiles makes, into row["launch_ms"]: the wrapper's time less it is the
+    fold (the repeated lists, the min / max or any)."""
+    row["launch_ms"] = _median_ms(launch)
+    print(f"[ray_tile] {name}: {k} launch tiles of {s} a tile; wrapper "
+          f"{row['ms']} ms, the launch at {s} alone {row['launch_ms']} ms, "
+          f"the fold {row['ms'] - row['launch_ms']} ms")
 
 
 def _wq_work(args, kw):
@@ -782,7 +844,9 @@ def _wq_work(args, kw):
     visits, the visits of a 128-lane warp some alive ray of which enters
     the cluster (`_lane_enters`: the (ray, triangle) tests the per-warp
     cull makes are these x 128 x CS), and the (ray, listed cluster) pairs
-    whose ray enters (the least work any walk of these lists needs)."""
+    whose ray enters (the least work any walk of these lists needs). The
+    queue and the runs are the launch's: at a tile outside RAY_TILES each
+    launch tile takes its tile's whole list (`_launch_args`)."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
@@ -800,6 +864,9 @@ def _wq_work(args, kw):
                                kw["lane_bounds"])
         warp_visits += int(enter.any(dim=1).sum())
         ray_visits += int(enter.sum())
+    s, k = T._split_tile(kw.get("ray_tile"))
+    sub, cnt = s // 128, T._per_subtile(cnt, k)
+    lanes = torch.arange(sub, device=rp.device)
     queue = T.wq_queue_plain(cnt, ids.shape[1], kw["u"])
     # The runs the warps merge: unit x of warp w of tile t is first[t] *
     # sub + w * items + k, a take the units [run c, run (c + 1)).
@@ -808,9 +875,10 @@ def _wq_work(args, kw):
     run = T.WQ_RUN
     runs = ((start + items - 1) // run - start // run + 1)[
         items.expand(-1, sub) > 0]
-    return dict(items=int(queue[-1]), visits=int(listed.sum()),
-                warp_visits=warp_visits, ray_visits=ray_visits,
-                queue=queue, runs=int(runs.sum()), warps=int(runs.numel()))
+    return dict(items=int(queue[-1]), units=int(queue[-1]) * sub,
+                visits=int(listed.sum()), warp_visits=warp_visits,
+                ray_visits=ray_visits, queue=queue, runs=int(runs.sum()),
+                warps=int(runs.numel()))
 
 
 def _wq_row(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
@@ -830,7 +898,8 @@ def _wq_row(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
     rp, ids, cnt, geo, attr, n_attrs, cs = args[:7]
     nearest, tr = args[8], args[-1]
     work = _wq_work(args, kw)
-    queue = torch.empty(cnt.shape[0] + 2, dtype=torch.int32, device="cuda")
+    queue = torch.empty(work["queue"].shape[0] + 1, dtype=torch.int32,
+                        device="cuda")
     T.walk_wq(*args, **kw, queue=queue)
     _require(torch.equal(queue[:-1], work["queue"]),
              f"{name} (K4): the work queue differs from wq_queue_plain")
@@ -859,7 +928,7 @@ def _wq_row(rows, name, tag, T, args, kw, alive, ops_per_test, shape,
           f"({row['tile_bound_ms'] / row['ms']:.4f}); {work['runs']} runs "
           f"merged by {work['warps']} 128-lane warps with work "
           f"({work['runs'] / warps:.3f} merges a lane, against "
-          f"{work['items'] * (rt // 128) / warps:.3f} at one an item)")
+          f"{work['units'] / warps:.3f} at one an item)")
     if k2 is not None:
         dargs, dkw = k2
         _require(torch.equal(dargs[1], ids) and torch.equal(dargs[2], cnt),
@@ -886,6 +955,8 @@ def _check_repeats(tag, fn, args, kw, alive, reps=10):
 
     camera = fn is T.walk_camera
     cnt, cs = (args[5], args[9]) if camera else (args[2], args[6])
+    # At a tile outside RAY_TILES each launch tile walks its tile's list.
+    k = 1 if camera else T._split_tile(kw.get("ray_tile"))[1]
     first, made = None, []
     for _ in range(reps):
         visits = torch.zeros(cnt.shape, dtype=torch.int32, device=cnt.device)
@@ -907,7 +978,8 @@ def _check_repeats(tag, fn, args, kw, alive, reps=10):
     print(f"[kernels] {tag}: {reps} launches equal (t, slots"
           f"{'' if a is None else ', attributes'} on {int(alive.sum())} "
           f"alive lanes); {split} of {cnt.numel()} lists split over blocks; "
-          f"visits made {min(made)}-{max(made)} of {int(cnt.sum())} listed")
+          f"visits made {min(made)}-{max(made)} of {k * int(cnt.sum())} "
+          f"listed")
 
 
 def phase_kernels():
@@ -1767,6 +1839,88 @@ def _tile_sweep(bp, acc128, eps, na, early):
     return out
 
 
+def _composed_rows(rows, tile, bp, acc128, eps, na, early):
+    """3j at a tile outside RAY_TILES on 3a's wavefront (padded to whole
+    tiles of it): K6, K5 dense + K6, K2 (ten launches equal), K1 with the
+    lane cull and K4 (beside K2 on the same lists) through their wrappers,
+    which launch at s and fold, each against its plain version at the
+    tile, timed into rows "<entry>_rt<tile>" with the launch at s alone
+    beside (`_launch_row`); K5 dense with flags given equal too."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.intersect import INF
+
+    s, k = T._split_tile(tile)
+    bp, _ = T._pad_rays_soa(bp, tile)
+    balive = bp[7] != 0
+    rargs = (bp, acc128.cluster_min, acc128.cluster_max)
+    wave = (f"{bp.shape[1]} rays, {acc128.num_clusters}x128, tiles of "
+            f"{tile} ({k} x {s})")
+    name = f"extents_rt{tile}"
+    _, phi = _extents_row(rows, name, bp, tile)
+    _launch_row(rows[name], name, lambda: T.tile_extents(bp, s), s, k)
+    name = f"refine_extents_rt{tile}"
+    _refine_extents_row(rows, name, rargs,
+                        f"{wave}, the extents and the bits", tile)
+    _launch_row(rows[name], name,
+                lambda: T.refine_dense_extents(*rargs, ray_tile=s), s, k)
+    flags = phi[:, 7] > 0.0
+    _require(torch.equal(T.refine_dense(*rargs, flags, ray_tile=tile),
+                         T.refine_dense_plain(*rargs, flags, ray_tile=tile)),
+             f"refine (K5 dense, flags given) at {tile}: bits differ")
+    dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
+                                  early_exit=early, ray_tile=tile)
+    tag = f"walk_dma (K2) bounce nearest+attrs at {tile}"
+    _timed_walk(rows, f"walk_dma_rt{tile}", tag, T, dargs, dkw, balive,
+                OPS_PMT, wave, plain_reps=1)
+    _check_repeats(tag, T.walk, dargs, dkw, balive)
+    largs, lkw = T._groups_walk_args(acc128, bp, eps, True, INF, na,
+                                     early_exit=early, lane_cull=True,
+                                     ray_tile=tile)
+    _timed_walk(rows, f"walk_lc_rt{tile}", f"walk (K1) bounce nearest+attrs "
+                f"at {tile}, lane cull", T, largs, lkw, balive, OPS_PMT,
+                f"{wave}, lane cull", plain_reps=1,
+                bound_visits=_lane_cull_visits(*_launch_args("walk", largs,
+                                                             lkw)))
+    wargs, wkw = T._wq_walk_args(acc128, bp, eps, True, INF, na,
+                                 ray_tile=tile)
+    k4 = _wq_row(rows, f"walk_wq_rt{tile}", f"walk_wq (K4) bounce "
+                 f"nearest+attrs at {tile}", T, wargs, wkw, balive, OPS_PMT,
+                 f"{wave}, {wkw['u']} visits per work item", k2=(dargs, dkw))
+    _compare_walk(f"walk_wq (K4) vs walk_dma (K2) at {tile}", k4,
+                  T.walk(*dargs, **dkw), balive, True)
+
+
+def _by_entry(launches):
+    """A frame's launches summed over the launch tiles ("walk_dma_rt128"
+    counts as "walk_dma"): one launch per wrapper call at any tile."""
+    import re
+
+    out = {}
+    for key, v in launches.items():
+        if v:
+            base = re.sub(r"_rt\d+$", "", key)
+            out[base] = out.get(base, 0) + v
+    return out
+
+
+def _composed_launches(launches, tile, frame_launches):
+    """Into launches["<entry>_rt<tile>"], for each entry of COMPOSED, the
+    count of a frame at gi_ray_tile `tile` under the key of its launch
+    tile (`_count_key`: at 2,048 the bare entry, which counts the frame's
+    launches at 1,024 of the primary level too)."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    s, _ = T._split_tile(tile)
+    for e in COMPOSED:
+        key = (T._count_key("walk", lane_cull=True, ray_tile=s)
+               if e == "walk_lc" else T._count_key(e, ray_tile=s))
+        name = f"{e}_rt{tile}"
+        launches[name] = max(launches.get(name, 0),
+                             frame_launches.get(key, 0))
+
+
 def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     """3j. The bounce levels' culling tile (`RenderConfig.gi_ray_tile`,
     `ray_tile=` of every pack kernel): every kernel at a tile of 256
@@ -1776,16 +1930,21 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     launches equal under its racing exit; K5 gathered on the 404k
     wavefront (3,160 clusters, 3c's shape) and K3 on the 1.6M Whitted
     frame's chunk-12 primaries and sun shadows (12,640 x 128 in 4
-    groups, 3e's shape). Then the wavefront's kernels at every accepted
-    tile in turns (`_tile_sweep`), and frames: the reference frame at
-    gi_ray_tile 1,024, 512 and 256 timed in turns, equal bit for bit,
-    each one's launches; and the frames whose launches count the other
-    rows at 256, each equal to its frame at 1,024: gi_wq=False (K1 with
-    the lane cull, K6), gi_wq=False without the lane cull (K1),
-    `_WQ_IMPL = "grid"` with no coarse bounce accel (K4 over K5
-    gathered's lists: 790 clusters), and gi_wq=False with no coarse
-    bounce accel and the group budget patched (K3 in 4 groups). Returns
-    the rows' launches."""
+    groups, 3e's shape). At the tiles outside RAY_TILES (COMPOSED_TILES,
+    `_composed_rows`): K6, K5 dense + K6, K2, K1 with the lane cull and K4
+    on the wavefront and K5 gathered on the 404k one, each wrapper
+    (launches at s, folded) against its plain version at the tile. Then
+    the wavefront's kernels at every tile of RAY_TILES in turns
+    (`_tile_sweep`), and frames: the reference frame at gi_ray_tile
+    1,024, 512, 256, 384 and 2,048 timed in turns, equal bit for bit,
+    each one's launches (at 384 and 2,048 as many a wrapper as at 1,024,
+    under the keys of their launch tiles); and the frames whose launches
+    count the other rows, each equal to its frame at 1,024: gi_wq=False
+    (K1 with the lane cull, K6) at 256, 384 and 2,048, gi_wq=False
+    without the lane cull (K1), `_WQ_IMPL = "grid"` with no coarse bounce
+    accel (K4 over K5 gathered's lists: 790 clusters) at 256, 128, 384
+    and 2,048, and gi_wq=False with no coarse bounce accel and the group
+    budget patched (K3 in 4 groups). Returns the rows' launches."""
     import torch
 
     from raytracing_tpu_torch import (RenderConfig, bench,
@@ -1886,6 +2045,8 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                   T.walk(*dargs, **dkw), T.walk(*a1024, **k1024), balive,
                   True)
     del a1024, k1024, k4
+    for tile in COMPOSED_TILES:
+        _composed_rows(rows, tile, bp, acc128, eps, na, early)
 
     # K5 gathered on the 404k wavefront (3c's shape).
     bp404, nb404, alive404 = _wavefront_404k(scene404, acc64_404k)
@@ -1897,7 +2058,21 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                          acc128_404k.cluster_max, None, t),
                         f"the 404k wavefront ({alive404} of {nb404} rays "
                         f"alive), tiles of {t}")
-    del bp404, ids, cnt
+    for tile in COMPOSED_TILES:
+        s, k = T._split_tile(tile)
+        bpc, _ = T._pad_rays_soa(bp404, tile)
+        ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+            bpc, acc128_404k.cluster_min, acc128_404k.cluster_max,
+            ray_tile=tile))
+        boxes = (acc128_404k.cluster_min, acc128_404k.cluster_max)
+        name = f"refine_lists_rt{tile}"
+        _timed_refine_lists(rows, name, (bpc, ids, cnt) + boxes + (None, tile),
+                            f"the 404k wavefront ({alive404} of {nb404} rays "
+                            f"alive), tiles of {tile} ({k} x {s})")
+        sids, scnt = T._per_subtile(ids, k), T._per_subtile(cnt, k)
+        _launch_row(rows[name], name, lambda: T.refine_lists(
+            bpc, sids, scnt, *boxes, None, s), s, k)
+    del bp404, bpc, ids, cnt, sids, scnt
 
     # K3 on the 1.6M frame's chunk-12 primaries and their sun shadows.
     mesh = subdivided_teapot_mesh(levels=4, device=dev)
@@ -1933,9 +2108,11 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     sweep = _tile_sweep(bp, acc128, eps, na, early)
     del bp
 
-    # Frames: the reference frame at 1,024, 512 and 256 in turns.
+    # Frames: the reference frame at 1,024, 512, 256, 384 and 2,048 in
+    # turns.
     frames = {}
-    for tile in (1024, 512, 256, 256, 512, 1024):
+    turns = (1024, 512, 256) + COMPOSED_TILES
+    for tile in turns + turns[::-1]:
         img, fl, _, first, times = bench.timed_frames(
             scene, cfg.replace(gi_ray_tile=tile), acc16, 1)
         f = frames.setdefault(tile, dict(img=img, launches=fl, s=[]))
@@ -1949,41 +2126,51 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
               f"launches { {k: v for k, v in f['launches'].items() if v} }")
     launches = {k: v for k, v in frames[t]["launches"].items()
                 if k.endswith(f"_rt{t}")}
-    # The frames that run the other kernels at 256, each against 1,024.
+    for tile in COMPOSED_TILES:
+        _require(_by_entry(frames[tile]["launches"])
+                 == _by_entry(frames[1024]["launches"]),
+                 f"the reference frame at gi_ray_tile {tile}: not one launch "
+                 f"a wrapper call, as at 1,024")
+        _composed_launches(launches, tile, frames[tile]["launches"])
+    # The frames that run the other kernels at the smaller and the composed
+    # tiles, each against 1,024.
     budget, impl = packets._GROUP_BLOCK_BUDGET_BYTES, T._WQ_IMPL
-    cases = (("gi_wq False", dict(gi_wq=False), {}),
+    cases = (("gi_wq False", dict(gi_wq=False), {},
+              (t,) + COMPOSED_TILES),
              ("gi_wq False, no lane cull",
-              dict(gi_wq=False, gi_lane_cull=False), {}),
+              dict(gi_wq=False, gi_lane_cull=False), {}, (t,)),
              ("grid, no coarse bounce accel", dict(gi_cluster_size=0),
-              dict(impl="grid")),
-             ("grid, no coarse bounce accel, tile 128",
-              dict(gi_cluster_size=0), dict(impl="grid", tile=128)),
+              dict(impl="grid"), (t, 128) + COMPOSED_TILES),
              ("gi_wq False, no coarse bounce accel, budget patched",
-              dict(gi_wq=False, gi_cluster_size=0), dict(budget=1)))
+              dict(gi_wq=False, gi_cluster_size=0), dict(budget=1), (t,)))
     try:
-        for tag, change, patch in cases:
+        for tag, change, patch, smaller in cases:
             T._WQ_IMPL = patch.get("impl", impl)
             packets._GROUP_BLOCK_BUDGET_BYTES = patch.get("budget", budget)
-            imgs = {}
-            small = patch.get("tile", t)
-            for tile in (1024, small):
+            imgs, counted = {}, {}
+            for tile in (1024,) + smaller:
                 img, fl, _, first, times = bench.timed_frames(
                     scene, cfg.replace(gi_ray_tile=tile, **change), acc16,
                     1)
-                imgs[tile] = img
+                imgs[tile], counted[tile] = img, fl
                 print(f"[ray_tile] reference frame, {tag}, gi_ray_tile "
                       f"{tile}: {first:.3f} s counted, {times[0]:.3f} s "
                       f"timed; launches "
                       f"{ {k: v for k, v in fl.items() if v} }")
-                if tile == small:
+                if tile in COMPOSED_TILES:
+                    _require(_by_entry(fl) == _by_entry(counted[1024]),
+                             f"the reference frame, {tag}, at {tile}: not "
+                             f"one launch a wrapper call, as at 1,024")
+                    _composed_launches(launches, tile, fl)
+                elif tile != 1024:
                     for k, v in fl.items():
-                        if k.endswith(f"_rt{small}"):
+                        if k.endswith(f"_rt{tile}"):
                             launches[k] = max(launches.get(k, 0), v)
-            _require(torch.equal(imgs[1024], imgs[small]),
-                     f"the reference frame, {tag}: gi_ray_tile {small} "
-                     f"differs from 1,024")
-            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile {small} "
-                  f"equal to 1,024")
+                _require(torch.equal(imgs[1024], img),
+                         f"the reference frame, {tag}: gi_ray_tile {tile} "
+                         f"differs from 1,024")
+            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile "
+                  f"{smaller} equal to 1,024")
     finally:
         T._WQ_IMPL = impl
         packets._GROUP_BLOCK_BUDGET_BYTES = budget

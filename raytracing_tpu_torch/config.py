@@ -71,8 +71,10 @@ class RenderConfig:
     # nearest and shadow queries on the kernel path: bounce rays diverge,
     # so a 1024-ray tile's frustum balloons; a smaller tile tightens it
     # (fewer clusters listed) for more tiles. 0 = the kernels' default
-    # (kernels/traverse.RAY_TILE, 1024); else one of traverse.RAY_TILES
-    # (128, 256, 512, 1024; another value raises). Exact either way.
+    # (kernels/traverse.RAY_TILE, 1024); else any positive multiple of 128
+    # (traverse.check_query_tile; another value raises): a tile outside
+    # traverse.RAY_TILES is built from launches at the largest of them that
+    # divides it. Exact either way.
     gi_ray_tile: int = 0
     # Per-visit lane-cull pre-test of bounce queries in the K1 walk (the
     # `_walk_groups` entry; not K2, K3 or K4, as on the TPU). It skips

@@ -2,9 +2,12 @@
 plain PyTorch versions (twin of `raytracing_tpu.kernels.traverse`).
 
 A pack query runs in three phases over tiles of consecutive rays, 1024 by
-default (`RAY_TILE`; a query's `ray_tile=` picks another of `RAY_TILES`:
-the renderer's bounce levels take `RenderConfig.gi_ray_tile`, whose
-smaller tiles give their incoherent rays tighter frustums):
+default (`RAY_TILE`; a query's `ray_tile=` picks any positive multiple of
+128, `check_query_tile`: the renderer's bounce levels take
+`RenderConfig.gi_ray_tile`, whose smaller tiles give their incoherent rays
+tighter frustums). A kernel launch takes a tile of `RAY_TILES`; a wrapper
+given another tile T launches at s, the largest of them dividing T, and
+folds the k = T / s launch tiles of each tile into it (`_split_tile`):
 
   phase 1 — `tile_extents` (K6): per-tile min/max of the alive rays'
       origins and directions;
@@ -46,10 +49,11 @@ comes from a closed form (`_camera_tile_extents`), and `walk_camera`
 Each kernel has a public function that runs its plain PyTorch version for
 a CPU tensor and launches the kernel for a CUDA tensor (raising if it
 cannot), and a launch count in `LAUNCHES`. Ray packs are SoA [8, N] with
-rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of the tile (the public
-queries pad to whole `RAY_TILE`s, which every tile divides); dead lanes
-(row 7 == 0) are left out of the culling and their results are
-meaningless.
+rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of the tile (a public
+query pads its pack to whole tiles of its own tile and of `RAY_TILE`,
+`_pad_rays_soa`, so a tile is T consecutive rays from ray 0, as in the
+JAX package); dead lanes (row 7 == 0) are left out of the culling and
+their results are meaningless.
 
 Gradients: which triangle a ray hits is a traversal decision and stays
 detached. A nearest query that something differentiates (`_ShadedWalk`)
@@ -68,6 +72,8 @@ launch) has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import math
+import numbers
 import weakref
 from typing import NamedTuple, Optional, Tuple
 
@@ -82,11 +88,12 @@ from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.scatter import segment_scatter_add
 
 RAY_TILE = 1024
-# The culling tiles the kernels take (csrc/common.cuh's ray_tile_ok): whole
-# warps of 4-ray threads, a block of ray_tile / 4, that divide RAY_TILE, to
-# which a query pads its pack. Above RAY_TILE the port refuses (the JAX
-# package pads to any ray_tile * SUBTILES).
+# The culling tiles one kernel launch takes (csrc/common.cuh's ray_tile_ok):
+# whole warps of 4-ray threads, a block of ray_tile / 4, that divide
+# RAY_TILE. A query takes any multiple of the 128-lane row (`RAY_ROW`), as
+# the JAX package does: the wrappers build it from launches at these.
 RAY_TILES = (128, 256, 512, 1024)
+RAY_ROW = 128
 # Visits per early-exit vote for a 16-triangle cluster; scaled down for
 # bigger clusters (_ee_batch_for), as the TPU walk does.
 EARLY_EXIT_BATCH = 4
@@ -151,7 +158,9 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # The forms off the main paths count under the same names with a suffix
 # (`_count_key`): "_mt" / "_woop" for those intersector families,
 # "_capped" for a launch under a two-phase query's cap, "_lc" with the
-# lane-cull pre-test, "_rt256" (and so on) for a tile other than RAY_TILE.
+# lane-cull pre-test, "_rt256" (and so on) for a launch tile other than
+# RAY_TILE: a query's tile outside RAY_TILES counts under the tile its
+# launches ran at (`_split_tile`).
 LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
             "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
             "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
@@ -169,14 +178,58 @@ def _count_key(entry: str, family: int = PMT, capped: bool = False,
 
 
 def check_ray_tile(ray_tile: Optional[int]) -> int:
-    """A query's culling tile: `ray_tile`, or RAY_TILE for None; raises
-    ValueError unless it is one of RAY_TILES."""
+    """A kernel launch's culling tile: `ray_tile`, or RAY_TILE for None;
+    raises ValueError unless it is one of RAY_TILES."""
     if ray_tile is None:
         return RAY_TILE
     if isinstance(ray_tile, bool) or ray_tile not in RAY_TILES:
         raise ValueError(f"ray_tile {ray_tile!r}: the kernels take tiles of "
                          f"{', '.join(map(str, RAY_TILES))} rays")
     return int(ray_tile)
+
+
+def check_query_tile(ray_tile: Optional[int]) -> int:
+    """A query's culling tile: `ray_tile`, or RAY_TILE for None; raises
+    ValueError unless it is a positive multiple of RAY_ROW (128)."""
+    if ray_tile is None:
+        return RAY_TILE
+    if (isinstance(ray_tile, bool)
+            or not isinstance(ray_tile, numbers.Integral)
+            or ray_tile <= 0 or ray_tile % RAY_ROW):
+        raise ValueError(f"ray_tile {ray_tile!r}: a query's culling tile is "
+                         f"a positive multiple of {RAY_ROW} rays (the "
+                         f"kernels, like the TPU's, lay rays out in "
+                         f"{RAY_ROW}-lane rows)")
+    return int(ray_tile)
+
+
+def _split_tile(ray_tile: Optional[int]) -> Tuple[int, int]:
+    """(s, k) of a query's tile T (`check_query_tile`): s the largest of
+    RAY_TILES that divides T, k = T / s. A tile's results are exact at
+    any tile, so a wrapper launches at s with every list repeated for the
+    k launch tiles of its tile, and folds what is per tile: extents by
+    min / max (a dead launch tile's +/-3e38 drop out), entered bits by
+    any."""
+    t = check_query_tile(ray_tile)
+    s = max(r for r in RAY_TILES if t % r == 0)
+    return s, t // s
+
+
+def _per_subtile(x: Optional[torch.Tensor], k: int, dim: int = 0):
+    """x's per-tile entries along `dim` repeated for the k launch tiles of
+    each tile (None stays None)."""
+    return None if x is None else x.repeat_interleave(k, dim=dim).contiguous()
+
+
+def _fold_extents(lo, hi, k: int):
+    """(lo, hi) [nt * k, 8] of launch tiles -> [nt, 8] of their tiles."""
+    return (lo.reshape(-1, k, 8).amin(dim=1),
+            hi.reshape(-1, k, 8).amax(dim=1))
+
+
+def _fold_any(bits, k: int):
+    """[nt * k, W] bool of launch tiles -> [nt, W]: set in some of them."""
+    return bits.reshape(-1, k, bits.shape[-1]).any(dim=1)
 
 
 def _count(key: str) -> None:
@@ -329,9 +382,10 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _check_pack(rays8: torch.Tensor, ray_tile: int = RAY_TILE) -> int:
-    """The pack's tile count; raises unless the tile is one of RAY_TILES and
-    the pack a contiguous f32 [8, N] with N a multiple of it."""
-    ray_tile = check_ray_tile(ray_tile)
+    """The pack's tile count; raises unless the tile is a query's
+    (`check_query_tile`) and the pack a contiguous f32 [8, N] with N a
+    multiple of it."""
+    ray_tile = check_query_tile(ray_tile)
     if (rays8.dtype != torch.float32 or rays8.dim() != 2
             or rays8.shape[0] != 8 or not rays8.is_contiguous()
             or rays8.shape[1] % ray_tile):
@@ -345,7 +399,7 @@ def _plain_tiles(rays8: torch.Tensor, ray_tile: int) -> int:
     """The tile count of a plain version's pack; raises as `_check_pack`
     does on the tile and N (the plain versions take any dtype and
     layout)."""
-    ray_tile = check_ray_tile(ray_tile)
+    ray_tile = check_query_tile(ray_tile)
     if rays8.shape[1] % ray_tile:
         raise ValueError(f"a pack of {rays8.shape[1]} rays is not whole "
                          f"tiles of {ray_tile}")
@@ -371,10 +425,13 @@ def tile_extents_plain(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
 
 def tile_extents(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
     """K6 (csrc/extents.cu): plain version on CPU, kernel on CUDA; tiles
-    of ray_tile rays (one of RAY_TILES)."""
+    of ray_tile rays (any multiple of 128: `_split_tile`)."""
     if _on_cpu(rays8):
         return tile_extents_plain(rays8, ray_tile)
     nt = _check_pack(rays8, ray_tile)
+    s, k = _split_tile(ray_tile)
+    if k > 1:
+        return _fold_extents(*tile_extents(rays8, s), k)
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
     lib = cuda.library()
@@ -476,6 +533,11 @@ def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None,
                       _REFINE_DENSE_MAX_C, ray_tile)
     if tile_alive.shape != (nt,):
         raise ValueError("refine_dense: one alive flag per tile")
+    s, k = _split_tile(ray_tile)
+    if k > 1:  # a dead launch tile of an alive tile enters nothing
+        return _fold_any(refine_dense(rays8, cluster_min, cluster_max,
+                                      _per_subtile(tile_alive, k), t_cap, s),
+                         k)
     c = cluster_min.shape[0]
     alive = tile_alive.to(torch.int32).contiguous()
     out = torch.empty((nt, c), dtype=torch.int32, device=rays8.device)
@@ -510,6 +572,11 @@ def refine_dense_extents(rays8, cluster_min, cluster_max, t_cap=None,
                                           t_cap, ray_tile)
     nt = _check_boxes("refine_dense_extents", rays8, cluster_min,
                       cluster_max, _REFINE_DENSE_MAX_C, ray_tile)
+    s, k = _split_tile(ray_tile)
+    if k > 1:
+        lo, hi, entered = refine_dense_extents(rays8, cluster_min,
+                                               cluster_max, t_cap, s)
+        return _fold_extents(lo, hi, k) + (_fold_any(entered, k),)
     c = cluster_min.shape[0]
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
@@ -563,6 +630,11 @@ def refine_lists(rays8, ids, cnt, cluster_min, cluster_max, t_cap=None,
             or ids.dtype != torch.int32 or not ids.is_contiguous()):
         raise ValueError("refine_lists: ids must be contiguous i32 [nt, W] "
                          "with cnt [nt]")
+    s, k = _split_tile(ray_tile)
+    if k > 1:  # each launch tile re-tests its tile's whole list
+        return _fold_any(refine_lists(rays8, _per_subtile(ids, k),
+                                      _per_subtile(cnt, k), cluster_min,
+                                      cluster_max, t_cap, s), k)
     run, tile_blocks = _refine_grid(nt, ids.shape[1])
     cnt32 = cnt.to(torch.int32).contiguous()
     out = torch.empty(ids.shape, dtype=torch.int32, device=rays8.device)
@@ -822,7 +894,7 @@ def walk_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     t_max; occlusion keeps min t with t < t_max, or t < tmax_row [1, N]
     per ray where that is given. With lane_bounds [C, 6] a visit that no
     alive ray of the tile enters is skipped (the lane-cull pre-test).
-    The tiles hold ray_tile rays (one of RAY_TILES; the lists one row
+    The tiles hold ray_tile rays (a multiple of 128; the lists one row
     per tile). Returns (t [1, N], slot or hit flag [1, N] i32, attrs
     [A, N] | None); missing lanes get t = +inf, slot 2^30, attrs 0. No
     early exit (it is exact)."""
@@ -967,8 +1039,8 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
          entry: str = "walk", visits=None, lane_bounds=None,
          ray_tile: int = RAY_TILE):
     """K1/K2 (csrc/walk.cu): plain version on CPU, kernel on CUDA, over
-    tiles of ray_tile rays (one of RAY_TILES; a block of ray_tile / 4
-    threads walks a tile). The
+    tiles of ray_tile rays (a block of s / 4 threads walks a launch tile
+    of s rays, `_split_tile`, each its tile's whole list). The
     kernel splits each tile's list into segments of `_walk_segment(cs)`
     visits, dealt to up to `_MAX_TILE_BLOCKS` blocks and merged per ray in
     any order; the result does not depend on the split, nor on the early
@@ -1002,6 +1074,17 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
                        tnear if early else None, bbox, family, lane_bounds)
     n = rays8.shape[1]
     _check_tmax_row("walk", n, tmax_row)
+    s, k = _split_tile(ray_tile)
+    if k > 1:
+        sub = None if visits is None else torch.empty(
+            nt * k, dtype=torch.int32, device=rays8.device)
+        out = walk(rays8, _per_subtile(ids, k), _per_subtile(cnt, k), geo,
+                   attr, n_attrs, cs, eps, nearest, t_max, family, tmax_row,
+                   _per_subtile(tnear, k) if early else None, bbox, ee_batch,
+                   entry, sub, lane_bounds, s)
+        if visits is not None:
+            visits.copy_(sub.reshape(nt, k).sum(dim=1))
+        return out
     seg = _walk_segment(cs)
     tile_blocks = _walk_grid("walk", nt, ids.shape[1], seg, _MAX_TILE_BLOCKS)
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
@@ -1053,7 +1136,7 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
                  family: int = PMT, tmax_row=None, tnear=None, bbox=None,
                  ee_batch: int = 1, visits=None, ray_tile: int = RAY_TILE):
     """K3 (csrc/gstream.cu): plain version on CPU, kernel on CUDA, over
-    tiles of ray_tile rays. The
+    tiles of ray_tile rays (launched as `walk` launches them). The
     walk over a table of G groups of gsz clusters in one launch. The
     kernel splits each (group, tile) list into segments dealt to blocks
     (`_gstream_grid`); a tile's blocks over every group merge per ray in
@@ -1089,6 +1172,18 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
         raise ValueError(f"walk_gstream: the table must hold {ng} groups of "
                          f"{gsz} clusters (fewer than 2^30 slots), bbox "
                          f"[{ng}, 6]")
+    s, k = _split_tile(ray_tile)
+    if k > 1:  # the lists repeat along the tile axis, not the group axis
+        sub = None if visits is None else torch.empty(
+            (ng, nt * k), dtype=torch.int32, device=rays8.device)
+        out = walk_gstream(
+            rays8, _per_subtile(ids, k, 1), _per_subtile(cnt, k, 1), geo,
+            attr, n_attrs, cs, gsz, eps, nearest, t_max, family, tmax_row,
+            _per_subtile(tnear, k, 1) if early else None, bbox, ee_batch,
+            sub, s)
+        if visits is not None:
+            visits.copy_(sub.reshape(ng, nt, k).sum(dim=2))
+        return out
     seg, tile_blocks = _gstream_grid(nt, ng, w, cs)
     out_t, out_s, out_a, attr_t = _walk_outputs(rays8, attr, n_attrs, nearest)
     # Scratch of the blocks' merge; the launch fills both.
@@ -1161,7 +1256,8 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     results as `walk` (defined on alive lanes); there is no early exit.
     The families are the TPU K4's: PMT, PMTO and MT. `queue`, an i32
     [nt + 2] CUDA tensor, receives the work queue and the count of units
-    taken (for measuring)."""
+    taken (for measuring): at a tile of k launch tiles (`_split_tile`) the
+    launch's, i32 [nt * k + 2], each launch tile's items counted apart."""
     if int(family) == WOOP:
         raise ValueError("walk_wq: the work-queue walk takes the pmt, pmto "
                          "and mt families")
@@ -1176,6 +1272,11 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
                          "give lane_bounds [C, 6]")
     n = rays8.shape[1]
     _check_tmax_row("walk_wq", n, tmax_row)
+    s, k = _split_tile(ray_tile)
+    if k > 1:
+        return walk_wq(rays8, _per_subtile(ids, k), _per_subtile(cnt, k),
+                       geo, attr, n_attrs, cs, eps, nearest, t_max, family,
+                       tmax_row, u, s, lane_bounds, queue)
     units = nt * ray_tile // 128 * -(-ids.shape[1] // int(u))
     if units > 2 ** 30:
         raise ValueError(f"walk_wq: {units} work units of 128 lanes; the "
@@ -1507,7 +1608,7 @@ def _walk_groups(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
     _check_variant(accel, variant)
     query = dict(shared_origin=shared_origin, tmax_row=tmax_row,
                  attr_kind=attr_kind, variant=variant,
-                 ray_tile=check_ray_tile(ray_tile))
+                 ray_tile=check_query_tile(ray_tile))
     gsz = _group_clusters(accel, n_attrs)
     if wq and variant in ("pmt", "mt"):
         if _WQ_IMPL == "dma" and accel.cluster_size % 128 == 0:
@@ -1656,10 +1757,11 @@ def rays_to_soa(o: torch.Tensor, d: torch.Tensor, alive=None) -> torch.Tensor:
     return torch.cat([o.T, one, d.T, row7], dim=0)
 
 
-def _pad_rays_soa(rays8):
-    """Pad to whole tiles with finite, dead lanes."""
+def _pad_rays_soa(rays8, ray_tile: Optional[int] = RAY_TILE):
+    """Pad to whole tiles of `ray_tile` (`check_query_tile`) and of
+    RAY_TILE with finite, dead lanes: (pack, rays given)."""
     n = rays8.shape[1]
-    pad = (-n) % RAY_TILE
+    pad = (-n) % math.lcm(check_query_tile(ray_tile), RAY_TILE)
     if pad:
         col = torch.tensor([0, 0, 0, 1, 0, 0, 1, 0], dtype=rays8.dtype,
                            device=rays8.device)[:, None]
@@ -1677,9 +1779,9 @@ def nearest_hit_soa(accel: ClusterAccel, rays8: torch.Tensor,
     selects the origin-folded intersector, whose results can differ from
     the default one's only at acceptance boundaries, within one f32
     rounding. variant: the intersector family (VARIANTS), whose table must
-    have been built. ray_tile: the culling tile (RAY_TILES; no result
-    depends on it)."""
-    rp, r = _pad_rays_soa(rays8)
+    have been built. ray_tile: the culling tile (any positive multiple of
+    128, `check_query_tile`; no result depends on it)."""
+    rp, r = _pad_rays_soa(rays8, ray_tile)
     t, s, _ = _walk_groups(accel, rp, eps, True, INF, 0,
                            shared_origin=shared_origin, variant=variant,
                            ray_tile=ray_tile)
@@ -1703,15 +1805,15 @@ def nearest_hit_attrs_soa(accel: ClusterAccel, rays8: torch.Tensor,
     attr_kind: the shading planes (A = 9, or 4 in objid mode), the
     backward's 11 planes ("grad") or both, the shading planes first (A =
     20, or 15); t and the slots do not depend on it. lane_cull: the K1
-    walk's lane-cull pre-test, ray_tile: the culling tile of every launch
-    (RAY_TILES); no result depends on either.
+    walk's lane-cull pre-test, ray_tile: the culling tile of the query
+    (`check_query_tile`); no result depends on either.
 
     t_cap: the two-phase query (traverse.py:3184-3238). Phase 1 walks with
     every frustum, refinement and intersection cut at t_cap, and merges the
     rest set over the full range; a ray whose nearest hit lies before the
     cap is done. Phase 2 walks the others uncapped (the done rays dead),
     and the two merge elementwise. The result is the uncapped query's."""
-    rp, r = _pad_rays_soa(rays8)
+    rp, r = _pad_rays_soa(rays8, ray_tile)
     n_attrs = _n_attrs(accel, attr_kind)
     walk_kw = dict(early_exit=early_exit, wq=wq, shared_origin=shared_origin,
                    attr_kind=attr_kind, variant=variant, lane_cull=lane_cull,
@@ -1755,16 +1857,15 @@ def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
     shadow sample stops at its light's surface). An infinite entry of the
     tensor becomes 3e38; the lanes that pad the pack get 0. variant,
     lane_cull and ray_tile as in `nearest_hit_attrs_soa`."""
+    rp, r = _pad_rays_soa(rays8, ray_tile)
     tmax_row = None
     if isinstance(t_max, torch.Tensor) and t_max.dim():
         t_max = t_max.detach()  # a traversal decision: never differentiated
         row = torch.where(torch.isfinite(t_max), t_max, _BIG)
         tmax_row = torch.nn.functional.pad(
-            row.to(rays8.dtype)[None], (0, (-rays8.shape[1]) % RAY_TILE)
-        ).contiguous()
+            row.to(rays8.dtype)[None], (0, rp.shape[1] - r)).contiguous()
         t_max = INF
     t_max = float(t_max)
-    rp, r = _pad_rays_soa(rays8)
     _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq,
                              tmax_row=tmax_row, variant=variant,
                              lane_cull=lane_cull, ray_tile=ray_tile)

@@ -34,7 +34,7 @@ from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.kernels.binning import (batch_bounds, bin_sort,
                                                   bounce_bin_key)
-from raytracing_tpu_torch.kernels.traverse import check_ray_tile
+from raytracing_tpu_torch.kernels.traverse import check_query_tile
 from raytracing_tpu_torch.models.camera import camera_rays_for_ids
 from raytracing_tpu_torch.models.whitted import frame_accels, shade
 from raytracing_tpu_torch.ops.color import gamma_correct
@@ -83,7 +83,7 @@ def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     binning = config.bin_secondary and uses_kernels(config)
     orig = torch.arange(r, dtype=torch.int32, device=dev)
     # The culling tile of the segments after the first (kernel path).
-    rt_gi = (check_ray_tile(config.gi_ray_tile or None)
+    rt_gi = (check_query_tile(config.gi_ray_tile or None)
              if uses_kernels(config) else None)
 
     for bounce in range(pt.max_bounces):

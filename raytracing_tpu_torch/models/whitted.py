@@ -34,7 +34,7 @@ from raytracing_tpu_torch.geometry.mesh import Mesh, Scene, SphereLight
 from raytracing_tpu_torch.kernels.binning import (
     batch_bounds, bin_key, bin_sort, bounce_bin_key, scene_bounds, unsort)
 from raytracing_tpu_torch.kernels.traverse import (Hit, camera_mode_supported,
-                                                   check_ray_tile)
+                                                   check_query_tile)
 from raytracing_tpu_torch.models.camera import (
     block_permutation, block_ray_ids, blocks_to_image, camera_rays_for_ids)
 from raytracing_tpu_torch.ops.color import gamma_correct
@@ -281,7 +281,7 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     kernels = uses_kernels(config)
     t_cap = bounce_cap(accel, config) if kernels else None
     # The bounce levels' culling tile (the kernel path's; checked up front).
-    rt_gi = check_ray_tile(config.gi_ray_tile or None) if kernels else None
+    rt_gi = check_query_tile(config.gi_ray_tile or None) if kernels else None
 
     def level_radiance(o_l, d_l, alive_l, depth):
         n_l = o_l.shape[0]

@@ -34,7 +34,9 @@ out-of-memory error classed transient; an accel cache loaded onto the
 card; the off-main-path forms — K1 mt and woop, K2 mt, K3 mt and woop, K4
 mt, the capped walks and refinements of the two-phase query, the lane
 cull in K1 and the camera walk — equal to their plain versions on alive
-lanes.
+lanes; at a query's tile outside RAY_TILES (384, 2,048) every pack
+wrapper's composition from launches at 128 or 1,024 equal to its plain
+version at the tile.
 """
 
 import numpy as np
@@ -794,8 +796,10 @@ def test_refine_dense_extents_matches_plain(setup, dev, cs, n_clusters):
 
 def test_bad_launch_raises(dev):
     """A launch the kernel refuses raises; it is never skipped: a pack that
-    is not whole tiles, a tile outside the accepted set (384; 2,048, above
-    the largest), more clusters than the dense form takes."""
+    is not whole tiles, a launch tile outside RAY_TILES (384; 2,048, above
+    the largest: the wrappers build those from launches at 128 and 1,024,
+    `test_composed_tiles_match_plain`), a query's tile that is not a
+    multiple of 128, more clusters than the dense form takes."""
     lib = cuda.library()
     x = torch.zeros((8, 1000), device=dev)
     x4 = torch.zeros((8, 4096), device=dev)
@@ -815,8 +819,8 @@ def test_bad_launch_raises(dev):
             "refine_extents")
     with pytest.raises(ValueError):
         T.tile_extents(x)
-    with pytest.raises(ValueError, match="128, 256, 512, 1024"):
-        T.tile_extents(x4, 2048)
+    with pytest.raises(ValueError, match="a positive multiple of 128"):
+        T.tile_extents(x4, 1000)
     boxes = torch.zeros((600, 3), device=dev)
     with pytest.raises(ValueError, match="at most 512"):
         T.refine_dense_extents(torch.zeros((8, 1024), device=dev), boxes,
@@ -1356,3 +1360,75 @@ def test_split_walk_at_a_smaller_tile_is_the_same_at_every_launch(
         for x, y in zip(out, first):
             assert torch.equal(x, y)
     _same_on_alive((t, s, a), want, m)
+
+
+@pytest.mark.parametrize("ray_tile", [384, 2048])
+def test_composed_tiles_match_plain(setup, dev, monkeypatch, ray_tile):
+    """A query's tile outside RAY_TILES (384 = 3 x 128, 2,048 = 2 x
+    1,024): each wrapper launches at s (`_split_tile`) with the lists
+    repeated and folds the launch tiles into the tile — K6 and K5 dense
+    (flags given, and with K6) on the refine pack padded to whole tiles
+    (dead launch tiles inside alive tiles), K5 gathered over the CS 16
+    lists, K1 with the lane cull and K2 with the early exit (visits summed
+    over the launch tiles), K3 in 4 groups and K4 (its queue the
+    launch's) on the bounce-like pack: each equal to its plain version at
+    the tile (the walks on alive lanes), each launch counted at s."""
+    accels, packs = setup
+    s, k = T._split_tile(ray_tile)
+    key = "" if s == T.RAY_TILE else f"_rt{s}"
+    p, _ = T._pad_rays_soa(_refine_pack(), ray_tile)
+    a16, a128 = accels[16].to(dev), accels[128].to(dev)
+    g = p.to(dev)
+    boxes = (a128.cluster_min, a128.cluster_max)
+    plo, phi = T.tile_extents_plain(g, ray_tile)
+    sub = (T.tile_extents_plain(g, s)[1][:, 7] > 0).reshape(-1, k)
+    assert bool((sub.any(dim=1) & ~sub.all(dim=1)).any())
+    counts = dict(T.LAUNCHES)
+    lo, hi = T.tile_extents(g, ray_tile)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    assert T.LAUNCHES["extents" + key] == counts.get("extents" + key, 0) + 1
+    flags = phi[:, 7] > 0
+    assert torch.equal(T.refine_dense(g, *boxes, flags, ray_tile=ray_tile),
+                       T.refine_dense_plain(g, *boxes, flags,
+                                            ray_tile=ray_tile))
+    got = T.refine_dense_extents(g, *boxes, ray_tile=ray_tile)
+    want = T.refine_dense_extents_plain(g, *boxes, ray_tile=ray_tile)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ids, _, cnt = T._narrow_lists(*T._tile_visit_lists_soa(
+        g, a16.cluster_min, a16.cluster_max, ray_tile=ray_tile))
+    lists = (g, ids, cnt, a16.cluster_min, a16.cluster_max)
+    keep = T.refine_lists(*lists, ray_tile=ray_tile)
+    assert keep.any() and torch.equal(
+        keep, T.refine_lists_plain(*lists, ray_tile=ray_tile))
+
+    rp, _ = T._pad_rays_soa(packs[1].to(dev), ray_tile)
+    m = rp[7] != 0
+    na = a16.attr_blocks.shape[1]
+    for acc, build, extra in (
+            (a16, T._groups_walk_args, dict(lane_cull=True)),
+            (a128, T._dma_walk_args, {})):
+        args, kw = build(acc, rp, 1e-8, True, T.INF, na, early_exit=True,
+                         ray_tile=ray_tile, **extra)
+        before = T.LAUNCHES.get(kw["entry"] + ("_lc" if extra else "") + key,
+                                0)
+        visits = torch.zeros(args[2].shape, dtype=torch.int32, device=dev)
+        got = T.walk(*args, **kw, visits=visits)
+        assert T.LAUNCHES[kw["entry"] + ("_lc" if extra else "") + key] \
+            == before + 1
+        assert 0 < int(visits.sum()) <= k * int(args[2].sum())
+        _same_on_alive(got, T.walk_plain(
+            *args, ray_tile=ray_tile, lane_bounds=kw.get("lane_bounds")), m)
+    args, kw = T._wq_walk_args(a128, rp, 1e-8, True, T.INF, na,
+                               ray_tile=ray_tile)
+    queue = torch.empty(args[2].shape[0] * k + 2, dtype=torch.int32,
+                        device=dev)
+    got = T.walk_wq(*args, **kw, queue=queue)
+    assert torch.equal(queue[:-1], T.wq_queue_plain(
+        args[2].repeat_interleave(k), args[1].shape[1], kw["u"]))
+    _same_on_alive(got, T.walk_wq_plain(*args, **kw), m)
+    monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+    args, kw = T._gstream_walk_args(a16, rp, 1e-8, True, T.INF, na,
+                                    early_exit=True, ray_tile=ray_tile)
+    assert args[1].shape[0] == 4
+    _same_on_alive(T.walk_gstream(*args, **kw),
+                   T.walk_gstream_plain(*args, ray_tile=ray_tile), m)
