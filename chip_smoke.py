@@ -14,30 +14,41 @@ Phases (any failure raises and the script exits non-zero):
      them, and refuse a spill in any instance of the split walks
      (`walk.cu`: every intersector family, with and without the lane
      cull; `camera.cu`, `gstream.cu`), the refinement (`refine.cu`,
-     capped or not) and the work-queue walk (`wq.cu`); print each pack
-     kernel instance's resident blocks and warps a multiprocessor at
-     every accepted culling tile's block (K4's blocks of 256 threads at
-     CS 128 and 16: its warps take any tile's work)
+     capped or not), the work-queue walk (`wq.cu`), K6 (`extents.cu`)
+     and the list builds (`lists.cu`); print each pack kernel
+     instance's resident blocks and warps a multiprocessor at every
+     accepted culling tile's block (K4's blocks of 256 threads at CS 128
+     and 16: its warps take any tile's work; the list builds' at the
+     threads and shared memory of rows 100 to 50,560 boxes wide)
      (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), and the build's
      seconds;
   3. kernels against their plain PyTorch versions, on the card, at the
-     main paths' shapes; median time of 5 runs each (K6 also read
-     steadily: 200 launches of its entry in one pair of CUDA events
-     over copies of its pack in turns, beside the graphed PyTorch
-     composite):
+     main paths' shapes; median time of 5 runs each (K6 read steadily:
+     200 launches of its entry in one pair of CUDA events over copies of
+     its pack in turns that exceed the L2, beside the graphed PyTorch
+     composite; the list builds steadily too, 200 launches of their
+     entry with the arguments a wrapper call gave it, every output bit
+     for bit against the plain version on the card):
      a. the reference frame's busiest 65,536-ray chunk of camera rays
         (CS=16 accel, the `_walk_groups` entry, with the default and the
-        origin-folded intersector) and that chunk's binned depth-2
-        wavefront of 720,896 rays (CS=128 bounce accel: the extents, the
-        dense refinement with tile-alive flags given, the dense query in
-        one launch as `_refined_lists` makes it, and the `_walk_dma`
-        entry);
+        origin-folded intersector; its lists, row `lists`, and K6 alone
+        at its 65,536 rays, row `extents`) and that chunk's binned
+        depth-2 wavefront of 720,896 rays (CS=128 bounce accel: K6 and
+        the list build from the pack as a gi_wq=False frame's bounce
+        levels take them, rows `extents_gi_wq_false` and
+        `lists_gi_wq_false`; the dense refinement with tile-alive flags
+        given, the dense query in one launch as `_refined_lists` makes
+        it with its lists from its extents and bits, row `lists_ext`,
+        and the `_walk_dma` entry);
      b. camera mode on the whole reference frame (2,500 tiles of 1,024
         rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
         against the plain version lane by lane and against the pack path
         under `shared_origin=0` on all 2,560,000 rays; phase 7 repeats
         this on every large scene, with its pooled lists held against the
-        direct ones, and the `walk_camera_dma` row is the 1.6M launch
+        direct ones (the pooled lists' first stage and the direct lists
+        bit-equal to their plain versions; the 1.6M first stage is row
+        `lists_ext_pooled`, the 6.4M lists 50,560 wide sort through
+        device memory), and the `walk_camera_dma` row is the 1.6M launch
         (launched 10 times, equal every time); phase 5 times
         `walk_camera` at the frame's own shape (one chunk of 64 tiles, as
         the camera-mode frame launches it, 10 times equal);
@@ -116,7 +127,9 @@ Phases (any failure raises and the script exits non-zero):
      with launch counts reset, then 2 timed frames (3 before the script
      grew phases 8 and 9); the same with `primary_shared_origin=True`
      (camera-mode primaries), its chunk-20 `walk_camera` launch kept
-     for 3b;
+     for 3b and that launch's lists built from the closed-form extents
+     (row `lists_ext_camera`); each frame's launches of the port's
+     kernels, and their total, printed;
   6. headline — `python -m raytracing_tpu_torch bench` in process
      (`raytracing_tpu_torch/bench.py`, which also times the frames, the
      large scenes and the backward of phases 5 and 7-10):
@@ -128,7 +141,9 @@ Phases (any failure raises and the script exits non-zero):
      accel-build seconds, the pack-path query `nearest_hit_soa` at 1.6M and
      6.4M (it runs K3), and one Whitted frame each of the 1.6M scene (its
      primary and sun-shadow queries run K3; chunk 12's two launches kept
-     for 3e) and the 404k scene;
+     for 3e, and the primary query's group lists, one list build from K6's
+     extents over 4 groups of 4,096 boxes, row `lists_ext_gstream`) and
+     the 404k scene;
   8. the path-traced frame — 800x800, 64 spp, 4 bounces, chunks of 131,072
      pixels, CS=16 plus the auto-built CS=128 bounce accel: a 64x64 2-spp
      frame on the card against the plain CPU path with the same uniforms,
@@ -160,9 +175,10 @@ Phases (any failure raises and the script exits non-zero):
      to `render()` in u8 bit for bit), `render` at the CLI's defaults
      (its launches are the kernel table's "per CLI render" column; its
      PNG has the sky's colour and the reference frame's mean; its busiest
-     K1 and K2 launches and its K5+K6 and K6 launches with the most alive
-     lanes, captured, against their plain versions: rows walk_cli,
-     walk_dma_cli, refine_extents_cli, extents_cli),
+     K1 and K2 launches and its K5+K6 and list-build launches with the
+     most alive lanes, captured, against their plain versions, with K6
+     alone on that list build's pack: rows walk_cli, walk_dma_cli,
+     refine_extents_cli, lists_cli, extents_cli),
      `render --profile` (the trace names the walk and refinement
      kernels), `fit` at its defaults for 20 steps, then for 60 with a
      checkpoint (the step-50 snapshot holds the live params) and
@@ -241,6 +257,27 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                        "raytracing_tpu/kernels/traverse.py:498"),
     "extents": ("raytracing_tpu_torch/csrc/extents.cu",
                 "raytracing_tpu/kernels/traverse.py:163"),
+    # K6 at the wavefront's 720,896 rays (a gi_wq=False frame's bounce
+    # levels at a composed tile take it alone).
+    "extents_gi_wq_false": ("raytracing_tpu_torch/csrc/extents.cu",
+                            "raytracing_tpu/kernels/traverse.py:163"),
+    # The list builds (csrc/lists.cu): from a pack, K6's extents with the
+    # lists XLA builds after it (traverse.py:325-380); from extents, those
+    # lists alone. The reference frame's chunk and wavefront, the camera
+    # frame's chunk, the 1.6M frame's K3 groups, the 1.6M camera query's
+    # pooled first stage.
+    "lists": ("raytracing_tpu_torch/csrc/lists.cu",
+              "raytracing_tpu/kernels/traverse.py:163"),
+    "lists_gi_wq_false": ("raytracing_tpu_torch/csrc/lists.cu",
+                          "raytracing_tpu/kernels/traverse.py:163"),
+    "lists_ext": ("raytracing_tpu_torch/csrc/lists.cu",
+                  "raytracing_tpu/kernels/traverse.py:325"),
+    "lists_ext_camera": ("raytracing_tpu_torch/csrc/lists.cu",
+                         "raytracing_tpu/kernels/traverse.py:325"),
+    "lists_ext_gstream": ("raytracing_tpu_torch/csrc/lists.cu",
+                          "raytracing_tpu/kernels/traverse.py:325"),
+    "lists_ext_pooled": ("raytracing_tpu_torch/csrc/lists.cu",
+                         "raytracing_tpu/kernels/traverse.py:325"),
     "walk_camera": ("raytracing_tpu_torch/csrc/camera.cu",
                     "raytracing_tpu/kernels/traverse.py:922"),
     "walk_camera_dma": ("raytracing_tpu_torch/csrc/camera.cu",
@@ -268,6 +305,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                            "raytracing_tpu/kernels/traverse.py:498"),
     "extents_cli": ("raytracing_tpu_torch/csrc/extents.cu",
                     "raytracing_tpu/kernels/traverse.py:163"),
+    "lists_cli": ("raytracing_tpu_torch/csrc/lists.cu",
+                  "raytracing_tpu/kernels/traverse.py:163"),
     # The launches of the reference frame sharded over 4 virtual shards of
     # the card (phase 15a): raster-order chunks of a shard's rays.
     "walk_sharded": ("raytracing_tpu_torch/csrc/walk.cu",
@@ -278,6 +317,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                                "raytracing_tpu/kernels/traverse.py:498"),
     "extents_sharded": ("raytracing_tpu_torch/csrc/extents.cu",
                         "raytracing_tpu/kernels/traverse.py:163"),
+    "lists_sharded": ("raytracing_tpu_torch/csrc/lists.cu",
+                      "raytracing_tpu/kernels/traverse.py:163"),
     # The off-main-path forms (phase 3i): the intersector families, the
     # two-phase query's capped walk and refinement, the lane cull.
     "walk_mt": ("raytracing_tpu_torch/csrc/walk.cu",
@@ -336,18 +377,28 @@ PEAK_HBM = 3.35e12
 # (t, slot) update included, as counted in csrc/walk_core.cuh; per
 # (ray, box) slab test in csrc/refine.cu; per ray in csrc/extents.cu.
 OPS_PMT, OPS_PMTO, OPS_SLAB, OPS_EXTENTS = 40, 30, 30, 16
+# ... per (tile, box) interval slab test of a list build in csrc/lists.cu:
+# per axis 2 subtractions, 4 products, 3 min and 3 max; the axes' folds, the
+# cap and the two comparisons.
+OPS_FRUSTUM = 41
 # ... and of the other intersector families' tests, counted the same way:
 # mt's cross products, determinant, reciprocal and three dots; woop's six
 # transform rows and its epilogue.
 OPS_MT, OPS_WOOP = 55, 51
 # Phase 3i's two-phase cap: the renderer's gi_cap_frac of the frame.
 CAP_FRAC = 0.1
+# List rows' widths that phase 2 reads the list build's occupancy at: the
+# CS 128 bounce accel, the CS 16 table, K3's groups at 1.6M, the 404k CS 64
+# table, the shared-memory sort's cap, K3's widest group (an occlusion
+# query at CS 16) and the 6.4M table (the device-memory merge).
+LIST_WIDTHS = (100, 790, 4096, 6320, 16384, 43690, 50560)
 # Phase 3j's culling tile of the bounce levels (gi_ray_tile): JAX's test's.
 GI_TILE = 256
 # K6's steady reading: back-to-back launches in one pair of CUDA events,
 # over copies of its 23 MB pack that together exceed the card's 50 MB L2.
 STEADY_LAUNCHES = 200
 L2_COPIES = 4
+L2_BYTES = 50 * 2 ** 20
 
 
 class SmokeFailure(RuntimeError):
@@ -502,12 +553,13 @@ def _steady_ms(fn, n=STEADY_LAUNCHES):
     return a.elapsed_time(b) / n
 
 
-def _steady_extents(rows, bp, plo, phi):
-    """K6 read steadily at the wavefront's shape: its kernel's entry called
-    directly (no wrapper in the loop) STEADY_LAUNCHES times in one pair of
-    CUDA events, in turns on L2_COPIES copies of the pack, so each launch
-    reads its pack from device memory as the bound counts; beside it the
-    plain PyTorch composite (`where`, `amin`, `amax` and the transposes of
+def _steady_extents(rows, name, bp, plo, phi):
+    """K6 read steadily at the shape of rows[name]: its kernel's entry
+    called directly (no wrapper in the loop) STEADY_LAUNCHES times in one
+    pair of CUDA events, in turns on copies of the pack that together
+    exceed the card's 50 MB L2 (at least L2_COPIES), so each launch reads
+    its pack from device memory as the bound counts; beside it the plain
+    PyTorch composite (`where`, `amin`, `amax` and the transposes of
     `tile_extents_plain`) on the copies in turns, replayed from a CUDA
     graph so that its time is the card's and not the host's. The row's ms
     becomes the entry's reading."""
@@ -521,7 +573,8 @@ def _steady_extents(rows, bp, plo, phi):
     nt = bp.shape[1] // T.RAY_TILE
     lib = cuda.library()
     stream = torch.cuda.current_stream().cuda_stream
-    packs = [bp] + [bp.clone() for _ in range(L2_COPIES - 1)]
+    copies = max(L2_COPIES, -(-2 * L2_BYTES // (bp.numel() * 4)))
+    packs = [bp] + [bp.clone() for _ in range(copies - 1)]
     outs = [(torch.empty((nt, 8), device="cuda"),
              torch.empty((nt, 8), device="cuda")) for _ in packs]
     calls = [(p.data_ptr(), p.shape[1], T.RAY_TILE, lo.data_ptr(),
@@ -530,7 +583,7 @@ def _steady_extents(rows, bp, plo, phi):
         cuda.check(lib.rt_tile_extents(*args), "extents")
     _require(all(torch.equal(lo, plo) and torch.equal(hi, phi)
                  for lo, hi in outs),
-             "extents (K6), entry called directly: lo/hi differ")
+             f"{name} (K6), entry called directly: lo/hi differ")
     turns = itertools.cycle(calls)
     entry = _steady_ms(lambda: lib.rt_tile_extents(*next(turns)))
     side = torch.cuda.Stream()
@@ -545,18 +598,174 @@ def _steady_extents(rows, bp, plo, phi):
     graph.replay()
     _require(all(torch.equal(lo, plo) and torch.equal(hi, phi)
                  for lo, hi in graphed),
-             "extents: the graphed composite differs from the plain version")
+             f"{name}: the graphed composite differs from the plain version")
     composite = _steady_ms(graph.replay) / len(packs)
     del graph, graphed, packs
-    row = rows["extents"]
+    row = rows[name]
     bound = row["bound_ms"]
-    print(f"[kernels] extents (K6) steady, {STEADY_LAUNCHES} launches in one "
-          f"pair of events: entry {entry} ms over {L2_COPIES} packs in turns "
-          f"({bound / entry} of its {bound} ms bound by {row['bound_by']}); "
-          f"the PyTorch composite (graphed, packs in turns) {composite} ms, "
-          f"{composite / entry}x the entry; median of 5 wrapper calls "
-          f"{row['ms']} ms")
+    print(f"[kernels] {name} (K6) steady, {STEADY_LAUNCHES} launches in one "
+          f"pair of events: entry {entry} ms over {copies} packs of "
+          f"{bp.shape[1]} rays in turns ({bound / entry} of its {bound} ms "
+          f"bound by {row['bound_by']}); the PyTorch composite (graphed, "
+          f"packs in turns) {composite} ms, {composite / entry}x the entry; "
+          f"median of 5 wrapper calls {row['ms']} ms")
     row["ms"] = entry
+    row["plain_graphed_ms"] = composite
+
+
+class _PlainWrappers:
+    """Within it, every wrapper of kernels.traverse takes its plain
+    version on the card's tensors (`_on_cpu` answers yes)."""
+
+    def __enter__(self):
+        from raytracing_tpu_torch.kernels import traverse as T
+
+        self.real = T._on_cpu
+        T._on_cpu = lambda *tensors: True
+
+    def __exit__(self, *exc):
+        from raytracing_tpu_torch.kernels import traverse as T
+
+        T._on_cpu = self.real
+
+
+def _bit_equal(name, got, want):
+    """Require `got` equal to `want` bit for bit (floats by their bits:
+    -0.0 against +0.0 too); returns the max abs difference over the
+    positions where both are finite (0.0)."""
+    import torch
+
+    err = 0.0
+    for a, b in zip(got, want):
+        _require(a.shape == b.shape and a.dtype == b.dtype,
+                 f"{name}: shape or type differs from the plain version")
+        if a.is_floating_point():
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a[both].double() - b[both].double())
+                                     .abs().max()))
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            err = max(err, float((a.long() - b.long()).abs().max())
+                      if a.numel() else 0.0)
+            same = torch.equal(a, b)
+        _require(same, f"{name}: differs from its plain version (max abs "
+                 f"{err})")
+    return err
+
+
+def _steady_entry(entry, run):
+    """(run()'s result, ms per launch) of the kernel entry `entry` (an
+    `rt_*` name of the kernel library) that `run()` launches once: its
+    ctypes arguments captured, then the entry called directly
+    STEADY_LAUNCHES times in one pair of CUDA events (`_steady_ms`), no
+    wrapper in the loop. The scratch the wrapper allocates stays alive
+    meanwhile, and the outputs must read the same after the loop."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import cuda
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    lib = cuda.library()
+    seen, keep = [], []
+
+    class Proxy:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name != entry:
+                return fn
+
+            def call(*args):
+                seen.append(args)
+                return fn(*args)
+            return call
+
+    scratch = T._lists_scratch
+    real = cuda.library
+    cuda.library = Proxy
+    T._lists_scratch = lambda *a: keep.append(scratch(*a)) or keep[-1]
+    try:
+        out = run()
+    finally:
+        cuda.library = real
+        T._lists_scratch = scratch
+    _require(len(seen) == 1, f"{entry}: {len(seen)} launches, not one")
+    fn, args = getattr(lib, entry), seen[0]
+    before = [t.clone() for t in out]
+    ms = _steady_ms(lambda: fn(*args))
+    torch.cuda.synchronize()
+    _require(all(torch.equal(a, b) for a, b in zip(out, before)),
+             f"{entry}: the outputs changed over the steady launches")
+    del keep
+    return out, ms
+
+
+def _lists_bound(rows_, width, rays=0, ext_rows=0, mask_bytes=0):
+    """The bound of a list build: `rows_` list rows of `width` boxes, each
+    (tile, box) pair one interval slab test (OPS_FRUSTUM) and each list
+    position written once (ids and tnear, 8 bytes), the boxes read once;
+    from a pack, `rays` rays read once (32 bytes, OPS_EXTENTS each) and
+    [nt, 8] lo and hi written; from extents, `ext_rows` rows of 12
+    extents and an alive value read; and the mask's bytes."""
+    ops = OPS_FRUSTUM * rows_ * width + OPS_EXTENTS * rays
+    nbytes = (rows_ * (width * 8 + 4) + width * 24 + rays * 32
+              + (rays and rows_ * 64) + ext_rows * 52 + mask_bytes)
+    return _bound(ops, nbytes)
+
+
+def _lists_row(rows, name, args, shape):
+    """The list build from a pack (`tile_lists`, csrc/lists.cu) on `args`
+    (pack, boxes, t_cap, ray_tile) against its plain version on the card,
+    every output bit for bit, timed steadily into rows[name] beside the
+    plain version (median of 5) and its bound."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    rp, cmin = args[0], args[1]
+    got, ms = _steady_entry("rt_tile_lists", lambda: T.tile_lists(*args))
+    with _PlainWrappers():
+        want = T.tile_lists(*args)
+        plain_ms = _median_ms(lambda: T.tile_lists(*args))
+    err = _bit_equal(name, got, want)
+    ray_tile = args[4] if len(args) > 4 else T.RAY_TILE
+    nt, c = rp.shape[1] // ray_tile, cmin.shape[0]
+    bound = _lists_bound(nt, c, rays=rp.shape[1])
+    wrapper = _median_ms(lambda: T.tile_lists(*args))
+    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound[0], bound_by=bound[1], shape=shape)
+    print(f"[kernels] {name} (lists.cu, from a pack): {nt} tiles x {c} "
+          f"boxes, {int(got[4].sum())} listed, {int((got[1][:, 7] > 0).sum())}"
+          f" tiles alive; equal bit for bit; steady {ms:.5f} ms (median of 5 "
+          f"wrapper calls {wrapper:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms by {bound[1]} ({shape})")
+    return got
+
+
+def _lists_ext_row(rows, name, args, kw, shape):
+    """The list build from extents (`lists_from_extents`, csrc/lists.cu)
+    on (args, kw) as a query path made it, against its plain version on
+    the card bit for bit, timed steadily into rows[name] (`_lists_row`)."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    got, ms = _steady_entry("rt_lists_from_extents",
+                            lambda: T.lists_from_extents(*args, **kw))
+    with _PlainWrappers():
+        want = T.lists_from_extents(*args, **kw)
+        plain_ms = _median_ms(lambda: T.lists_from_extents(*args, **kw))
+    err = _bit_equal(name, got, want)
+    nt, c = args[0].shape[0], args[4].shape[0]
+    g = kw.get("groups") or 1
+    mask = kw.get("mask")
+    bound = _lists_bound(g * nt, c // g, ext_rows=nt,
+                         mask_bytes=0 if mask is None else mask.numel())
+    wrapper = _median_ms(lambda: T.lists_from_extents(*args, **kw))
+    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound[0], bound_by=bound[1], shape=shape)
+    print(f"[kernels] {name} (lists.cu, from extents): {g} x {nt} rows x "
+          f"{c // g} boxes, {int(got[2].sum())} listed; equal bit for bit; "
+          f"steady {ms:.5f} ms (median of 5 wrapper calls {wrapper:.4f}), "
+          f"plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({shape})")
+    return got
 
 
 def phase_device():
@@ -587,8 +796,9 @@ def phase_build():
         # '_ZN2rt..._7_walk_cu_...11walk_kernelILb0EE...': file and kernel
         mangled = line.split("'")[1]
         kernel = next((k for k in ("walk_fill", "camera_walk", "gstream",
-                                   "wq_plan", "wq_warp", "wq_finish", "walk", "refine_lists",
-                                   "refine", "extents")
+                                   "wq_plan", "wq_warp", "wq_finish", "walk",
+                                   "refine_lists", "refine", "lists",
+                                   "extents")
                        if k + "_kernel" in mangled), mangled)
         variant = mangled.split(kernel + "_kernel")[-1].split("Ev")[0]
         used = next(l for l in lines[i:] if "Used" in l).split(":", 1)[1]
@@ -596,7 +806,7 @@ def phase_build():
         print(f"[build] {kernel}_kernel {variant}:{used}; {spill}")
         _require(not any(f"_{src}_cu_" in mangled
                          for src in ("walk", "camera", "gstream", "refine",
-                                     "wq"))
+                                     "wq", "lists", "extents"))
                  or " 0 bytes spill stores, 0 bytes spill loads"
                  in " " + spill, f"{kernel}_kernel {variant} spills "
                  f"registers: {spill}")
@@ -663,6 +873,21 @@ def _print_occupancy(lib):
             print(f"[build] occupancy wq {fam} {tag}, 256 threads: "
                   f"{'; '.join(got)}")
     line("extents", lib.rt_extents_occupancy)
+    # The list builds: the threads and shared memory a launch takes follow
+    # the row's width (csrc/lists.cu lists_shape).
+    for from_rays in (1, 0):
+        got = []
+        for width in LIST_WIDTHS:
+            n, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            _require(lib.rt_lists_occupancy(from_rays, width,
+                                            ctypes.byref(n),
+                                            ctypes.byref(blocks)) == 0,
+                     f"occupancy of lists at width {width} failed")
+            got.append(f"width {width}: {n.value} threads {blocks.value} "
+                       f"blocks ({blocks.value * n.value // 32} warps)")
+        print(f"[build] occupancy lists "
+              f"{'from a pack' if from_rays else 'from extents'}: "
+              f"{'; '.join(got)}")
     for lists, capped in ((0, 0), (0, 1), (1, 0), (1, 1)):
         # the dense form's boxes for 100 clusters (the CS 128 bounce
         # accel), the gathered form's for a run of _REFINE_RUN
@@ -1012,6 +1237,17 @@ def phase_kernels():
     _timed_walk(rows, "walk", "walk (K1) primary nearest+attrs", T, args, kw,
                 rp[7] != 0, OPS_PMT,
                 f"{rp.shape[1]} rays, {acc16.num_clusters}x16")
+    # Its lists as `_groups_walk_args` builds them (one launch of
+    # lists.cu: the extents, the slab test, the sort), and K6 alone at
+    # this shape, the shape of its launches in the 1.6M frame's queries.
+    ext = _lists_row(rows, "lists", (rp, acc16.cluster_min, acc16.cluster_max,
+                                     None, T.RAY_TILE),
+                     f"{rp.shape[1]} rays, {acc16.num_clusters} boxes, "
+                     f"the primary chunk's lists")
+    _require(torch.equal(ext[2], args[1]) and torch.equal(ext[4], args[2]),
+             "lists: not the lists the primary walk was given")
+    plo, phi = _extents_row(rows, "extents", rp)
+    _steady_extents(rows, "extents", rp, plo, phi)
     # The same chunk with the origin folded into the table (pmto).
     pargs, pkw = T._groups_walk_args(
         acc16, rp, eps, True, INF, na,
@@ -1039,10 +1275,18 @@ def phase_kernels():
         lambda depth, shape: torch.rand(shape, generator=gen, device=dev))
     bp, nb = T._pad_rays_soa(T.rays_to_soa(ob, db, alive=ab))
     print(f"[kernels] depth-2 wavefront: {nb} rays, {int(ab.sum())} alive")
-    plo, phi = _extents_row(rows, "extents", bp)
-    _steady_extents(rows, bp, plo, phi)
-    tile_alive = phi[:, 7] > 0.0
+    # K6 and the list build from a pack at the wavefront's shape: what a
+    # gi_wq=False frame's bounce queries take (at a composed tile, K6 at
+    # the launch tile; at 1,024 the list build).
+    plo, phi = _extents_row(rows, "extents_gi_wq_false", bp)
+    _steady_extents(rows, "extents_gi_wq_false", bp, plo, phi)
     c128 = acc128.num_clusters
+    _lists_row(rows, "lists_gi_wq_false", (bp, acc128.cluster_min,
+                                           acc128.cluster_max, None,
+                                           T.RAY_TILE),
+               f"{bp.shape[1]} rays, {c128} boxes, the gi_wq=False bounce "
+               f"lists")
+    tile_alive = phi[:, 7] > 0.0
     rargs = (bp, acc128.cluster_min, acc128.cluster_max)
     pent = T.refine_dense_plain(*rargs, tile_alive=tile_alive)
     ms, by, tests = _refine_bound(
@@ -1066,6 +1310,13 @@ def phase_kernels():
     _refine_extents_row(rows, "refine_extents", rargs,
                         f"{bp.shape[1]} rays, {c128} clusters, the extents "
                         f"and the bits")
+    # The bounce level's lists from that query, as `_refined_lists` builds
+    # them: its extents, its entered bits ANDed into the flags.
+    flo, fhi, fent = T.refine_dense_extents(*rargs)
+    _lists_ext_row(rows, "lists_ext", (flo[:, 0:3], fhi[:, 0:3], flo[:, 4:7],
+                                       fhi[:, 4:7], *rargs[1:]),
+                   dict(mask=fent), f"{bp.shape[1]} rays, {c128} boxes, the "
+                   f"dense refined lists")
     balive = bp[7] != 0
     early = True if cfg.gi_early_exit else None  # as render_rays asks
     dargs, dkw = T._dma_walk_args(acc128, bp, eps, True, INF, na,
@@ -1331,13 +1582,16 @@ def _timed_camera(rows, row, args, kw, shape):
 
 
 def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
-                        repeats=False):
+                        repeats=False, lists_row=None):
     """Camera mode over the whole 800x800x4 frame on `acc`, with the lists
-    and tables `nearest_hit_camera_soa` launches: pooled lists against the
-    direct ones as sets, the kernel against its plain version lane by lane
-    (timed into rows[row]), with `repeats` ten launches equal, and the
-    public query against the pack path under shared_origin=0 on all
-    2,560,000 rays."""
+    and tables `nearest_hit_camera_soa` launches: above _SUPERTILE_MIN_C
+    clusters the pooled lists' first stage (the list build from the
+    supertiles' extents; timed into rows[lists_row] if given) and the
+    direct lists of every tile each bit-equal to its plain version on the
+    card, the pooled lists against the direct ones as sets; the kernel
+    against its plain version lane by lane (timed into rows[row]), with
+    `repeats` ten launches equal, and the public query against the pack
+    path under shared_origin=0 on all 2,560,000 rays."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
@@ -1347,13 +1601,34 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
     cs, c = acc.cluster_size, acc.num_clusters
     n_tiles = cam.grid[0] * cam.grid[1]
     na = acc.attr_blocks.shape[1] if with_attrs else 0
-    args, kw = T._camera_walk_args(acc, offs, cam, 0, n_tiles, na, eps)
+    made = []
+    (largs, lkw), = _capture_calls(
+        "lists_from_extents", [0], lambda: made.append(T._camera_walk_args(
+            acc, offs, cam, 0, n_tiles, na, eps)))
+    (args, kw), = made
     _require(kw["entry"] == entry, f"{row}: CS {cs} took entry {kw['entry']}")
     ids, cnt = args[4:6]
     if c > T._SUPERTILE_MIN_C:
-        d_ids, _, d_cnt = T._visit_lists_from_extents(
-            *T._camera_tile_extents(n_tiles, offs, cam), acc.cluster_min,
-            acc.cluster_max)
+        what = (f"{row}: the pooled lists' first stage, {largs[0].shape[0]} "
+                f"supertiles x {c} boxes")
+        if lists_row is not None:
+            _lists_ext_row(rows, lists_row, largs, lkw, what)
+        else:
+            with _PlainWrappers():
+                want = T.lists_from_extents(*largs, **lkw)
+            _bit_equal(what, T.lists_from_extents(*largs, **lkw), want)
+            print(f"[kernels] {what}: equal bit for bit")
+            del want
+        dext = T._camera_tile_extents(n_tiles, offs, cam)
+        d_ids, d_tn, d_cnt = T.lists_from_extents(
+            *dext, acc.cluster_min, acc.cluster_max)
+        with _PlainWrappers():
+            want = T.lists_from_extents(*dext, acc.cluster_min,
+                                        acc.cluster_max)
+        _bit_equal(f"{row}: the direct lists", (d_ids, d_tn, d_cnt), want)
+        print(f"[kernels] {row}: the direct lists ({n_tiles} tiles x {c} "
+              f"boxes, {int(d_cnt.sum())} listed) equal bit for bit")
+        del want, d_tn, dext
         diff = int((_listed(ids, cnt, c) != _listed(d_ids, d_cnt, c)).sum())
         _require(diff == 0 and torch.equal(cnt, d_cnt),
                  f"{row}: pooled lists differ from the direct ones in "
@@ -1905,6 +2180,19 @@ def _by_entry(launches):
     return out
 
 
+def _one_launch_a_call(composed, base):
+    """Whether a frame at a composed tile made one launch a wrapper call,
+    as the frame `base` at 1,024 did (`_by_entry`), where a list build
+    from a pack is two launches at a composed tile: K6 at the launch tile,
+    then the list build from its folded extents."""
+    c, b = _by_entry(composed), _by_entry(base)
+    moved = c.get("lists_ext", 0) - b.get("lists_ext", 0)
+    c["extents"] = c.get("extents", 0) - moved
+    c["lists_ext"] = c.get("lists_ext", 0) - moved
+    c["lists"] = c.get("lists", 0) + moved
+    return {k: v for k, v in c.items() if v} == b
+
+
 def _composed_launches(launches, tile, frame_launches):
     """Into launches["<entry>_rt<tile>"], for each entry of COMPOSED, the
     count of a frame at gi_ray_tile `tile` under the key of its launch
@@ -2127,8 +2415,8 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     launches = {k: v for k, v in frames[t]["launches"].items()
                 if k.endswith(f"_rt{t}")}
     for tile in COMPOSED_TILES:
-        _require(_by_entry(frames[tile]["launches"])
-                 == _by_entry(frames[1024]["launches"]),
+        _require(_one_launch_a_call(frames[tile]["launches"],
+                                    frames[1024]["launches"]),
                  f"the reference frame at gi_ray_tile {tile}: not one launch "
                  f"a wrapper call, as at 1,024")
         _composed_launches(launches, tile, frames[tile]["launches"])
@@ -2158,7 +2446,7 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                       f"timed; launches "
                       f"{ {k: v for k, v in fl.items() if v} }")
                 if tile in COMPOSED_TILES:
-                    _require(_by_entry(fl) == _by_entry(counted[1024]),
+                    _require(_one_launch_a_call(fl, counted[1024]),
                              f"the reference frame, {tag}, at {tile}: not "
                              f"one launch a wrapper call, as at 1,024")
                     _composed_launches(launches, tile, fl)
@@ -2171,6 +2459,11 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
                          f"differs from 1,024")
             print(f"[ray_tile] reference frame, {tag}: gi_ray_tile "
                   f"{smaller} equal to 1,024")
+            if tag == "gi_wq False":
+                # The list build at 1,024 and K6 alone at the composed
+                # 2,048 (launch tiles of 1,024) on the bounce wavefronts.
+                launches["lists_gi_wq_false"] = counted[1024]["lists"]
+                launches["extents_gi_wq_false"] = counted[2048]["extents"]
     finally:
         T._WQ_IMPL = impl
         packets._GROUP_BLOCK_BUDGET_BYTES = budget
@@ -2232,7 +2525,8 @@ def _print_frame(tag, cfg, img, launches, counts, first, times):
           f"shadow) -> {alive / spf} alive queries/s; lanes submitted, dead "
           f"included: {lanes} ({counts['nearest']} nearest + "
           f"{counts['shadow']} shadow)")
-    print(f"[frame] {tag} launches per frame: {launches}; mean "
+    print(f"[frame] {tag} launches per frame: {launches} (the port's "
+          f"kernels: {sum(launches.values())} in all); mean "
           f"{float(img.mean())}")
 
 
@@ -2257,11 +2551,11 @@ def phase_reference_frame(rows):
     imgs = []
     for tag, c, need in (
             ("reference frame", cfg,
-             ("walk", "walk_dma", "refine_extents", "extents")),
+             ("walk", "walk_dma", "refine_extents", "lists", "lists_ext")),
             ("reference frame, camera-mode primaries",
              cfg.replace(primary_shared_origin=True),
-             ("walk_camera", "walk", "walk_dma", "refine_extents",
-              "extents"))):
+             ("walk_camera", "walk", "walk_dma", "refine_extents", "lists",
+              "lists_ext"))):
         camera_mode = c.primary_shared_origin
         frame = []
         chunk = _capture_calls(
@@ -2285,6 +2579,17 @@ def phase_reference_frame(rows):
                    T.walk_camera, cargs, ckw,
                    torch.ones(cargs[3] * cargs[1].ray_tile, dtype=torch.bool,
                               device="cuda"))
+    # That launch's lists: the closed-form extents of its 64 tiles through
+    # the list build from extents (one launch, as `_camera_walk_args`).
+    offs, cam, tile0, n_tiles = cargs[:4]
+    got = _lists_ext_row(
+        rows, "lists_ext_camera",
+        T._camera_tile_extents(n_tiles, offs, cam, tile0)
+        + (accel.cluster_min, accel.cluster_max), {},
+        f"the camera-mode frame's chunk {KERNEL_CHUNK}: {n_tiles} tiles, "
+        f"{accel.num_clusters} boxes, closed-form extents")
+    _require(torch.equal(got[0], cargs[4]) and torch.equal(got[2], cargs[5]),
+             "lists_ext_camera: not the lists the camera walk was given")
     del chunk, cargs, ckw
     diff = (imgs[0] - imgs[1]).abs()
     print(f"[frame] camera-mode vs pack-path primaries (pmto vs pmt, other "
@@ -2368,7 +2673,9 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
               f"({acc.num_clusters} clusters)")
         _check_camera_frame(rows, "walk_camera_dma" if levels == 4
                             else f"walk_camera_dma_{tag}", "walk_camera_dma",
-                            acc, camera, False, repeats=levels == 4)
+                            acc, camera, False, repeats=levels == 4,
+                            lists_row="lists_ext_pooled" if levels == 4
+                            else None)
         # The pack-path query of that check, as a main path of K3.
         T.reset_launches()
         t_pack, _ = T.nearest_hit_soa(acc, camera[2], camera[3],
@@ -2399,15 +2706,33 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
             # K3 inside a frame: the primary nearest (4 groups) and sun
             # shadow (3 groups) queries of every chunk.
             k = 2 * LARGE_KERNEL_CHUNK  # each chunk: primary, sun shadow
-            frame, refines = [], []
+            frame, refines, glists = [], [], []
             chunk = _capture_calls("walk_gstream", [k, k + 1], lambda:
                                    refines.extend(_capture_calls(
                                        "refine_lists", None, lambda:
-                                       frame.append(bench.timed_frames(
-                                           Scene(mesh=mesh, sun=sun_position(
-                                               0.0).to("cuda")),
-                                           RenderConfig(), acc, 0)))))
+                                       glists.extend(_capture_calls(
+                                           "lists_from_extents", [k],
+                                           lambda: frame.append(
+                                               bench.timed_frames(
+                                                   Scene(mesh=mesh,
+                                                         sun=sun_position(
+                                                             0.0).to("cuda")),
+                                                   RenderConfig(), acc,
+                                                   0)))))))
             frame = frame[0]
+            # The primary query's group lists of that chunk (K3's lists:
+            # one launch over the groups, a dead tile listing nothing).
+            (gargs, gkw), = glists
+            got = _lists_ext_row(
+                rows, "lists_ext_gstream", gargs, gkw,
+                f"the 1.6M frame's chunk {LARGE_KERNEL_CHUNK}: "
+                f"{gargs[0].shape[0]} tiles, {gkw['groups']} groups of "
+                f"{gargs[4].shape[0] // gkw['groups']} boxes")
+            _require(torch.equal(got[0], chunk[0][0][1])
+                     and torch.equal(got[2], chunk[0][0][2]),
+                     "lists_ext_gstream: not the lists of the chunk's K3 "
+                     "launch")
+            del glists, gargs, gkw, got
             _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0
                      and frame[1]["refine_lists"] > 0,
                      f"the 1.6M Whitted frame's launches: {frame[1]}")
@@ -2439,7 +2764,7 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
     cfg = RenderConfig()
     img, launches, counts, first, times = bench.timed_frames(
         scene404, cfg, acc64, 0, gi_accel=gi128)
-    for k in ("refine_lists", "walk_dma", "walk", "extents"):
+    for k in ("refine_lists", "walk_dma", "walk", "lists"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the 404k Whitted frame")
     _print_frame("404k Whitted frame", cfg, img, launches, counts, first,
@@ -2631,7 +2956,7 @@ def phase_path_traced_frame():
     sky = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
     err = float((img[2, 2].cpu() - sky).abs().max())
     _require(err <= SKY_ATOL, f"path-traced frame: sky pixel off by {err}")
-    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the path-traced frame")
     paths = cfg.width * cfg.height * pt.samples_per_pixel
@@ -2666,7 +2991,7 @@ def phase_area_light_frame():
     dark = whitted.render(base, cfg, accel=accel)
     _require(bool((img.mean() > dark.mean())),
              "the light adds no radiance to the frame")
-    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the area-light frame")
     _print_frame("area-light reference frame", cfg, img, launches, counts,
@@ -2963,7 +3288,7 @@ def _cli(argv):
     return out
 
 
-PATH_KERNELS = ("walk", "refine_dense_extents", "tile_extents")
+PATH_KERNELS = ("walk", "refine_dense_extents", "tile_lists")
 
 
 def _capture_path(run, names=PATH_KERNELS):
@@ -2985,19 +3310,25 @@ def _capture_path(run, names=PATH_KERNELS):
 def _path_rows(rows, calls, suffix, where):
     """The kernels of one main path, each held against its plain version
     at a shape that path gave it (`calls`: every launch of `walk`,
-    `refine_dense_extents` and `tile_extents`, from `_capture_path`): the
+    `refine_dense_extents` and `tile_lists`, from `_capture_path`): the
     busiest nearest launch (most listed visits) of the `walk` entry (K1,
-    primaries) and of the `walk_dma` entry (K2, a bounce wavefront), and
-    the launch with the most alive lanes of K5+K6 and of K6: rows
-    walk<suffix>, walk_dma<suffix>, refine_extents<suffix> and
-    extents<suffix>. where: the path, for the printed lines."""
+    primaries) and of the `walk_dma` entry (K2, a bounce wavefront), the
+    list build of that K1 launch, and the launch with the most alive
+    lanes of K5+K6 and K6 alone on the list build's pack with the most
+    alive lanes (read steadily): rows walk<suffix>, walk_dma<suffix>,
+    refine_extents<suffix>, lists<suffix> and extents<suffix>. where: the
+    path, for the printed lines."""
+    import torch
+
     from raytracing_tpu_torch.kernels import traverse as T
 
+    busiest = {}
     for entry, k in (("walk", 1), ("walk_dma", 2)):
         nearest = [(a, kw) for a, kw in calls["walk"]
                    if kw.get("entry") == entry and a[8] and a[5]]
         _require(nearest, f"{where}: no nearest {entry} launch")
-        args, kw = max(nearest, key=lambda c: int(c[0][2].sum()))
+        args, kw = busiest[entry] = max(nearest,
+                                        key=lambda c: int(c[0][2].sum()))
         rp, pmto = args[0], args[10]
         _timed_walk(rows, entry + suffix, f"{entry} (K{k}) {where}, its "
                     f"busiest nearest launch of {len(nearest)}", T, args, kw,
@@ -3017,8 +3348,20 @@ def _path_rows(rows, calls, suffix, where):
                         f"clusters, {where}: the launch with the most alive "
                         f"lanes of {len(calls['refine_dense_extents'])}",
                         rargs[4])
-    _extents_row(rows, "extents" + suffix,
-                 most_alive(calls["tile_extents"])[0])
+    # The list build of the busiest K1 launch (its pack is that walk's),
+    # and K6 alone on the pack with the most alive lanes.
+    walk_args = busiest["walk"][0]
+    largs = next(a for a, _ in calls["tile_lists"] if a[0] is walk_args[0])
+    _require(largs[3] is None, f"{where}: a capped list build")
+    got = _lists_row(rows, "lists" + suffix, largs,
+                     f"{largs[0].shape[1]} rays, {largs[1].shape[0]} "
+                     f"boxes, {where}: the lists of the busiest K1 launch, "
+                     f"one of {len(calls['tile_lists'])}")
+    _require(torch.equal(got[4], walk_args[2]),
+             f"lists{suffix}: not the lists of the busiest K1 launch")
+    kpack = most_alive(calls["tile_lists"])[0]
+    plo, phi = _extents_row(rows, "extents" + suffix, kpack)
+    _steady_extents(rows, "extents" + suffix, kpack, plo, phi)
 
 
 def phase_cli(rows):
@@ -3095,7 +3438,7 @@ def phase_cli(rows):
     calls = _capture_path(lambda: _cli(["render", "--out", defaults]))
     torch.cuda.synchronize()
     launches = dict(T.LAUNCHES)
-    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
         _require(launches[k] > 0, f"render at the CLI's defaults did not "
                  f"launch {k}: {launches}")
     print(f"[cli] launches per render at the CLI's defaults (800x800x4, CS "
@@ -3284,8 +3627,8 @@ def _sharded_frame(tag, scene, cfg, mesh, accel, card, need,
     how = " (launches captured)" if capture else ""
     print(f"[multi] {tag}: {dt} s a frame{how} on {card}; launches K1 "
           f"{launches['walk']}, K2 "
-          f"{launches['walk_dma']}, K5+K6 {launches['refine_extents']}, K6 "
-          f"{launches['extents']}")
+          f"{launches['walk_dma']}, K5+K6 {launches['refine_extents']}, "
+          f"lists {launches['lists']}, lists_ext {launches['lists_ext']}")
     return out[0], dt, launches, calls
 
 
@@ -3370,7 +3713,7 @@ def phase_multi_device(card, rows):
 
     scene = build_default_scene(device="cuda")
     acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
-    need = ("walk", "walk_dma", "refine_extents", "extents")
+    need = ("walk", "walk_dma", "refine_extents", "lists", "lists_ext")
 
     def gen(seed):
         g = torch.Generator(device="cuda")
@@ -3622,9 +3965,18 @@ def main() -> int:
     launches["walk_dma_both"] = bwd_gi_launches["walk_dma_both"]
     launches.update(variant_launches)
     launches.update(tile_launches)
-    for k in ("walk", "walk_dma", "refine_extents", "extents"):
+    # K6 alone at 65,536 rays: the 1.6M frame's K3 queries.
+    launches["extents"] = frame_1m6_launches["extents"]
+    launches["lists_ext_camera"] = cam_launches["lists_ext"]
+    launches["lists_ext_gstream"] = frame_1m6_launches["lists_ext"]
+    launches["lists_ext_pooled"] = rate_launches["lists_ext"]
+    for k in ("walk", "walk_dma", "refine_extents", "lists"):
         launches[k + "_cli"] = cli_launches[k]
         launches[k + "_sharded"] = multi_launches["ref_4"][k]
+    # Neither path launches K6 alone: their list builds run its reduction
+    # (csrc/tile_extents.cuh) at these shapes, once a launch.
+    launches["extents_cli"] = cli_launches["lists"]
+    launches["extents_sharded"] = multi_launches["ref_4"]["lists"]
     print(f"[done] launches of the path-traced frame {pt_launches}; of the "
           f"area-light frame {light_launches}; of the fit's 20 steps "
           f"{fit_launches}; of a CLI render at its defaults {cli_launches}; "

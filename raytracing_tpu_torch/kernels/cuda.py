@@ -36,6 +36,10 @@ _F = ctypes.c_float
 # time (csrc/common.cuh's ray_tile_ok).
 _SIGNATURES = {
     "rt_tile_extents": [_P, _L, _I, _P, _P, _P],
+    "rt_tile_lists": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+                      _P],
+    "rt_lists_from_extents": [_P, _P, _P, _P, _L, _P, _L, _I, _P, _P, _I, _I,
+                              _F, _P, _L, _P, _P, _P, _P, _P, _P],
     "rt_refine_dense": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P],
     "rt_refine_dense_extents": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P, _P],
     "rt_refine_lists": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P],
@@ -50,6 +54,9 @@ _SIGNATURES = {
     # Resident blocks per multiprocessor of an instance at a block size
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the last argument.
     "rt_extents_occupancy": [_I, _P],
+    # rt_lists_occupancy(from_rays, width, *threads, *blocks): the threads
+    # a launch over rows of `width` boxes takes, and its resident blocks.
+    "rt_lists_occupancy": [_I, _I, _P, _P],
     "rt_refine_occupancy": [_I, _I, _I, _I, _P],
     "rt_walk_occupancy": [_I, _I, _I, _I, _I, _P],
     "rt_gstream_occupancy": [_I, _I, _I, _I, _P],

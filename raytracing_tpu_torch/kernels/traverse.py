@@ -9,15 +9,19 @@ tighter frustums). A kernel launch takes a tile of `RAY_TILES`; a wrapper
 given another tile T launches at s, the largest of them dividing T, and
 folds the k = T / s launch tiles of each tile into it (`_split_tile`):
 
-  phase 1 — `tile_extents` (K6): per-tile min/max of the alive rays'
-      origins and directions;
-  phase 2 — `_visit_lists_from_extents`: an interval slab test of each
-      tile's frustum against every cluster AABB, compacted into a
-      front-to-back list (ids sorted by entry-t lower bound). Bounce
-      queries first AND in `refine_dense_extents` (K5, which reduces the
-      extents in the same launch): the clusters some alive ray of the
-      tile actually enters — or, above 512 clusters, re-test their listed
-      candidates with `refine_lists` (K5, gathered form);
+  phase 1 — per-tile min/max of the alive rays' origins and directions
+      (K6's extents);
+  phase 2 — an interval slab test of each tile's frustum against every
+      cluster AABB, compacted into a front-to-back list (ids sorted by
+      entry-t lower bound). Phases 1 and 2 are one launch of `tile_lists`
+      (csrc/lists.cu); where the extents come from elsewhere —
+      `refine_dense_extents` (K5, which reduces them in its own launch;
+      bounce queries AND in its bits: the clusters some alive ray of the
+      tile actually enters), camera mode's closed form, K3's groups, a
+      tile composed from launch tiles (K6 alone, `tile_extents`) — one
+      launch of `lists_from_extents`. Above 512 clusters a bounce query
+      re-tests the listed candidates with `refine_lists` (K5, gathered
+      form) and compacts again;
   phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
       with the Baldwin–Weber test "pmt" or, for a pack whose rays share
       one origin (`shared_origin=`), its origin-folded form "pmto"; a
@@ -108,6 +112,9 @@ _MAX_REFINE_BLOCKS = 64
 # Camera mode pools tile frustums into ~32x32-pixel supertiles above this
 # many clusters (the TPU package's rule).
 _SUPERTILE_MIN_C = 2048
+# Widest list row csrc/lists.cu sorts in shared memory (its kSortCap); a
+# wider row sorts through device-memory scratch (`_lists_scratch`).
+_LISTS_SORT_CAP = 16384
 _TINY = 1e-20
 _BIG = 3e38
 _BIG_ID = 2 ** 30
@@ -147,7 +154,9 @@ PMT, PMTO, MT, WOOP = 0, 1, 2, 3
 # Geometry rows a family's table holds per cluster.
 _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 
-# Kernel launches since the last reset: "refine" counts the dense
+# Kernel launches since the last reset: "extents" counts K6 alone,
+# "lists" the list build from a ray pack (K6's extents and the lists in one
+# launch), "lists_ext" the list build from extents given, "refine" the dense
 # refinement with tile-alive flags given (K5), "refine_extents" the dense
 # refined-list query (K5 with K6's extents), "walk" the `_walk_groups`
 # entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
@@ -161,7 +170,8 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # lane-cull pre-test, "_rt256" (and so on) for a launch tile other than
 # RAY_TILE: a query's tile outside RAY_TILES counts under the tile its
 # launches ran at (`_split_tile`).
-LAUNCHES = {"extents": 0, "refine": 0, "refine_extents": 0,
+LAUNCHES = {"extents": 0, "lists": 0, "lists_ext": 0, "refine": 0,
+            "refine_extents": 0,
             "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
             "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
             "walk_gstream": 0, "walk_wq": 0}
@@ -423,6 +433,12 @@ def tile_extents_plain(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
     return lo, hi
 
 
+def _aligned16(rays8: torch.Tensor) -> torch.Tensor:
+    """The pack, copied if its data does not start on 16 bytes (K6's
+    reduction reads a row 16 bytes at a time)."""
+    return rays8 if rays8.data_ptr() % 16 == 0 else rays8.clone()
+
+
 def tile_extents(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
     """K6 (csrc/extents.cu): plain version on CPU, kernel on CUDA; tiles
     of ray_tile rays (any multiple of 128: `_split_tile`)."""
@@ -432,6 +448,7 @@ def tile_extents(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
     s, k = _split_tile(ray_tile)
     if k > 1:
         return _fold_extents(*tile_extents(rays8, s), k)
+    rays8 = _aligned16(rays8)
     lo = torch.empty((nt, 8), dtype=torch.float32, device=rays8.device)
     hi = torch.empty_like(lo)
     lib = cuda.library()
@@ -509,6 +526,13 @@ def _check_boxes(who, rays8, cluster_min, cluster_max, most=None,
     """The pack's tile count (`_check_pack`); raises unless the AABB tables
     are contiguous f32 [C, 3] (C at most `most`)."""
     nt = _check_pack(rays8, ray_tile)
+    _check_tables(who, cluster_min, cluster_max, most)
+    return nt
+
+
+def _check_tables(who, cluster_min, cluster_max, most=None):
+    """Raise unless the AABB tables are contiguous f32 [C, 3] (C at most
+    `most`)."""
     c = cluster_min.shape[0]
     if (cluster_min.shape != (c, 3) or cluster_max.shape != (c, 3)
             or cluster_min.dtype != torch.float32
@@ -519,7 +543,6 @@ def _check_boxes(who, rays8, cluster_min, cluster_max, most=None,
         raise ValueError(f"{who}: the AABB tables must be contiguous f32 "
                          f"[C, 3]"
                          + ("" if most is None else f", C at most {most}"))
-    return nt
 
 
 def refine_dense(rays8, cluster_min, cluster_max, tile_alive, t_cap=None,
@@ -706,30 +729,159 @@ def _narrow_lists(ids, tnear, cnt):
     return ids[..., :w].contiguous(), tnear[..., :w].contiguous(), cnt
 
 
-def _visit_lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min,
-                              cluster_max, extra_mask=None, t_cap=None):
-    """Each tile frustum against every cluster AABB (clipped at t_cap, if
-    given). Returns (ids [nt, C] i32 sorted by entry-t lower bound, tnear
-    [nt, C], cnt [nt] i32 = flagged clusters); positions past cnt hold
-    unflagged clusters with tnear = +inf."""
+def lists_from_extents_plain(o_lo, o_hi, d_lo, d_hi, cluster_min,
+                             cluster_max, t_cap=None, mask=None, groups=None,
+                             alive=None):
+    """Plain version of the list build from extents: each tile's frustum
+    (o_lo, o_hi, d_lo, d_hi [nt, 3]) against every AABB (`_frustum_slabs`,
+    clipped at t_cap if given), the flags ANDed with `mask`, compacted
+    front to back (`_compact_lists`). With `groups` G the tables [G * W,
+    3] are G runs of W boxes and ids are local to the run: ids, tnear [G,
+    nt, W] and cnt [G, nt]; without, ids, tnear [nt, C] and cnt [nt]. mask:
+    bool [nt, G * W], or [G * W] for every tile. alive: [nt]; a tile whose
+    value is not above 0 lists nothing (cnt 0). Positions past cnt hold the
+    unflagged boxes with tnear = +inf."""
+    g = 1 if groups is None else int(groups)
+    w = cluster_min.shape[0] // g
+    bmin = cluster_min.reshape(g, 1, w, 3)
+    bmax = cluster_max.reshape(g, 1, w, 3)
     flags, t_near = _frustum_slabs(
-        o_lo, o_hi, d_lo, d_hi, lambda k: cluster_min[None, :, k],
-        lambda k: cluster_max[None, :, k], t_cap)
-    if extra_mask is not None:
-        flags = flags & extra_mask
-    return _compact_lists(flags, t_near)
+        o_lo[None], o_hi[None], d_lo[None], d_hi[None],
+        lambda k: bmin[..., k], lambda k: bmax[..., k], t_cap)
+    if mask is not None:
+        flags = flags & mask.reshape(-1, g, w).transpose(0, 1)
+    ids, tnear, cnt = _compact_lists(flags, t_near)
+    if alive is not None:
+        cnt = torch.where(alive > 0.0, cnt, 0)
+    if groups is None:
+        return ids[0], tnear[0], cnt[0]
+    return ids, tnear, cnt
+
+
+def _lists_scratch(rows: int, width: int, device):
+    """(scratch, inf bits) of a list build whose rows are wider than
+    `_LISTS_SORT_CAP` (None, None below): csrc/lists.cu merges their sorted
+    chunks through device memory."""
+    if width <= _LISTS_SORT_CAP:
+        return None, None
+    return (torch.empty((rows, 2, width), dtype=torch.int64, device=device),
+            torch.empty((rows, -(-width // 32)), dtype=torch.int32,
+                        device=device))
+
+
+def _list_outputs(shape, device):
+    """(ids i32, tnear f32) of `shape` and cnt i32 of shape[:-1] for a
+    launch to fill; a build with nothing to launch (no tile or no box)
+    lists nothing."""
+    empty = torch.empty if all(shape) else torch.zeros
+    return (empty(shape, dtype=torch.int32, device=device),
+            empty(shape, dtype=torch.float32, device=device),
+            empty(shape[:-1], dtype=torch.int32, device=device))
+
+
+def lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min, cluster_max,
+                       t_cap=None, mask=None, groups=None, alive=None):
+    """The list build from extents (csrc/lists.cu `rt_lists_from_extents`):
+    plain version on CPU, one kernel launch on CUDA, the results of
+    `lists_from_extents_plain` bit for bit. The extents may be views at a
+    row stride (K6's lo[:, 0:3]); alive a strided view (hi[:, 7])."""
+    if _on_cpu(o_lo, o_hi, d_lo, d_hi, cluster_min, cluster_max, mask,
+               alive):
+        return lists_from_extents_plain(o_lo, o_hi, d_lo, d_hi, cluster_min,
+                                        cluster_max, t_cap, mask, groups,
+                                        alive)
+    _check_tables("lists_from_extents", cluster_min, cluster_max)
+    g = 1 if groups is None else int(groups)
+    c, nt = cluster_min.shape[0], o_lo.shape[0]
+    ext = (o_lo, o_hi, d_lo, d_hi)
+    if g <= 0 or c % g or any(e.shape != (nt, 3) or e.dtype != torch.float32
+                              for e in ext):
+        raise ValueError(f"lists_from_extents: extents f32 [nt, 3] and "
+                         f"{c} boxes in {g} runs of equal width")
+    if len({e.stride(0) for e in ext}) > 1 or any(e.stride(1) != 1
+                                                  for e in ext):
+        ext = tuple(e.contiguous() for e in ext)
+    w = c // g
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape not in ((nt, c), (c,)):
+            raise ValueError(f"lists_from_extents: a bool mask [{nt}, {c}] "
+                             f"or [{c}]")
+        mask = mask.contiguous()
+    if alive is not None and (alive.shape != (nt,)
+                              or alive.dtype != torch.float32):
+        raise ValueError("lists_from_extents: alive f32 [nt]")
+    ids, tnear, cnt = _list_outputs((g, nt, w), cluster_min.device)
+    if g * nt and w:
+        scratch, bits = _lists_scratch(g * nt, w, cluster_min.device)
+        lib = cuda.library()
+        with torch.cuda.device(cluster_min.device):
+            cuda.check(lib.rt_lists_from_extents(
+                _ptr(ext[0]), _ptr(ext[1]), _ptr(ext[2]), _ptr(ext[3]),
+                ext[0].stride(0), _ptr(alive),
+                0 if alive is None else alive.stride(0), nt,
+                _ptr(cluster_min), _ptr(cluster_max), g, w, _cap_arg(t_cap),
+                _ptr(mask), c if mask is not None and mask.dim() == 2 else 0,
+                _ptr(ids), _ptr(tnear), _ptr(cnt), _ptr(scratch), _ptr(bits),
+                _stream(cluster_min)), "lists_ext")
+        _count(_count_key("lists_ext", capped=t_cap is not None))
+    if groups is None:
+        return ids[0], tnear[0], cnt[0]
+    return ids, tnear, cnt
+
+
+def tile_lists_plain(rays8, cluster_min, cluster_max, t_cap=None,
+                     ray_tile: int = RAY_TILE):
+    """Plain version of the list build from a ray pack: K6's extents
+    (`tile_extents_plain`), the tiles' lists (`lists_from_extents_plain`,
+    clipped at t_cap if given), and a dead tile (hi[:, 7] <= 0) listing
+    nothing. Returns (lo, hi [nt, 8], ids [nt, C] i32, tnear [nt, C],
+    cnt [nt] i32)."""
+    lo, hi = tile_extents_plain(rays8, ray_tile)
+    return (lo, hi) + lists_from_extents_plain(
+        lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cluster_min,
+        cluster_max, t_cap, alive=hi[:, 7])
+
+
+def tile_lists(rays8, cluster_min, cluster_max, t_cap=None,
+               ray_tile: int = RAY_TILE):
+    """The list build from a ray pack (csrc/lists.cu `rt_tile_lists`: K6's
+    extents and the lists in one launch): plain version on CPU, kernel on
+    CUDA. A tile outside RAY_TILES (`_split_tile`) takes K6 at the launch
+    tile, folded, and `lists_from_extents` at the tile."""
+    if _on_cpu(rays8, cluster_min, cluster_max):
+        return tile_lists_plain(rays8, cluster_min, cluster_max, t_cap,
+                                ray_tile)
+    nt = _check_boxes("tile_lists", rays8, cluster_min, cluster_max,
+                      ray_tile=ray_tile)
+    s, k = _split_tile(ray_tile)
+    c = cluster_min.shape[0]
+    if k > 1 or not c:
+        lo, hi = tile_extents(rays8, ray_tile)
+        return (lo, hi) + lists_from_extents(
+            lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cluster_min,
+            cluster_max, t_cap, alive=hi[:, 7])
+    rays8 = _aligned16(rays8)
+    dev = rays8.device
+    lo = torch.empty((nt, 8), dtype=torch.float32, device=dev)
+    hi = torch.empty_like(lo)
+    ids, tnear, cnt = _list_outputs((nt, c), dev)
+    scratch, bits = _lists_scratch(nt, c, dev)
+    lib = cuda.library()
+    with torch.cuda.device(rays8.device):
+        cuda.check(lib.rt_tile_lists(
+            _ptr(rays8), rays8.shape[1], ray_tile, _ptr(cluster_min),
+            _ptr(cluster_max), c, _cap_arg(t_cap), _ptr(lo), _ptr(hi),
+            _ptr(ids), _ptr(tnear), _ptr(cnt), _ptr(scratch), _ptr(bits),
+            _stream(rays8)), "lists")
+    _count(_count_key("lists", capped=t_cap is not None, ray_tile=ray_tile))
+    return lo, hi, ids, tnear, cnt
 
 
 def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, t_cap=None,
                           ray_tile: int = RAY_TILE):
-    """Frustum lists of the pack's tiles of ray_tile rays (K6's extents,
-    then `_visit_lists_from_extents`); a dead tile lists nothing."""
-    lo, hi = tile_extents(rays8, ray_tile)
-    ids, tnear, cnt = _visit_lists_from_extents(
-        lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cluster_min,
-        cluster_max, t_cap=t_cap)
-    cnt = torch.where(hi[:, 7] > 0.0, cnt, 0)
-    return ids, tnear, cnt
+    """Frustum lists (ids, tnear, cnt) of the pack's tiles of ray_tile
+    rays (`tile_lists`); a dead tile lists nothing."""
+    return tile_lists(rays8, cluster_min, cluster_max, t_cap, ray_tile)[2:]
 
 
 # ---------------------------------------------------------------------------
@@ -1457,10 +1609,10 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
                        tmax_row=None, attr_kind="shade", variant="pmt",
                        ray_tile: int = RAY_TILE):
     """The streamed-groups launch (K3): one extents pass (K6), then every
-    group's frustum lists from it in one pass — the interval test against
-    each group's run of boxes, ids local to the group, sorted within the
-    (group, tile) row, no entry on a dead tile — and the
-    groups' union boxes for the early exit. The last group is padded with
+    group's frustum lists from it in one launch (`lists_from_extents`:
+    the interval test against each group's run of boxes, ids local to the
+    group, sorted within the (group, tile) row, no entry on a dead tile),
+    and the groups' union boxes for the early exit. The last group is padded with
     inverted boxes and zero blocks (never accepted); the interval test
     would take an inverted box for one that covers everything, so the
     padded clusters are struck from the lists by their index. The
@@ -1484,18 +1636,14 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     cmin, cmax = padded(cmin, _BIG), padded(cmax, -_BIG)
     geo, attr = padded(geo, 0.0), padded(attr, 0.0)
     lo, hi = tile_extents(rp, ray_tile)
-    tile_alive = hi[:, 7] > 0.0
     early = _early(nearest, gsz, early_exit, tmax_row)
-    # Every group's lists in one pass: the boxes as [G, 1, gsz] against the
-    # tiles' extents as [1, nt], sorted within each (group, tile) row.
-    gmin, gmax = cmin.reshape(ng, 1, gsz, 3), cmax.reshape(ng, 1, gsz, 3)
-    flags, t_near = _frustum_slabs(
-        lo[None, :, 0:3], hi[None, :, 0:3], lo[None, :, 4:7],
-        hi[None, :, 4:7], lambda k: gmin[..., k], lambda k: gmax[..., k],
-        _cap_of(nearest, t_max))
-    real = torch.arange(ng * gsz, device=rp.device) < accel.num_clusters
-    ids, tnear, cnt = _compact_lists(flags & real.reshape(ng, 1, gsz), t_near)
-    cnt = torch.where(tile_alive[None], cnt, 0)
+    # Every group's lists in one launch: each (group, tile) row sorted on
+    # its own, the padded clusters struck by the mask.
+    real = (torch.arange(ng * gsz, device=rp.device) < accel.num_clusters
+            if pad_c else None)
+    ids, tnear, cnt = lists_from_extents(
+        lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
+        _cap_of(nearest, t_max), mask=real, groups=ng, alive=hi[:, 7])
     bbox = (torch.cat([cmin.reshape(ng, gsz, 3).amin(dim=1),
                        cmax.reshape(ng, gsz, 3).amax(dim=1)], dim=1)
             if early else None)
@@ -1518,9 +1666,9 @@ def _refined_lists(accel: ClusterAccel, rp, t_cap=None,
     if accel.num_clusters <= _REFINE_DENSE_MAX_C:
         lo, hi, entered = refine_dense_extents(rp, cmin, cmax, t_cap,
                                                ray_tile)
-        return _visit_lists_from_extents(
-            lo[:, 0:3], hi[:, 0:3], lo[:, 4:7], hi[:, 4:7], cmin, cmax,
-            extra_mask=entered, t_cap=t_cap)
+        return lists_from_extents(lo[:, 0:3], hi[:, 0:3], lo[:, 4:7],
+                                  hi[:, 4:7], cmin, cmax, t_cap,
+                                  mask=entered)
     ids, tnear, cnt = _narrow_lists(*_tile_visit_lists_soa(
         rp, cmin, cmax, t_cap, ray_tile))
     keep = refine_lists(rp, ids, cnt, cmin, cmax, t_cap, ray_tile)
@@ -2278,9 +2426,11 @@ def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
         return a[py:py + nby, px:px + nbx].reshape(nby * nbx, w_)
 
     o_lo, o_hi, d_lo, d_hi = ext
-    ids_p, _, cnt_p = _narrow_lists(*_visit_lists_from_extents(
+    ids_p, _, cnt_p = _narrow_lists(*lists_from_extents(
         pool(o_lo, False), pool(o_hi, True), pool(d_lo, False),
         pool(d_hi, True), accel.cluster_min, accel.cluster_max))
+    # Each member's re-test of its supertile's candidates (boxes gathered
+    # per supertile) stays plain PyTorch.
     idl = ids_p.long()
     cm, cx = accel.cluster_min[idl], accel.cluster_max[idl]  # [nst, wp, 3]
     flags, t_near = _frustum_slabs(
@@ -2313,8 +2463,8 @@ def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
             and max(1, 32 // cam.bh) * max(1, 32 // cam.bw) > 1):
         ids, tnear, cnt = _pooled_camera_lists(accel, ext, cam)
     else:
-        ids, tnear, cnt = _visit_lists_from_extents(
-            *ext, accel.cluster_min, accel.cluster_max)
+        ids, tnear, cnt = lists_from_extents(*ext, accel.cluster_min,
+                                             accel.cluster_max)
     early = _early(True, accel.num_clusters, early_exit)
     zero3 = torch.zeros(3, dtype=torch.float32, device=offs.device)
     folded = _fold_origin(accel.pmt_blocks, zero3)

@@ -144,8 +144,8 @@ def test_pooled_lists_are_the_unpooled_sets(accels):
     _, acc = accels[16]
     cam = T.Camera(48, 32, SPP, 1.0, 16, 16)
     ext = T._camera_tile_extents(6, stratified_offsets(SPP), cam)
-    ids, tnear, cnt = T._visit_lists_from_extents(*ext, acc.cluster_min,
-                                                  acc.cluster_max)
+    ids, tnear, cnt = T.lists_from_extents(*ext, acc.cluster_min,
+                                           acc.cluster_max)
     pids, ptnear, pcnt = T._pooled_camera_lists(acc, ext, cam)
     assert torch.equal(cnt, pcnt)
     for k, c in enumerate(cnt.tolist()):

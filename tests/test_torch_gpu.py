@@ -624,8 +624,8 @@ def test_pooled_camera_lists_on_the_card(setup, dev, monkeypatch, block):
     cam = T.Camera(48, 32, 4, 1.0, block, block)
     n_tiles = cam.grid[0] * cam.grid[1]
     ext = T._camera_tile_extents(n_tiles, offs, cam)
-    ids, _, cnt = T._visit_lists_from_extents(*ext, acc.cluster_min,
-                                              acc.cluster_max)
+    ids, _, cnt = T.lists_from_extents(*ext, acc.cluster_min,
+                                       acc.cluster_max)
     pids, _, pcnt = T._pooled_camera_lists(acc, ext, cam)
     assert torch.equal(cnt, pcnt)
     for k, c in enumerate(cnt.tolist()):
@@ -1432,3 +1432,187 @@ def test_composed_tiles_match_plain(setup, dev, monkeypatch, ray_tile):
     assert args[1].shape[0] == 4
     _same_on_alive(T.walk_gstream(*args, **kw),
                    T.walk_gstream_plain(*args, ray_tile=ray_tile), m)
+
+
+# ---------------------------------------------------------------------------
+# The list builds (csrc/lists.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bits(got, want):
+    """Equal bit for bit: floats by their bits (-0.0 against +0.0 too)."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def _awkward_boxes(n, seed, dev):
+    """n boxes against extents at the origin looking along +x: lo.x of
+    +0.0 and -0.0 (entry bounds +0.0 and -0.0), of 1 and 2 (ties), boxes
+    behind the origin (unflagged: +inf), the rest at random."""
+    r = np.random.default_rng(seed)
+    lo = r.normal(size=(n, 3)).astype(np.float32)
+    kind = r.integers(0, 6, size=n)
+    lo[kind == 0, 0] = 0.0
+    lo[kind == 1, 0] = -0.0
+    lo[kind == 2, 0] = 1.0
+    lo[kind == 3, 0] = 2.0
+    hi = lo + np.abs(r.normal(size=(n, 3))).astype(np.float32) + 0.1
+    lo[kind == 4, 0], hi[kind == 4, 0] = -3.0, -1.0
+    return (torch.from_numpy(np.ascontiguousarray(lo)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(hi)).to(dev))
+
+
+def _awkward_extents(nt, dev):
+    """Tiles at the origin: along +x with y and z unbounded (keys +-0.0,
+    ties); every axis unbounded (every key -inf); an x interval from
+    -1e-30 (below TINY) to 3e38, unbounded too; and a dead tile's
+    +/-3e38 rows (denormal reciprocals)."""
+    z = torch.zeros((nt, 3), device=dev)
+    d_lo = torch.tensor([0.5, -1.0, -1.0], device=dev).repeat(nt, 1)
+    d_hi = torch.tensor([1.0, 1.0, 1.0], device=dev).repeat(nt, 1)
+    d_lo[1::4] = -1.0
+    d_lo[2::4, 0], d_hi[2::4, 0] = -1.0e-30, 3e38
+    o_lo, o_hi = z.clone(), z.clone()
+    o_lo[3::4], o_hi[3::4] = 3e38, -3e38
+    d_lo[3::4], d_hi[3::4] = 3e38, -3e38
+    return o_lo, o_hi, d_lo, d_hi
+
+
+def _widest_group(setup):
+    """The widest row a list build takes on the main paths: the group
+    `_group_clusters` gives an occlusion query (no attribute rows) at CS
+    16, above the kernel's shared-memory sort."""
+    accels, _ = setup
+    w = T._group_clusters(accels[16], 0)
+    assert w > T._LISTS_SORT_CAP
+    return w
+
+
+@pytest.mark.parametrize("groups", [None, 3])
+@pytest.mark.parametrize("width", [100, 790, 4096, 6320, "widest"])
+def test_lists_from_extents_matches_plain(setup, dev, plain_on_card, width,
+                                          groups):
+    """The list build from extents against its plain version on the card,
+    whole arrays bit for bit, on keys built to tie, at +0.0 and -0.0, -inf
+    on unbounded tiles, +inf unflagged, on a dead tile's extents; with and
+    without a cap, a mask (every tile's, and one shared by the tiles) and
+    the tile-alive values; the plain versions on the card and on the CPU
+    agree (torch.sort orders +-0.0 and ties the same on both)."""
+    if width == "widest":
+        width = _widest_group(setup)
+    g = groups or 1
+    cmin, cmax = _awkward_boxes(width * g, width + g, dev)
+    ext = _awkward_extents(8, dev)
+    rng = np.random.default_rng(width)
+    masks = (torch.from_numpy(rng.uniform(size=(8, width * g)) < 0.8),
+             torch.from_numpy(rng.uniform(size=width * g) < 0.8))
+    alive = torch.tensor([1.0, 0.0, 2.0, 1.0, -1.0, 1.0, 1.0, 0.5],
+                         device=dev)
+    for kw in (dict(), dict(t_cap=1.5, mask=masks[0].to(dev), alive=alive),
+               dict(mask=masks[1].to(dev))):
+        before = dict(T.LAUNCHES)
+        got = T.lists_from_extents(*ext, cmin, cmax, groups=groups, **kw)
+        key = "lists_ext" + ("_capped" if "t_cap" in kw else "")
+        assert T.LAUNCHES[key] == before.get(key, 0) + 1
+        want = plain_on_card(T.lists_from_extents, *ext, cmin, cmax,
+                             groups=groups, **kw)
+        _bits(got, want)
+        assert int(got[2].sum()) > 0
+        cpu = T.lists_from_extents(
+            *(e.cpu() for e in ext), cmin.cpu(), cmax.cpu(), groups=groups,
+            **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+        _bits(want, cpu)
+    # The keys hold the cases they were built for.
+    tn = got[1].reshape(-1, width)
+    assert bool((tn == float("-inf")).any()) and bool((tn == 0.0).any())
+    zero = tn[(tn == 0.0)]
+    assert bool(torch.signbit(zero).any()) and not bool(
+        torch.signbit(zero).all())
+
+
+@pytest.mark.parametrize("cap", [None, 3.0], ids=["uncapped", "capped"])
+@pytest.mark.parametrize("ray_tile", [1024, 256, 128, 384, 2048])
+@pytest.mark.parametrize("cs", [16, 128])
+def test_tile_lists_matches_plain(setup, dev, plain_on_card, cs, ray_tile,
+                                  cap):
+    """The list build from a pack (K6's extents and the lists in one
+    launch; at 384 and 2,048 K6 at the launch tile, folded, and the build
+    from extents) against its plain version on the card, bit for bit,
+    on both seeded packs with a dead tile and a tile of 3 alive lanes."""
+    accels, packs = setup
+    acc = accels[cs].to(dev)
+    for p in packs:
+        q = p.clone()
+        q[7, :3072] = 0.0
+        q[7, [2100, 2500, 3000]] = 1.0
+        g, _ = T._pad_rays_soa(q.to(dev), ray_tile)
+        before = dict(T.LAUNCHES)
+        got = T.tile_lists(g, acc.cluster_min, acc.cluster_max, cap,
+                           ray_tile)
+        s, k = T._split_tile(ray_tile)
+        key = T._count_key("lists" if k == 1 else "lists_ext",
+                           capped=cap is not None,
+                           ray_tile=ray_tile if k == 1 else T.RAY_TILE)
+        assert T.LAUNCHES[key] == before.get(key, 0) + 1
+        want = plain_on_card(T.tile_lists, g, acc.cluster_min,
+                             acc.cluster_max, cap, ray_tile)
+        _bits(got, want)
+        assert not bool((got[1][:, 7] > 0).all()) and int(got[4].sum()) > 0
+
+
+def test_list_builds_reach_no_plain_ops_on_the_card(setup, dev, monkeypatch):
+    """The four call sites of the list builds (the pack queries' lists, the
+    bounce levels' dense refined lists, K3's group lists, camera mode and
+    the pooled lists' first stage) run no `_frustum_slabs` and no
+    `_compact_lists` on the card, but for the two that stay plain: the
+    pooled lists' second stage and the gathered refinement's
+    recompaction."""
+    accels, packs = setup
+    a16, a128 = accels[16].to(dev), accels[128].to(dev)
+    seen = []
+    for name in ("_frustum_slabs", "_compact_lists"):
+        real = getattr(T, name)
+        monkeypatch.setattr(T, name, lambda *a, _r=real, _n=name, **k:
+                            seen.append(_n) or _r(*a, **k))
+    g = packs[1].to(dev)
+    na = a16.attr_blocks.shape[1]
+    T.nearest_hit_attrs_soa(a16, g)                      # lists
+    T.nearest_hit_attrs_soa(a128, g, wq=True)            # dense refined
+    with monkeypatch.context() as mp:
+        mp.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+        args, _ = T._gstream_walk_args(a16, g, 1e-8, True, T.INF, na)
+        assert args[1].shape[0] == 4                     # K3's groups
+    offs = stratified_offsets(1).to(dev)
+    T.nearest_hit_camera_soa(a16, offs, width=64, height=48, spp=1,
+                             tile_base=0, tiles=4)       # camera mode
+    assert seen == []
+
+
+@pytest.mark.parametrize("camera", [False, True], ids=["pack", "camera"])
+def test_frame_with_plain_list_builds_is_equal(dev, monkeypatch, camera):
+    """A reference frame at 128 x 128 (4 spp, every level) bit-equal to the
+    same frame with the two list-build wrappers on their plain versions."""
+    cfg = RenderConfig(width=128, height=128, chunk_size=16384,
+                       primary_shared_origin=camera)
+    scene = build_default_scene(device=dev)
+    acc = build_cluster_accel(scene.mesh, cluster_size=16)
+
+    def frame():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        return render(scene, cfg, accel=acc, generator=gen)
+
+    T.reset_launches()
+    img = frame()
+    assert T.LAUNCHES["lists_ext"] > 0
+    assert T.LAUNCHES["lists" if not camera else "lists_ext"] > 0
+    monkeypatch.setattr(T, "tile_lists", T.tile_lists_plain)
+    monkeypatch.setattr(T, "lists_from_extents", T.lists_from_extents_plain)
+    T.reset_launches()
+    plain = frame()
+    assert T.LAUNCHES["lists"] == T.LAUNCHES["lists_ext"] == 0
+    assert torch.equal(img, plain)

@@ -214,8 +214,8 @@ def test_narrow_lists_keeps_every_listed_entry(torch_side):
     acc = torch_side[1]
     ext = T._camera_tile_extents(16, stratified_offsets(1),
                                  T.Camera(64, 64, 1, 1.0, 16, 16))
-    ids, tnear, cnt = T._visit_lists_from_extents(*ext, acc.cluster_min,
-                                                  acc.cluster_max)
+    ids, tnear, cnt = T.lists_from_extents(*ext, acc.cluster_min,
+                                           acc.cluster_max)
     nids, ntnear, ncnt = T._narrow_lists(ids, tnear, cnt)
     assert ids.shape[1] == 790
     assert 0 < nids.shape[1] == int(cnt.max()) < 790

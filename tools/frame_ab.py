@@ -5,7 +5,7 @@ turns: this tree, the other, the other, this.
 Run from the root of a checkout, with another commit of the repository
 unpacked somewhere (`git archive <commit> | tar -x -C _work/parent`):
 
-    python3 tools/frame_ab.py _work/parent [--frames 3]
+    python3 tools/frame_ab.py _work/parent [--frames 3] [--cli]
 
 Each turn is a process of its own that imports the package of its tree
 (each tree builds its kernels into its own `raytracing_tpu_torch/_build/`):
@@ -16,7 +16,11 @@ and prints their seconds, the frame's mean, and the attribute rows of the
 nearest walk launches the frame made (every launch of `walk` with a
 nearest query, counted by wrapping `kernels.traverse.walk`). Nothing is
 differentiated, so both trees should walk the shading planes only (4 in
-the default scene's objid mode). The two trees' images must be equal.
+the default scene's objid mode). With `--cli` each turn renders the
+frame `python -m raytracing_tpu_torch render` renders at its defaults
+instead (its configuration, scene and accels from the CLI's own
+`_build` of `render`'s default flags: CS 128, chunks of 16,384). The two
+trees' images must be equal.
 Host-bound frames vary between processes; compare the turns of one run
 only. Never imports JAX.
 """
@@ -41,9 +45,14 @@ from raytracing_tpu_torch import RenderConfig, build_cluster_accel, build_defaul
 from raytracing_tpu_torch.kernels import traverse as T
 from raytracing_tpu_torch.models.whitted import render
 
-scene = build_default_scene(device="cuda")
-accel = build_cluster_accel(scene.mesh, cluster_size=16)
-cfg = RenderConfig()
+if CLI:
+    from raytracing_tpu_torch import app
+    cfg, scene, accel, gi_accel, _ = app._build(
+        app.build_parser().parse_args(["render"]))
+else:
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg, gi_accel = RenderConfig(), None
 widths = []
 real = T.walk
 def walk(*a, **kw):
@@ -54,7 +63,7 @@ T.walk = walk
 def frame():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    img = render(scene, cfg, accel=accel, generator=gen)
+    img = render(scene, cfg, accel=accel, gi_accel=gi_accel, generator=gen)
     torch.cuda.synchronize()
     return img
 img = frame()
@@ -71,8 +80,9 @@ print(json.dumps({"seconds": secs, "mean": float(img.mean()),
 """
 
 
-def _turn(tree: str, frames: int, out: str) -> dict:
-    code = (f"TREE = {tree!r}\nFRAMES = {frames}\nOUT = {out!r}\n" + _TURN)
+def _turn(tree: str, frames: int, out: str, cli: bool) -> dict:
+    code = (f"TREE = {tree!r}\nFRAMES = {frames}\nOUT = {out!r}\n"
+            f"CLI = {cli!r}\n" + _TURN)
     res = subprocess.run([sys.executable, "-c", code], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
@@ -84,6 +94,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--cli", action="store_true",
+                    help="the CLI's render at its defaults")
     args = ap.parse_args()
     import torch
 
@@ -95,7 +107,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for k, who in enumerate(("this", "other", "other", "this")):
             out = os.path.join(tmp, f"frame_{k}.pt")
-            r = _turn(trees[who], args.frames, out)
+            r = _turn(trees[who], args.frames, out, args.cli)
             r["image"] = torch.load(out)
             runs[who].append(r)
             print(f"[frame_ab] turn {k + 1}, {who} ({trees[who]}): seconds "
@@ -106,7 +118,8 @@ def main() -> int:
     equal = all(torch.equal(imgs[0], x) for x in imgs[1:])
     for who, rs in runs.items():
         secs = [s for r in rs for s in r["seconds"]]
-        print(f"[frame_ab] {who}: reference frame median "
+        print(f"[frame_ab] {who}: "
+              f"{'CLI' if args.cli else 'reference'} frame median "
               f"{statistics.median(secs)} s over {len(secs)} frames")
     print(f"[frame_ab] the trees' images are "
           f"{'bit-equal' if equal else 'DIFFERENT'}")

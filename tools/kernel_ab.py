@@ -17,7 +17,8 @@ of the CS=128 accel, as each tree's `_refined_lists` runs it: one launch
 (`rt_refine_dense_extents`) or `rt_tile_extents`, the tile-alive flags
 derived from its extents and `rt_refine_dense`; then `rt_refine_dense`
 with the flags given and `rt_tile_extents` alone, which is also read
-steadily: 200 launches in one pair of CUDA events. `rt_refine_lists` runs
+steadily: 200 launches in one pair of CUDA events, there and on the
+wavefront's first 65,536 and 16,384 rays (a frame's and the CLI's chunk). `rt_refine_lists` runs
 at chip_smoke.py's two rows: the 404k wavefront's lists (3,160 clusters)
 and the busiest of the 1.6M Whitted frame's 40 launches (12,640), captured
 from the renderer; the spread of listed candidates and alive lanes over
@@ -582,6 +583,27 @@ def main(argv) -> int:
               for k in order]
     print("[extents] ms, 200 back-to-back launches in one pair of CUDA "
           "events: " + ", ".join(f"{k} {t}" for k, t in zip(order, steady)))
+    # K6 at the shapes its launches have on the query paths: a frame's
+    # chunk of 65,536 rays (64 tiles) and the CLI's of 16,384 (16): the
+    # wavefront's first rays, read the same way.
+    for rays_n in (65536, 16384):
+        sub = bp[:, :rays_n].contiguous()
+        outs = {k: [torch.empty((rays_n // 1024, 8), device="cuda")
+                    for _ in range(2)] for k in libs}
+
+        def k6(k):
+            libs[k].rt_tile_extents(ptr(sub), rays_n, *libs[k].tile_arg,
+                                    ptr(outs[k][0]), ptr(outs[k][1]),
+                                    stream)
+
+        steady = [chip_smoke._steady_ms(lambda k=k: k6(k)) for k in order]
+        eq = all(torch.equal(a, b) for a, b in zip(outs["this"],
+                                                   outs["other"]))
+        print(f"[extents {rays_n}] ms, 200 back-to-back launches in one "
+              f"pair of CUDA events: "
+              + ", ".join(f"{k} {t}" for k, t in zip(order, steady))
+              + f"; extents of the two trees equal: {eq}")
+        same = same and eq
     for name, rargs in refines.items():
         # (a captured call of this tree also passes its cap: None here)
         rays, ids, cnt, rmin, rmax = rargs[:5]

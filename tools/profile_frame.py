@@ -54,6 +54,8 @@ LAYERS = (
     ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
     ("refine, K5 dense (with K6's extents in the dense query) and "
      "gathered (refine.cu)", ("refine_kernel", "refine_lists_kernel")),
+    ("lists, K6's extents and the visit lists in one launch, or the "
+     "lists from extents given (lists.cu)", ("lists_kernel",)),
     ("extents, K6 alone (extents.cu)", ("extents_kernel",)),
     ("sorts (bin keys, visit lists)", ("sort", "Sort", "radix", "Radix")),
     ("reductions (any, amin, sums)", ("reduce", "Reduce")),
