@@ -2513,18 +2513,22 @@ def phase_frame_parity():
 
 def _print_frame(tag, cfg, img, launches, counts, first, times):
     spf = statistics.median(times) if times else first
-    alive = counts["nearest_alive"] + counts["shadow_alive"]
-    lanes = counts["nearest"] + counts["shadow"]
+    nearest, shadow = counts["alive.nearest"], counts.get("alive.shadow", 0)
+    alive = nearest + shadow
+    lanes = counts["rays.nearest"] + counts.get("rays.shadow", 0)
     print(f"[frame] {tag} {cfg.width}x{cfg.height}x{cfg.samples_per_pixel}"
           f"spp: first frame {first} s, then "
           f"{', '.join(map(str, times)) or 'none'} s (median {spf} s)")
     # Dead lanes (rays that left the scene) cost almost nothing, so the
     # rate counts alive rays only.
     print(f"[frame] {tag} alive ray queries per frame: {alive} "
-          f"({counts['nearest_alive']} nearest + {counts['shadow_alive']} "
-          f"shadow) -> {alive / spf} alive queries/s; lanes submitted, dead "
-          f"included: {lanes} ({counts['nearest']} nearest + "
-          f"{counts['shadow']} shadow)")
+          f"({nearest} nearest + {shadow} shadow) -> {alive / spf} alive "
+          f"queries/s; lanes submitted, dead included: {lanes} "
+          f"({counts['rays.nearest']} nearest + "
+          f"{counts.get('rays.shadow', 0)} shadow); syncs "
+          f"{sum(v for k, v in counts.items() if k.startswith('syncs.'))}, "
+          f"walk visits {counts.get('walk.visits', 0)} of "
+          f"{counts.get('walk.listed', 0)} listed")
     print(f"[frame] {tag} launches per frame: {launches} (the port's "
           f"kernels: {sum(launches.values())} in all); mean "
           f"{float(img.mean())}")

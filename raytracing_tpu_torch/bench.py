@@ -163,15 +163,17 @@ def measure() -> dict:
 
 
 def timed_frames(scene, cfg, accel, reps: int, gi_accel=None, pt=None):
-    """One frame with the launches and the ray queries counted
-    (`kernels.traverse.LAUNCHES`, `QUERIES`), then `reps` timed frames,
+    """One frame counted under `counting(True)` (`utils.profiling.COUNTERS`:
+    the port's launches, the ray queries' lanes and alive lanes, the
+    levels, the syncs, the walks' visits), then `reps` timed frames,
     each synchronised: the Whitted renderer, or with `pt` (a
-    PathTracerConfig) the path tracer. The alive lanes are summed on the
-    device, without a host sync, so the counted frame runs as any other.
-    Returns (img, launches, counts, first s, [s per timed frame]); counts:
-    lanes submitted and alive, nearest and shadow."""
+    PathTracerConfig) the path tracer. The device counts are summed on the
+    device, without a host sync, and read once after the counted frame.
+    Returns (img, launches, counts, first s, [s per timed frame]);
+    launches: `kernels.traverse.LAUNCHES`; counts: `COUNTERS.read()`."""
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import path_tracer, whitted
+    from raytracing_tpu_torch.utils.profiling import COUNTERS, counting
 
     dev = scene.mesh.verts.device
 
@@ -185,18 +187,18 @@ def timed_frames(scene, cfg, accel, reps: int, gi_accel=None, pt=None):
                                       gi_accel=gi_accel)
         return whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
 
-    was = T.count_queries(True)
+    was = counting(True)
     try:
         sync()
-        T.reset_launches()
+        COUNTERS.reset()
         t0 = time.perf_counter()
         img = frame()
         sync()
         first = time.perf_counter() - t0
         launches = dict(T.LAUNCHES)
-        counts = {k: int(v) for k, v in T.QUERIES.items()}
+        counts = COUNTERS.read()
     finally:
-        T.count_queries(was)
+        counting(was)
     times = []
     for _ in range(reps):
         sync()
@@ -286,7 +288,7 @@ def _frame_records(records, prefix, img_frame, primaries=None):
     with `primaries`, its primary rays/s too."""
     _, _, counts, _, times = img_frame
     spf = min(times)
-    alive = counts["nearest_alive"] + counts["shadow_alive"]
+    alive = counts["alive.nearest"] + counts.get("alive.shadow", 0)
     emit(records, f"{prefix}_seconds", spf, "s")
     if primaries is not None:
         emit(records, f"{prefix}_rays_per_s", primaries / spf, "rays/s")

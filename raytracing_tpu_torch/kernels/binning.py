@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from raytracing_tpu_torch.utils.profiling import spanned
+
 POS_BITS = 6   # per-axis quantization -> 18-bit Morton (64^3 cells)
 DIR_BITS = 4   # 3-bit octant + 1 bit dominant-axis split -> 16 cones
 _DEAD_KEY = 1 << 30
@@ -110,6 +112,7 @@ def bin_sort(key: torch.Tensor, *payloads):
     return sidx, tuple(p[sidx] for p in payloads)
 
 
+@spanned("rt.unsort")
 def unsort(sidx: torch.Tensor, *payloads):
     """Move payloads from sorted order back to the original order."""
     out = []

@@ -52,12 +52,18 @@ comes from a closed form (`_camera_tile_extents`), and `walk_camera`
 
 Each kernel has a public function that runs its plain PyTorch version for
 a CPU tensor and launches the kernel for a CUDA tensor (raising if it
-cannot), and a launch count in `LAUNCHES`. Ray packs are SoA [8, N] with
-rows (ox oy oz 1 dx dy dz ALIVE), N a multiple of the tile (a public
-query pads its pack to whole tiles of its own tile and of `RAY_TILE`,
-`_pad_rays_soa`, so a tile is T consecutive rays from ray 0, as in the
-JAX package); dead lanes (row 7 == 0) are left out of the culling and
-their results are meaningless.
+cannot), and a launch count in `LAUNCHES`; each walk wrapper and list
+build runs in its span (`rt.walk`, `rt.lists`; `utils.profiling`) and,
+under `counting(True)`, adds its visits to `COUNTERS`; the glue around
+them runs in `rt.pack` (ray packs), `rt.tables` (a walk's tables: the
+origin fold, the combined geometry and attribute table, boxes),
+`rt.merge` (the rest set) and `rt.attrs` (a hit's attribute rows).
+
+Ray packs are SoA [8, N] with rows (ox oy oz 1 dx dy dz ALIVE), N a
+multiple of the tile (a public query pads its pack to whole tiles of its
+own tile and of `RAY_TILE`, `_pad_rays_soa`, so a tile is T consecutive
+rays from ray 0, as in the JAX package); dead lanes (row 7 == 0) are
+left out of the culling and their results are meaningless.
 
 Gradients: which triangle a ray hits is a traversal decision and stays
 detached. A nearest query that something differentiates (`_ShadedWalk`)
@@ -90,6 +96,8 @@ from raytracing_tpu_torch.ops.intersect import (INF, TriangleSoA,
                                                 moller_trumbore)
 from raytracing_tpu_torch.ops.linalg import device_scalar
 from raytracing_tpu_torch.ops.scatter import segment_scatter_add
+from raytracing_tpu_torch.utils.profiling import (COUNTERS, host_sync, span,
+                                                  spanned)
 
 RAY_TILE = 1024
 # The culling tiles one kernel launch takes (csrc/common.cuh's ray_tile_ok):
@@ -169,12 +177,14 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # "_capped" for a launch under a two-phase query's cap, "_lc" with the
 # lane-cull pre-test, "_rt256" (and so on) for a launch tile other than
 # RAY_TILE: a query's tile outside RAY_TILES counts under the tile its
-# launches ran at (`_split_tile`).
-LAUNCHES = {"extents": 0, "lists": 0, "lists_ext": 0, "refine": 0,
-            "refine_extents": 0,
-            "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
-            "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
-            "walk_gstream": 0, "walk_wq": 0}
+# launches ran at (`_split_tile`). The dict is the launch family of
+# `utils.profiling.COUNTERS`.
+LAUNCHES = COUNTERS.launches
+LAUNCHES.update({"extents": 0, "lists": 0, "lists_ext": 0, "refine": 0,
+                 "refine_extents": 0,
+                 "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
+                 "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
+                 "walk_gstream": 0, "walk_wq": 0})
 
 
 def _count_key(entry: str, family: int = PMT, capped: bool = False,
@@ -254,35 +264,32 @@ class Hit(NamedTuple):
     hit: torch.Tensor
 
 
-# Ray queries since the last reset, counted by the query entry points
-# (`nearest_hit`, `nearest_hit_shaded`, `nearest_hit_shaded_camera`,
-# `any_hit`) while `count_queries(True)`: lanes submitted ("nearest",
-# "shadow", ints) and lanes alive ("nearest_alive", "shadow_alive", summed
-# on the device without a host sync: read them with int()). Off by
-# default, since the alive sums cost two small launches a query.
-QUERIES = {"nearest": 0, "shadow": 0, "nearest_alive": 0, "shadow_alive": 0}
-_COUNT_QUERIES = [False]
-
-
 def reset_launches() -> None:
-    """Zero LAUNCHES and QUERIES."""
+    """Zero LAUNCHES."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for k in QUERIES:
-        QUERIES[k] = 0
 
 
-def count_queries(on: bool) -> bool:
-    """Switch the counting of QUERIES on or off; returns the old state."""
-    was, _COUNT_QUERIES[0] = _COUNT_QUERIES[0], bool(on)
-    return was
+def _count_rays(kind: str, n: int, alive=None) -> None:
+    """A query entry's lanes (`rays.<kind>`, "nearest" or "shadow") and,
+    under counting, its alive lanes (`alive.<kind>`)."""
+    COUNTERS.add("rays." + kind, n)
+    if COUNTERS.counting:
+        COUNTERS.add_device("alive." + kind,
+                            n if alive is None else alive.sum())
 
 
-def _count_query(kind: str, n: int, alive=None) -> None:
-    if _COUNT_QUERIES[0]:
-        QUERIES[kind] += n
-        QUERIES[kind + "_alive"] = QUERIES[kind + "_alive"] + (
-            n if alive is None else alive.sum())
+def _count_walk(visits, cnt, width: int, lanes: int, passes: int = 1) -> None:
+    """Under counting, a walk launch's `walk.listed` (its lists' counts up
+    to their width, x `passes` where a tile is walked in several),
+    `walk.visits` (the kernel's per-tile counts, or None: every listed
+    one) and `walk.lane_tests` (visits x `lanes`, its tile's rays x the
+    cluster size)."""
+    listed = torch.clamp(cnt, 0, width).sum(dtype=torch.int64) * passes
+    v = listed if visits is None else visits.sum(dtype=torch.int64)
+    COUNTERS.add_device("walk.listed", listed)
+    COUNTERS.add_device("walk.visits", v)
+    COUNTERS.add_device("walk.lane_tests", v * lanes)
 
 
 def _ee_batch_for(cs: int) -> int:
@@ -439,6 +446,7 @@ def _aligned16(rays8: torch.Tensor) -> torch.Tensor:
     return rays8 if rays8.data_ptr() % 16 == 0 else rays8.clone()
 
 
+@spanned("rt.lists")
 def tile_extents(rays8: torch.Tensor, ray_tile: int = RAY_TILE):
     """K6 (csrc/extents.cu): plain version on CPU, kernel on CUDA; tiles
     of ray_tile rays (any multiple of 128: `_split_tile`)."""
@@ -725,7 +733,8 @@ def _compact_lists(flags, t_near, ids=None):
 def _narrow_lists(ids, tnear, cnt):
     """Cut the lists to the longest one (at least one column): nothing
     listed is lost. Costs one host sync."""
-    w = max(1, int(cnt.max())) if cnt.numel() else 1
+    with host_sync("narrow_lists"):
+        w = max(1, int(cnt.max())) if cnt.numel() else 1
     return ids[..., :w].contiguous(), tnear[..., :w].contiguous(), cnt
 
 
@@ -779,6 +788,7 @@ def _list_outputs(shape, device):
             empty(shape[:-1], dtype=torch.int32, device=device))
 
 
+@spanned("rt.lists")
 def lists_from_extents(o_lo, o_hi, d_lo, d_hi, cluster_min, cluster_max,
                        t_cap=None, mask=None, groups=None, alive=None):
     """The list build from extents (csrc/lists.cu `rt_lists_from_extents`):
@@ -842,6 +852,7 @@ def tile_lists_plain(rays8, cluster_min, cluster_max, t_cap=None,
         cluster_max, t_cap, alive=hi[:, 7])
 
 
+@spanned("rt.lists")
 def tile_lists(rays8, cluster_min, cluster_max, t_cap=None,
                ray_tile: int = RAY_TILE):
     """The list build from a ray pack (csrc/lists.cu `rt_tile_lists`: K6's
@@ -889,6 +900,7 @@ def _tile_visit_lists_soa(rays8, cluster_min, cluster_max, t_cap=None,
 # ---------------------------------------------------------------------------
 
 
+@spanned("rt.tables")
 def _fold_origin(pmt_blocks, o):
     """[C, 12, CS] Baldwin–Weber blocks -> origin-folded blocks for the
     "pmto" intersector: d0' = d0 - n·o, u0' = u0 + U·o, v0' = v0c + V·o,
@@ -1185,6 +1197,7 @@ def _no_hit(rays8):
             torch.full((1, n), _BIG_ID, dtype=torch.int32, device=dev))
 
 
+@spanned("rt.walk", key="entry")
 def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
          nearest: bool, t_max: float = INF, family: int = PMT,
          tmax_row=None, tnear=None, bbox=None, ee_batch: int = 1,
@@ -1217,6 +1230,8 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     differ from run to run; the plain version has no early exit and
     ignores it)."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row, lane_bounds):
+        if COUNTERS.counting:
+            _count_walk(None, cnt, ids.shape[1], ray_tile * cs)
         return walk_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
                           nearest, t_max, family, tmax_row, ray_tile,
                           lane_bounds=lane_bounds)
@@ -1244,6 +1259,8 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
     keys = _merge_keys(rays8, nearest)
     finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
+    if visits is None and COUNTERS.counting:
+        visits = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_walk(
@@ -1257,6 +1274,8 @@ def walk(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             _ptr(out_s), _ptr(out_a), _ptr(visits), _stream(rays8)), entry)
     _count(_count_key(entry, family, nearest and t_max < INF,
                       lane_bounds is not None, ray_tile))
+    if COUNTERS.counting:
+        _count_walk(visits, cnt, ids.shape[1], ray_tile * cs)
     return out_t, out_s, out_a
 
 
@@ -1283,6 +1302,7 @@ def walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     return best_t, best_s, _winner_attrs(attr, best_s, n_attrs, cs)
 
 
+@spanned("rt.walk", key="entry")
 def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
                  eps: float, nearest: bool, t_max: float = INF,
                  family: int = PMT, tmax_row=None, tnear=None, bbox=None,
@@ -1305,6 +1325,8 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     `visits`, an i32 [G, nt] CUDA tensor, receives the clusters each
     (group, tile) visited."""
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row):
+        if COUNTERS.counting:
+            _count_walk(None, cnt, ids.shape[-1], ray_tile * cs)
         return walk_gstream_plain(rays8, ids, cnt, geo, attr, n_attrs, cs,
                                   gsz, eps, nearest, t_max, family, tmax_row,
                                   ray_tile)
@@ -1342,6 +1364,8 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
     keys = _merge_keys(rays8, nearest)
     finished = torch.empty(nt, dtype=torch.int32, device=rays8.device)
     cnt32 = cnt.to(torch.int32).contiguous()
+    if visits is None and COUNTERS.counting:
+        visits = torch.empty((ng, nt), dtype=torch.int32, device=rays8.device)
     lib = cuda.library()
     with torch.cuda.device(rays8.device):
         cuda.check(lib.rt_walk_gstream(
@@ -1355,6 +1379,8 @@ def walk_gstream(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, gsz: int,
             _ptr(visits), _stream(rays8)), "walk_gstream")
     _count(_count_key("walk_gstream", family, nearest and t_max < INF,
                       ray_tile=ray_tile))
+    if COUNTERS.counting:
+        _count_walk(visits, cnt, w, ray_tile * cs)
     return out_t, out_s, out_a
 
 
@@ -1393,6 +1419,7 @@ def walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int,
     return best_t, best_s, _winner_attrs(attr, best_s, n_attrs, cs)
 
 
+@spanned("rt.walk", key="entry")
 def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             nearest: bool, t_max: float = INF, family: int = PMT,
             tmax_row=None, u: int = WQ_U, ray_tile: int = RAY_TILE,
@@ -1414,6 +1441,8 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
         raise ValueError("walk_wq: the work-queue walk takes the pmt, pmto "
                          "and mt families")
     if _on_cpu(rays8, ids, cnt, geo, attr, tmax_row, lane_bounds):
+        if COUNTERS.counting:
+            _count_walk(None, cnt, ids.shape[1], ray_tile * cs)
         return walk_wq_plain(rays8, ids, cnt, geo, attr, n_attrs, cs, eps,
                              nearest, t_max, family, tmax_row, u, ray_tile)
     nt = _check_pack(rays8, ray_tile)
@@ -1454,9 +1483,12 @@ def walk_wq(rays8, ids, cnt, geo, attr, n_attrs: int, cs: int, eps: float,
             _stream(rays8)), "walk_wq")
     _count(_count_key("walk_wq", family, nearest and t_max < INF,
                       ray_tile=ray_tile))
+    if COUNTERS.counting:
+        _count_walk(None, cnt, ids.shape[1], ray_tile * cs)
     return out_t, out_s, out_a
 
 
+@spanned("rt.tables")
 def _union_box(cluster_min, cluster_max) -> torch.Tensor:
     return torch.cat([cluster_min.amin(dim=0), cluster_max.amax(dim=0)])
 
@@ -1559,6 +1591,7 @@ def _geo_table(accel: ClusterAccel, shared_origin, clusters=slice(None),
     return blocks, family
 
 
+@spanned("rt.tables")
 def _lane_bounds(cluster_min, cluster_max) -> torch.Tensor:
     """The lane-cull pre-test's boxes [C, 6]: min | max."""
     return torch.cat([cluster_min, cluster_max], dim=1).contiguous()
@@ -1654,6 +1687,7 @@ def _gstream_walk_args(accel: ClusterAccel, rp, eps, nearest, t_max,
     return args, kw
 
 
+@spanned("rt.lists")
 def _refined_lists(accel: ClusterAccel, rp, t_cap=None,
                    ray_tile: int = RAY_TILE):
     """Frustum lists of the tiles of ray_tile rays cut down to the clusters
@@ -1675,6 +1709,7 @@ def _refined_lists(accel: ClusterAccel, rp, t_cap=None,
     return _compact_lists(keep, tnear, ids)
 
 
+@spanned("rt.tables")
 def _combined_table(geo, accel: ClusterAccel, n_attrs, attr_kind="shade"):
     """(table, attribute view): the [C, rows + A, CS] table whose attribute
     rows (`_attr_table`) follow the geometry rows (12, mt's 9), as the
@@ -1832,6 +1867,7 @@ def _rows(rays8):
             tuple(rays8[k:k + 1] for k in (4, 5, 6)))
 
 
+@spanned("rt.merge")
 def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs,
                         attr_kind="shade"):
     """Fold the rest set into the walk's nearest results; ties keep the
@@ -1877,6 +1913,7 @@ def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs,
     return t, slot, attrs
 
 
+@spanned("rt.merge")
 def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row=None):
     """Fold the rest set into an occlusion result, under the scalar t_max
     or the per-ray limits tmax_row [1, N]."""
@@ -1896,6 +1933,7 @@ def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row=None):
 # ---------------------------------------------------------------------------
 
 
+@spanned("rt.pack")
 def rays_to_soa(o: torch.Tensor, d: torch.Tensor, alive=None) -> torch.Tensor:
     """[N, 3] origins/directions -> the SoA pack [8, N]
     (rows ox oy oz 1 dx dy dz ALIVE)."""
@@ -1905,6 +1943,7 @@ def rays_to_soa(o: torch.Tensor, d: torch.Tensor, alive=None) -> torch.Tensor:
     return torch.cat([o.T, one, d.T, row7], dim=0)
 
 
+@spanned("rt.pack")
 def _pad_rays_soa(rays8, ray_tile: Optional[int] = RAY_TILE):
     """Pad to whole tiles of `ray_tile` (`check_query_tile`) and of
     RAY_TILE with finite, dead lanes: (pack, rays given)."""
@@ -2037,6 +2076,7 @@ def _objid_expand(accel: ClusterAccel, attrs_k, hit):
     return torch.cat([attrs_k[:3], rest], dim=0)
 
 
+@spanned("rt.attrs")
 def _shaded(accel: ClusterAccel, t, slot, attrs_k) -> Tuple[Hit, torch.Tensor]:
     hit = torch.isfinite(t)
     attrs = _objid_expand(accel, attrs_k, hit).T
@@ -2049,7 +2089,7 @@ def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
             ) -> torch.Tensor:
     """Occlusion of rays o, d [N, 3] -> [N] bool (a traversal decision:
     nothing of it is differentiated), culled in tiles of ray_tile rays."""
-    _count_query("shadow", o.shape[0], alive)
+    _count_rays("shadow", o.shape[0], alive)
     return any_hit_soa(accel, rays_to_soa(o.detach(), d.detach(),
                                           alive=alive), eps, t_max, wq=wq,
                        variant=variant, lane_cull=lane_cull,
@@ -2182,7 +2222,7 @@ def nearest_hit(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     the kernel's forward and differentiates through the live vertices
     (`_LazyT`; twin of the JAX package's `nearest_hit_pallas`). variant:
     the intersector family (VARIANTS); ray_tile: the culling tile."""
-    _count_query("nearest", o.shape[0], alive)
+    _count_rays("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
     t_k, tri = nearest_hit_soa(accel, rays8, eps, variant=variant,
                                ray_tile=ray_tile)
@@ -2208,7 +2248,7 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
     t and attrs differentiate into them. Otherwise it walks the shading
     planes alone, so a frame nobody differentiates carries no extra
     plane."""
-    _count_query("nearest", o.shape[0], alive)
+    _count_rays("nearest", o.shape[0], alive)
     rays8 = rays_to_soa(o.detach(), d.detach(), alive=alive)
     if shared_origin is not None:
         shared_origin = shared_origin.detach()
@@ -2265,6 +2305,7 @@ class Camera(NamedTuple):
         return self.height // self.bh, self.width // self.bw
 
 
+@spanned("rt.lists")
 def _camera_tile_extents(n_tiles: int, offs, cam: Camera, tile0: int = 0):
     """Closed-form per-tile frustum extents (traverse.py:
     _camera_tile_extents): the direction formula is monotone in (pixel +
@@ -2333,6 +2374,7 @@ def walk_camera_plain(offs, cam: Camera, tile_base: int, n_tiles: int, ids,
                       lane_bounds=lane_bounds)
 
 
+@spanned("rt.walk", key="entry")
 def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
                 geo, attr, n_attrs: int, cs: int, eps: float, tnear=None,
                 bbox=None, ee_batch: int = 1, entry: str = "walk_camera",
@@ -2347,6 +2389,8 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     names the launch count ("walk_camera" or "walk_camera_dma"); `visits`
     and lane_bounds (the unfolded boxes: the origin is 0) as in `walk`."""
     if _on_cpu(offs, ids, cnt, geo, attr, lane_bounds):
+        if COUNTERS.counting:
+            _count_walk(None, cnt, ids.shape[1], cam.ray_tile * cs)
         return walk_camera_plain(offs, cam, tile_base, n_tiles, ids, cnt,
                                  geo, attr, n_attrs, cs, eps, lane_bounds)
     if (offs.dtype != torch.float32 or offs.shape != (cam.spp, 2)
@@ -2370,6 +2414,8 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     finished = torch.empty(n_tiles * passes, dtype=torch.int32, device=dev)
     cnt32 = cnt.to(torch.int32).contiguous()
     early = tnear is not None
+    if visits is None and COUNTERS.counting:
+        visits = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     lib = cuda.library()
     with torch.cuda.device(ids.device):
         cuda.check(lib.rt_walk_camera(
@@ -2383,9 +2429,13 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
             _ptr(out_t), _ptr(out_s), _ptr(out_a), _ptr(visits),
             _stream(ids)), entry)
     _count(_count_key(entry, lane_cull=lane_bounds is not None))
+    if COUNTERS.counting:  # a pass walks up to RAY_TILE of a tile's rays
+        _count_walk(visits, cnt, ids.shape[1],
+                    min(cam.ray_tile, RAY_TILE) * cs, passes)
     return out_t, out_s, out_a
 
 
+@spanned("rt.lists")
 def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
     """Per-tile lists of the whole frame through supertiles
     (traverse.py:3505-3644): the interval test and its sort run once per
@@ -2532,18 +2582,23 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
     n_tiles = tiles if chunked else nby * nbx
     tile0 = int(tile_base) if chunked else 0
     n_attrs = accel.attr_blocks.shape[1] if with_attrs else 0
-    offs = offs.to(device=accel.pmt_blocks.device,
-                   dtype=torch.float32).contiguous()
-    args, kw = _camera_walk_args(accel, offs, cam, tile0, n_tiles, n_attrs,
-                                 eps, early_exit=early_exit,
-                                 lane_cull=lane_cull)
-    t, slot, attrs = walk_camera(*args, **kw)
-    if accel.rest_blocks is not None:
-        n = n_tiles * cam.ray_tile
-        d_rows = _camera_dir_rows(n, offs, cam, tile0 * cam.ray_tile)
-        zero = torch.zeros_like(d_rows[0])
-        t, slot, attrs = _merge_rest_nearest_rows(
-            accel, (zero, zero, zero), d_rows, t, slot, attrs, eps, n_attrs)
+    n = n_tiles * cam.ray_tile
+    _count_rays("nearest", n)
+    with span("rt.query", kind="camera", rays=n):
+        offs = offs.to(device=accel.pmt_blocks.device,
+                       dtype=torch.float32).contiguous()
+        args, kw = _camera_walk_args(accel, offs, cam, tile0, n_tiles,
+                                     n_attrs, eps, early_exit=early_exit,
+                                     lane_cull=lane_cull)
+        t, slot, attrs = walk_camera(*args, **kw)
+        if accel.rest_blocks is not None:
+            with span("rt.merge", fn="_merge_rest_nearest_rows"):
+                d_rows = _camera_dir_rows(n, offs, cam,
+                                          tile0 * cam.ray_tile)
+                zero = torch.zeros_like(d_rows[0])
+                t, slot, attrs = _merge_rest_nearest_rows(
+                    accel, (zero, zero, zero), d_rows, t, slot, attrs, eps,
+                    n_attrs)
     if n_attrs:
         return t[0], slot[0], attrs
     return t[0], slot[0]
@@ -2558,8 +2613,6 @@ def nearest_hit_shaded_camera(accel: ClusterAccel, offs, *, width: int,
                               ) -> Tuple[Hit, torch.Tensor]:
     """`nearest_hit_shaded` for the renderer's primary level in camera
     mode: (Hit with packed slot ids, attrs [N, 9]) in block ray order."""
-    _count_query("nearest", (tiles if tiles is not None else
-                             (height // bh) * (width // bw)) * spp * bh * bw)
     t, slot, attrs_k = nearest_hit_camera_soa(
         accel, offs, width=width, height=height, spp=spp, scale=scale,
         eps=eps, bh=bh, bw=bw, with_attrs=True, early_exit=early_exit,

@@ -41,6 +41,7 @@ from raytracing_tpu_torch.ops.color import gamma_correct
 from raytracing_tpu_torch.ops.intersect import reflect
 from raytracing_tpu_torch.ops.sampling import cosine_hemisphere
 from raytracing_tpu_torch.tracer import nearest_hit_shaded, uses_kernels
+from raytracing_tpu_torch.utils.profiling import host_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +140,9 @@ def trace_paths(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
         # A path with nothing left to contribute ends.
         alive = hit & (throughput.amax(dim=-1) > 0.0) \
             & ((refl > 0.0) | (rough > 0.0))
-        if not bool(alive.any()):
+        with host_sync("path_alive"):
+            more = bool(alive.any())
+        if not more:
             break
 
     if binning:

@@ -18,6 +18,13 @@ Random numbers: the fan at depth l of chunk i draws ONE uniform array
 `uniforms(i, tag, shape)` callable — the way tests feed the port the exact
 arrays the JAX package draws. The tag names the draw: the depth (an int)
 for the fan, ("light", depth, light, sample) for a light's shadow sample.
+
+Spans (`utils.profiling`): `rt.frame` around `render`, `rt.chunk` around
+each chunk, `rt.level` around each level; the glue in `rt.camera_rays`,
+`rt.bin`, `rt.shade`, `rt.children`, `rt.radiance` (and the binning's
+`rt.unsort`), the level's one host sync in `rt.sync`. A level counts its
+rays in `rays.level<d>` and, under `counting(True)`, its alive ones in
+`alive.level<d>`.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from raytracing_tpu_torch.ops.sampling import (cosine_hemisphere, sample_cone,
 from raytracing_tpu_torch.tracer import (any_hit, nearest_hit_shaded,
                                          nearest_hit_shaded_camera,
                                          uses_kernels)
+from raytracing_tpu_torch.utils.profiling import (COUNTERS, host_sync, span,
+                                                  spanned)
 
 
 def _attribute_rows(mesh: Mesh) -> torch.Tensor:
@@ -68,6 +77,7 @@ class Shaded(NamedTuple):
     albedo_pi: torch.Tensor  # [N]
 
 
+@spanned("rt.shade")
 def shade(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d, hit: Hit,
           config: RenderConfig, attrs: Optional[torch.Tensor] = None,
           bin_shadow: Optional[bool] = None, wq: bool = False,
@@ -155,6 +165,7 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
     return w_dir, ndl, hit_mask & (ndl > 0.0), t_light * (1.0 - 1e-4)
 
 
+@spanned("rt.shade")
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                     sh: Shaded, hit_mask, uniforms, config: RenderConfig,
                     wq: bool = False, mesh: Optional[Mesh] = None,
@@ -201,6 +212,7 @@ def bounce_cap(accel: Optional[ClusterAccel],
     return config.gi_cap_frac * float(torch.linalg.norm(hi - lo))
 
 
+@spanned("rt.bin")
 def _bin_bounce(o_l, d_l, alive_l):
     """Sort a bounce level by (direction cone, origin cell); returns
     (sidx, (o, d, alive)) for `unsort`."""
@@ -209,6 +221,7 @@ def _bin_bounce(o_l, d_l, alive_l):
                     o_l, d_l, alive_l)
 
 
+@spanned("rt.children")
 def _children(d_l, h: Hit, sh: Shaded, config: RenderConfig, depth: int,
               uniforms):
     """The next level's rays [reflect | diffuse fan] and their weights:
@@ -285,6 +298,15 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
 
     def level_radiance(o_l, d_l, alive_l, depth):
         n_l = o_l.shape[0]
+        COUNTERS.add(f"rays.level{depth}", n_l)
+        if COUNTERS.counting:
+            COUNTERS.add_device(f"alive.level{depth}",
+                                n_l if alive_l is None else alive_l.sum())
+        with span("rt.level", depth=depth, rays=n_l):
+            return level(o_l, d_l, alive_l, depth)
+
+    def level(o_l, d_l, alive_l, depth):
+        n_l = o_l.shape[0]
         sidx = None
         bounce = depth > 1
         acc_l = gi_accel if (bounce and gi_accel is not None) else accel
@@ -325,27 +347,30 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 config, wq=wq, mesh=mesh, lane_cull=lane_cull,
                 ray_tile=ray_tile)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
+        rad_c = None
         if depth < config.reflect_depth or depth < config.diffuse_depth:
             o_c, d_c, a_c, w_refl, w_diff = _children(d_l, h, sh, config,
                                                       depth, uniforms)
             # Skip the whole subtree when every child is dead (sky chunks):
             # exact, since dead children carry zero weight. This costs one
             # host sync per level; a later change can keep it on the device.
-            if a_c.any():
-                rad_c = level_radiance(o_c, d_c, a_c, depth + 1)
-            else:
-                rad_c = torch.zeros_like(o_c)
-            off = 0
-            if w_refl is not None:
-                contrib = contrib + w_refl * rad_c[:n_l]
-                off = n_l
-            if w_diff is not None:
-                wr = w_diff * rad_c[off:].reshape(s, n_l, 3)
-                acc = wr[0]
-                for j in range(1, s):
-                    acc = acc + wr[j]
-                contrib = contrib + acc / s
-        rad = torch.where(h.hit[:, None], contrib, sky)
+            with host_sync("level"):
+                more = bool(a_c.any())
+            rad_c = (level_radiance(o_c, d_c, a_c, depth + 1) if more
+                     else torch.zeros_like(o_c))
+        with span("rt.radiance"):
+            if rad_c is not None:
+                off = 0
+                if w_refl is not None:
+                    contrib = contrib + w_refl * rad_c[:n_l]
+                    off = n_l
+                if w_diff is not None:
+                    wr = w_diff * rad_c[off:].reshape(s, n_l, 3)
+                    acc = wr[0]
+                    for j in range(1, s):
+                        acc = acc + wr[j]
+                    contrib = contrib + acc / s
+            rad = torch.where(h.hit[:, None], contrib, sky)
         if sidx is not None:
             (rad,) = unsort(sidx, rad)
         return rad
@@ -423,6 +448,18 @@ def render(scene: Scene, config: RenderConfig,
     `uniforms(chunk_index, tag, shape)` when given (the tags are
     `render_rays`'), else from `generator` (default: seed 0 on the scene's
     device). A scene with `lights` gets their soft-shadowed direct term."""
+    spp, h, w = config.samples_per_pixel, config.height, config.width
+    r = spp * h * w
+    chunk = min(config.chunk_size, r)
+    nc = (r + chunk - 1) // chunk
+    with span("rt.frame", chunks=nc):
+        return _render_chunks(scene, config, accel, generator, gi_accel,
+                              uniforms, chunk, nc)
+
+
+def _render_chunks(scene: Scene, config: RenderConfig, accel, generator,
+                   gi_accel, uniforms, chunk: int, nc: int) -> torch.Tensor:
+    """`render`'s frame in nc chunks of `chunk` rays."""
     mesh = scene.mesh
     device = mesh.verts.device
     accel, gi_accel = frame_accels(scene, config, accel, gi_accel)
@@ -438,8 +475,6 @@ def render(scene: Scene, config: RenderConfig,
     r = spp * h * w
     bh = bw = 16
     by_formula = h % bh == 0 and w % bw == 0
-    chunk = min(config.chunk_size, r)
-    nc = (r + chunk - 1) // chunk
     # Camera-mode primaries: whole blocks per chunk, rays derived in the
     # walk kernel from the chunk's first block index.
     rt_cam = spp * bh * bw
@@ -456,17 +491,20 @@ def render(scene: Scene, config: RenderConfig,
             perm = torch.cat([perm, perm[-1:].expand(pad)])
     rgb = torch.empty((nc * chunk, 3), dtype=torch.float32, device=device)
     for i in range(nc):
-        if by_formula:
-            ids = block_ray_ids(i, chunk, config, bh, bw, device=device)
-        else:
-            ids = perm[i * chunk:(i + 1) * chunk]
-        o_c, d_c = camera_rays_for_ids(ids, config)
-        cam = ((i * (chunk // rt_cam), offs_cam, bh, bw) if use_camera
-               else None)
-        rgb[i * chunk:(i + 1) * chunk] = render_rays(
-            mesh, accel, scene.sun, o_c, d_c, config,
-            lambda tag, shape, i=i: uniforms(i, tag, shape),
-            gi_accel=gi_accel, lights=scene.lights, camera_chunk=cam)
+        with span("rt.chunk", i=i):
+            with span("rt.camera_rays"):
+                if by_formula:
+                    ids = block_ray_ids(i, chunk, config, bh, bw,
+                                        device=device)
+                else:
+                    ids = perm[i * chunk:(i + 1) * chunk]
+                o_c, d_c = camera_rays_for_ids(ids, config)
+            cam = ((i * (chunk // rt_cam), offs_cam, bh, bw) if use_camera
+                   else None)
+            rgb[i * chunk:(i + 1) * chunk] = render_rays(
+                mesh, accel, scene.sun, o_c, d_c, config,
+                lambda tag, shape, i=i: uniforms(i, tag, shape),
+                gi_accel=gi_accel, lights=scene.lights, camera_chunk=cam)
     if by_formula:
         return blocks_to_image(rgb[:r], config, bh, bw)
     return rgb[:r][inv].reshape(spp, h, w, 3).mean(dim=0)

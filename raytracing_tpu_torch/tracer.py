@@ -14,7 +14,8 @@ JAX package, which brute-forces any query given no accel, a "cluster" or
 kernel-path query without an accel raises (`render`, `Fitter` and
 `render_sharded` build one for the caller). The queries
 take the mesh, as the JAX package's do: brute force reads it, and
-gradients go to its live tables.
+gradients go to its live tables. Each query runs in the span `rt.query`
+(`utils.profiling`; camera mode's in `kernels.traverse`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from raytracing_tpu_torch.geometry.mesh import Mesh, triangle_soa
 from raytracing_tpu_torch.kernels import traverse as T
 from raytracing_tpu_torch.ops.intersect import INF
 from raytracing_tpu_torch.ops.trace import any_hit_brute, nearest_hit_brute
+from raytracing_tpu_torch.utils.profiling import span
 
 KERNEL_BACKENDS = ("auto", "cuda", "pallas")
 
@@ -65,12 +67,13 @@ def nearest_hit(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
     results are meaningless (the kernel path culls them, the others
     ignore the mask)."""
     engine = _engine(config, accel)
-    if engine == "bruteforce":
-        return nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d,
-                                 config.eps)
-    if engine == "cluster":
-        return nearest_hit_cluster(mesh, accel, o, d, config.eps)
-    return T.nearest_hit(mesh, accel, o, d, config.eps, alive=alive)
+    with span("rt.query", kind="nearest", rays=o.shape[0]):
+        if engine == "bruteforce":
+            return nearest_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o,
+                                     d, config.eps)
+        if engine == "cluster":
+            return nearest_hit_cluster(mesh, accel, o, d, config.eps)
+        return T.nearest_hit(mesh, accel, o, d, config.eps, alive=alive)
 
 
 def nearest_hit_shaded(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
@@ -88,13 +91,14 @@ def nearest_hit_shaded(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
     two-phase capped query; lane_cull: the walk's lane-cull pre-test;
     ray_tile: the culling tile (None: `traverse.RAY_TILE`) (the last four
     on the kernel path only; no result depends on them)."""
-    if _engine(config, accel) == "kernels":
+    if _engine(config, accel) != "kernels":
+        return nearest_hit(mesh, accel, o, d, config, alive=alive), None
+    with span("rt.query", kind="nearest", rays=o.shape[0]):
         return T.nearest_hit_shaded(mesh, accel, o, d, config.eps,
                                     alive=alive, early_exit=early_exit,
                                     wq=wq, shared_origin=shared_origin,
                                     t_cap=t_cap, lane_cull=lane_cull,
                                     ray_tile=ray_tile)
-    return nearest_hit(mesh, accel, o, d, config, alive=alive), None
 
 
 def nearest_hit_shaded_camera(accel: ClusterAccel, offs,
@@ -119,10 +123,11 @@ def any_hit(mesh: Mesh, accel: Optional[ClusterAccel], o, d,
     lane_cull: the walk's lane-cull pre-test; ray_tile: the culling tile
     (None: `traverse.RAY_TILE`) (kernel path only)."""
     engine = _engine(config, accel)
-    if engine == "bruteforce":
-        return any_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d,
-                             t_max, config.eps)
-    if engine == "cluster":
-        return any_hit_cluster(mesh, accel, o, d, t_max, config.eps)
-    return T.any_hit(accel, o, d, config.eps, t_max=t_max, alive=alive,
-                     wq=wq, lane_cull=lane_cull, ray_tile=ray_tile)
+    with span("rt.query", kind="shadow", rays=o.shape[0]):
+        if engine == "bruteforce":
+            return any_hit_brute(triangle_soa(mesh.verts, mesh.tri_v), o, d,
+                                 t_max, config.eps)
+        if engine == "cluster":
+            return any_hit_cluster(mesh, accel, o, d, t_max, config.eps)
+        return T.any_hit(accel, o, d, config.eps, t_max=t_max, alive=alive,
+                         wq=wq, lane_cull=lane_cull, ray_tile=ray_tile)

@@ -265,9 +265,9 @@ def test_bench_code_paths_on_the_cpu():
     img, launches, counts, first, times = bench.timed_frames(
         scene, cfg, accel, 1)
     assert img.shape == (16, 16, 3) and len(times) == 1 and first > 0
-    assert counts["nearest"] >= 256 and \
-        0 < counts["nearest_alive"] <= counts["nearest"]
-    assert 0 < counts["shadow_alive"] <= counts["shadow"]
+    assert counts["rays.nearest"] >= 256 and \
+        0 < counts["alive.nearest"] <= counts["rays.nearest"]
+    assert 0 < counts["alive.shadow"] <= counts["rays.shadow"]
     assert sum(launches.values()) == 0  # CPU tensors launch no kernel
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA card"):
@@ -275,15 +275,17 @@ def test_bench_code_paths_on_the_cpu():
 
 
 def test_queries_counted_at_the_query_entry_points():
-    """`kernels.traverse.QUERIES` counts the lanes submitted to and alive
-    in every nearest and shadow query while `count_queries(True)`, nothing
-    while off, and resets with the launches; a counted frame leaves the
-    counting as it found it."""
+    """`utils.profiling.COUNTERS` counts the lanes submitted to every
+    nearest and shadow query (`rays.nearest`, `rays.shadow`, always) and
+    the alive ones (`alive.nearest`, `alive.shadow`) while
+    `counting(True)`, no alive lane while off, and resets with the
+    launches; a counted frame leaves the counting as it found it."""
     from raytracing_tpu_torch import RenderConfig, build_cluster_accel
     from raytracing_tpu_torch.geometry.scene import build_default_scene
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models.camera import camera_rays
     from raytracing_tpu_torch.ops.sampling import stratified_offsets
+    from raytracing_tpu_torch.utils.profiling import COUNTERS, counting
 
     scene = build_default_scene(device="cpu")
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
@@ -298,24 +300,29 @@ def test_queries_counted_at_the_query_entry_points():
         T.nearest_hit_shaded_camera(accel, stratified_offsets(1), width=16,
                                     height=16, spp=1, tile_base=0, tiles=1)
 
-    T.reset_launches()
-    assert not T.count_queries(False)
+    def lanes():
+        return {k: v for k, v in COUNTERS.read().items()
+                if k.split(".")[0] in ("rays", "alive")}
+
+    n, a = o.shape[0], int(alive.sum())
+    COUNTERS.reset()
+    assert not counting(False)
     queries()
-    assert T.QUERIES == dict(nearest=0, shadow=0, nearest_alive=0,
-                             shadow_alive=0)
-    T.count_queries(True)
+    assert lanes() == {"rays.nearest": 3 * n, "rays.shadow": n}
+    COUNTERS.reset()
+    counting(True)
     try:
         queries()
-        got = {k: int(v) for k, v in T.QUERIES.items()}
+        got = lanes()
     finally:
-        assert T.count_queries(False)
-    n, a = o.shape[0], int(alive.sum())
-    assert got == dict(nearest=3 * n, shadow=n, nearest_alive=2 * n + a,
-                       shadow_alive=a)
-    T.reset_launches()
-    assert all(v == 0 for v in T.QUERIES.values())
+        assert counting(False)
+    assert got == {"rays.nearest": 3 * n, "rays.shadow": n,
+                   "alive.nearest": 2 * n + a, "alive.shadow": a}
+    T.LAUNCHES["walk"] += 1
+    COUNTERS.reset()
+    assert lanes() == {} and not any(T.LAUNCHES.values())
     bench.timed_frames(scene, cfg, accel, 0)
-    assert not T.count_queries(False)
+    assert not counting(False)
 
 
 @pytest.mark.parametrize("device,local_rank,want", [

@@ -36,7 +36,10 @@ mt, the capped walks and refinements of the two-phase query, the lane
 cull in K1 and the camera walk — equal to their plain versions on alive
 lanes; at a query's tile outside RAY_TILES (384, 2,048) every pack
 wrapper's composition from launches at 128 or 1,024 equal to its plain
-version at the tile.
+version at the tile; the port's spans (`utils.profiling`) in a traced
+reference frame on the device's clock, with the same image and device
+operations as untraced, and each walk kernel's visit counters at most its
+listed visits.
 """
 
 import numpy as np
@@ -1616,3 +1619,107 @@ def test_frame_with_plain_list_builds_is_equal(dev, monkeypatch, camera):
     plain = frame()
     assert T.LAUNCHES["lists"] == T.LAUNCHES["lists_ext"] == 0
     assert torch.equal(img, plain)
+
+
+def _traced_reference_frame(dev, on):
+    """The reference frame (`RenderConfig()`, CS 16 + the auto-built CS 128
+    bounce accel) under `torch.profiler` with the spans `on` or off:
+    (image, device operations, the runtime's launch and copy calls,
+    rt.frame's host interval or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_tpu_torch.utils.profiling import tracing
+
+    scene = build_default_scene(device=dev)
+    acc = build_cluster_accel(scene.mesh, cluster_size=16)
+    gen = torch.Generator(device=dev)
+    render(scene, RenderConfig(), accel=acc, generator=gen.manual_seed(3))
+    torch.cuda.synchronize()
+    was = tracing(on)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            img = render(scene, RenderConfig(), accel=acc,
+                         generator=gen.manual_seed(3))
+            torch.cuda.synchronize()
+    finally:
+        tracing(was)
+    evs = prof.events()
+    ops = [e for e in evs if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("rt.")]
+    calls = [e for e in evs if e.device_type != DeviceType.CUDA
+             and e.name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                                    "cudaMemset"))]
+    frames = [e.time_range for e in evs if e.name == "rt.frame"
+              and e.device_type != DeviceType.CUDA]
+    return img, ops, calls, frames[0] if frames else None
+
+
+def test_spans_share_the_device_clock_and_change_nothing(dev):
+    """A traced reference frame: the spans change neither the image nor
+    the launches (the port's `LAUNCHES` and the runtime's launch and copy
+    calls, equal; the profiler's device operations within the 0-3 it
+    drops at a session's start with the spans off too: 38,746 and 38,743
+    in two untraced sessions of this frame on an H100); every device
+    operation starts inside rt.frame or after it (none before it opens:
+    the spans and the CUDA activity are on one clock, the first operation
+    inside it), and every launch and copy the runtime was asked for lies
+    inside rt.frame."""
+    T.reset_launches()
+    img0, ops0, calls0, none = _traced_reference_frame(dev, False)
+    launches0 = dict(T.LAUNCHES)
+    T.reset_launches()
+    img1, ops1, calls, frame = _traced_reference_frame(dev, True)
+    assert none is None and frame is not None
+    assert torch.equal(img0, img1) and T.LAUNCHES == launches0
+    assert len(calls0) == len(calls) > 30000
+    assert abs(len(ops0) - len(ops1)) <= 3 and len(ops1) > 30000
+    starts = sorted(e.time_range.start for e in ops1)
+    assert frame.start <= starts[0] <= frame.end
+    assert calls and all(frame.start <= c.time_range.start
+                         and c.time_range.end <= frame.end for c in calls)
+
+
+@pytest.mark.parametrize("walk", ["k1_k2", "k3", "k4", "camera"])
+def test_walk_visit_counters_on_the_card(setup, dev, monkeypatch, walk):
+    """Under counting each walk kernel's visits are positive and at most
+    its listed visits (K4 counts the listed ones), its lane tests the
+    visits x its tile's rays x the cluster size; the frame's walks (K1,
+    K2) over a counted reference frame likewise."""
+    from raytracing_tpu_torch.utils.profiling import COUNTERS, counting
+
+    accels, packs = setup
+    g = packs[0].to(dev)
+    was = counting(True)
+    COUNTERS.reset()
+    try:
+        if walk == "k1_k2":
+            scene = build_default_scene(device=dev)
+            render(scene, RenderConfig(), accel=build_cluster_accel(
+                scene.mesh, cluster_size=16))
+            lanes = None
+        elif walk == "k3":
+            monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES", 1)
+            T.nearest_hit_attrs_soa(accels[16].to(dev), g)
+            lanes = T.RAY_TILE * 16
+        elif walk == "k4":
+            monkeypatch.setattr(T, "_WQ_IMPL", "grid")
+            T.nearest_hit_attrs_soa(accels[128].to(dev), g, wq=True)
+            lanes = T.RAY_TILE * 128
+        else:
+            T.nearest_hit_camera_soa(accels[16].to(dev),
+                                     stratified_offsets(4).to(dev),
+                                     width=128, height=96, spp=4)
+            lanes = 1024 * 16
+        c = COUNTERS.read()
+    finally:
+        counting(was)
+    assert 0 < c["walk.visits"] <= c["walk.listed"]
+    if walk == "k4":
+        assert c["walk.visits"] == c["walk.listed"]
+    if lanes is not None:
+        assert c["walk.lane_tests"] == c["walk.visits"] * lanes
+    else:
+        assert c["walk.lane_tests"] >= c["walk.visits"] * 1024 * 16
+        assert c["syncs.level"] > 0 and c["alive.level2"] > 0

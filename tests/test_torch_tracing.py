@@ -1,0 +1,334 @@
+"""The port's spans and counters (`utils.profiling`) on the CPU, through
+the plain versions of the kernels, and the reduction of a trace with spans
+(`tools/trace_cells.py`) on synthetic traces.
+
+Bars: with tracing off a span is the one shared no-op and a profiled frame
+holds no `rt.*` event; with it on the frame's spans nest rt.frame >
+rt.chunk > rt.level > rt.query > rt.walk, one `rt.sync` for each host
+sync the test counts itself, and the image is the same; `rays.level<d>`,
+`alive.level<d>` and the walks' visits equal what the test counts at the
+level's boundaries; the reduction's self times, idle attribution and the
+harness's own reading of the same trace are exact on small traces.
+"""
+
+import json
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from raytracing_tpu_torch import RenderConfig, build_cluster_accel
+from raytracing_tpu_torch.geometry.scene import build_default_scene
+from raytracing_tpu_torch.kernels import traverse as T
+from raytracing_tpu_torch.models import path_tracer, whitted
+from raytracing_tpu_torch.utils import profiling as P
+from rtbench import trace as RT
+from tools import trace_cells as TC
+
+torch.set_num_threads(2)
+
+# Two chunks; level 1 has reflect and fan children, level 2 reflect ones,
+# level 3 none: two host syncs a chunk where level 2 runs.
+CFG = RenderConfig(width=16, height=16, samples_per_pixel=1, chunk_size=128,
+                   reflect_depth=3, diffuse_depth=2, diffuse_scatter=2)
+
+
+@pytest.fixture(scope="module")
+def scene_accel():
+    scene = build_default_scene(t=0.0, device="cpu")
+    return scene, build_cluster_accel(scene.mesh, cluster_size=16)
+
+
+@pytest.fixture(autouse=True)
+def switches_off():
+    """Every test starts and ends with tracing and counting off."""
+    P.tracing(False)
+    P.counting(False)
+    yield
+    assert not P.tracing(False) and not P.counting(False)
+
+
+def _frame(scene_accel, cfg=CFG):
+    scene, accel = scene_accel
+    return whitted.render(scene, cfg, accel=accel,
+                          generator=torch.Generator().manual_seed(7))
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [e for e in prof.events() if e.name.startswith("rt.")]
+
+
+def test_span_off_is_the_shared_no_op_and_records_nothing(scene_accel):
+    """Tracing off: `span` returns one shared object whatever it is given,
+    `spanned` calls straight through, and a profiled frame of the plain
+    backend holds no rt.* event; `host_sync` still counts."""
+    assert P.span("rt.a") is P.span("rt.b", depth=2) is P._NO_SPAN
+    with P.span("rt.a") as s:
+        assert s is None
+    assert P.spanned("rt.x")(lambda a, b=1: a + b)(1, b=2) == 3
+    P.COUNTERS.reset()
+    _, spans = _profiled(lambda: _frame(scene_accel))
+    assert spans == []
+    assert P.COUNTERS.read()["syncs.level"] > 0
+
+
+def _parents(spans):
+    """Each span's innermost enclosing span (by time; None at the top)."""
+    evs = sorted(spans, key=lambda e: (e.time_range.start,
+                                       -e.time_range.end))
+    out, stack = {}, []
+    for e in evs:
+        while stack and stack[-1].time_range.end <= e.time_range.start:
+            stack.pop()
+        out[id(e)] = stack[-1] if stack else None
+        stack.append(e)
+    return out
+
+
+def test_spans_nest_by_layer_and_mark_every_sync(scene_accel, monkeypatch):
+    """Tracing on: rt.frame > rt.chunk > rt.level > rt.query > rt.walk,
+    the glue's spans under a level, one rt.sync for each sync the test
+    counts: one a chunk per level with children that runs, and one a
+    gathered refinement's list narrowing (`_REFINE_DENSE_MAX_C` 0 sends
+    every bounce query there), each counted by a wrapper of its own. The
+    image equals the untraced one."""
+    want = _frame(scene_accel)
+    monkeypatch.setattr(T, "_REFINE_DENSE_MAX_C", 0)
+    narrowed, children = [], []
+    real_narrow, real_children = T._narrow_lists, whitted._children
+
+    def narrow(*a):
+        narrowed.append(1)
+        return real_narrow(*a)
+
+    def kids(*a):
+        out = real_children(*a)
+        children.append(bool(out[2].any()))
+        return out
+
+    monkeypatch.setattr(T, "_narrow_lists", narrow)
+    monkeypatch.setattr(whitted, "_children", kids)
+    P.COUNTERS.reset()
+    P.tracing(True)
+    try:
+        got, spans = _profiled(lambda: _frame(scene_accel))
+    finally:
+        P.tracing(False)
+    assert torch.equal(got, want)
+    names = [e.name for e in spans]
+    assert names.count("rt.frame") == 1 and names.count("rt.chunk") == 2
+    parent = _parents(spans)
+    chain = {"rt.chunk": "rt.frame", "rt.level": ("rt.chunk", "rt.radiance",
+                                                  "rt.level"),
+             "rt.query": ("rt.level", "rt.shade"),
+             "rt.walk": ("rt.query", "rt.walk")}
+    for e in spans:
+        if e.name in chain:
+            up = parent[id(e)]
+            assert up is not None and up.name in chain[e.name], (e.name, up)
+    for e in spans:  # every span lies inside the frame
+        top = e
+        while parent[id(top)] is not None:
+            top = parent[id(top)]
+        assert top.name == "rt.frame"
+    assert {"rt.lists", "rt.pack", "rt.merge", "rt.shade", "rt.children",
+            "rt.bin", "rt.unsort", "rt.radiance",
+            "rt.camera_rays"} <= set(names)
+    syncs = len(children) + len(narrowed)
+    assert len(narrowed) > 0 and names.count("rt.sync") == syncs
+    counts = P.COUNTERS.read()
+    assert counts["syncs.level"] == len(children)
+    assert counts["syncs.narrow_lists"] == len(narrowed)
+
+
+def test_level_counters_equal_the_level_sizes(scene_accel, monkeypatch):
+    """`rays.level<d>` is the sum of level d's sizes over the chunks (the
+    chunk at level 1, the children a level made at the next), always;
+    `alive.level<d>` their alive lanes, under counting only."""
+    made = {}
+    real = whitted._children
+
+    def kids(d_l, h, sh, config, depth, uniforms):
+        out = real(d_l, h, sh, config, depth, uniforms)
+        if bool(out[2].any()):
+            n, a = made.get(depth + 1, (0, 0))
+            made[depth + 1] = (n + out[2].shape[0], a + int(out[2].sum()))
+        return out
+
+    monkeypatch.setattr(whitted, "_children", kids)
+    P.COUNTERS.reset()
+    _frame(scene_accel)
+    counts = P.COUNTERS.read()
+    assert not any(k.startswith("alive.") for k in counts)
+    made.clear()
+    P.COUNTERS.reset()
+    P.counting(True)
+    try:
+        _frame(scene_accel)
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(False)
+    rays = 16 * 16
+    assert counts["rays.level1"] == counts["alive.level1"] == rays
+    assert made[2][0] == 3 * rays  # a reflect ray and a fan of 2 each
+    for depth, (n, a) in made.items():
+        assert counts[f"rays.level{depth}"] == n
+        assert counts[f"alive.level{depth}"] == a
+    assert {k for k in counts if k.startswith("rays.level")} == {
+        f"rays.level{d}" for d in [1, *made]}
+
+
+def test_walk_counters_on_the_plain_walks(scene_accel):
+    """Under counting a walk adds its listed visits, its visits (every
+    listed one: the plain versions exit nothing early) and the lane tests
+    (visits x the tile's rays x the cluster size); off, nothing."""
+    scene, accel = scene_accel
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+
+    o, d = camera_rays_for_ids(block_ray_ids(0, 2048, CFG.replace(
+        width=64, height=64), device="cpu"), CFG.replace(width=64, height=64))
+    rp, _ = T._pad_rays_soa(T.rays_to_soa(o, d))
+    args, kw = T._groups_walk_args(accel, rp, 1e-8, True, T.INF, 0)
+    P.COUNTERS.reset()
+    T.walk(*args, **kw)
+    assert not P.COUNTERS.device
+    P.counting(True)
+    try:
+        T.walk(*args, **kw)
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(False)
+    cnt = args[2]
+    listed = int(torch.clamp(cnt, 0, args[1].shape[1]).sum())
+    assert counts["walk.listed"] == counts["walk.visits"] == listed > 0
+    assert counts["walk.lane_tests"] == listed * T.RAY_TILE * 16
+
+
+def test_path_tracer_marks_its_sync(scene_accel):
+    """The path tracer's `alive.any()` a bounce is a counted host sync."""
+    scene, accel = scene_accel
+    P.COUNTERS.reset()
+    path_tracer.render(scene, RenderConfig(width=8, height=8),
+                       path_tracer.PathTracerConfig(max_bounces=3,
+                                                    samples_per_pixel=1),
+                       accel=accel)
+    assert 1 <= P.COUNTERS.read()["syncs.path_alive"] <= 2
+
+
+def test_profile_trace_shows_the_spans(scene_accel, tmp_path):
+    """The CLI's `--profile` exporter switches the spans on for its block,
+    so its Chrome trace names them, and restores the switch."""
+    scene, accel = scene_accel
+    from raytracing_tpu_torch.utils.profiling import profile_trace
+
+    with profile_trace(str(tmp_path)):
+        whitted.render(scene, CFG.replace(reflect_depth=1, diffuse_depth=1),
+                       accel=accel)
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"rt.frame", "rt.chunk", "rt.level", "rt.query",
+            "rt.walk"} <= names
+
+
+def test_counters_read_and_reset():
+    """Host counts add as ints, device counts as tensors read in one go;
+    reset zeroes the launches and drops the rest."""
+    P.COUNTERS.reset()
+    P.COUNTERS.add("syncs.x")
+    P.COUNTERS.add("syncs.x", 2)
+    P.COUNTERS.add_device("alive.x", torch.tensor([True, False, True]).sum())
+    P.COUNTERS.add_device("alive.x", 4)
+    P.COUNTERS.add_device("walk.y", 5)
+    T.LAUNCHES["walk"] += 2
+    got = P.COUNTERS.read()
+    assert got["syncs.x"] == 3 and got["alive.x"] == 6 and got["walk.y"] == 5
+    assert got["launches.walk"] == 2
+    assert all(isinstance(v, int) for v in got.values())
+    P.COUNTERS.reset()
+    assert P.COUNTERS.read() == {f"launches.{k}": 0 for k in T.LAUNCHES}
+
+
+# --- the reduction of a trace with spans (tools/trace_cells.py) ----------
+
+Op = RT.Op
+
+
+def synthetic_ops():
+    """One step: a frame span over 0-1000 with a level, inside it a query
+    (a walk in it) and a shade span; the host's aten ops; device ops
+    leaving gaps 100-200 (under rt.walk), 300-450 (rt.shade, midpoint 375),
+    600-700 (rt.level, its own time), 800-1000 (rt.frame, the level
+    closed at 850); a GPU-side
+    annotation of rt.walk that is no device operation."""
+    host = [Op("rt.frame", 0, 1000, False, 1),
+            Op("rt.level", 50, 850, False, 1),
+            Op("rt.query", 60, 250, False, 1),
+            Op("rt.walk", 80, 240, False, 1),
+            Op("rt.shade", 260, 500, False, 1),
+            Op("rt.sync", 700, 760, False, 1),
+            Op("aten::add", 300, 320, False, 1),
+            Op("cudaLaunchKernel", 90, 95, False, 1),
+            Op("step", 0, 1000, False, 1)]
+    dev = [Op("walk_kernel", 0, 100, True),
+           Op("elementwise_kernel", 200, 300, True),
+           Op("sort", 450, 600, True),
+           Op("Memcpy DtoH", 700, 800, True),
+           Op("rt.walk", 95, 240, True)]
+    return host + dev
+
+
+def test_self_time_of_nested_spans():
+    got = TC.self_us([o for o in synthetic_ops() if o.name.startswith("rt.")
+                      and not o.device])
+    assert got == {"rt.frame": 200.0, "rt.level": 800 - 190 - 240 - 60,
+                   "rt.query": 30.0, "rt.walk": 160.0, "rt.shade": 240.0,
+                   "rt.sync": 60.0}
+
+
+def test_idle_by_innermost_span_and_the_layer_shares():
+    r = TC.span_reading(synthetic_ops(), steps=1)
+    assert r["launches"] == 4 and r["spans"] == 6
+    assert r["busy_s"] == pytest.approx(450e-6)
+    idle = r["idle_by_span_s"]
+    assert idle == pytest.approx({"rt.walk": 100e-6, "rt.shade": 150e-6,
+                                  "rt.level": 100e-6, "rt.frame": 200e-6})
+    assert r["idle_s"] == pytest.approx(550e-6)
+    assert r["idle_in_glue_pct"] == pytest.approx(100 * 150 / 550)
+    assert r["idle_in_layer_pct"] == pytest.approx(100 * 250 / 550)
+    assert r["sync_ms"] == pytest.approx(0.06)
+    assert r["launch_calls_by_span"] == {"rt.walk": 1}
+    assert r["glue_host_ms"] == pytest.approx(0.24)
+
+
+def test_the_harness_reading_is_the_same_without_the_spans():
+    """The spans are left out of what the harness's reduction reads: the
+    trace with spans, split by `split_ops`, reads as the one without."""
+    ops = synthetic_ops()
+    dev, host, _ = TC.split_ops(ops)
+    bare = [o for o in ops if not o.name.startswith("rt.")]
+    a = RT.reduce_ops(dev + host, steps=1, step_s=0.001, window_s=0.001)
+    b = RT.reduce_ops(bare, steps=1, step_s=0.001, window_s=0.001)
+    assert a == b and a.launches == 4
+    assert TC.idle_gaps(dev, host) == [(100, 200), (300, 450), (600, 700),
+                                       (800, 1000)]
+
+
+def test_layer_numbers_of_a_counted_step():
+    reading = dict(sync_ms=1.5, glue_host_ms=20.0, idle_in_glue_pct=40.0)
+    counts = {"syncs.level": 100, "syncs.narrow_lists": 20,
+              "rays.level1": 10, "rays.level2": 30, "rays.level3": 10,
+              "alive.level1": 10, "alive.level2": 12, "alive.level3": 3,
+              "walk.lane_tests": 99}
+    got = TC.layer_numbers("whitted", reading, counts)
+    assert got == {"syncs_per_frame.whitted": 120,
+                   "sync_wait_ms_per_frame.whitted": 1.5,
+                   "glue_host_ms_per_frame.whitted": 20.0,
+                   "idle_in_glue_pct.whitted": 40.0,
+                   "bounce_alive_pct.whitted": pytest.approx(37.5),
+                   "walk_lane_tests_per_frame.whitted": 99}
+    got = TC.layer_numbers("primary", reading, {"walk.lane_tests": 7})
+    assert got["walk_lane_tests_per_call.primary"] == 7
+    assert got["syncs_per_call.primary"] == 0
