@@ -39,11 +39,14 @@ Phases (any failure raises and the script exits non-zero):
         `lists_gi_wq_false`; the dense refinement with tile-alive flags
         given, the dense query in one launch as `_refined_lists` makes
         it with its lists from its extents and bits, row `lists_ext`,
-        and the `_walk_dma` entry);
+        and the `_walk_dma` entry, then the rest set's merge into its
+        results, row `rest_merge`: `_rest_row`, timed steadily beside
+        the plain merge eager and graphed);
      b. camera mode on the whole reference frame (2,500 tiles of 1,024
         rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
         against the plain version lane by lane and against the pack path
-        under `shared_origin=0` on all 2,560,000 rays; phase 7 repeats
+        under `shared_origin=0` on all 2,560,000 rays, and the rest set's
+        merge into the CS 16 walk's results (row `rest_merge_camera`); phase 7 repeats
         this on every large scene, with its pooled lists held against the
         direct ones (the pooled lists' first stage and the direct lists
         bit-equal to their plain versions; the 1.6M first stage is row
@@ -385,6 +388,9 @@ OPS_FRUSTUM = 41
 # mt's cross products, determinant, reciprocal and three dots; woop's six
 # transform rows and its epilogue.
 OPS_MT, OPS_WOOP = 55, 51
+# ... and of the rest-set merge (csrc/rest.cu) per (ray, rest triangle):
+# mt's as above, its limit test and the comparison with the running best.
+OPS_REST = 56
 # Phase 3i's two-phase cap: the renderer's gi_cap_frac of the frame.
 CAP_FRAC = 0.1
 # List rows' widths that phase 2 reads the list build's occupancy at: the
@@ -766,6 +772,79 @@ def _lists_ext_row(rows, name, args, kw, shape):
           f"plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
           f"({shape})")
     return got
+
+
+def _rest_row(rows, name, merge, inputs, rest_rows, reads, shape):
+    """The rest-set merge (csrc/rest.cu) into a walk's outputs: `merge(*x)`
+    (a wrapper of kernels.traverse) on copies x of `inputs` (tensors or
+    None), every output bit for bit against its plain version on the card,
+    the kernel's update in place; timed steadily into rows[name]: one CUDA
+    graph of the merge over copies of the inputs that together exceed the
+    L2, replayed STEADY_LAUNCHES / copies times (no wrapper in the loop).
+    The merge is idempotent, so a steady launch writes nothing: its bound
+    is `reads` bytes a launch from device memory, or OPS_REST operations
+    for each of its rays against each of `rest_rows` rest triangles,
+    whichever is longer. plain ms: median of 5 eager calls (a query's
+    launches), beside it the graphed composite."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    def copy():
+        return [None if x is None else x.clone() for x in inputs]
+
+    with _PlainWrappers():
+        want = [x for x in merge(*copy()) if x is not None]
+        plain_ms = _median_ms(lambda: merge(*inputs))
+    before = T.LAUNCHES["rest_merge"]
+    mine = copy()
+    got = [x for x in merge(*mine) if x is not None]
+    _require(T.LAUNCHES["rest_merge"] == before + 1,
+             f"{name}: not one rest_merge launch")
+    _require(all(any(g is m for m in mine) for g in got),
+             f"{name}: the kernel did not update the walk's outputs in place")
+    err = _bit_equal(name, got, want)
+    better = int((want[0] < inputs[0]).sum())
+    per = sum(x.numel() * x.element_size() for x in inputs if x is not None)
+    copies = max(L2_COPIES, -(-2 * L2_BYTES // per))
+    sets = [copy() for _ in range(copies)]
+    for x in sets:
+        merge(*x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        merge(*sets[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in sets:
+            merge(*x)
+    reps = max(1, STEADY_LAUNCHES // copies)
+    ms = _steady_ms(graph.replay, reps) / copies
+    _require(all(torch.equal(a, b) for x in sets
+                 for a, b in zip([y for y in x if y is not None], want)),
+             f"{name}: the outputs changed over the steady launches")
+    with _PlainWrappers():
+        plain_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            merge(*sets[0])
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(plain_graph):
+            for x in sets:
+                merge(*x)
+        composite = _steady_ms(plain_graph.replay, reps) / copies
+    del graph, plain_graph, sets
+    n = inputs[0].shape[1]
+    bound = _bound(float(n) * rest_rows * OPS_REST, reads)
+    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      plain_graphed_ms=composite, bound_ms=bound[0],
+                      bound_by=bound[1], shape=shape)
+    print(f"[kernels] {name} (rest.cu): {n} rays x {rest_rows} rest "
+          f"triangles, {better} taken from the rest set; equal bit for bit, "
+          f"in place; steady {ms:.5f} ms over {copies} copies in turns "
+          f"({bound[0] / ms:.3f} of its {bound[0]:.5f} ms bound by "
+          f"{bound[1]}: {reads} bytes read, none written once merged), plain "
+          f"{plain_ms:.4f} ms (graphed {composite:.5f} ms) ({shape})")
 
 
 def phase_device():
@@ -1324,6 +1403,16 @@ def phase_kernels():
     _timed_walk(rows, "walk_dma", "walk_dma (K2) bounce nearest+attrs", T,
                 dargs, dkw, balive, OPS_PMT,
                 f"{bp.shape[1]} rays, {c128}x128")
+    # The rest set's merge into that walk's results (the ground plane's
+    # triangles against every wavefront ray), as `nearest_hit_attrs_soa`
+    # runs it after the walk.
+    _rest_row(rows, "rest_merge",
+              lambda t, s, a, p: T._merge_rest_nearest(acc128, p, t, s, a,
+                                                       eps, na),
+              tuple(T.walk(*dargs, **dkw)) + (bp,),
+              acc128.rest_blocks.shape[0], bp.shape[1] * 28,
+              f"{bp.shape[1]} rays, the K2 bounce walk's results, attrs "
+              f"shade (A = {na})")
     # The wavefront's own rays as an occlusion query through K2.
     oargs, okw = T._dma_walk_args(acc128, bp, eps, False, INF, 0)
     k2_occ = T.walk(*oargs, **okw)
@@ -1668,16 +1757,33 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
 
 def phase_kernels_camera(rows):
     """Camera mode on the whole reference frame of the default scene, with
-    attributes, through both entries (`_check_camera_frame`)."""
+    attributes, through both entries (`_check_camera_frame`); then the rest
+    set's merge into the CS 16 walk's results (row rest_merge_camera)."""
     from raytracing_tpu_torch import build_cluster_accel, build_default_scene
+
+    from raytracing_tpu_torch.kernels import traverse as T
 
     dev = "cuda"
     scene = build_default_scene(device=dev)
     camera = _reference_camera(dev)
+    accs = {}
     for row, entry, cs in (("walk_camera", "walk_camera", 16),
                            ("walk_camera_dma_100", "walk_camera_dma", 128)):
-        acc = build_cluster_accel(scene.mesh, cluster_size=cs)
-        _check_camera_frame(rows, row, entry, acc, camera, True)
+        accs[cs] = build_cluster_accel(scene.mesh, cluster_size=cs)
+        _check_camera_frame(rows, row, entry, accs[cs], camera, True)
+    # The rest set's merge into the whole frame's camera walk, as the
+    # primary query (`nearest_hit_camera_soa`, no attributes) runs it.
+    cam, offs, _, eps = camera
+    acc = accs[16]
+    nt = cam.grid[0] * cam.grid[1]
+    args, kw = T._camera_walk_args(acc, offs, cam, 0, nt, 0, eps)
+    t, s, _ = T.walk_camera(*args, **kw)
+    _rest_row(rows, "rest_merge_camera",
+              lambda t, s, a: T._merge_rest_camera(acc, offs, cam, 0, t, s,
+                                                   a, eps, 0),
+              (t, s, None), acc.rest_blocks.shape[0], t.numel() * 4,
+              f"{nt} tiles x {cam.ray_tile} camera rays, the K1 camera "
+              f"walk's results, no attributes")
 
 
 def refine_lists_404k(bp, acc128):
@@ -2555,11 +2661,12 @@ def phase_reference_frame(rows):
     imgs = []
     for tag, c, need in (
             ("reference frame", cfg,
-             ("walk", "walk_dma", "refine_extents", "lists", "lists_ext")),
+             ("walk", "walk_dma", "refine_extents", "lists", "lists_ext",
+              "rest_merge")),
             ("reference frame, camera-mode primaries",
              cfg.replace(primary_shared_origin=True),
              ("walk_camera", "walk", "walk_dma", "refine_extents", "lists",
-              "lists_ext"))):
+              "lists_ext", "rest_merge"))):
         camera_mode = c.primary_shared_origin
         frame = []
         chunk = _capture_calls(
@@ -2737,8 +2844,10 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                      "lists_ext_gstream: not the lists of the chunk's K3 "
                      "launch")
             del glists, gargs, gkw, got
+            # One object and no rest set: the merge never launches.
             _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0
-                     and frame[1]["refine_lists"] > 0,
+                     and frame[1]["refine_lists"] > 0
+                     and frame[1]["rest_merge"] == 0,
                      f"the 1.6M Whitted frame's launches: {frame[1]}")
             _print_frame("1.6M Whitted frame", RenderConfig(), *frame)
             frame_launches = frame[1]
@@ -3999,6 +4108,22 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
+    # The port's kernels with no TPU counterpart: the JAX package leaves the
+    # rest-set merge to XLA, which fuses it (no pallas_call).
+    # Launches: the reference frame's merges; the camera-mode frame's
+    # camera merges, one a camera walk (its other merges are pack merges).
+    glue = []
+    for name, n in (("rest_merge", ref_launches["rest_merge"]),
+                    ("rest_merge_camera", cam_launches["walk_camera"])):
+        r = rows[name]
+        glue.append({"name": name, "route": "cuda",
+                     "source": "raytracing_tpu_torch/csrc/rest.cu",
+                     "replaces": None, "launches": n,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"],
+                     "plain_graphed_ms": r["plain_graphed_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+    print(json.dumps({"glue_kernels": glue}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

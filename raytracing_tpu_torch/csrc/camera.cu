@@ -14,10 +14,8 @@
 // divmod(l % (bh*bw), bw) of block divmod(tile, W/bw), and
 // tile = min(local + tile_base, blocks - 1) for launch-local tile `local`,
 // so a chunk that overruns the frame repeats the last block. The direction
-// is ((2 (x + ox) / W - 1) aspect scale, (1 - 2 (y + oy) / H) scale, 1) in
-// the f32 op order of traverse.py:_camera_dirs (two separate multiplies,
-// IEEE division), bit-equal to the materialised pack. offs [spp, 2] is
-// read from device memory at every launch. The origin is 0 and every lane
+// is camera_dir.cuh's (shared with rest.cu), bit-equal to the materialised
+// pack. offs [spp, 2] is read from device memory at every launch. The origin is 0 and every lane
 // is alive; the intersector is walk_core.cuh's pmto (the only family the
 // TPU's camera walks run). With lane_bounds, the lane-cull pre-test of
 // walk_core.cuh skips a visit no ray of a warp enters (the TPU's K1 camera
@@ -39,6 +37,7 @@
 // 1.6M triangles) and ran a chunk of 64 tiles on 64 of 132 SMs. Every
 // block derives its rays from the camera formula, so a split reads no
 // extra rays.
+#include "camera_dir.cuh"
 #include "walk_core.cuh"
 
 namespace rt {
@@ -78,7 +77,6 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
   const int tile = min(local + tile_base, nbx * (h / bh) - 1);
   const int br = tile / nbx;
   const int bc = tile % nbx;
-  const int p2 = bh * bw;
   const float wf = static_cast<float>(w);
   const float hf = static_cast<float>(h);
   float o[R][3];
@@ -92,16 +90,8 @@ camera_walk_kernel(const float* __restrict__ offs, int tile_base, int w, int h,
     const int l = base + threadIdx.x + r * kThreads;
     alive[r] = l < rt_rays;
     t_lim[r] = inf();
-    const int ll = alive[r] ? l : rt_rays - 1;
-    const int s = ll / p2;
-    const int p = ll % p2;
-    const float xi = static_cast<float>(bc * bw + p % bw);
-    const float yi = static_cast<float>(br * bh + p / bw);
-    const float ox = offs[2 * s];
-    const float oy = offs[2 * s + 1];
-    d[r][0] = (2.0f * (xi + ox) / wf - 1.0f) * aspect * scale;
-    d[r][1] = (1.0f - 2.0f * (yi + oy) / hf) * scale;
-    d[r][2] = 1.0f;
+    camera_dir(offs, br, bc, alive[r] ? l : rt_rays - 1, bh, bw, wf, hf,
+               aspect, scale, d[r]);
     o[r][0] = o[r][1] = o[r][2] = 0.0f;
     best_t[r] = inf();
     best_s[r] = kBigId;

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "rt_walk_camera": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _I,
                        _I, _I, _P, _P, _L, _P, _L, _I, _I, _F, _I, _I, _P,
                        _P, _P, _P, _P, _P, _P, _P],
+    "rt_rest_merge": [_P, _L, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
+                      _I, _P, _I, _I, _F, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -57,7 +57,9 @@ build runs in its span (`rt.walk`, `rt.lists`; `utils.profiling`) and,
 under `counting(True)`, adds its visits to `COUNTERS`; the glue around
 them runs in `rt.pack` (ray packs), `rt.tables` (a walk's tables: the
 origin fold, the combined geometry and attribute table, boxes),
-`rt.merge` (the rest set) and `rt.attrs` (a hit's attribute rows).
+`rt.merge` (the rest set's merge: the triangles of objects too small for a
+cluster, tested against every ray of a query, one launch of csrc/rest.cu
+on the card) and `rt.attrs` (a hit's attribute rows).
 
 Ray packs are SoA [8, N] with rows (ox oy oz 1 dx dy dz ALIVE), N a
 multiple of the tile (a public query pads its pack to whole tiles of its
@@ -171,7 +173,8 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # "walk_both" / "walk_dma_both" the same two carrying the backward's planes
 # beside the shading planes (a differentiated query, attr_kind "both"),
 # "walk_camera" / "walk_camera_dma" their camera-mode forms, "walk_gstream"
-# the streamed-groups walk (K3) and "walk_wq" the work-queue walk (K4).
+# the streamed-groups walk (K3), "walk_wq" the work-queue walk (K4) and
+# "rest_merge" the rest set's merge into a query's results (rest.cu).
 # The forms off the main paths count under the same names with a suffix
 # (`_count_key`): "_mt" / "_woop" for those intersector families,
 # "_capped" for a launch under a two-phase query's cap, "_lc" with the
@@ -184,7 +187,7 @@ LAUNCHES.update({"extents": 0, "lists": 0, "lists_ext": 0, "refine": 0,
                  "refine_extents": 0,
                  "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
                  "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
-                 "walk_gstream": 0, "walk_wq": 0})
+                 "walk_gstream": 0, "walk_wq": 0, "rest_merge": 0})
 
 
 def _count_key(entry: str, family: int = PMT, capped: bool = False,
@@ -1827,7 +1830,11 @@ def _walk_over_budget(accel: ClusterAccel, rp, eps, nearest, t_max, n_attrs,
 
 
 # ---------------------------------------------------------------------------
-# Rest set (dense, plain PyTorch: two triangles in the default scene)
+# Rest set: the triangles of objects too small to fill a cluster (the ground
+# plane's two in the default scene), tested against every ray of a query and
+# folded into the walk's results. On CUDA tensors one launch of csrc/rest.cu
+# (`_rest_launch`) does the merge in place; the plain versions below are the
+# CPU path and the kernel's yardstick.
 # ---------------------------------------------------------------------------
 
 
@@ -1867,33 +1874,28 @@ def _rows(rays8):
             tuple(rays8[k:k + 1] for k in (4, 5, 6)))
 
 
-@spanned("rt.merge")
-def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs,
-                        attr_kind="shade"):
-    """Fold the rest set into the walk's nearest results; ties keep the
-    walk's hit, and the lowest rest index wins among the rest. A winning
-    rest triangle brings its rows of the attr_kind tables (`rest_attrs`,
-    `rest_grad` or both)."""
-    if accel.rest_blocks is None:
-        return t, slot, attrs
-    o, d = _rows(rays8)
-    return _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps,
-                                    n_attrs, attr_kind)
+def _rest_tables(accel: ClusterAccel, attr_kind: str) -> list:
+    """The rest set's rows [Rr, .] of `_attr_planes`' tables, in order."""
+    if attr_kind == "shade":
+        return [accel.rest_attrs]
+    if attr_kind == "grad":
+        return [accel.rest_grad]
+    return [accel.rest_attrs, accel.rest_grad]
 
 
 def _rest_table(accel: ClusterAccel, attr_kind: str) -> torch.Tensor:
-    """The rest set's rows [Rr, A] of `_attr_planes`' tables."""
-    if attr_kind == "shade":
-        return accel.rest_attrs
-    if attr_kind == "grad":
-        return accel.rest_grad
-    return torch.cat([accel.rest_attrs, accel.rest_grad], dim=1)
+    """`_rest_tables` as one [Rr, A] table."""
+    tables = _rest_tables(accel, attr_kind)
+    return tables[0] if len(tables) == 1 else torch.cat(tables, dim=1)
 
 
 def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs,
                              attr_kind="shade"):
-    """`_merge_rest_nearest` on tuples of [1, N] rows: camera mode's
-    directions are derived, never packed."""
+    """Plain version of the nearest merge, on tuples of [1, N] rows (camera
+    mode's directions are derived, never packed): ties keep the walk's
+    hit, and the lowest rest index wins among the rest. A winning rest
+    triangle brings its rows of the attr_kind tables (`rest_attrs`,
+    `rest_grad` or both). Returns new (t, slot, attrs)."""
     rb = accel.rest_blocks
     rr = rb.shape[0]
     t_r = _rest_t_rows(o, d, rb, eps)
@@ -1913,10 +1915,10 @@ def _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps, n_attrs,
     return t, slot, attrs
 
 
-@spanned("rt.merge")
 def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row=None):
-    """Fold the rest set into an occlusion result, under the scalar t_max
-    or the per-ray limits tmax_row [1, N]."""
+    """Plain version of the occlusion merge: occ [N] bool OR a rest hit
+    under the scalar t_max or the per-ray limits tmax_row [1, N]. Returns
+    a new occ."""
     if accel.rest_blocks is None:
         return occ
     o, d = _rows(rays8)
@@ -1926,6 +1928,109 @@ def _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row=None):
         t_lim = t_max if t_max != INF else None
     t_r = _rest_t_rows(o, d, accel.rest_blocks, eps, t_limit=t_lim)
     return occ | torch.isfinite(t_r).any(dim=0)
+
+
+def _rest_check(who: str, x: Optional[torch.Tensor], dtype, shape) -> None:
+    if x is not None and (x.dtype != dtype or tuple(x.shape) != shape
+                          or not x.is_contiguous()):
+        raise ValueError(f"rest_merge: {who} must be contiguous {dtype} "
+                         f"{list(shape)}, not {x.dtype} {list(x.shape)}"
+                         f"{'' if x.is_contiguous() else ' (strided)'}")
+
+
+def _rest_launch(accel: ClusterAccel, eps: float, n: int, *, rays8=None,
+                 cam: Optional[Camera] = None, offs=None, tile_base: int = 0,
+                 t=None, slot=None, attrs=None, attr_kind: str = "shade",
+                 occ=None, t_max: float = INF, tmax_row=None) -> None:
+    """One launch of csrc/rest.cu over n rays, updating the walk's fresh
+    outputs in place: the nearest merge into t, slot [1, n] (and attrs
+    [A, n] from the attr_kind tables), or the occlusion merge into occ
+    [n] bool under t_max or tmax_row [1, n]. Rays: the pack rays8 [8, n],
+    or camera mode's (offs, cam, tile_base). Raises ValueError on a
+    tensor of another dtype, shape or layout."""
+    rb = accel.rest_blocks
+    tables = _rest_tables(accel, attr_kind) if attrs is not None else []
+    _rest_check("rest_blocks", rb, torch.float32, (rb.shape[0], 9))
+    _rest_check("rays8", rays8, torch.float32, (8, n))
+    _rest_check("offs", offs, torch.float32,
+                None if cam is None else (cam.spp, 2))
+    _rest_check("t", t, torch.float32, (1, n))
+    _rest_check("slot", slot, torch.int32, (1, n))
+    _rest_check("attrs", attrs, torch.float32,
+                (sum(tb.shape[1] for tb in tables), n))
+    for tb in tables:
+        _rest_check("a rest attribute table", tb, torch.float32,
+                    (rb.shape[0], tb.shape[1]))
+    _rest_check("occ", occ, torch.bool, (n,))
+    _rest_check("tmax_row", tmax_row, torch.float32, (1, n))
+    tbl0, tbl1 = (tables + [None, None])[:2]
+    w, h, spp, bh, bw, aspect, scale = (
+        (0, 0, 0, 0, 0, 0.0, 0.0) if cam is None else
+        (cam.width, cam.height, cam.spp, cam.bh, cam.bw, cam.aspect,
+         cam.scale))
+    lib = cuda.library()
+    with torch.cuda.device(rb.device):
+        cuda.check(lib.rt_rest_merge(
+            _ptr(rays8), n, _ptr(offs), int(tile_base), w, h, spp, bh, bw,
+            float(aspect), float(scale), _ptr(rb), rb.shape[0], _ptr(tbl0),
+            0 if tbl0 is None else tbl0.shape[1], _ptr(tbl1),
+            0 if tbl1 is None else tbl1.shape[1], accel.order.shape[0],
+            float(eps), int(occ is not None), float(t_max), _ptr(tmax_row),
+            _ptr(t), _ptr(slot), _ptr(attrs), _ptr(occ), _stream(rb)),
+            "rest_merge")
+    _count("rest_merge")
+
+
+@spanned("rt.merge")
+def _merge_rest_nearest(accel, rays8, t, slot, attrs, eps, n_attrs,
+                        attr_kind="shade"):
+    """Fold the rest set into a pack walk's nearest results (t, slot [1, N],
+    attrs [A, N] | None): plain version on CPU (returns new tensors),
+    kernel on CUDA (updates the walk's outputs in place and returns
+    them)."""
+    if accel.rest_blocks is None:
+        return t, slot, attrs
+    if _on_cpu(rays8, t, accel.rest_blocks):
+        o, d = _rows(rays8)
+        return _merge_rest_nearest_rows(accel, o, d, t, slot, attrs, eps,
+                                        n_attrs, attr_kind)
+    _rest_launch(accel, eps, t.shape[1], rays8=rays8, t=t, slot=slot,
+                 attrs=attrs if n_attrs else None, attr_kind=attr_kind)
+    return t, slot, attrs
+
+
+@spanned("rt.merge")
+def _merge_rest_camera(accel, offs, cam: Camera, tile_base: int, t, slot,
+                       attrs, eps, n_attrs):
+    """`_merge_rest_nearest` for camera mode's rays (origin 0, directions
+    of frame blocks from tile_base on, `_camera_dir_rows`), shading
+    planes."""
+    if accel.rest_blocks is None:
+        return t, slot, attrs
+    n = t.shape[1]
+    if _on_cpu(offs, t, accel.rest_blocks):
+        d_rows = _camera_dir_rows(n, offs, cam, tile_base * cam.ray_tile)
+        zero = torch.zeros_like(d_rows[0])
+        return _merge_rest_nearest_rows(accel, (zero, zero, zero), d_rows, t,
+                                        slot, attrs, eps, n_attrs)
+    _rest_launch(accel, eps, n, cam=cam, offs=offs, tile_base=tile_base,
+                 t=t, slot=slot, attrs=attrs if n_attrs else None)
+    return t, slot, attrs
+
+
+@spanned("rt.merge")
+def _merge_rest_any_hit(accel, rays8, occ, eps, t_max, tmax_row=None):
+    """Fold the rest set into an occlusion result occ [N] bool, under the
+    scalar t_max or the per-ray limits tmax_row [1, N]: plain version on
+    CPU (`_merge_rest_occlusion`, a new tensor), kernel on CUDA (occ
+    updated in place and returned)."""
+    if accel.rest_blocks is None:
+        return occ
+    if _on_cpu(rays8, occ, accel.rest_blocks):
+        return _merge_rest_occlusion(accel, rays8, occ, eps, t_max, tmax_row)
+    _rest_launch(accel, eps, occ.shape[0], rays8=rays8, occ=occ,
+                 t_max=t_max, tmax_row=tmax_row)
+    return occ
 
 
 # ---------------------------------------------------------------------------
@@ -2056,7 +2161,7 @@ def any_hit_soa(accel: ClusterAccel, rays8: torch.Tensor, eps: float = 1e-8,
     _, occ, _ = _walk_groups(accel, rp, eps, False, t_max, 0, wq=wq,
                              tmax_row=tmax_row, variant=variant,
                              lane_cull=lane_cull, ray_tile=ray_tile)
-    occ = _merge_rest_occlusion(accel, rp, occ[0] != 0, eps, t_max, tmax_row)
+    occ = _merge_rest_any_hit(accel, rp, occ[0] != 0, eps, t_max, tmax_row)
     return occ[:r]
 
 
@@ -2554,7 +2659,8 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
     """Primary nearest hit with the rays derived in the kernel from the
     pinhole formula (camera mode): no ray pack exists anywhere. Tile
     frustums come from the closed form, the walk derives each direction
-    from its tile index, and the rest set sees lazily derived rows.
+    from its tile index, and the rest set's merge derives them again
+    (`_merge_rest_camera`: in its kernel on the card).
 
     offs: [spp, 2] sub-pixel offsets, a tensor; it is moved to the accel's
     device if it lies elsewhere (`stratified_offsets(spp)` is a CPU table).
@@ -2591,14 +2697,8 @@ def nearest_hit_camera_soa(accel: ClusterAccel, offs, *, width: int,
                                      n_attrs, eps, early_exit=early_exit,
                                      lane_cull=lane_cull)
         t, slot, attrs = walk_camera(*args, **kw)
-        if accel.rest_blocks is not None:
-            with span("rt.merge", fn="_merge_rest_nearest_rows"):
-                d_rows = _camera_dir_rows(n, offs, cam,
-                                          tile0 * cam.ray_tile)
-                zero = torch.zeros_like(d_rows[0])
-                t, slot, attrs = _merge_rest_nearest_rows(
-                    accel, (zero, zero, zero), d_rows, t, slot, attrs, eps,
-                    n_attrs)
+        t, slot, attrs = _merge_rest_camera(accel, offs, cam, tile0, t,
+                                            slot, attrs, eps, n_attrs)
     if n_attrs:
         return t[0], slot[0], attrs
     return t[0], slot[0]

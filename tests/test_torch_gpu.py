@@ -39,7 +39,12 @@ wrapper's composition from launches at 128 or 1,024 equal to its plain
 version at the tile; the port's spans (`utils.profiling`) in a traced
 reference frame on the device's clock, with the same image and device
 operations as untraced, and each walk kernel's visit counters at most its
-listed visits.
+listed visits; the rest-set merge (csrc/rest.cu) bit-equal on every lane to
+its plain versions, in place, at a primary chunk's and a wavefront's size
+with every attribute table, in occlusion under each kind of limit, in
+camera mode over the whole frame and a chunk past its last block, at lane
+counts that are not a multiple of 4, through exact ties and over rest sets
+of 64 and 130 rows, and refusing strided or mistyped inputs.
 """
 
 import numpy as np
@@ -1659,9 +1664,11 @@ def _traced_reference_frame(dev, on):
 def test_spans_share_the_device_clock_and_change_nothing(dev):
     """A traced reference frame: the spans change neither the image nor
     the launches (the port's `LAUNCHES` and the runtime's launch and copy
-    calls, equal; the profiler's device operations within the 0-3 it
-    drops at a session's start with the spans off too: 38,746 and 38,743
-    in two untraced sessions of this frame on an H100); every device
+    calls, equal, a frame's worth: 22,843 device operations a frame since
+    the rest merge is one launch a query; the profiler's device operations
+    within the 0-3 it drops at a session's start with the spans off too:
+    38,746 and 38,743 in two untraced sessions of the frame before it, on
+    an H100); every device
     operation starts inside rt.frame or after it (none before it opens:
     the spans and the CUDA activity are on one clock, the first operation
     inside it), and every launch and copy the runtime was asked for lies
@@ -1673,8 +1680,8 @@ def test_spans_share_the_device_clock_and_change_nothing(dev):
     img1, ops1, calls, frame = _traced_reference_frame(dev, True)
     assert none is None and frame is not None
     assert torch.equal(img0, img1) and T.LAUNCHES == launches0
-    assert len(calls0) == len(calls) > 30000
-    assert abs(len(ops0) - len(ops1)) <= 3 and len(ops1) > 30000
+    assert len(calls0) == len(calls) > 20000
+    assert abs(len(ops0) - len(ops1)) <= 3 and len(ops1) > 20000
     starts = sorted(e.time_range.start for e in ops1)
     assert frame.start <= starts[0] <= frame.end
     assert calls and all(frame.start <= c.time_range.start
@@ -1723,3 +1730,269 @@ def test_walk_visit_counters_on_the_card(setup, dev, monkeypatch, walk):
     else:
         assert c["walk.lane_tests"] >= c["walk.visits"] * 1024 * 16
         assert c["syncs.level"] > 0 and c["alive.level2"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The rest-set merge (csrc/rest.cu) against its plain versions, every lane
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rest_accels(dev):
+    """On the card: the default scene's CS 16 accel in objid mode (A = 4
+    shading planes) and with a color per triangle (A = 9); the test
+    scene of tests/test_torch_rest.py with 31 quads (64 rest rows: the
+    default rest_max) and with 64 (130 rows, two staged runs of the
+    kernel's 64)."""
+    from test_torch_rest import rest_mesh
+
+    scene = build_default_scene(device="cpu")
+    return {"objid": build_cluster_accel(scene.mesh, cluster_size=16),
+            "full": build_cluster_accel(_full_mode(scene.mesh),
+                                        cluster_size=16),
+            "quads64": build_cluster_accel(rest_mesh(small=31),
+                                           cluster_size=16),
+            "quads130": build_cluster_accel(rest_mesh(small=64),
+                                            cluster_size=16, rest_max=200)}
+
+
+def _rest_acc(rest_accels, key, dev):
+    return rest_accels[key].to(dev)
+
+
+def _rest_pack(n, dev, seed=5):
+    """A seeded [8, n] pack: rays leaving points above the ground (y = -3)
+    in random directions, two in three of them downward; one lane in ten
+    dead (the merge computes them all the same)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.tensor([[-10.0], [-2.9], [0.0]], device=dev)
+    span = torch.tensor([[20.0], [6.0], [20.0]], device=dev)
+    o = torch.rand((3, n), generator=g, device=dev) * span + lo
+    d = torch.randn((3, n), generator=g, device=dev)
+    down = torch.rand(n, generator=g, device=dev) < 0.67
+    d[1] = torch.where(down, -d[1].abs(), d[1])
+    alive = (torch.rand(n, generator=g, device=dev) > 0.1).float()
+    return torch.cat([o, torch.ones((1, n), device=dev), d,
+                      alive[None]]).contiguous()
+
+
+def _walk_like(n, n_attrs, dev, seed=6):
+    """Walk results to merge into: t +inf (a miss) on half the lanes, else
+    uniform in [0, 30); slots and attributes random."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.rand((1, n), generator=g, device=dev) * 30.0
+    t = torch.where(torch.rand((1, n), generator=g, device=dev) < 0.5,
+                    float("inf"), t)
+    slot = torch.randint(0, 1000, (1, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    attrs = (torch.rand((n_attrs, n), generator=g, device=dev)
+             if n_attrs else None)
+    return t, slot, attrs
+
+
+def _clones(*xs):
+    return tuple(None if x is None else x.clone() for x in xs)
+
+
+def _rest_equal(got, want):
+    """Equal on every lane, floats by their bits."""
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _rest_nearest(acc, p, walk_out, na, kind="shade"):
+    """(kernel, plain) nearest merges of the pack p into copies of walk_out;
+    the kernel's in place, one launch."""
+    want = T._merge_rest_nearest_rows(acc, *T._rows(p), *_clones(*walk_out),
+                                      1e-8, na, kind)
+    mine = _clones(*walk_out)
+    before = T.LAUNCHES["rest_merge"]
+    got = T._merge_rest_nearest(acc, p, *mine, 1e-8, na, kind)
+    assert T.LAUNCHES["rest_merge"] == before + 1
+    assert all(a is b for a, b in zip(got, mine))       # in place
+    return got, want
+
+
+@pytest.mark.parametrize("mode,kind", [
+    ("objid", None), ("objid", "shade"), ("full", "shade"), ("full", "grad"),
+    ("full", "both")], ids=["A0", "A4", "A9", "A11", "A20"])
+@pytest.mark.parametrize("n", [65536, 720896])
+def test_rest_merge_pack_matches_plain(rest_accels, dev, n, mode, kind):
+    """The pack merge at a primary chunk's and a bounce wavefront's size,
+    with no attributes and with each attribute table the queries carry,
+    bit-equal to the plain version on every lane, dead ones too."""
+    acc = _rest_acc(rest_accels, mode, dev)
+    na = 0 if kind is None else T._n_attrs(acc, kind)
+    assert na == {None: 0, "shade": 4 if mode == "objid" else 9,
+                  "grad": 11, "both": 20}[kind]
+    p = _rest_pack(n, dev)
+    walk_out = _walk_like(n, na, dev)
+    got, want = _rest_nearest(acc, p, walk_out, na, kind or "shade")
+    _rest_equal(got, want)
+    took = want[0] < walk_out[0]
+    assert 0.05 < float(took.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("limit", ["inf", "finite", "tmax_row"])
+def test_rest_merge_occlusion_matches_plain(rest_accels, dev, limit):
+    """The occlusion merge on a wavefront's 720,896 rays, under no limit,
+    a finite scalar t_max and per-ray limits: the flags OR-ed in place,
+    bit-equal to the plain version."""
+    acc = _rest_acc(rest_accels, "objid", dev)
+    n = 720896
+    p = _rest_pack(n, dev, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    occ = torch.rand(n, generator=g, device=dev) < 0.2
+    t_max = 7.5 if limit == "finite" else T.INF
+    row = ((torch.rand((1, n), generator=g, device=dev) * 15.0).contiguous()
+           if limit == "tmax_row" else None)
+    want = T._merge_rest_occlusion(acc, p, occ.clone(), 1e-8, t_max, row)
+    mine = occ.clone()
+    before = T.LAUNCHES["rest_merge"]
+    got = T._merge_rest_any_hit(acc, p, mine, 1e-8, t_max, row)
+    assert T.LAUNCHES["rest_merge"] == before + 1 and got is mine
+    assert torch.equal(got, want)
+    assert bool((want & ~occ).any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("case", ["frame", "frame_attrs", "chunk_overrun"])
+def test_rest_merge_camera_matches_plain(rest_accels, dev, case):
+    """Camera mode: the whole 800x800x4 frame (2,560,000 rays, without and
+    with the shading planes) and a chunk of 64 blocks from block 2,480,
+    whose last 44 lie past the frame and repeat its last block; the
+    directions derived in the kernel, bit-equal to `_camera_dir_rows`."""
+    acc = _rest_acc(rest_accels, "objid", dev)
+    cfg = RenderConfig()
+    cam = T.Camera(cfg.width, cfg.height, cfg.samples_per_pixel, cfg.scale,
+                   16, 16)
+    offs = stratified_offsets(cfg.samples_per_pixel).to(dev)
+    tile0, nt = (2480, 64) if case == "chunk_overrun" else (0, 2500)
+    n = nt * cam.ray_tile
+    na = 0 if case == "frame" else acc.attr_blocks.shape[1]
+    walk_out = _walk_like(n, na, dev, seed=9)
+    d_rows = T._camera_dir_rows(n, offs, cam, tile0 * cam.ray_tile)
+    zero = torch.zeros_like(d_rows[0])
+    want = T._merge_rest_nearest_rows(acc, (zero, zero, zero), d_rows,
+                                      *_clones(*walk_out), 1e-8, na)
+    mine = _clones(*walk_out)
+    before = T.LAUNCHES["rest_merge"]
+    got = T._merge_rest_camera(acc, offs, cam, tile0, *mine, 1e-8, na)
+    assert T.LAUNCHES["rest_merge"] == before + 1
+    assert all(a is b for a, b in zip(got, mine))
+    _rest_equal(got, want)
+    assert bool((want[1] >= acc.order.shape[0]).any())
+
+
+def test_rest_merge_lanes_one_a_thread(rest_accels, dev):
+    """Where the rays are not a multiple of 4, a thread takes one lane:
+    a pack of 1,001 rays (nearest with attributes, and occlusion) and a
+    27x27 camera frame in 3x3 blocks (729 rays)."""
+    acc = _rest_acc(rest_accels, "objid", dev)
+    na = acc.attr_blocks.shape[1]
+    p = _rest_pack(1001, dev, seed=10)
+    got, want = _rest_nearest(acc, p, _walk_like(1001, na, dev), na)
+    _rest_equal(got, want)
+    occ = torch.zeros(1001, dtype=torch.bool, device=dev)
+    want = T._merge_rest_occlusion(acc, p, occ.clone(), 1e-8, 9.0)
+    assert torch.equal(T._merge_rest_any_hit(acc, p, occ, 1e-8, 9.0), want)
+    cam = T.Camera(27, 27, 1, 1.0, 3, 3)
+    offs = stratified_offsets(1).to(dev)
+    walk_out = _walk_like(729, 0, dev)
+    d_rows = T._camera_dir_rows(729, offs, cam)
+    zero = torch.zeros_like(d_rows[0])
+    want = T._merge_rest_nearest_rows(acc, (zero, zero, zero), d_rows,
+                                      *_clones(*walk_out), 1e-8, 0)
+    got = T._merge_rest_camera(acc, offs, cam, 0, *_clones(*walk_out), 1e-8,
+                               0)
+    _rest_equal(got, want)
+
+
+def test_rest_merge_ties_on_the_card(rest_accels, dev):
+    """Rays through the ground's shared diagonal: where both ground rows
+    give the same t the lowest rest index wins, and a walk hit at the rest
+    set's t keeps its slot and attributes; a copy of the ground (rows 2
+    and 3) never wins over rows 0 and 1."""
+    from test_torch_rest import _diagonal_rays
+
+    acc = _rest_acc(rest_accels, "quads64", dev)
+    s0 = acc.order.shape[0]
+    n = 65536
+    o, d = (x.to(dev) for x in _diagonal_rays(n))
+    p = torch.cat([o, torch.ones((1, n), device=dev), d,
+                   torch.ones((1, n), device=dev)]).contiguous()
+    t_r = T._rest_t_rows(*T._rows(p), acc.rest_blocks, 1e-8)
+    tmin = t_r.amin(dim=0)
+    tie = torch.isfinite(tmin) & (t_r[0] == tmin) & (t_r[1] == tmin)
+    assert int(tie.sum()) > 1000
+    na = acc.attr_blocks.shape[1]
+    t, slot, attrs = _walk_like(n, na, dev)
+    half = torch.arange(n, device=dev) % 2 == 0
+    t = torch.where(half, tmin, float("inf"))[None].contiguous()
+    got, want = _rest_nearest(acc, p, (t, slot, attrs), na)
+    _rest_equal(got, want)
+    assert torch.equal(got[1][0][half], slot[0][half])   # the walk keeps it
+    assert bool((got[1][0][tie & ~half] == s0).all())
+    copy = s0 + torch.tensor([2, 3], device=dev)
+    assert not bool(torch.isin(got[1][0][~half], copy).any())
+
+
+@pytest.mark.parametrize("key", ["quads64", "quads130"])
+def test_rest_merge_many_rest_rows(rest_accels, dev, key):
+    """Rest sets of several small objects: 64 rows (one staged run) and
+    130 (three runs of at most 64, ties across runs kept by the lowest
+    index), nearest with attributes and occlusion, bit-equal."""
+    acc = _rest_acc(rest_accels, key, dev)
+    rr = acc.rest_blocks.shape[0]
+    assert rr == {"quads64": 64, "quads130": 130}[key]
+    na = acc.attr_blocks.shape[1]
+    n = 65536
+    p = _rest_pack(n, dev, seed=11)
+    walk_out = _walk_like(n, na, dev)
+    got, want = _rest_nearest(acc, p, walk_out, na)
+    _rest_equal(got, want)
+    j = want[1][want[0] < walk_out[0]] - acc.order.shape[0]
+    assert int(j.max()) >= 4 and len(torch.unique(j)) > 8
+    if rr > 64:
+        assert int(j.max()) < 66    # quads 32 on repeat rows 2-65
+    occ = torch.zeros(n, dtype=torch.bool, device=dev)
+    want = T._merge_rest_occlusion(acc, p, occ.clone(), 1e-8, 12.0)
+    assert torch.equal(T._merge_rest_any_hit(acc, p, occ, 1e-8, 12.0), want)
+
+
+def test_rest_merge_refuses_bad_inputs(rest_accels, dev):
+    """A non-contiguous or wrong-dtype input raises, the kernel's entry
+    refuses an empty rest set, and nothing falls back to the plain
+    version."""
+    acc = _rest_acc(rest_accels, "objid", dev)
+    na = acc.attr_blocks.shape[1]
+    n = 4096
+    p = _rest_pack(n, dev)
+    t, slot, attrs = _walk_like(n, na, dev)
+    bad = [
+        (p, t.repeat(1, 2)[:, ::2], slot, attrs),              # strided t
+        (p, t, slot.long(), attrs),                            # i64 slots
+        (p.double(), t, slot, attrs),                          # f64 rays
+        (p, t, slot, attrs.T.contiguous().T),                  # strided attrs
+        (torch.cat([p, p], 1)[:, ::2], t, slot, attrs),        # strided rays
+    ]
+    before = T.LAUNCHES["rest_merge"]
+    for args in bad:
+        with pytest.raises(ValueError, match="rest_merge"):
+            T._merge_rest_nearest(acc, *args, 1e-8, na)
+    with pytest.raises(ValueError, match="rest_merge"):
+        T._merge_rest_any_hit(acc, p, torch.zeros(n, device=dev), 1e-8,
+                              T.INF)
+    assert T.LAUNCHES["rest_merge"] == before
+    lib = cuda.library()
+    with pytest.raises(RuntimeError, match="rest_merge kernel launch"):
+        cuda.check(lib.rt_rest_merge(
+            T._ptr(p), n, None, 0, 0, 0, 0, 0, 0, 0.0, 0.0,
+            T._ptr(acc.rest_blocks), 0, None, 0, None, 0, 0, 1e-8, 0,
+            T.INF, None, T._ptr(t), T._ptr(slot), None, None, T._stream(p)),
+            "rest_merge")
