@@ -19,12 +19,31 @@ Random numbers: the fan at depth l of chunk i draws ONE uniform array
 arrays the JAX package draws. The tag names the draw: the depth (an int)
 for the fan, ("light", depth, light, sample) for a light's shadow sample.
 
+A level's N rows, as an unbinned frame lays them out: level 1 is the
+chunk's rays in order; a child level is [reflect (n) | fan 0 (n) | ... |
+fan s-1 (n)] over its parent level's n rows, the reflect block only where
+depth < reflect_depth and the fan blocks only where depth <
+diffuse_depth; so the child of parent row p in block b has row b n + p.
+A light's draw follows each ray by its row: a ray that `_bin_bounce`
+moved, here or at a level above, takes its row of the draw, not its
+place (at the first binned level the sorted ray at place i takes row
+sidx[i]), so binning changes no ray's light samples. Only the lights'
+draws do: the fan's draw at a binned level is taken in sorted order, as
+in the JAX package, whose binned frames the tests hold the port to. So a
+frame whose fans go below level 1 (diffuse_depth >= 3) changes with
+`bin_secondary`; at diffuse_depth <= 2 the only fan is level 1's, which
+is never binned, and the frame is the same bit for bit either way. The
+rows are carried only where the scene has lights, so a frame without
+them makes the launches it made before the rows existed.
+
 Spans (`utils.profiling`): `rt.frame` around `render`, `rt.chunk` around
 each chunk, `rt.level` around each level; the glue in `rt.camera_rays`,
 `rt.bin`, `rt.shade`, `rt.children`, `rt.radiance` (and the binning's
-`rt.unsort`), the level's one host sync in `rt.sync`. A level counts its
-rays in `rays.level<d>` and, under `counting(True)`, its alive ones in
-`alive.level<d>`.
+`rt.unsort`), the area lights' term in `rt.area_light`, the level's one
+host sync in `rt.sync`. A level counts its rays in `rays.level<d>` and,
+under `counting(True)`, its alive ones in `alive.level<d>`; the area
+lights count their shadow rays in `rays.area_light` and, under
+`counting(True)`, the alive ones in `alive.area_light`.
 """
 
 from __future__ import annotations
@@ -165,7 +184,6 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
     return w_dir, ndl, hit_mask & (ndl > 0.0), t_light * (1.0 - 1e-4)
 
 
-@spanned("rt.shade")
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                     sh: Shaded, hit_mask, uniforms, config: RenderConfig,
                     wq: bool = False, mesh: Optional[Mesh] = None,
@@ -179,23 +197,30 @@ def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
     uniforms((light, sample), [N, 2]) returns each draw's uniforms. mesh:
     the scene's mesh, which the brute-force and cluster backends read (the
     kernel path needs only the accel). wq, lane_cull and ray_tile (the
-    culling tile): how the shadow queries walk."""
+    culling tile): how the shadow queries walk. Runs in the span
+    `rt.area_light` (lights, samples, rays) and counts its shadow rays in
+    `rays.area_light`, the alive ones in `alive.area_light`."""
     pos, n = sh.pos, sh.n
-    total = torch.zeros_like(pos)
-    for li in range(lights.center.shape[0]):
-        cone = light_cone(lights, li, pos)
-        acc = torch.zeros_like(cone.dist)
-        for s in range(config.light_samples):
-            w_dir, ndl, alive, t_stop = light_shadow_rays(
-                cone, pos, n, hit_mask, uniforms((li, s), (pos.shape[0], 2)))
-            occluded = any_hit(mesh, accel, pos, w_dir, config,
-                               t_max=t_stop, alive=alive, wq=wq,
-                               lane_cull=lane_cull, ray_tile=ray_tile)
-            vis = alive & ~occluded
-            acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
-        total = total + ((acc / config.light_samples * cone.omega)[:, None]
-                         * lights.emission[li])
-    return total * sh.albedo_pi[:, None] * sh.color
+    nl, ns, rays = lights.center.shape[0], config.light_samples, pos.shape[0]
+    COUNTERS.add("rays.area_light", rays * nl * ns)
+    with span("rt.area_light", lights=nl, samples=ns, rays=rays):
+        total = torch.zeros_like(pos)
+        for li in range(nl):
+            cone = light_cone(lights, li, pos)
+            acc = torch.zeros_like(cone.dist)
+            for s in range(ns):
+                w_dir, ndl, alive, t_stop = light_shadow_rays(
+                    cone, pos, n, hit_mask, uniforms((li, s), (rays, 2)))
+                if COUNTERS.counting:
+                    COUNTERS.add_device("alive.area_light", alive.sum())
+                occluded = any_hit(mesh, accel, pos, w_dir, config,
+                                   t_max=t_stop, alive=alive, wq=wq,
+                                   lane_cull=lane_cull, ray_tile=ray_tile)
+                vis = alive & ~occluded
+                acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
+            total = total + ((acc / ns * cone.omega)[:, None]
+                             * lights.emission[li])
+        return total * sh.albedo_pi[:, None] * sh.color
 
 
 def bounce_cap(accel: Optional[ClusterAccel],
@@ -296,16 +321,19 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
     # The bounce levels' culling tile (the kernel path's; checked up front).
     rt_gi = check_query_tile(config.gi_ray_tile or None) if kernels else None
 
-    def level_radiance(o_l, d_l, alive_l, depth):
+    def level_radiance(o_l, d_l, alive_l, depth, rows=None):
         n_l = o_l.shape[0]
         COUNTERS.add(f"rays.level{depth}", n_l)
         if COUNTERS.counting:
             COUNTERS.add_device(f"alive.level{depth}",
                                 n_l if alive_l is None else alive_l.sum())
         with span("rt.level", depth=depth, rays=n_l):
-            return level(o_l, d_l, alive_l, depth)
+            return level(o_l, d_l, alive_l, depth, rows)
 
-    def level(o_l, d_l, alive_l, depth):
+    def level(o_l, d_l, alive_l, depth, rows):
+        # rows: each ray's row of the level (module docstring) where it
+        # differs from its place, which only a binned level above or here
+        # makes; kept for the lights' draws alone.
         n_l = o_l.shape[0]
         sidx = None
         bounce = depth > 1
@@ -314,6 +342,8 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                 and (depth <= config.diffuse_depth
                      or config.bin_reflect_levels)):
             sidx, (o_l, d_l, alive_l) = _bin_bounce(o_l, d_l, alive_l)
+            if lights is not None:
+                rows = sidx if rows is None else rows[sidx]
         wq = config.gi_wq and bounce
         lane_cull = config.gi_lane_cull and bounce
         ray_tile = rt_gi if bounce else None
@@ -341,11 +371,13 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                    ray_tile=ray_tile)
         contrib = sh.direct
         if lights is not None:
-            area = area_light_term(
-                acc_l, lights, sh, h.hit,
-                lambda ls, shape: uniforms(("light", depth) + ls, shape),
-                config, wq=wq, mesh=mesh, lane_cull=lane_cull,
-                ray_tile=ray_tile)
+            def light_u(ls, shape):
+                u = uniforms(("light", depth) + ls, shape)
+                return u if rows is None else u[rows]
+
+            area = area_light_term(acc_l, lights, sh, h.hit, light_u, config,
+                                   wq=wq, mesh=mesh, lane_cull=lane_cull,
+                                   ray_tile=ray_tile)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         rad_c = None
         if depth < config.reflect_depth or depth < config.diffuse_depth:
@@ -356,7 +388,12 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
             # host sync per level; a later change can keep it on the device.
             with host_sync("level"):
                 more = bool(a_c.any())
-            rad_c = (level_radiance(o_c, d_c, a_c, depth + 1) if more
+            rows_c = None
+            if more and rows is not None:
+                # The child of row r in block b has row b n_l + r.
+                blocks = torch.arange(o_c.shape[0] // n_l, device=rows.device)
+                rows_c = (rows[None] + n_l * blocks[:, None]).reshape(-1)
+            rad_c = (level_radiance(o_c, d_c, a_c, depth + 1, rows_c) if more
                      else torch.zeros_like(o_c))
         with span("rt.radiance"):
             if rad_c is not None:

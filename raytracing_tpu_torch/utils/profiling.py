@@ -12,10 +12,10 @@ there are and their power limit.
 
 Spans (`span`, `spanned`, `host_sync`) mark the port's layer boundaries
 as `rt.<layer>`: `rt.frame`, `rt.chunk`, `rt.level`, `rt.query`,
-`rt.lists`, `rt.walk`, the PyTorch glue (`rt.shade`, `rt.children`,
-`rt.bin`, `rt.unsort`, `rt.radiance`, `rt.camera_rays`, `rt.merge`,
-`rt.pack`, `rt.tables`, `rt.attrs`) and `rt.sync`. Off by default
-(`tracing`): a span is then one shared no-op. On, each is a
+`rt.lists`, `rt.walk`, the PyTorch glue (`rt.shade`, `rt.area_light`,
+`rt.children`, `rt.bin`, `rt.unsort`, `rt.radiance`, `rt.camera_rays`,
+`rt.merge`, `rt.pack`, `rt.tables`, `rt.attrs`) and `rt.sync`. Off by
+default (`tracing`): a span is then one shared no-op. On, each is a
 `torch.profiler.record_function`, so a profiler run shows them beside
 the CUDA activity on the same clock, nested by time on the host thread.
 `COUNTERS` holds every count (see `Counters`); the device's run only
@@ -169,13 +169,15 @@ class Counters:
     value on a main path: `level`, the Whitted level's children;
     `narrow_lists`; `path_alive`), `rays.level<d>` (the rays of Whitted
     level d), `rays.nearest` / `rays.shadow` (lanes given to the kernel
-    path's queries).
+    path's queries), `rays.area_light` (the area lights' shadow rays:
+    rays x lights x samples at each level).
     device: sums kept where the tensors live, as int64, only while
     `counting(True)` (off by default, so a timed or profiled step never
-    runs them): `alive.level<d>`, `alive.nearest` / `alive.shadow` (the
-    alive lanes of the same), `walk.visits` (clusters the walk launches
-    visited: the kernels' own count on the card; every listed one where a
-    plain version or K4 walks, neither of which exits early),
+    runs them): `alive.level<d>`, `alive.nearest` / `alive.shadow` /
+    `alive.area_light` (the alive lanes of the same; an area light's
+    after the hit and n.l > 0 mask), `walk.visits` (clusters the walk
+    launches visited: the kernels' own count on the card; every listed
+    one where a plain version or K4 walks, neither of which exits early),
     `walk.listed` (the visits their lists held) and `walk.lane_tests`
     (visits x the launch tile's rays x the cluster size: the (ray,
     triangle) tests the visits issue, dead lanes included). `read` reads

@@ -44,7 +44,11 @@ its plain versions, in place, at a primary chunk's and a wavefront's size
 with every attribute table, in occlusion under each kind of limit, in
 camera mode over the whole frame and a chunk past its last block, at lane
 counts that are not a multiple of 4, through exact ties and over rest sets
-of 64 and 130 rows, and refusing strided or mistyped inputs.
+of 64 and 130 rows, and refusing strided or mistyped inputs; the area-light
+shadow queries of one chunk of the 1.6M teapot's frame (K3 at level 1, K5
+gathered and K2 at the binned level 2, all under the per-ray t_max) equal
+to their plain versions on alive lanes, and a reduced area-light frame the
+same bit for bit with its bounce levels binned and not.
 """
 
 import numpy as np
@@ -1996,3 +2000,92 @@ def test_rest_merge_refuses_bad_inputs(rest_accels, dev):
             T._ptr(acc.rest_blocks), 0, None, 0, None, 0, 0, 1e-8, 0,
             T.INF, None, T._ptr(t), T._ptr(slot), None, None, T._stream(p)),
             "rest_merge")
+
+
+# --- the area-light frame at the 1.6M teapot's shapes ----------------------
+
+LIGHT = ([[1.0, 8.0, 7.0]], [1.5], [[1.5, 1.5, 1.5]])
+
+
+def _sphere_light(dev):
+    from raytracing_tpu_torch.geometry.mesh import SphereLight
+
+    return SphereLight(*(torch.tensor(v, device=dev) for v in LIGHT))
+
+
+@pytest.fixture(scope="module")
+def teapot_1m6(dev):
+    """The 1,617,920-triangle teapot and its one CS 128 accel (12,640
+    clusters, over the group budget), as the cell teapot_1m6.arealight
+    builds them."""
+    mesh = subdivided_teapot_mesh(levels=4, device=dev)
+    return mesh, build_cluster_accel(mesh, cluster_size=128)
+
+
+def test_area_light_launches_of_the_1m6_chunk_match_plain(
+        teapot_1m6, dev, monkeypatch, plain_on_card):
+    """The shadow queries of one chunk's area-light term, as the renderer
+    makes them at the 1.6M frame's shapes (800x800x4, chunks of 65,536,
+    a fan of 10, 4 light samples): level 1's 65,536 rays through K3 under
+    the per-ray t_max, level 2's 720,896 binned rays through K5 gathered
+    and K2 under it. Each query's flags equal its plain version's on the
+    alive lanes."""
+    from raytracing_tpu_torch.models import whitted
+
+    mesh, accel = teapot_1m6
+    cfg = RenderConfig(light_samples=4)
+    calls = []
+    real = whitted.any_hit
+
+    def spy(mesh_, acc, o, d, config, t_max=T.INF, **kw):
+        before = dict(T.LAUNCHES)
+        out = real(mesh_, acc, o, d, config, t_max=t_max, **kw)
+        if isinstance(t_max, torch.Tensor):
+            made = {k for k, v in T.LAUNCHES.items() if v != before.get(k)}
+            calls.append((acc, o.clone(), d.clone(), t_max.clone(), kw,
+                          out.clone(), made))
+        return out
+
+    monkeypatch.setattr(whitted, "any_hit", spy)
+    # Chunk 9 of the frame's 40 runs across the teapot.
+    ids = block_ray_ids(9, cfg.chunk_size, cfg, 16, 16, device=dev)
+    o, d = camera_rays_for_ids(ids, cfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sun = torch.tensor([0.0, 25_000.0, 100_000.0], device=dev)
+    img = whitted.render_rays(
+        mesh, accel, sun, o, d, cfg,
+        lambda tag, shape: torch.rand(shape, generator=gen, device=dev),
+        lights=_sphere_light(dev))
+    assert bool(torch.isfinite(img).all())
+    rays = [c[1].shape[0] for c in calls]
+    assert rays == [65_536] * 4 + [720_896] * 4
+    for acc, o_, d_, tm, kw, got, made in calls:
+        alive = kw["alive"]
+        assert bool(alive.any())
+        if o_.shape[0] == 65_536:
+            assert "walk_gstream" in made
+        else:
+            assert {"walk_dma", "refine_lists"} <= made
+        want = plain_on_card(real, mesh, acc, o_, d_, cfg, t_max=tm, **kw)
+        assert torch.equal(got[alive], want[alive])
+
+
+def test_area_light_frame_on_the_card_is_the_same_binned_or_not(dev):
+    """A reduced area-light frame (the default scene at 128x128x4 in four
+    chunks, CS 16 and the auto-built CS 128 bounce accel, 4 light
+    samples) is the same bit for bit with its bounce levels binned and
+    not: each ray keeps its row's light draw."""
+    from raytracing_tpu_torch.geometry.mesh import Scene
+
+    base = build_default_scene(device=dev)
+    lit = Scene(base.mesh, base.sun, _sphere_light(dev))
+    accel = build_cluster_accel(base.mesh, cluster_size=16)
+    cfg = RenderConfig(width=128, height=128, chunk_size=16384,
+                       light_samples=4)
+    imgs = [render(lit, cfg.replace(bin_secondary=b), accel=accel,
+                   generator=torch.Generator(device=dev).manual_seed(5))
+            for b in (True, False)]
+    assert torch.equal(imgs[0], imgs[1])
+    dark = render(base, cfg, accel=accel,
+                  generator=torch.Generator(device=dev).manual_seed(5))
+    assert float((imgs[0] - dark).max()) > 1e-3

@@ -5,7 +5,12 @@ same numpy-seeded inputs and the very uniforms JAX draws.
 Bars: `slab_test` flags equal and `ray_sphere`, `sample_cone` at rtol 1e-6
 (+ atol 1e-6: XLA contracts a*b+c, the port does not); per-ray t_max
 any-hit flags equal; `area_light_term` and an area-light frame at atol 1e-5
-(the bar of tests/test_torch_render.py)."""
+(the bar of tests/test_torch_render.py). The port's binned levels hand each
+ray its light draw by the ray's row (`models/whitted.py`, "Random
+numbers"), where the JAX package's binned levels take their draws in
+sorted order: the port's frame is held to JAX's frame with
+`bin_secondary=False`, in which every ray has its row's draw on both
+sides."""
 
 import numpy as np
 import pytest
@@ -247,8 +252,11 @@ def light_frame(scenes, accels):
 def test_area_light_frame_matches_jax(scenes, accels, light_frame):
     """32x32, reflect and diffuse depth 2, 2 light samples, CS 16 plus the
     auto-built CS 128 bounce accel (so bounce-level light queries run the
-    `_walk_dma` entry with a per-ray t_max on both sides)."""
-    ref = _np(JW.render(scenes[0], JaxConfig(backend="pallas", **FRAME),
+    `_walk_dma` entry with a per-ray t_max on both sides). JAX's frame
+    unbinned: there every ray takes its row's light draw, as every ray of
+    the port's frame does (module docstring)."""
+    ref = _np(JW.render(scenes[0], JaxConfig(backend="pallas",
+                                             bin_secondary=False, **FRAME),
                         accel=accels[16][0], key=jax.random.PRNGKey(3)))
     assert np.isfinite(light_frame).all()
     np.testing.assert_allclose(light_frame, ref, atol=1e-5)
@@ -265,15 +273,15 @@ def test_light_adds_radiance(scenes, accels, light_frame):
 
 @pytest.mark.parametrize("knob", [dict(gi_wq=False), dict(wq_impl="grid"),
                                   dict(gi_early_exit=False),
-                                  dict(gi_cluster_size=0)],
+                                  dict(gi_cluster_size=0),
+                                  dict(bin_secondary=False)],
                          ids=lambda k: next(iter(k)))
 def test_light_frame_knobs_are_exact(scenes, accels, light_frame,
                                      monkeypatch, knob):
     """How the bounce queries are walked (K1, K2 or the work-queue walk
-    K4; early exit; which accel) does not change a bit of the area-light
-    frame. (`bin_secondary` is no such knob here: a binned level draws its
-    light samples in its sorted order, so it hands each ray another
-    draw.)"""
+    K4; early exit; which accel; whether a level is binned) does not
+    change a bit of the area-light frame: a binned level hands each ray
+    the light draw of its row."""
     knob = dict(knob)
     if knob.pop("wq_impl", None):
         monkeypatch.setattr(T, "_WQ_IMPL", "grid")

@@ -7,10 +7,15 @@ holds no `rt.*` event; with it on the frame's spans nest rt.frame >
 rt.chunk > rt.level > rt.query > rt.walk, one `rt.sync` for each host
 sync the test counts itself, and the image is the same; `rays.level<d>`,
 `alive.level<d>` and the walks' visits equal what the test counts at the
-level's boundaries; the reduction's self times, idle attribution and the
-harness's own reading of the same trace are exact on small traces.
+level's boundaries; an area light's `rt.area_light` a level around its
+shadow queries, `rays.area_light` and `alive.area_light` as the test
+counts them, and the same operations with the spans on as off; the
+reduction's self times, idle attribution and the harness's own reading of
+the same trace are exact on small traces.
 """
 
+import collections
+import contextlib
 import json
 
 import pytest
@@ -332,3 +337,121 @@ def test_layer_numbers_of_a_counted_step():
     got = TC.layer_numbers("primary", reading, {"walk.lane_tests": 7})
     assert got["walk_lane_tests_per_call.primary"] == 7
     assert got["syncs_per_call.primary"] == 0
+
+
+def test_area_light_span_and_counters(scene_accel, monkeypatch):
+    """A frame with an area light: one `rt.area_light` a level (lights,
+    samples and the level's rays as args), inside its level and holding
+    each of its shadow queries; `rays.area_light` is the levels' rays x
+    lights x samples, and under counting `alive.area_light` the shadow rays
+    alive after the hit and n.l > 0 mask, as the test counts them itself.
+    Spans on or off, the frame dispatches the same operations but the
+    spans' own and makes the same image; counting off, there is no device
+    count. (A recording wrapper of the module's `span` reads the nesting,
+    and a dispatch mode the operations: a profiler over the plain walks'
+    operations takes minutes.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from raytracing_tpu_torch.geometry.mesh import Scene, SphereLight
+
+    scene, accel = scene_accel
+    lit = Scene(scene.mesh, scene.sun, SphereLight(
+        torch.tensor([[1.0, 8.0, 7.0]]), torch.tensor([1.5]),
+        torch.tensor([[1.5, 1.5, 1.5]])))
+    cfg = CFG.replace(width=8, height=8, chunk_size=32, reflect_depth=2,
+                      light_samples=2)
+    stack, seen, queries, alive = [], [], [], []
+    real_span, real_any, real_rays = (whitted.span, whitted.any_hit,
+                                      whitted.light_shadow_rays)
+
+    @contextlib.contextmanager
+    def span(name, **args):
+        seen.append((name, stack[-1] if stack else None, args))
+        stack.append(name)
+        try:
+            with real_span(name, **args):
+                yield
+        finally:
+            stack.pop()
+
+    def any_hit(*a, **kw):
+        queries.append("rt.area_light" in stack)
+        return real_any(*a, **kw)
+
+    def shadow_rays(*a):
+        out = real_rays(*a)
+        alive.append(int(out[2].sum()))
+        return out
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith("profiler."):
+                self.names[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    def frame(ops=None):
+        with ops or contextlib.nullcontext():
+            return whitted.render(lit, cfg, accel=accel,
+                                  generator=torch.Generator().manual_seed(7))
+
+    monkeypatch.setattr(whitted, "span", span)
+    monkeypatch.setattr(whitted, "any_hit", any_hit)
+    monkeypatch.setattr(whitted, "light_shadow_rays", shadow_rays)
+    frame()  # what a first frame builds once is left out below
+    P.COUNTERS.reset()
+    off = Ops()
+    want = frame(off)
+    counts = P.COUNTERS.read()
+    assert not any(k.startswith("alive.") for k in counts)
+    levels = sum(v for k, v in counts.items() if k.startswith("rays.level"))
+    assert counts["rays.area_light"] == levels * 1 * 2
+    seen.clear()
+    queries.clear()
+    P.tracing(True)
+    try:
+        on = Ops()
+        got = frame(on)
+    finally:
+        P.tracing(False)
+    assert torch.equal(got, want) and on.names == off.names
+    lights = [(up, args) for name, up, args in seen
+              if name == "rt.area_light"]
+    level_rays = sorted(args["rays"] for name, _, args in seen
+                        if name == "rt.level")
+    assert len(lights) == len(level_rays) == 4  # 2 chunks, 2 levels
+    assert all(up == "rt.level" for up, _ in lights)
+    assert sorted(a["rays"] for _, a in lights) == level_rays
+    assert all(a["lights"] == 1 and a["samples"] == 2 for _, a in lights)
+    assert sum(queries) == 2 * len(lights) and not all(queries)
+    alive.clear()
+    P.COUNTERS.reset()
+    P.counting(True)
+    try:
+        frame()
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(False)
+    assert len(alive) == 2 * len(lights)
+    assert counts["alive.area_light"] == sum(alive) > 0
+
+
+def test_idle_under_the_area_light_span():
+    """`idle_in_area_light_pct` takes the gaps whose midpoint lies inside an
+    `rt.area_light` span at any depth; the area-light numbers appear only
+    where the counts have area-light rays."""
+    ops = synthetic_ops() + [Op("rt.area_light", 255, 520, False, 1)]
+    r = TC.span_reading(ops, steps=1)
+    assert r["idle_in_area_light_pct"] == pytest.approx(100 * 150 / 550)
+    assert TC.span_reading(synthetic_ops(), 1)["idle_in_area_light_pct"] == 0
+    reading = dict(sync_ms=0.0, glue_host_ms=0.0, idle_in_glue_pct=0.0,
+                   idle_in_area_light_pct=12.5)
+    got = TC.layer_numbers("whitted", reading, {"rays.area_light": 40,
+                                                "alive.area_light": 10})
+    assert got["area_light_alive_pct.arealight"] == pytest.approx(25.0)
+    assert got["idle_in_area_light_pct.arealight"] == 12.5
+    assert "area_light_alive_pct.arealight" not in TC.layer_numbers(
+        "whitted", reading, {})

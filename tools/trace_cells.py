@@ -31,6 +31,7 @@ under the names a benchmark reader would report them by
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import statistics
@@ -48,8 +49,9 @@ from rtbench.trace import _ops_of, host_labels, merged  # noqa: E402
 # innermost span falls between the port's layers.
 STRUCTURE = ("rt.frame", "rt.chunk", "rt.level", "rt.query")
 # The PyTorch glue's spans.
-GLUE = ("rt.shade", "rt.children", "rt.bin", "rt.unsort", "rt.radiance",
-        "rt.camera_rays", "rt.merge", "rt.pack", "rt.tables", "rt.attrs")
+GLUE = ("rt.shade", "rt.area_light", "rt.children", "rt.bin", "rt.unsort",
+        "rt.radiance", "rt.camera_rays", "rt.merge", "rt.pack", "rt.tables",
+        "rt.attrs")
 NONE = "no span"
 # The host's calls that queue device work.
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
@@ -101,14 +103,33 @@ def idle_gaps(dev: list, host: list) -> list:
     return [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
 
 
+def idle_under_pct(spans: list, gaps: list, name: str):
+    """The share (%) of the idle gaps' seconds whose midpoint lies inside a
+    span `name`, at any depth of the spans open there; None without
+    idle."""
+    total = sum(b - a for a, b in gaps)
+    if total <= 0:
+        return None
+    inside = merged((o.start, o.end) for o in spans if o.name == name)
+    starts = [s for s, _ in inside]
+    under = 0.0
+    for a, b in gaps:
+        i = bisect.bisect_right(starts, (a + b) / 2) - 1
+        if i >= 0 and (a + b) / 2 < inside[i][1]:
+            under += b - a
+    return 100.0 * under / total
+
+
 def span_reading(ops: list, steps: int) -> dict:
     """The spans' reading of `steps` profiled steps: device operations,
     device-busy seconds and spans a step, idle seconds by innermost span,
     host self ms a step by span, the runtime's launch and copy calls a
     step by innermost span, the `rt.sync` ms a step, and the idle
     shares under the glue's spans (`idle_in_glue_pct`) and under a span of
-    a layer, one not in STRUCTURE (`idle_in_layer_pct`), and the longest
-    gaps outside every span (us, and us from the first gap's start)."""
+    a layer, one not in STRUCTURE (`idle_in_layer_pct`), both as innermost
+    span, and under `rt.area_light` at any depth
+    (`idle_in_area_light_pct`), and the longest gaps outside every span
+    (us, and us from the first gap's start)."""
     dev, host, spans = split_ops(ops)
     busy = merged((o.start, o.end) for o in dev)
     gaps = idle_gaps(dev, host)
@@ -153,8 +174,25 @@ def span_reading(ops: list, steps: int) -> dict:
         "glue_host_ms": sum(own.get(n, 0.0) for n in GLUE) / 1e3 / per,
         "idle_in_glue_pct": share(GLUE),
         "idle_in_layer_pct": share(layers),
+        "idle_in_area_light_pct": idle_under_pct(spans, gaps,
+                                                 "rt.area_light"),
         "longest_gaps_outside_spans_us": [[round(d), round(at)] for d, at
                                           in sorted(outside)[::-1][:5]],
+    }
+
+
+def area_light_numbers(reading: dict, counts: dict) -> dict:
+    """The area lights' numbers of a frame that has them: the share of
+    their shadow rays alive after the hit and n.l > 0 mask, and the idle
+    share under `rt.area_light`; nothing for a frame without lights."""
+    rays = counts.get("rays.area_light")
+    if not rays:
+        return {}
+    return {
+        "area_light_alive_pct.arealight": (
+            100.0 * counts.get("alive.area_light", 0) / rays),
+        "idle_in_area_light_pct.arealight":
+            reading["idle_in_area_light_pct"],
     }
 
 
@@ -179,6 +217,7 @@ def layer_numbers(kind: str, reading: dict, counts: dict) -> dict:
                                          else None),
             "walk_lane_tests_per_frame.whitted": counts.get(
                 "walk.lane_tests"),
+            **area_light_numbers(reading, counts),
         }
     return {
         "syncs_per_call.primary": total("syncs."),
@@ -236,7 +275,8 @@ def measure(cell, entry, window: int, cost_steps: int) -> dict:
     counts = P.COUNTERS.read()
     P.counting(was)
 
-    kind = "whitted" if cell.traffic["entry"] == "whitted_frame" else "primary"
+    kind = ("primary" if cell.traffic["entry"] == "camera_primary"
+            else "whitted")
     on = readings[True]
     return {
         "cell": cell.name, "step_s": step_s, "window_steps": window,
