@@ -155,6 +155,14 @@ Phases (any failure raises and the script exits non-zero):
      4 shadow samples: one counted frame, one timed; and the same frame
      with `_WQ_IMPL = "grid"` (bounce queries through K4) against the
      default from the same seed, bit-equal;
+  9b. the area lights' glue (csrc/light.cu, `phase_light_glue`) at the
+     1.6M frame's binned level, 720,896 shaded points with a permuted
+     `rows`: one sample's rays (`light_sample`) and a light's last fold
+     (`light_fold`) against the plain functions bit for bit, timed
+     steadily (a CUDA graph of the wrapper over copies of the inputs
+     beyond the L2, replayed) beside the plain chains (median of 5, and
+     their launches) and their bounds (rows `light_sample`, `light_fold`
+     of the JSON "glue_kernels");
  10. the backward at full width (`bench_suite.py:80-130`): the 262,144
      camera rays of blocks 90-105 of the reference frame through
      `render_rays`, loss sum(rgb^2), gradients for verts, colors and
@@ -391,6 +399,11 @@ OPS_MT, OPS_WOOP = 55, 51
 # ... and of the rest-set merge (csrc/rest.cu) per (ray, rest triangle):
 # mt's as above, its limit test and the comparison with the running best.
 OPS_REST = 56
+# ... and of the area lights' glue (csrc/light.cu) per lane: a sample's
+# cone, cone sample, tangent frame, three normalisations, n.l and the ray
+# against the light's sphere, its sine and cosine at ~20 each; a light's
+# last fold, its cone again, the visibility sum and the term.
+OPS_LIGHT_SAMPLE, OPS_LIGHT_FOLD = 170, 40
 # Phase 3i's two-phase cap: the renderer's gi_cap_frac of the frame.
 CAP_FRAC = 0.1
 # List rows' widths that phase 2 reads the list build's occupancy at: the
@@ -774,6 +787,27 @@ def _lists_ext_row(rows, name, args, kw, shape):
     return got
 
 
+def _graph_ms(fn, copies):
+    """ms a call of fn(k) over the copies k in turns: one CUDA graph of a
+    call on each copy, replayed STEADY_LAUNCHES / copies times."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in range(copies):
+            fn(k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(copies):
+            fn(k)
+    reps = max(1, STEADY_LAUNCHES // copies)
+    ms = _steady_ms(graph.replay, reps) / copies
+    del graph
+    return ms
+
+
 def _rest_row(rows, name, merge, inputs, rest_rows, reads, shape):
     """The rest-set merge (csrc/rest.cu) into a walk's outputs: `merge(*x)`
     (a wrapper of kernels.traverse) on copies x of `inputs` (tensors or
@@ -810,30 +844,13 @@ def _rest_row(rows, name, merge, inputs, rest_rows, reads, shape):
     sets = [copy() for _ in range(copies)]
     for x in sets:
         merge(*x)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        merge(*sets[0])
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for x in sets:
-            merge(*x)
-    reps = max(1, STEADY_LAUNCHES // copies)
-    ms = _steady_ms(graph.replay, reps) / copies
+    ms = _graph_ms(lambda k: merge(*sets[k]), copies)
     _require(all(torch.equal(a, b) for x in sets
                  for a, b in zip([y for y in x if y is not None], want)),
              f"{name}: the outputs changed over the steady launches")
     with _PlainWrappers():
-        plain_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            merge(*sets[0])
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(plain_graph):
-            for x in sets:
-                merge(*x)
-        composite = _steady_ms(plain_graph.replay, reps) / copies
-    del graph, plain_graph, sets
+        composite = _graph_ms(lambda k: merge(*sets[k]), copies)
+    del sets
     n = inputs[0].shape[1]
     bound = _bound(float(n) * rest_rows * OPS_REST, reads)
     rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -3104,7 +3121,8 @@ def phase_area_light_frame():
     dark = whitted.render(base, cfg, accel=accel)
     _require(bool((img.mean() > dark.mean())),
              "the light adds no radiance to the frame")
-    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
+    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext",
+              "light_sample", "light_fold"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the area-light frame")
     _print_frame("area-light reference frame", cfg, img, launches, counts,
@@ -3144,6 +3162,128 @@ def phase_area_light_frame():
     return launches, grid_launches
 
 
+def _plain_launches(fn):
+    """The device operations one call of fn makes, by the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def phase_light_glue(rows):
+    """9b. The area lights' glue at the 1.6M frame's binned level: 720,896
+    shaded points (positions row-major, normals, colours and albedo/pi as
+    the kernel path's attribute planes, 80% hits) in a box around the
+    light of 3d, one light sampled 4 times, each lane's draw by a
+    permuted row. `light_sample` against `light_cone` +
+    `light_shadow_rays`, and the fold of the light's last sample against
+    the estimator's lines, every output bit for bit; each timed steadily
+    (`_graph_ms` over copies of its inputs beyond the L2) beside its
+    plain chain (median of 5 eager calls, and that chain's device
+    operations) and its bound from its bytes and OPS_LIGHT_*."""
+    import torch
+
+    from raytracing_tpu_torch import bench
+    from raytracing_tpu_torch.kernels import light as LK
+    from raytracing_tpu_torch.models import whitted
+
+    dev = "cuda"
+    n, ns = 720_896, 4
+    gen = torch.Generator(device=dev).manual_seed(21)
+    lights = bench.sphere_light(dev)
+
+    def inputs():
+        lo = torch.tensor([-6.0, -3.0, 0.0], device=dev)
+        span_ = torch.tensor([12.0, 12.0, 14.0], device=dev)
+        pos = lo + torch.rand(n, 3, generator=gen, device=dev) * span_
+        planes = torch.rand(7, n, generator=gen, device=dev)
+        nrm = torch.randn(3, n, generator=gen, device=dev)
+        planes[:3] = nrm / nrm.norm(dim=0, keepdim=True)
+        return dict(
+            pos=pos, n=planes[:3].T, color=planes[3:6].T, alb=planes[6],
+            hit=torch.rand(n, generator=gen, device=dev) < 0.8,
+            u=torch.rand(n, 2, generator=gen, device=dev),
+            rows=torch.randperm(n, generator=gen, device=dev),
+            occ=torch.rand(n, generator=gen, device=dev) < 0.3)
+
+    x = inputs()
+    per = sum(v.numel() * v.element_size() for v in x.values())
+    copies = max(L2_COPIES, -(-2 * L2_BYTES // per))
+    sets = [x] + [inputs() for _ in range(copies - 1)]
+
+    def sample(k, plain=False):
+        a = sets[k]
+        if plain:
+            return whitted.light_shadow_rays(
+                whitted.light_cone(lights, 0, a["pos"]), a["pos"], a["n"],
+                a["hit"], a["u"][a["rows"]])
+        return LK.light_sample(a["pos"], a["n"], a["hit"], a["u"], a["rows"],
+                               lights, 0)
+
+    got = sample(0)
+    err = _bit_equal("light_sample", got, sample(0, plain=True))
+    alive = got[2]
+    reads, writes = 41, 21
+    ms = _graph_ms(sample, copies)
+    plain_ms = _median_ms(lambda: sample(0, plain=True))
+    chain = _plain_launches(lambda: sample(0, plain=True))
+    bound = _bound(float(n) * OPS_LIGHT_SAMPLE, n * (reads + writes))
+    rows["light_sample"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                plain_launches=chain, bound_ms=bound[0],
+                                bound_by=bound[1],
+                                shape=f"{n} rays, rows permuted")
+    print(f"[glue] light_sample (light.cu): {n} rays, {int(alive.sum())} "
+          f"alive, draws by permuted rows; equal bit for bit; steady "
+          f"{ms:.5f} ms over {copies} copies in turns ({bound[0] / ms:.3f} "
+          f"of its {bound[0]:.5f} ms bound by {bound[1]}: {reads} + {writes} "
+          f"bytes a lane), plain {plain_ms:.4f} ms in {chain} device "
+          f"operations")
+
+    # The fold of the light's last sample (one light: the term is written
+    # from acc, which it does not update, so every launch writes the same).
+    outs = [sample(k) for k in range(copies)]
+    accs = [torch.rand(n, generator=gen, device=dev) * 3 for _ in sets]
+    totals = [torch.empty(n, 3, device=dev) for _ in sets]
+
+    def fold(k, plain=False):
+        a, (_, ndl, al, _) = sets[k], outs[k]
+        if plain:
+            vis = al & ~a["occ"]
+            acc = accs[k] + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
+            omega = whitted.light_cone(lights, 0, a["pos"]).omega
+            total = torch.zeros_like(a["pos"]) + (
+                (acc / ns * omega)[:, None] * lights.emission[0])
+            return total * a["alb"][:, None] * a["color"]
+        LK.light_fold(accs[k], totals[k], al, a["occ"], ndl, ns - 1, ns, 0,
+                      lights, a["pos"], a["alb"], a["color"])
+        return totals[k]
+
+    want = fold(0, plain=True)
+    err = _bit_equal("light_fold", [fold(0).clone()], [want])
+    reads, writes = 38, 12
+    ms = _graph_ms(fold, copies)
+    plain_ms = _median_ms(lambda: fold(0, plain=True))
+    chain = _plain_launches(lambda: fold(0, plain=True))
+    bound = _bound(float(n) * OPS_LIGHT_FOLD, n * (reads + writes))
+    rows["light_fold"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              plain_launches=chain, bound_ms=bound[0],
+                              bound_by=bound[1],
+                              shape=f"{n} rays, a light's last sample")
+    print(f"[glue] light_fold (light.cu), a light's last sample: {n} rays; "
+          f"equal bit for bit; steady {ms:.5f} ms over {copies} copies in "
+          f"turns ({bound[0] / ms:.3f} of its {bound[0]:.5f} ms bound by "
+          f"{bound[1]}: {reads} + {writes} bytes a lane), plain "
+          f"{plain_ms:.4f} ms in {chain} device operations (the light's "
+          f"cone included)")
+    del sets, outs, accs, totals
+
+
 # Card against CPU gradients (11): each table within this share of its
 # largest magnitude on the CPU; the backward's scatter-adds are atomics on
 # the card, so sums come in another order, and the sampler's sin/cos differ
@@ -3158,7 +3298,7 @@ def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
     by `bench.backward_262k` (forward without grad, forward + backward,
     each a median of 3 after a warm-up; one counted forward + backward),
     gated here: the same loss under grad, every gradient finite and
-    nonzero, the walks launched. `keep` = (entry, picks): the `walk`
+    nonzero, the walks (and a light's glue kernels) launched. `keep` = (entry, picks): the `walk`
     launches of that entry, numbered from 0 in the counted run, to keep.
     Returns (its launches, the kept (args, kw))."""
     from raytracing_tpu_torch import bench
@@ -3181,7 +3321,8 @@ def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
                  f"backward {tag}: the {k} gradient is not finite and "
                  f"nonzero")
     need = ["walk_both"] + (["walk_dma_both", "refine_extents"]
-                            if gi_accel is not None else [])
+                            if gi_accel is not None else []) + (
+        ["light_sample", "light_fold"] if lights is not None else [])
     for k in need:
         _require(launches[k] > 0, f"backward {tag}: {k} not launched")
     tf, tb = statistics.median(fwd), statistics.median(bwd)
@@ -4056,6 +4197,7 @@ def main() -> int:
      frame_1m6_launches) = phase_large_scenes(rows, *large)
     pt_launches = phase_path_traced_frame()
     light_launches, grid_launches = phase_area_light_frame()
+    phase_light_glue(rows)
     bwd_launches, bwd_gi_launches = phase_backward(rows)
     phase_grad_parity()
     fit_launches = phase_fit()
@@ -4109,19 +4251,25 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": kernels}))
     # The port's kernels with no TPU counterpart: the JAX package leaves the
-    # rest-set merge to XLA, which fuses it (no pallas_call).
+    # rest-set merge and the area lights' glue to XLA, which fuses them (no
+    # pallas_call).
     # Launches: the reference frame's merges; the camera-mode frame's
-    # camera merges, one a camera walk (its other merges are pack merges).
+    # camera merges, one a camera walk (its other merges are pack merges);
+    # the area-light frame's light launches.
     glue = []
-    for name, n in (("rest_merge", ref_launches["rest_merge"]),
-                    ("rest_merge_camera", cam_launches["walk_camera"])):
+    for name, n, source in (
+            ("rest_merge", ref_launches["rest_merge"], "rest.cu"),
+            ("rest_merge_camera", cam_launches["walk_camera"], "rest.cu"),
+            ("light_sample", light_launches["light_sample"], "light.cu"),
+            ("light_fold", light_launches["light_fold"], "light.cu")):
         r = rows[name]
         glue.append({"name": name, "route": "cuda",
-                     "source": "raytracing_tpu_torch/csrc/rest.cu",
+                     "source": f"raytracing_tpu_torch/csrc/{source}",
                      "replaces": None, "launches": n,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"],
-                     "plain_graphed_ms": r["plain_graphed_ms"],
+                     **{k: r[k] for k in ("plain_graphed_ms",
+                                          "plain_launches") if k in r},
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
     print(json.dumps({"glue_kernels": glue}))
     print(json.dumps({"ok": True, "device": {

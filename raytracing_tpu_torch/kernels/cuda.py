@@ -66,6 +66,10 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P],
     "rt_rest_merge": [_P, _L, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P,
                       _I, _P, _I, _I, _F, _I, _F, _P, _P, _P, _P, _P, _P],
+    "rt_light_sample": [_L, _P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _P,
+                        _P, _P, _P, _P, _P, _P],
+    "rt_light_fold": [_L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _L, _P, _P,
+                      _P, _P, _L, _P, _L, _L, _P, _P],
 }
 
 

@@ -10,7 +10,10 @@ rays to `diffuse_depth`; misses see the sky; gamma is applied per primary
 sample before the spp average. A scene's spherical area lights add a
 soft-shadowed direct term at every level (`area_light_term`): per light,
 `light_samples` shadow rays into its cone, each an any-hit query that
-stops at the light's surface (a per-ray t_max).
+stops at the light's surface (a per-ray t_max). On the card's kernel
+path a sample's rays and its share of the estimate are two launches of
+`csrc/light.cu` (`kernels.light`) around its query, with the plain
+functions' bits.
 
 Random numbers: the fan at depth l of chunk i draws ONE uniform array
 [s, N, 2], and each (depth, light, sample) of the area lights one array
@@ -42,8 +45,9 @@ each chunk, `rt.level` around each level; the glue in `rt.camera_rays`,
 `rt.unsort`), the area lights' term in `rt.area_light`, the level's one
 host sync in `rt.sync`. A level counts its rays in `rays.level<d>` and,
 under `counting(True)`, its alive ones in `alive.level<d>`; the area
-lights count their shadow rays in `rays.area_light` and, under
-`counting(True)`, the alive ones in `alive.area_light`.
+lights count their shadow rays in `rays.area_light`, those the kernels
+prepared in `area_light.fused` and, under `counting(True)`, the alive
+ones in `alive.area_light`.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ import torch
 from raytracing_tpu_torch.accel.packets import ClusterAccel, build_cluster_accel
 from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene, SphereLight
+from raytracing_tpu_torch.kernels import light as light_kernels
 from raytracing_tpu_torch.kernels.binning import (
     batch_bounds, bin_key, bin_sort, bounce_bin_key, scene_bounds, unsort)
 from raytracing_tpu_torch.kernels.traverse import (Hit, camera_mode_supported,
@@ -163,7 +168,7 @@ class LightCone(NamedTuple):
 def light_cone(lights: SphereLight, li: int, pos) -> LightCone:
     c, rad = lights.center[li], lights.radius[li]
     to_c = c - pos
-    dist = torch.sqrt((to_c * to_c).sum(dim=-1))
+    dist = torch.sqrt(dot(to_c, to_c))
     safe = torch.clamp_min(dist, 1e-20)
     sin_max = torch.clamp(rad / safe, 0.0, 1.0)
     cos_max = sqrt0(1.0 - sin_max * sin_max)
@@ -184,43 +189,141 @@ def light_shadow_rays(cone: LightCone, pos, n, hit_mask, u):
     return w_dir, ndl, hit_mask & (ndl > 0.0), t_light * (1.0 - 1e-4)
 
 
+def _fused_light(config: RenderConfig, pos: torch.Tensor) -> bool:
+    """True where the lights' glue runs as csrc/light.cu's kernels
+    (`kernels.light`): on the kernel path with CUDA tensors, with a
+    gradient or without. Elsewhere (the CPU, the other backends) the plain
+    functions run; both give the same bits."""
+    return uses_kernels(config) and pos.is_cuda
+
+
+def _light_sum(fused: bool, lights: SphereLight, pos, n, albedo_pi, color,
+               hit_mask, rows, ns: int, draw, occluded) -> torch.Tensor:
+    """The estimator of `area_light_term` over every (light, sample): draw
+    (li, s) gives the sample's uniforms, ray i taking row rows[i] (row i
+    with rows None), and occluded(li, s, w_dir, alive, t_stop) its any-hit
+    mask. fused: each sample is prepared by `light_sample` and folded by
+    `light_fold`, else by the plain functions."""
+    rays = pos.shape[0]
+    if fused:
+        acc = torch.empty(rays, dtype=pos.dtype, device=pos.device)
+        total = torch.empty((rays, 3), dtype=pos.dtype, device=pos.device)
+    else:
+        total = torch.zeros_like(pos)
+    for li in range(lights.center.shape[0]):
+        if not fused:
+            cone = light_cone(lights, li, pos)
+            acc = torch.zeros_like(cone.dist)
+        for s in range(ns):
+            u = draw(li, s)
+            if fused:
+                w_dir, ndl, alive, t_stop = light_kernels.light_sample(
+                    pos, n, hit_mask, u, rows, lights, li)
+            else:
+                w_dir, ndl, alive, t_stop = light_shadow_rays(
+                    cone, pos, n, hit_mask, u if rows is None else u[rows])
+            occ = occluded(li, s, w_dir, alive, t_stop)
+            if fused:
+                light_kernels.light_fold(acc, total, alive, occ, ndl, s, ns,
+                                         li, lights, pos, albedo_pi, color)
+            else:
+                acc = acc + torch.where(alive & ~occ,
+                                        torch.clamp_min(ndl, 0.0), 0.0)
+        if not fused:
+            total = total + ((acc / ns * cone.omega)[:, None]
+                             * lights.emission[li])
+    return total if fused else total * albedo_pi[:, None] * color
+
+
+class _KernelLightSum(torch.autograd.Function):
+    """`_light_sum` on the kernels where its inputs take a gradient: the
+    forward launches them around each sample's query and keeps each
+    sample's draw and occlusion mask; the backward replays the plain
+    functions on those (the masks have no gradient) and differentiates
+    them. The kernels give the plain functions' bits, so the gradient is
+    the plain path's."""
+
+    @staticmethod
+    def forward(ctx, pos, n, albedo_pi, color, center, radius, emission,
+                hit_mask, rows, ns, draw, occluded):
+        ctx.draws, ctx.masks = {}, {}
+
+        def keep_draw(li, s):
+            ctx.draws[li, s] = draw(li, s)
+            return ctx.draws[li, s]
+
+        def keep_mask(li, s, *ray):
+            ctx.masks[li, s] = occluded(li, s, *ray)
+            return ctx.masks[li, s]
+
+        ctx.save_for_backward(pos, n, albedo_pi, color, center, radius,
+                              emission)
+        ctx.hit_mask, ctx.rows, ctx.ns = hit_mask, rows, ns
+        return _light_sum(True, SphereLight(center, radius, emission), pos,
+                          n, albedo_pi, color, hit_mask, rows, ns, keep_draw,
+                          keep_mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = _light_sum(
+                False, SphereLight(*ins[4:]), *ins[:4], ctx.hit_mask,
+                ctx.rows, ctx.ns, lambda li, s: ctx.draws[li, s],
+                lambda li, s, *ray: ctx.masks[li, s])
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+        return (*(next(got) if t.requires_grad else None for t in ins),
+                None, None, None, None, None)
+
+
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,
                     sh: Shaded, hit_mask, uniforms, config: RenderConfig,
                     wq: bool = False, mesh: Optional[Mesh] = None,
                     lane_cull: bool = False,
-                    ray_tile: Optional[int] = None) -> torch.Tensor:
+                    ray_tile: Optional[int] = None,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Soft-shadowed direct radiance [N, 3] from spherical area lights at
     the shaded points. Per light: `config.light_samples` directions drawn
     uniformly in the cone the light subtends, each a visibility ray whose
     any-hit query has its own t_max (`light_shadow_rays`). The estimator is
     mean(emission cos_theta V) x cone solid angle x albedo/pi x color.
-    uniforms((light, sample), [N, 2]) returns each draw's uniforms. mesh:
-    the scene's mesh, which the brute-force and cluster backends read (the
-    kernel path needs only the accel). wq, lane_cull and ray_tile (the
-    culling tile): how the shadow queries walk. Runs in the span
+    uniforms((light, sample), [N, 2]) returns each draw's uniforms; ray i
+    takes row rows[i] of it (rows: a permutation of [0, N) as int64 [N],
+    None for row i). mesh: the scene's mesh, which the brute-force and
+    cluster backends read (the kernel path needs only the accel). wq,
+    lane_cull and ray_tile (the culling tile): how the shadow queries walk.
+    Where `_fused_light`, a sample is two launches around its query
+    (`kernels.light`; under autograd the backward replays the plain
+    functions), else the plain functions' ~100. Runs in the span
     `rt.area_light` (lights, samples, rays) and counts its shadow rays in
-    `rays.area_light`, the alive ones in `alive.area_light`."""
-    pos, n = sh.pos, sh.n
+    `rays.area_light`, those the kernels prepared in `area_light.fused`,
+    the alive ones in `alive.area_light`."""
+    pos = sh.pos
     nl, ns, rays = lights.center.shape[0], config.light_samples, pos.shape[0]
+    fused = _fused_light(config, pos)
     COUNTERS.add("rays.area_light", rays * nl * ns)
+    COUNTERS.add("area_light.fused", rays * nl * ns if fused else 0)
+
+    def draw(li, s):
+        return uniforms((li, s), (rays, 2))
+
+    def occluded(li, s, w_dir, alive, t_stop):
+        if COUNTERS.counting:
+            COUNTERS.add_device("alive.area_light", alive.sum())
+        return any_hit(mesh, accel, pos, w_dir, config, t_max=t_stop,
+                       alive=alive, wq=wq, lane_cull=lane_cull,
+                       ray_tile=ray_tile)
+
+    ins = (pos, sh.n, sh.albedo_pi, sh.color, *lights)
     with span("rt.area_light", lights=nl, samples=ns, rays=rays):
-        total = torch.zeros_like(pos)
-        for li in range(nl):
-            cone = light_cone(lights, li, pos)
-            acc = torch.zeros_like(cone.dist)
-            for s in range(ns):
-                w_dir, ndl, alive, t_stop = light_shadow_rays(
-                    cone, pos, n, hit_mask, uniforms((li, s), (rays, 2)))
-                if COUNTERS.counting:
-                    COUNTERS.add_device("alive.area_light", alive.sum())
-                occluded = any_hit(mesh, accel, pos, w_dir, config,
-                                   t_max=t_stop, alive=alive, wq=wq,
-                                   lane_cull=lane_cull, ray_tile=ray_tile)
-                vis = alive & ~occluded
-                acc = acc + torch.where(vis, torch.clamp_min(ndl, 0.0), 0.0)
-            total = total + ((acc / ns * cone.omega)[:, None]
-                             * lights.emission[li])
-        return total * sh.albedo_pi[:, None] * sh.color
+        if fused and torch.is_grad_enabled() and any(
+                t.requires_grad for t in ins):
+            return _KernelLightSum.apply(*ins, hit_mask, rows, ns, draw,
+                                         occluded)
+        return _light_sum(fused, lights, *ins[:4], hit_mask, rows, ns, draw,
+                          occluded)
 
 
 def bounce_cap(accel: Optional[ClusterAccel],
@@ -371,13 +474,11 @@ def render_rays(mesh: Mesh, accel: Optional[ClusterAccel], sun, o, d,
                    ray_tile=ray_tile)
         contrib = sh.direct
         if lights is not None:
-            def light_u(ls, shape):
-                u = uniforms(("light", depth) + ls, shape)
-                return u if rows is None else u[rows]
-
-            area = area_light_term(acc_l, lights, sh, h.hit, light_u, config,
-                                   wq=wq, mesh=mesh, lane_cull=lane_cull,
-                                   ray_tile=ray_tile)
+            area = area_light_term(
+                acc_l, lights, sh, h.hit,
+                lambda ls, shape: uniforms(("light", depth) + ls, shape),
+                config, wq=wq, mesh=mesh, lane_cull=lane_cull,
+                ray_tile=ray_tile, rows=rows)
             contrib = contrib + torch.where(h.hit[:, None], area, 0.0)
         rad_c = None
         if depth < config.reflect_depth or depth < config.diffuse_depth:

@@ -164,13 +164,16 @@ class Counters:
     """The port's counts, in one registry.
 
     launches: the port's own kernel launches by entry
-    (`kernels.traverse.LAUNCHES` is this dict and names its keys).
+    (`kernels.traverse.LAUNCHES` is this dict and names its keys;
+    `kernels.light` adds `light_sample` and `light_fold`).
     host: plain ints, always on: `syncs.<site>` (a host read of a device
     value on a main path: `level`, the Whitted level's children;
     `narrow_lists`; `path_alive`), `rays.level<d>` (the rays of Whitted
     level d), `rays.nearest` / `rays.shadow` (lanes given to the kernel
     path's queries), `rays.area_light` (the area lights' shadow rays:
-    rays x lights x samples at each level).
+    rays x lights x samples at each level), `area_light.fused` (those of
+    them that csrc/light.cu's kernels prepared: all of them on the card's
+    kernel path, else 0).
     device: sums kept where the tensors live, as int64, only while
     `counting(True)` (off by default, so a timed or profiled step never
     runs them): `alive.level<d>`, `alive.nearest` / `alive.shadow` /

@@ -48,7 +48,14 @@ of 64 and 130 rows, and refusing strided or mistyped inputs; the area-light
 shadow queries of one chunk of the 1.6M teapot's frame (K3 at level 1, K5
 gathered and K2 at the binned level 2, all under the per-ray t_max) equal
 to their plain versions on alive lanes, and a reduced area-light frame the
-same bit for bit with its bounce levels binned and not.
+same bit for bit with its bounce levels binned and not; the area lights'
+glue (csrc/light.cu) bit-equal to `light_cone` + `light_shadow_rays` and
+the plain estimator at the 1.6M frame's two shapes (row- and
+column-major, a permuted `rows`), whole area-light frames (the reduced
+one and the benchmark cell's) bit-equal with the kernels and without, the
+light's own operations and launches the same whatever its alive share,
+and a differentiated term through the kernels with the plain term's image
+and gradients.
 """
 
 import numpy as np
@@ -2089,3 +2096,265 @@ def test_area_light_frame_on_the_card_is_the_same_binned_or_not(dev):
     dark = render(base, cfg, accel=accel,
                   generator=torch.Generator(device=dev).manual_seed(5))
     assert float((imgs[0] - dark).max()) > 1e-3
+
+
+# --- the area lights' glue, csrc/light.cu -----------------------------------
+
+def _light_inputs(n, dev, columns, seed=0):
+    """Shaded points around the benchmark's light: some inside it, some at
+    its centre, some level with it (the tangent frame's other axis),
+    normals every way, 80% hits; pos and n row-major or column-major (the
+    kernel path's attribute planes); albedo/pi and colour likewise."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.tensor([-6.0, -3.0, 0.0])
+    pos = lo + torch.rand(n, 3, generator=g) * torch.tensor([12.0, 12.0, 14.0])
+    pos[::89] = torch.tensor(LIGHT[0][0])
+    pos[::97, 2] = LIGHT[0][0][2]
+    nrm = torch.randn(n, 3, generator=g)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    attrs = torch.rand(4, n, generator=g)
+    hit = torch.rand(n, generator=g) < 0.8
+    if columns:
+        pos, nrm = (x.T.contiguous().T for x in (pos, nrm))
+        rows = attrs.T                      # strides (1, n)
+    else:
+        rows = attrs.T.contiguous()         # strides (4, 1)
+    color, alb = rows[:, :3], rows[:, 3]
+    return [x.to(dev) for x in (pos, nrm, hit, alb, color)]
+
+
+def _lights2(dev):
+    """The benchmark's light and a second one in front of the teapots."""
+    from raytracing_tpu_torch.geometry.mesh import SphereLight
+
+    return SphereLight(
+        torch.tensor(LIGHT[0] + [[-2.0, 3.0, 1.0]], device=dev),
+        torch.tensor(LIGHT[1] + [0.7], device=dev),
+        torch.tensor(LIGHT[2] + [[0.4, 0.6, 0.9]], device=dev))
+
+
+@pytest.mark.parametrize("n,binned,columns,ns", [
+    (65_536, False, False, 4), (720_896, True, False, 4),
+    (65_536, False, True, 3), (720_896, True, True, 4)],
+    ids=["level1", "binned", "level1-columns-ns3", "binned-columns"])
+def test_light_kernels_match_plain(dev, n, binned, columns, ns):
+    """At the 1.6M frame's two shapes (level 1's 65,536 rays, and the
+    binned level's 720,896 with a permuted `rows`), row- and column-major:
+    each sample's direction, n·l, alive flag and t_max from `light_sample`
+    have the bits of `light_cone` + `light_shadow_rays`, and the term that
+    `light_fold` folds over two lights and ns samples (seeded occlusion)
+    has the bits of the plain estimator. Two launches a sample, none
+    more."""
+    from raytracing_tpu_torch.kernels import light as LK
+    from raytracing_tpu_torch.models import whitted
+
+    pos, nrm, hit, alb, color = _light_inputs(n, dev, columns)
+    lights = _lights2(dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = torch.randperm(n, generator=g, device=dev) if binned else None
+    acc = torch.empty(n, device=dev)
+    total = torch.empty(n, 3, device=dev)
+    want = torch.zeros_like(pos)
+    before = dict(T.LAUNCHES)
+    for li in range(2):
+        cone = whitted.light_cone(lights, li, pos)
+        acc_p = torch.zeros_like(cone.dist)
+        for s in range(ns):
+            u = torch.rand(n, 2, generator=g, device=dev)
+            u[::101] = 0.0
+            occ = torch.rand(n, generator=g, device=dev) < 0.3
+            got = LK.light_sample(pos, nrm, hit, u, rows, lights, li)
+            plain = whitted.light_shadow_rays(
+                cone, pos, nrm, hit, u if rows is None else u[rows])
+            _bits(got, plain)
+            assert bool(got[2].any()) and not bool(got[2].all())
+            LK.light_fold(acc, total, got[2], occ, got[1], s, ns, li,
+                          lights, pos, alb, color)
+            vis = plain[2] & ~occ
+            acc_p = acc_p + torch.where(vis, torch.clamp_min(plain[1], 0.0),
+                                        0.0)
+            if s < ns - 1:  # the last fold writes the term, not acc
+                _bits([acc], [acc_p])
+        want = want + ((acc_p / ns * cone.omega)[:, None]
+                       * lights.emission[li])
+    want = want * alb[:, None] * color
+    _bits([total], [want])
+    assert float(want.abs().max()) > 0
+    assert T.LAUNCHES["light_sample"] - before["light_sample"] == 2 * ns
+    assert T.LAUNCHES["light_fold"] - before["light_fold"] == 2 * ns
+
+
+def _lit_frame(scene, lights, cfg, accel, dev, seed=5):
+    from raytracing_tpu_torch.geometry.mesh import Scene
+
+    return render(Scene(scene.mesh, scene.sun, lights), cfg, accel=accel,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("case", ["default", "teapot_1m6"])
+def test_light_frame_equals_the_plain_frame(dev, monkeypatch, request, case):
+    """A whole area-light frame (bounce levels binned, 4 light samples)
+    through the kernels is the frame of the plain functions bit for bit:
+    the default scene at 128x128x4 with the CS 128 bounce accel, and the
+    benchmark cell's frame (800x800x4 on the 1.6M teapot). On the kernel
+    run `area_light.fused` equals `rays.area_light` and each sample is one
+    `light_sample` and one `light_fold`; the plain run launches neither."""
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.utils import profiling as P
+
+    if case == "default":
+        scene = build_default_scene(device=dev)
+        accel = build_cluster_accel(scene.mesh, cluster_size=16)
+        cfg = RenderConfig(width=128, height=128, chunk_size=16384,
+                           light_samples=4)
+    else:
+        from raytracing_tpu_torch.geometry.mesh import Scene
+
+        mesh, accel = request.getfixturevalue("teapot_1m6")
+        scene = Scene(mesh, torch.tensor([0.0, 25_000.0, 100_000.0],
+                                         device=dev))
+        cfg = RenderConfig(light_samples=4)
+    assert cfg.bin_secondary
+    lights = _sphere_light(dev)
+    P.COUNTERS.reset()
+    img = _lit_frame(scene, lights, cfg, accel, dev)
+    counts = P.COUNTERS.read()
+    assert counts["area_light.fused"] == counts["rays.area_light"] > 0
+    assert (counts["launches.light_sample"] == counts["launches.light_fold"]
+            > 0)
+    monkeypatch.setattr(whitted, "_fused_light", lambda *a: False)
+    P.COUNTERS.reset()
+    plain = _lit_frame(scene, lights, cfg, accel, dev)
+    counts = P.COUNTERS.read()
+    assert counts["area_light.fused"] == 0 < counts["rays.area_light"]
+    assert counts["launches.light_sample"] == counts["launches.light_fold"] == 0
+    assert torch.equal(img, plain)
+
+
+def test_light_launches_do_not_depend_on_the_alive_share(teapot_1m6, dev,
+                                                         monkeypatch):
+    """The light's own glue (the operations `area_light_term` dispatches
+    outside its any-hit queries, and `LAUNCHES`' light entries) over the
+    1.6M teapot's frame at 128x128x4 is the same with the benchmark's
+    light above and behind the teapot and with it in front of it (z = -1),
+    where many times more of its shadow rays are alive: every lane is
+    prepared and folded, alive or not."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from raytracing_tpu_torch.geometry.mesh import Scene, SphereLight
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.utils import profiling as P
+
+    state = {"term": 0, "query": 0}
+    real_term, real_any = whitted.area_light_term, whitted.any_hit
+
+    def term(*a, **kw):
+        state["term"] += 1
+        try:
+            return real_term(*a, **kw)
+        finally:
+            state["term"] -= 1
+
+    def any_hit(*a, **kw):
+        state["query"] += 1
+        try:
+            return real_any(*a, **kw)
+        finally:
+            state["query"] -= 1
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if state["term"] and not state["query"]:
+                Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(whitted, "area_light_term", term)
+    monkeypatch.setattr(whitted, "any_hit", any_hit)
+    mesh, accel = teapot_1m6
+    scene = Scene(mesh, torch.tensor([0.0, 25_000.0, 100_000.0], device=dev))
+    cfg = RenderConfig(width=128, height=128, chunk_size=16384,
+                       light_samples=4)
+    seen = []
+    for z in (LIGHT[0][0][2], -1.0):
+        lights = SphereLight(torch.tensor([[1.0, 8.0, z]], device=dev),
+                             torch.tensor(LIGHT[1], device=dev),
+                             torch.tensor(LIGHT[2], device=dev))
+        Ops.n = 0
+        P.COUNTERS.reset()
+        was = P.counting(True)
+        try:
+            with Ops():
+                _lit_frame(scene, lights, cfg, accel, dev)
+            counts = P.COUNTERS.read()
+        finally:
+            P.counting(was)
+        seen.append((Ops.n, counts["launches.light_sample"],
+                     counts["launches.light_fold"],
+                     counts["alive.area_light"] / counts["rays.area_light"]))
+    (ops0, s0, f0, alive0), (ops1, s1, f1, alive1) = seen
+    assert (ops0, s0, f0) == (ops1, s1, f1) and s0 > 0
+    assert alive1 > 3 * alive0 > 0
+
+
+def test_light_term_with_grad_on_the_card_runs_the_kernels(dev,
+                                                           monkeypatch):
+    """With the mesh tables and the lights' tables requiring grad, the
+    term on the card still runs the kernels (`_KernelLightSum`: one
+    `light_sample` and one `light_fold` a sample, `area_light.fused`
+    equal to `rays.area_light`); its image has the bits of the frame
+    without grad and of the plain functions' term (`_fused_light` off),
+    and so do the lights' gradients. The mesh tables' gradients are summed
+    in another order (the term's share of the points' gradient arrives as
+    one tensor, and the card's scatter-adds are atomics, so two plain runs
+    differ too): each within 1e-5 of its largest entry, chip_smoke.py's
+    GRAD_PARITY_RTOL (the verts' read 1.1e-6 on an H100)."""
+    from raytracing_tpu_torch.geometry.mesh import SphereLight
+    from raytracing_tpu_torch.models import whitted
+    from raytracing_tpu_torch.utils import profiling as P
+
+    scene = build_default_scene(device=dev)
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(width=64, height=64, light_samples=4)
+    o, d = camera_rays_for_ids(block_ray_ids(5, 4096, cfg, device=dev), cfg)
+    fixed = _sphere_light(dev)
+
+    def rays(grad):
+        g = torch.Generator(device=dev).manual_seed(2)
+        live = {k: getattr(scene.mesh, k).clone().requires_grad_(grad)
+                for k in ("verts", "colors", "materials")}
+        lights = SphereLight(*(t.clone().requires_grad_(grad)
+                               for t in fixed))
+        P.COUNTERS.reset()
+        before = dict(T.LAUNCHES)
+        with torch.set_grad_enabled(grad):
+            rgb = whitted.render_rays(
+                scene.mesh._replace(**live), accel, scene.sun, o, d, cfg,
+                lambda tag, shape: torch.rand(shape, generator=g,
+                                              device=dev),
+                lights=lights)
+        counts = P.COUNTERS.read()
+        launched = [T.LAUNCHES[k] - before[k]
+                    for k in ("light_sample", "light_fold")]
+        if grad:
+            (rgb * rgb).sum().backward()
+        grads = [t.grad for t in (*live.values(), *lights)]
+        return rgb.detach(), counts, launched, grads
+
+    rgb, counts, launched, grads = rays(True)
+    assert counts["area_light.fused"] == counts["rays.area_light"] > 0
+    assert launched[0] == launched[1] > 0 and launched[0] % 4 == 0
+    assert all(bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0
+               for t in grads)
+    want, _, want_launched, _ = rays(False)
+    assert launched == want_launched
+    assert torch.equal(rgb, want)
+    monkeypatch.setattr(whitted, "_fused_light", lambda *a: False)
+    plain, counts, launched, plain_grads = rays(True)
+    assert counts["area_light.fused"] == 0 and launched == [0, 0]
+    assert torch.equal(plain, rgb)
+    for got, ref in zip(grads[:3], plain_grads[:3]):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for got, ref in zip(grads[3:], plain_grads[3:]):
+        assert torch.equal(got, ref)
