@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch/CUDA port (`raytracing_tpu_torch`).
+"""The kernel table of the PyTorch/CUDA port (`raytracing_tpu_torch`): how
+fast each CUDA kernel is alone, on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
+
+This script times; `tests/test_torch_gpu.py` (`python -m pytest
+--noconftest -q -m gpu tests/test_torch_gpu.py`) checks that the kernels
+and the paths around them are right on the card, and `rtbench/` measures
+the program. A row's `max_abs_err` (each kernel against its plain version
+at the row's shape) is part of what the row measures, so it stays here.
 
 Phases (any failure raises and the script exits non-zero):
   1. device — require CUDA; print `nvidia-smi`'s name and power limit;
@@ -46,25 +53,25 @@ Phases (any failure raises and the script exits non-zero):
         rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
         against the plain version lane by lane and against the pack path
         under `shared_origin=0` on all 2,560,000 rays, and the rest set's
-        merge into the CS 16 walk's results (row `rest_merge_camera`); phase 7 repeats
+        merge into the CS 16 walk's results (row `rest_merge_camera`); phase 5 repeats
         this on every large scene, with its pooled lists held against the
         direct ones (the pooled lists' first stage and the direct lists
         bit-equal to their plain versions; the 1.6M first stage is row
         `lists_ext_pooled`, the 6.4M lists 50,560 wide sort through
         device memory), and the `walk_camera_dma` row is the 1.6M launch
-        (launched 10 times, equal every time); phase 5 times
+        (launched 10 times, equal every time); phase 4 times
         `walk_camera` at the frame's own shape (one chunk of 64 tiles, as
-        the camera-mode frame launches it, 10 times equal);
+        the camera-mode frame launches it);
      c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
         on the depth-2 wavefront of the 404k-triangle subdivided teapot
-        (3,160 bounce clusters); phase 7 times `refine_lists` again at the
+        (3,160 bounce clusters); phase 5 times `refine_lists` again at the
         1.6M Whitted frame's busiest launch (12,640 clusters), with the
         spread of listed candidates and alive lanes over the tiles;
      d. per-ray t_max: the busiest chunk's area-light shadow query (one
         spherical light, centre (1, 8, 7), radius 1.5) through the
         `_walk_groups` entry (CS=16) and the `_walk_dma` entry (CS=128),
         kernel against plain, and timed beside a scalar t_max;
-     e. the streamed-groups walk (`walk_gstream`, K3), run in phase 7 on
+     e. the streamed-groups walk (`walk_gstream`, K3), run in phase 5 on
         the 1.6M-triangle scene (12,640 x 128: 4 groups of 4,096 clusters
         at the 32 MiB budget) on all 2,560,000 pack-path rays: against its
         plain version lane by lane, and against the group loop with K1
@@ -88,7 +95,7 @@ Phases (any failure raises and the script exits non-zero):
         shading planes (A = 15, rows walk_both_chunk and
         walk_dma_both_chunk; and A = 20 with a color per triangle),
         against their plain versions and against the shading walk (the
-        rows of the kernel table come from phase 10's own launches);
+        rows of the kernel table come from phase 8's own launches);
      g. the split pack walk (`walk`, K1/K2) under its racing early exit:
         the `_walk_dma` launch of 3a, the primary launch with the exit
         forced and a nearest query with the exit forced over 3d's long
@@ -103,9 +110,9 @@ Phases (any failure raises and the script exits non-zero):
         are), K3 mt and woop on
         the chunk over the CS 16 table in 4 groups, the capped K2 walk and
         capped K5 dense query on the wavefront under the reference frame's
-        cap, the K1 lane-cull walk on the wavefront; then the reference
-        frame with gi_cap_frac 0.1 equal to the default frame, and a
-        gi_wq=False frame equal with gi_lane_cull on and off;
+        cap, the K1 lane-cull walk on the wavefront; their launches counted
+        over a reference frame with gi_cap_frac 0.1 and one with
+        gi_wq=False;
      j. the bounce levels' culling tile (`phase_ray_tile`): every pack
         kernel at a tile of 256 rays against its plain version at 256
         (K6, K5 dense + K6, K2 ten launches equal, K1 with and without
@@ -117,45 +124,30 @@ Phases (any failure raises and the script exits non-zero):
         and K4 on 3a's wavefront and K5 gathered on 3c's, each against its
         plain version at the tile and timed beside its launch at 128 or
         1,024 alone; the wavefront's kernels at 1,024, 512, 256 and 128
-        in turns (K6, K5 dense + K6, K2 and K1's visits and times), the
-        reference frame at gi_ray_tile 1,024, 512, 256, 384 and 2,048 in
-        turns (bit-equal, seconds, launches: as many a wrapper at 384 and
-        2,048 as at 1,024), and the gi_wq=False, "grid" and over-budget
+        in turns (K6, K5 dense + K6, K2 and K1's visits and times); the
+        rows' launches counted over the reference frame at gi_ray_tile
+        256, 384 and 2,048 and the gi_wq=False, "grid" and over-budget
         frames at 256 (the "grid" one at 128 too; it and gi_wq=False at
-        384 and 2,048) equal to theirs at 1,024 (the rows' launches);
-  4. frame parity — a 64x64 1-spp frame on the card against the same frame
-     through the plain CPU path, same uniforms, with pack-path and with
-     camera-mode primaries;
-  5. the reference frame — 800x800 at 4 spp, default config: one frame
-     with launch counts reset, then 2 timed frames (3 before the script
-     grew phases 8 and 9); the same with `primary_shared_origin=True`
-     (camera-mode primaries), its chunk-20 `walk_camera` launch kept
-     for 3b and that launch's lists built from the closed-form extents
-     (row `lists_ext_camera`); each frame's launches of the port's
-     kernels, and their total, printed;
-  6. headline — `python -m raytracing_tpu_torch bench` in process
-     (`raytracing_tpu_torch/bench.py`, which also times the frames, the
-     large scenes and the backward of phases 5 and 7-10):
-     `nearest_hit_camera_soa` at 800x800x4 on the default scene, CS=16,
-     the offsets perturbed by each call's result: primary rays/s, gated
-     on a plausible hit fraction;
-  7. large scenes — the same query on the subdivided teapot at 404k
-     (CS=64), 1.6M and 6.4M (CS=128) triangles, with mesh-generation and
-     accel-build seconds, the pack-path query `nearest_hit_soa` at 1.6M and
-     6.4M (it runs K3), and one Whitted frame each of the 1.6M scene (its
-     primary and sun-shadow queries run K3; chunk 12's two launches kept
-     for 3e, and the primary query's group lists, one list build from K6's
-     extents over 4 groups of 4,096 boxes, row `lists_ext_gstream`) and
-     the 404k scene;
-  8. the path-traced frame — 800x800, 64 spp, 4 bounces, chunks of 131,072
-     pixels, CS=16 plus the auto-built CS=128 bounce accel: a 64x64 2-spp
-     frame on the card against the plain CPU path with the same uniforms,
-     then one counted and one timed full frame;
-  9. the area-light frame — the reference frame with the light of 3d and
-     4 shadow samples: one counted frame, one timed; and the same frame
-     with `_WQ_IMPL = "grid"` (bounce queries through K4) against the
-     default from the same seed, bit-equal;
-  9b. the area lights' glue (csrc/light.cu, `phase_light_glue`) at the
+        384 and 2,048), each frame once;
+  4. the reference frame — 800x800 at 4 spp, default config: one counted
+     frame, then the same with `primary_shared_origin=True` (camera-mode
+     primaries), its chunk-20 `walk_camera` launch kept for 3b and that
+     launch's lists built from the closed-form extents (row
+     `lists_ext_camera`); each frame's launches of the port's kernels
+     printed;
+  5. large scenes — the subdivided teapot at 404k (CS=64), 1.6M and 6.4M
+     (CS=128) triangles, with mesh-generation and accel-build seconds:
+     one counted camera-mode query over the whole 800x800x4 frame at
+     1.6M and 6.4M, the pack-path query `nearest_hit_soa` at 1.6M
+     and 6.4M (it runs K3), and one counted Whitted frame each of the
+     1.6M scene (its primary and sun-shadow queries run K3; chunk 12's
+     two launches kept for 3e, and the primary query's group lists, one
+     list build from K6's extents over 4 groups of 4,096 boxes, row
+     `lists_ext_gstream`) and the 404k scene;
+  6. the area-light frame — the reference frame with the light of 3d and 4
+     shadow samples, counted with its bounce queries through K2 and then,
+     from the same seed, through K4 (`_WQ_IMPL = "grid"`);
+  7. the area lights' glue (csrc/light.cu, `phase_light_glue`) at the
      1.6M frame's binned level, 720,896 shaded points with a permuted
      `rows`: one sample's rays (`light_sample`) and a light's last fold
      (`light_fold`) against the plain functions bit for bit, timed
@@ -163,59 +155,35 @@ Phases (any failure raises and the script exits non-zero):
      beyond the L2, replayed) beside the plain chains (median of 5, and
      their launches) and their bounds (rows `light_sample`, `light_fold`
      of the JSON "glue_kernels");
- 10. the backward at full width (`bench_suite.py:80-130`): the 262,144
+  8. the backward at full width (`bench_suite.py:80-130`): the 262,144
      camera rays of blocks 90-105 of the reference frame through
      `render_rays`, loss sum(rgb^2), gradients for verts, colors and
-     materials, on the CS 16 accel, with one area light, and with the CS
-     128 bounce accel: forward and forward + backward ms (median of 3),
-     their ratio, launches, peak device GiB, every gradient finite and
-     nonzero; the K1 primary and first-bounce launches of the CS 16 run
-     (rows walk_both and walk_both_bounce) and the first K2 bounce launch
-     of the CS 128 run (row walk_dma_both), as the renderer made them,
-     against their plain versions and timed;
- 11. card against CPU gradients: one `render_rays` over the 1,024 rays of
-     a 32x32 frame, each table within GRAD_PARITY_RTOL of its largest
-     magnitude;
- 12. the inverse fit at `cmd_fit`'s defaults: 20 steps of 4,096 rays,
-     Adam at lr 1e-2, from colors x 0.5 toward the port's own 800x800x4
-     render; the held-out loss falls, a checkpoint saved at step 10
-     loads back bit for bit;
- 13. the command line (`python -m raytracing_tpu_torch`) in process at
-     full width: `render` of the reference frame through an accel cache,
-     built then loaded (the cache equal to a fresh build, both PNGs equal
-     to `render()` in u8 bit for bit), `render` at the CLI's defaults
-     (its launches are the kernel table's "per CLI render" column; its
-     PNG has the sky's colour and the reference frame's mean; its busiest
-     K1 and K2 launches and its K5+K6 and list-build launches with the
-     most alive lanes, captured, against their plain versions, with K6
-     alone on that list build's pack: rows walk_cli, walk_dma_cli,
-     refine_extents_cli, lists_cli, extents_cli),
-     `render --profile` (the trace names the walk and refinement
-     kernels), `fit` at its defaults for 20 steps, then for 60 with a
-     checkpoint (the step-50 snapshot holds the live params) and
-     `--resume` for 5,
-     `animate --frames 3`;
- 14. recovery on the card: `device_alive()`, `with_retry` past a real
-     out-of-memory error, a retried fit step bit-equal to a clean one;
- 15. multi-device and multi-process (`raytracing_tpu_torch/parallel`) at
-     full width: `render_sharded` over the card and 4 virtual shards
-     against `render()`, 2 processes sharing the card in a gloo group
-     (`render --num-processes 2 --assemble`) against one process of 2
-     shards, the train step's all_reduce in a one-rank NCCL group, the
-     train step over 2 shards at the backward cell's 262,144 rays against
-     one `Fitter` step, `dryrun_multichip(1)` and `(2)`, and the
-     brute-force and cluster backends at 64x64 against the kernel path
-     (`phase_multi_device`).
+     materials, on the CS 16 accel and with the CS 128 bounce accel, one
+     counted forward + backward each; the K1 primary and first-bounce
+     launches of the CS 16 run (rows walk_both and walk_both_bounce) and
+     the first K2 bounce launch of the CS 128 run (row walk_dma_both), as
+     the renderer made them, against their plain versions and timed;
+  9. the command line (`python -m raytracing_tpu_torch render`) at its
+     defaults, in process: its launches are the kernel table's "per CLI
+     render" column; its busiest K1 and K2 launches and its K5+K6 and
+     list-build launches with the most alive lanes, captured, against
+     their plain versions, with K6 alone on that list build's pack: rows
+     walk_cli, walk_dma_cli, refine_extents_cli, lists_cli, extents_cli;
+ 10. the reference frame sharded (`render_sharded`) over 4 virtual shards
+     of the card, its launches counted and captured as 9's: rows
+     walk_sharded, walk_dma_sharded, refine_extents_sharded,
+     lists_sharded, extents_sharded.
 
-Each main path (5, 5 with camera mode, 3i's family queries and frames, 3j's
-frames, 7's
-1.6M camera and pack-path queries, 7's Whitted frame, 8, 9, 9's "grid"
-frame, each configuration of 10, 12's steps, 13's default render, 15's
-sharded frames) runs with the launch counts set to 0 just before and read
-just after. A
-plain version that takes seconds is timed once, by the run that checks the
-kernel. The last two lines are the kernel table and the result, each one
-JSON object. The script never imports JAX.
+Each main path (4, 4 with camera mode, 3i's family queries and frames,
+3j's frames, 5's 1.6M camera and pack-path queries, 5's Whitted frames, 6,
+each configuration of 8, 9's render, 10's sharded frame) runs with the
+launch counts set to 0 just before and read just after, once: nothing
+here times a frame (`rtbench/` times the program). A plain version
+that takes seconds is timed once, by the run that compares it with the
+kernel. The last three lines are each one JSON object: the kernel table
+(`{"kernels": [...]}`), the kernels with no TPU counterpart
+(`{"glue_kernels": [...]}`) and the result (`{"ok": true, ...}`). The
+script never imports JAX.
 """
 
 from __future__ import annotations
@@ -229,29 +197,8 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-FRAME_PARITY_ATOL = 1e-4  # torch's CUDA and CPU sin/cos differ by ulps
-SKY_ATOL = 1e-3
-# The CLI's default frame against the reference frame: the same scene and
-# camera, other samples (another cluster size and other chunks): the
-# means of 640,000 pixels, in u8 counts, agree within the samples' noise,
-# which averages far below half a count; a kernel that lost or misplaced
-# hits would move whole regions.
-CLI_MEAN_ATOL = 0.5
-# Phase 15: a sharded, 2-process or plain-backend frame against the frame
-# it must equal (the same rays through the same kernels or the same math:
-# only the shards, chunks and bins differ).
-MULTI_ATOL = 1e-5
-# Phase 15d: the sharded train step's gradients against one unsharded
-# Fitter step at 262,144 rays, in units of each table's largest magnitude,
-# both under deterministic algorithms (two Fitter steps then read 0.0).
-# Each entry sums the contributions of up to 2.9M rays in f32, and the two
-# steps sum them in another order: the sharded step sums each shard's
-# half, then the two halves. On an H100 80GB HBM3 (700 W) that order alone
-# read 2.07e-5 (verts), 1.52e-5 (colors) and 9.4e-6 (materials), above
-# GRAD_PARITY_RTOL (1e-5, held at 1,024 rays). The bar is the one the CPU
-# tests hold a fit step to against JAX's (rtol 1e-4); a lost or doubled
-# shard moves a gradient by half of itself.
-TRAIN_STEP_RTOL = 1e-4
+# The spherical light of bench_suite.py:542-546: centre, radius, emission.
+LIGHT = ((1.0, 8.0, 7.0), 1.5, (1.5, 1.5, 1.5))
 # Phase 3 traces chunk 20 of the reference frame: the busiest one (48,518
 # of its 65,536 primaries hit a teapot, the rest the ground); the frame's
 # first 16 chunks are all sky and would leave the bounce level empty.
@@ -307,7 +254,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                          "raytracing_tpu/kernels/traverse.py:972"),
     "walk_dma_both": ("raytracing_tpu_torch/csrc/walk.cu",
                       "raytracing_tpu/kernels/traverse.py:1819"),
-    # The launches of `render` at the CLI's defaults (phase 13).
+    # The launches of `render` at the CLI's defaults (phase 9).
     "walk_cli": ("raytracing_tpu_torch/csrc/walk.cu",
                  "raytracing_tpu/kernels/traverse.py:972"),
     "walk_dma_cli": ("raytracing_tpu_torch/csrc/walk.cu",
@@ -319,7 +266,7 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "lists_cli": ("raytracing_tpu_torch/csrc/lists.cu",
                   "raytracing_tpu/kernels/traverse.py:163"),
     # The launches of the reference frame sharded over 4 virtual shards of
-    # the card (phase 15a): raster-order chunks of a shard's rays.
+    # the card (phase 10): raster-order chunks of a shard's rays.
     "walk_sharded": ("raytracing_tpu_torch/csrc/walk.cu",
                      "raytracing_tpu/kernels/traverse.py:972"),
     "walk_dma_sharded": ("raytracing_tpu_torch/csrc/walk.cu",
@@ -427,6 +374,31 @@ class SmokeFailure(RuntimeError):
 def _require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def sphere_light(device="cuda"):
+    import torch
+
+    from raytracing_tpu_torch.geometry.mesh import SphereLight
+
+    c, r, e = LIGHT
+    return SphereLight(torch.tensor([c]), torch.tensor([r]),
+                       torch.tensor([e])).to(device)
+
+
+def counted_frame(scene, cfg, accel, gi_accel=None):
+    """One Whitted frame with the launch counts set to 0 just before and
+    read just after. Returns the launches (`kernels.traverse.LAUNCHES`)."""
+    import torch
+
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models import whitted
+
+    torch.cuda.synchronize()
+    T.reset_launches()
+    whitted.render(scene, cfg, accel=accel, gi_accel=gi_accel)
+    torch.cuda.synchronize()
+    return dict(T.LAUNCHES)
 
 
 def _median_ms(fn, reps=5):
@@ -1306,8 +1278,8 @@ def _check_repeats(tag, fn, args, kw, alive, reps=10):
 def phase_kernels():
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
     from raytracing_tpu_torch.models.camera import (block_ray_ids,
@@ -1443,7 +1415,7 @@ def phase_kernels():
 
     # 3d. Per-ray t_max: the chunk's area-light shadow query (one sample of
     # `area_light_term` at the primary hits) through both pack entries.
-    lights = bench.sphere_light(dev)
+    lights = sphere_light(dev)
     gen.manual_seed(3)
     w_dir, ndl, l_alive, t_stop = whitted.light_shadow_rays(
         whitted.light_cone(lights, 0, pos), pos, n, hit,
@@ -1580,7 +1552,7 @@ def _both_rows(rows, rp, bp, mesh, acc16, acc128, eps, early):
     "both" (rows walk_both_chunk, walk_dma_both_chunk; A = 15) and in full
     mode (rows walk_both_chunk_full, walk_dma_both_chunk_full; A = 20):
     against their plain versions, and against the shading walk in t, slots
-    and the shading planes. Phase 10 times the launches of the kernel
+    and the shading planes. Phase 8 times the launches of the kernel
     table."""
     import torch
 
@@ -1965,14 +1937,13 @@ def phase_variants(rows):
     diagonal); the K1 lane-cull walk on the wavefront (the walk of a
     gi_wq=False frame's bounce level). The launches of each family's row
     are counted over a query through `nearest_hit_attrs_soa(variant=)`.
-    Then the reference frame with gi_cap_frac 0.1 against the default
-    frame, and a gi_wq=False frame with gi_lane_cull on and off: the
-    images equal, the times side by side; the capped and lane-cull rows'
-    launches are those frames'. Returns the rows' launches."""
+    The capped rows' launches are those of one reference frame with
+    gi_cap_frac 0.1, the lane-cull row's those of one gi_wq=False frame.
+    Returns the rows' launches."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.accel import packets
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
@@ -2139,30 +2110,16 @@ def phase_variants(rows):
                  T._groups_walk_args(acc128, bp, eps, True, INF, na,
                                      early_exit=early), bound_visits=kept)
 
-    # Frames: the cap, and the lane cull on against off.
-    frames = {}
-    for tag, c in (("default", cfg),
-                   ("gi_cap_frac 0.1", cfg.replace(gi_cap_frac=CAP_FRAC)),
-                   ("gi_wq False, lane cull", cfg.replace(gi_wq=False)),
-                   ("gi_wq False, no lane cull",
-                    cfg.replace(gi_wq=False, gi_lane_cull=False))):
-        img, fl, _, first, times = bench.timed_frames(scene, c, acc16, 1)
-        frames[tag] = (img, fl)
-        print(f"[variants] reference frame, {tag}: {first:.3f} s counted, "
-              f"{times[0]:.3f} s timed; launches "
+    # The frames that launch the capped walks and the lane-cull walk.
+    capped = counted_frame(scene, cfg.replace(gi_cap_frac=CAP_FRAC), acc16)
+    culled = counted_frame(scene, cfg.replace(gi_wq=False), acc16)
+    for tag, fl in (("gi_cap_frac 0.1", capped), ("gi_wq False", culled)):
+        print(f"[variants] reference frame, {tag}: launches "
               f"{ {k: v for k, v in fl.items() if v} }")
-    for a, b in (("gi_cap_frac 0.1", "default"),
-                 ("gi_wq False, lane cull", "gi_wq False, no lane cull")):
-        _require(torch.equal(frames[a][0], frames[b][0]),
-                 f"the reference frame, {a}, differs from {b}")
-        print(f"[variants] reference frame, {a}: equal to {b}")
-    launches["walk_dma_capped"] = frames["gi_cap_frac 0.1"][1].get(
-        "walk_dma_capped", 0)
-    launches["refine_extents_capped"] = frames["gi_cap_frac 0.1"][1].get(
-        "refine_extents_capped", 0)
-    launches["walk_lc"] = frames["gi_wq False, lane cull"][1].get("walk_lc", 0)
-    _require(not frames["gi_wq False, no lane cull"][1].get("walk_lc", 0),
-             "the frame without lane cull launched the lane-cull walk")
+    launches["walk_dma_capped"] = capped.get("walk_dma_capped", 0)
+    launches["refine_extents_capped"] = capped.get("refine_extents_capped",
+                                                   0)
+    launches["walk_lc"] = culled.get("walk_lc", 0)
     return launches
 
 
@@ -2290,32 +2247,6 @@ def _composed_rows(rows, tile, bp, acc128, eps, na, early):
                   T.walk(*dargs, **dkw), balive, True)
 
 
-def _by_entry(launches):
-    """A frame's launches summed over the launch tiles ("walk_dma_rt128"
-    counts as "walk_dma"): one launch per wrapper call at any tile."""
-    import re
-
-    out = {}
-    for key, v in launches.items():
-        if v:
-            base = re.sub(r"_rt\d+$", "", key)
-            out[base] = out.get(base, 0) + v
-    return out
-
-
-def _one_launch_a_call(composed, base):
-    """Whether a frame at a composed tile made one launch a wrapper call,
-    as the frame `base` at 1,024 did (`_by_entry`), where a list build
-    from a pack is two launches at a composed tile: K6 at the launch tile,
-    then the list build from its folded extents."""
-    c, b = _by_entry(composed), _by_entry(base)
-    moved = c.get("lists_ext", 0) - b.get("lists_ext", 0)
-    c["extents"] = c.get("extents", 0) - moved
-    c["lists_ext"] = c.get("lists_ext", 0) - moved
-    c["lists"] = c.get("lists", 0) + moved
-    return {k: v for k, v in c.items() if v} == b
-
-
 def _composed_launches(launches, tile, frame_launches):
     """Into launches["<entry>_rt<tile>"], for each entry of COMPOSED, the
     count of a frame at gi_ray_tile `tile` under the key of its launch
@@ -2346,20 +2277,19 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     on the wavefront and K5 gathered on the 404k one, each wrapper
     (launches at s, folded) against its plain version at the tile. Then
     the wavefront's kernels at every tile of RAY_TILES in turns
-    (`_tile_sweep`), and frames: the reference frame at gi_ray_tile
-    1,024, 512, 256, 384 and 2,048 timed in turns, equal bit for bit,
-    each one's launches (at 384 and 2,048 as many a wrapper as at 1,024,
-    under the keys of their launch tiles); and the frames whose launches
-    count the other rows, each equal to its frame at 1,024: gi_wq=False
-    (K1 with the lane cull, K6) at 256, 384 and 2,048, gi_wq=False
-    without the lane cull (K1), `_WQ_IMPL = "grid"` with no coarse bounce
-    accel (K4 over K5 gathered's lists: 790 clusters) at 256, 128, 384
-    and 2,048, and gi_wq=False with no coarse bounce accel and the group
-    budget patched (K3 in 4 groups). Returns the rows' launches."""
+    (`_tile_sweep`), and the frames whose launches the rows count, each
+    counted once: the reference frame at gi_ray_tile 256, 384 and 2,048
+    (at the composed tiles under the keys of their launch tiles),
+    gi_wq=False (K1 with the lane cull, K6) at 1,024, 256, 384 and 2,048,
+    gi_wq=False without the lane cull (K1) at 256, `_WQ_IMPL = "grid"`
+    with no coarse bounce accel (K4 over K5 gathered's lists: 790
+    clusters) at 256, 128, 384 and 2,048, and gi_wq=False with no coarse
+    bounce accel and the group budget patched (K3 in 4 groups) at 256.
+    Returns the rows' launches."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.accel import packets
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
@@ -2519,35 +2449,19 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
     sweep = _tile_sweep(bp, acc128, eps, na, early)
     del bp
 
-    # Frames: the reference frame at 1,024, 512, 256, 384 and 2,048 in
-    # turns.
-    frames = {}
-    turns = (1024, 512, 256) + COMPOSED_TILES
-    for tile in turns + turns[::-1]:
-        img, fl, _, first, times = bench.timed_frames(
-            scene, cfg.replace(gi_ray_tile=tile), acc16, 1)
-        f = frames.setdefault(tile, dict(img=img, launches=fl, s=[]))
-        f["s"] += [first] + times
-        _require(torch.equal(img, frames[1024]["img"]),
-                 f"the reference frame at gi_ray_tile {tile} differs from "
-                 f"the default frame")
-    for tile, f in frames.items():
-        print(f"[ray_tile] reference frame, gi_ray_tile {tile}: counted / "
-              f"timed s in turns {f['s']}; equal to the default frame; "
-              f"launches { {k: v for k, v in f['launches'].items() if v} }")
-    launches = {k: v for k, v in frames[t]["launches"].items()
-                if k.endswith(f"_rt{t}")}
+    # Frames: the reference frame at 256 and at the composed tiles, and the
+    # frames that run the other kernels at those tiles, each counted once.
+    frames = {tile: counted_frame(scene, cfg.replace(gi_ray_tile=tile),
+                                  acc16) for tile in (t,) + COMPOSED_TILES}
+    for tile, fl in frames.items():
+        print(f"[ray_tile] reference frame, gi_ray_tile {tile}: launches "
+              f"{ {k: v for k, v in fl.items() if v} }")
+    launches = {k: v for k, v in frames[t].items() if k.endswith(f"_rt{t}")}
     for tile in COMPOSED_TILES:
-        _require(_one_launch_a_call(frames[tile]["launches"],
-                                    frames[1024]["launches"]),
-                 f"the reference frame at gi_ray_tile {tile}: not one launch "
-                 f"a wrapper call, as at 1,024")
-        _composed_launches(launches, tile, frames[tile]["launches"])
-    # The frames that run the other kernels at the smaller and the composed
-    # tiles, each against 1,024.
+        _composed_launches(launches, tile, frames[tile])
     budget, impl = packets._GROUP_BLOCK_BUDGET_BYTES, T._WQ_IMPL
     cases = (("gi_wq False", dict(gi_wq=False), {},
-              (t,) + COMPOSED_TILES),
+              (1024, t) + COMPOSED_TILES),
              ("gi_wq False, no lane cull",
               dict(gi_wq=False, gi_lane_cull=False), {}, (t,)),
              ("grid, no coarse bounce accel", dict(gi_cluster_size=0),
@@ -2555,33 +2469,22 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
              ("gi_wq False, no coarse bounce accel, budget patched",
               dict(gi_wq=False, gi_cluster_size=0), dict(budget=1), (t,)))
     try:
-        for tag, change, patch, smaller in cases:
+        for tag, change, patch, tiles in cases:
             T._WQ_IMPL = patch.get("impl", impl)
             packets._GROUP_BLOCK_BUDGET_BYTES = patch.get("budget", budget)
-            imgs, counted = {}, {}
-            for tile in (1024,) + smaller:
-                img, fl, _, first, times = bench.timed_frames(
-                    scene, cfg.replace(gi_ray_tile=tile, **change), acc16,
-                    1)
-                imgs[tile], counted[tile] = img, fl
+            counted = {}
+            for tile in tiles:
+                fl = counted[tile] = counted_frame(
+                    scene, cfg.replace(gi_ray_tile=tile, **change), acc16)
                 print(f"[ray_tile] reference frame, {tag}, gi_ray_tile "
-                      f"{tile}: {first:.3f} s counted, {times[0]:.3f} s "
-                      f"timed; launches "
+                      f"{tile}: launches "
                       f"{ {k: v for k, v in fl.items() if v} }")
                 if tile in COMPOSED_TILES:
-                    _require(_one_launch_a_call(fl, counted[1024]),
-                             f"the reference frame, {tag}, at {tile}: not "
-                             f"one launch a wrapper call, as at 1,024")
                     _composed_launches(launches, tile, fl)
                 elif tile != 1024:
                     for k, v in fl.items():
                         if k.endswith(f"_rt{tile}"):
                             launches[k] = max(launches.get(k, 0), v)
-                _require(torch.equal(imgs[1024], img),
-                         f"the reference frame, {tag}: gi_ray_tile {tile} "
-                         f"differs from 1,024")
-            print(f"[ray_tile] reference frame, {tag}: gi_ray_tile "
-                  f"{smaller} equal to 1,024")
             if tag == "gi_wq False":
                 # The list build at 1,024 and K6 alone at the composed
                 # 2,048 (launch tiles of 1,024) on the bounce wavefronts.
@@ -2592,121 +2495,42 @@ def phase_ray_tile(rows, card, scene404, acc64_404k, acc128_404k):
         packets._GROUP_BLOCK_BUDGET_BYTES = budget
     print("[ray_tile] summary " + json.dumps({
         "card": card, "sweep": sweep,
-        "frames": {tile: dict(s=f["s"], launches={
-            k: v for k, v in f["launches"].items() if v})
-            for tile, f in frames.items()}}))
+        "frames": {tile: {k: v for k, v in fl.items() if v}
+                   for tile, fl in frames.items()}}))
     return launches
 
 
-def phase_frame_parity():
+def phase_reference_frame(rows):
+    """4. The reference frame (800x800 at 4 spp, `RenderConfig()`): one
+    counted frame with pack-path primaries, then one with camera-mode
+    primaries, whose `walk_camera` launch of chunk KERNEL_CHUNK (64 tiles)
+    is kept: timed at that shape (row "walk_camera_chunk") and its lists
+    built from the closed-form extents (row `lists_ext_camera`). Returns
+    both frames' launches."""
     import torch
 
     from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                       build_default_scene)
-    from raytracing_tpu_torch.models.whitted import render
-
-    base = RenderConfig(width=64, height=64, samples_per_pixel=1)
-    draws = {}
-
-    def uniforms(i, depth, shape):
-        if (i, depth) not in draws:
-            g = torch.Generator().manual_seed(1000 * i + depth)
-            draws[(i, depth)] = torch.rand(shape, generator=g)
-        return draws[(i, depth)]
-
-    accs = {}
-    for dev in ("cuda", "cpu"):
-        scene = build_default_scene(device=dev)
-        accs[dev] = (scene, build_cluster_accel(scene.mesh, cluster_size=16))
-    for tag, cfg in (("pack-path primaries", base),
-                     ("camera-mode primaries",
-                      base.replace(primary_shared_origin=True))):
-        imgs = []
-        for dev, (scene, acc) in accs.items():
-            imgs.append(render(scene, cfg, accel=acc, uniforms=lambda i, k, s:
-                               uniforms(i, k, s).to(dev)).cpu())
-        err = float((imgs[0] - imgs[1]).abs().max())
-        _require(torch.isfinite(imgs[0]).all(), "64x64 frame is not finite")
-        _require(err <= FRAME_PARITY_ATOL,
-                 f"64x64 frame, {tag}: card vs CPU max abs {err} > "
-                 f"{FRAME_PARITY_ATOL}")
-        print(f"[parity] 64x64x1spp full depth, {tag}: card vs CPU plain "
-              f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
-
-
-def _print_frame(tag, cfg, img, launches, counts, first, times):
-    spf = statistics.median(times) if times else first
-    nearest, shadow = counts["alive.nearest"], counts.get("alive.shadow", 0)
-    alive = nearest + shadow
-    lanes = counts["rays.nearest"] + counts.get("rays.shadow", 0)
-    print(f"[frame] {tag} {cfg.width}x{cfg.height}x{cfg.samples_per_pixel}"
-          f"spp: first frame {first} s, then "
-          f"{', '.join(map(str, times)) or 'none'} s (median {spf} s)")
-    # Dead lanes (rays that left the scene) cost almost nothing, so the
-    # rate counts alive rays only.
-    print(f"[frame] {tag} alive ray queries per frame: {alive} "
-          f"({nearest} nearest + {shadow} shadow) -> {alive / spf} alive "
-          f"queries/s; lanes submitted, dead included: {lanes} "
-          f"({counts['rays.nearest']} nearest + "
-          f"{counts.get('rays.shadow', 0)} shadow); syncs "
-          f"{sum(v for k, v in counts.items() if k.startswith('syncs.'))}, "
-          f"walk visits {counts.get('walk.visits', 0)} of "
-          f"{counts.get('walk.listed', 0)} listed")
-    print(f"[frame] {tag} launches per frame: {launches} (the port's "
-          f"kernels: {sum(launches.values())} in all); mean "
-          f"{float(img.mean())}")
-
-
-def phase_reference_frame(rows):
-    """The default reference frame (pack-path primaries), then the same
-    frame with camera-mode primaries, whose `walk_camera` launch of chunk
-    KERNEL_CHUNK (64 tiles) is then timed at that shape (rows
-    "walk_camera_chunk") and launched 10 times. Returns both launch
-    counts."""
-    import torch
-
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
     from raytracing_tpu_torch.kernels import traverse as T
 
     cfg = RenderConfig()
     scene = build_default_scene(device="cuda")
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    sky = torch.tensor([0x87, 0xCE, 0xEB], dtype=torch.float32) / 255.0
-    sky = sky ** (1 / 2.2)
     out = []
-    imgs = []
-    for tag, c, need in (
-            ("reference frame", cfg,
-             ("walk", "walk_dma", "refine_extents", "lists", "lists_ext",
-              "rest_merge")),
-            ("reference frame, camera-mode primaries",
-             cfg.replace(primary_shared_origin=True),
-             ("walk_camera", "walk", "walk_dma", "refine_extents", "lists",
-              "lists_ext", "rest_merge"))):
-        camera_mode = c.primary_shared_origin
+    for tag, c in (("reference frame", cfg),
+                   ("reference frame, camera-mode primaries",
+                    cfg.replace(primary_shared_origin=True))):
         frame = []
         chunk = _capture_calls(
-            "walk_camera", [KERNEL_CHUNK] if camera_mode else [],
-            lambda: frame.append(bench.timed_frames(scene, c, accel, 2)))
-        img, launches, counts, first, times = frame[0]
-        err = float((img[2, 2].cpu() - sky).abs().max())
-        _require(err <= SKY_ATOL, f"{tag}: sky pixel off by {err}")
-        for k in need:
-            _require(launches[k] > 0,
-                     f"kernel {k} was not launched by the {tag}")
-        _print_frame(tag, c, img, launches, counts, first, times)
-        out.append(launches)
-        imgs.append(img)
+            "walk_camera", [KERNEL_CHUNK] if c.primary_shared_origin else [],
+            lambda: frame.append(counted_frame(scene, c, accel)))
+        print(f"[frame] {tag}: launches {frame[0]}")
+        out.append(frame[0])
     (cargs, ckw), = chunk
     _timed_camera(rows, "walk_camera_chunk", cargs, ckw,
                   f"the camera-mode frame's chunk {KERNEL_CHUNK}: "
                   f"{cargs[3]} tiles x {cargs[1].ray_tile} rays, "
                   f"{accel.num_clusters}x16, A = {cargs[8]}")
-    _check_repeats("walk_camera (K1 camera), the frame's chunk",
-                   T.walk_camera, cargs, ckw,
-                   torch.ones(cargs[3] * cargs[1].ray_tile, dtype=torch.bool,
-                              device="cuda"))
     # That launch's lists: the closed-form extents of its 64 tiles through
     # the list build from extents (one launch, as `_camera_walk_args`).
     offs, cam, tile0, n_tiles = cargs[:4]
@@ -2718,78 +2542,36 @@ def phase_reference_frame(rows):
         f"{accel.num_clusters} boxes, closed-form extents")
     _require(torch.equal(got[0], cargs[4]) and torch.equal(got[2], cargs[5]),
              "lists_ext_camera: not the lists the camera walk was given")
-    del chunk, cargs, ckw
-    diff = (imgs[0] - imgs[1]).abs()
-    print(f"[frame] camera-mode vs pack-path primaries (pmto vs pmt, other "
-          f"uniforms): {int((diff.amax(dim=2) > 1e-3).sum())} of "
-          f"{diff.shape[0] * diff.shape[1]} pixels differ by more than 1e-3")
     return out
 
 
-def _camera_rate(accel, w, h, spp, gate, iters, tag):
-    """Primary rays/s of `nearest_hit_camera_soa` (`bench.camera_rate`:
-    `iters` chained calls in CUDA events, best of 3), gated on the hit
-    fraction."""
-    from raytracing_tpu_torch import bench
-
-    rate, frac = bench.camera_rate(accel, w, h, spp, iters)
-    _require(gate[0] < frac < gate[1],
-             f"{tag}: implausible hit fraction {frac}")
-    print(f"[{tag}] {w}x{h}x{spp}spp, {accel.num_clusters} clusters of "
-          f"{accel.cluster_size}: hit fraction {frac}, {w * h * spp / rate} "
-          f"s per call (best of 3 x {iters}) -> {rate} primary rays/s")
-    return rate
-
-
-def phase_headline():
-    """6. The headline through the CLI, `python -m raytracing_tpu_torch
-    bench` (`bench.measure`), in process: its JSON line names the card
-    and passes the hit gate."""
-    import torch
-
-    from raytracing_tpu_torch import bench
-
-    out = _cli(["bench"])
-    rec = json.loads(out.strip().splitlines()[-1])
-    _require(rec["metric"] == "primary_rays_per_s_per_chip_teapot"
-             and rec["unit"] == "rays/s" and rec["value"] > 0
-             and rec["device"] == torch.cuda.get_device_name(0),
-             f"bench: record {rec}")
-    frac = rec["hit_fraction"]
-    _require(bench.HIT_GATE[0] < frac < bench.HIT_GATE[1],
-             f"bench: implausible hit fraction {frac}")
-    print(f"[headline] bench: {rec['value']} primary rays/s, hit fraction "
-          f"{frac}")
-    return rec["value"]
-
-
 def phase_large_scenes(rows, scene404, acc64, gi128, built404):
-    """Camera-mode primary rays/s at 404k (CS 64), 1.6M and 6.4M (CS 128)
-    triangles, each held first against its plain version and the pack path
-    at that very shape (`_check_camera_frame`; the 1.6M launch is the
-    `walk_camera_dma` row), one Whitted frame of the 1.6M scene (its
+    """The camera-mode query at 404k (CS 64), 1.6M and 6.4M (CS 128)
+    triangles against its plain version and the pack path at that very
+    shape (`_check_camera_frame`; the 1.6M launch is the `walk_camera_dma`
+    row), one counted camera-mode query each at 1.6M and 6.4M, one Whitted
+    frame of the 1.6M scene (its
     chunk-12 K3 launches and its busiest gathered refinement, the
     `refine_lists_1m6` row, kept and timed) and one of the 404k scene.
     Returns the launches of the 1.6M camera query, of the 404k frame, of
     the 1.6M pack query and of the 1.6M frame."""
     import torch
 
-    from raytracing_tpu_torch import RenderConfig, bench, build_cluster_accel
+    from raytracing_tpu_torch import RenderConfig, build_cluster_accel
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
     from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.ops.sampling import stratified_offsets
 
     print(f"[large] 404k: mesh_gen {built404['mesh_s']} s, accel_build "
           f"{built404['accel_s']} s")
     camera = _reference_camera("cuda")
     _check_camera_frame(rows, "walk_camera_404k", "walk_camera", acc64,
                         camera, False)
-    _camera_rate(acc64, 800, 800, 4, bench.HIT_GATE_LARGE, 10,
-                 "large 404k")
 
-    rate_launches = gstream_launches = frame_launches = None
-    for levels, tag, iters in ((4, "1m6", 10), (5, "6m4", 5)):
+    query_launches = gstream_launches = frame_launches = None
+    for levels, tag in ((4, "1m6"), (5, "6m4")):
         t0 = time.perf_counter()
         mesh = subdivided_teapot_mesh(levels=levels, device="cuda")
         t1 = time.perf_counter()
@@ -2841,12 +2623,11 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                                        glists.extend(_capture_calls(
                                            "lists_from_extents", [k],
                                            lambda: frame.append(
-                                               bench.timed_frames(
+                                               counted_frame(
                                                    Scene(mesh=mesh,
                                                          sun=sun_position(
                                                              0.0).to("cuda")),
-                                                   RenderConfig(), acc,
-                                                   0)))))))
+                                                   RenderConfig(), acc)))))))
             frame = frame[0]
             # The primary query's group lists of that chunk (K3's lists:
             # one launch over the groups, a dead tile listing nothing).
@@ -2862,12 +2643,12 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
                      "launch")
             del glists, gargs, gkw, got
             # One object and no rest set: the merge never launches.
-            _require(frame[1]["walk_gstream"] > 0 and frame[1]["walk"] == 0
-                     and frame[1]["refine_lists"] > 0
-                     and frame[1]["rest_merge"] == 0,
-                     f"the 1.6M Whitted frame's launches: {frame[1]}")
-            _print_frame("1.6M Whitted frame", RenderConfig(), *frame)
-            frame_launches = frame[1]
+            _require(frame["walk_gstream"] > 0 and frame["walk"] == 0
+                     and frame["refine_lists"] > 0
+                     and frame["rest_merge"] == 0,
+                     f"the 1.6M Whitted frame's launches: {frame}")
+            print(f"[frame] 1.6M Whitted frame: launches {frame}")
+            frame_launches = frame
             _check_gstream_chunk(rows, chunk)
             # The frame's gathered refinements: the spread of their work,
             # and the busiest launch (most listed candidates) as a row.
@@ -2880,31 +2661,30 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
             _timed_refine_lists(rows, "refine_lists_1m6", busiest[0],
                                 "the 1.6M frame's busiest launch")
             del busiest
+        # One camera-mode query over the whole frame, counted.
         torch.cuda.reset_peak_memory_stats()
         T.reset_launches()
-        _camera_rate(acc, 800, 800, 4, bench.HIT_GATE_LARGE, iters,
-                     f"large {tag}")
-        print(f"[large {tag}] peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB")
-        _require(T.LAUNCHES["walk_camera_dma"] > 0,
-                 f"the {tag} query did not launch walk_camera_dma")
-        rate_launches = rate_launches or dict(T.LAUNCHES)
+        T.nearest_hit_camera_soa(acc, stratified_offsets(4, device="cuda"),
+                                 width=800, height=800, spp=4)
+        torch.cuda.synchronize()
+        print(f"[large {tag}] camera query 800x800x4: launches "
+              f"{ {k: v for k, v in T.LAUNCHES.items() if v} }, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30} GiB")
+        query_launches = query_launches or dict(T.LAUNCHES)
         del acc, mesh
 
-    cfg = RenderConfig()
-    img, launches, counts, first, times = bench.timed_frames(
-        scene404, cfg, acc64, 0, gi_accel=gi128)
+    launches = counted_frame(scene404, RenderConfig(), acc64,
+                             gi_accel=gi128)
     for k in ("refine_lists", "walk_dma", "walk", "lists"):
         _require(launches[k] > 0,
                  f"kernel {k} was not launched by the 404k Whitted frame")
-    _print_frame("404k Whitted frame", cfg, img, launches, counts, first,
-                 times)
-    return rate_launches, launches, gstream_launches, frame_launches
+    print(f"[frame] 404k Whitted frame: launches {launches}")
+    return query_launches, launches, gstream_launches, frame_launches
 
 
 def _check_gstream(rows, acc, camera):
     """3e. K3 at the 1.6M-triangle scene on all 2,560,000 pack-path rays
-    (the origin folded, as phase 7's pack-path query walks them): the
+    (the origin folded, as phase 5's pack-path query walks them): the
     kernel against its plain version lane by lane (nearest with the 4
     attribute rows: 4 groups), against the group loop with K1 — t, slots,
     attributes and occlusion flags, with the early exit on and off — and
@@ -3039,127 +2819,38 @@ def _check_gstream_chunk(rows, chunk):
                            rp[7] != 0)
 
 
-def phase_path_traced_frame():
-    """8. BASELINE config 3 on the default scene: parity of a small frame
-    with the CPU plain path, then one timed full frame (800x800, 64 spp, 4
-    bounces) after the counted one. Returns its launches."""
-    import torch
-
-    from raytracing_tpu_torch import (PathTracerConfig, RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
-    from raytracing_tpu_torch.models import path_tracer
-
-    small = RenderConfig(width=64, height=64, chunk_size=131072)
-    pt_small = PathTracerConfig(max_bounces=4, samples_per_pixel=2)
-    draws = {}
-
-    def uniforms(i, s, tag, shape):
-        key = (i, s, tag)
-        if key not in draws:
-            g = torch.Generator().manual_seed(
-                100000 * i + 1000 * s + 10 * tag[1] + (tag[0] == "scatter"))
-            draws[key] = torch.rand(shape, generator=g)
-        return draws[key]
-
-    imgs = []
-    for dev in ("cuda", "cpu"):
-        scene = build_default_scene(device=dev)
-        acc = build_cluster_accel(scene.mesh, cluster_size=16)
-        imgs.append(path_tracer.render(
-            scene, small, pt_small, accel=acc,
-            uniforms=lambda i, s, tag, shape, dev=dev:
-            uniforms(i, s, tag, shape).to(dev)).cpu())
-    err = float((imgs[0] - imgs[1]).abs().max())
-    _require(bool(torch.isfinite(imgs[0]).all()), "64x64 path-traced frame "
-             "is not finite")
-    _require(err <= FRAME_PARITY_ATOL, f"64x64 path-traced frame: card vs "
-             f"CPU max abs {err} > {FRAME_PARITY_ATOL}")
-    print(f"[parity] path tracer 64x64, 2 spp, 4 bounces: card vs CPU plain "
-          f"path max abs {err} (limit {FRAME_PARITY_ATOL})")
-
-    cfg = RenderConfig(width=800, height=800, chunk_size=131072)
-    pt = PathTracerConfig(max_bounces=4, samples_per_pixel=64)
-    scene = build_default_scene(device="cuda")
-    accel = build_cluster_accel(scene.mesh, cluster_size=16)
-    img, launches, counts, first, times = bench.timed_frames(
-        scene, cfg, accel, 1, pt=pt)
-    sky = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
-    err = float((img[2, 2].cpu() - sky).abs().max())
-    _require(err <= SKY_ATOL, f"path-traced frame: sky pixel off by {err}")
-    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
-        _require(launches[k] > 0,
-                 f"kernel {k} was not launched by the path-traced frame")
-    paths = cfg.width * cfg.height * pt.samples_per_pixel
-    _print_frame(f"path-traced frame, {pt.max_bounces} bounces,",
-                 cfg.replace(samples_per_pixel=pt.samples_per_pixel), img,
-                 launches, counts, first, times)
-    print(f"[frame] path-traced frame: {paths} paths in {times[0]} s (the "
-          f"frame after the counted one) -> {paths / times[0]} paths/s")
-    return launches
-
-
 def phase_area_light_frame():
-    """9. The reference Whitted frame with one spherical light and 4
-    shadow samples (per-ray t_max through the K1 and K2 entries), and the
-    same frame with its bounce queries through K4 (`_WQ_IMPL = "grid"`)
-    against the default, same seed. Returns the launches of the frame and of
-    the K4 frame."""
+    """6. The reference frame with one spherical light and 4 shadow
+    samples, counted twice from one seed: its bounce queries through K2
+    (the `_walk_dma` entry, the default), then through K4 (`_WQ_IMPL =
+    "grid"`). Returns the launches of both frames."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.kernels import traverse as T
     from raytracing_tpu_torch.models import whitted
 
     base = build_default_scene(device="cuda")
-    scene = Scene(base.mesh, base.sun, bench.sphere_light("cuda"))
+    scene = Scene(base.mesh, base.sun, sphere_light("cuda"))
     accel = build_cluster_accel(scene.mesh, cluster_size=16)
     cfg = RenderConfig(light_samples=4)
-    img, launches, counts, first, times = bench.timed_frames(
-        scene, cfg, accel, 1)
-    dark = whitted.render(base, cfg, accel=accel)
-    _require(bool((img.mean() > dark.mean())),
-             "the light adds no radiance to the frame")
-    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext",
-              "light_sample", "light_fold"):
-        _require(launches[k] > 0,
-                 f"kernel {k} was not launched by the area-light frame")
-    _print_frame("area-light reference frame", cfg, img, launches, counts,
-                 first, times)
-    print(f"[frame] area-light frame mean {float(img.mean())} against "
-          f"{float(dark.mean())} without the light")
-
-    impl = T._WQ_IMPL
-    imgs, secs = {}, {}
+    impl, launches = T._WQ_IMPL, {}
     try:
         for which in ("dma", "grid"):
             T._WQ_IMPL = which
             T.reset_launches()
             gen = torch.Generator(device="cuda")
             gen.manual_seed(5)
-            t0 = time.perf_counter()
-            imgs[which] = whitted.render(scene, cfg, accel=accel,
-                                         generator=gen)
+            whitted.render(scene, cfg, accel=accel, generator=gen)
             torch.cuda.synchronize()
-            secs[which] = time.perf_counter() - t0
-            if which == "grid":
-                grid_launches = dict(T.LAUNCHES)
-            else:
-                dma_launches = dict(T.LAUNCHES)
+            launches[which] = dict(T.LAUNCHES)
+            print(f"[frame] area-light reference frame, _WQ_IMPL {which}: "
+                  f"launches {launches[which]}")
     finally:
         T._WQ_IMPL = impl
-    # Every bounce query of the frame goes through K4 and none through K2.
-    _require(grid_launches["walk_wq"] == dma_launches["walk_dma"] > 0
-             and grid_launches["walk_dma"] == 0,
-             f"the grid frame's launches: {grid_launches}")
-    bad = int((imgs["grid"] != imgs["dma"]).sum())
-    _require(bad == 0, f"area-light reference frame: grid and dma images "
-             f"differ in {bad} values")
-    print(f"[frame] area-light reference frame, _WQ_IMPL grid vs dma: images "
-          f"bit-equal; dma {secs['dma']} s, grid {secs['grid']} s (the grid "
-          f"frame is its first); grid launches {grid_launches}")
-    return launches, grid_launches
+    return launches["dma"], launches["grid"]
 
 
 def _plain_launches(fn):
@@ -3189,14 +2880,13 @@ def phase_light_glue(rows):
     operations) and its bound from its bytes and OPS_LIGHT_*."""
     import torch
 
-    from raytracing_tpu_torch import bench
     from raytracing_tpu_torch.kernels import light as LK
     from raytracing_tpu_torch.models import whitted
 
     dev = "cuda"
     n, ns = 720_896, 4
     gen = torch.Generator(device=dev).manual_seed(21)
-    lights = bench.sphere_light(dev)
+    lights = sphere_light(dev)
 
     def inputs():
         lo = torch.tensor([-6.0, -3.0, 0.0], device=dev)
@@ -3284,60 +2974,52 @@ def phase_light_glue(rows):
     del sets, outs, accs, totals
 
 
-# Card against CPU gradients (11): each table within this share of its
-# largest magnitude on the CPU; the backward's scatter-adds are atomics on
-# the card, so sums come in another order, and the sampler's sin/cos differ
-# by ulps between the devices. An H100 80GB HBM3 at 700 W read 7.6e-8 to
-# 7.0e-7 over two runs (PERF.md).
-GRAD_PARITY_RTOL = 1e-5
+def _backward_262k(scene, accel, keep, gi_accel=None):
+    """One forward + backward of `bench_suite.py:80-130`'s backward cell:
+    the 262,144 camera rays of blocks 90-105 (16,384 rays each) of the
+    800x800x4 reference frame through `render_rays`, loss sum(rgb^2),
+    gradients for verts, colors and materials, with the launch counts set
+    to 0 just before and read just after. keep = (entry, picks): the `walk`
+    launches of that entry, numbered from 0, to keep. Returns (its
+    launches, the kept (args, kw))."""
+    import torch
 
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.kernels import traverse as T
+    from raytracing_tpu_torch.models.camera import (block_ray_ids,
+                                                    camera_rays_for_ids)
+    from raytracing_tpu_torch.models.whitted import render_rays
 
-def _backward_262k(tag, scene, accel, gi_accel=None, lights=None,
-                   keep=None):
-    """(b) One configuration of `bench_suite.py:80-130`'s backward, timed
-    by `bench.backward_262k` (forward without grad, forward + backward,
-    each a median of 3 after a warm-up; one counted forward + backward),
-    gated here: the same loss under grad, every gradient finite and
-    nonzero, the walks (and a light's glue kernels) launched. `keep` = (entry, picks): the `walk`
-    launches of that entry, numbered from 0 in the counted run, to keep.
-    Returns (its launches, the kept (args, kw))."""
-    from raytracing_tpu_torch import bench
+    dev = scene.mesh.verts.device
+    cfg = RenderConfig()
+    ids = torch.cat([block_ray_ids(i, 16384, cfg, 16, 16, device=dev)
+                     for i in range(90, 106)])
+    o, d = camera_rays_for_ids(ids, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    live = {k: getattr(scene.mesh, k).clone().requires_grad_()
+            for k in ("verts", "colors", "materials")}
 
-    kept = []
+    def run():
+        rgb = render_rays(scene.mesh._replace(**live), accel, scene.sun, o, d,
+                          cfg, lambda tag, shape: torch.rand(
+                              shape, generator=gen, device=dev),
+                          gi_accel=gi_accel)
+        (rgb * rgb).sum().backward()
 
-    def around(run):
-        kept.extend(_capture_calls("walk", keep[1], run, entry=keep[0]))
-
-    b = bench.backward_262k(scene, accel, gi_accel=gi_accel, lights=lights,
-                            around_counted=None if keep is None else around)
-    loss_f, loss_b, grads = b["loss_f"], b["loss_b"], b["grads"]
-    launches, fwd, bwd = b["launches"], b["fwd_ms"], b["bwd_ms"]
-    _require(bool(loss_f == loss_b), f"backward {tag}: the forward under "
-             f"grad gives another loss ({float(loss_b)} against "
-             f"{float(loss_f)})")
-    for k, g in grads.items():
-        _require(g is not None and bool(g.isfinite().all())
-                 and float(g.abs().max()) > 0,
-                 f"backward {tag}: the {k} gradient is not finite and "
-                 f"nonzero")
-    need = ["walk_both"] + (["walk_dma_both", "refine_extents"]
-                            if gi_accel is not None else []) + (
-        ["light_sample", "light_fold"] if lights is not None else [])
-    for k in need:
-        _require(launches[k] > 0, f"backward {tag}: {k} not launched")
-    tf, tb = statistics.median(fwd), statistics.median(bwd)
-    print(f"[backward] {tag}: 262,144 rays, loss {float(loss_b)}; forward "
-          f"(no grad) {fwd} ms, median {tf} ms; forward + backward {bwd} ms, "
-          f"median {tb} ms; ratio {tb / tf}; peak device "
-          f"{b['peak_gib']} GiB; launches {launches}; max |grad| "
-          + ", ".join(f"{k} {float(g.abs().max())}"
-                      for k, g in grads.items()))
+    torch.cuda.synchronize()
+    T.reset_launches()
+    kept = _capture_calls("walk", keep[1], run, entry=keep[0])
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    print(f"[backward] {'CS 16' if gi_accel is None else 'CS 16 + CS 128'}"
+          f": 262,144 rays, launches {launches}")
     return launches, kept
 
 
 def _backward_rows(rows, calls):
     """The kernel rows of the differentiated walk: each kept launch of
-    phase 10, as the renderer made it, against its plain version (t,
+    phase 8, as the renderer made it, against its plain version (t,
     slots and the A = 15 planes bit-equal on alive lanes) and timed, its
     bound from the visits it made."""
     from raytracing_tpu_torch.kernels import traverse as T
@@ -3354,174 +3036,26 @@ def _backward_rows(rows, calls):
 
 
 def phase_backward(rows):
-    """(b) Gradients at full width, three configurations: the CS 16 accel
-    alone (as bench_suite.py runs it), the same with one area light
-    (bench_suite.py:544-546), and with the reference frame's CS 128 bounce
-    accel (so K2 and K5 dense run under grad). The first's primary and
-    first-bounce K1 launches and the third's first K2 launch become the
-    rows walk_both, walk_both_bounce and walk_dma_both. Returns the
-    launches of the first and the third."""
-    from raytracing_tpu_torch import (bench, build_cluster_accel,
-                                      build_default_scene)
+    """8. Gradients at full width, two configurations: the CS 16 accel
+    alone (as bench_suite.py runs it) and with the reference frame's CS 128
+    bounce accel (so K2 and K5 dense run under grad). The first's primary
+    and first-bounce K1 launches and the second's first K2 launch become
+    the rows walk_both, walk_both_bounce and walk_dma_both. Returns the
+    launches of both."""
+    from raytracing_tpu_torch import build_cluster_accel, build_default_scene
 
     scene = build_default_scene(device="cuda")
     acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
-    first, k1 = _backward_262k("CS 16", scene, acc16,
-                               keep=("walk_both", [0, 1]))
-    _backward_262k("CS 16, one area light", scene, acc16,
-                   lights=bench.sphere_light("cuda"))
-    third, k2 = _backward_262k(
-        "CS 16 + CS 128 bounce accel", scene, acc16,
-        gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
-        keep=("walk_dma_both", [0]))
+    first, k1 = _backward_262k(scene, acc16, ("walk_both", [0, 1]))
+    second, k2 = _backward_262k(
+        scene, acc16, ("walk_dma_both", [0]),
+        gi_accel=build_cluster_accel(scene.mesh, cluster_size=128))
     _backward_rows(rows, [
         ("walk_both", "K1, the CS 16 run's primaries", k1[0]),
         ("walk_both_bounce", "K1, the CS 16 run's first bounce", k1[1]),
         ("walk_dma_both", "K2, the CS 128 bounce accel's first bounce",
          k2[0])])
-    return first, third
-
-
-def phase_grad_parity():
-    """(c) The gradients of one render_rays over the 1,024 block-ordered
-    rays of a 32x32 1-spp frame of the reference scene (CS 16 with the CS
-    128 bounce accel, full depth), loss sum(rgb^2), on the card against
-    the CPU port on the same rays and uniforms: each table within
-    GRAD_PARITY_RTOL of its largest magnitude."""
-    import torch
-
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
-    from raytracing_tpu_torch.models.camera import (block_ray_ids,
-                                                    camera_rays_for_ids)
-    from raytracing_tpu_torch.models.whitted import render_rays
-
-    cfg = RenderConfig(width=32, height=32, samples_per_pixel=1)
-    draws = {}
-
-    def uniforms(tag, shape):
-        if tag not in draws:
-            draws[tag] = torch.rand(shape, generator=torch.Generator()
-                                    .manual_seed(len(draws) + 11))
-        return draws[tag]
-
-    names = ("verts", "normals", "colors", "materials")
-    grads = []
-    for dev in ("cuda", "cpu"):
-        scene = build_default_scene(device=dev)
-        acc = build_cluster_accel(scene.mesh, cluster_size=16)
-        gi = build_cluster_accel(scene.mesh, cluster_size=128)
-        ids = block_ray_ids(0, 1024, cfg, 16, 16, device=dev)
-        o, d = camera_rays_for_ids(ids, cfg)
-        tables = {k: getattr(scene.mesh, k).clone().requires_grad_()
-                  for k in names}
-        t0 = time.perf_counter()
-        rgb = render_rays(scene.mesh._replace(**tables), acc, scene.sun, o,
-                          d, cfg, lambda tag, shape: uniforms(tag, shape)
-                          .to(dev), gi_accel=gi)
-        (rgb * rgb).sum().backward()
-        print(f"[grad parity] {dev}: forward + backward "
-              f"{time.perf_counter() - t0:.2f} s")
-        grads.append({k: v.grad.cpu() for k, v in tables.items()})
-    for k in names:
-        card, cpu = grads[0][k], grads[1][k]
-        scale = float(cpu.abs().max())
-        err = float((card - cpu).abs().max()) / scale
-        _require(bool(torch.isfinite(card).all()) and scale > 0,
-                 f"grad parity: {k} is not finite and nonzero")
-        _require(err <= GRAD_PARITY_RTOL, f"grad parity: {k} card vs CPU "
-                 f"{err} of its largest magnitude > {GRAD_PARITY_RTOL}")
-        print(f"[grad parity] {k}: max |card - CPU| / max |CPU| = {err} "
-              f"(limit {GRAD_PARITY_RTOL}; largest {scale})")
-
-
-def phase_fit():
-    """(d) The inverse fit at `cmd_fit`'s defaults (raytracing_tpu/app.py:
-    221-243, 319-322): the CS 128 accel, the target the port's own
-    800x800x4 render, colors x 0.5, 4,096 rays a step, Adam at lr 1e-2, 20
-    steps. Gates: the loss on one fixed held-out batch of 4,096 rays falls,
-    and a checkpoint saved at step 10 loads back bit for bit. Returns the
-    steps' launches."""
-    import torch
-
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
-    from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models import inverse
-    from raytracing_tpu_torch.models.whitted import render
-    from raytracing_tpu_torch.utils import checkpoint as ckpt
-
-    cfg = RenderConfig(chunk_size=16384)
-    scene = build_default_scene(device="cuda")
-    accel = build_cluster_accel(scene.mesh, cluster_size=128)
-    t0 = time.perf_counter()
-    target = render(scene, cfg, accel=accel)
-    torch.cuda.synchronize()
-    print(f"[fit] target: 800x800x4 render {time.perf_counter() - t0:.2f} s")
-    fitter = inverse.Fitter(scene, target,
-                            {"colors": scene.mesh.colors * 0.5}, cfg,
-                            accel=accel, learning_rate=1e-2)
-
-    def draws(seed):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(seed)
-        return gen, (lambda tag, shape: torch.rand(shape, generator=gen,
-                                                   device="cuda"))
-
-    held_gen, _ = draws(123)
-    held = torch.randint(0, fitter.n_rays, (4096,), generator=held_gen,
-                         device="cuda")
-
-    def held_loss():
-        with torch.no_grad():
-            return float(fitter.loss(held, draws(77)[1]))
-
-    before = held_loss()
-    gen, uniforms = draws(0)
-    tmp = tempfile.TemporaryDirectory()
-    path = os.path.join(tmp.name, "fit_step10.npz")
-    T.reset_launches()
-    losses, ms = [], []
-    for i in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        idx = torch.randint(0, fitter.n_rays, (4096,), generator=gen,
-                            device="cuda")
-        losses.append(fitter.step(idx, uniforms))
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[fit] step {i + 1}: loss {losses[-1]}, {ms[-1]:.2f} ms")
-        if i + 1 == 10:
-            st = fitter.state(10)
-            ckpt.save(path, st["params"], st["opt_state"], step=10)
-            snap = {"params": {k: v.clone() for k, v in st["params"].items()},
-                    "state": {j: {n: v.clone() for n, v in e.items()}
-                              for j, e in st["opt_state"]["state"].items()},
-                    "groups": st["opt_state"]["param_groups"]}
-    launches = dict(T.LAUNCHES)
-    after = held_loss()
-    print(f"[fit] 20 steps of 4,096 rays: median {statistics.median(ms)} ms "
-          f"a step; held-out loss {before} -> {after}; launches {launches}")
-    _require(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
-             "fit: a step's loss is not finite")
-    _require(after < before, f"fit: the held-out loss did not fall "
-             f"({before} -> {after})")
-    params, opt_state, step, _ = ckpt.load(path, snap["params"],
-                                           fitter.optimizer.state_dict())
-    same = step == 10 and opt_state["param_groups"] == snap["groups"]
-    same = same and all(torch.equal(params[k], v)
-                        for k, v in snap["params"].items())
-    same = same and all(torch.equal(opt_state["state"][j][n], v)
-                        for j, e in snap["state"].items()
-                        for n, v in e.items())
-    tmp.cleanup()
-    _require(same, "fit: the step-10 checkpoint does not load back bit for "
-             "bit")
-    print("[fit] the step-10 checkpoint loads back bit for bit (params, "
-          "Adam's moments and step)")
-    for k in ("walk_both", "walk_dma_both"):
-        _require(launches[k] > 0, f"fit: {k} not launched")
-    return launches
+    return first, second
 
 
 def _cli(argv):
@@ -3619,559 +3153,58 @@ def _path_rows(rows, calls, suffix, where):
 
 
 def phase_cli(rows):
-    """13. The command line at full width, in process: `render` of the
-    reference frame (800x800x4, CS 16 with the CS 128 bounce accel,
-    chunks of 65,536 as `RenderConfig()`; the CLI's default is 16,384) twice
-    through an accel cache — built and saved, then loaded; the loaded
-    accel equal to a fresh build field by field, both PNGs (read back with
-    the raw decoder where there is no PIL) equal bit for bit to `to_u8` of
-    `render()` with the same seed; `render` at the CLI's defaults (CS 128,
-    no bounce accel given) with its launches counted and captured; `render --profile` at
-    64x64, whose trace names the walk and refinement kernels; `fit` at its
-    defaults (4,096 rays a step) for 20 steps without a checkpoint, then
-    for 60 with one, each step under the Supervisor — the
-    step-50 snapshot holds the live params (neither the start nor the
-    end) — and `--resume` for 5 more, the step and Adam's count going on;
-    `animate --frames 3 --out-pattern` at the reference frame's settings.
-    The default render's PNG has the sky's colour and the reference
-    frame's mean within CLI_MEAN_ATOL, and its kernels are held against
-    their plain versions at its shapes (`_path_rows`). Returns the launches
-    of the default render."""
-    import numpy as np
+    """9. `python -m raytracing_tpu_torch render` at the CLI's defaults
+    (800x800x4, CS 128, no bounce accel given, chunks of 16,384), in
+    process, its launches counted and captured: its busiest K1 and K2
+    launches and its K5+K6 and list-build launches with the most alive
+    lanes, and K6 alone on that list build's pack, timed at its shapes
+    (`_path_rows`: rows walk_cli, walk_dma_cli, refine_extents_cli,
+    lists_cli, extents_cli). Returns the render's launches."""
     import torch
 
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
-    from raytracing_tpu_torch.accel.packets import ClusterAccel, load_accel
     from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.models.whitted import render
-    from raytracing_tpu_torch.ops.color import to_rgba_frame
-    from raytracing_tpu_torch.utils import checkpoint as ckpt
-    from raytracing_tpu_torch.utils.image import read_png
 
     tmp = tempfile.TemporaryDirectory()
-    d = tmp.name
-    cache = os.path.join(d, "accel16.npz")
-    frame = ["--cluster-size", "16", "--gi-cluster-size", "128",
-             "--chunk-size", "65536"]  # RenderConfig()'s chunks
-    ref = ["render", *frame, "--seed", "0", "--accel-cache", cache]
-    pngs, secs = [], []
-    for how in ("built", "loaded from"):
-        pngs.append(os.path.join(d, f"ref_{len(pngs)}.png"))
-        t0 = time.perf_counter()
-        out = _cli(ref + ["--out", pngs[-1]])
-        secs.append(time.perf_counter() - t0)
-        _require(f"16, {how}" in out, f"render --accel-cache: not {how}")
-    print(f"[cli] render of the reference frame, time to first frame "
-          f"(process already up, kernels built): {secs[0]} s with the accel "
-          f"built and saved, {secs[1]} s with it loaded")
-    scene = build_default_scene(device="cuda")
-    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
-    loaded = load_accel(cache, mesh=scene.mesh, cluster_size=16)
-    for name in ClusterAccel._fields:
-        a, b = getattr(acc16, name), getattr(loaded, name)
-        _require((a is None) == (b is None)
-                 and (a is None or (b.is_cuda and torch.equal(a, b))),
-                 f"accel cache: field {name} differs from a fresh build")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    want = to_rgba_frame(render(
-        scene, RenderConfig(), accel=acc16,
-        gi_accel=build_cluster_accel(scene.mesh, cluster_size=128),
-        generator=gen))
-    for png in pngs:
-        _require(np.array_equal(read_png(png), want),
-                 f"{png}: the CLI's frame is not to_u8 of render()")
-    print(f"[cli] accel cache equal to a fresh build in all "
-          f"{len(ClusterAccel._fields)} fields; both PNGs equal to_u8 of "
-          f"render() bit for bit ({want.shape[1]}x{want.shape[0]})")
-
-    defaults = os.path.join(d, "defaults.png")
     torch.cuda.synchronize()
     T.reset_launches()
-    calls = _capture_path(lambda: _cli(["render", "--out", defaults]))
+    calls = _capture_path(lambda: _cli(
+        ["render", "--out", os.path.join(tmp.name, "defaults.png")]))
     torch.cuda.synchronize()
     launches = dict(T.LAUNCHES)
-    for k in ("walk", "walk_dma", "refine_extents", "lists", "lists_ext"):
-        _require(launches[k] > 0, f"render at the CLI's defaults did not "
-                 f"launch {k}: {launches}")
-    print(f"[cli] launches per render at the CLI's defaults (800x800x4, CS "
-          f"128, chunks of 16,384): {launches}")
-    img = read_png(defaults)
-    sky = np.round(255 * (np.array([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2))
-    gap = abs(float(img[..., :3].mean()) - float(want[..., :3].mean()))
-    _require(img.shape == want.shape
-             and np.abs(img[2, 2, :3] - sky).max() <= 1
-             and gap <= CLI_MEAN_ATOL,
-             f"render at the CLI's defaults: shape {img.shape}, sky pixel "
-             f"{img[2, 2, :3]} (want {sky}), mean {gap} u8 from the "
-             f"reference frame's")
-    print(f"[cli] render at the CLI's defaults: sky pixel {img[2, 2, :3]}; "
-          f"mean {float(img[..., :3].mean())} u8 against the reference "
-          f"frame's {float(want[..., :3].mean())} (other cluster size and "
-          f"chunks, so other samples; limit {CLI_MEAN_ATOL})")
-    _path_rows(rows, calls, "_cli", "at the CLI's defaults")
-    del calls
-
-    prof = os.path.join(d, "prof")
-    _cli(["render", "--width", "64", "--height", "64", "--cluster-size",
-          "16", "--gi-cluster-size", "128", "--profile", prof, "--out",
-          os.path.join(d, "small.png")])
-    with open(os.path.join(prof, "trace.json")) as f:
-        trace = f.read()
-    names = [k for k in ("walk_kernel", "refine_kernel", "extents_kernel")
-             if k in trace]
-    _require({"walk_kernel", "refine_kernel"} <= set(names),
-             f"profile trace names only {names}")
-    print(f"[cli] render --profile: {len(trace)} bytes of trace naming "
-          f"{names}")
-
-    # The fit without a checkpoint (no Supervisor) for its ms a step.
-    _cli(["fit", "--steps", "20"])
-    ck = os.path.join(d, "fit.npz")
-    saved = []
-    real_save = ckpt.save
-
-    def spy(path, params, opt_state=None, step=0, metadata=None):
-        saved.append((step, {k: v.clone() for k, v in params.items()}))
-        real_save(path, params, opt_state, step, metadata)
-
-    ckpt.save = spy
-    try:
-        t0 = time.perf_counter()
-        out = _cli(["fit", "--steps", "60", "--checkpoint", ck])
-        fit_s = time.perf_counter() - t0
-        first = json.loads(out.strip().splitlines()[-1])
-        _require([st for st, _ in saved] == [50, 60],
-                 f"fit: snapshots at steps {[st for st, _ in saved]}")
-        start = scene.mesh.colors * 0.5
-        mid, end = saved[0][1]["colors"], saved[1][1]["colors"]
-        _require(not torch.equal(mid, start) and not torch.equal(mid, end),
-                 "fit: the step-50 snapshot does not hold the live params")
-        saved.clear()
-        out = _cli(["fit", "--steps", "5", "--checkpoint", ck, "--resume"])
-        last = json.loads(out.strip().splitlines()[-1])
-    finally:
-        ckpt.save = real_save
-    _require(f"resumed from {ck} @ step 60" in out, "fit --resume: no resume")
-    _, opt_state, step, _ = ckpt.load(ck, {"colors": start})
-    _require(step == 65 and float(opt_state["state"][0]["step"]) == 65,
-             f"fit --resume: step {step}, Adam's step "
-             f"{float(opt_state['state'][0]['step'])}")
-    losses = [v for rec in (first, last) for v in rec.values()]
-    _require(all(np.isfinite(losses)), f"fit: losses {first} {last}")
-    print(f"[cli] fit: 60 steps in {fit_s} s (800x800x4 target render "
-          f"included), snapshots at 50 and 60; the step-50 one holds the "
-          f"live params; --resume went on to step 65 (Adam's count 65)")
-
-    pattern = os.path.join(d, "anim_{frame:03d}.png")
-    out = _cli(["animate", *frame, "--frames", "3", "--out-pattern",
-                pattern])
-    frames = [pattern.format(frame=i) for i in range(3)]
-    _require(all(os.path.exists(f) for f in frames)
-             and "rendered 3 frames in" in out and "fps avg" in out,
-             "animate: 3 PNGs and an fps line asked for")
-    _require(read_png(frames[2]).shape == (800, 800, 4),
-             "animate: a frame of the wrong shape")
     tmp.cleanup()
+    print(f"[cli] launches per render at the CLI's defaults: {launches}")
+    _path_rows(rows, calls, "_cli", "at the CLI's defaults")
     return launches
 
 
-def phase_resilience():
-    """14. Recovery on the card: the liveness probe; `with_retry` past a
-    real out-of-memory error (an allocation of 32 TiB); and a fit of 3
-    steps whose second step fails after `optimizer.step()` with a real
-    out-of-memory error, retried, against a clean fit: the same params and
-    losses bit for bit (both under `torch.use_deterministic_algorithms`,
-    so the backward's scatter-adds sum in one order)."""
+def phase_sharded(rows):
+    """10. `render_sharded` of the reference frame (the reference config,
+    CS 16 plus the auto-built CS 128 bounce accel) over 4 virtual shards
+    of the card, its launches counted and captured, and its kernels timed
+    at its shapes (`_path_rows`: rows walk_sharded, walk_dma_sharded,
+    refine_extents_sharded, lists_sharded, extents_sharded). Returns the
+    frame's launches."""
     import torch
 
     from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
                                       build_default_scene)
-    from raytracing_tpu_torch.models import inverse
-    from raytracing_tpu_torch.models.whitted import render
-    from raytracing_tpu_torch.utils.resilience import (device_alive,
-                                                       with_retry)
-
-    _require(device_alive(60.0), "device_alive() is False on the card")
-    tries = []
-
-    def alloc():
-        tries.append(1)
-        if len(tries) == 1:
-            torch.empty(2 ** 45, dtype=torch.uint8, device="cuda")
-        return float(torch.ones(4, device="cuda").sum())
-
-    _require(with_retry(alloc, retries=2, backoff_s=0.0) == 4.0
-             and len(tries) == 2, "with_retry did not get past an OOM")
-    print("[resilience] device_alive() True; with_retry got past a real "
-          "torch.cuda.OutOfMemoryError on its second attempt")
-
-    scene = build_default_scene(device="cuda")
-    acc = build_cluster_accel(scene.mesh, cluster_size=16)
-    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
-    target = render(scene, cfg, accel=acc)
-
-    def run(**kw):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(9)
-        return inverse.fit(scene, target,
-                           {"colors": scene.mesh.colors * 0.5}, cfg,
-                           accel=acc, steps=3, rays_per_step=1024,
-                           generator=gen, **kw)
-
-    real_step = inverse.Fitter.step
-    calls = []
-
-    def faulty(self, idx, uniforms):
-        loss = real_step(self, idx, uniforms)
-        calls.append(1)
-        if len(calls) == 2:
-            torch.empty(2 ** 45, dtype=torch.uint8, device="cuda")
-        return loss
-
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    tmp = tempfile.TemporaryDirectory()
-    try:
-        clean = run()
-        inverse.Fitter.step = faulty
-        retried = run(retries=2,
-                      checkpoint_path=os.path.join(tmp.name, "r.npz"))
-    finally:
-        inverse.Fitter.step = real_step
-        torch.use_deterministic_algorithms(was)
-        tmp.cleanup()
-    _require(len(calls) == 4, f"fit: {len(calls)} step attempts, 4 expected")
-    _require(retried.losses == clean.losses
-             and torch.equal(retried.params["colors"], clean.params["colors"]),
-             f"fit: the retried step differs from a clean one (losses "
-             f"{retried.losses} against {clean.losses})")
-    print(f"[resilience] a fit step retried after a real OOM raised after "
-          f"optimizer.step(): params and losses bit-equal to a clean fit "
-          f"({clean.losses})")
-
-
-def _sharded_frame(tag, scene, cfg, mesh, accel, card, need,
-                   capture=False):
-    """One `render_sharded` frame with the launch counts set to 0 just
-    before and read just after: (image, seconds, launches, calls); with
-    `capture`, calls holds every launch of the path's kernels
-    (`_capture_path`; the seconds then include the capture), else None."""
-    import torch
-
     from raytracing_tpu_torch.kernels import traverse as T
-    from raytracing_tpu_torch.parallel.shard import render_sharded
-
-    out = []
-
-    def run():
-        out.append(render_sharded(scene, cfg, mesh, accel=accel, seed=0))
-
-    torch.cuda.synchronize()
-    T.reset_launches()
-    t0 = time.perf_counter()
-    calls = _capture_path(run) if capture else run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(T.LAUNCHES)
-    for k in need:
-        _require(launches[k] > 0, f"{tag}: kernel {k} was not launched: "
-                 f"{launches}")
-    how = " (launches captured)" if capture else ""
-    print(f"[multi] {tag}: {dt} s a frame{how} on {card}; launches K1 "
-          f"{launches['walk']}, K2 "
-          f"{launches['walk_dma']}, K5+K6 {launches['refine_extents']}, "
-          f"lists {launches['lists']}, lists_ext {launches['lists_ext']}")
-    return out[0], dt, launches, calls
-
-
-def _two_process_render(argv, timeout=600):
-    """`python -m raytracing_tpu_torch render <argv>` in 2 new processes
-    (each started fresh, never forked from this one, whose CUDA is up) of
-    one gloo group sharing the card; their outputs."""
-    import socket
-
-    sock = socket.socket()
-    sock.bind(("localhost", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "raytracing_tpu_torch", "render", *argv,
-         "--num-processes", "2", "--process-id", str(i), "--coordinator",
-         f"localhost:{port}", "--dist-backend", "gloo"], cwd=HERE,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(2)]
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        for line in out.splitlines():
-            print(f"[multi] process {i}: {line}")
-        _require(p.returncode == 0, f"2-process render: process {i} exited "
-                 f"{p.returncode}")
-    return outs
-
-
-def phase_multi_device(card, rows):
-    """15. Multi-device and multi-process on the card, at full width (the
-    reference config, CS 16 plus the auto-built CS 128 bounce accel):
-    (a) `render_sharded` over the card and over 4 virtual shards of it at
-        diffuse depth 1 (no draws), each within MULTI_ATOL of `render()`
-        on the card; at the reference config (the fan on) over 4 shards,
-        finite, its u8 mean within CLI_MEAN_ATOL of `render()`'s; seconds
-        and K1, K2, K5+K6, K6 launches of each, counted from 0 (the
-        sharded frame is this slice's main path); the reference-config
-        frame's launches captured and its kernels held against their plain
-        versions at its shapes (`_path_rows`: rows walk_sharded,
-        walk_dma_sharded, refine_extents_sharded, extents_sharded);
-    (b) `render --num-processes 2 --assemble` in 2 processes of a gloo
-        group sharing the card (NCCL refuses two ranks on one card): the
-        stitched shards within MULTI_ATOL of the one-process 2-shard
-        `render_sharded` frame;
-    (c) a one-rank NCCL group on the card: `make_train_step` runs its
-        all_reduce, and its step equals the step without a group bit for
-        bit (both under deterministic algorithms);
-    (d) the train step at the backward cell's size (262,144 rays of blocks
-        90-105, CS 16, the reference config) over 2 virtual shards against
-        one unsharded `Fitter` step on the same rays and draws, all under
-        deterministic algorithms (a second Fitter step's spread, printed
-        beside, then reads 0): the loss within GRAD_PARITY_RTOL, the
-        gradients within TRAIN_STEP_RTOL of each table's largest
-        magnitude; then ms per step of each without them;
-    (e) `dryrun_multichip(1)` on the card and `dryrun_multichip(2)` over 2
-        virtual shards of it;
-    (f) the brute-force and cluster backends at 64x64x4 (the reference
-        config), each within MULTI_ATOL of the kernel path's frame from the
-        same seed. Returns the launches of (a)'s sharded frames."""
-    import functools
-    import socket
-
-    import numpy as np
-    import torch
-
-    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
-                                      build_default_scene)
-    from raytracing_tpu_torch.models import inverse
-    from raytracing_tpu_torch.models.camera import (block_ray_ids,
-                                                    camera_rays_for_ids)
-    from raytracing_tpu_torch.models.whitted import render
-    from raytracing_tpu_torch.ops.color import to_rgba_frame
-    from raytracing_tpu_torch.parallel import distributed as D
     from raytracing_tpu_torch.parallel import shard as S
-    from raytracing_tpu_torch.parallel.dryrun import dryrun_multichip
 
     scene = build_default_scene(device="cuda")
     acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
-    need = ("walk", "walk_dma", "refine_extents", "lists", "lists_ext")
-
-    def gen(seed):
-        g = torch.Generator(device="cuda")
-        g.manual_seed(seed)
-        return g
-
-    # (a)
-    out = {}
-    dd1 = RenderConfig(diffuse_depth=1)
-    want = render(scene, dd1, accel=acc16)
-    for n in (1, 4):
-        mesh = S.make_device_mesh(n, devices=["cuda:0"] * n)
-        img, _, out[f"dd1_{n}"], _ = _sharded_frame(
-            f"render_sharded over {n} shard(s) of the card, diffuse depth "
-            f"1", scene, dd1, mesh, acc16, card, need)
-        err = float((img - want).abs().max())
-        _require(img.shape == want.shape and err <= MULTI_ATOL,
-                 f"render_sharded over {n}: {err} from render() (limit "
-                 f"{MULTI_ATOL})")
-        print(f"[multi] render_sharded over {n} shard(s): max |sharded - "
-              f"render()| = {err} (limit {MULTI_ATOL}) on {card}")
-    ref = RenderConfig()
     mesh4 = S.make_device_mesh(4, devices=["cuda:0"] * 4)
-    img, _, out["ref_4"], calls = _sharded_frame(
-        "render_sharded over 4 shards, the reference config", scene, ref,
-        mesh4, acc16, card, need, capture=True)
-    full = render(scene, ref, accel=acc16, generator=gen(0))
-    a = to_rgba_frame(img)[..., :3].astype(np.float64)
-    b = to_rgba_frame(full)[..., :3].astype(np.float64)
-    gap = abs(a.mean() - b.mean())
-    _require(bool(torch.isfinite(img).all()) and gap <= CLI_MEAN_ATOL,
-             f"render_sharded at the reference config: mean {a.mean()} u8 "
-             f"against render()'s {b.mean()}")
-    print(f"[multi] reference config over 4 shards: mean {a.mean()} u8 "
-          f"against render()'s {b.mean()} (other draws; limit "
-          f"{CLI_MEAN_ATOL}) on {card}")
+    torch.cuda.synchronize()
+    T.reset_launches()
+    calls = _capture_path(lambda: S.render_sharded(
+        scene, RenderConfig(), mesh4, accel=acc16, seed=0))
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    print(f"[sharded] launches of the reference frame over 4 shards: "
+          f"{launches}")
     _path_rows(rows, calls, "_sharded", "in the reference frame over 4 "
                "shards")
-    del calls
-
-    # (b)
-    tmp = tempfile.TemporaryDirectory()
-    png = os.path.join(tmp.name, "two.png")
-    t0 = time.perf_counter()
-    outs = _two_process_render(["--cluster-size", "16", "--gi-cluster-size",
-                                "128", "--chunk-size", "65536", "--seed",
-                                "0", "--assemble", "--out", png])
-    wall = time.perf_counter() - t0
-    _require(f"wrote {png}" in outs[0] and os.path.exists(png),
-             "2-process render: process 0 wrote no frame")
-    got = D.assemble_shards(png + ".shards", ref)
-    two = S.render_sharded(scene, ref, S.make_device_mesh(
-        2, devices=["cuda:0"] * 2), accel=acc16, seed=0).cpu().numpy()
-    err = float(np.abs(got - two).max())
-    _require(err <= MULTI_ATOL, f"2-process render: {err} from the "
-             f"one-process 2-shard frame (limit {MULTI_ATOL})")
-    print(f"[multi] 2 processes sharing the card (gloo): {wall} s wall for "
-          f"both, start-up included; stitched frame max |2 processes - 1 "
-          f"process of 2 shards| = {err} (limit {MULTI_ATOL}) on {card}")
-    tmp.cleanup()
-
-    # (c)
-    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
-    ids = block_ray_ids(0, 4096, cfg, device="cuda")
-    o, d = camera_rays_for_ids(ids, cfg)
-    target = torch.rand((4096, 3), generator=gen(5), device="cuda")
-    mesh1 = S.make_device_mesh(1)
-    step = S.make_train_step(cfg, functools.partial(torch.optim.Adam,
-                                                    lr=1e-2), mesh1)
-    params = {"colors": scene.mesh.colors * 0.5}
-    sock = socket.socket()
-    sock.bind(("localhost", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    # Deterministic algorithms: the backward's scatter-adds then sum in one
-    # order, so two steps can be held bit for bit.
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        alone = step(params, None, scene.mesh, acc16, scene.sun, o, d,
-                     target)
-        torch.distributed.init_process_group(
-            "nccl", init_method=f"tcp://localhost:{port}", world_size=1,
-            rank=0)
-        try:
-            S.COLLECTIVES["all_reduce"] = 0
-            grouped = step(params, None, scene.mesh, acc16, scene.sun, o, d,
-                           target)
-            torch.cuda.synchronize()
-            backend = torch.distributed.get_backend()
-        finally:
-            torch.distributed.destroy_process_group()
-    finally:
-        torch.use_deterministic_algorithms(was)
-    _require(S.COLLECTIVES["all_reduce"] == 1 and backend == "nccl",
-             f"NCCL: {S.COLLECTIVES['all_reduce']} all_reduce in a "
-             f"{backend} group")
-    _require(torch.equal(alone[0]["colors"], grouped[0]["colors"])
-             and bool(alone[2] == grouped[2]),
-             "NCCL: the one-rank step differs from the step without a group")
-    print(f"[multi] one-rank NCCL group: the train step ran 1 all_reduce, "
-          f"its params and loss ({float(grouped[2])}) equal to the step "
-          f"without a group on {card}")
-
-    # (d)
-    pixels = 800 * 800
-    idx = torch.cat([block_ray_ids(i, 16384, ref, 16, 16, device="cuda")
-                     for i in range(90, 106)])
-    n = idx.shape[0]
-    u1 = torch.rand((ref.diffuse_scatter, n, 2), generator=gen(7),
-                    device="cuda")
-
-    def draw(tag, shape, lo=0):
-        _require(tag == 1 and shape == (ref.diffuse_scatter,
-                                        shape[1], 2),
-                 f"train step: an unexpected draw {tag} {shape}")
-        return u1[:, lo:lo + shape[1]].contiguous()
-
-    tgt_img = torch.rand((800, 800, 3), generator=gen(8), device="cuda")
-    tables = {k: getattr(scene.mesh, k) for k in ("verts", "colors",
-                                                  "materials")}
-    mesh2 = S.make_device_mesh(2, devices=["cuda:0"] * 2)
-    step2 = S.make_train_step(ref, functools.partial(torch.optim.Adam,
-                                                     lr=1e-2), mesh2)
-    per = n // 2
-
-    def fitter_step():
-        fitter = inverse.Fitter(scene, tgt_img, tables, ref, accel=acc16)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = fitter.step(idx, draw)
-        torch.cuda.synchronize()
-        return (fitter, loss, {k: v.grad for k, v in fitter.params.items()},
-                (time.perf_counter() - t0) * 1e3)
-
-    def sharded_step(grads):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, loss = step2(
-            tables, None, scene.mesh, acc16, scene.sun, o2, d2, t2,
-            uniforms=lambda g, tag, shape: draw(tag, shape, g * per),
-            grads_out=grads)
-        torch.cuda.synchronize()
-        return loss, (time.perf_counter() - t0) * 1e3
-
-    # Deterministic algorithms: the backward's scatter-adds sum in one
-    # order, so what is left between the two is the split into shards.
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        fitter, loss_1, grads_1, _ = fitter_step()
-        _, _, again, _ = fitter_step()
-        o2, d2 = fitter.o[idx], fitter.d[idx]
-        t2 = fitter.target[idx % pixels]
-        grads_2 = {}
-        loss_2, _ = sharded_step(grads_2)
-    finally:
-        torch.use_deterministic_algorithms(was)
-    spread = {k: float((again[k] - grads_1[k]).abs().max())
-              / float(grads_1[k].abs().max()) for k in tables}
-    times = [sharded_step({})[1] for _ in range(2)]
-    fit_ms = fitter_step()[3]
-    rel = abs(float(loss_2) - loss_1) / abs(loss_1)
-    _require(rel <= GRAD_PARITY_RTOL, f"train step: loss {float(loss_2)} "
-             f"against the Fitter's {loss_1}")
-    errs = {}
-    for k in tables:
-        scale = float(grads_1[k].abs().max())
-        errs[k] = float((grads_2[k] - grads_1[k]).abs().max()) / scale
-        _require(scale > 0 and errs[k] <= TRAIN_STEP_RTOL,
-                 f"train step: {k} gradient {errs[k]} of its largest "
-                 f"magnitude from the Fitter's (limit {TRAIN_STEP_RTOL})")
-    print(f"[multi] train step, 262,144 rays over 2 shards of the card: "
-          f"{times} ms a step ({fit_ms} ms for the unsharded Fitter step); "
-          f"under deterministic algorithms: loss {float(loss_2)} against "
-          f"{loss_1} (rel {rel}); gradients max |sharded - Fitter| / max "
-          f"|Fitter| {errs} (limit {TRAIN_STEP_RTOL}); two Fitter steps on "
-          f"the same inputs differ by {spread} on {card}")
-    del fitter, again, grads_1, grads_2, u1
-
-    # (e)
-    for nd, dev in ((1, None), (2, "cuda:0")):
-        loss = dryrun_multichip(nd, device=dev)
-        print(f"[multi] dryrun_multichip({nd}"
-              f"{'' if dev is None else ', ' + repr(dev)}): loss {loss} on "
-              f"{card}")
-
-    # (f)
-    c64 = RenderConfig(width=64, height=64)
-    kern = render(scene, c64, accel=acc16, generator=gen(3))
-    for backend, acc in (("bruteforce", None), ("cluster", acc16)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = render(scene, c64.replace(backend=backend), accel=acc,
-                     generator=gen(3))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        err = float((img - kern).abs().max())
-        _require(err <= MULTI_ATOL, f"{backend} backend at 64x64: {err} "
-                 f"from the kernel path (limit {MULTI_ATOL})")
-        print(f"[multi] {backend} backend, 64x64x4 reference config: "
-              f"{dt} s, max |{backend} - kernels| = {err} (limit "
-              f"{MULTI_ATOL}) on {card}")
-    return out
+    return launches
 
 
 def main() -> int:
@@ -4188,28 +3221,22 @@ def main() -> int:
     rows = phase_kernels()
     phase_kernels_camera(rows)
     large = phase_kernels_large(rows)
-    phase_frame_parity()
     ref_launches, cam_launches = phase_reference_frame(rows)
     variant_launches = phase_variants(rows)
     tile_launches = phase_ray_tile(rows, card, *large[:3])
-    phase_headline()
-    (rate_launches, big_launches, gstream_launches,
+    (query_launches, big_launches, gstream_launches,
      frame_1m6_launches) = phase_large_scenes(rows, *large)
-    pt_launches = phase_path_traced_frame()
     light_launches, grid_launches = phase_area_light_frame()
     phase_light_glue(rows)
     bwd_launches, bwd_gi_launches = phase_backward(rows)
-    phase_grad_parity()
-    fit_launches = phase_fit()
     cli_launches = phase_cli(rows)
-    phase_resilience()
-    multi_launches = phase_multi_device(card, rows)
+    sharded_launches = phase_sharded(rows)
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
     # Each kernel's launches on the main path that runs it.
     launches = dict(ref_launches)
     launches["walk_camera"] = cam_launches["walk_camera"]
-    launches["walk_camera_dma"] = rate_launches["walk_camera_dma"]
+    launches["walk_camera_dma"] = query_launches["walk_camera_dma"]
     launches["refine_lists"] = big_launches["refine_lists"]
     launches["refine_lists_1m6"] = frame_1m6_launches["refine_lists"]
     launches["walk_gstream"] = gstream_launches["walk_gstream"]
@@ -4224,18 +3251,14 @@ def main() -> int:
     launches["extents"] = frame_1m6_launches["extents"]
     launches["lists_ext_camera"] = cam_launches["lists_ext"]
     launches["lists_ext_gstream"] = frame_1m6_launches["lists_ext"]
-    launches["lists_ext_pooled"] = rate_launches["lists_ext"]
+    launches["lists_ext_pooled"] = query_launches["lists_ext"]
     for k in ("walk", "walk_dma", "refine_extents", "lists"):
         launches[k + "_cli"] = cli_launches[k]
-        launches[k + "_sharded"] = multi_launches["ref_4"][k]
+        launches[k + "_sharded"] = sharded_launches[k]
     # Neither path launches K6 alone: their list builds run its reduction
     # (csrc/tile_extents.cuh) at these shapes, once a launch.
     launches["extents_cli"] = cli_launches["lists"]
-    launches["extents_sharded"] = multi_launches["ref_4"]["lists"]
-    print(f"[done] launches of the path-traced frame {pt_launches}; of the "
-          f"area-light frame {light_launches}; of the fit's 20 steps "
-          f"{fit_launches}; of a CLI render at its defaults {cli_launches}; "
-          f"of the sharded frames {multi_launches}")
+    launches["extents_sharded"] = sharded_launches["lists"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

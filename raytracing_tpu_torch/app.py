@@ -3,8 +3,7 @@
   render   one frame of the default scene -> PNG
   animate  N frames with the orbiting sun, an fps line once a second, and
            optional PNG dumps or a live terminal view
-  bench    the headline primary rays/s (`bench.measure`); with --suite,
-           every cell of `bench.suite`
+  bench    the headline primary rays/s (`bench.measure`)
   fit      inverse rendering: perturb the scene's colors, recover them,
            with checkpoint and resume
 
@@ -279,10 +278,7 @@ def cmd_bench(args) -> None:
     if torch.device(args.device).type != "cuda":
         raise SystemExit("bench measures the card; --device cpu has no "
                          "benchmark")
-    if args.suite:
-        bench.suite()
-    else:
-        bench.main()
+    bench.main()
 
 
 def cmd_fit(args) -> None:
@@ -406,10 +402,6 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("bench", help="headline rays/s benchmark (the card)")
     common(sp)
-    sp.add_argument("--suite", action="store_true",
-                    help="every cell of bench.suite (the port's own flag: "
-                         "the JAX CLI reaches its suite only through the "
-                         "root bench_suite.py)")
     sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("fit", help="inverse-rendering demo w/ checkpoints")

@@ -26,11 +26,12 @@ by ulps); the walks that carry the backward's planes beside the shading
 planes (A = 15 in objid mode, 20 in full mode) bit-equal to their plain
 versions and to the shading walk; gradients of a render on the card within
 1e-5 of each table's largest magnitude of the CPU's (the backward's
-scatter-adds are atomics on the card, in another order), the limit
-chip_smoke.py holds its 32x32 frame's gradients to; the CLI's frame
+scatter-adds are atomics on the card, in another order), the limit the
+reference scene's 32x32 frame's gradients are held to; the CLI's frame
 (`python -m raytracing_tpu_torch render`, the card by default) equal in u8
 to `render()` with the same seed; the liveness probe and a real
-out-of-memory error classed transient; an accel cache loaded onto the
+out-of-memory error classed transient, `with_retry` getting past it; an
+accel cache loaded onto the
 card; the off-main-path forms — K1 mt and woop, K2 mt, K3 mt and woop, K4
 mt, the capped walks and refinements of the two-phase query, the lane
 cull in K1 and the camera walk — equal to their plain versions on alive
@@ -56,7 +57,44 @@ one and the benchmark cell's) bit-equal with the kernels and without, the
 light's own operations and launches the same whatever its alive share,
 and a differentiated term through the kernels with the plain term's image
 and gradients.
+
+Whole paths at full width: the reference frame (800x800x4), with pack-path
+and camera-mode primaries, launching every kernel of its path and with the
+sky's colour in its corner; the path-traced frame (4 bounces) at 64x64
+and 2 spp within 1e-4 of the CPU's, and at 800x800 and 64 spp with the
+sky in its corner; the reference frame bit-equal under the two-phase
+query's cap, with the lane cull on and off, and at every culling tile
+(128 to 2,048) against 1,024, also under gi_wq=False, through K4 and over
+the group budget, a composed tile's wrapper call one launch; the camera
+query on the 404k, 1.6M and 6.4M-triangle teapots hitting a plausible
+share of its rays, and the 404k and 1.6M teapots' frames finite, through
+the kernels their sizes take; the reference frame lit by one area light brighter
+than without, launching the light's glue,
+and bit-equal with its bounce queries through K4 instead of K2; the
+backward of 262,144 rays (CS 16; one area light; the CS 128 bounce accel)
+with the loss of the forward without grad and every gradient finite and
+nonzero; the reference scene's 32x32 frame's gradients within 1e-5 of the
+CPU's; the fit at `cmd_fit`'s defaults lowering a held-out loss and its
+step-10 checkpoint loading back bit for bit; a fit step retried after a
+real out-of-memory error equal to a clean one; the CLI's `bench` record,
+`render` through an accel cache (built, then loaded, equal to a fresh
+build and `to_u8` of `render()`), `render` at its defaults (the sky's
+colour, the reference frame's mean within 0.5 u8), `render --profile`,
+`fit` with a checkpoint and `--resume`, and `animate`; `render_sharded`
+over the card and over 4 shards of it at diffuse depth 1 within 1e-5 of
+`render()` at 800x800x4, and over 4 shards at the reference config with
+`render()`'s mean; 2 processes
+sharing the card (gloo) stitching the one-process 2-shard frame; a
+one-rank NCCL train step equal to the step without a group; the train
+step over 2 shards within 1e-4 of a `Fitter` step at 262,144 rays; and
+`dryrun_multichip` on the card and over 2 shards of it.
+
+A new kernel adds its equality test here and its timed row to
+`chip_smoke.py`, which times the kernels and checks nothing else.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -1002,16 +1040,28 @@ def test_cli_render_on_the_card_is_render(dev, tmp_path, capsys):
 
 
 def test_device_alive_and_out_of_memory_on_the_card(dev):
-    """The probe answers on the card, and an allocation beyond its memory
-    raises an error the retry rule calls transient."""
+    """The probe answers on the card, an allocation beyond its memory
+    raises an error the retry rule calls transient, and `with_retry` gets
+    past it on its second attempt."""
     from raytracing_tpu_torch.utils.resilience import (device_alive,
-                                                       is_transient)
+                                                       is_transient,
+                                                       with_retry)
 
     assert device_alive(timeout_s=60.0, device="cuda")
     with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
         torch.empty(2 ** 45, dtype=torch.uint8, device=dev)
     assert is_transient(ei.value)
     torch.cuda.empty_cache()
+    tries = []
+
+    def alloc():
+        tries.append(1)
+        if len(tries) == 1:
+            torch.empty(2 ** 45, dtype=torch.uint8, device=dev)
+        return float(torch.ones(4, device=dev).sum())
+
+    assert with_retry(alloc, retries=2, backoff_s=0.0) == 4.0
+    assert len(tries) == 2
 
 
 def test_load_accel_lands_on_the_card(dev, tmp_path):
@@ -1049,6 +1099,31 @@ def test_sharded_frame_on_the_card_is_render(dev, n):
     assert float((img - want).abs().max()) <= 1e-5
     (acc,) = replicate((accel,), "cuda:0")
     assert all(t is None or t.is_contiguous() for t in acc)
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_full_width_sharded_frame_on_the_card_is_render(dev, n):
+    """`render_sharded` over the card (n = 1) and over 4 virtual shards of
+    it, at the reference config's width (800x800x4, CS 16 and the
+    auto-built CS 128 bounce accel) and diffuse depth 1 (no draws), within
+    MULTI_ATOL of `render()` on the card, launching the walks, the
+    refinement and the list builds."""
+    from raytracing_tpu_torch.parallel.shard import (make_device_mesh,
+                                                     render_sharded)
+
+    scene = build_default_scene(device="cuda")
+    accel = build_cluster_accel(scene.mesh, cluster_size=16)
+    cfg = RenderConfig(diffuse_depth=1)
+    want = render(scene, cfg, accel=accel)
+    T.reset_launches()
+    img = render_sharded(scene, cfg, make_device_mesh(n, devices=["cuda:0"]
+                                                      * n), accel=accel)
+    torch.cuda.synchronize()
+    assert all(T.LAUNCHES[k] > 0 for k in ("walk", "walk_dma",
+                                           "refine_extents", "lists",
+                                           "lists_ext")), dict(T.LAUNCHES)
+    assert img.shape == want.shape
+    assert float((img - want).abs().max()) <= MULTI_ATOL
 
 
 def test_two_cards_each_launch_on_its_own(dev):
@@ -1101,8 +1176,8 @@ def _same_on_alive(kern, want, m):
 @pytest.fixture
 def plain_on_card(monkeypatch):
     """plain(fn, *args, **kw): fn with every kernel wrapper taking its
-    plain version on the card's tensors (`_on_cpu` answers yes), as
-    chip_smoke.py holds the kernels against them."""
+    plain version on the card's tensors (`_on_cpu` answers yes): the
+    plain versions on the card, as the kernel table times them."""
     def plain(fn, *args, **kw):
         with monkeypatch.context() as mp:
             mp.setattr(T, "_on_cpu", lambda *tensors: True)
@@ -2308,8 +2383,8 @@ def test_light_term_with_grad_on_the_card_runs_the_kernels(dev,
     and so do the lights' gradients. The mesh tables' gradients are summed
     in another order (the term's share of the points' gradient arrives as
     one tensor, and the card's scatter-adds are atomics, so two plain runs
-    differ too): each within 1e-5 of its largest entry, chip_smoke.py's
-    GRAD_PARITY_RTOL (the verts' read 1.1e-6 on an H100)."""
+    differ too): each within 1e-5 of its largest entry, GRAD_PARITY_RTOL
+    (the verts' read 1.1e-6 on an H100)."""
     from raytracing_tpu_torch.geometry.mesh import SphereLight
     from raytracing_tpu_torch.models import whitted
     from raytracing_tpu_torch.utils import profiling as P
@@ -2358,3 +2433,780 @@ def test_light_term_with_grad_on_the_card_runs_the_kernels(dev,
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     for got, ref in zip(grads[3:], plain_grads[3:]):
         assert torch.equal(got, ref)
+
+
+# --- whole paths on the card at full width ----------------------------------
+
+# A frame on the card against the CPU frame: torch's CUDA and CPU sin/cos
+# in the sampler differ by ulps.
+FRAME_PARITY_ATOL = 1e-4
+SKY_ATOL = 1e-3
+SKY = (torch.tensor([0x87, 0xCE, 0xEB]) / 255.0) ** (1 / 2.2)
+# A frame against one of the same scene and camera with other samples
+# (another cluster size, other chunks or shards): the means of 640,000
+# pixels, in u8 counts, agree within the samples' noise, which averages far
+# below half a count; a kernel that lost or misplaced hits would move whole
+# regions.
+CLI_MEAN_ATOL = 0.5
+# A sharded or 2-process frame against the frame it must equal (the same
+# rays through the same kernels: only the shards, chunks and bins differ).
+MULTI_ATOL = 1e-5
+# Card against CPU gradients, in units of each table's largest magnitude on
+# the CPU: the backward's scatter-adds are atomics on the card, so sums come
+# in another order, and the sampler's sin/cos differ by ulps between the
+# devices. An H100 80GB HBM3 at 700 W read 7.6e-8 to 7.0e-7 over two runs.
+GRAD_PARITY_RTOL = 1e-5
+# The sharded train step's gradients against one unsharded Fitter step at
+# 262,144 rays, in units of each table's largest magnitude, both under
+# deterministic algorithms (two Fitter steps then read 0.0). Each entry
+# sums the contributions of up to 2.9M rays in f32, and the two steps sum
+# them in another order: the sharded step sums each shard's half, then the
+# two halves. On an H100 80GB HBM3 (700 W) that order alone read 2.07e-5
+# (verts), 1.52e-5 (colors) and 9.4e-6 (materials), above
+# GRAD_PARITY_RTOL (held at 1,024 rays). The bar is the one the CPU tests
+# hold a fit step to against JAX's (rtol 1e-4); a lost or doubled shard
+# moves a gradient by half of itself.
+TRAIN_STEP_RTOL = 1e-4
+
+
+def _seeded(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _reference_accels(dev):
+    """The default scene on the card, its CS 16 accel and the CS 128
+    bounce accel."""
+    scene = build_default_scene(device=dev)
+    return (scene, build_cluster_accel(scene.mesh, cluster_size=16),
+            build_cluster_accel(scene.mesh, cluster_size=128))
+
+
+@pytest.mark.parametrize("camera", [False, True], ids=["pack", "camera"])
+def test_reference_frame_on_the_card_launches_every_kernel(dev, camera):
+    """The reference frame (800x800x4, CS 16 and the auto-built CS 128
+    bounce accel), with pack-path or camera-mode primaries, launches the
+    walks, the refinement, the list builds and the rest-set merge, and its
+    corner pixel is the sky's colour; the frame is finite."""
+    scene, acc16, _ = _reference_accels(dev)
+    T.reset_launches()
+    img = render(scene, RenderConfig(primary_shared_origin=camera),
+                 accel=acc16)
+    torch.cuda.synchronize()
+    need = ["walk", "walk_dma", "refine_extents", "lists", "lists_ext",
+            "rest_merge"] + (["walk_camera"] if camera else [])
+    assert all(T.LAUNCHES[k] > 0 for k in need), dict(T.LAUNCHES)
+    assert img.shape == (800, 800, 3) and bool(torch.isfinite(img).all())
+    assert float((img[2, 2].cpu() - SKY).abs().max()) <= SKY_ATOL
+
+
+def test_path_traced_frame_on_the_card_matches_the_cpu(dev):
+    """The path tracer (4 bounces, chunks of 131,072 pixels, CS 16 and the
+    auto-built CS 128 bounce accel) on the card: at 64x64 and 2 spp within
+    FRAME_PARITY_ATOL of the CPU frame with the same uniforms; at 800x800
+    and 64 spp (five chunks) finite, launching the walks, the refinement
+    and the list builds, with the sky's colour in its corner."""
+    from raytracing_tpu_torch import PathTracerConfig
+    from raytracing_tpu_torch.models import path_tracer
+
+    cfg = RenderConfig(width=64, height=64, chunk_size=131072)
+    pt = PathTracerConfig(max_bounces=4, samples_per_pixel=2)
+    draws = {}
+
+    def uniforms(i, s, tag, shape):
+        key = (i, s, tag)
+        if key not in draws:
+            g = torch.Generator().manual_seed(
+                100000 * i + 1000 * s + 10 * tag[1] + (tag[0] == "scatter"))
+            draws[key] = torch.rand(shape, generator=g)
+        return draws[key]
+
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        scene = build_default_scene(device=d)
+        acc = build_cluster_accel(scene.mesh, cluster_size=16)
+        T.reset_launches()
+        imgs.append(path_tracer.render(
+            scene, cfg, pt, accel=acc,
+            uniforms=lambda i, s, tag, shape, d=d:
+            uniforms(i, s, tag, shape).to(d)).cpu())
+        if d.type == "cuda":
+            launches = dict(T.LAUNCHES)
+    assert bool(torch.isfinite(imgs[0]).all())
+    assert float((imgs[0] - imgs[1]).abs().max()) <= FRAME_PARITY_ATOL
+    assert float((imgs[0][2, 2] - SKY).abs().max()) <= SKY_ATOL
+    assert all(launches[k] > 0 for k in ("walk", "walk_dma", "refine_extents",
+                                         "lists", "lists_ext")), launches
+
+    full = RenderConfig(width=800, height=800, chunk_size=131072)
+    scene = build_default_scene(device=dev)
+    acc = build_cluster_accel(scene.mesh, cluster_size=16)
+    T.reset_launches()
+    img = path_tracer.render(
+        scene, full, PathTracerConfig(max_bounces=4, samples_per_pixel=64),
+        accel=acc)
+    torch.cuda.synchronize()
+    launches = dict(T.LAUNCHES)
+    assert img.shape == (800, 800, 3) and bool(torch.isfinite(img).all())
+    assert float((img[2, 2].cpu() - SKY).abs().max()) <= SKY_ATOL
+    assert all(launches[k] > 0 for k in ("walk", "walk_dma", "refine_extents",
+                                         "lists", "lists_ext")), launches
+
+
+def _by_entry(launches):
+    """A frame's launches summed over the launch tiles ("walk_dma_rt128"
+    counts as "walk_dma")."""
+    import re
+
+    out = {}
+    for key, v in launches.items():
+        if v:
+            base = re.sub(r"_rt\d+$", "", key)
+            out[base] = out.get(base, 0) + v
+    return out
+
+
+def _one_launch_a_call(composed, base):
+    """Whether a frame at a composed tile made one launch a wrapper call,
+    as the frame `base` at 1,024 did, where a list build from a pack is two
+    launches at a composed tile: K6 at the launch tile, then the list build
+    from its folded extents."""
+    c, b = _by_entry(composed), _by_entry(base)
+    moved = c.get("lists_ext", 0) - b.get("lists_ext", 0)
+    c["extents"] = c.get("extents", 0) - moved
+    c["lists_ext"] = c.get("lists_ext", 0) - moved
+    c["lists"] = c.get("lists", 0) + moved
+    return {k: v for k, v in c.items() if v} == b
+
+
+NO_WQ, NO_LC = dict(gi_wq=False), dict(gi_lane_cull=False)
+NO_COARSE = dict(gi_cluster_size=0)
+# (id, config change, the change whose frame it must equal, patches): the
+# bounce levels' settings that change no pixel of the reference frame.
+BOUNCE_SETTINGS = (
+    [("cap", dict(gi_cap_frac=0.1), {}, {}),
+     ("gi_wq_false-lane_cull", NO_WQ, {**NO_WQ, **NO_LC}, {})]
+    + [(f"tile{t}", dict(gi_ray_tile=t), {}, {})
+       for t in (512, 256, 384, 2048)]
+    + [(f"gi_wq_false-tile{t}", {**NO_WQ, "gi_ray_tile": t}, NO_WQ, {})
+       for t in (256, 384, 2048)]
+    + [("gi_wq_false-no_lane_cull-tile256",
+        {**NO_WQ, **NO_LC, "gi_ray_tile": 256}, {**NO_WQ, **NO_LC}, {})]
+    + [(f"grid-no_coarse-tile{t}", {**NO_COARSE, "gi_ray_tile": t},
+        NO_COARSE, dict(impl="grid")) for t in (256, 128, 384, 2048)]
+    + [("gi_wq_false-no_coarse-over_budget-tile256",
+        {**NO_WQ, **NO_COARSE, "gi_ray_tile": 256}, {**NO_WQ, **NO_COARSE},
+        dict(budget=1))])
+
+
+@pytest.mark.parametrize("change,other,patch",
+                         [c[1:] for c in BOUNCE_SETTINGS],
+                         ids=[c[0] for c in BOUNCE_SETTINGS])
+def test_bounce_settings_leave_the_reference_frame_the_same(
+        dev, monkeypatch, change, other, patch):
+    """The reference frame (800x800x4, CS 16) under a setting of its bounce
+    levels equal bit for bit to the frame without it: the two-phase
+    query's cap (gi_cap_frac 0.1), the lane cull on against off, and every
+    culling tile (gi_ray_tile) against 1,024, under gi_wq=False, under
+    `_WQ_IMPL = "grid"` with no coarse bounce accel, and with the group
+    budget patched below one group. At the composed tiles (384, 2,048) a
+    wrapper call is one launch, as at 1,024; the frame without the lane
+    cull launches no lane-cull walk."""
+    if "impl" in patch:
+        monkeypatch.setattr(T, "_WQ_IMPL", patch["impl"])
+    if "budget" in patch:
+        monkeypatch.setattr(packets, "_GROUP_BLOCK_BUDGET_BYTES",
+                            patch["budget"])
+    scene = build_default_scene(device=dev)
+    acc16 = build_cluster_accel(scene.mesh, cluster_size=16)
+    imgs, launches = [], []
+    for c in (change, other):
+        T.reset_launches()
+        imgs.append(render(scene, RenderConfig(**c), accel=acc16))
+        torch.cuda.synchronize()
+        launches.append(dict(T.LAUNCHES))
+    assert bool(torch.isfinite(imgs[0]).all())
+    assert torch.equal(imgs[0], imgs[1])
+    if change.get("gi_ray_tile") in (384, 2048):
+        assert _one_launch_a_call(*launches), launches
+    for c, fl in zip((change, other), launches):
+        if c.get("gi_lane_cull") is False:
+            assert not any("_lc" in k and v for k, v in fl.items()), fl
+
+
+# The camera query's hit share on the subdivided teapots: the camera frames
+# the teapot, whose silhouette changes little with subdivision.
+HIT_GATE_LARGE = (0.05, 0.95)
+
+
+@pytest.mark.parametrize("levels,cs", [(3, 64), (4, 128), (5, 128)],
+                         ids=["404k", "1m6", "6m4"])
+def test_large_scene_camera_query_hits_a_plausible_share(dev, levels, cs):
+    """`nearest_hit_camera_soa` at 800x800x4 on the subdivided teapot of
+    404k (CS 64), 1.6M and 6.4M (CS 128) triangles launches the camera walk
+    and hits within HIT_GATE_LARGE of its rays."""
+    mesh = subdivided_teapot_mesh(levels=levels, device=dev)
+    acc = build_cluster_accel(mesh, cluster_size=cs, variants=("pmt",))
+    T.reset_launches()
+    t, _ = T.nearest_hit_camera_soa(acc, stratified_offsets(4, device=dev),
+                                    width=800, height=800, spp=4)
+    torch.cuda.synchronize()
+    walk = "walk_camera_dma" if cs % 128 == 0 else "walk_camera"
+    assert T.LAUNCHES[walk] > 0, dict(T.LAUNCHES)
+    frac = float(torch.isfinite(t).float().mean())
+    assert HIT_GATE_LARGE[0] < frac < HIT_GATE_LARGE[1], frac
+
+
+@pytest.mark.parametrize("levels", [3, 4], ids=["404k", "1m6"])
+def test_large_scene_frame_on_the_card(dev, levels):
+    """The reference frame (800x800x4) of the subdivided teapot under the
+    sun, finite: at 404k triangles on CS 64 with a CS 128 bounce accel,
+    launching the split walks, the gathered refinement and the list
+    builds; at 1.6M on CS 128, its primary and shadow queries through K3
+    (no K1 launch), the gathered refinement on its bounces, and no
+    rest-set merge (one object)."""
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.geometry.scene import sun_position
+
+    mesh = subdivided_teapot_mesh(levels=levels, device=dev)
+    scene = Scene(mesh=mesh, sun=sun_position(0.0).to(dev))
+    if levels == 3:
+        acc = build_cluster_accel(mesh, cluster_size=64, variants=("pmt",))
+        gi = build_cluster_accel(mesh, cluster_size=128, variants=("pmt",))
+    else:
+        acc = build_cluster_accel(mesh, cluster_size=128,
+                                  variants=("pmt",))
+        gi = None
+    T.reset_launches()
+    img = render(scene, RenderConfig(), accel=acc, gi_accel=gi)
+    torch.cuda.synchronize()
+    fl = dict(T.LAUNCHES)
+    assert img.shape == (800, 800, 3) and bool(torch.isfinite(img).all())
+    if levels == 3:
+        assert all(fl[k] > 0 for k in ("refine_lists", "walk_dma", "walk",
+                                        "lists")), fl
+    else:
+        assert fl["walk_gstream"] > 0 and fl["walk"] == 0, fl
+        assert fl["refine_lists"] > 0 and fl["rest_merge"] == 0, fl
+
+
+def test_area_light_frame_through_k4_is_the_k2_frame(dev, monkeypatch):
+    """The reference frame lit by one spherical light (4 shadow samples)
+    launches the walks, the refinement, the list builds and the light's
+    glue, and is brighter than the frame without the light; with
+    `_WQ_IMPL = "grid"` every bounce query goes through K4 and none through
+    K2, and the frame from the same seed is the same bit for bit."""
+    from raytracing_tpu_torch.geometry.mesh import Scene
+
+    base, acc16, _ = _reference_accels(dev)
+    lit = Scene(base.mesh, base.sun, _sphere_light(dev))
+    cfg = RenderConfig(light_samples=4)
+    imgs, launches = {}, {}
+    for which in ("dma", "grid"):
+        monkeypatch.setattr(T, "_WQ_IMPL", which)
+        T.reset_launches()
+        imgs[which] = render(lit, cfg, accel=acc16,
+                             generator=_seeded(dev, 5))
+        torch.cuda.synchronize()
+        launches[which] = dict(T.LAUNCHES)
+    dma, grid = launches["dma"], launches["grid"]
+    assert all(dma[k] > 0 for k in ("walk", "walk_dma", "refine_extents",
+                                    "lists", "lists_ext", "light_sample",
+                                    "light_fold")), dma
+    assert grid["walk_wq"] == dma["walk_dma"] > 0 == grid["walk_dma"], grid
+    assert torch.equal(imgs["grid"], imgs["dma"])
+    dark = render(base, cfg, accel=acc16, generator=_seeded(dev, 5))
+    assert float(imgs["dma"].mean()) > float(dark.mean())
+
+
+@pytest.mark.parametrize("case", ["cs16", "arealight", "gi128"])
+def test_backward_262k_on_the_card(dev, case):
+    """The backward cell of `bench_suite.py:80-130` on the card: the
+    262,144 camera rays of blocks 90-105 of the reference frame through
+    `render_rays`, loss sum(rgb^2), on the CS 16 accel, with one area light
+    or with the CS 128 bounce accel. The forward under grad gives the loss
+    of the forward without it, every gradient (verts, colors, materials)
+    is finite and nonzero, and the walks that carry the backward's planes
+    launch (and K2 and K5 dense with the bounce accel, the light's glue
+    with the light)."""
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    scene, acc16, acc128 = _reference_accels(dev)
+    gi = acc128 if case == "gi128" else None
+    lights = _sphere_light(dev) if case == "arealight" else None
+    cfg = RenderConfig()
+    o, d = camera_rays_for_ids(torch.cat([
+        block_ray_ids(i, 16384, cfg, 16, 16, device=dev)
+        for i in range(90, 106)]), cfg)
+
+    def run(grad):
+        gen = _seeded(dev, 3)
+        live = {k: getattr(scene.mesh, k).clone().requires_grad_(grad)
+                for k in ("verts", "colors", "materials")}
+        with torch.set_grad_enabled(grad):
+            rgb = render_rays(scene.mesh._replace(**live), acc16, scene.sun,
+                              o, d, cfg, lambda tag, shape: torch.rand(
+                                  shape, generator=gen, device=dev),
+                              gi_accel=gi, lights=lights)
+            loss = (rgb * rgb).sum()
+        if grad:
+            loss.backward()
+        return loss.detach(), live
+
+    loss_f, _ = run(False)
+    T.reset_launches()
+    loss_b, live = run(True)
+    torch.cuda.synchronize()
+    assert bool(loss_f == loss_b), (float(loss_f), float(loss_b))
+    for k, v in live.items():
+        assert v.grad is not None and bool(v.grad.isfinite().all()) \
+            and float(v.grad.abs().max()) > 0, k
+    need = ["walk_both"] + (["walk_dma_both", "refine_extents"] if gi
+                            is not None else []) + (
+        ["light_sample", "light_fold"] if lights is not None else [])
+    assert all(T.LAUNCHES[k] > 0 for k in need), dict(T.LAUNCHES)
+
+
+def test_reference_gradients_on_the_card_match_the_cpu(dev):
+    """The gradients of one `render_rays` over the 1,024 block-ordered
+    rays of a 32x32 1-spp frame of the reference scene (CS 16 with the CS
+    128 bounce accel, full depth), loss sum(rgb^2), on the card against
+    the CPU port on the same rays and uniforms: each table within
+    GRAD_PARITY_RTOL of its largest magnitude."""
+    from raytracing_tpu_torch.models.whitted import render_rays
+
+    cfg = RenderConfig(width=32, height=32, samples_per_pixel=1)
+    draws = {}
+
+    def uniforms(tag, shape):
+        if tag not in draws:
+            draws[tag] = torch.rand(shape, generator=torch.Generator()
+                                    .manual_seed(len(draws) + 11))
+        return draws[tag]
+
+    names = ("verts", "normals", "colors", "materials")
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        scene = build_default_scene(device=d)
+        acc = build_cluster_accel(scene.mesh, cluster_size=16)
+        gi = build_cluster_accel(scene.mesh, cluster_size=128)
+        o, dirs = camera_rays_for_ids(
+            block_ray_ids(0, 1024, cfg, 16, 16, device=d), cfg)
+        tables = {k: getattr(scene.mesh, k).clone().requires_grad_()
+                  for k in names}
+        rgb = render_rays(scene.mesh._replace(**tables), acc, scene.sun, o,
+                          dirs, cfg, lambda tag, shape: uniforms(tag, shape)
+                          .to(d), gi_accel=gi)
+        (rgb * rgb).sum().backward()
+        grads.append({k: v.grad.cpu() for k, v in tables.items()})
+    for k in names:
+        card, cpu = grads[0][k], grads[1][k]
+        scale = float(cpu.abs().max())
+        assert bool(torch.isfinite(card).all()) and scale > 0, k
+        err = float((card - cpu).abs().max())
+        assert err <= GRAD_PARITY_RTOL * scale, (k, err, scale)
+
+
+def test_fit_on_the_card_lowers_the_held_out_loss(dev, tmp_path):
+    """The inverse fit at `cmd_fit`'s defaults (raytracing_tpu/app.py:
+    221-243, 319-322): the CS 128 accel, the target the port's own
+    800x800x4 render, colors x 0.5, 4,096 rays a step, Adam at lr 1e-2, 20
+    steps, every loss finite. The loss on one fixed held-out batch of
+    4,096 rays falls, a checkpoint saved at step 10 loads back bit for bit,
+    and the steps launch the walks that carry the backward's planes."""
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = RenderConfig(chunk_size=16384)
+    scene, _, acc128 = _reference_accels(dev)
+    target = render(scene, cfg, accel=acc128)
+    fitter = inverse.Fitter(scene, target,
+                            {"colors": scene.mesh.colors * 0.5}, cfg,
+                            accel=acc128, learning_rate=1e-2)
+
+    def draws(seed):
+        gen = _seeded(dev, seed)
+        return gen, (lambda tag, shape: torch.rand(shape, generator=gen,
+                                                   device=dev))
+
+    held = torch.randint(0, fitter.n_rays, (4096,),
+                         generator=_seeded(dev, 123), device=dev)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(fitter.loss(held, draws(77)[1]))
+
+    before = held_loss()
+    gen, uniforms = draws(0)
+    path = str(tmp_path / "fit_step10.npz")
+    T.reset_launches()
+    losses = []
+    for i in range(20):
+        idx = torch.randint(0, fitter.n_rays, (4096,), generator=gen,
+                            device=dev)
+        losses.append(fitter.step(idx, uniforms))
+        if i + 1 == 10:
+            st = fitter.state(10)
+            ckpt.save(path, st["params"], st["opt_state"], step=10)
+            snap = {"params": {k: v.clone() for k, v in st["params"].items()},
+                    "state": {j: {n: v.clone() for n, v in e.items()}
+                              for j, e in st["opt_state"]["state"].items()},
+                    "groups": st["opt_state"]["param_groups"]}
+    assert all(T.LAUNCHES[k] > 0 for k in ("walk_both", "walk_dma_both"))
+    assert all(np.isfinite(losses)), losses
+    assert held_loss() < before
+    params, opt_state, step, _ = ckpt.load(path, snap["params"],
+                                           fitter.optimizer.state_dict())
+    assert step == 10 and opt_state["param_groups"] == snap["groups"]
+    assert all(torch.equal(params[k], v) for k, v in snap["params"].items())
+    assert all(torch.equal(opt_state["state"][j][n], v)
+               for j, e in snap["state"].items() for n, v in e.items())
+
+
+def test_fit_step_retried_after_out_of_memory_on_the_card(dev, monkeypatch,
+                                                          tmp_path):
+    """A fit of 3 steps whose second step fails after `optimizer.step()`
+    with a real out-of-memory error, retried, ends with the params and
+    losses of a clean fit bit for bit (both under deterministic
+    algorithms, so the backward's scatter-adds sum in one order)."""
+    from raytracing_tpu_torch.models import inverse
+
+    scene, acc16, _ = _reference_accels(dev)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
+    target = render(scene, cfg, accel=acc16)
+
+    def run(**kw):
+        return inverse.fit(scene, target,
+                           {"colors": scene.mesh.colors * 0.5}, cfg,
+                           accel=acc16, steps=3, rays_per_step=1024,
+                           generator=_seeded(dev, 9), **kw)
+
+    real_step = inverse.Fitter.step
+    calls = []
+
+    def faulty(self, idx, uniforms):
+        loss = real_step(self, idx, uniforms)
+        calls.append(1)
+        if len(calls) == 2:
+            torch.empty(2 ** 45, dtype=torch.uint8, device=dev)
+        return loss
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        clean = run()
+        monkeypatch.setattr(inverse.Fitter, "step", faulty)
+        retried = run(retries=2, checkpoint_path=str(tmp_path / "r.npz"))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert len(calls) == 4
+    assert retried.losses == clean.losses
+    assert torch.equal(retried.params["colors"], clean.params["colors"])
+
+
+def test_cli_bench_on_the_card(dev, capsys):
+    """`python -m raytracing_tpu_torch bench`: one record naming the card,
+    a positive primary rays/s and a plausible hit fraction."""
+    from raytracing_tpu_torch import app, bench
+
+    app.main(["bench"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "primary_rays_per_s_per_chip_teapot"
+    assert rec["unit"] == "rays/s" and rec["value"] > 0
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert bench.HIT_GATE[0] < rec["hit_fraction"] < bench.HIT_GATE[1]
+
+
+def test_cli_render_through_an_accel_cache_on_the_card(dev, tmp_path,
+                                                       capsys):
+    """`render` of the reference frame (CS 16 with the CS 128 bounce
+    accel, chunks of 65,536) twice through an accel cache, built and
+    saved, then loaded: the loaded accel is a fresh build field by field,
+    on the card, and both PNGs are `to_u8` of `render()` with the same
+    seed, bit for bit."""
+    from raytracing_tpu_torch import app
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.utils.image import read_png
+
+    cache = str(tmp_path / "accel16.npz")
+    argv = ["render", "--cluster-size", "16", "--gi-cluster-size", "128",
+            "--chunk-size", "65536", "--seed", "0", "--accel-cache", cache]
+    pngs = []
+    for how in ("built", "loaded from"):
+        pngs.append(str(tmp_path / f"ref_{len(pngs)}.png"))
+        app.main(argv + ["--out", pngs[-1]])
+        assert f"16, {how}" in capsys.readouterr().out
+    scene, acc16, acc128 = _reference_accels(dev)
+    loaded = packets.load_accel(cache, mesh=scene.mesh, cluster_size=16)
+    for name in packets.ClusterAccel._fields:
+        a, b = getattr(acc16, name), getattr(loaded, name)
+        assert (a is None) == (b is None), name
+        assert a is None or (b.is_cuda and torch.equal(a, b)), name
+    want = to_rgba_frame(render(scene, RenderConfig(), accel=acc16,
+                                gi_accel=acc128, generator=_seeded(dev, 0)))
+    for png in pngs:
+        assert np.array_equal(read_png(png), want), png
+
+
+def test_cli_render_at_its_defaults_on_the_card(dev, tmp_path):
+    """`render` at the CLI's defaults (800x800x4, CS 128, chunks of
+    16,384) launches the walks, the refinement and the list builds; its
+    PNG has the sky's colour in its corner and the reference frame's mean
+    within CLI_MEAN_ATOL u8 (the same scene and camera, other samples)."""
+    from raytracing_tpu_torch import app
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.utils.image import read_png
+
+    png = str(tmp_path / "defaults.png")
+    T.reset_launches()
+    app.main(["render", "--out", png])
+    torch.cuda.synchronize()
+    assert all(T.LAUNCHES[k] > 0 for k in ("walk", "walk_dma",
+                                           "refine_extents", "lists",
+                                           "lists_ext")), dict(T.LAUNCHES)
+    scene, acc16, acc128 = _reference_accels(dev)
+    want = to_rgba_frame(render(scene, RenderConfig(), accel=acc16,
+                                gi_accel=acc128, generator=_seeded(dev, 0)))
+    img = read_png(png)
+    sky = np.round(255 * SKY.numpy().astype(np.float64))
+    assert img.shape == want.shape
+    assert np.abs(img[2, 2, :3] - sky).max() <= 1, img[2, 2]
+    assert abs(float(img[..., :3].mean())
+               - float(want[..., :3].mean())) <= CLI_MEAN_ATOL
+
+
+def test_cli_render_profile_on_the_card(dev, tmp_path):
+    """`render --profile` on the card writes a trace that names the walk
+    and refinement kernels."""
+    from raytracing_tpu_torch import app
+
+    prof = str(tmp_path / "prof")
+    app.main(["render", "--width", "64", "--height", "64", "--cluster-size",
+              "16", "--gi-cluster-size", "128", "--profile", prof, "--out",
+              str(tmp_path / "small.png")])
+    with open(os.path.join(prof, "trace.json")) as f:
+        trace = f.read()
+    assert "walk_kernel" in trace and "refine_kernel" in trace
+
+
+def test_cli_fit_checkpoint_and_resume_on_the_card(dev, tmp_path,
+                                                   monkeypatch, capsys):
+    """`fit` at its defaults for 60 steps with a checkpoint: snapshots at
+    steps 50 and 60, the step-50 one holding the live params (neither the
+    start nor the end); `--resume` for 5 more goes on to step 65, Adam's
+    count with it; every loss finite."""
+    from raytracing_tpu_torch import app
+    from raytracing_tpu_torch.utils import checkpoint as ckpt
+
+    ck = str(tmp_path / "fit.npz")
+    saved = []
+    real_save = ckpt.save
+
+    def spy(path, params, opt_state=None, step=0, metadata=None):
+        saved.append((step, {k: v.clone() for k, v in params.items()}))
+        real_save(path, params, opt_state, step, metadata)
+
+    monkeypatch.setattr(ckpt, "save", spy)
+    app.main(["fit", "--steps", "60", "--checkpoint", ck])
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [st for st, _ in saved] == [50, 60]
+    start = build_default_scene(device=dev).mesh.colors * 0.5
+    mid, end = saved[0][1]["colors"], saved[1][1]["colors"]
+    assert not torch.equal(mid, start) and not torch.equal(mid, end)
+    app.main(["fit", "--steps", "5", "--checkpoint", ck, "--resume"])
+    out = capsys.readouterr().out
+    last = json.loads(out.strip().splitlines()[-1])
+    assert f"resumed from {ck} @ step 60" in out
+    _, opt_state, step, _ = ckpt.load(ck, {"colors": start})
+    assert step == 65 and float(opt_state["state"][0]["step"]) == 65
+    assert all(np.isfinite([v for rec in (first, last)
+                            for v in rec.values()]))
+
+
+def test_cli_animate_on_the_card(dev, tmp_path, capsys):
+    """`animate --frames 3 --out-pattern` at the reference frame's
+    settings writes 3 full-size PNGs and an fps line."""
+    from raytracing_tpu_torch import app
+    from raytracing_tpu_torch.utils.image import read_png
+
+    pattern = str(tmp_path / "anim_{frame:03d}.png")
+    app.main(["animate", "--cluster-size", "16", "--gi-cluster-size", "128",
+              "--chunk-size", "65536", "--frames", "3", "--out-pattern",
+              pattern])
+    out = capsys.readouterr().out
+    frames = [pattern.format(frame=i) for i in range(3)]
+    assert all(os.path.exists(f) for f in frames)
+    assert "rendered 3 frames in" in out and "fps avg" in out
+    assert read_png(frames[2]).shape == (800, 800, 4)
+
+
+def test_sharded_reference_frame_on_the_card_has_render_s_mean(dev):
+    """`render_sharded` at the reference config (the diffuse fan on, CS 16
+    and the auto-built CS 128 bounce accel) over 4 virtual shards of the
+    card launches the walks, the refinement and the list builds; the frame
+    is finite, its u8 mean within CLI_MEAN_ATOL of `render()`'s (the
+    shards draw other samples)."""
+    from raytracing_tpu_torch.ops.color import to_rgba_frame
+    from raytracing_tpu_torch.parallel.shard import (make_device_mesh,
+                                                     render_sharded)
+
+    scene, acc16, _ = _reference_accels(dev)
+    ref = RenderConfig()
+    T.reset_launches()
+    img = render_sharded(scene, ref, make_device_mesh(
+        4, devices=["cuda:0"] * 4), accel=acc16, seed=0)
+    torch.cuda.synchronize()
+    assert all(T.LAUNCHES[k] > 0 for k in ("walk", "walk_dma",
+                                           "refine_extents", "lists",
+                                           "lists_ext")), dict(T.LAUNCHES)
+    full = render(scene, ref, accel=acc16, generator=_seeded(dev, 0))
+    assert bool(torch.isfinite(img).all())
+    a, b = (to_rgba_frame(x)[..., :3].astype(np.float64) for x in (img, full))
+    assert abs(a.mean() - b.mean()) <= CLI_MEAN_ATOL
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_two_processes_sharing_the_card_render_the_two_shard_frame(
+        dev, tmp_path):
+    """`render --num-processes 2 --assemble` of the reference frame in 2
+    new processes of one gloo group sharing the card (NCCL refuses two
+    ranks on one card): the stitched shards within MULTI_ATOL of the
+    one-process 2-shard `render_sharded` frame."""
+    import subprocess
+    import sys
+
+    from raytracing_tpu_torch.parallel import distributed as D
+    from raytracing_tpu_torch.parallel import shard as S
+
+    port = _free_port()
+    png = str(tmp_path / "two.png")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "raytracing_tpu_torch", "render",
+         "--cluster-size", "16", "--gi-cluster-size", "128", "--chunk-size",
+         "65536", "--seed", "0", "--assemble", "--out", png,
+         "--num-processes", "2", "--process-id", str(i), "--coordinator",
+         f"localhost:{port}", "--dist-backend", "gloo"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), outs
+    assert f"wrote {png}" in outs[0] and os.path.exists(png)
+    ref = RenderConfig()
+    got = D.assemble_shards(png + ".shards", ref)
+    scene, acc16, _ = _reference_accels(dev)
+    two = S.render_sharded(scene, ref, S.make_device_mesh(
+        2, devices=["cuda:0"] * 2), accel=acc16, seed=0).cpu().numpy()
+    assert float(np.abs(got - two).max()) <= MULTI_ATOL
+
+
+def test_one_rank_nccl_train_step_is_the_step_without_a_group(dev):
+    """In a one-rank NCCL group on the card, `make_train_step` runs its
+    all_reduce, and its step equals the step without a group bit for bit
+    (both under deterministic algorithms)."""
+    import functools
+
+    from raytracing_tpu_torch.parallel import shard as S
+
+    scene, acc16, _ = _reference_accels(dev)
+    cfg = RenderConfig(width=64, height=64, samples_per_pixel=1)
+    o, d = camera_rays_for_ids(block_ray_ids(0, 4096, cfg, device=dev), cfg)
+    target = torch.rand((4096, 3), generator=_seeded(dev, 5), device=dev)
+    step = S.make_train_step(cfg, functools.partial(torch.optim.Adam,
+                                                    lr=1e-2),
+                             S.make_device_mesh(1))
+    params = {"colors": scene.mesh.colors * 0.5}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        alone = step(params, None, scene.mesh, acc16, scene.sun, o, d,
+                     target)
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0)
+        try:
+            S.COLLECTIVES["all_reduce"] = 0
+            grouped = step(params, None, scene.mesh, acc16, scene.sun, o, d,
+                           target)
+            torch.cuda.synchronize()
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert S.COLLECTIVES["all_reduce"] == 1 and backend == "nccl"
+    assert torch.equal(alone[0]["colors"], grouped[0]["colors"])
+    assert bool(alone[2] == grouped[2])
+
+
+def test_sharded_train_step_on_the_card_is_a_fitter_step(dev):
+    """The train step at the backward cell's size (262,144 rays of blocks
+    90-105, CS 16, the reference config) over 2 virtual shards of the card
+    against one unsharded `Fitter` step on the same rays and draws, both
+    under deterministic algorithms: the loss within GRAD_PARITY_RTOL, the
+    gradients within TRAIN_STEP_RTOL of each table's largest magnitude."""
+    import functools
+
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.parallel import shard as S
+
+    scene, acc16, _ = _reference_accels(dev)
+    ref = RenderConfig()
+    idx = torch.cat([block_ray_ids(i, 16384, ref, 16, 16, device=dev)
+                     for i in range(90, 106)])
+    n = idx.shape[0]
+    u1 = torch.rand((ref.diffuse_scatter, n, 2), generator=_seeded(dev, 7),
+                    device=dev)
+
+    def draw(tag, shape, lo=0):
+        assert tag == 1 and shape == (ref.diffuse_scatter, shape[1], 2)
+        return u1[:, lo:lo + shape[1]].contiguous()
+
+    tgt_img = torch.rand((800, 800, 3), generator=_seeded(dev, 8),
+                         device=dev)
+    tables = {k: getattr(scene.mesh, k) for k in ("verts", "colors",
+                                                  "materials")}
+    step2 = S.make_train_step(ref, functools.partial(torch.optim.Adam,
+                                                     lr=1e-2),
+                              S.make_device_mesh(2, devices=["cuda:0"] * 2))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fitter = inverse.Fitter(scene, tgt_img, tables, ref, accel=acc16)
+        loss_1 = fitter.step(idx, draw)
+        grads_1 = {k: v.grad for k, v in fitter.params.items()}
+        grads_2 = {}
+        _, _, loss_2 = step2(
+            tables, None, scene.mesh, acc16, scene.sun, fitter.o[idx],
+            fitter.d[idx], fitter.target[idx % (800 * 800)],
+            uniforms=lambda g, tag, shape: draw(tag, shape, g * (n // 2)),
+            grads_out=grads_2)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert abs(float(loss_2) - loss_1) <= GRAD_PARITY_RTOL * abs(loss_1)
+    for k in tables:
+        scale = float(grads_1[k].abs().max())
+        err = float((grads_2[k] - grads_1[k]).abs().max())
+        assert scale > 0 and err <= TRAIN_STEP_RTOL * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("n,device", [(1, None), (2, "cuda:0")],
+                         ids=["card", "two_shards"])
+def test_dryrun_multichip_on_the_card(dev, n, device):
+    """`dryrun_multichip(1)` on the card and `(2)` over 2 virtual shards
+    of it: one sharded Adam step with a finite loss."""
+    from raytracing_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert np.isfinite(dryrun_multichip(n, device=device))

@@ -346,8 +346,8 @@ def _walk_outputs(kind, args):
 
 
 def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
-    """The launches of the frames' own shapes, as chip_smoke.py's phases 5
-    and 7 capture them: the `walk_camera` launch of the camera-primaries
+    """The launches of the frames' own shapes, as chip_smoke.py's phases 4
+    and 5 capture them: the `walk_camera` launch of the camera-primaries
     reference frame's chunk 20 (64 tiles), and the two `walk_gstream`
     launches of the 1.6M Whitted frame's chunk 12 (65,536 rays: the
     primary nearest+attrs query, then the sun-shadow query), each as
@@ -356,8 +356,8 @@ def _frame_chunk_launches(dev, mesh_1m6, acc_1m6):
     import torch
 
     import chip_smoke
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import sun_position
     from raytracing_tpu_torch.models import whitted
@@ -397,8 +397,8 @@ def _inputs(dev):
     import torch
 
     import chip_smoke
-    from raytracing_tpu_torch import (RenderConfig, bench,
-                                      build_cluster_accel, build_default_scene)
+    from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
+                                      build_default_scene)
     from raytracing_tpu_torch.geometry.mesh import Scene
     from raytracing_tpu_torch.geometry.scene import (subdivided_teapot_mesh,
                                                      sun_position)
@@ -438,7 +438,7 @@ def _inputs(dev):
     pos = o + torch.where(hit, t[0], 1.0)[:, None] * d + n * cfg.normal_offset
     gen.manual_seed(3)
     w_dir, _, l_alive, t_stop = whitted.light_shadow_rays(
-        whitted.light_cone(bench.sphere_light(dev), 0, pos), pos, n, hit,
+        whitted.light_cone(chip_smoke.sphere_light(dev), 0, pos), pos, n, hit,
         torch.rand((pos.shape[0], 2), generator=gen, device=dev))
     walks["walk, 65,536 light-shadow rays, 790x16, occlusion under "
           "tmax_row"] = T._groups_walk_args(

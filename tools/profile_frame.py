@@ -45,32 +45,14 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if HERE not in sys.path:
+    sys.path.insert(0, HERE)
 
-# (layer, substrings of the kernel name), first match wins.
-LAYERS = (
-    ("walk, K1 + K2 and their camera forms (walk.cu, camera.cu), and the "
-     "fill launch of every split walk",
-     ("walk_kernel", "walk_fill_kernel")),
-    ("walk, K3 and K4 (gstream.cu, wq.cu)", ("gstream_kernel", "wq_")),
-    ("refine, K5 dense (with K6's extents in the dense query) and "
-     "gathered (refine.cu)", ("refine_kernel", "refine_lists_kernel")),
-    ("lists, K6's extents and the visit lists in one launch, or the "
-     "lists from extents given (lists.cu)", ("lists_kernel",)),
-    ("extents, K6 alone (extents.cu)", ("extents_kernel",)),
-    ("sorts (bin keys, visit lists)", ("sort", "Sort", "radix", "Radix")),
-    ("reductions (any, amin, sums)", ("reduce", "Reduce")),
-    ("gathers/scatters", ("index", "gather", "scatter", "Index", "Gather",
-                          "Scatter")),
-    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
-    ("shading/binning glue (torch elementwise)", ("",)),
-)
+# The layers device time is sorted into: the benchmark's table (first
+# match wins; the last layer takes every name), by its descriptions.
+from rtbench.layers import LAYERS, layer_of  # noqa: E402
 
-
-def _layer(name: str) -> str:
-    for layer, keys in LAYERS:
-        if any(k in name for k in keys):
-            return layer
-    raise AssertionError("the last layer matches every name")
+LAYER_NAMES = {key: what for key, what, _ in LAYERS}
 
 
 def _device_us(ev) -> float:
@@ -101,7 +83,6 @@ def main() -> int:
                     help="the two-teapot scene or a subdivided teapot")
     opts = ap.parse_args()
     out = opts.out
-    sys.path.insert(0, HERE)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,9 +150,10 @@ def main() -> int:
     if not kernels:
         raise SystemExit("profile_frame: the profiler recorded no device "
                          "events")
-    layers = {layer: {"ms": 0.0, "launches": 0} for layer, _ in LAYERS}
+    layers = {what: {"ms": 0.0, "launches": 0}
+              for what in LAYER_NAMES.values()}
     for name, k in kernels.items():
-        row = layers[_layer(name)]
+        row = layers[LAYER_NAMES[layer_of(name)]]
         row["ms"] += k["us"] / 1e3
         row["launches"] += k["count"]
     busy_ms = sum(r["ms"] for r in layers.values())
