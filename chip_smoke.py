@@ -53,13 +53,15 @@ Phases (any failure raises and the script exits non-zero):
         rays), CS=16 (`walk_camera`) and CS=128 (`walk_camera_dma`),
         against the plain version lane by lane and against the pack path
         under `shared_origin=0` on all 2,560,000 rays, and the rest set's
-        merge into the CS 16 walk's results (row `rest_merge_camera`); phase 5 repeats
-        this on every large scene, with its pooled lists held against the
-        direct ones (the pooled lists' first stage and the direct lists
-        bit-equal to their plain versions; the 1.6M first stage is row
-        `lists_ext_pooled`, the 6.4M lists 50,560 wide sort through
-        device memory), and the `walk_camera_dma` row is the 1.6M launch
-        (launched 10 times, equal every time); phase 4 times
+        merge into the CS 16 walk's results (row `rest_merge_camera`); the
+        CS 16 query's lists from the camera, 2,500 blocks x 790 boxes in
+        one launch, row `lists_camera`; phase 5 repeats this on every
+        large scene, with its pooled lists held against the direct ones
+        (both bit-equal to their plain compositions; the 1.6M pooled
+        lists, both stages, are row `lists_camera_pooled`, their second
+        stage alone row `lists_camera_members`; the 6.4M lists 50,560 wide
+        sort through device memory), and the `walk_camera_dma` row is the
+        1.6M launch (launched 10 times, equal every time); phase 4 times
         `walk_camera` at the frame's own shape (one chunk of 64 tiles, as
         the camera-mode frame launches it);
      c. the gathered refinement (`refine_lists`) and the `_walk_dma` entry
@@ -132,9 +134,8 @@ Phases (any failure raises and the script exits non-zero):
   4. the reference frame — 800x800 at 4 spp, default config: one counted
      frame, then the same with `primary_shared_origin=True` (camera-mode
      primaries), its chunk-20 `walk_camera` launch kept for 3b and that
-     launch's lists built from the closed-form extents (row
-     `lists_ext_camera`); each frame's launches of the port's kernels
-     printed;
+     launch's lists built from the camera (row `lists_camera_chunk`);
+     each frame's launches of the port's kernels printed;
   5. large scenes — the subdivided teapot at 404k (CS=64), 1.6M and 6.4M
      (CS=128) triangles, with mesh-generation and accel-build seconds:
      one counted camera-mode query over the whole 800x800x4 frame at
@@ -221,21 +222,28 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                             "raytracing_tpu/kernels/traverse.py:163"),
     # The list builds (csrc/lists.cu): from a pack, K6's extents with the
     # lists XLA builds after it (traverse.py:325-380); from extents, those
-    # lists alone. The reference frame's chunk and wavefront, the camera
-    # frame's chunk, the 1.6M frame's K3 groups, the 1.6M camera query's
-    # pooled first stage.
+    # lists alone. The reference frame's chunk and wavefront, the 1.6M
+    # frame's K3 groups.
     "lists": ("raytracing_tpu_torch/csrc/lists.cu",
               "raytracing_tpu/kernels/traverse.py:163"),
     "lists_gi_wq_false": ("raytracing_tpu_torch/csrc/lists.cu",
                           "raytracing_tpu/kernels/traverse.py:163"),
     "lists_ext": ("raytracing_tpu_torch/csrc/lists.cu",
                   "raytracing_tpu/kernels/traverse.py:325"),
-    "lists_ext_camera": ("raytracing_tpu_torch/csrc/lists.cu",
-                         "raytracing_tpu/kernels/traverse.py:325"),
     "lists_ext_gstream": ("raytracing_tpu_torch/csrc/lists.cu",
                           "raytracing_tpu/kernels/traverse.py:325"),
-    "lists_ext_pooled": ("raytracing_tpu_torch/csrc/lists.cu",
-                         "raytracing_tpu/kernels/traverse.py:325"),
+    # Camera mode's lists with the frustums derived in the kernel: the
+    # whole two-teapot frame (2,500 blocks x 790 boxes), the camera-mode
+    # frame's chunk, the 1.6M query's pooled lists (both stages) and their
+    # second stage alone.
+    "lists_camera": ("raytracing_tpu_torch/csrc/lists.cu",
+                     "raytracing_tpu/kernels/traverse.py:3291"),
+    "lists_camera_chunk": ("raytracing_tpu_torch/csrc/lists.cu",
+                           "raytracing_tpu/kernels/traverse.py:3291"),
+    "lists_camera_pooled": ("raytracing_tpu_torch/csrc/lists.cu",
+                            "raytracing_tpu/kernels/traverse.py:3505"),
+    "lists_camera_members": ("raytracing_tpu_torch/csrc/lists.cu",
+                             "raytracing_tpu/kernels/traverse.py:3505"),
     "walk_camera": ("raytracing_tpu_torch/csrc/camera.cu",
                     "raytracing_tpu/kernels/traverse.py:922"),
     "walk_camera_dma": ("raytracing_tpu_torch/csrc/camera.cu",
@@ -645,63 +653,78 @@ def _bit_equal(name, got, want):
     return err
 
 
-def _steady_entry(entry, run):
-    """(run()'s result, ms per launch) of the kernel entry `entry` (an
-    `rt_*` name of the kernel library) that `run()` launches once: its
-    ctypes arguments captured, then the entry called directly
-    STEADY_LAUNCHES times in one pair of CUDA events (`_steady_ms`), no
-    wrapper in the loop. The scratch the wrapper allocates stays alive
-    meanwhile, and the outputs must read the same after the loop."""
+def _steady_entry(entries, run):
+    """(run()'s result, ms per call) of the kernel entries `entries` (one
+    `rt_*` name of the kernel library, or a tuple of them) that `run()`
+    launches once each: their ctypes arguments captured, then the entries
+    called directly in turn STEADY_LAUNCHES times in one pair of CUDA
+    events (`_steady_ms`), no wrapper in the loop. The scratch and the
+    list outputs the wrapper allocates stay alive meanwhile (a later
+    entry may read an earlier one's), and the outputs must read the same
+    after the loop."""
     import torch
 
     from raytracing_tpu_torch.kernels import cuda
     from raytracing_tpu_torch.kernels import traverse as T
 
+    entries = (entries,) if isinstance(entries, str) else tuple(entries)
     lib = cuda.library()
-    seen, keep = [], []
+    seen, keep = {e: [] for e in entries}, []
 
     class Proxy:
         def __getattr__(self, name):
             fn = getattr(lib, name)
-            if name != entry:
+            if name not in seen:
                 return fn
 
             def call(*args):
-                seen.append(args)
+                seen[name].append(args)
                 return fn(*args)
             return call
 
-    scratch = T._lists_scratch
+    scratch, outputs = T._lists_scratch, T._list_outputs
     real = cuda.library
     cuda.library = Proxy
     T._lists_scratch = lambda *a: keep.append(scratch(*a)) or keep[-1]
+    T._list_outputs = lambda *a: keep.append(outputs(*a)) or keep[-1]
     try:
         out = run()
     finally:
         cuda.library = real
-        T._lists_scratch = scratch
-    _require(len(seen) == 1, f"{entry}: {len(seen)} launches, not one")
-    fn, args = getattr(lib, entry), seen[0]
+        T._lists_scratch, T._list_outputs = scratch, outputs
+    for e in entries:
+        _require(len(seen[e]) == 1, f"{e}: {len(seen[e])} launches, not one")
+    calls = [(getattr(lib, e), seen[e][0]) for e in entries]
     before = [t.clone() for t in out]
-    ms = _steady_ms(lambda: fn(*args))
+
+    def launch():
+        for fn, args in calls:
+            fn(*args)
+    ms = _steady_ms(launch)
     torch.cuda.synchronize()
     _require(all(torch.equal(a, b) for a, b in zip(out, before)),
-             f"{entry}: the outputs changed over the steady launches")
+             f"{entries}: the outputs changed over the steady launches")
     del keep
     return out, ms
 
 
-def _lists_bound(rows_, width, rays=0, ext_rows=0, mask_bytes=0):
-    """The bound of a list build: `rows_` list rows of `width` boxes, each
-    (tile, box) pair one interval slab test (OPS_FRUSTUM) and each list
-    position written once (ids and tnear, 8 bytes), the boxes read once;
-    from a pack, `rays` rays read once (32 bytes, OPS_EXTENTS each) and
-    [nt, 8] lo and hi written; from extents, `ext_rows` rows of 12
-    extents and an alive value read; and the mask's bytes."""
+def _lists_work(rows_, width, rays=0, ext_rows=0, mask_bytes=0):
+    """(operations, bytes) of a list build: `rows_` list rows of `width`
+    boxes, each (tile, box) pair one interval slab test (OPS_FRUSTUM) and
+    each list position written once (ids and tnear, 8 bytes), the boxes
+    read once; from a pack, `rays` rays read once (32 bytes, OPS_EXTENTS
+    each) and [nt, 8] lo and hi written; from extents, `ext_rows` rows of
+    12 extents and an alive value read; and the mask's bytes (a camera
+    row's frustum comes from the camera: none of these)."""
     ops = OPS_FRUSTUM * rows_ * width + OPS_EXTENTS * rays
     nbytes = (rows_ * (width * 8 + 4) + width * 24 + rays * 32
               + (rays and rows_ * 64) + ext_rows * 52 + mask_bytes)
-    return _bound(ops, nbytes)
+    return ops, nbytes
+
+
+def _lists_bound(*args, **kw):
+    """The bound of a list build (`_lists_work`)."""
+    return _bound(*_lists_work(*args, **kw))
 
 
 def _lists_row(rows, name, args, shape):
@@ -756,6 +779,66 @@ def _lists_ext_row(rows, name, args, kw, shape):
           f"steady {ms:.5f} ms (median of 5 wrapper calls {wrapper:.4f}), "
           f"plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
           f"({shape})")
+    return got
+
+
+def _camera_lists_row(rows, names, args, shape):
+    """Camera mode's list build (`camera_lists`, csrc/lists.cu) on `args`
+    (accel, offs, cam, tile0, tiles) as a query made it, against its plain
+    composition on the card bit for bit, timed steadily (every launch of
+    the call in turn, the pooled lists' host sync left out: the width
+    stays the first call's) into rows[names[0]] beside the plain
+    composition (median of 5) and its bound; for the pooled lists, their
+    second stage (`rt_camera_member_lists`) alone too, into
+    rows[names[1]], beside the plain second stage. Returns the lists."""
+    from raytracing_tpu_torch.kernels import traverse as T
+
+    acc, offs, cam, tile0, tiles = args
+    pooled = T._pooled(acc, cam, tile0, tiles)
+    entries = ("rt_camera_lists",) + (("rt_camera_member_lists",)
+                                      if pooled else ())
+    got, ms = _steady_entry(entries, lambda: T.camera_lists(*args))
+    with _PlainWrappers():
+        want = T.camera_lists(*args)
+        plain_ms = _median_ms(lambda: T.camera_lists(*args))
+    err = _bit_equal(names[0], got, want)
+    c, w = acc.num_clusters, got[0].shape[1]
+    wrapper = _median_ms(lambda: T.camera_lists(*args))
+    work = _lists_work(tiles, c)
+    if pooled:
+        gy, gx, _, _, nby2, nbx2 = T._supertiles(cam)
+        members = _lists_work(tiles, w)
+        work = tuple(a + b for a, b in zip(_lists_work(nby2 * nbx2, c),
+                                           members))
+    bound = _bound(*work)
+    rows[names[0]] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound[0], bound_by=bound[1], shape=shape)
+    how = (f" through {nby2 * nbx2} supertiles of {gy}x{gx} blocks, "
+           f"candidates {w} wide" if pooled else "")
+    print(f"[kernels] {names[0]} (lists.cu, camera): {tiles} blocks x {c} "
+          f"boxes{how}, {int(got[2].sum())} listed; equal bit for bit; steady "
+          f"{ms:.5f} ms ({len(entries)} launch(es); median of 5 wrapper "
+          f"calls {wrapper:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms by {bound[1]} ({shape})")
+    if pooled:
+        got2, ms2 = _steady_entry("rt_camera_member_lists",
+                                  lambda: T.camera_lists(*args))
+        ext = T._camera_tile_extents(tiles, offs, cam, tile0)
+        with _PlainWrappers():
+            first = T._supertile_lists(acc, ext, cam)
+            plain2 = _median_ms(
+                lambda: T._pooled_camera_lists(acc, ext, cam, first))
+            err2 = _bit_equal(names[1], got2, T._pooled_camera_lists(
+                acc, ext, cam, first))
+        del ext, first
+        bound2 = _bound(*members)
+        rows[names[1]] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2,
+                              bound_ms=bound2[0], bound_by=bound2[1],
+                              shape=f"{shape}: the second stage alone")
+        print(f"[kernels] {names[1]} (lists.cu, the pooled lists' second "
+              f"stage): {tiles} blocks x {w} candidates; equal bit for "
+              f"bit; steady {ms2:.5f} ms, plain {plain2:.4f} ms, bound "
+              f"{bound2[0]:.5f} ms by {bound2[1]}")
     return got
 
 
@@ -865,8 +948,8 @@ def phase_build():
         mangled = line.split("'")[1]
         kernel = next((k for k in ("walk_fill", "camera_walk", "gstream",
                                    "wq_plan", "wq_warp", "wq_finish", "walk",
-                                   "refine_lists", "refine", "lists",
-                                   "extents")
+                                   "refine_lists", "refine", "camera_lists",
+                                   "lists", "extents")
                        if k + "_kernel" in mangled), mangled)
         variant = mangled.split(kernel + "_kernel")[-1].split("Ev")[0]
         used = next(l for l in lines[i:] if "Used" in l).split(":", 1)[1]
@@ -943,19 +1026,19 @@ def _print_occupancy(lib):
     line("extents", lib.rt_extents_occupancy)
     # The list builds: the threads and shared memory a launch takes follow
     # the row's width (csrc/lists.cu lists_shape).
-    for from_rays in (1, 0):
+    for source, what in ((1, "from a pack"), (0, "from extents"),
+                         (2, "from the camera"),
+                         (3, "the camera's member rows")):
         got = []
         for width in LIST_WIDTHS:
             n, blocks = ctypes.c_int(0), ctypes.c_int(0)
-            _require(lib.rt_lists_occupancy(from_rays, width,
+            _require(lib.rt_lists_occupancy(source, width,
                                             ctypes.byref(n),
                                             ctypes.byref(blocks)) == 0,
                      f"occupancy of lists at width {width} failed")
             got.append(f"width {width}: {n.value} threads {blocks.value} "
                        f"blocks ({blocks.value * n.value // 32} warps)")
-        print(f"[build] occupancy lists "
-              f"{'from a pack' if from_rays else 'from extents'}: "
-              f"{'; '.join(got)}")
+        print(f"[build] occupancy lists {what}: {'; '.join(got)}")
     for lists, capped in ((0, 0), (0, 1), (1, 0), (1, 1)):
         # the dense form's boxes for 100 clusters (the CS 128 bounce
         # accel), the gathered form's for a run of _REFINE_RUN
@@ -1660,16 +1743,17 @@ def _timed_camera(rows, row, args, kw, shape):
 
 
 def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
-                        repeats=False, lists_row=None):
+                        repeats=False, lists_rows=None):
     """Camera mode over the whole 800x800x4 frame on `acc`, with the lists
-    and tables `nearest_hit_camera_soa` launches: above _SUPERTILE_MIN_C
-    clusters the pooled lists' first stage (the list build from the
-    supertiles' extents; timed into rows[lists_row] if given) and the
-    direct lists of every tile each bit-equal to its plain version on the
-    card, the pooled lists against the direct ones as sets; the kernel
-    against its plain version lane by lane (timed into rows[row]), with
-    `repeats` ten launches equal, and the public query against the pack
-    path under shared_origin=0 on all 2,560,000 rays."""
+    and tables `nearest_hit_camera_soa` launches: its lists
+    (`camera_lists`; timed into rows[lists_rows...] if given,
+    `_camera_lists_row`) bit-equal to their plain composition on the card;
+    above _SUPERTILE_MIN_C clusters, where they go through supertiles, the
+    direct lists of every tile bit-equal to theirs too and the pooled lists
+    against the direct ones as sets; the kernel against its plain version
+    lane by lane (timed into rows[row]), with `repeats` ten launches equal,
+    and the public query against the pack path under shared_origin=0 on
+    all 2,560,000 rays."""
     import torch
 
     from raytracing_tpu_torch.kernels import traverse as T
@@ -1680,33 +1764,35 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
     n_tiles = cam.grid[0] * cam.grid[1]
     na = acc.attr_blocks.shape[1] if with_attrs else 0
     made = []
-    (largs, lkw), = _capture_calls(
-        "lists_from_extents", [0], lambda: made.append(T._camera_walk_args(
+    (largs, _), = _capture_calls(
+        "camera_lists", [0], lambda: made.append(T._camera_walk_args(
             acc, offs, cam, 0, n_tiles, na, eps)))
     (args, kw), = made
     _require(kw["entry"] == entry, f"{row}: CS {cs} took entry {kw['entry']}")
     ids, cnt = args[4:6]
-    if c > T._SUPERTILE_MIN_C:
-        what = (f"{row}: the pooled lists' first stage, {largs[0].shape[0]} "
-                f"supertiles x {c} boxes")
-        if lists_row is not None:
-            _lists_ext_row(rows, lists_row, largs, lkw, what)
-        else:
-            with _PlainWrappers():
-                want = T.lists_from_extents(*largs, **lkw)
-            _bit_equal(what, T.lists_from_extents(*largs, **lkw), want)
-            print(f"[kernels] {what}: equal bit for bit")
-            del want
-        dext = T._camera_tile_extents(n_tiles, offs, cam)
-        d_ids, d_tn, d_cnt = T.lists_from_extents(
-            *dext, acc.cluster_min, acc.cluster_max)
+    pooled = T._pooled(acc, cam, 0, n_tiles)
+    what = (f"{row}: {'the pooled' if pooled else 'the direct'} lists, "
+            f"{n_tiles} blocks x {c} boxes")
+    if lists_rows is not None:
+        _camera_lists_row(rows, lists_rows, largs, what)
+    else:
         with _PlainWrappers():
-            want = T.lists_from_extents(*dext, acc.cluster_min,
-                                        acc.cluster_max)
+            want = T.camera_lists(*largs)
+        _bit_equal(what, T.camera_lists(*largs), want)
+        print(f"[kernels] {what}: equal bit for bit")
+        del want
+    if pooled:
+        min_c, T._SUPERTILE_MIN_C = T._SUPERTILE_MIN_C, c
+        try:
+            d_ids, d_tn, d_cnt = T.camera_lists(*largs)
+            with _PlainWrappers():
+                want = T.camera_lists(*largs)
+        finally:
+            T._SUPERTILE_MIN_C = min_c
         _bit_equal(f"{row}: the direct lists", (d_ids, d_tn, d_cnt), want)
         print(f"[kernels] {row}: the direct lists ({n_tiles} tiles x {c} "
               f"boxes, {int(d_cnt.sum())} listed) equal bit for bit")
-        del want, d_tn, dext
+        del want, d_tn
         diff = int((_listed(ids, cnt, c) != _listed(d_ids, d_cnt, c)).sum())
         _require(diff == 0 and torch.equal(cnt, d_cnt),
                  f"{row}: pooled lists differ from the direct ones in "
@@ -1746,8 +1832,10 @@ def _check_camera_frame(rows, row, entry, acc, camera, with_attrs,
 
 def phase_kernels_camera(rows):
     """Camera mode on the whole reference frame of the default scene, with
-    attributes, through both entries (`_check_camera_frame`); then the rest
-    set's merge into the CS 16 walk's results (row rest_merge_camera)."""
+    attributes, through both entries (`_check_camera_frame`; the CS 16
+    query's lists are row lists_camera); then the rest set's merge into
+    the CS 16 walk's results (row rest_merge_camera). Returns the lists'
+    launches of one CS 16 camera query over the whole frame."""
     from raytracing_tpu_torch import build_cluster_accel, build_default_scene
 
     from raytracing_tpu_torch.kernels import traverse as T
@@ -1756,10 +1844,12 @@ def phase_kernels_camera(rows):
     scene = build_default_scene(device=dev)
     camera = _reference_camera(dev)
     accs = {}
-    for row, entry, cs in (("walk_camera", "walk_camera", 16),
-                           ("walk_camera_dma_100", "walk_camera_dma", 128)):
+    for row, entry, cs, lists_rows in (
+            ("walk_camera", "walk_camera", 16, ("lists_camera",)),
+            ("walk_camera_dma_100", "walk_camera_dma", 128, None)):
         accs[cs] = build_cluster_accel(scene.mesh, cluster_size=cs)
-        _check_camera_frame(rows, row, entry, accs[cs], camera, True)
+        _check_camera_frame(rows, row, entry, accs[cs], camera, True,
+                            lists_rows=lists_rows)
     # The rest set's merge into the whole frame's camera walk, as the
     # primary query (`nearest_hit_camera_soa`, no attributes) runs it.
     cam, offs, _, eps = camera
@@ -1773,6 +1863,9 @@ def phase_kernels_camera(rows):
               (t, s, None), acc.rest_blocks.shape[0], t.numel() * 4,
               f"{nt} tiles x {cam.ray_tile} camera rays, the K1 camera "
               f"walk's results, no attributes")
+    return _query_launches(lambda: T.nearest_hit_camera_soa(
+        acc, offs, width=cam.width, height=cam.height, spp=cam.spp,
+        scale=cam.scale, eps=eps), "lists_camera")
 
 
 def refine_lists_404k(bp, acc128):
@@ -2505,8 +2598,8 @@ def phase_reference_frame(rows):
     counted frame with pack-path primaries, then one with camera-mode
     primaries, whose `walk_camera` launch of chunk KERNEL_CHUNK (64 tiles)
     is kept: timed at that shape (row "walk_camera_chunk") and its lists
-    built from the closed-form extents (row `lists_ext_camera`). Returns
-    both frames' launches."""
+    built from the camera (row `lists_camera_chunk`). Returns both frames'
+    launches."""
     import torch
 
     from raytracing_tpu_torch import (RenderConfig, build_cluster_accel,
@@ -2531,17 +2624,15 @@ def phase_reference_frame(rows):
                   f"the camera-mode frame's chunk {KERNEL_CHUNK}: "
                   f"{cargs[3]} tiles x {cargs[1].ray_tile} rays, "
                   f"{accel.num_clusters}x16, A = {cargs[8]}")
-    # That launch's lists: the closed-form extents of its 64 tiles through
-    # the list build from extents (one launch, as `_camera_walk_args`).
+    # That launch's lists: its 64 blocks' closed-form frustums in the list
+    # build (one launch, as `_camera_walk_args`).
     offs, cam, tile0, n_tiles = cargs[:4]
-    got = _lists_ext_row(
-        rows, "lists_ext_camera",
-        T._camera_tile_extents(n_tiles, offs, cam, tile0)
-        + (accel.cluster_min, accel.cluster_max), {},
-        f"the camera-mode frame's chunk {KERNEL_CHUNK}: {n_tiles} tiles, "
-        f"{accel.num_clusters} boxes, closed-form extents")
+    got = _camera_lists_row(
+        rows, ("lists_camera_chunk",), (accel, offs, cam, tile0, n_tiles),
+        f"the camera-mode frame's chunk {KERNEL_CHUNK}: {n_tiles} blocks, "
+        f"{accel.num_clusters} boxes")
     _require(torch.equal(got[0], cargs[4]) and torch.equal(got[2], cargs[5]),
-             "lists_ext_camera: not the lists the camera walk was given")
+             "lists_camera_chunk: not the lists the camera walk was given")
     return out
 
 
@@ -2584,8 +2675,9 @@ def phase_large_scenes(rows, scene404, acc64, gi128, built404):
         _check_camera_frame(rows, "walk_camera_dma" if levels == 4
                             else f"walk_camera_dma_{tag}", "walk_camera_dma",
                             acc, camera, False, repeats=levels == 4,
-                            lists_row="lists_ext_pooled" if levels == 4
-                            else None)
+                            lists_rows=("lists_camera_pooled",
+                                        "lists_camera_members")
+                            if levels == 4 else None)
         # The pack-path query of that check, as a main path of K3.
         T.reset_launches()
         t_pack, _ = T.nearest_hit_soa(acc, camera[2], camera[3],
@@ -3219,7 +3311,7 @@ def main() -> int:
     card = phase_device()
     build_s = phase_build()
     rows = phase_kernels()
-    phase_kernels_camera(rows)
+    camera_lists_launches = phase_kernels_camera(rows)
     large = phase_kernels_large(rows)
     ref_launches, cam_launches = phase_reference_frame(rows)
     variant_launches = phase_variants(rows)
@@ -3249,9 +3341,12 @@ def main() -> int:
     launches.update(tile_launches)
     # K6 alone at 65,536 rays: the 1.6M frame's K3 queries.
     launches["extents"] = frame_1m6_launches["extents"]
-    launches["lists_ext_camera"] = cam_launches["lists_ext"]
+    launches["lists_camera"] = camera_lists_launches
+    launches["lists_camera_chunk"] = cam_launches["lists_camera"]
     launches["lists_ext_gstream"] = frame_1m6_launches["lists_ext"]
-    launches["lists_ext_pooled"] = query_launches["lists_ext"]
+    launches["lists_camera_pooled"] = query_launches["lists_camera_pooled"]
+    launches["lists_camera_members"] = query_launches[
+        "lists_camera_members"]
     for k in ("walk", "walk_dma", "refine_extents", "lists"):
         launches[k + "_cli"] = cli_launches[k]
         launches[k + "_sharded"] = sharded_launches[k]

@@ -1,24 +1,33 @@
 // Phases 1 and 2 of a kernel query in one launch: a tile's frustum (K6's
-// extents), its interval slab test against the cluster boxes, and the
-// front-to-back compaction of the boxes it may enter.
+// extents, or camera mode's closed form), its interval slab test against
+// the cluster boxes, and the front-to-back compaction of the boxes it may
+// enter.
 //
-// Replaces, on the card, the plain composition in
-// raytracing_tpu_torch/kernels/traverse.py (`tile_extents`, then
-// `_frustum_slabs` and `_compact_lists`: about a hundred PyTorch launches a
-// list build). The JAX package builds the same lists in XLA
-// (raytracing_tpu/kernels/traverse.py:_visit_lists_single, :325-380,
-// after _extents_kernel :163).
+// Replaces, on the card, the plain compositions in
+// raytracing_tpu_torch/kernels/traverse.py (`tile_extents` or
+// `_camera_tile_extents`, then `_frustum_slabs` and `_compact_lists`:
+// about a hundred PyTorch launches a list build). The JAX package builds
+// the same lists in XLA (raytracing_tpu/kernels/traverse.py:
+// _visit_lists_single, :325-380, after _extents_kernel :163).
 //
-// Two entries:
+// Four entries:
 //   rt_tile_lists          rays [8, N] in tiles of ray_tile -> lo, hi
 //                          [nt, 8] and the lists over C boxes; a dead tile
 //                          (hi[7] <= 0) lists nothing (cnt 0);
-//   rt_lists_from_extents  the extents given (K5's dense query, camera
-//                          mode's closed form, the pooled supertiles, a
-//                          composed tile) over G runs of W boxes (K3's
-//                          groups; G = 1 elsewhere), with an optional mask
-//                          ANDed into the flags and an optional tile-alive
-//                          value (cnt 0 where it is <= 0).
+//   rt_lists_from_extents  the extents given (K5's dense query, a composed
+//                          tile) over G runs of W boxes (K3's groups; G = 1
+//                          elsewhere), with an optional mask ANDed into the
+//                          flags and an optional tile-alive value (cnt 0
+//                          where it is <= 0);
+//   rt_camera_lists        camera mode's frustums in closed form from the
+//                          camera itself, a row per frame block or per
+//                          supertile of blocks (the min/max of its blocks'
+//                          frustums: the pooled lists' first stage);
+//   rt_camera_member_lists the pooled lists' second stage: a row per frame
+//                          block, its own frustum against its supertile's
+//                          candidates (gathered by id, those past the
+//                          supertile's count unflagged), ids mapped back
+//                          to boxes.
 // A list row holds (ids [W] i32, tnear [W] f32, cnt): the boxes whose key
 // (the entry-t lower bound where flagged, else +inf) is below +inf sorted
 // by (key, index), then the others by index with tnear +inf: the order of a
@@ -28,22 +37,27 @@
 // _frustum_slabs does, with -fmad=false, 1/d correctly rounded, and no
 // -ftz (a dead tile's +/-3e38 extents give denormal reciprocals that must
 // stay nonzero); fminf/fmaxf are what torch.minimum/maximum compute on
-// the card. The sort is exact: each key becomes a 64-bit word (its order
-// bits, then its index), unique within a row, so any sorting network
-// gives the stable order. +0.0 and -0.0 tie (they are equal under
-// torch.sort); the word keeps a -0.0's sign in its lowest bit, below the
-// index, so tnear comes back with the bits the plain version returns.
+// the card. The camera frustums follow _camera_tile_extents' f32 op order
+// (IEEE division, two separate multiplies). The sort is exact: each key
+// becomes a 64-bit word (its order bits, then its index), unique within a
+// row, so any sorting network gives the stable order. +0.0 and -0.0 tie
+// (they are equal under torch.sort); the word keeps a -0.0's sign in its
+// lowest bit, below the index, so tnear comes back with the bits the plain
+// version returns.
 //
 // Bound on the card: at the main path's shapes (64 tiles x 790 boxes, 704
-// tiles x 100) neither bytes (32 a ray in, 8 a list position out) nor the
-// ~40 operations of a (tile, box) test: the latency of one block a list
-// row. So a block takes a row, the extents fold their loads as K6 does
-// (tile_extents.cuh), the boxes are staged in shared memory a chunk at a
-// time, warps rank the listed boxes by ballots, and a row of up to
-// kSortCap listed boxes sorts in shared memory (bitonic); a wider row
-// sorts kSortCap-word chunks there and merges them through device-memory
+// tiles x 100, 2,500 camera blocks x 790) neither bytes (32 a ray in, 8 a
+// list position out) nor the ~40 operations of a (tile, box) test: the
+// latency of one block a list row. So a block takes a row, the extents
+// fold their loads as K6 does (tile_extents.cuh) or come from the camera
+// in registers, the boxes are staged in shared memory a chunk at a time,
+// warps rank the listed boxes by ballots, and a row of up to kSortCap
+// listed boxes sorts in shared memory (bitonic); a wider row sorts
+// kSortCap-word chunks there and merges them through device-memory
 // scratch by rank (each word's position in the other run by binary
 // search), so no width the plain version takes is refused.
+#include <limits>
+
 #include "tile_extents.cuh"
 
 namespace rt {
@@ -92,7 +106,32 @@ struct ListsParams {
   // Words of the dynamic shared-memory sort buffer; the row's +inf bits
   // follow it there when W <= kSortCap.
   int sort_words;
+  // rt_camera_lists / rt_camera_member_lists: offs [spp, 2]; the frame of
+  // cam_w x cam_h pixels in bh x bw blocks; row r frames block
+  // min(tile0 + r, last) (gy = gx = 1) or supertile r of gy x gx blocks on
+  // the block grid shifted by (py, px).
+  const float* offs;
+  int spp;
+  int cam_w;
+  int cam_h;
+  int bh;
+  int bw;
+  float aspect;
+  float scale;
+  long long tile0;
+  int gy;
+  int gx;
+  int py;
+  int px;
+  // Member rows: supertile s's candidate box ids at s * cand_stride, the
+  // first cand_cnt[s] of them listed.
+  const int* cand;
+  long long cand_stride;
+  const int* cand_cnt;
 };
+
+// Where a list row's frustum comes from.
+enum ListsFrom { kFromPack, kFromExtents, kFromCamera, kFromMembers };
 
 __device__ __forceinline__ u64 encode(float key, int j) {
   unsigned u = __float_as_uint(key);
@@ -112,6 +151,16 @@ __device__ __forceinline__ void decode(u64 w, int* id, float* t) {
   if (w & 1ull) u = 0x80000000u;
   *id = static_cast<int>((w & 0xffffffffull) >> 1);
   *t = __uint_as_float(u);
+}
+
+// Position i of a list row from its word: the box (a member row's
+// candidate at the word's index) and its tnear.
+template <ListsFrom kFrom>
+__device__ __forceinline__ void put_listed(int* ids, float* tnear, int i,
+                                           u64 w, const int* cand) {
+  int j;
+  decode(w, &j, tnear + i);
+  ids[i] = kFrom == kFromMembers ? cand[j] : j;
 }
 
 // This thread's place among the block's threads whose `pred` holds (in
@@ -184,9 +233,89 @@ __device__ __forceinline__ int pow2_at_least(int n) {
   return p;
 }
 
-template <bool kFromRays>
-__global__ void __launch_bounds__(kListsMaxThreads)
-lists_kernel(const ListsParams p) {
+// Frame block (br, bc)'s closed-form direction extents (xx_lo, xx_hi,
+// yy_lo, yy_hi) in _camera_tile_extents' f32 op order: the pinhole formula
+// (camera_dir.cuh's) at the block's extreme pixel + offset, off holding
+// the offsets' (x min, x max, y min, y max). yy decreases in y.
+__device__ __forceinline__ void camera_block_dirs(const ListsParams& p,
+                                                  int br, int bc,
+                                                  const float off[4],
+                                                  float d[4]) {
+  const float wf = static_cast<float>(p.cam_w);
+  const float hf = static_cast<float>(p.cam_h);
+  const float x_lo = static_cast<float>(bc * p.bw) + off[0];
+  const float x_hi = static_cast<float>(bc * p.bw + (p.bw - 1)) + off[1];
+  const float y_lo = static_cast<float>(br * p.bh) + off[2];
+  const float y_hi = static_cast<float>(br * p.bh + (p.bh - 1)) + off[3];
+  d[0] = (2.0f * x_lo / wf - 1.0f) * p.aspect * p.scale;
+  d[1] = (2.0f * x_hi / wf - 1.0f) * p.aspect * p.scale;
+  d[2] = (1.0f - 2.0f * y_hi / hf) * p.scale;
+  d[3] = (1.0f - 2.0f * y_lo / hf) * p.scale;
+}
+
+// v[0], v[2] folded by min and v[1], v[3] by max over the warp, into
+// every lane.
+__device__ __forceinline__ void warp_minmax(float v[4]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = __shfl_xor_sync(0xffffffffu, v[i], o);
+      v[i] = (i & 1) ? fmaxf(v[i], x) : fminf(v[i], x);
+    }
+  }
+}
+
+// Warp 0: the frustum of frame blocks [br0, br0 + my) x [bc0, bc0 + mx)
+// (those inside the frame: a supertile's padding never widens it) into
+// s_ext as the extents rows lay it out: origin 0, directions the min / max
+// of the blocks' closed forms (z 1), alive. Lanes take offsets and blocks,
+// then fold by shuffles.
+__device__ __forceinline__ void camera_frustum(const ListsParams& p,
+                                               int br0, int bc0, int my,
+                                               int mx, float* s_ext) {
+  const int lane = threadIdx.x;
+  float off[4] = {inf(), -inf(), inf(), -inf()};
+  for (int s = lane; s < p.spp; s += 32) {
+    const float ox = p.offs[2 * s];
+    const float oy = p.offs[2 * s + 1];
+    off[0] = fminf(off[0], ox);
+    off[1] = fmaxf(off[1], ox);
+    off[2] = fminf(off[2], oy);
+    off[3] = fmaxf(off[3], oy);
+  }
+  const int nby = p.cam_h / p.bh;
+  const int nbx = p.cam_w / p.bw;
+  float v[4] = {inf(), -inf(), inf(), -inf()};
+  warp_minmax(off);  // every lane derives blocks from all the offsets
+  for (int m = lane; m < my * mx; m += 32) {
+    const int br = br0 + m / mx;
+    const int bc = bc0 + m % mx;
+    if (br < 0 || br >= nby || bc < 0 || bc >= nbx) continue;
+    float d[4];
+    camera_block_dirs(p, br, bc, off, d);
+    v[0] = fminf(v[0], d[0]);
+    v[1] = fmaxf(v[1], d[1]);
+    v[2] = fminf(v[2], d[2]);
+    v[3] = fmaxf(v[3], d[3]);
+  }
+  warp_minmax(v);
+  if (lane < 13) {
+    // o_lo[3] o_hi[3] (0), d_lo = (xx_lo, yy_lo, 1), d_hi, alive (1).
+    float e = 0.0f;
+    if (lane == 6) e = v[0];
+    else if (lane == 7) e = v[2];
+    else if (lane == 9) e = v[1];
+    else if (lane == 10) e = v[3];
+    else if (lane == 8 || lane == 11 || lane == 12) e = 1.0f;
+    s_ext[lane] = e;
+  }
+}
+
+// A list row of a launch: its frustum from kFrom's source, then the slab
+// test, ranking and sort every entry shares.
+template <ListsFrom kFrom>
+__device__ __forceinline__ void lists_row(const ListsParams& p) {
   extern __shared__ u64 s_sort[];
   __shared__ float s_red[kListsMaxThreads / 32][kExtVals];
   __shared__ float s_bmin[3 * kListsMaxThreads];
@@ -201,8 +330,32 @@ lists_kernel(const ListsParams p) {
   const int w_row = p.width;
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
+  // Member rows: the supertile's candidates and how many it listed.
+  const int* cand = nullptr;
+  int cand_n = 0;
 
-  if (kFromRays) {
+  if constexpr (kFrom == kFromCamera) {
+    if (tid < 32) {
+      // Direct rows: gy = gx = 1 and py = px = 0, so the grid is the frame.
+      const int nbx2 = (p.px + p.cam_w / p.bw + p.gx - 1) / p.gx;
+      const int nby2 = (p.py + p.cam_h / p.bh + p.gy - 1) / p.gy;
+      const long long q = min(p.tile0 + row,
+                              static_cast<long long>(nby2) * nbx2 - 1);
+      camera_frustum(p, static_cast<int>(q / nbx2) * p.gy - p.py,
+                     static_cast<int>(q % nbx2) * p.gx - p.px, p.gy, p.gx,
+                     s_ext);
+    }
+  } else if constexpr (kFrom == kFromMembers) {
+    const int nbx = p.cam_w / p.bw;
+    const int br = t / nbx;
+    const int bc = t % nbx;
+    if (tid < 32) camera_frustum(p, br, bc, 1, 1, s_ext);
+    const int nbx2 = (p.px + nbx + p.gx - 1) / p.gx;
+    const long long s = static_cast<long long>((br + p.py) / p.gy) * nbx2
+                        + (bc + p.px) / p.gx;
+    cand = p.cand + s * p.cand_stride;
+    cand_n = p.cand_cnt[s];
+  } else if constexpr (kFrom == kFromPack) {
     const float v = block_tile_extents(p.rays, p.np, p.ray_tile, t, s_red);
     if (tid < 8) {
       p.lo_out[t * 8LL + tid] = v;
@@ -259,9 +412,20 @@ lists_kernel(const ListsParams p) {
   int par = 0;
   for (int c0 = 0; c0 < w_row; c0 += nthr) {
     const int n = min(nthr, w_row - c0);
-    for (int i = tid; i < 3 * n; i += nthr) {
-      s_bmin[i] = p.bmin[(box0 + c0) * 3 + i];
-      s_bmax[i] = p.bmax[(box0 + c0) * 3 + i];
+    if constexpr (kFrom == kFromMembers) {
+      for (int q = tid; q < n; q += nthr) {
+        const long long b = cand[c0 + q];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          s_bmin[3 * q + k] = p.bmin[b * 3 + k];
+          s_bmax[3 * q + k] = p.bmax[b * 3 + k];
+        }
+      }
+    } else {
+      for (int i = tid; i < 3 * n; i += nthr) {
+        s_bmin[i] = p.bmin[(box0 + c0) * 3 + i];
+        s_bmax[i] = p.bmax[(box0 + c0) * 3 + i];
+      }
     }
     __syncthreads();
     const int j = c0 + tid;
@@ -289,7 +453,9 @@ lists_kernel(const ListsParams p) {
       }
       tf = fminf(tf, p.t_cap);
       flag = (tn <= tf) && (tf >= 0.0f);
-      if (p.mask != nullptr) {
+      if constexpr (kFrom == kFromMembers) {
+        flag = flag && j < cand_n;
+      } else if (p.mask != nullptr) {
         flag = flag && p.mask[t * p.mask_tile_stride + box0 + j] != 0;
       }
       key = flag ? tn : inf();
@@ -315,7 +481,9 @@ lists_kernel(const ListsParams p) {
     for (int i = m + tid; i < n2; i += nthr) s_sort[i] = ~0ull;
     __syncthreads();
     bitonic_sort(s_sort, n2);
-    for (int i = tid; i < m; i += nthr) decode(s_sort[i], ids + i, tnear + i);
+    for (int i = tid; i < m; i += nthr) {
+      put_listed<kFrom>(ids, tnear, i, s_sort[i], cand);
+    }
   } else {
     __syncthreads();
     u64* a = listed_words;
@@ -345,7 +513,9 @@ lists_kernel(const ListsParams p) {
       a = b;
       b = s;
     }
-    for (int i = tid; i < m; i += nthr) decode(a[i], ids + i, tnear + i);
+    for (int i = tid; i < m; i += nthr) {
+      put_listed<kFrom>(ids, tnear, i, a[i], cand);
+    }
   }
   __syncthreads();
 
@@ -357,13 +527,30 @@ lists_kernel(const ListsParams p) {
     int total;
     const int r = block_rank(tail, s_w[par], &total);
     if (tail) {
-      ids[done + r] = j;
+      ids[done + r] = kFrom == kFromMembers ? cand[j] : j;
       tnear[done + r] = inf();
     }
     done += total;
     par ^= 1;
   }
 }
+
+template <bool kFromRays>
+__global__ void __launch_bounds__(kListsMaxThreads)
+lists_kernel(const ListsParams p) {
+  lists_row<kFromRays ? kFromPack : kFromExtents>(p);
+}
+
+// Camera mode's rows: a frame block's or a supertile's frustum in closed
+// form (kMembers false), or a member block's re-test of its supertile's
+// candidates (true).
+template <bool kMembers>
+__global__ void __launch_bounds__(kListsMaxThreads)
+camera_lists_kernel(const ListsParams p) {
+  lists_row<kMembers ? kFromMembers : kFromCamera>(p);
+}
+
+typedef void (*ListsKernel)(ListsParams);
 
 // Threads and dynamic shared memory of a launch over rows of W boxes.
 void lists_shape(int width, int* threads, int* sort_words, size_t* smem) {
@@ -377,8 +564,8 @@ void lists_shape(int width, int* threads, int* sort_words, size_t* smem) {
           + (width <= kSortCap ? sizeof(unsigned) * ((width + 31) / 32) : 0);
 }
 
-template <bool kFromRays>
-int lists_launch(ListsParams p, long long rows, void* stream) {
+int lists_launch(ListsKernel kernel, ListsParams p, long long rows,
+                 void* stream) {
   if (rows <= 0 || rows >= (1LL << 31) || p.width <= 0 || p.n_tiles <= 0
       || (p.width > kSortCap && (p.scratch == nullptr
                                  || p.infbits == nullptr))) {
@@ -388,11 +575,11 @@ int lists_launch(ListsParams p, long long rows, void* stream) {
   size_t smem;
   lists_shape(p.width, &threads, &p.sort_words, &smem);
   const cudaError_t set = cudaFuncSetAttribute(
-      lists_kernel<kFromRays>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (set != cudaSuccess) return static_cast<int>(set);
-  lists_kernel<kFromRays><<<static_cast<unsigned>(rows), threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<static_cast<unsigned>(rows), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -428,7 +615,7 @@ extern "C" int rt_tile_lists(const float* rays, long long np, int ray_tile,
   p.cnt = cnt;
   p.scratch = static_cast<rt::u64*>(scratch);
   p.infbits = static_cast<unsigned*>(infbits);
-  return rt::lists_launch<true>(p, p.n_tiles, stream);
+  return rt::lists_launch(rt::lists_kernel<true>, p, p.n_tiles, stream);
 }
 
 // Extents o_lo, o_hi, d_lo, d_hi: [n_tiles, 3] rows ext_stride floats
@@ -464,19 +651,127 @@ extern "C" int rt_lists_from_extents(
   p.cnt = cnt;
   p.scratch = static_cast<rt::u64*>(scratch);
   p.infbits = static_cast<unsigned*>(infbits);
-  return rt::lists_launch<false>(
-      p, static_cast<long long>(groups) * n_tiles, stream);
+  return rt::lists_launch(rt::lists_kernel<false>, p,
+                          static_cast<long long>(groups) * n_tiles, stream);
 }
 
-// Resident blocks a multiprocessor holds of the rays (from_rays 1) or
-// extents (0) instance over rows of `width` boxes, at the threads and
-// shared memory a launch takes; *threads gets those threads.
-extern "C" int rt_lists_occupancy(int from_rays, int width, int* threads,
+namespace rt {
+namespace {
+
+// The camera fields of ListsParams; false unless the frame is whole blocks
+// of a positive size, spp is positive and the supertile grid's shift lies
+// inside a supertile.
+bool camera_params(ListsParams* p, const float* offs, int spp, int width,
+                   int height, int bh, int bw, float aspect, float scale,
+                   int gy, int gx, int py, int px) {
+  if (offs == nullptr || spp <= 0 || bh <= 0 || bw <= 0 || width <= 0
+      || height <= 0 || width % bw || height % bh || gy <= 0 || gx <= 0
+      || py < 0 || py >= gy || px < 0 || px >= gx) {
+    return false;
+  }
+  p->offs = offs;
+  p->spp = spp;
+  p->cam_w = width;
+  p->cam_h = height;
+  p->bh = bh;
+  p->bw = bw;
+  p->aspect = aspect;
+  p->scale = scale;
+  p->gy = gy;
+  p->gx = gx;
+  p->py = py;
+  p->px = px;
+  return true;
+}
+
+}  // namespace
+}  // namespace rt
+
+// Camera mode's lists from the camera itself: offs [spp, 2] f32, the
+// frame of width x height pixels in bh x bw blocks, aspect and scale as
+// the camera walk takes them. With gy = gx = 1 (py = px = 0) row r lists
+// frame block min(tile0 + r, last block); else row r lists supertile r of
+// gy x gx blocks on the block grid shifted by (py, px) (tile0 0), over
+// the min / max of its blocks' frustums. Boxes [c, 3] -> ids [rows, c]
+// i32, tnear, cnt [rows] i32; scratch and infbits as rt_tile_lists' over
+// `rows` rows.
+extern "C" int rt_camera_lists(const float* offs, int spp, int width,
+                               int height, int bh, int bw, float aspect,
+                               float scale, long long tile0, int rows,
+                               int gy, int gx, int py, int px,
+                               const float* bmin, const float* bmax, int c,
+                               int* ids, float* tnear, int* cnt,
+                               void* scratch, void* infbits, void* stream) {
+  rt::ListsParams p{};
+  if (!rt::camera_params(&p, offs, spp, width, height, bh, bw, aspect,
+                         scale, gy, gx, py, px)
+      || tile0 < 0 || (gy * gx > 1 && tile0 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  p.tile0 = tile0;
+  p.bmin = bmin;
+  p.bmax = bmax;
+  p.n_tiles = rows;
+  p.width = c;
+  p.t_cap = std::numeric_limits<float>::infinity();
+  p.ids = ids;
+  p.tnear = tnear;
+  p.cnt = cnt;
+  p.scratch = static_cast<rt::u64*>(scratch);
+  p.infbits = static_cast<unsigned*>(infbits);
+  return rt::lists_launch(rt::camera_lists_kernel<false>, p, rows, stream);
+}
+
+// The pooled camera lists' second stage: a row per frame block (block
+// order), its own closed-form frustum against its supertile s's
+// candidates: box ids cand[s * cand_stride + j] for j < width, those at
+// j >= cand_cnt[s] unflagged (supertiles and their grid as
+// rt_camera_lists' rows). -> ids [blocks, width] (box ids), tnear, cnt
+// [blocks]; scratch and infbits over the blocks' rows.
+extern "C" int rt_camera_member_lists(
+    const float* offs, int spp, int width, int height, int bh, int bw,
+    float aspect, float scale, int gy, int gx, int py, int px,
+    const int* cand, long long cand_stride, const int* cand_cnt,
+    int list_width, const float* bmin, const float* bmax, int* ids,
+    float* tnear, int* cnt, void* scratch, void* infbits, void* stream) {
+  rt::ListsParams p{};
+  if (!rt::camera_params(&p, offs, spp, width, height, bh, bw, aspect,
+                         scale, gy, gx, py, px)
+      || cand == nullptr || cand_cnt == nullptr
+      || cand_stride < list_width) {
+    return cudaErrorInvalidValue;
+  }
+  const long long rows = static_cast<long long>(height / bh) * (width / bw);
+  p.cand = cand;
+  p.cand_stride = cand_stride;
+  p.cand_cnt = cand_cnt;
+  p.bmin = bmin;
+  p.bmax = bmax;
+  p.n_tiles = static_cast<int>(rows);
+  p.width = list_width;
+  p.t_cap = std::numeric_limits<float>::infinity();
+  p.ids = ids;
+  p.tnear = tnear;
+  p.cnt = cnt;
+  p.scratch = static_cast<rt::u64*>(scratch);
+  p.infbits = static_cast<unsigned*>(infbits);
+  return rt::lists_launch(rt::camera_lists_kernel<true>, p, rows, stream);
+}
+
+// Resident blocks a multiprocessor holds of an instance over rows of
+// `width` boxes, at the threads and shared memory a launch takes: `from`
+// 1 the pack's, 0 the extents', 2 the camera's, 3 the camera's member
+// rows; *threads gets those threads.
+extern "C" int rt_lists_occupancy(int from, int width, int* threads,
                                   int* blocks) {
+  static const rt::ListsKernel kernels[] = {
+      rt::lists_kernel<false>, rt::lists_kernel<true>,
+      rt::camera_lists_kernel<false>, rt::camera_lists_kernel<true>};
+  if (from < 0 || from > 3) return cudaErrorInvalidValue;
   int sort_words;
   size_t smem;
   rt::lists_shape(width, threads, &sort_words, &smem);
-  auto fn = from_rays ? &rt::lists_kernel<true> : &rt::lists_kernel<false>;
+  const rt::ListsKernel fn = kernels[from];
   cudaError_t rc = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -40,6 +40,14 @@ _SIGNATURES = {
                       _P],
     "rt_lists_from_extents": [_P, _P, _P, _P, _L, _P, _L, _I, _P, _P, _I, _I,
                               _F, _P, _L, _P, _P, _P, _P, _P, _P],
+    # rt_camera_lists(offs, spp, width, height, bh, bw, aspect, scale,
+    # tile0, rows, gy, gx, py, px, bmin, bmax, c, ids, tnear, cnt, scratch,
+    # infbits, stream) and the pooled lists' second stage.
+    "rt_camera_lists": [_P, _I, _I, _I, _I, _I, _F, _F, _L, _I, _I, _I, _I,
+                        _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "rt_camera_member_lists": [_P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                               _I, _P, _L, _P, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
     "rt_refine_dense": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P],
     "rt_refine_dense_extents": [_P, _L, _I, _P, _P, _I, _F, _P, _P, _P, _P],
     "rt_refine_lists": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P],
@@ -54,8 +62,9 @@ _SIGNATURES = {
     # Resident blocks per multiprocessor of an instance at a block size
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor): the last argument.
     "rt_extents_occupancy": [_I, _P],
-    # rt_lists_occupancy(from_rays, width, *threads, *blocks): the threads
-    # a launch over rows of `width` boxes takes, and its resident blocks.
+    # rt_lists_occupancy(from, width, *threads, *blocks): the threads a
+    # launch over rows of `width` boxes takes, and its resident blocks
+    # (from: 0 extents, 1 pack, 2 camera, 3 camera member rows).
     "rt_lists_occupancy": [_I, _I, _P, _P],
     "rt_refine_occupancy": [_I, _I, _I, _I, _P],
     "rt_walk_occupancy": [_I, _I, _I, _I, _I, _P],

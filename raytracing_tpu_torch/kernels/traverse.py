@@ -17,9 +17,10 @@ folds the k = T / s launch tiles of each tile into it (`_split_tile`):
       (csrc/lists.cu); where the extents come from elsewhere —
       `refine_dense_extents` (K5, which reduces them in its own launch;
       bounce queries AND in its bits: the clusters some alive ray of the
-      tile actually enters), camera mode's closed form, K3's groups, a
-      tile composed from launch tiles (K6 alone, `tile_extents`) — one
-      launch of `lists_from_extents`. Above 512 clusters a bounce query
+      tile actually enters), K3's groups, a tile composed from launch
+      tiles (K6 alone, `tile_extents`) — one launch of
+      `lists_from_extents`; camera mode derives its frustums in the list
+      kernel itself (`camera_lists`). Above 512 clusters a bounce query
       re-tests the listed candidates with `refine_lists` (K5, gathered
       form) and compacts again;
   phase 3 — `walk` (K1/K2): intersect each listed cluster's triangles,
@@ -47,7 +48,8 @@ are walked again uncapped.
 
 Camera mode (`nearest_hit_camera_soa`) answers the primary level without a
 ray pack: a tile is one bh x bw pixel block x spp samples, its frustum
-comes from a closed form (`_camera_tile_extents`), and `walk_camera`
+comes from a closed form (`_camera_tile_extents`; in the list kernel on
+the card, `camera_lists`), and `walk_camera`
 (K1 camera / K2 camera) derives each ray's direction from its tile index.
 
 Each kernel has a public function that runs its plain PyTorch version for
@@ -166,7 +168,11 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 
 # Kernel launches since the last reset: "extents" counts K6 alone,
 # "lists" the list build from a ray pack (K6's extents and the lists in one
-# launch), "lists_ext" the list build from extents given, "refine" the dense
+# launch), "lists_ext" the list build from extents given, "lists_camera"
+# camera mode's lists from the camera itself (`camera_lists`), and for the
+# pooled lists "lists_camera_pooled" (the supertiles' lists) and
+# "lists_camera_members" (the blocks' re-test of their candidates),
+# "refine" the dense
 # refinement with tile-alive flags given (K5), "refine_extents" the dense
 # refined-list query (K5 with K6's extents), "walk" the `_walk_groups`
 # entry (the TPU's K1), "walk_dma" the `_walk_dma` entry (K2),
@@ -183,8 +189,9 @@ _FAMILY_ROWS = {PMT: 12, PMTO: 12, MT: 9, WOOP: 12}
 # launches ran at (`_split_tile`). The dict is the launch family of
 # `utils.profiling.COUNTERS`.
 LAUNCHES = COUNTERS.launches
-LAUNCHES.update({"extents": 0, "lists": 0, "lists_ext": 0, "refine": 0,
-                 "refine_extents": 0,
+LAUNCHES.update({"extents": 0, "lists": 0, "lists_ext": 0,
+                 "lists_camera": 0, "lists_camera_pooled": 0,
+                 "lists_camera_members": 0, "refine": 0, "refine_extents": 0,
                  "refine_lists": 0, "walk": 0, "walk_dma": 0, "walk_both": 0,
                  "walk_dma_both": 0, "walk_camera": 0, "walk_camera_dma": 0,
                  "walk_gstream": 0, "walk_wq": 0, "rest_merge": 0})
@@ -2540,39 +2547,71 @@ def walk_camera(offs, cam: Camera, tile_base: int, n_tiles: int, ids, cnt,
     return out_t, out_s, out_a
 
 
-@spanned("rt.lists")
-def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
-    """Per-tile lists of the whole frame through supertiles
-    (traverse.py:3505-3644): the interval test and its sort run once per
-    gy x gx block neighbourhood (~32x32 pixels) on the pooled frustum, then
-    each member tile re-tests only the supertile's candidates with its own
-    frustum — the same lists as the direct test gives, as sets, at a
-    fraction of the [tiles, C] work. The supertile grid is phase-shifted so
-    the screen centre (where a direction component changes sign, which
-    makes a pooled axis unbounded) falls on a group boundary. The candidate
-    width is the longest pooled list: nothing is cut short."""
+def _supertiles(cam: Camera):
+    """(gy, gx, py, px, nby2, nbx2): the pooled lists' supertiles of gy x
+    gx blocks (~32x32 pixels) on the block grid shifted by (py, px), so
+    that the screen centre falls on a supertile boundary, nby2 x nbx2 of
+    them."""
     nby, nbx = cam.grid
     gy, gx = max(1, 32 // cam.bh), max(1, 32 // cam.bw)
     py = (-(cam.height // 2 // cam.bh)) % gy
     px = (-(cam.width // 2 // cam.bw)) % gx
-    nby2 = (py + nby + gy - 1) // gy
-    nbx2 = (px + nbx + gx - 1) // gx
-    m, nst = gy * gx, nby2 * nbx2
+    return (gy, gx, py, px, (py + nby + gy - 1) // gy,
+            (px + nbx + gx - 1) // gx)
 
-    def grid(a, fill):  # [nt, 3] -> [nby2, gy, nbx2, gx, 3], padded
-        a = torch.nn.functional.pad(
-            a.reshape(nby, nbx, 3),
-            (0, 0, px, gx * nbx2 - nbx - px, py, gy * nby2 - nby - py),
-            value=fill)
-        return a.reshape(nby2, gy, nbx2, gx, 3)
 
-    def pool(a, upper):  # padding is an inverted box: it never widens
-        g = grid(a, -_BIG if upper else _BIG)
+def _supertile_grid(a, cam: Camera, fill: float):
+    """Per-block rows [nt, 3] on the supertile grid (`_supertiles`):
+    [nby2, gy, nbx2, gx, 3], the shift and the ragged edge padded with
+    `fill`."""
+    nby, nbx = cam.grid
+    gy, gx, py, px, nby2, nbx2 = _supertiles(cam)
+    a = torch.nn.functional.pad(
+        a.reshape(nby, nbx, 3),
+        (0, 0, px, gx * nbx2 - nbx - px, py, gy * nby2 - nby - py),
+        value=fill)
+    return a.reshape(nby2, gy, nbx2, gx, 3)
+
+
+@spanned("rt.lists")
+def _supertile_lists(accel: ClusterAccel, ext, cam: Camera):
+    """The pooled lists' first stage: each supertile's lists on the
+    min/max of its blocks' frustums (padding is an inverted box: it never
+    widens one), cut to the longest (`_narrow_lists`). Returns (ids [nst,
+    w] i32, cnt [nst] i32)."""
+    def pool(a, upper):
+        g = _supertile_grid(a, cam, -_BIG if upper else _BIG)
         return (g.amax(dim=(1, 3)) if upper else g.amin(dim=(1, 3))
-                ).reshape(nst, 3)
+                ).reshape(-1, 3)
+
+    o_lo, o_hi, d_lo, d_hi = ext
+    return _narrow_lists(*lists_from_extents(
+        pool(o_lo, False), pool(o_hi, True), pool(d_lo, False),
+        pool(d_hi, True), accel.cluster_min, accel.cluster_max))[::2]
+
+
+@spanned("rt.lists")
+def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera,
+                         first=None):
+    """Per-tile lists of the whole frame through supertiles
+    (traverse.py:3505-3644): the interval test and its sort run once per
+    gy x gx block neighbourhood (~32x32 pixels) on the pooled frustum
+    (`_supertile_lists`), then each member tile re-tests only the
+    supertile's candidates with its own frustum — the same lists as the
+    direct test gives, as sets, at a fraction of the [tiles, C] work. The
+    supertile grid is phase-shifted so the screen centre (where a
+    direction component changes sign, which makes a pooled axis
+    unbounded) falls on a group boundary. The candidate width is the
+    longest pooled list: nothing is cut short. `first`: the first stage's
+    result if built already; the second stage alone then runs
+    (`rt_camera_member_lists`' plain version)."""
+    nby, nbx = cam.grid
+    gy, gx, py, px, nby2, nbx2 = _supertiles(cam)
+    nst = nby2 * nbx2
 
     def members(a):  # padded members are cut away by `ungroup`
-        return grid(a, 0.0).permute(0, 2, 1, 3, 4).reshape(nst, m, 3)
+        return _supertile_grid(a, cam, 0.0).permute(0, 2, 1, 3, 4).reshape(
+            nst, gy * gx, 3)
 
     def ungroup(a):  # [nst, m, w] -> [nt, w]
         w_ = a.shape[-1]
@@ -2581,11 +2620,9 @@ def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
         return a[py:py + nby, px:px + nbx].reshape(nby * nbx, w_)
 
     o_lo, o_hi, d_lo, d_hi = ext
-    ids_p, _, cnt_p = _narrow_lists(*lists_from_extents(
-        pool(o_lo, False), pool(o_hi, True), pool(d_lo, False),
-        pool(d_hi, True), accel.cluster_min, accel.cluster_max))
+    ids_p, cnt_p = first or _supertile_lists(accel, ext, cam)
     # Each member's re-test of its supertile's candidates (boxes gathered
-    # per supertile) stays plain PyTorch.
+    # per supertile).
     idl = ids_p.long()
     cm, cx = accel.cluster_min[idl], accel.cluster_max[idl]  # [nst, wp, 3]
     flags, t_near = _frustum_slabs(
@@ -2599,12 +2636,83 @@ def _pooled_camera_lists(accel: ClusterAccel, ext, cam: Camera):
             ungroup(cnt[..., None])[:, 0])
 
 
+def _pooled(accel: ClusterAccel, cam: Camera, tile0: int,
+            n_tiles: int) -> bool:
+    """Whether a camera query's lists go through supertiles: the whole
+    frame over more than `_SUPERTILE_MIN_C` clusters, in blocks small
+    enough to pool (a chunk's run of blocks wraps screen rows)."""
+    gy, gx = _supertiles(cam)[:2]
+    return (tile0 == 0 and n_tiles == cam.grid[0] * cam.grid[1]
+            and accel.num_clusters > _SUPERTILE_MIN_C and gy * gx > 1)
+
+
+@spanned("rt.lists")
+def camera_lists(accel: ClusterAccel, offs, cam: Camera, tile0: int,
+                 n_tiles: int):
+    """Camera mode's visit lists of frame blocks [tile0, tile0 + n_tiles)
+    (blocks past the frame repeat the last one): each block's frustum in
+    closed form against every cluster box, through supertiles where
+    `_pooled` says so. Plain composition on CPU (`_camera_tile_extents`,
+    then `lists_from_extents` or `_pooled_camera_lists`); on CUDA the
+    frustums never leave the kernel (csrc/lists.cu): one launch of
+    `rt_camera_lists`, or for the pooled lists that entry over the
+    supertiles, `_narrow_lists`' one host sync for the candidate width,
+    and one launch of `rt_camera_member_lists` (each block's re-test of its
+    supertile's candidates); the plain results bit for bit. Returns (ids
+    [n_tiles, W] i32, tnear [n_tiles, W], cnt [n_tiles] i32); counts the
+    blocks it lists on the card in `lists.camera`."""
+    cmin, cmax = accel.cluster_min, accel.cluster_max
+    pooled = _pooled(accel, cam, tile0, n_tiles)
+    if _on_cpu(offs, cmin, cmax):
+        ext = _camera_tile_extents(n_tiles, offs, cam, tile0)
+        if pooled:
+            return _pooled_camera_lists(accel, ext, cam)
+        return lists_from_extents(*ext, cmin, cmax)
+    _check_tables("camera_lists", cmin, cmax)
+    if (offs.dtype != torch.float32 or offs.shape != (cam.spp, 2)
+            or not offs.is_contiguous()):
+        raise ValueError("camera_lists: offs must be contiguous f32 [spp, 2]")
+    dev, c = cmin.device, cmin.shape[0]
+    gy, gx, py, px, nby2, nbx2 = _supertiles(cam) if pooled else (
+        1, 1, 0, 0, 0, 0)
+    frame = (_ptr(offs), cam.spp, cam.width, cam.height, cam.bh, cam.bw,
+             float(cam.aspect), float(cam.scale))
+    rows = nby2 * nbx2 if pooled else n_tiles
+    ids, tnear, cnt = _list_outputs((rows, c), dev)
+    lib = cuda.library()
+    if rows and c:
+        scratch, bits = _lists_scratch(rows, c, dev)
+        with torch.cuda.device(cmin.device):
+            cuda.check(lib.rt_camera_lists(
+                *frame, int(tile0), rows, gy, gx, py, px, _ptr(cmin),
+                _ptr(cmax), c, _ptr(ids), _ptr(tnear), _ptr(cnt),
+                _ptr(scratch), _ptr(bits), _stream(cmin)), "lists_camera")
+        _count("lists_camera_pooled" if pooled else "lists_camera")
+    if pooled:
+        # The supertiles' lists stay [nst, C]: the second stage reads
+        # their first w columns at a row stride of C.
+        with host_sync("narrow_lists"):
+            w = max(1, int(cnt.max()))
+        cand, cand_cnt = ids, cnt
+        ids, tnear, cnt = _list_outputs((n_tiles, w), dev)
+        scratch, bits = _lists_scratch(n_tiles, w, dev)
+        with torch.cuda.device(cmin.device):
+            cuda.check(lib.rt_camera_member_lists(
+                *frame, gy, gx, py, px, _ptr(cand), c, _ptr(cand_cnt), w,
+                _ptr(cmin), _ptr(cmax), _ptr(ids), _ptr(tnear), _ptr(cnt),
+                _ptr(scratch), _ptr(bits), _stream(cmin)),
+                "lists_camera_members")
+        _count("lists_camera_members")
+    COUNTERS.add("lists.camera", n_tiles)
+    return ids, tnear, cnt
+
+
 def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
                       n_tiles: int, n_attrs: int, eps: float,
                       early_exit=None, lane_cull=False):
-    """The camera-mode launch: closed-form frustum lists (through
-    supertiles for the whole frame over more than `_SUPERTILE_MIN_C`
-    clusters) over the origin-folded table — separate
+    """The camera-mode launch: closed-form frustum lists (`camera_lists`:
+    through supertiles for the whole frame over more than
+    `_SUPERTILE_MIN_C` clusters) over the origin-folded table — separate
     tables (K1 camera) or, for a cluster size that is a multiple of 128,
     the combined one (K2 camera). `lane_cull` gives K1 camera the boxes of
     the lane-cull pre-test (the TPU's K2 camera has none). Returns
@@ -2612,14 +2720,7 @@ def _camera_walk_args(accel: ClusterAccel, offs, cam: Camera, tile0: int,
     `walk_camera(*args, **kw)` is the launch and `walk_camera_plain(*args)`
     its plain version."""
     cs = accel.cluster_size
-    ext = _camera_tile_extents(n_tiles, offs, cam, tile0)
-    whole_frame = tile0 == 0 and n_tiles == cam.grid[0] * cam.grid[1]
-    if (whole_frame and accel.num_clusters > _SUPERTILE_MIN_C
-            and max(1, 32 // cam.bh) * max(1, 32 // cam.bw) > 1):
-        ids, tnear, cnt = _pooled_camera_lists(accel, ext, cam)
-    else:
-        ids, tnear, cnt = lists_from_extents(*ext, accel.cluster_min,
-                                             accel.cluster_max)
+    ids, tnear, cnt = camera_lists(accel, offs, cam, tile0, n_tiles)
     early = _early(True, accel.num_clusters, early_exit)
     zero3 = torch.zeros(3, dtype=torch.float32, device=offs.device)
     folded = _fold_origin(accel.pmt_blocks, zero3)

@@ -689,6 +689,95 @@ def test_pooled_camera_lists_on_the_card(setup, dev, monkeypatch, block):
         assert set(pids[k, :c].tolist()) == set(ids[k, :c].tolist())
 
 
+def _plain_camera_lists(monkeypatch):
+    """`camera_lists` on its plain composition on the card's tensors, for
+    a query to run with in place of the kernels (`monkeypatch.setattr`)."""
+    real = T.camera_lists
+
+    def plain(*args):
+        with monkeypatch.context() as mp:
+            mp.setattr(T, "_on_cpu", lambda *tensors: True)
+            return real(*args)
+    return plain
+
+
+def _check_camera_lists(monkeypatch, dev, acc, cpu_acc, cam, tile0, tiles,
+                        pooled):
+    """`camera_lists` on the card against the plain composition on the CPU
+    (`_camera_tile_extents`, then `lists_from_extents_plain` or
+    `_pooled_camera_lists`), ids, tnear and cnt bit for bit, in one launch
+    (direct) or two and the one host sync (pooled), no `lists_ext`, every
+    block counted in `lists.camera`; then the query over those lists has
+    the t, slot and attrs of the query over the plain lists."""
+    from raytracing_tpu_torch.utils.profiling import COUNTERS
+
+    offs = stratified_offsets(cam.spp)
+    assert T._pooled(acc, cam, tile0, tiles) == pooled
+    before, listed = dict(T.LAUNCHES), COUNTERS.host.get("lists.camera", 0)
+    syncs = COUNTERS.host.get("syncs.narrow_lists", 0)
+    got = T.camera_lists(acc, offs.to(dev), cam, tile0, tiles)
+    made = {k: v - before.get(k, 0) for k, v in T.LAUNCHES.items()
+            if v != before.get(k, 0)}
+    assert made == ({"lists_camera_pooled": 1, "lists_camera_members": 1}
+                    if pooled else {"lists_camera": 1}), made
+    assert COUNTERS.host["lists.camera"] == listed + tiles
+    assert COUNTERS.host.get("syncs.narrow_lists", 0) == syncs + pooled
+    want = T.camera_lists(cpu_acc, offs, cam, tile0, tiles)
+    assert COUNTERS.host["lists.camera"] == listed + tiles
+    _bits(got, want)
+    assert int(want[2].sum()) > 0 and got[0].shape[0] == tiles
+    kw = dict(width=cam.width, height=cam.height, spp=cam.spp, bh=cam.bh,
+              bw=cam.bw, with_attrs=True)
+    if (tile0, tiles) != (0, cam.grid[0] * cam.grid[1]):
+        kw.update(tile_base=tile0, tiles=tiles)
+    kern = T.nearest_hit_camera_soa(acc, offs, **kw)
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "camera_lists", _plain_camera_lists(monkeypatch))
+        plain = T.nearest_hit_camera_soa(acc, offs, **kw)
+    assert bool(torch.isfinite(plain[0]).any())
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [
+    "frame", "frame_pooled", "frame_chunk", "48x32_bh16_past_the_end",
+    "48x32_bh16", "48x32_bh8", "48x32_bh16_pooled", "48x32_bh8_pooled"])
+def test_camera_lists_match_the_cpu(setup, dev, monkeypatch, case):
+    """The camera query's list build on the card (csrc/lists.cu
+    `rt_camera_lists`, and `rt_camera_member_lists` for the pooled lists)
+    against its plain composition on the CPU: the two-teapot cell's shape
+    (800x800x4 over the CS 16 table, direct; and pooled with the cluster
+    rule lowered), a renderer's chunk of 64 blocks, a chunk whose blocks
+    run past the frame's last, and the phase-shifted, padded supertile
+    grid of a 48x32 frame at bh 16 and 8, direct and pooled."""
+    accels, _ = setup
+    acc = accels[16].to(dev)
+    pooled = case.endswith("pooled")
+    if pooled:
+        monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 0)
+    if case.startswith("48x32"):
+        block = 8 if "bh8" in case else 16
+        cam = T.Camera(48, 32, 4, 1.0, block, block)
+    else:
+        cam = T.Camera(800, 800, 4, 1.0, 16, 16)
+    n = cam.grid[0] * cam.grid[1]
+    tile0, tiles = {"frame_chunk": (1216, 64),
+                    "48x32_bh16_past_the_end": (n - 2, 4)}.get(case, (0, n))
+    _check_camera_lists(monkeypatch, dev, acc, accels[16], cam, tile0, tiles,
+                        pooled)
+
+
+def test_pooled_camera_lists_at_1m6_match_the_cpu(teapot_1m6, dev,
+                                                  monkeypatch):
+    """The teapot_1m6.primary cell's list build: 800x800x4 over 12,640
+    clusters, pooled (676 supertiles, then each of the 2,500 blocks'
+    re-test of its supertile's candidates), bit for bit the CPU's."""
+    _, acc = teapot_1m6
+    assert acc.num_clusters > T._SUPERTILE_MIN_C
+    _check_camera_lists(monkeypatch, dev, acc, acc.to("cpu"),
+                        T.Camera(800, 800, 4, 1.0, 16, 16), 0, 2500, True)
+
+
 def test_camera_rays_on_the_card_are_the_cpu_rays(dev):
     """800 is no power of two: dividing by the Python number on CUDA
     (a multiply by 1/800) would move some directions by an ulp."""
@@ -1659,16 +1748,16 @@ def test_tile_lists_matches_plain(setup, dev, plain_on_card, cs, ray_tile,
 
 
 def test_list_builds_reach_no_plain_ops_on_the_card(setup, dev, monkeypatch):
-    """The four call sites of the list builds (the pack queries' lists, the
-    bounce levels' dense refined lists, K3's group lists, camera mode and
-    the pooled lists' first stage) run no `_frustum_slabs` and no
-    `_compact_lists` on the card, but for the two that stay plain: the
-    pooled lists' second stage and the gathered refinement's
-    recompaction."""
+    """The call sites of the list builds (the pack queries' lists, the
+    bounce levels' dense refined lists, K3's group lists, camera mode's
+    lists of a chunk, of a whole frame and through supertiles) run no
+    `_frustum_slabs`, no `_compact_lists` and no camera extents in PyTorch
+    on the card, but for the one that stays plain: the gathered
+    refinement's recompaction."""
     accels, packs = setup
     a16, a128 = accels[16].to(dev), accels[128].to(dev)
     seen = []
-    for name in ("_frustum_slabs", "_compact_lists"):
+    for name in ("_frustum_slabs", "_compact_lists", "_camera_tile_extents"):
         real = getattr(T, name)
         monkeypatch.setattr(T, name, lambda *a, _r=real, _n=name, **k:
                             seen.append(_n) or _r(*a, **k))
@@ -1683,7 +1772,32 @@ def test_list_builds_reach_no_plain_ops_on_the_card(setup, dev, monkeypatch):
     offs = stratified_offsets(1).to(dev)
     T.nearest_hit_camera_soa(a16, offs, width=64, height=48, spp=1,
                              tile_base=0, tiles=4)       # camera mode
+    T.nearest_hit_camera_soa(a16, offs, width=64, height=48, spp=1)
+    monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 0)
+    before = dict(T.LAUNCHES)
+    T.nearest_hit_camera_soa(a16, offs, width=64, height=48, spp=1)
+    assert T.LAUNCHES["lists_camera_members"] == (
+        before["lists_camera_members"] + 1)              # pooled
     assert seen == []
+
+
+def test_a_direct_camera_query_is_one_list_launch(setup, dev):
+    """A whole-frame camera query below `_SUPERTILE_MIN_C` clusters builds
+    its lists in one launch of `rt_camera_lists`: no `lists_ext`, no
+    pooled stage, no host sync."""
+    from raytracing_tpu_torch.utils.profiling import COUNTERS
+
+    accels, _ = setup
+    offs = stratified_offsets(4, device=dev)
+    before = dict(T.LAUNCHES)
+    syncs = dict(COUNTERS.host)
+    T.nearest_hit_camera_soa(accels[16].to(dev), offs, width=64, height=48,
+                             spp=4)
+    made = {k: v - before.get(k, 0) for k, v in T.LAUNCHES.items()
+            if k.startswith("lists") and v != before.get(k, 0)}
+    assert made == {"lists_camera": 1}, made
+    assert {k: v for k, v in COUNTERS.host.items() if k.startswith("syncs.")
+            } == {k: v for k, v in syncs.items() if k.startswith("syncs.")}
 
 
 @pytest.mark.parametrize("camera", [False, True], ids=["pack", "camera"])
@@ -1703,12 +1817,14 @@ def test_frame_with_plain_list_builds_is_equal(dev, monkeypatch, camera):
     T.reset_launches()
     img = frame()
     assert T.LAUNCHES["lists_ext"] > 0
-    assert T.LAUNCHES["lists" if not camera else "lists_ext"] > 0
+    assert T.LAUNCHES["lists" if not camera else "lists_camera"] > 0
     monkeypatch.setattr(T, "tile_lists", T.tile_lists_plain)
     monkeypatch.setattr(T, "lists_from_extents", T.lists_from_extents_plain)
+    monkeypatch.setattr(T, "camera_lists", _plain_camera_lists(monkeypatch))
     T.reset_launches()
     plain = frame()
-    assert T.LAUNCHES["lists"] == T.LAUNCHES["lists_ext"] == 0
+    assert (T.LAUNCHES["lists"] == T.LAUNCHES["lists_ext"]
+            == T.LAUNCHES["lists_camera"] == 0)
     assert torch.equal(img, plain)
 
 
@@ -2493,7 +2609,8 @@ def test_reference_frame_on_the_card_launches_every_kernel(dev, camera):
                  accel=acc16)
     torch.cuda.synchronize()
     need = ["walk", "walk_dma", "refine_extents", "lists", "lists_ext",
-            "rest_merge"] + (["walk_camera"] if camera else [])
+            "rest_merge"] + (["walk_camera", "lists_camera"] if camera
+                             else [])
     assert all(T.LAUNCHES[k] > 0 for k in need), dict(T.LAUNCHES)
     assert img.shape == (800, 800, 3) and bool(torch.isfinite(img).all())
     assert float((img[2, 2].cpu() - SKY).abs().max()) <= SKY_ATOL

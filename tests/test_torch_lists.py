@@ -16,6 +16,9 @@ compaction) on the CPU, through its plain versions.
   the launch tile, folded, then the list build from the extents), their
   launches replaced by the plain versions, against the plain version at
   the tile.
+- Camera mode's list build (`camera_lists`) on CPU tensors against the
+  composition it stands for: the closed-form extents, then the direct
+  lists or the two pooled stages.
 """
 
 import numpy as np
@@ -281,3 +284,49 @@ def test_composed_tile_lists_equal_the_plain_version(accels, pack, as_card,
     _same(got, T.tile_lists_plain(tp, acc.cluster_min, acc.cluster_max,
                                   t_cap, ray_tile))
 
+
+
+@pytest.mark.parametrize("case", ["frame", "frame_pooled", "48x32_chunk",
+                                  "48x32_bh8_pooled"])
+def test_camera_lists_are_the_plain_composition(accels, monkeypatch, case):
+    """Camera mode's list build (`camera_lists`) on CPU tensors: the
+    closed-form extents, then the list build from them (whole frame,
+    and a chunk whose blocks run past the frame's last) or the two pooled
+    stages (the cluster rule lowered; the second stage alone from the
+    first's lists gives the same), bit for bit; the pooled lists hold the
+    direct ones as sets; nothing counts as a launch or in `lists.camera`
+    off the card."""
+    from raytracing_tpu_torch.utils.profiling import COUNTERS
+
+    _, acc = accels[16]
+    cmin, cmax = acc.cluster_min, acc.cluster_max
+    pooled = case.endswith("pooled")
+    if pooled:
+        monkeypatch.setattr(T, "_SUPERTILE_MIN_C", 0)
+    block = 8 if "bh8" in case else 16
+    cam = (T.Camera(48, 32, 2, 1.0, block, block) if case.startswith("48x32")
+           else T.Camera(96, 64, 2, 1.0, 16, 16))
+    n = cam.grid[0] * cam.grid[1]
+    tile0, tiles = (n - 2, 4) if case.endswith("chunk") else (0, n)
+    offs = stratified_offsets(2)
+    assert T._pooled(acc, cam, tile0, tiles) == pooled
+    before, listed = dict(T.LAUNCHES), COUNTERS.host.get("lists.camera", 0)
+    got = T.camera_lists(acc, offs, cam, tile0, tiles)
+    assert T.LAUNCHES == before
+    assert COUNTERS.host.get("lists.camera", 0) == listed == 0
+    ext = T._camera_tile_extents(tiles, offs, cam, tile0)
+    direct = T.lists_from_extents_plain(*ext, cmin, cmax)
+    assert int(direct[2].sum()) > 0
+    if not pooled:
+        _same(got, direct)
+        if case.endswith("chunk"):  # blocks past the frame repeat its last
+            for a in got:
+                assert torch.equal(a[-3:], a[-1:].expand_as(a[-3:]))
+        return
+    first = T._supertile_lists(acc, ext, cam)
+    assert first[0].shape[0] == T._supertiles(cam)[4] * T._supertiles(cam)[5]
+    _same(got, T._pooled_camera_lists(acc, ext, cam))
+    _same(got, T._pooled_camera_lists(acc, ext, cam, first))
+    assert torch.equal(got[2], direct[2])
+    for k, c in enumerate(got[2].tolist()):
+        assert set(got[0][k, :c].tolist()) == set(direct[0][k, :c].tolist())

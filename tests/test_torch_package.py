@@ -202,7 +202,7 @@ def test_launch_binds_its_tensors_card(monkeypatch):
     sites = re.findall(r"with torch\.cuda\.device\((\w+)\.device\):\n"
                        r"\s+cuda\.check\(lib\.rt_\w+\((?:[^()]|\([^()]*\))*"
                        r"_stream\((\w+)\)\)", src)
-    assert len(sites) == src.count("cuda.check(lib.rt_") == 11
+    assert len(sites) == src.count("cuda.check(lib.rt_") == 13
     assert all(a == b for a, b in sites), sites
     assert "_stream()" not in src
 
