@@ -25,6 +25,8 @@ import torch
 from raytracing_tpu_torch.geometry.mesh import Mesh, triangle_soa
 from raytracing_tpu_torch.ops.intersect import (INF, TriangleSoA,
                                                 moller_trumbore, slab_test)
+from raytracing_tpu_torch.ops.linalg import cross, dot
+from raytracing_tpu_torch.utils.profiling import COUNTERS, span
 
 
 # Bytes of cluster table (12 geometry rows plus the attribute rows, f32)
@@ -69,7 +71,8 @@ class ClusterAccel(NamedTuple):
     gradients reach the live mesh through `kernels.traverse`'s autograd
     functions, never through these tables. After the mesh's attributes
     change, `refit_attr_planes` refreshes the shading planes; after its
-    vertices move, rebuild."""
+    vertices move, `refit_geometry` recomputes the geometry tables in the
+    build's cluster order (or rebuild, to re-sort)."""
 
     order: torch.Tensor
     slot_valid: torch.Tensor
@@ -598,9 +601,9 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
     normals, colors and materials — what an inverse fit does inside every
     step, so that the walk shades with the values it differentiates
     (`attr_t_blocks` follows). Bounds, triangle blocks and `grad_blocks`
-    are left as they are: after
-    the vertices move, rebuild. first_tri: each object's first triangle
-    (`first_tri_per_object`); computed from mesh.obj_id when not given."""
+    are left as they are: after the vertices move, `refit_geometry`.
+    first_tri: each object's first triangle (`first_tri_per_object`);
+    computed from mesh.obj_id when not given."""
     cs, c = accel.cluster_size, accel.num_clusters
     order = accel.order.long()
     valid = accel.slot_valid[:, None].to(accel.attr_blocks.dtype)
@@ -631,6 +634,72 @@ def refit_attr_planes(accel: ClusterAccel, mesh: Mesh,
         accel = accel._replace(
             rest_attrs=attrs[accel.rest_ids.long()].contiguous())
     return accel
+
+
+def refit_geometry(accel: ClusterAccel, mesh: Mesh) -> ClusterAccel:
+    """The accel with every geometry table recomputed from the mesh's
+    live, detached vertices in the build's cluster order: what a geometry
+    fit does inside every step, so that its walks and its backward see
+    the vertices it differentiates. `order`, `slot_valid`, `order_blocks`,
+    the rest set's ids and every id row stay; a cluster keeps its
+    triangles, so after large moves its boxes loosen (rebuild then).
+
+    Recomputed: `cluster_min` / `cluster_max` (padding slots excluded),
+    `pmt_blocks` (the Baldwin–Weber rows of `_kernel_blocks_host`, in its
+    float32 operation order: `ops.linalg`'s cross and dot, each product
+    its own operation, so no fused multiply-add), rows 0-8 (v0 | e1 |
+    e2) of `grad_blocks` and `rest_grad`, `rest_blocks`, and `tri_blocks`
+    / `pmt_t_blocks` where the accel has them; `woop_blocks` is dropped
+    (None), so a "woop" query raises instead of walking the old geometry.
+    At the vertices the accel was built from, every recomputed table
+    equals the build's bit for bit. Plain PyTorch on the accel's device:
+    no host copy and no sync. Runs in the span `rt.refit`; counts its
+    slots and rest rows in `refit.slots`."""
+    with span("rt.refit"):
+        cs, c = accel.cluster_size, accel.num_clusters
+        verts = mesh.verts.detach()
+        tv = mesh.tri_v.long()[accel.order.long()]            # [S, 3]
+        valid = accel.slot_valid
+        m = valid[:, None].to(verts.dtype)
+        v0, v1, v2 = (verts[tv[:, k]] for k in range(3))
+        e1, e2 = (v1 - v0) * m, (v2 - v0) * m
+        tri = torch.cat([v0, e1, e2], dim=1).reshape(c, cs, 9).transpose(1, 2)
+        corners = torch.stack([v0, v1, v2], dim=1)
+        big = torch.tensor(1e30, dtype=verts.dtype, device=verts.device)
+        keep = valid[:, None, None]
+        box_min = torch.where(keep, corners, big).reshape(c, -1, 3).amin(1)
+        box_max = torch.where(keep, corners, -big).reshape(c, -1, 3).amax(1)
+        n = cross(e1, e2)
+        n2 = dot(n, n)
+        pos = n2 > 0
+        inv_n2 = torch.where(pos, 1.0 / torch.where(pos, n2, 1.0), 0.0)
+        u = cross(e2, n) * inv_n2[:, None]
+        v = cross(n, e1) * inv_n2[:, None]
+        pmt = torch.cat([n, dot(n, v0)[:, None], u, -dot(u, v0)[:, None],
+                         v, -dot(v, v0)[:, None]], dim=1)
+        pmt_blocks = pmt.reshape(c, cs, 12).transpose(1, 2).contiguous()
+        grad = accel.grad_blocks.clone()
+        grad[:, 0:9] = tri
+        out = accel._replace(
+            cluster_min=box_min.contiguous(), cluster_max=box_max.contiguous(),
+            pmt_blocks=pmt_blocks, grad_blocks=grad, woop_blocks=None)
+        if accel.tri_blocks is not None:
+            out = out._replace(tri_blocks=tri.contiguous())
+        if accel.pmt_t_blocks is not None:
+            out = out._replace(
+                pmt_t_blocks=pmt_blocks.transpose(1, 2).contiguous())
+        rest = 0
+        if accel.rest_ids is not None:
+            rtv = mesh.tri_v.long()[accel.rest_ids.long()]
+            r0, r1, r2 = (verts[rtv[:, k]] for k in range(3))
+            rest_blocks = torch.cat([r0, r1 - r0, r2 - r0], dim=1)
+            rest_grad = accel.rest_grad.clone()
+            rest_grad[:, 0:9] = rest_blocks
+            out = out._replace(rest_blocks=rest_blocks.contiguous(),
+                               rest_grad=rest_grad)
+            rest = accel.rest_ids.shape[0]
+        COUNTERS.add("refit.slots", accel.order.shape[0] + rest)
+        return out
 
 
 def _with_attr_planes(accel: ClusterAccel, planes) -> ClusterAccel:

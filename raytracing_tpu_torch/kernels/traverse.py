@@ -2214,6 +2214,13 @@ def any_hit(accel: ClusterAccel, o, d, eps: float = 1e-8, t_max=INF,
 # ---------------------------------------------------------------------------
 
 
+def _count_grad_hits(hit) -> None:
+    """Under counting, the lanes a backward scatters a gradient from
+    (`grad.hit`)."""
+    if COUNTERS.counting:
+        COUNTERS.add_device("grad.hit", hit.sum())
+
+
 def _t_math(va, vb, vc, o, d, hit):
     """Möller–Trumbore t of rays o, d [N, 3] against triangles given by
     their corners, 0 where the ray missed (so no NaN reaches a cotangent).
@@ -2237,7 +2244,8 @@ class _LazyT(torch.autograd.Function):
     """t of a nearest walk (twin of the JAX package's `_lazy_t`): forward
     the kernel's value; backward re-derives it from the live vertices of
     each ray's triangle (original ids `tri`, corners `tri_v`) and adds the
-    per-corner gradients into the vertex pool; the rays get theirs."""
+    per-corner gradients into the vertex pool; the rays get theirs. The
+    backward runs in the span `rt.grad` (kind "lazy_t")."""
 
     @staticmethod
     def forward(ctx, verts, o, d, tri_v, tri, hit, t_k):
@@ -2246,8 +2254,14 @@ class _LazyT(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with span("rt.grad", kind="lazy_t"):
+            return _LazyT._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         verts, o, d, tri_v, tri, hit = ctx.saved_tensors
         need = ctx.needs_input_grad
+        _count_grad_hits(hit)
         tvs = tri_v[torch.where(hit, tri, 0).long()].long()
         corners = [verts[tvs[:, k]] for k in range(3)]
         dva, dvb, dvc, do, dd = _t_vjp(*corners, o, d, hit, g)
@@ -2271,7 +2285,11 @@ class _ShadedWalk(torch.autograd.Function):
     gradients summed per triangle id and then into the vertex pool; the
     normal and color cotangents go to the triangle, the material ones to
     the object. Gradients reach verts, normals, colors, materials and the
-    rays o, d; which triangle a ray hits stays detached."""
+    rays o, d; which triangle a ray hits stays detached. The planes are
+    the accel's: for t to follow moved vertices they must be refit
+    (`accel.packets.refit_geometry`). The backward runs in the span
+    `rt.grad` (kind "shaded_walk") and, under counting, adds its hit
+    lanes to `grad.hit`; the forward's lanes count in `grad.rays`."""
 
     @staticmethod
     def forward(ctx, verts, normals, colors, materials, o, d, tri_v, query):
@@ -2288,9 +2306,15 @@ class _ShadedWalk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_t, _g_slot, g_a):
+        with span("rt.grad", kind="shaded_walk"):
+            return _ShadedWalk._backward(ctx, g_t, g_a)
+
+    @staticmethod
+    def _backward(ctx, g_t, g_a):
         o, d, hit, planes, tri_v = ctx.saved_tensors
         n_v, t_rows, n_obj = ctx.rows
         need = ctx.needs_input_grad
+        _count_grad_hits(hit)
         triid = planes[9].long()
         dverts = dn = dc = dm = do = dd = None
         if need[0] or need[4] or need[5]:
@@ -2372,6 +2396,7 @@ def nearest_hit_shaded(mesh, accel: ClusterAccel, o, d, eps: float = 1e-8,
         t, slot, attrs_k = nearest_hit_attrs_soa(accel, rays8, eps,
                                                  **walk_kw)
         return _shaded(accel, t, slot, attrs_k)
+    COUNTERS.add("grad.rays", o.shape[0])
     if mesh.num_triangles > _MAX_GRAD_TRIANGLES:
         raise ValueError(
             f"a differentiated query on {mesh.num_triangles} triangles: "

@@ -14,6 +14,23 @@ differentiable walks), and takes one step of Adam (the JAX package's
 optax.adam) on the mean squared error against the target's pixels. Which
 triangle a ray hits stays detached, so the descent follows the shading and
 intersection gradients.
+
+A geometry fit (verts or pose) with an accel refits it inside every
+step: before the shading planes are refit, `accel.packets.refit_geometry`
+recomputes the accel's geometry tables (bounds, triangle blocks and the
+backward's corners) from the step's live vertices on their device, in
+the build's cluster order, so the forward walks and the backward
+differentiates the geometry being fitted. This departs from the JAX
+package's fit, which walks the tables of its last build; at the
+vertices an accel was built from the refit is the build bit for bit, so
+a step from there is the JAX package's. `rebuild_every` still re-sorts
+(a host SAH build and upload); the refit follows the vertices between
+rebuilds.
+
+Spans (`utils.profiling`): `rt.fit` around a step, `rt.backward` around
+its `loss.backward()` (autograd's own thread runs the backward functions,
+each in `rt.grad`), `rt.optim` around Adam's update, and `rt.refit`
+around the geometry refit; `fit.steps` counts the steps.
 """
 
 from __future__ import annotations
@@ -27,12 +44,14 @@ import torch
 from raytracing_tpu_torch.accel.packets import (ClusterAccel,
                                                 build_cluster_accel,
                                                 first_tri_per_object,
-                                                refit_attr_planes)
+                                                refit_attr_planes,
+                                                refit_geometry)
 from raytracing_tpu_torch.config import RenderConfig
 from raytracing_tpu_torch.geometry.mesh import Mesh, Scene
 from raytracing_tpu_torch.geometry.transform import apply_pose
 from raytracing_tpu_torch.models.camera import camera_rays
 from raytracing_tpu_torch.models.whitted import default_accel, render_rays
+from raytracing_tpu_torch.utils.profiling import COUNTERS, span
 
 # Parameters whose change the accel's shading planes must follow (the JAX
 # package's set).
@@ -68,8 +87,9 @@ class Fitter:
     `build_cluster_accel(scene.mesh)`, except under config.backend
     "bruteforce", which renders without one (as the JAX package's fit
     does when given none); an accel's shading planes are refit from the
-    live parameters inside every step. Any backend of `RenderConfig`
-    runs."""
+    live parameters inside every step, and where verts or pose are
+    fitted its geometry tables too, first (module docstring). Any
+    backend of `RenderConfig` runs."""
 
     def __init__(self, scene: Scene, target: torch.Tensor,
                  params: Dict[str, torch.Tensor], config: RenderConfig,
@@ -85,6 +105,8 @@ class Fitter:
             self.optimizer.load_state_dict(opt_state)
         self.accel = accel = default_accel(scene.mesh, config, accel)
         self.refits = accel is not None and bool(_REFIT_PARAMS & set(params))
+        self.refits_geometry = (accel is not None
+                                and bool(_GEOMETRY_PARAMS & set(params)))
         self.first_tri = None
         if self.refits and self.accel.attr_tables is not None:
             self.first_tri = first_tri_per_object(
@@ -104,19 +126,25 @@ class Fitter:
         """Mean squared error of rays idx rendered with the current
         parameters; uniforms(tag, shape) as `render_rays` takes them."""
         mesh = apply_params(self.scene.mesh, self.params, self.pose_obj)
-        acc = (refit_attr_planes(self.accel, mesh, self.first_tri)
-               if self.refits else self.accel)
+        acc = (refit_geometry(self.accel, mesh) if self.refits_geometry
+               else self.accel)
+        if self.refits:
+            acc = refit_attr_planes(acc, mesh, self.first_tri)
         rgb = render_rays(mesh, acc, self.scene.sun, self.o[idx],
                           self.d[idx], self.config, uniforms)
         return ((rgb - self.target[idx % self.pixels]) ** 2).mean()
 
     def step(self, idx: torch.Tensor, uniforms) -> float:
         """One optimizer step on rays idx; returns the loss before it."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(idx, uniforms)
-        loss.backward()
-        self.optimizer.step()
-        return float(loss.detach())
+        COUNTERS.add("fit.steps")
+        with span("rt.fit", rays=idx.shape[0]):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.loss(idx, uniforms)
+            with span("rt.backward"):
+                loss.backward()
+            with span("rt.optim"):
+                self.optimizer.step()
+            return float(loss.detach())
 
     def rebuild(self) -> None:
         """Rebuild the accel around the current (detached) geometry (none
@@ -159,9 +187,10 @@ def fit(scene: Scene, target: torch.Tensor, params: Dict[str, torch.Tensor],
 
     rebuild_every=k (> 0): when the geometry is fitted (verts or pose),
     rebuild the accel around it every k steps — its bounds and triangle
-    blocks otherwise keep the geometry it was built from. opt_state: an
-    Adam state_dict to resume; start_step: the step count a resumed fit
-    starts from, which its checkpoints count on from.
+    blocks otherwise follow the vertices by the refit inside every step
+    (`Fitter`), in the order of the last build. opt_state: an Adam
+    state_dict to resume; start_step: the step count a resumed fit starts from,
+    which its checkpoints count on from.
 
     Recovery, as in the JAX package: retries > 0 or a checkpoint_path runs
     every step under `utils.resilience.Supervisor`. A transient device

@@ -42,8 +42,9 @@ them makes the launches it made before the rows existed.
 Spans (`utils.profiling`): `rt.frame` around `render`, `rt.chunk` around
 each chunk, `rt.level` around each level; the glue in `rt.camera_rays`,
 `rt.bin`, `rt.shade`, `rt.children`, `rt.radiance` (and the binning's
-`rt.unsort`), the area lights' term in `rt.area_light`, the level's one
-host sync in `rt.sync`. A level counts its rays in `rays.level<d>` and,
+`rt.unsort`), the area lights' term in `rt.area_light` (its backward,
+`_KernelLightSum`'s, in `rt.grad`), the level's one host sync in
+`rt.sync`. A level counts its rays in `rays.level<d>` and,
 under `counting(True)`, its alive ones in `alive.level<d>`; the area
 lights count their shadow rays in `rays.area_light`, those the kernels
 prepared in `area_light.fused` and, under `counting(True)`, the alive
@@ -267,15 +268,17 @@ class _KernelLightSum(torch.autograd.Function):
     def backward(ctx, grad):
         ins = [t.detach().requires_grad_(need) for t, need in
                zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = _light_sum(
-                False, SphereLight(*ins[4:]), *ins[:4], ctx.hit_mask,
-                ctx.rows, ctx.ns, lambda li, s: ctx.draws[li, s],
-                lambda li, s, *ray: ctx.masks[li, s])
-        wrt = [t for t in ins if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
-        return (*(next(got) if t.requires_grad else None for t in ins),
-                None, None, None, None, None)
+        with span("rt.grad", kind="light_sum"):
+            with torch.enable_grad():
+                out = _light_sum(
+                    False, SphereLight(*ins[4:]), *ins[:4], ctx.hit_mask,
+                    ctx.rows, ctx.ns, lambda li, s: ctx.draws[li, s],
+                    lambda li, s, *ray: ctx.masks[li, s])
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, grad,
+                                           allow_unused=True))
+            return (*(next(got) if t.requires_grad else None for t in ins),
+                    None, None, None, None, None)
 
 
 def area_light_term(accel: Optional[ClusterAccel], lights: SphereLight,

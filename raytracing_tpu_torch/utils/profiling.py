@@ -14,10 +14,15 @@ Spans (`span`, `spanned`, `host_sync`) mark the port's layer boundaries
 as `rt.<layer>`: `rt.frame`, `rt.chunk`, `rt.level`, `rt.query`,
 `rt.lists`, `rt.walk`, the PyTorch glue (`rt.shade`, `rt.area_light`,
 `rt.children`, `rt.bin`, `rt.unsort`, `rt.radiance`, `rt.camera_rays`,
-`rt.merge`, `rt.pack`, `rt.tables`, `rt.attrs`) and `rt.sync`. Off by
-default (`tracing`): a span is then one shared no-op. On, each is a
+`rt.merge`, `rt.pack`, `rt.tables`, `rt.attrs`) and `rt.sync`; an
+inverse fit's `rt.fit`, `rt.backward`, `rt.optim`, `rt.refit` and, in
+each backward function, `rt.grad` (kind). Off by default (`tracing`): a
+span is then one shared no-op. On, each is a
 `torch.profiler.record_function`, so a profiler run shows them beside
-the CUDA activity on the same clock, nested by time on the host thread.
+the CUDA activity on the same clock, nested by time on the host thread
+that opened them: on CUDA tensors autograd runs the backward functions
+on a thread of its own, so the `rt.grad` spans sit there, inside the
+time of the main thread's `rt.backward`.
 `COUNTERS` holds every count (see `Counters`); the device's run only
 under `counting(True)`.
 """
@@ -173,7 +178,10 @@ class Counters:
     path's queries), `rays.area_light` (the area lights' shadow rays:
     rays x lights x samples at each level), `area_light.fused` (those of
     them that csrc/light.cu's kernels prepared: all of them on the card's
-    kernel path, else 0).
+    kernel path, else 0), `fit.steps` (inverse-fit steps), `grad.rays`
+    (lanes of the nearest queries that carry the backward's planes:
+    `kernels.traverse._ShadedWalk`), `refit.slots` (slots and rest rows
+    whose geometry `accel.packets.refit_geometry` recomputed).
     device: sums kept where the tensors live, as int64, only while
     `counting(True)` (off by default, so a timed or profiled step never
     runs them): `alive.level<d>`, `alive.nearest` / `alive.shadow` /
@@ -183,7 +191,9 @@ class Counters:
     one where a plain version or K4 walks, neither of which exits early),
     `walk.listed` (the visits their lists held) and `walk.lane_tests`
     (visits x the launch tile's rays x the cluster size: the (ray,
-    triangle) tests the visits issue, dead lanes included). `read` reads
+    triangle) tests the visits issue, dead lanes included), `grad.hit`
+    (the lanes a backward scatters a gradient from: hit lanes of
+    `_ShadedWalk` and `_LazyT`). `read` reads
     them once, when a step ends."""
 
     def __init__(self):

@@ -56,7 +56,13 @@ column-major, a permuted `rows`), whole area-light frames (the reduced
 one and the benchmark cell's) bit-equal with the kernels and without, the
 light's own operations and launches the same whatever its alive share,
 and a differentiated term through the kernels with the plain term's image
-and gradients.
+and gradients; the accel's geometry refit on the card bit-equal to the
+uploaded build at its vertices and to the CPU's refit after a pose and a
+jitter, its hits a fresh build's up to ties; a fit step of the cell
+`two_teapots.fit`'s kind with the refit within GRAD_PARITY_RTOL of the
+CPU's at 2,048 rays, two at its size (262,144 rays) within the cell's
+limits against `rtbench/reference/fit.py`, and the same step with the
+spans off and on making the same launches.
 
 Whole paths at full width: the reference frame (800x800x4), with pack-path
 and camera-mode primaries, launching every kernel of its path and with the
@@ -3327,3 +3333,185 @@ def test_dryrun_multichip_on_the_card(dev, n, device):
     from raytracing_tpu_torch.parallel.dryrun import dryrun_multichip
 
     assert np.isfinite(dryrun_multichip(n, device=device))
+
+
+# The tables `refit_geometry` recomputes; the others come back as they were.
+REFIT_TABLES = ("cluster_min", "cluster_max", "pmt_blocks", "grad_blocks",
+                "rest_blocks", "rest_grad", "tri_blocks", "pmt_t_blocks")
+
+
+def _moved_default_mesh():
+    """The default scene on the CPU and its mesh with object 0 posed and
+    every vertex jittered."""
+    from raytracing_tpu_torch.geometry.transform import apply_pose
+
+    scene = build_default_scene(device="cpu")
+    g = torch.Generator().manual_seed(4)
+    mesh = apply_pose(scene.mesh, torch.tensor(
+        [0.02, -0.05, 0.03, 0.08, -0.04, 0.06]), 0)
+    jitter = (torch.rand(mesh.verts.shape, generator=g) - 0.5) * 0.01
+    return scene, mesh._replace(verts=mesh.verts + jitter)
+
+
+@pytest.mark.parametrize("cs", [16, 128])
+def test_refit_on_the_card_is_the_cpu_refit_and_the_build(dev, cs):
+    """`refit_geometry` on the card, bit for bit: at the build's vertices
+    every table it recomputes is the uploaded build's; after a pose and a
+    jitter it is the CPU's refit of the same vertices; and the refit
+    accel's nearest hits on the card are a fresh build's at the moved
+    vertices up to ties (a ray whose triangle differs hits both within
+    1e-5 of one t)."""
+    scene, moved = _moved_default_mesh()
+    acc = build_cluster_accel(scene.mesh, cluster_size=cs)
+    card = acc.to(dev)
+    same = packets.refit_geometry(card, scene.mesh.to(dev))
+    cpu = packets.refit_geometry(acc, moved)
+    got = packets.refit_geometry(card, moved.to(dev))
+    assert same.woop_blocks is None and got.woop_blocks is None
+    for name in REFIT_TABLES:
+        want = getattr(card, name)
+        if want is None:
+            continue
+        assert torch.equal(getattr(same, name), want), name
+        assert torch.equal(getattr(got, name).cpu(), getattr(cpu, name)), name
+    fresh = build_cluster_accel(moved.to(dev), cluster_size=cs)
+    cfg = RenderConfig(width=128, height=128, samples_per_pixel=1)
+    o, d = camera_rays_for_ids(torch.arange(128 * 128, device=dev), cfg)
+    rays8 = T.rays_to_soa(o, d)
+    t1, tri1 = T.nearest_hit_soa(got, rays8)
+    t2, tri2 = T.nearest_hit_soa(fresh, rays8)
+    assert torch.equal(torch.isfinite(t1), torch.isfinite(t2))
+    hit = torch.isfinite(t1)
+    assert int((hit & (tri1 != tri2)).sum()) <= 4
+    assert bool(((t1 - t2).abs()[hit] <= 1e-5 * t2[hit].abs()).all())
+    t0, tri0 = T.nearest_hit_soa(card, rays8)   # the stale accel
+    assert int((hit & (tri0 != tri2)).sum()) > 100
+
+
+def _fit_cell_entry(dev, **traffic):
+    """The cell `two_teapots.fit`'s entry on the card, set up."""
+    from rtbench import spec
+
+    cell = spec.load_cell("two_teapots.fit", spec.load_benchmark())
+    e = spec.entry(cell.traffic).Entry(cell.config,
+                                       dict(cell.traffic, **traffic),
+                                       2 ** 33 + 11, dev)
+    e.setup()
+    return cell, e
+
+
+def test_fit_step_with_the_refit_on_the_card_matches_the_cpu(dev):
+    """One `Fitter.step` of the fit cell's kind (the two-teapot scene, the
+    green teapot's pose and every vertex, the accel refit) at 2,048 rays of
+    a 64x64 2-spp frame, from the start pose (so the refit moves the
+    geometry at once), on the card against the CPU with the same rays,
+    uniforms and target: the loss within GRAD_PARITY_RTOL of the CPU's,
+    each gradient within GRAD_PARITY_RTOL of its largest magnitude (the
+    card's scatter-adds are atomics, in another order; the sampler's
+    sin/cos differ by ulps)."""
+    import copy
+
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.models import inverse
+    from rtbench import program, spec
+
+    cell = spec.load_cell("two_teapots.fit", spec.load_benchmark())
+    cfg_r = dict(copy.deepcopy(cell.config["render"]), width=64, height=64,
+                 samples_per_pixel=2, chunk_size=2048)
+    cfg = program.render_config(cfg_r)
+    mesh = program.build_mesh(cell.config["scene"], "cpu")
+    acc = build_cluster_accel(mesh, cluster_size=16,
+                              variants=("pmt", "mt", "pmtt"))
+    sun = torch.tensor([3e4, 2.5e4, 9e4])
+    target = render(Scene(mesh, sun), cfg, accel=acc,
+                    generator=torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, 2 * 64 * 64, (2048,), generator=g)
+    fan = torch.rand((10, 2048, 2), generator=g)
+    pose = torch.tensor(cell.config["fit"]["start_pose"])
+    out = {}
+    for where in ("cpu", dev):
+        m = mesh.to(where)
+        f = inverse.Fitter(Scene(m, sun.to(where)), target.to(where),
+                           {"pose": pose.to(where), "verts": m.verts}, cfg,
+                           accel=acc.to(where))
+        loss = f.step(idx.to(where), lambda tag, shape: fan.to(where))
+        out[str(where)] = (loss, {k: p.grad.cpu()
+                                  for k, p in f.params.items()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    assert abs(l_dev - l_cpu) <= GRAD_PARITY_RTOL * abs(l_cpu), (l_dev, l_cpu)
+    for k in g_cpu:
+        scale = float(g_cpu[k].abs().max())
+        err = float((g_dev[k] - g_cpu[k]).abs().max())
+        assert scale > 0 and err <= GRAD_PARITY_RTOL * scale, (k, err, scale)
+
+
+def test_fit_cell_step_262k_is_the_reference(dev):
+    """Two steps of the fit cell at its size (262,144 rays a step over the
+    800x800x4 frame, the accel refit every step) checked as the benchmark
+    checks them: each against `rtbench/reference/fit.py` on the card under
+    the cell's limits (`rtbench/limits/two_teapots.fit.json`, set from the
+    program's and the bfloat16 reference's readings, PERF.md); the
+    refit's tables were recomputed on the card each step."""
+    from raytracing_tpu_torch.utils import profiling as P
+    from rtbench.harness import judge
+
+    cell, e = _fit_cell_entry(dev)
+    P.COUNTERS.reset()
+    kept = [e.keep(k, e.step(k)) for k in range(2)]
+    assert P.COUNTERS.host["fit.steps"] == 2
+    assert P.COUNTERS.host["refit.slots"] == 2 * (
+        e.accel.order.shape[0] + e.accel.rest_ids.shape[0])
+    assert P.COUNTERS.host["grad.rays"] >= 2 * 11 * 262144
+    e.release(kept)
+    numbers = [e.check(item) for item in kept]
+    correct, failed, _ = judge(numbers, cell.limits)
+    assert correct, numbers
+
+
+def test_fit_step_spans_and_counting_off_add_no_launch(dev):
+    """The fit cell's step at its size with the spans off and on, each
+    from the start (a fresh `Fitter` on the same mesh, accel and target):
+    the same loss, the port's launches (`LAUNCHES`) equal, the device
+    operations within the 0-3 the profiler drops at a session's start, and
+    no counting sum among them (the device counts run only under
+    `counting(True)`, which adds its own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.utils import profiling as P
+
+    _, e = _fit_cell_entry(dev)
+    f0 = e.fitter
+    start = {k: v.detach().clone() for k, v in f0.params.items()}
+
+    def fresh():
+        return inverse.Fitter(f0.scene, e.target, start, e.cfg,
+                              accel=e.accel)
+
+    f = fresh()
+    f.step(e.rays(0), e.uniforms(0))            # warm
+    runs = []
+    for on, count in ((False, False), (True, False), (False, True)):
+        f = fresh()
+        torch.cuda.synchronize()
+        T.reset_launches()
+        was, was_c = P.tracing(on), P.counting(count)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loss = f.step(e.rays(0), e.uniforms(0))
+                torch.cuda.synchronize()
+        finally:
+            P.tracing(was)
+            P.counting(was_c)
+        ops = [x for x in prof.events() if x.device_type == DeviceType.CUDA
+               and not x.name.startswith("rt.")]
+        spans = {x.name for x in prof.events() if x.name.startswith("rt.")}
+        runs.append((loss, dict(T.LAUNCHES), len(ops), spans))
+    (l0, n0, ops0, s0), (l1, n1, ops1, s1), (_, _, ops2, _) = runs
+    assert l0 == l1 and n0 == n1
+    assert abs(ops0 - ops1) <= 3 and ops2 > ops0
+    assert not s0 and {"rt.fit", "rt.backward", "rt.grad", "rt.optim",
+                       "rt.refit"} <= s1

@@ -9,9 +9,12 @@ sync the test counts itself, and the image is the same; `rays.level<d>`,
 `alive.level<d>` and the walks' visits equal what the test counts at the
 level's boundaries; an area light's `rt.area_light` a level around its
 shadow queries, `rays.area_light` and `alive.area_light` as the test
-counts them, and the same operations with the spans on as off; the
-reduction's self times, idle attribution and the harness's own reading of
-the same trace are exact on small traces.
+counts them, and the same operations with the spans on as off; an
+inverse-fit step's rt.fit around rt.refit, rt.backward (rt.grad inside)
+and rt.optim, and its `fit.steps`, `grad.rays`, `refit.slots` and
+`grad.hit`; the reduction's self times, idle attribution (the innermost
+span over every host thread) and the harness's own reading of the same
+trace are exact on small traces.
 """
 
 import collections
@@ -455,3 +458,113 @@ def test_idle_under_the_area_light_span():
     assert got["idle_in_area_light_pct.arealight"] == 12.5
     assert "area_light_alive_pct.arealight" not in TC.layer_numbers(
         "whitted", reading, {})
+
+
+def test_fit_spans_and_counters():
+    """A pose + vertex fit step with the refit: rt.fit around
+    rt.refit, rt.backward (the backward functions' rt.grad inside it: on
+    the CPU autograd runs them on the calling thread) and rt.optim;
+    `fit.steps`, `grad.rays` (the differentiated nearest queries' lanes,
+    every level's), `refit.slots`; under counting `grad.hit`, the hit
+    lanes the backward scatters from, at most those lanes. Spans off, the
+    step records no span and gives the same loss."""
+    import numpy as np
+
+    from raytracing_tpu_torch.geometry.mesh import Scene, concat_objects
+    from raytracing_tpu_torch.models import inverse
+
+    # A tetrahedron (one cluster of 4) over a floor (the rest set).
+    tet = {"verts": np.array([[-1, -1, 4], [1, -1, 4], [0, -1, 6],
+                              [0, 1, 5]], np.float32),
+           "tri_v": np.array([[0, 3, 1], [1, 3, 2], [2, 3, 0], [0, 1, 2]],
+                             np.int32),
+           "colors": np.array([0.9, 0.3, 0.2], np.float32),
+           "material": (1.0, 0.5, 0.5)}
+    floor = {"verts": np.array([[-9, -1, 0], [-9, -1, 9], [9, -1, 9],
+                                [9, -1, 0]], np.float32),
+             "tri_v": np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+             "colors": np.array([0.8, 0.8, 0.8], np.float32),
+             "normals": np.array([[0, 1, 0], [0, 1, 0]], np.float32),
+             "material": (1.0, 0.0, 1.0)}
+    scene = Scene(concat_objects([tet, floor]),
+                  torch.tensor([3.0, 9.0, 1.0]))
+    accel = build_cluster_accel(scene.mesh, cluster_size=4)
+    cfg = RenderConfig(width=8, height=8, samples_per_pixel=1,
+                       diffuse_scatter=2)
+    target = torch.full((8, 8, 3), 0.5)
+    params = {"pose": torch.tensor([0.0, 0.02, 0.0, 0.01, 0.0, 0.0]),
+              "verts": scene.mesh.verts}
+    idx = torch.arange(64)
+
+    def step():
+        f = inverse.Fitter(scene, target, params, cfg, accel=accel)
+        return f.step(idx, lambda tag, shape: torch.full(shape, 0.25))
+
+    P.COUNTERS.reset()
+    loss_off, events = _profiled(step)
+    assert not events
+    counts = P.COUNTERS.read()
+    assert counts["fit.steps"] == 1
+    assert counts["grad.rays"] == sum(v for k, v in counts.items()
+                                      if k.startswith("rays.level"))
+    n_rest = accel.rest_ids.shape[0]
+    assert counts["refit.slots"] == accel.order.shape[0] + n_rest
+    P.tracing(True)
+    try:
+        loss_on, events = _profiled(step)
+    finally:
+        P.tracing(False)
+    assert loss_on == loss_off
+    names = collections.Counter(e.name for e in events)
+    assert names["rt.fit"] == names["rt.backward"] == names["rt.optim"] == 1
+    assert names["rt.refit"] == 1 and names["rt.grad"] >= 1
+    fit = next(e for e in events if e.name == "rt.fit")
+    back = next(e for e in events if e.name == "rt.backward")
+    for e in events:
+        if e.name in ("rt.refit", "rt.backward", "rt.optim"):
+            assert fit.time_range.start <= e.time_range.start \
+                and e.time_range.end <= fit.time_range.end, e.name
+        if e.name == "rt.grad":
+            assert back.time_range.start <= e.time_range.start \
+                and e.time_range.end <= back.time_range.end
+    P.counting(True)
+    try:
+        P.COUNTERS.reset()
+        step()
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(False)
+    assert 0 < counts["grad.hit"] <= counts["grad.rays"]
+
+
+def test_innermost_span_over_threads_and_the_backward_shares():
+    """The backward's spans on autograd's thread: a gap under both the
+    main thread's rt.backward and the other thread's rt.grad is rt.grad's;
+    `idle_in_backward_pct` and `backward_device_pct` read rt.backward at
+    any depth; the fit's layer numbers."""
+    host = [Op("rt.fit", 0, 1000, False, 1),
+            Op("rt.backward", 300, 900, False, 1),
+            Op("rt.optim", 900, 950, False, 1),
+            Op("rt.grad", 350, 700, False, 7),
+            Op("cudaLaunchKernel", 360, 365, False, 7),
+            Op("cudaLaunchKernel", 910, 915, False, 1),
+            Op("step", 0, 1000, False, 1)]
+    dev = [Op("walk_kernel", 0, 300, True),
+           Op("elementwise_kernel", 500, 800, True),
+           Op("elementwise_kernel", 920, 940, True)]
+    r = TC.span_reading(host + dev, steps=1)
+    assert r["idle_by_span_s"] == pytest.approx(
+        {"rt.grad": 200e-6, "rt.backward": 120e-6, "rt.fit": 60e-6})
+    assert r["launch_calls_by_span"] == {"rt.grad": 1, "rt.optim": 1}
+    assert r["idle_in_backward_pct"] == pytest.approx(100 * 320 / 380)
+    assert r["backward_device_pct"] == pytest.approx(100 * 300 / 620)
+    assert r["idle_in_glue_pct"] == pytest.approx(100 * 200 / 380)
+    assert TC.innermost(host, [320, 400, 920, 2000]) == [
+        "rt.backward", "rt.grad", "rt.optim", "no host operation"]
+    got = TC.layer_numbers("fit", dict(r, refit_ms=1.5),
+                           {"grad.rays": 40, "grad.hit": 10,
+                            "syncs.level": 3})
+    assert got["grad_hit_pct.fit"] == pytest.approx(25.0)
+    assert got["refit_host_ms_per_step.fit"] == 1.5
+    assert got["syncs_per_step.fit"] == 3
+    assert got["idle_in_backward_pct.fit"] == r["idle_in_backward_pct"]

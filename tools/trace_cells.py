@@ -43,15 +43,16 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if HERE not in sys.path:
     sys.path.insert(0, HERE)
 
-from rtbench.trace import _ops_of, host_labels, merged  # noqa: E402
+from rtbench.trace import _ops_of, merged  # noqa: E402
 
 # Spans that only frame others; an idle gap under one of them as the
 # innermost span falls between the port's layers.
 STRUCTURE = ("rt.frame", "rt.chunk", "rt.level", "rt.query")
-# The PyTorch glue's spans.
+# The PyTorch glue's spans (an inverse fit's backward functions, Adam and
+# the accel's refit among them).
 GLUE = ("rt.shade", "rt.area_light", "rt.children", "rt.bin", "rt.unsort",
         "rt.radiance", "rt.camera_rays", "rt.merge", "rt.pack", "rt.tables",
-        "rt.attrs")
+        "rt.attrs", "rt.grad", "rt.optim", "rt.refit")
 NONE = "no span"
 # The host's calls that queue device work.
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
@@ -91,6 +92,34 @@ def self_us(spans: list) -> dict:
     return dict(out)
 
 
+def innermost(spans: list, points: list) -> list:
+    """The innermost span open at each time in `points`, over every host
+    thread: of each thread's innermost open span (its spans nest), the
+    one opened last; "no host operation" where none is open. Autograd
+    runs the backward functions of CUDA tensors on a thread of its own,
+    so their spans open inside the main thread's `rt.backward`."""
+    by_thread = defaultdict(list)
+    for o in spans:
+        by_thread[o.thread].append(o)
+    best = [None] * len(points)
+    for evs in by_thread.values():
+        evs = sorted(evs, key=lambda o: (o.start, -o.end))
+        order = sorted(range(len(points)), key=lambda i: points[i])
+        stack, j = [], 0
+        for i in order:
+            m = points[i]
+            while j < len(evs) and evs[j].start <= m:
+                while stack and stack[-1].end <= evs[j].start:
+                    stack.pop()
+                stack.append(evs[j])
+                j += 1
+            while stack and stack[-1].end < m:
+                stack.pop()
+            if stack and (best[i] is None or stack[-1].start > best[i].start):
+                best[i] = stack[-1]
+    return [o.name if o is not None else "no host operation" for o in best]
+
+
 def idle_gaps(dev: list, host: list) -> list:
     """The device's idle intervals between the first and the last host
     operation, as `rtbench/trace.py`'s reduction takes them."""
@@ -120,6 +149,25 @@ def idle_under_pct(spans: list, gaps: list, name: str):
     return 100.0 * under / total
 
 
+def busy_under_pct(busy: list, spans: list, name: str):
+    """The share (%) of the device's busy seconds (`busy`: disjoint
+    intervals) that fall inside a span `name` on the host's clock, at any
+    depth; None without busy time."""
+    total = sum(e - s for s, e in busy)
+    if total <= 0:
+        return None
+    inside = merged((o.start, o.end) for o in spans if o.name == name)
+    under, j = 0.0, 0
+    for s, e in busy:
+        while j < len(inside) and inside[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(inside) and inside[k][0] < e:
+            under += min(e, inside[k][1]) - max(s, inside[k][0])
+            k += 1
+    return 100.0 * under / total
+
+
 def span_reading(ops: list, steps: int) -> dict:
     """The spans' reading of `steps` profiled steps: device operations,
     device-busy seconds and spans a step, idle seconds by innermost span,
@@ -127,13 +175,16 @@ def span_reading(ops: list, steps: int) -> dict:
     step by innermost span, the `rt.sync` ms a step, and the idle
     shares under the glue's spans (`idle_in_glue_pct`) and under a span of
     a layer, one not in STRUCTURE (`idle_in_layer_pct`), both as innermost
-    span, and under `rt.area_light` at any depth
-    (`idle_in_area_light_pct`), and the longest gaps outside every span
-    (us, and us from the first gap's start)."""
+    span, and under `rt.area_light` and `rt.backward` at any depth
+    (`idle_in_area_light_pct`, `idle_in_backward_pct`), the share of the
+    device's busy time inside `rt.backward` (`backward_device_pct`), the
+    host ms a step inside `rt.refit` (`refit_ms`), and the longest gaps
+    outside every span (us, and us from the first gap's start). The
+    innermost span is taken over every host thread (`innermost`)."""
     dev, host, spans = split_ops(ops)
     busy = merged((o.start, o.end) for o in dev)
     gaps = idle_gaps(dev, host)
-    labels = (host_labels(spans, [(a + b) / 2 for a, b in gaps]) if spans
+    labels = (innermost(spans, [(a + b) / 2 for a, b in gaps]) if spans
               else [NONE] * len(gaps))
     idle = defaultdict(float)
     outside = []
@@ -147,7 +198,7 @@ def span_reading(ops: list, steps: int) -> dict:
     calls = [o for o in host if o.name.startswith(LAUNCH_CALLS)]
     by_span = defaultdict(int)
     if spans:
-        for name in host_labels(spans, [o.start for o in calls]):
+        for name in innermost(spans, [o.start for o in calls]):
             by_span[NONE if name == "no host operation" else name] += 1
 
     def share(names):
@@ -176,6 +227,10 @@ def span_reading(ops: list, steps: int) -> dict:
         "idle_in_layer_pct": share(layers),
         "idle_in_area_light_pct": idle_under_pct(spans, gaps,
                                                  "rt.area_light"),
+        "idle_in_backward_pct": idle_under_pct(spans, gaps, "rt.backward"),
+        "backward_device_pct": busy_under_pct(busy, spans, "rt.backward"),
+        "refit_ms": sum(o.end - o.start for o in spans
+                        if o.name == "rt.refit") / 1e3 / per,
         "longest_gaps_outside_spans_us": [[round(d), round(at)] for d, at
                                           in sorted(outside)[::-1][:5]],
     }
@@ -198,10 +253,22 @@ def area_light_numbers(reading: dict, counts: dict) -> dict:
 
 def layer_numbers(kind: str, reading: dict, counts: dict) -> dict:
     """The per-layer numbers of a cell of `kind` ("whitted": frames,
-    "primary": calls) from the spans' reading and one counted step's
-    counts."""
+    "primary": calls, "fit": inverse-fit steps) from the spans' reading
+    and one counted step's counts."""
     def total(prefix):
         return sum(v for k, v in counts.items() if k.startswith(prefix))
+
+    if kind == "fit":
+        rays = counts.get("grad.rays")
+        return {
+            "backward_device_pct.fit": reading["backward_device_pct"],
+            "idle_in_backward_pct.fit": reading["idle_in_backward_pct"],
+            "refit_host_ms_per_step.fit": reading["refit_ms"],
+            "grad_hit_pct.fit": (100.0 * counts.get("grad.hit", 0) / rays
+                                 if rays else None),
+            "syncs_per_step.fit": total("syncs."),
+            "idle_in_glue_pct.fit": reading["idle_in_glue_pct"],
+        }
 
     if kind == "whitted":
         rays = sum(v for k, v in counts.items()
@@ -275,8 +342,8 @@ def measure(cell, entry, window: int, cost_steps: int) -> dict:
     counts = P.COUNTERS.read()
     P.counting(was)
 
-    kind = ("primary" if cell.traffic["entry"] == "camera_primary"
-            else "whitted")
+    kind = {"camera_primary": "primary",
+            "fit_step": "fit"}.get(cell.traffic["entry"], "whitted")
     on = readings[True]
     return {
         "cell": cell.name, "step_s": step_s, "window_steps": window,
