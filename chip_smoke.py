@@ -164,6 +164,11 @@ Phases (any failure raises and the script exits non-zero):
      launches of the CS 16 run (rows walk_both and walk_both_bounce) and
      the first K2 bounce launch of the CS 128 run (row walk_dma_both), as
      the renderer made them, against their plain versions and timed;
+     8b. the backward's scatter-add (csrc/scatter.cu, `phase_scatter`) at
+     the fit cell's level-2 shape (8,650,752 lanes of 3 floats, 8% in
+     range, the rest at the drop bucket) against the plain `index_add_`
+     line within 1e-5 of its largest magnitude, both timed beside the
+     kernel's DRAM bound (row `segment_scatter_add` of "glue_kernels");
   9. the command line (`python -m raytracing_tpu_torch render`) at its
      defaults, in process: its launches are the kernel table's "per CLI
      render" column; its busiest K1 and K2 launches and its K5+K6 and
@@ -3066,6 +3071,61 @@ def phase_light_glue(rows):
     del sets, outs, accs, totals
 
 
+def phase_scatter(rows):
+    """8b. The backward's scatter-add (csrc/scatter.cu) at the fit cell's
+    level-2 shape: 8,650,752 lanes (the three corners of 2,883,584 rays)
+    of 3 floats into 37,926 triangle-corner rows, 8% of them in range
+    (uniformly) and the rest at the drop bucket, as `grad.hit` read in the
+    fit. `segment_scatter_add` on the card (the kernel, with its zeroed
+    table) against the plain `index_add_` line (`index_add_rows`), its
+    table within 1e-5 of the plain one's largest magnitude (atomics add in
+    another order); both timed (median of 20; the inputs, 173 MB, exceed
+    the L2), beside the bound of the bytes the kernel must move: every
+    index, the live lanes' values and the table once; and the kernel's
+    sorted form under deterministic algorithms, its sort included."""
+    import torch
+
+    from raytracing_tpu_torch.ops import scatter as S
+
+    dev = "cuda"
+    n, k, n_rows, share = 3 * 2_883_584, 3, 37_926, 0.08
+    gen = torch.Generator(device=dev).manual_seed(25)
+    vals = torch.randn(n, k, generator=gen, device=dev)
+    idx = torch.randint(0, n_rows, (n,), generator=gen, device=dev)
+    idx = torch.where(torch.rand(n, generator=gen, device=dev) < share, idx,
+                      n_rows)
+    live = int((idx < n_rows).sum())
+    got = S.segment_scatter_add(n_rows, idx, vals)
+    want = S.index_add_rows(n_rows, idx, vals)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    _require(err <= 1e-5 * scale, f"segment_scatter_add: {err} from the "
+             f"plain line, above 1e-5 of its largest magnitude {scale}")
+    ms = _median_ms(lambda: S.segment_scatter_add(n_rows, idx, vals),
+                    reps=20)
+    plain_ms = _median_ms(lambda: S.index_add_rows(n_rows, idx, vals),
+                          reps=20)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sorted_ms = _median_ms(
+            lambda: S.segment_scatter_add(n_rows, idx, vals), reps=20)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    nbytes = n * idx.element_size() + live * k * 4 + n_rows * k * 4
+    bound = _bound(float(live) * k, nbytes)
+    rows["segment_scatter_add"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, sorted_ms=sorted_ms,
+        bound_ms=bound[0], bound_by=bound[1],
+        shape=f"{n} lanes x {k} into {n_rows} rows, {live} in range")
+    print(f"[glue] segment_scatter_add (scatter.cu): {n} lanes x {k} into "
+          f"{n_rows} rows, {live} in range ({live / n:.4f}), the rest at "
+          f"the drop bucket; max abs err {err:.3g} of {scale:.3g}; "
+          f"{ms:.5f} ms ({bound[0] / ms:.3f} of its {bound[0]:.5f} ms bound "
+          f"by {bound[1]}: {nbytes} bytes), plain index_add_ {plain_ms:.4f} "
+          f"ms, the sorted form {sorted_ms:.4f} ms")
+
+
 def _backward_262k(scene, accel, keep, gi_accel=None):
     """One forward + backward of `bench_suite.py:80-130`'s backward cell:
     the 262,144 camera rays of blocks 90-105 (16,384 rays each) of the
@@ -3321,6 +3381,7 @@ def main() -> int:
     light_launches, grid_launches = phase_area_light_frame()
     phase_light_glue(rows)
     bwd_launches, bwd_gi_launches = phase_backward(rows)
+    phase_scatter(rows)
     cli_launches = phase_cli(rows)
     sharded_launches = phase_sharded(rows)
     if "jax" in sys.modules:
@@ -3370,16 +3431,19 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     # The port's kernels with no TPU counterpart: the JAX package leaves the
     # rest-set merge and the area lights' glue to XLA, which fuses them (no
-    # pallas_call).
+    # pallas_call), and sums the backward's scatter by a sort.
     # Launches: the reference frame's merges; the camera-mode frame's
     # camera merges, one a camera walk (its other merges are pack merges);
-    # the area-light frame's light launches.
+    # the area-light frame's light launches; the scatters of phase 8's CS
+    # 16 backward.
     glue = []
     for name, n, source in (
             ("rest_merge", ref_launches["rest_merge"], "rest.cu"),
             ("rest_merge_camera", cam_launches["walk_camera"], "rest.cu"),
             ("light_sample", light_launches["light_sample"], "light.cu"),
-            ("light_fold", light_launches["light_fold"], "light.cu")):
+            ("light_fold", light_launches["light_fold"], "light.cu"),
+            ("segment_scatter_add", bwd_launches.get("scatter", 0),
+             "scatter.cu")):
         r = rows[name]
         glue.append({"name": name, "route": "cuda",
                      "source": f"raytracing_tpu_torch/csrc/{source}",
@@ -3387,7 +3451,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"],
                      **{k: r[k] for k in ("plain_graphed_ms",
-                                          "plain_launches") if k in r},
+                                          "plain_launches", "sorted_ms")
+                        if k in r},
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
     print(json.dumps({"glue_kernels": glue}))
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,9 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P],
     "rt_light_fold": [_L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _L, _P, _P,
                       _P, _P, _L, _P, _L, _L, _P, _P],
+    # rt_segment_scatter_add(idx, idx_bytes, n, rows, k, vals, vs0, out,
+    # added, order, stream)
+    "rt_segment_scatter_add": [_P, _I, _L, _L, _I, _P, _L, _P, _P, _P, _P],
 }
 
 

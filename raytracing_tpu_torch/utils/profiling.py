@@ -170,7 +170,8 @@ class Counters:
 
     launches: the port's own kernel launches by entry
     (`kernels.traverse.LAUNCHES` is this dict and names its keys;
-    `kernels.light` adds `light_sample` and `light_fold`).
+    `kernels.light` adds `light_sample` and `light_fold`, `kernels.scatter`
+    `scatter`).
     host: plain ints, always on: `syncs.<site>` (a host read of a device
     value on a main path: `level`, the Whitted level's children;
     `narrow_lists`; `path_alive`), `rays.level<d>` (the rays of Whitted
@@ -193,7 +194,10 @@ class Counters:
     (visits x the launch tile's rays x the cluster size: the (ray,
     triangle) tests the visits issue, dead lanes included), `grad.hit`
     (the lanes a backward scatters a gradient from: hit lanes of
-    `_ShadedWalk` and `_LazyT`). `read` reads
+    `_ShadedWalk` and `_LazyT`), `scatter.rows` and `scatter.added` (the
+    lanes given to `ops.scatter.segment_scatter_add`, and those whose index
+    is in range: on the card the kernel's own count of the lanes it added,
+    the rest being the drop bucket's, which it skipped). `read` reads
     them once, when a step ends."""
 
     def __init__(self):

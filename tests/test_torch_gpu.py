@@ -62,7 +62,14 @@ jitter, its hits a fresh build's up to ties; a fit step of the cell
 `two_teapots.fit`'s kind with the refit within GRAD_PARITY_RTOL of the
 CPU's at 2,048 rays, two at its size (262,144 rays) within the cell's
 limits against `rtbench/reference/fit.py`, and the same step with the
-spans off and on making the same launches.
+spans off and on making the same launches; the backward's scatter-add
+(csrc/scatter.cu) within 1e-5 of each table's largest magnitude of
+`index_add_`'s on the same inputs (0%, 8% and 100% of the lanes in range,
+1 to 9 columns, int32 and int64 indices, indices far past the table, every
+live lane on one row, strided rows, no lanes), its refusals, a fit step's
+verts and pose gradients with the kernel and with the plain line, and its
+counts in a step of the fit cell (it skips exactly the corners of the
+lanes without a hit).
 
 Whole paths at full width: the reference frame (800x800x4), with pack-path
 and camera-mode primaries, launching every kernel of its path and with the
@@ -3515,3 +3522,265 @@ def test_fit_step_spans_and_counting_off_add_no_launch(dev):
     assert abs(ops0 - ops1) <= 3 and ops2 > ops0
     assert not s0 and {"rt.fit", "rt.backward", "rt.grad", "rt.optim",
                        "rt.refit"} <= s1
+
+
+# --- the backward's scatter-add (csrc/scatter.cu) --------------------------
+
+
+def _scatter_inputs(dev, rows, k, share, n_rows, dtype, seed=0, far=False):
+    """rows lanes of k f32 values, a share of them at random rows of
+    [0, n_rows) and the rest at the drop bucket n_rows (with far, half of
+    those well beyond it: n_rows + 1 to the index type's largest)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.randn(rows, k, generator=g, device=dev)
+    idx = torch.randint(0, n_rows, (rows,), generator=g, device=dev)
+    dead = torch.rand(rows, generator=g, device=dev) >= share
+    idx = torch.where(dead, n_rows, idx)
+    if far:
+        top = torch.iinfo(dtype).max
+        beyond = torch.tensor([n_rows + 1, n_rows + 7, 2 ** 31 - 1, top],
+                              device=dev)
+        pick = torch.randint(0, 4, (rows,), generator=g, device=dev)
+        half = dead & (torch.rand(rows, generator=g, device=dev) < 0.5)
+        idx = torch.where(half, beyond[pick], idx)
+    return idx.to(dtype), vals
+
+
+def _scatter_close(got, want):
+    """Within 1e-5 of the table's largest magnitude (the atomics add in
+    another order); a table of zeros exactly."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["i32", "i64"])
+@pytest.mark.parametrize("k", [1, 3, 6, 9])
+@pytest.mark.parametrize("share", [0.0, 0.08, 1.0])
+def test_scatter_kernel_matches_index_add(dev, share, k, dtype):
+    """csrc/scatter.cu against the plain `index_add_` line on the same
+    inputs (200,003 lanes into 37,926 rows, a share of them in range),
+    one launch; under counting `scatter.added` is the lanes in range."""
+    from raytracing_tpu_torch.ops import scatter as S
+    from raytracing_tpu_torch.utils import profiling as P
+
+    n_rows = 37926
+    idx, vals = _scatter_inputs(dev, 200003, k, share, n_rows, dtype)
+    want = S.index_add_rows(n_rows, idx, vals)
+    P.COUNTERS.reset()
+    was = P.counting(True)
+    try:
+        got = S.segment_scatter_add(n_rows, idx, vals)
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(was)
+    assert counts["launches.scatter"] == 1
+    assert counts["scatter.rows"] == 200003
+    assert counts["scatter.added"] == int((idx.long() < n_rows).sum())
+    _scatter_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["i32", "i64"])
+@pytest.mark.parametrize("case", ["far", "negative", "hot_row",
+                                  "strided_rows", "empty", "all_dropped",
+                                  "one_row_table"])
+def test_scatter_kernel_edges(dev, case, dtype):
+    """Indices at the bucket and far beyond it (up to the type's largest)
+    or below 0 (dropped by both lines), every live lane on one row (the
+    hot-row case: 5,000 lanes, about the 5,190 of the fit's hottest row),
+    rows of vals a stride apart (the shading cotangents' [:, 0:6]), no
+    lanes, every lane dropped, and a table of one row: each within 1e-5 of
+    `index_add_`'s table; no lanes launch nothing."""
+    from raytracing_tpu_torch.ops import scatter as S
+
+    n_rows, rows, k = 5000, 100_000, 3
+    if case == "far":
+        idx, vals = _scatter_inputs(dev, rows, k, 0.3, n_rows, dtype,
+                                    far=True)
+        want_idx = torch.clamp_max(idx.long(), n_rows)
+    else:
+        idx, vals = _scatter_inputs(dev, rows, k, 0.5, n_rows, dtype)
+        want_idx = idx
+    if case == "negative":
+        neg = torch.tensor([-1, -5000, torch.iinfo(dtype).min], device=dev)
+        idx = torch.where(idx.long() < n_rows, idx.long(),
+                          neg[torch.arange(rows, device=dev) % 3]).to(dtype)
+        want_idx = idx
+    if case == "hot_row":
+        hot = torch.arange(rows, device=dev) % 20 == 0
+        idx = torch.where(hot, 17, n_rows).to(dtype)
+        want_idx = idx
+    if case == "strided_rows":
+        wide = torch.randn(rows, 9, device=dev)
+        vals = wide[:, 0:6]
+    if case == "empty":
+        idx, vals = idx[:0], vals[:0]
+        want_idx = idx
+    if case == "all_dropped":
+        idx = torch.full_like(idx, n_rows)
+        want_idx = idx
+    if case == "one_row_table":
+        n_rows = 1
+        idx = torch.where(idx.long() % 2 == 0, 0, 1).to(dtype)
+        want_idx = idx
+    before = T.LAUNCHES.get("scatter", 0)
+    got = S.segment_scatter_add(n_rows, idx, vals)
+    assert T.LAUNCHES["scatter"] - before == (0 if case == "empty" else 1)
+    _scatter_close(got, S.index_add_rows(n_rows, want_idx, vals))
+    if case == "all_dropped":
+        assert not bool(got.any())
+
+
+def test_scatter_kernel_refuses_bad_inputs(dev):
+    """A CPU tensor beside CUDA ones, a wrong dtype or a strided index
+    raise before any launch, and so do float64, 10-column and 1-D values
+    given to `segment_scatter_add` on the card; the entry refuses K = 10
+    and a 2-byte index."""
+    from raytracing_tpu_torch.kernels import scatter as SK
+    from raytracing_tpu_torch.ops import scatter as S
+
+    idx = torch.zeros(64, dtype=torch.int64, device=dev)
+    vals = torch.ones(64, 3, device=dev)
+    out = torch.zeros(8, 3, device=dev)
+    before = T.LAUNCHES.get("scatter", 0)
+    for args in [(out.cpu(), idx, vals), (out, idx.float(), vals),
+                 (out, idx, vals.double()), (out, idx.repeat(2)[::2], vals),
+                 (out, idx, torch.ones(64, 10, device=dev))]:
+        with pytest.raises(ValueError, match="scatter kernel"):
+            SK.scatter_add(*args)
+    for bad in (vals.double(), torch.ones(64, 10, device=dev), vals[:, 0]):
+        with pytest.raises(ValueError, match="on the card takes float32"):
+            S.segment_scatter_add(8, idx, bad)
+    assert T.LAUNCHES.get("scatter", 0) == before
+    lib = cuda.library()
+    for k, nbytes in ((10, 8), (3, 2)):
+        with pytest.raises(RuntimeError, match="scatter kernel launch"):
+            cuda.check(lib.rt_segment_scatter_add(
+                T._ptr(idx), nbytes, 64, 8, k, T._ptr(vals), 10, T._ptr(out),
+                None, None, T._stream(out)), "scatter")
+
+
+def test_fit_step_backward_with_the_kernel_is_the_plain_line(dev,
+                                                            monkeypatch):
+    """One `Fitter.step` of the fit cell's kind (pose and every vertex, the
+    accel refit) at 2,048 rays on the card, with the backward's scatters
+    through csrc/scatter.cu and through the plain `index_add_` line in
+    their place: the same loss and the verts and pose gradients within
+    1e-5 of their largest magnitude; the plain line launches no kernel."""
+    import copy
+
+    from raytracing_tpu_torch.geometry.mesh import Scene
+    from raytracing_tpu_torch.models import inverse
+    from raytracing_tpu_torch.ops import scatter as S
+    from rtbench import program, spec
+
+    cell = spec.load_cell("two_teapots.fit", spec.load_benchmark())
+    cfg = program.render_config(dict(copy.deepcopy(cell.config["render"]),
+                                     width=64, height=64,
+                                     samples_per_pixel=2, chunk_size=2048))
+    mesh = program.build_mesh(cell.config["scene"], "cpu")
+    acc = build_cluster_accel(mesh, cluster_size=16,
+                              variants=("pmt", "mt", "pmtt"))
+    sun = torch.tensor([3e4, 2.5e4, 9e4])
+    target = render(Scene(mesh, sun), cfg, accel=acc,
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, 2 * 64 * 64, (2048,), generator=g).to(dev)
+    fan = torch.rand((10, 2048, 2), generator=g).to(dev)
+    pose = torch.tensor(cell.config["fit"]["start_pose"], device=dev)
+    mesh, acc, sun = mesh.to(dev), acc.to(dev), sun.to(dev)
+    out = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(T, "segment_scatter_add", S.index_add_rows)
+        f = inverse.Fitter(Scene(mesh, sun), target,
+                           {"pose": pose, "verts": mesh.verts}, cfg,
+                           accel=acc)
+        before = T.LAUNCHES.get("scatter", 0)
+        loss = f.step(idx, lambda tag, shape: fan)
+        launched = T.LAUNCHES.get("scatter", 0) - before
+        assert (launched == 0) if plain else (launched > 0)
+        out.append((loss, {k: p.grad.clone() for k, p in f.params.items()}))
+    (l_k, g_k), (l_p, g_p) = out
+    assert l_k == l_p
+    for name in ("pose", "verts"):
+        scale = float(g_p[name].abs().max())
+        err = float((g_k[name] - g_p[name]).abs().max())
+        assert scale > 0 and err <= GRAD_PARITY_RTOL * scale, (name, err,
+                                                               scale)
+
+
+def test_fit_cell_step_scatter_counts(dev):
+    """A step of the fit cell at its size under counting: the kernel skips
+    exactly the three corners of every lane without a hit (`scatter.rows`
+    - `scatter.added` = 3 (`grad.rays` - `grad.hit`)), and adds 3
+    `grad.hit` corner lanes plus, in each query's second scatter, the
+    37,926 corner rows into the vertices; two launches a query."""
+    from raytracing_tpu_torch.utils import profiling as P
+
+    _, e = _fit_cell_entry(dev)
+    e.step(0)
+    t3 = 3 * e.fitter.scene.mesh.num_triangles
+    P.COUNTERS.reset()
+    was = P.counting(True)
+    try:
+        e.step(1)
+        c = P.COUNTERS.read()
+    finally:
+        P.counting(was)
+    queries = c["launches.scatter"] // 2
+    assert c["launches.scatter"] == 2 * queries and queries >= 4
+    assert c["scatter.rows"] - c["scatter.added"] == 3 * (
+        c["grad.rays"] - c["grad.hit"])
+    assert c["scatter.added"] == 3 * c["grad.hit"] + queries * t3
+    assert c["grad.hit"] < c["grad.rays"] // 2
+
+
+@pytest.mark.parametrize("case", ["mixed", "hot_row", "strided_k6_i32",
+                                  "out_of_range", "fit_shape"])
+def test_scatter_under_deterministic_algorithms_sums_in_one_order(dev,
+                                                                  case):
+    """Under `torch.use_deterministic_algorithms(True)` the card still
+    takes the kernel (its sorted form: one launch a call) and two calls
+    equal bit for bit, where atomics would not; each within 1e-5 of
+    `index_add_`'s table, the lanes in range counted. The cases: 100,000
+    lanes into 50 rows, 5,000 live lanes on one row, the shading
+    cotangents' strided [:, 0:6] with int32 indices, indices far beyond
+    the table and below 0, and the fit's level-2 scatter (8,650,752 lanes
+    into 37,926 rows, 8% in range)."""
+    from raytracing_tpu_torch.ops import scatter as S
+    from raytracing_tpu_torch.utils import profiling as P
+
+    n_rows, rows, k, dtype, share = 50, 100_000, 3, torch.int64, 0.5
+    if case == "fit_shape":
+        n_rows, rows, share = 37_926, 3 * 2_883_584, 0.08
+    if case == "strided_k6_i32":
+        dtype = torch.int32
+    idx, vals = _scatter_inputs(dev, rows, k, share, n_rows, dtype,
+                                far=case == "out_of_range")
+    if case == "hot_row":
+        idx = torch.where(torch.arange(rows, device=dev) % 20 == 0, 17,
+                          n_rows)
+    if case == "strided_k6_i32":
+        vals = torch.randn(rows, 9, device=dev)[:, 0:6]
+    if case == "out_of_range":
+        idx = torch.where(torch.arange(rows, device=dev) % 7 == 0, -2, idx)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    P.COUNTERS.reset()
+    was_counting = P.counting(True)
+    try:
+        a = S.segment_scatter_add(n_rows, idx, vals)
+        b = S.segment_scatter_add(n_rows, idx, vals)
+        counts = P.COUNTERS.read()
+    finally:
+        P.counting(was_counting)
+        torch.use_deterministic_algorithms(was)
+    assert counts["launches.scatter"] == 2
+    assert torch.equal(a, b)
+    live = int(((idx >= 0) & (idx < n_rows)).sum())
+    assert counts["scatter.added"] == 2 * live
+    _scatter_close(a, S.index_add_rows(n_rows, idx, vals))
